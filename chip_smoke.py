@@ -10,21 +10,34 @@ Phases, in order; any failure exits non-zero:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every kernel from ``paddle_tpu_torch/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (bf16): max abs error within its tolerance,
-   and cold-L2 times of the kernel, the plain version and, where one
-   exists, the single PyTorch call that computes the same function,
-   beside the least time the card could take (``bound_ms``).
+   the serving path's shapes (bf16): max abs error within its tolerance
+   (the block epilogue's dropped positions identical), and cold-L2 times
+   of the kernel, the plain version and, where one exists, the single
+   PyTorch call that computes the same function, beside the least time
+   the card could take (``bound_ms``).
 4. serve   — Llama-3-8B at full width and depth, random weights from a
-   seed, served by ``LLMEngine`` (chunked prefill, per-op path): 12
-   greedy requests on 8 slots. Every kernel's launch count is set to 0
-   just before and read just after; each must have launched.
-5. parity  — every request's first decode step at full width, through
-   the kernels and through the plain versions, logits compared.
-6. profile — torch.profiler breakdown of one decode step (batch 8) and
-   one 512-token prefill chunk: the port's kernels, matrix products, the
-   rest, and the device's idle share.
-7. summary — one JSON line of every kernel's launches and times, then the
-   last line ``{"ok": true, "device": {...}}``.
+   seed, served by two ``LLMEngine``s over the same model, 12 greedy
+   requests each on 8 slots; every kernel's launch count is set to 0
+   just before each engine's run and read just after:
+   a. chunked prefill on the per-op path, no prefix cache (four kernels
+      must have launched);
+   b. the default ``ServingConfig()``: monolithic prefill through the
+      flash kernel, the block epilogues, the prefix cache. Every prompt
+      is a shared 512-token system prompt plus a unique suffix, and one
+      request repeats another's whole page-aligned prompt (the full-cover
+      cap and copy-on-write). All six kernels must have launched, every
+      request after the first must claim the system prompt's 32 pages,
+      and no page may leak.
+5. parity  — at full width, through the kernels and through the plain
+   versions, logits compared: the first decode step of every request of
+   engine a (after chunked prefill), and of every request of engine b its
+   monolithic-prefill logits and its first fused decode step.
+6. profile — torch.profiler breakdown of a per-op decode step (batch 8),
+   a 512-token prefill chunk, a fused decode step (batch 8) and a
+   1024-token monolithic prefill: the port's kernels, matrix products,
+   the rest, and the device's idle share.
+7. summary — one JSON line of every kernel's launches (on engine b's
+   run) and times, then the last line ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
 """
@@ -37,15 +50,19 @@ import subprocess
 import sys
 import time
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM rate and the
-# f32 rate outside the tensor cores, which is where these kernels compute
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, the f32
+# rate outside the tensor cores, where the row kernels compute, and the
+# bf16 tensor-core rate, where flash attention's products run
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
 
 SERVE_REQUESTS = 12
 SERVE_NEW_TOKENS = 64
 PROMPT_MIN, PROMPT_MAX = 256, 1536
 PARITY_REL_TOL = 0.05    # max |logit diff| <= 5% of the largest plain logit
+SYSTEM_PROMPT = 512       # shared prefix of the default engine's prompts
+SUFFIX_MIN, SUFFIX_MAX = 64, 1024
 
 
 def fail(msg: str) -> None:
@@ -57,10 +74,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 rate."""
-    t_b, t_o = nbytes / MEM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    operations over the rate of the units that do them (f32 by default)."""
+    t_b, t_o = nbytes / MEM_BYTES_PER_S, flops / flops_per_s
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -128,8 +145,8 @@ def phase_build():
 
 
 def _record(results, name, shape, err, tol, ms, plain_ms, library_ms,
-            nbytes, flops):
-    bms, by = bound(nbytes, flops)
+            nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
+    bms, by = bound(nbytes, flops, flops_per_s)
     row = {"kernel": name, "shape": shape, "max_abs_err": err, "tol": tol,
            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bms, "bound_by": by}
@@ -244,12 +261,181 @@ def phase_kernels(torch, dev):
             timer(lambda: mmha.mmha_decode(q, k_pool, v_pool, tables, pos)),
             timer(lambda: mmha.mmha_plain(q, k_pool, v_pool, tables, pos)),
             lib, nbytes, 4 * seen * h * d)
+    _kernels_flash(torch, dev, randn, timer, results)
+    _kernels_epilogue(torch, randn, timer, results)
     return results
 
 
-def phase_serve(torch, np, dev):
-    from paddle_tpu_torch.models import llama3_8b
+def _segment_pairs(seg_row):
+    """Causal (query, key) pairs inside the segments of one row."""
+    _, counts = seg_row.unique_consecutive(return_counts=True)
+    return sum(int(n) * (int(n) + 1) // 2 for n in counts)
+
+
+def _kernels_flash(torch, dev, randn, timer, results):
+    """Flash attention: causal prefill q [1, L, 32, 128] over k/v with 8
+    heads at L = 1024, 1531 (a ragged tail) and 2048, and one packed
+    [2, 512] batch with segment ids and the log-sum-exp. The yardstick is
+    SDPA (``enable_gqa``; with the segment mask where there are segments),
+    timed only. Operations are counted on the bf16 tensor cores, for the
+    (query, key) pairs these inputs make visible."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    h, h_kv, d = 32, 8, 128
+    for b, s, with_seg in ((1, 1024, False), (1, 1531, False),
+                           (1, 2048, False), (2, 512, True)):
+        q, k, v = randn(b, s, h, d), randn(b, s, h_kv, d), randn(b, s, h_kv, d)
+        seg = None
+        if with_seg:
+            seg = torch.zeros(b, s, dtype=torch.int32)
+            seg[0, 100:], seg[0, 300:], seg[0, 301:] = 1, 2, 3
+            seg[1, 256:] = 1
+            seg = seg.to(dev)
+        got = fa.flash_attention(q, k, v, True, seg, with_seg)
+        ref = fa.flash_attention_plain(q, k, v, True, seg, with_seg)
+        if with_seg:
+            torch.cuda.synchronize()
+            err_l = (got[1] - ref[1]).abs().max().item()
+            tol_l = 1e-4 * (1.0 + ref[1].abs().max().item())
+            if not err_l <= tol_l:
+                fail(f"flash_attention lse: {err_l} > {tol_l}")
+            got, ref = got[0], ref[0]
+        err, tol = compare(torch, got, ref)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if seg is None:
+            pairs = b * s * (s + 1) // 2
+            lib = timer(lambda: TF.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        else:
+            pairs = sum(_segment_pairs(row) for row in seg.cpu())
+            mask = ((seg[:, :, None] == seg[:, None, :])
+                    & torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+                    )[:, None]
+            lib = timer(lambda: TF.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + \
+            (4 * b * h * s + 4 * b * s if with_seg else 0)
+        _record(results, "flash_attention",
+                [b, s, h, d, "Hkv", h_kv, "causal"]
+                + (["segments", "lse"] if with_seg else []), err, tol,
+                timer(lambda: fa.flash_attention(q, k, v, True, seg,
+                                                 with_seg)),
+                timer(lambda: fa.flash_attention_plain(q, k, v, True, seg,
+                                                       with_seg)),
+                lib, nbytes, 4 * h * d * pairs, BF16_TC_FLOPS_PER_S)
+
+
+def _kernels_epilogue(torch, randn, timer, results):
+    """Block epilogue at hidden 4096: the decode and prefill junctions
+    ([8, 4096], [1024, 4096], rms, no activation), then one row each at
+    [512, 4096] for gelu, swiglu (x [512, 8192]), dropout p = 0.1 and
+    layer norm with a bias. With dropout, the dropped positions of kernel
+    and plain version must both be the counter hash's, exactly. No single
+    PyTorch call computes the same function."""
+    from paddle_tpu_torch.ops.kernels import block_epilogue as be
+
+    hid = 4096
+    w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
+    bias = randn(hid, scale=0.1)
+    for rows, act, norm, p, bias_on in (
+            (8, None, "rms", 0.0, False), (1024, None, "rms", 0.0, False),
+            (512, "gelu", "rms", 0.0, False),
+            (512, "swiglu", "rms", 0.0, False),
+            (512, None, "rms", 0.1, False), (512, None, "layer", 0.0, True)):
+        xw = 2 * hid if act == "swiglu" else hid
+        x, res = randn(rows, xw), randn(rows, hid)
+        b = bias if bias_on else None
+        args = (x, res, w, b, 1234, p, 1e-5, act, norm)
+        got, ref = be.fused_epilogue(*args), be.fused_epilogue_plain(*args)
+        err_h, tol_h = compare(torch, got[1], ref[1])
+        if not err_h <= tol_h:
+            fail(f"block_epilogue residual sum: {err_h} > {tol_h}")
+        err, tol = compare(torch, got[0], ref[0])
+        if p:
+            # with a zero residual and x bounded away from 0 (randn can give
+            # an exact 0), h is 0 exactly where an element was dropped
+            zero = torch.zeros_like(res)
+            x1 = (x.float().abs() + 1.0).to(x.dtype)
+            keep = be.keep_mask(rows, hid, 1234, p, x.device)
+            for fn in (be.fused_epilogue, be.fused_epilogue_plain):
+                h0 = fn(x1, zero, w, b, 1234, p, 1e-5, act, norm)[1]
+                bad = int(((h0 == 0) != ~keep).sum())
+                if bad:
+                    fail(f"block_epilogue dropout: {fn.__name__} dropped "
+                         f"other positions than the counter hash at {bad} "
+                         f"of {keep.numel()} elements")
+        n = rows * hid
+        flops = n * (6 + 3 * (norm == "layer") + bias_on
+                     + {None: 0, "gelu": 9, "swiglu": 5}[act] + 14 * (p > 0))
+        _record(results, "block_epilogue",
+                [rows, hid, f"act={act}", norm, f"p={p}",
+                 "bias" if bias_on else "no bias"], err, tol,
+                timer(lambda: be.fused_epilogue(*args)),
+                timer(lambda: be.fused_epilogue_plain(*args)), None,
+                2 * (x.numel() + 3 * n + hid * (1 + bias_on)), flops)
+
+
+_CHUNKED_PATH = ("mmha", "rms_norm", "rope", "swiglu")
+
+
+def _serve(torch, np, engine, prompts):
+    """Serve ``prompts`` (greedy, SERVE_NEW_TOKENS each) after a warm-up,
+    with every kernel's launch count set to 0 just before and read just
+    after. Returns (requests, outputs, wall seconds, launches, stats)."""
     from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    engine.generate(list(range(1, 17)), max_new_tokens=2, timeout=600)
+    for times in (engine.prefill_ms, engine.chunk_ms, engine.step_ms):
+        times.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=SERVE_NEW_TOKENS, temperature=0.0)
+            for p in prompts]
+    outs = [r.result(timeout=900) for r in reqs]
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    stats = engine.stats()
+    summary = engine.shutdown()
+    vocab = engine._sm.cfg.vocab_size
+    for i, toks in enumerate(outs):
+        if len(toks) != SERVE_NEW_TOKENS or \
+                not all(0 <= t < vocab for t in toks):
+            fail(f"request {i}: {len(toks)} tokens, want "
+                 f"{SERVE_NEW_TOKENS} in-vocab")
+    if summary["pages_leaked"] or engine.pool.leaked() or engine.pool.lost():
+        fail(f"pages leaked or lost: {summary}, lost {engine.pool.lost()}")
+    return reqs, outs, wall, launches, stats
+
+
+def _serve_row(torch, np, engine, reqs, wall, launches, stats):
+    gen_tokens = SERVE_NEW_TOKENS * len(reqs)
+    mean = lambda xs: float(np.mean(xs)) if xs else None  # noqa: E731
+    return {"requests": len(reqs),
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "generated_tokens": gen_tokens, "wall_s": wall,
+            "tokens_per_s": gen_tokens / wall,
+            "prefills": len(engine.prefill_ms),
+            "prefill_ms_mean": mean(engine.prefill_ms),
+            "prefill_chunks": len(engine.chunk_ms),
+            "prefill_chunk_ms_mean": mean(engine.chunk_ms),
+            "decode_steps": len(engine.step_ms),
+            "decode_step_ms_mean": mean(engine.step_ms),
+            "ttft_ms_mean": mean([r.ttft_ms for r in reqs]),
+            "e2e_ms_mean": mean([r.e2e_ms for r in reqs]),
+            "evictions": stats["evictions"], "pages": stats["pages"],
+            "launches": launches,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_serve_chunked(torch, np, dev):
+    """Engine a: chunked prefill on the per-op path, no prefix cache
+    (the first slice's configuration), prompts of 256-1536 random tokens."""
+    from paddle_tpu_torch.models import llama3_8b
     from paddle_tpu_torch.serving import LLMEngine, ServingConfig
 
     t0 = time.perf_counter()
@@ -261,52 +447,71 @@ def phase_serve(torch, np, dev):
         max_batch=8, page_size=16, max_seq_len=2048, num_pages=1025,
         prefill_chunk=512, fused_block=False, prefix_cache=False,
         dtype="bfloat16"))
-    engine.generate(list(range(1, 17)), max_new_tokens=2, timeout=600)
-    engine.chunk_ms.clear()
-    engine.step_ms.clear()
-
     rng = np.random.default_rng(0)
     lengths = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, size=SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
                for n in lengths]
-    for w in WRAPPERS.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    reqs = [engine.submit(p, max_new_tokens=SERVE_NEW_TOKENS, temperature=0.0)
-            for p in prompts]
-    outs = [r.result(timeout=900) for r in reqs]
-    wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
-    stats = engine.stats()
-    summary = engine.shutdown()
+    reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
+    idle = [n for n in _CHUNKED_PATH if launches[n] == 0]
+    if idle:
+        fail(f"kernels never launched on the chunked serving path: {idle}")
+    emit({"phase": "serve", "engine": "chunked_per_op", "model": "llama3_8b",
+          "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+          "params": sum(p.numel() for p in model.parameters()),
+          "init_s": init_s,
+          **_serve_row(torch, np, engine, reqs, wall, launches, stats)})
+    return model, engine, prompts, outs
 
-    for i, toks in enumerate(outs):
-        if len(toks) != SERVE_NEW_TOKENS or \
-                not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"request {i}: {len(toks)} tokens, want "
-                 f"{SERVE_NEW_TOKENS} in-vocab")
-    if summary["pages_leaked"] or engine.pool.leaked() or engine.pool.lost():
-        fail(f"pages leaked: {summary}")
+
+def default_prompts(np, vocab):
+    """A shared system prompt of SYSTEM_PROMPT tokens plus a seeded unique
+    suffix of SUFFIX_MIN..SUFFIX_MAX tokens per request; request 1's
+    suffix is a whole number of pages and request 2 repeats request 1's
+    prompt exactly."""
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, vocab, size=SYSTEM_PROMPT).tolist()
+    lengths = rng.integers(SUFFIX_MIN, SUFFIX_MAX + 1, size=SERVE_REQUESTS)
+    lengths[1] -= lengths[1] % 16
+    prompts = [system + rng.integers(0, vocab, size=int(n)).tolist()
+               for n in lengths]
+    prompts[2] = list(prompts[1])
+    return prompts
+
+
+def phase_serve_default(torch, np, model):
+    """Engine b: the default ServingConfig() (monolithic prefill, fused
+    blocks, prefix cache) over the same model."""
+    from paddle_tpu_torch.serving import LLMEngine, ServingConfig
+
+    engine = LLMEngine(model, ServingConfig(
+        max_batch=8, page_size=16, max_seq_len=2048, num_pages=1025,
+        dtype="bfloat16"))
+    cfg = engine.config
+    if not (cfg.prefill_chunk is None and cfg.fused_block
+            and cfg.prefix_cache):
+        fail(f"ServingConfig() is not the default path: {cfg}")
+    prompts = default_prompts(np, model.cfg.vocab_size)
+    reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
     idle = [n for n, c in launches.items() if c == 0]
     if idle:
-        fail(f"kernels never launched on the serving path: {idle}")
-    gen_tokens = SERVE_NEW_TOKENS * SERVE_REQUESTS
-    emit({"phase": "serve", "model": "llama3_8b", "layers": cfg.num_layers,
-          "hidden": cfg.hidden_size, "params": sum(
-              p.numel() for p in model.parameters()),
-          "init_s": init_s, "requests": SERVE_REQUESTS,
-          "prompt_lens": lengths.tolist(), "generated_tokens": gen_tokens,
-          "wall_s": wall, "tokens_per_s": gen_tokens / wall,
-          "prefill_chunks": len(engine.chunk_ms),
-          "prefill_chunk_ms_mean": float(np.mean(engine.chunk_ms)),
-          "decode_steps": len(engine.step_ms),
-          "decode_step_ms_mean": float(np.mean(engine.step_ms)),
-          "ttft_ms_mean": float(np.mean([r.ttft_ms for r in reqs])),
-          "e2e_ms_mean": float(np.mean([r.e2e_ms for r in reqs])),
-          "evictions": stats["evictions"], "pages_leaked": 0,
-          "launches": launches,
-          "max_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
-    return model, engine, prompts, outs, launches
+        fail(f"kernels never launched on the default serving path: {idle}")
+    pages = [r._cached_tokens // engine.pool.page_size for r in reqs]
+    short = [i for i, n in enumerate(pages[1:], 1)
+             if n < SYSTEM_PROMPT // engine.pool.page_size]
+    if short:
+        fail(f"requests {short} claimed fewer than the system prompt's "
+             f"pages: {pages}")
+    px = stats["prefix_cache"]
+    if px["cow_copies"] < 1:
+        fail(f"the repeated prompt did not copy a shared page: {px}")
+    emit({"phase": "serve", "engine": "default", "model": "llama3_8b",
+          "config": {"prefill_chunk": cfg.prefill_chunk,
+                     "fused_block": cfg.fused_block,
+                     "prefix_cache": cfg.prefix_cache},
+          "claimed_pages": pages, "prefix_cache": px,
+          "prefix_cache_entries": engine.prefix_cache.stats(),
+          **_serve_row(torch, np, engine, reqs, wall, launches, stats)})
+    return engine, prompts, outs, launches
 
 
 def _first_decode_logits(torch, sm, engine, prompt):
@@ -338,34 +543,26 @@ def _first_decode_logits(torch, sm, engine, prompt):
     return first, lk, lp
 
 
-def phase_parity(torch, model, engine, prompts, served):
-    """First decode step of every served request at full width: kernel
-    path vs plain versions. The logits must agree within ``tol`` (5% of
-    the largest plain logit) everywhere, and the argmax must agree on
-    every request whose plain top-2 gap exceeds ``tol``. Below that gap
-    the two bf16 paths may rank the top two either way: they differ by a
-    few bf16 ulps after 32 layers, and random weights leave top-2 gaps of
-    one ulp (the first run of this check met a 0.031 gap at a 0.195
-    difference)."""
-    from paddle_tpu_torch.serving import ServingModel
-
-    sm = ServingModel(model).bind_pool(engine.pool)
-    rows = []
-    for i, prompt in enumerate(prompts):
-        first, lk, lp = _first_decode_logits(torch, sm, engine, prompt)
-        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-            fail(f"parity: request {i}: non-finite logits")
-        top2 = lp.topk(2).values
-        rows.append({
-            "request": i, "position": len(prompt),
+def _parity_row(torch, i, position, lk, lp):
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        fail(f"parity: request {i}: non-finite logits")
+    top2 = lp.topk(2).values
+    return {"request": i, "position": position,
             "max_abs_err": (lk - lp).abs().max().item(),
             "tol": PARITY_REL_TOL * lp.abs().max().item(),
             "argmax_kernel": int(lk.argmax()), "argmax_plain": int(lp.argmax()),
-            "plain_top2_gap": (top2[0] - top2[1]).item(),
-            "first_token_is_served": first == served[i][0],
-            "kernel_argmax_is_served": int(lk.argmax()) == served[i][1]})
+            "plain_top2_gap": (top2[0] - top2[1]).item()}
+
+
+def _check_parity(what, rows):
+    """Logits within ``tol`` (5% of the largest plain logit) everywhere;
+    argmax equal on every row whose plain top-2 gap exceeds ``tol``. Below
+    that gap the two bf16 paths may rank the top two either way: they
+    differ by a few bf16 ulps after 32 layers, and random weights leave
+    top-2 gaps of one ulp (the first run of this check met a 0.031 gap at
+    a 0.195 difference)."""
     decisive = [r for r in rows if r["plain_top2_gap"] > r["tol"]]
-    emit({"phase": "parity", "requests": len(rows),
+    emit({"phase": "parity", "what": what, "requests": len(rows),
           "decisive": len(decisive),
           "argmax_agree": sum(r["argmax_kernel"] == r["argmax_plain"]
                               for r in rows),
@@ -373,19 +570,78 @@ def phase_parity(torch, model, engine, prompts, served):
           "tol_min": min(r["tol"] for r in rows), "rows": rows})
     for r in rows:
         if not r["max_abs_err"] <= r["tol"]:
-            fail(f"parity: request {r['request']}: logits differ by "
-                 f"{r['max_abs_err']} > {r['tol']}")
+            fail(f"parity ({what}): request {r['request']}: logits differ "
+                 f"by {r['max_abs_err']} > {r['tol']}")
     for r in decisive:
         if r["argmax_kernel"] != r["argmax_plain"]:
-            fail(f"parity: request {r['request']}: argmax "
+            fail(f"parity ({what}): request {r['request']}: argmax "
                  f"{r['argmax_kernel']} (kernels) != {r['argmax_plain']} "
                  f"(plain) at a top-2 gap of {r['plain_top2_gap']}")
     if not decisive:
-        fail("parity: no request had a top-2 gap above the tolerance")
+        fail(f"parity ({what}): no request had a top-2 gap above the "
+             f"tolerance")
+
+
+def phase_parity(torch, model, engine, prompts, served):
+    """Engine a: the first decode step of every served request at full
+    width, kernel path vs plain versions, after a chunked prefill."""
+    from paddle_tpu_torch.serving import ServingModel
+
+    sm = ServingModel(model, fused_block=False).bind_pool(engine.pool)
+    rows = []
+    for i, prompt in enumerate(prompts):
+        first, lk, lp = _first_decode_logits(torch, sm, engine, prompt)
+        row = _parity_row(torch, i, len(prompt), lk, lp)
+        row["first_token_is_served"] = first == served[i][0]
+        row["kernel_argmax_is_served"] = int(lk.argmax()) == served[i][1]
+        rows.append(row)
+    _check_parity("chunked prefill, per-op first decode step", rows)
+
+
+def phase_parity_default(torch, model, engine, prompts, served):
+    """Engine b: for every request, its monolithic-prefill logits and its
+    first fused decode step, kernel path vs plain versions. The prefill
+    runs into fresh pages through the kernels (its KV then serves both
+    decode runs), and once more into the same pages through the plain
+    versions for its logits; the pages are rewritten by the kernel path
+    before the decode step."""
+    from paddle_tpu_torch.serving import ServingModel
+
+    sm = ServingModel(model).bind_pool(engine.pool)
+    pool, dev = engine.pool, engine.device
+    prefill_rows, decode_rows = [], []
+    for i, prompt in enumerate(prompts):
+        n = len(prompt)
+        pages = pool.alloc(pool.pages_for(n + 1))
+        try:
+            row = torch.zeros(engine.scheduler.max_pages, dtype=torch.int32)
+            row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+            row = row.to(dev)
+            toks = torch.tensor([prompt], device=dev)
+            pp = sm.prefill_forward(toks, n, row, plain=True)[0].float()
+            pk = sm.prefill_forward(toks, n, row)[0].float()
+            first = int(pk.argmax())
+            args = (torch.tensor([first], device=dev),
+                    torch.tensor([n], dtype=torch.int32, device=dev),
+                    row[None])
+            lk = sm.decode_forward(*args)[0].float()
+            lp = sm.decode_forward(*args, plain=True)[0].float()
+            torch.cuda.synchronize()
+        finally:
+            pool.free(pages)
+        r = _parity_row(torch, i, n - 1, pk, pp)
+        r["kernel_argmax_is_served"] = first == served[i][0]
+        prefill_rows.append(r)
+        r = _parity_row(torch, i, n, lk, lp)
+        r["kernel_argmax_is_served"] = int(lk.argmax()) == served[i][1]
+        decode_rows.append(r)
+    _check_parity("monolithic prefill, fused", prefill_rows)
+    _check_parity("first fused decode step", decode_rows)
 
 
 _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
-                "swiglu_kernel")
+                "swiglu_kernel", "flash_attention_kernel",
+                "block_epilogue_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -395,15 +651,23 @@ def _profile(torch, fn, reps: int):
     torch.profiler, the device time per call of the port's kernels, of
     matrix products and of everything else, and the top kernels. The idle
     share is 1 - device busy time / unprofiled wall time (the profiler
-    slows the host, so its own timeline overstates idleness)."""
+    slows the host, so its own timeline overstates idleness). The port's
+    launches per call come from the wrappers' counts over the timed
+    calls."""
     from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
     fn()
     torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    port_launches = {n: w.launches / reps for n, w in WRAPPERS.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -413,6 +677,7 @@ def _profile(torch, fn, reps: int):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return {"wall_ms_per_call": wall_ms, "device_events": 0,
+                "port_launches_per_call": port_launches,
                 "breakdown": "not measured"}
     by_name: dict = {}
     for e in kernels:
@@ -428,6 +693,7 @@ def _profile(torch, fn, reps: int):
     busy_ms = busy / reps / 1e3
     return {"wall_ms_per_call": wall_ms, "device_events": len(kernels),
             "launches_per_call": len(kernels) / reps,
+            "port_launches_per_call": port_launches,
             "busy_ms_per_call": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "ms_per_call": {k: v / reps / 1e3 for k, v in buckets.items()},
@@ -437,12 +703,15 @@ def _profile(torch, fn, reps: int):
 
 def phase_profile(torch, model, engine, prompts):
     """Where a decode step (8 rows at the served prompts' lengths) and a
-    512-token prefill chunk (at position 1024) spend their device time."""
+    512-token prefill chunk (at position 1024) spend their device time, on
+    the per-op path and engine a's pool; then a fused decode step and a
+    1024-token monolithic prefill."""
     from paddle_tpu_torch.serving import ServingModel
 
     pool = engine.pool
     dev = engine.device
-    sm = ServingModel(model).bind_pool(pool)
+    sm = ServingModel(model, fused_block=False).bind_pool(pool)
+    fused = ServingModel(model).bind_pool(pool)
     b = engine.config.max_batch
     lens = [len(p) + 32 for p in prompts[:b]]
     tables = torch.zeros(b, engine.scheduler.max_pages, dtype=torch.int32)
@@ -456,14 +725,21 @@ def phase_profile(torch, model, engine, prompts):
         toks = torch.arange(1, b + 1, device=dev)
         pos = torch.tensor(lens, dtype=torch.int32, device=dev)
         decode = _profile(torch, lambda: sm.decode_forward(toks, pos, tables),
-                          reps=5)
+                          reps=10)
         chunk_toks = torch.arange(512, device=dev)[None] + 7
         chunk = _profile(torch, lambda: sm.prefill_chunk_forward(
             chunk_toks, 1024, 512, tables[0]), reps=2)
+        fused_decode = _profile(
+            torch, lambda: fused.decode_forward(toks, pos, tables), reps=10)
+        mono_toks = torch.arange(1024, device=dev)[None] + 7
+        mono = _profile(torch, lambda: fused.prefill_forward(
+            mono_toks, 1024, tables[0]), reps=2)
     finally:
         pool.free(held)
     emit({"phase": "profile", "decode_step_batch": b, "decode_step": decode,
-          "prefill_chunk_512_at_1024": chunk})
+          "prefill_chunk_512_at_1024": chunk,
+          "fused_decode_step": fused_decode,
+          "monolithic_prefill_1024": mono})
 
 
 _SOURCES = {
@@ -475,6 +751,10 @@ _SOURCES = {
              "paddle_tpu/ops/kernels/rope_pallas.py:48"),
     "swiglu": ("paddle_tpu_torch/csrc/swiglu.cu",
                "paddle_tpu/ops/kernels/swiglu_pallas.py:81"),
+    "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                        "paddle_tpu/ops/kernels/flash_attention_pallas.py:124"),
+    "block_epilogue": ("paddle_tpu_torch/csrc/block_epilogue.cu",
+                       "paddle_tpu/ops/kernels/block_fused_pallas.py:212"),
 }
 
 
@@ -494,8 +774,11 @@ def main() -> int:
     phase_device(torch)
     phase_build()
     kern = phase_kernels(torch, dev)
-    model, engine, prompts, served, launches = phase_serve(torch, np, dev)
+    model, engine, prompts, served = phase_serve_chunked(torch, np, dev)
+    d_engine, d_prompts, d_served, launches = phase_serve_default(
+        torch, np, model)
     phase_parity(torch, model, engine, prompts, served)
+    phase_parity_default(torch, model, d_engine, d_prompts, d_served)
     phase_profile(torch, model, engine, prompts)
 
     summary = []

@@ -61,15 +61,18 @@ PTT_EXPORT int ptt_rms_norm(const void* x, const void* res, const void* w, void*
   threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
   const size_t smem = (size_t)hidden * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // above 48 KB in all (the static reduction scratch included) only after
+  // opting in
+  const bool big = smem + sizeof(float) * 32 > 48 * 1024;
   if (res != nullptr) {
-    if (smem > 48 * 1024)
+    if (big)
       cudaFuncSetAttribute(rms_norm_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
     rms_norm_kernel<true><<<rows, threads, smem, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(res), static_cast<const bf16*>(w),
         static_cast<bf16*>(y), static_cast<bf16*>(h), hidden, eps);
   } else {
-    if (smem > 48 * 1024)
+    if (big)
       cudaFuncSetAttribute(rms_norm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
     rms_norm_kernel<false><<<rows, threads, smem, s>>>(

@@ -5,10 +5,12 @@ RMSNorm, rotate-half RoPE, SwiGLU MLP and grouped-query attention as
 keys (``embed_tokens.weight``, ``layers.{i}.self_attn.q_proj.weight``, ...,
 ``norm.weight``, ``lm_head.weight``); ``models/convert.py`` carries a JAX
 model's weights across. The modules hold the weights and the per-op
-pieces the serving model (``serving/model.py``) strings together; the
-whole-sequence forward comes with monolithic prefill and training, which
-need the flash-attention kernel. Linear weights are stored ``[out, in]`` as
-``torch.nn.Linear`` keeps them (the JAX package stores ``[in, out]``).
+pieces the serving model (``serving/model.py``) strings together;
+:meth:`Llama.forward` is the whole-sequence inference forward through the
+fused trunk (flash attention, block epilogues). Labels, the loss and
+``caches`` wait for the training slice. Linear weights are stored
+``[out, in]`` as ``torch.nn.Linear`` keeps them (the JAX package stores
+``[in, out]``).
 
 Parameters are made on the target device and drawn from a seeded
 ``torch.Generator`` with the JAX init's std: ``initializer_range`` for
@@ -163,12 +165,52 @@ class Llama(nn.Module):
                                                           self.device)
         return hit
 
-    def _head(self, x, plain=False):
-        """Final norm + (tied) projection."""
-        x = self.norm(x, plain)
+    def _head(self, x, plain=False, normed=False):
+        """Final norm + (tied) projection; ``normed`` skips the norm (the
+        fused trunk folds it into the last junction)."""
+        if not normed:
+            x = self.norm(x, plain)
         if self.lm_head is None:
             return x @ self.embed_tokens.weight.t()
         return self.lm_head(x)
+
+    def _fused_trunk(self, x, cos, sin, plain=False):
+        """Both residual junctions of every layer — attention output ->
+        ``post_attention_layernorm`` and MLP output -> the next layer's
+        ``input_layernorm`` (the final norm after the last layer) — as one
+        block-epilogue pass each. Returns the final-norm output
+        (``paddle_tpu/models/llama.py:267-290``)."""
+        layers = list(self.layers)
+        y = layers[0].input_layernorm(x, plain)
+        h = x
+        b, s, _ = x.shape
+        for i, layer in enumerate(layers):
+            attn = layer.self_attn
+            q, k, v = attn.qkv(y)
+            q, k = F.rope(q, k, sin, cos, plain=plain)
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 plain=plain)
+            a = attn.o_proj(out.reshape(b, s, attn.n_head * attn.head_dim))
+            post = layer.post_attention_layernorm
+            y, h = F.fused_dropout_add_norm(a, h, post.weight, None, p=0.0,
+                                            epsilon=post.eps, plain=plain)
+            nxt = layers[i + 1].input_layernorm if i + 1 < len(layers) \
+                else self.norm
+            y, h = F.fused_dropout_add_norm(layer.mlp(y, plain), h,
+                                            nxt.weight, None, p=0.0,
+                                            epsilon=nxt.eps, plain=plain)
+        return y
+
+    @torch.no_grad()
+    def forward(self, input_ids, plain=False):
+        """Logits ``[B, S, vocab]`` of ``input_ids [B, S]``: the causal
+        whole-sequence forward (``paddle_tpu/models/llama.py:300-331``,
+        its fused-trunk branch). ``plain=True`` runs every kernel's plain
+        version."""
+        cos, sin = self.rope(input_ids.shape[1])
+        x = self.embed_tokens(input_ids.long())
+        return self._head(self._fused_trunk(x, cos, sin, plain), plain,
+                          normed=True)
 
 
 def llama_tiny(device=None, dtype=torch.float32, seed=0, **kw) -> Llama:

@@ -1,13 +1,19 @@
 """Continuous-batching LLM serving over a paged KV cache (counterpart of
-``paddle_tpu/serving``): chunked prefill and the per-op decode path, with
-the port's RMSNorm, RoPE, SwiGLU and paged decode-attention kernels."""
+``paddle_tpu/serving``). The default ``ServingConfig()`` is the JAX
+engine's: monolithic prefill through the flash-attention kernel, the
+block-epilogue kernels at every residual junction, and the prefix cache
+with copy-on-write page sharing; chunked prefill and the per-op path are
+options. Decode attention, RMSNorm, RoPE and SwiGLU are the port's
+kernels too."""
 
 from .engine import LLMEngine, ServingConfig
 from .kv_cache import (PageDoubleFree, PagePool, PagePoolError,
                        PagePoolExhausted)
 from .model import ServingModel
+from .prefix_cache import PrefixCache, chain_keys, model_fingerprint
 from .scheduler import Request, RequestRejected, Scheduler, ServingError
 
 __all__ = ["LLMEngine", "ServingConfig", "ServingModel", "PagePool",
-           "PagePoolError", "PagePoolExhausted", "PageDoubleFree", "Request",
+           "PagePoolError", "PagePoolExhausted", "PageDoubleFree",
+           "PrefixCache", "chain_keys", "model_fingerprint", "Request",
            "RequestRejected", "Scheduler", "ServingError"]

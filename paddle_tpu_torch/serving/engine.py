@@ -32,6 +32,7 @@ import torch
 from ..device import resolve_device
 from .kv_cache import PagePool
 from .model import ServingModel
+from .prefix_cache import PrefixCache, model_fingerprint
 from .scheduler import Request, Scheduler, ServingError
 
 __all__ = ["ServingConfig", "LLMEngine"]
@@ -42,12 +43,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclass
 class ServingConfig:
-    """Static knobs of the serving runtime. The defaults are this port's
-    supported path: chunked prefill and the per-op decode path. The
-    options of the JAX engine that are not ported yet (``fused_block``,
-    ``fused_decode_layer``, ``prefix_cache``, ``spec_k``, ``quant``, and
-    monolithic prefill, ``prefill_chunk=None``) keep their names and raise
-    ``NotImplementedError`` when asked for."""
+    """Static knobs of the serving runtime. The defaults are the JAX
+    engine's (``paddle_tpu/serving/engine.py:62-107``) for every ported
+    option: monolithic prefill, the fused block epilogues and the prefix
+    cache. The options not ported yet (``quant``, ``fused_decode_layer``,
+    ``spec_k``, ``prefill_budget``) keep their names and raise
+    ``NotImplementedError`` when set."""
     page_size: int = 16          # token positions per KV page
     num_pages: int = 64          # pool pages incl. the reserved trash page
     max_batch: int = 8           # decode slots (the continuous batch)
@@ -56,12 +57,15 @@ class ServingConfig:
     temperature: float = 0.0     # per-request default (0 = greedy)
     top_k: int | None = None     # sampling filter
     eos_token_id: int | None = None
-    prefill_chunk: int | None = 512    # tokens per prefill chunk (and
-    #                                    prefill tokens per iteration)
     quant: str | None = None
-    fused_block: bool = False
+    fused_block: bool = True     # block-epilogue kernels at every residual
+    #                              junction
     fused_decode_layer: bool = False
-    prefix_cache: bool = False
+    prefix_cache: bool = True    # copy-on-write KV page sharing across
+    #                              requests with a common prompt prefix
+    prefill_chunk: int | None = None   # tokens per prefill chunk (None =
+    #                              monolithic prefill at admission)
+    prefill_budget: int | None = None
     spec_k: int = 0
     dtype: str = "float32"       # KV pool dtype
     seed: int = 0
@@ -69,15 +73,19 @@ class ServingConfig:
 
 
 def _unsupported(cfg: ServingConfig) -> list[str]:
-    out = []
-    if cfg.prefill_chunk is None:
-        out.append("prefill_chunk=None (monolithic prefill)")
-    for name, off in (("quant", None), ("fused_block", False),
-                      ("fused_decode_layer", False), ("prefix_cache", False),
-                      ("spec_k", 0)):
-        if getattr(cfg, name) != off:
-            out.append(f"{name}={getattr(cfg, name)!r}")
-    return out
+    return [f"{name}={getattr(cfg, name)!r}"
+            for name, off in (("quant", None), ("fused_decode_layer", False),
+                              ("spec_k", 0), ("prefill_budget", None))
+            if getattr(cfg, name) != off]
+
+
+def _auto_buckets(max_seq_len: int) -> tuple:
+    out, b = [], 8
+    while b < max_seq_len:
+        out.append(b)
+        b *= 2
+    out.append(max_seq_len)
+    return tuple(sorted(set(out)))
 
 
 class LLMEngine:
@@ -92,8 +100,7 @@ class LLMEngine:
         bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(bad)}; the port serves with "
-                f"chunked prefill on the per-op path")
+                f"not ported yet: {', '.join(bad)}")
         if cfg.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
                              f"{cfg.dtype!r}")
@@ -104,7 +111,7 @@ class LLMEngine:
             raise ValueError(f"model lives on {self.device}, engine asked "
                              f"for {want}")
         self.config = cfg
-        self._sm = ServingModel(model)
+        self._sm = ServingModel(model, fused_block=cfg.fused_block)
         max_seq = cfg.max_seq_len or self._sm.max_pos
         if max_seq > self._sm.max_pos:
             raise ValueError(
@@ -117,12 +124,26 @@ class LLMEngine:
             head_dim=self._sm.head_dim, dtype=_DTYPES[cfg.dtype],
             device=self.device)
         self._sm.bind_pool(self.pool)
+        self.prefix_cache = None
+        if cfg.prefix_cache:
+            self.prefix_cache = PrefixCache(self.pool, model_fingerprint(
+                model, quant=cfg.quant, dtype=cfg.dtype,
+                page_size=cfg.page_size))
         self.scheduler = Scheduler(self.pool, self, cfg.max_batch,
-                                   self.max_seq_len, cfg.prefill_chunk,
-                                   eos_token_id=cfg.eos_token_id)
+                                   self.max_seq_len,
+                                   eos_token_id=cfg.eos_token_id,
+                                   prefix_cache=self.prefix_cache,
+                                   prefill_chunk=cfg.prefill_chunk)
+        # the JAX engine compiles one prefill program per bucket; the port
+        # runs each prompt at its own length and keeps the buckets only to
+        # validate a prompt's length the same way
+        self.buckets = _auto_buckets(self.max_seq_len)
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        # host-clock milliseconds of each prefill chunk and decode step,
-        # each ending in a device synchronise
+        # host-clock milliseconds of each monolithic prefill (a prefix hit
+        # runs its suffix as one chunk and counts here), each chunk of
+        # chunked prefill and each decode step, each ending in a device
+        # synchronise
+        self.prefill_ms: list[float] = []
         self.chunk_ms: list[float] = []
         self.step_ms: list[float] = []
         self._cond = threading.Condition()
@@ -155,25 +176,59 @@ class LLMEngine:
         sampled = (arr - torch.log(-torch.log(u))).argmax(-1)
         return torch.where(t > 0, sampled, greedy)
 
-    def prefill_chunk(self, req: Request, n: int):
+    def bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        raise ServingError(f"no prefill bucket holds length {n} "
+                           f"(buckets={self.buckets})")
+
+    def _row(self, req: Request):
+        row = np.zeros(self.scheduler.max_pages, np.int32)
+        row[:len(req.pages)] = req.pages
+        return torch.from_numpy(row).to(self.device)
+
+    def _first_token(self, req: Request, logits) -> int:
+        temps = np.asarray([max(req.temperature, 0.0)], np.float32)
+        return int(self._sample(logits, temps)[0])      # synchronises
+
+    def prefill(self, req: Request) -> int:
+        """Whole-context prefill at admission; returns the first sampled
+        token. With a prefix-cache hit (``req.prefilled > 0``) only the
+        suffix runs, as one chunk against the claimed pages; otherwise the
+        monolithic forward runs over the context at its own length."""
+        t0 = time.perf_counter()
+        ctx = req.context()
+        self.bucket_for(len(ctx))
+        if req.prefilled:
+            tok = self._chunk(req, len(ctx) - req.prefilled)
+        else:
+            toks = torch.tensor([ctx], dtype=torch.long, device=self.device)
+            logits = self._sm.prefill_forward(toks, len(ctx), self._row(req))
+            req.prefilled = len(ctx)
+            tok = self._first_token(req, logits)
+        self.prefill_ms.append((time.perf_counter() - t0) * 1000.0)
+        return tok
+
+    def _chunk(self, req: Request, n: int):
         """Run ``n`` context tokens of ``req`` from ``req.prefilled``.
         Returns the first sampled token on the final chunk, else None."""
-        t0 = time.perf_counter()
         ctx = req.context()
         start = req.prefilled
         toks = torch.tensor([ctx[start:start + n]], dtype=torch.long,
                             device=self.device)
-        row = np.zeros(self.scheduler.max_pages, np.int32)
-        row[:len(req.pages)] = req.pages
-        logits = self._sm.prefill_chunk_forward(
-            toks, start, n, torch.from_numpy(row).to(self.device))
+        logits = self._sm.prefill_chunk_forward(toks, start, n,
+                                                self._row(req))
         req.prefilled = start + n
-        tok = None
         if req.prefilled >= len(ctx):
-            temps = np.asarray([max(req.temperature, 0.0)], np.float32)
-            tok = int(self._sample(logits, temps)[0])   # synchronises
-        else:
-            self._sync()
+            return self._first_token(req, logits)
+        self._sync()
+        return None
+
+    def prefill_chunk(self, req: Request, n: int):
+        """One chunk of chunked prefill (:meth:`_chunk`), timed."""
+        t0 = time.perf_counter()
+        tok = self._chunk(req, n)
         self.chunk_ms.append((time.perf_counter() - t0) * 1000.0)
         return tok
 
@@ -322,6 +377,9 @@ class LLMEngine:
             "occupancy_mean": (sched.occupancy_sum / steps) if steps else 0.0,
             "pages": {"free": self.pool.free_pages,
                       "used": self.pool.used_pages,
+                      "cached": self.pool.cached_pages,
+                      "shared": self.pool.shared_pages,
                       "lost": self.pool.lost(),
                       "total": self.pool.allocatable},
+            "prefix_cache": sched.prefix_stats(),
         }

@@ -12,16 +12,22 @@ Unlike the JAX helpers, which return an updated pool, the writes here
 update the pool tensors **in place**: the pool is the largest state of the
 engine and PyTorch has no need to copy it.
 
-:class:`PagePool` owns the tensors and the accounting: a thread-safe LIFO
-free list of pages, each page free or used by exactly one request (this
-slice has no prefix cache, so no page is shared), double-free and foreign
-frees caught before any change, and ``leaked()`` for the zero-leak check.
+:class:`PagePool` owns the tensors and the accounting. A non-trash page
+is in exactly one of three states: **free** (on the LIFO free list),
+**used** (refcount >= 1, one reference per page table that maps it; a page
+at refcount >= 2 is shared and immutable, and the scheduler copies it
+before a write would land there) or **cached** (refcount 0, kept because a
+prefix-cache key still names its contents; ``alloc`` reclaims cached pages
+LRU-first once the free list is empty). ``free`` is a decref. ``leaked()``
+counts referenced pages and ``lost()`` checks that the three states
+partition the pool.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+from collections import OrderedDict
 
 import torch
 
@@ -46,16 +52,21 @@ class PagePoolExhausted(PagePoolError):
 
 
 class PageDoubleFree(PagePoolError):
-    """A free of a page that is already on the free list."""
+    """A second decref of a page whose refcount already reached zero —
+    distinct from freeing a foreign id: the page is one of this pool's,
+    but nobody holds a reference to give back."""
 
 
 class PagePool:
-    """Preallocated paged KV pool with thread-safe accounting.
+    """Preallocated paged KV pool with thread-safe refcounted accounting.
 
     ``k``/``v`` are ``[num_layers, num_pages, num_kv_heads, page_size,
     head_dim]`` tensors on ``device``. Page ids come from a LIFO free list
     (recently freed pages are reused first); page 0 (:data:`TRASH_PAGE`)
-    is never handed out.
+    is never handed out. Each allocated page carries a refcount; the
+    prefix cache shares pages across requests by claiming extra
+    references, and keyed pages linger in a reclaimable LRU **cached**
+    state at refcount 0 instead of returning to the free list.
     """
 
     def __init__(self, num_layers: int, num_pages: int, num_kv_heads: int,
@@ -77,7 +88,21 @@ class PagePool:
         self.v = torch.zeros(shape, dtype=dtype, device=device)
         self._lock = threading.Lock()
         self._free = list(range(self.num_pages - 1, TRASH_PAGE, -1))
-        self._used: set[int] = set()
+        self._ref: dict[int, int] = {}          # page -> refcount (>= 1)
+        self._shared = 0                        # pages at refcount >= 2
+        self._cached: OrderedDict = OrderedDict()   # page -> key, LRU order
+        self._keys: dict[int, bytes] = {}       # page -> retained cache key
+        # prefix-cache hook, called (page, key) with the POOL lock held
+        # whenever a cached page is reclaimed (its contents die)
+        self._reclaim_cb = None
+
+    def set_reclaim_hook(self, cb) -> None:
+        """``cb(page, key)`` fires (pool lock held) when a cached page is
+        reclaimed for reuse; the prefix cache drops its map entry."""
+        with self._lock:
+            self._reclaim_cb = cb
+
+    # -- accounting ----------------------------------------------------------
 
     @property
     def allocatable(self) -> int:
@@ -91,28 +116,122 @@ class PagePool:
 
     @property
     def used_pages(self) -> int:
+        """Pages with refcount >= 1."""
         with self._lock:
-            return len(self._used)
+            return len(self._ref)
+
+    @property
+    def cached_pages(self) -> int:
+        """Refcount-0 pages retained for the prefix cache (reclaimable)."""
+        with self._lock:
+            return len(self._cached)
+
+    @property
+    def available_pages(self) -> int:
+        """Pages an ``alloc`` can satisfy now: free + reclaimable cached."""
+        with self._lock:
+            return len(self._free) + len(self._cached)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages mapped by more than one request (refcount >= 2)."""
+        with self._lock:
+            return self._shared
+
+    def refcount(self, page: int) -> int:
+        with self._lock:
+            return self._ref.get(int(page), 0)
 
     def pages_for(self, length: int) -> int:
         """Pages needed to hold ``length`` token positions."""
         return max(0, math.ceil(int(length) / self.page_size))
 
     def alloc(self, n: int = 1) -> list[int]:
-        """Allocate ``n`` pages; raises :class:`PagePoolExhausted` (and
-        allocates nothing) when fewer than ``n`` are free."""
+        """Allocate ``n`` pages at refcount 1; raises
+        :class:`PagePoolExhausted` (and allocates nothing) when fewer than
+        ``n`` are available. The free list comes first; when it runs dry,
+        refcount-0 cached pages are reclaimed LRU-first (their cache
+        entries dropped through the reclaim hook). A page with refcount
+        >= 1 is never taken."""
         with self._lock:
-            if n > len(self._free):
+            if n > len(self._free) + len(self._cached):
                 raise PagePoolExhausted(
-                    f"need {n} page(s), {len(self._free)} free "
-                    f"(pool {self.allocatable})")
-            pages = [self._free.pop() for _ in range(n)]
-            self._used.update(pages)
+                    f"need {n} page(s), {len(self._free)} free + "
+                    f"{len(self._cached)} cached (pool {self.allocatable})")
+            pages = []
+            for _ in range(n):
+                p = self._free.pop() if self._free else \
+                    self._reclaim_lru_locked()
+                self._ref[p] = 1
+                pages.append(p)
             return pages
 
+    def _reclaim_lru_locked(self) -> int:
+        """Pop the least recently cached refcount-0 page; its key dies."""
+        page, key = self._cached.popitem(last=False)
+        self._keys.pop(page, None)
+        if self._reclaim_cb is not None:
+            self._reclaim_cb(page, key)
+        return page
+
+    def _take_ref_locked(self, p: int) -> None:
+        if p in self._cached:
+            del self._cached[p]
+            self._ref[p] = 1
+        else:
+            self._ref[p] += 1
+            if self._ref[p] == 2:
+                self._shared += 1
+
+    def incref(self, pages) -> None:
+        """Take an extra reference on pages whose contents are valid: live
+        pages gain a sharer, cached pages revive to refcount 1. Free or
+        unknown ids raise."""
+        pages = [int(p) for p in pages]
+        with self._lock:
+            bad = [p for p in pages
+                   if p not in self._ref and p not in self._cached]
+            if bad:
+                raise PagePoolError(
+                    f"incref of page(s) {bad} that are neither live nor "
+                    f"cached")
+            for p in pages:
+                self._take_ref_locked(p)
+
+    def claim_prefix(self, pairs) -> list:
+        """Claim the longest verified prefix of ``pairs`` (``(page, key)``
+        in chain order): each page must still carry exactly that retained
+        key, so a page reclaimed and reused between the cache lookup and
+        this claim ends the chain. Claimed pages gain a reference (cached
+        ones revive). Returns the claimed page ids."""
+        claimed = []
+        with self._lock:
+            for page, key in pairs:
+                page = int(page)
+                if self._keys.get(page) != key or not (
+                        page in self._cached or page in self._ref):
+                    break
+                self._take_ref_locked(page)
+                claimed.append(page)
+        return claimed
+
+    def retain_keys(self, pairs) -> None:
+        """Mark live pages cacheable: ``(page, key)`` pairs record the key
+        under which a page lingers (cached state) instead of returning to
+        the free list at refcount 0."""
+        with self._lock:
+            for page, key in pairs:
+                page = int(page)
+                if page in self._ref:
+                    self._keys[page] = key
+
     def free(self, pages) -> None:
-        """Return pages to the free list. A page freed twice, listed twice
-        in one call, or never allocated raises before anything changes."""
+        """Release one reference per page (decref). A page reaching
+        refcount 0 returns to the free list, or to the cached state when a
+        prefix-cache key is retained for it. A second decref raises
+        :class:`PageDoubleFree`, a foreign id (or the trash page)
+        :class:`PagePoolError`, and a page listed twice in one call
+        :class:`PagePoolError`; each before anything changes."""
         pages = [int(p) for p in pages]
         with self._lock:
             if len(set(pages)) != len(pages):
@@ -120,27 +239,48 @@ class PagePool:
                 raise PagePoolError(
                     f"page(s) {dups} appear more than once in one free() "
                     f"call (double free); pool left untouched")
-            again = [p for p in pages if p not in self._used
-                     and TRASH_PAGE < p < self.num_pages]
-            if again:
+            zero = [p for p in pages if p not in self._ref
+                    and (p in self._cached or p in self._free)]
+            if zero:
                 raise PageDoubleFree(
-                    f"page(s) {again} are already free; pool left untouched")
-            foreign = [p for p in pages if p not in self._used]
+                    f"second decref of page(s) {zero}: refcount already "
+                    f"zero (page is free/cached); pool left untouched")
+            foreign = [p for p in pages if p not in self._ref]
             if foreign:
                 raise PagePoolError(
                     f"freeing page(s) {foreign} this pool never allocated "
                     f"(foreign id or trash page); pool left untouched")
-            self._used.difference_update(pages)
-            self._free.extend(pages)
+            for p in pages:
+                self._ref[p] -= 1
+                if self._ref[p] == 1:
+                    self._shared -= 1
+                if self._ref[p] > 0:
+                    continue            # still shared: the page stays live
+                del self._ref[p]
+                key = self._keys.get(p)
+                if key is not None:
+                    self._cached[p] = key       # MRU end of the LRU
+                else:
+                    self._free.append(p)
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy one physical page's K and V across every layer, in place
+        (the copy-on-write data move). The caller holds references on
+        both pages."""
+        src, dst = int(src), int(dst)
+        self.k[:, dst] = self.k[:, src]
+        self.v[:, dst] = self.v[:, src]
 
     def leaked(self) -> int:
-        """Pages still allocated: 0 once every request has finished."""
+        """Pages still referenced: 0 once every request has finished.
+        Cached (refcount-0) pages are reclaimable headroom, not leaks."""
         return self.used_pages
 
     def lost(self) -> int:
-        """Pages neither free nor used: always 0."""
+        """Pages in no state (free, used or cached): always 0."""
         with self._lock:
-            return self.allocatable - len(self._free) - len(self._used)
+            return self.allocatable - len(self._free) - len(self._ref) \
+                - len(self._cached)
 
 
 # -- device-side helpers -----------------------------------------------------

@@ -1,19 +1,29 @@
 """Serving adapter: a Llama over the paged KV cache (counterpart of
-``paddle_tpu/serving/model.py``, its per-op path).
+``paddle_tpu/serving/model.py``).
 
-``decode_forward`` runs one token per batch row through every layer
-against the pool; ``prefill_chunk_forward`` runs one chunk of a request's
-context. Each layer is the per-op chain of ``ServingConfig(
-fused_block=False)``: RMSNorm, q/k/v projections, RoPE, the KV write, the
-attention, the o projection, the fused residual-add RMSNorm and the SwiGLU
-MLP. The norms, RoPE, SwiGLU and decode attention are the port's kernels;
-the projections, the embedding lookup and the chunk attention are plain
-PyTorch, as the JAX package leaves them to XLA.
+``prefill_forward`` runs a whole prompt and writes its pages;
+``prefill_chunk_forward`` runs one chunk of a request's context against
+what is already resident; ``decode_forward`` runs one token per batch row.
 
-``plain=True`` runs every kernel's plain PyTorch version instead (a check
-on the card holds the two paths against each other on the same inputs).
-The monolithic prefill, the speculative verify, quantized linears and the
-fused-block and fused-decode-layer paths are not ported yet.
+Two dataflows, picked by ``fused_block`` alone (never by the device):
+
+- ``fused_block=True`` (the default, as in the JAX engine): layer 0's
+  input norm is an RMSNorm; after that every residual junction —
+  attention output -> ``post_attention_layernorm`` and MLP output -> the
+  next layer's ``input_layernorm`` (the final norm after the last layer) —
+  is one block-epilogue pass that returns the normed input of the next
+  op and the residual stream, and the lm head reads the normed state.
+- ``fused_block=False``: the per-op chain, RMSNorm, then after attention
+  the fused residual-add RMSNorm and a separate residual add after the
+  MLP, and the head's own final norm.
+
+In both, RoPE, SwiGLU, decode attention (mmha), the norms and, in
+monolithic prefill, attention (flash) are the port's kernels; the
+projections, the embedding lookup and the chunk attention are plain
+PyTorch, as the JAX package leaves them to XLA. ``plain=True`` runs every
+kernel's plain PyTorch version instead (a check on the card holds the two
+paths against each other on the same inputs). The speculative verify,
+quantized linears and the fused decode layer are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,16 +31,17 @@ from __future__ import annotations
 import torch
 
 from ..nn import functional as F
+from ..ops.kernels import block_epilogue
 from . import kv_cache
 
 __all__ = ["ServingModel"]
 
 
 class ServingModel:
-    """Prefill-chunk and decode forwards of a port :class:`Llama` over a
-    bound :class:`~.kv_cache.PagePool`."""
+    """Prefill, prefill-chunk and decode forwards of a port :class:`Llama`
+    over a bound :class:`~.kv_cache.PagePool`."""
 
-    def __init__(self, model):
+    def __init__(self, model, fused_block: bool = True):
         missing = [n for n in ("embed_tokens", "layers", "norm", "cfg")
                    if getattr(model, n, None) is None]
         if missing:
@@ -43,6 +54,7 @@ class ServingModel:
         self.n_kv = cfg.num_kv_heads
         self.head_dim = cfg.head_dim
         self.max_pos = cfg.max_position_embeddings
+        self.fused_block = bool(fused_block)
         self.pool: kv_cache.PagePool | None = None
 
     def bind_pool(self, pool: kv_cache.PagePool) -> "ServingModel":
@@ -56,26 +68,58 @@ class ServingModel:
         self.pool = pool
         return self
 
-    # -- the shared layer loop -----------------------------------------------
+    # -- shared pieces -------------------------------------------------------
+
+    @staticmethod
+    def _junction(x, residual, norm_mod, plain):
+        """``(normed, h)``: one residual junction (projection output ->
+        residual add -> rmsnorm) as one block-epilogue pass."""
+        return block_epilogue.decode_epilogue(x, residual, norm_mod.weight,
+                                              norm_mod.eps, plain=plain)
+
+    def _head_normed(self, x):
+        """lm head over an already normalized hidden state."""
+        m = self.model
+        if m.lm_head is None:
+            return x @ m.embed_tokens.weight.t()
+        return m.lm_head(x)
 
     def _layers(self, x, cos, sin, write_kv, attend, plain):
-        """The per-op decoder stack over ``x [B, S, hidden]``;
-        ``write_kv(i, k, v)`` stores the layer's keys and values in the
-        pool and ``attend(i, q)`` returns its attention ``[B, S, H, D]``."""
+        """The decoder stack over ``x [B, S, hidden]``; ``write_kv(i, k, v)``
+        stores the layer's keys and values in the pool and
+        ``attend(i, q, k, v)`` returns its attention ``[B, S, H, D]``.
+        Returns the final hidden state: normed on the fused path, pre-norm
+        on the per-op path (see :meth:`_logits`)."""
         b, s, _ = x.shape
-        for i, layer in enumerate(self.model.layers):
-            h = layer.input_layernorm(x, plain)
+        layers = list(self.model.layers)
+        fused = self.fused_block
+        hres = x
+        y = layers[0].input_layernorm(x, plain) if fused else None
+        for i, layer in enumerate(layers):
+            h = y if fused else layer.input_layernorm(x, plain)
             attn = layer.self_attn
             q, k, v = attn.qkv(h)
             q, k = F.rope(q, k, sin, cos, plain=plain)
             write_kv(i, k, v)
-            out = attend(i, q)
+            out = attend(i, q, k, v)
             attn_out = attn.o_proj(out.reshape(b, s, self.n_head * self.head_dim))
             post = layer.post_attention_layernorm
-            y, x = F.fused_rms_norm_add(attn_out, x, post.weight, post.eps,
-                                        plain=plain)
-            x = x + layer.mlp(y, plain)
-        return x
+            if fused:
+                y, hres = self._junction(attn_out, hres, post, plain)
+                nxt = layers[i + 1].input_layernorm if i + 1 < len(layers) \
+                    else self.model.norm
+                y, hres = self._junction(layer.mlp(y, plain), hres, nxt,
+                                         plain)
+            else:
+                y2, x = F.fused_rms_norm_add(attn_out, x, post.weight,
+                                             post.eps, plain=plain)
+                x = x + layer.mlp(y2, plain)
+        return y if fused else x
+
+    def _logits(self, h, plain):
+        if self.fused_block:
+            return self._head_normed(h)
+        return self.model._head(h, plain)
 
     # -- decode --------------------------------------------------------------
 
@@ -103,12 +147,50 @@ class ServingModel:
             kv_cache.write_token(pool.k, i, page_ids, slots, k[:, 0])
             kv_cache.write_token(pool.v, i, page_ids, slots, v[:, 0])
 
-        def attend(i, q):
+        def attend(i, q, k, v):
             return kv_cache.paged_attention(q, pool, i, tab, pos, plain=plain)
 
         x = self.model.embed_tokens(tokens.reshape(b, 1).long())
-        x = self._layers(x, cos, sin, write_kv, attend, plain)
-        return self.model._head(x, plain)[:, 0]
+        h = self._layers(x, cos, sin, write_kv, attend, plain)
+        return self._logits(h, plain)[:, 0]
+
+    # -- monolithic prefill --------------------------------------------------
+
+    @torch.inference_mode()
+    def prefill_forward(self, tokens, prompt_len: int, table_row,
+                        plain=False):
+        """Whole-prompt forward for one request, writing its KV pages.
+
+        tokens ``[1, n]`` with ``n >= prompt_len``; the engine passes the
+        prompt at its own length (the JAX engine pads it to a power-of-two
+        bucket, so that one compiled program serves the bucket: the port
+        compiles nothing, and the outputs at real positions are the same
+        either way). Positions past ``prompt_len`` write to the trash page
+        and causal attention keeps them out of every real position.
+        table_row ``[max_pages]`` int32. Attention is the flash kernel over
+        the prompt's own q, k, v. Returns logits ``[1, vocab]`` at position
+        ``prompt_len - 1`` (the first generated token's distribution).
+        """
+        pool = self.pool
+        n = tokens.shape[1]
+        tab_row = table_row.to(torch.int32)
+        cos_t, sin_t = self.model.rope(self.max_pos)
+        cos, sin = cos_t[:n], sin_t[:n]                      # [n, D]
+
+        def write_kv(i, k, v):
+            kv_cache.write_prefill(pool.k, i, tab_row, prompt_len, k[0],
+                                   pool.page_size)
+            kv_cache.write_prefill(pool.v, i, tab_row, prompt_len, v[0],
+                                   pool.page_size)
+
+        def attend(i, q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  plain=plain)
+
+        x = self.model.embed_tokens(tokens.long())
+        h = self._layers(x, cos, sin, write_kv, attend, plain)
+        last = h[:, prompt_len - 1:prompt_len]
+        return self._logits(last, plain)[:, 0]
 
     # -- chunked prefill -----------------------------------------------------
 
@@ -117,7 +199,7 @@ class ServingModel:
                               table_row, plain=False):
         """One prefill chunk: positions ``[start, start + chunk_len)`` of a
         request, attending to everything already resident through its
-        page table.
+        page table (earlier chunks and claimed prefix pages).
 
         tokens ``[1, C]`` with ``C >= chunk_len`` (lanes past ``chunk_len``
         are padding: their KV goes to the trash page and nothing reads
@@ -144,12 +226,12 @@ class ServingModel:
             kv_cache.write_token(pool.k, i, w_page, w_slot, k[0])
             kv_cache.write_token(pool.v, i, w_page, w_slot, v[0])
 
-        def attend(i, q):
+        def attend(i, q, k, v):
             kc = kv_cache.gather_layer(pool.k, i, tab_row[None])
             vc = kv_cache.gather_layer(pool.v, i, tab_row[None])
             return kv_cache.chunk_attention(q, kc, vc, start)
 
         x = self.model.embed_tokens(tokens.long())
-        x = self._layers(x, cos, sin, write_kv, attend, plain)
-        last = x[:, chunk_len - 1:chunk_len]
-        return self.model._head(last, plain)[:, 0]
+        h = self._layers(x, cos, sin, write_kv, attend, plain)
+        last = h[:, chunk_len - 1:chunk_len]
+        return self._logits(last, plain)[:, 0]

@@ -4,27 +4,35 @@
 Policy only, no device code. Each :meth:`Scheduler.step` is one engine
 iteration:
 
-1. **Admission** (FIFO): while a decode slot and enough free pages for the
-   request's context plus one page of headroom (for its first decode
-   write) exist, seat the oldest waiting request. The oldest request is
-   never overtaken, so admission cannot starve.
-2. **Chunked prefill**: seated requests not yet prefilled advance by
-   fixed-size chunks, oldest first, at most one chunk's worth of tokens
-   per iteration, so a long prompt never stalls the decodes in flight;
-   the final chunk samples the first token.
+1. **Admission** (FIFO): while a decode slot is free, seat the oldest
+   waiting request if the pool can hold its context plus one page of
+   headroom (for its first decode write). With a prefix cache, the
+   longest cached page-aligned prefix of its context is claimed first and
+   needs no prefill; a full cover is capped at ``len(context) - 1`` tokens,
+   because the last token's logits seed generation. The oldest request is
+   never overtaken, so admission cannot starve. With monolithic prefill
+   (``prefill_chunk=None``) the admitted request is prefilled at once
+   (a prefix hit runs only the suffix, as one chunk) and samples its first
+   token.
+2. **Chunked prefill** (``prefill_chunk`` set): seated requests not yet
+   prefilled advance by fixed-size chunks, oldest first, at most one
+   chunk's worth of tokens per iteration, so a long prompt never stalls
+   the decodes in flight; the final chunk samples the first token.
 3. **Growth**: every active request whose next write crosses a page
    boundary takes a page. When the pool is exhausted the **youngest**
-   active request is evicted: its pages are freed and it is requeued in
-   arrival order with its generated tokens kept, so the oldest request
-   always progresses.
+   active request is evicted: its page references are dropped (a page
+   another request shares stays live for it) and it is requeued in
+   arrival order with its generated tokens kept.
 4. **Decode**: one batched step over every prefill-complete slot (the
    other slots ride along at position 0 on the trash page). Finished
-   requests (eos, ``max_new_tokens`` or the length limit) free their pages.
+   requests (eos, ``max_new_tokens`` or the length limit) drop their pages.
 
-A request that can never fit (length over the limit, or more pages than
-the pool holds) is rejected at :meth:`Scheduler.submit`.
+Before any KV write lands in a page shared with another request (refcount
+>= 2), :meth:`Scheduler._make_writable` copies the page and remaps it
+(copy-on-write). A request that can never fit (length over the limit, or
+more pages than the pool holds) is rejected at :meth:`Scheduler.submit`.
 
-Not ported in this slice: the prefix cache, speculative decoding, and the
+Not ported: speculative decoding, the prefill token budget, and the
 metrics, tracing and flight-recorder hooks.
 """
 
@@ -85,9 +93,15 @@ class Request:
         self.pages: list[int] = []
         self.slot: int | None = None
         self.arrival = next(_arrival)
-        # context tokens whose KV is resident; chunked prefill advances it
+        self.evictions = 0
+        # context tokens whose KV is resident (prefix-cache hits count;
+        # chunked prefill advances it chunk by chunk)
         self.prefilled = 0
         self._prefill_target = 0     # context length at admission
+        self._cached_tokens = 0      # prefix-cache hit size at admission
+        self._chain_keys: list = []  # prefix-cache chain keys of that ctx
+        self._pending_keys: list = []    # keys memoized while blocked
+        self._pending_keys_len = -1
         self.events: queue.Queue = queue.Queue()
         self._done = threading.Event()
         self.t_submit = time.monotonic()
@@ -155,16 +169,19 @@ class Request:
 class Scheduler:
     """Admission + continuous batching over ``max_batch`` decode slots.
 
-    ``programs`` is the engine's device side:
-    ``programs.prefill_chunk(request, n) -> int | None`` (runs ``n``
+    ``programs`` is the engine's device side: ``programs.prefill(request)
+    -> int`` (the whole remaining context at once; the first sampled
+    token), ``programs.prefill_chunk(request, n) -> int | None`` (``n``
     context tokens from ``request.prefilled``; the first sampled token on
     the final chunk) and ``programs.decode(tokens, positions, tables,
-    temps) -> np.ndarray`` (one batched decode step).
+    temps) -> np.ndarray`` (one batched decode step). ``prefill_chunk=None``
+    prefills monolithically at admission.
     """
 
     def __init__(self, pool, programs, max_batch: int, max_seq_len: int,
-                 prefill_chunk: int, eos_token_id=None):
-        if prefill_chunk is None or int(prefill_chunk) < 1:
+                 eos_token_id=None, prefix_cache=None,
+                 prefill_chunk: int | None = None):
+        if prefill_chunk is not None and int(prefill_chunk) < 1:
             raise ValueError(f"prefill_chunk must be >= 1 tokens, got "
                              f"{prefill_chunk}")
         self.pool = pool
@@ -173,7 +190,8 @@ class Scheduler:
         self.max_seq_len = int(max_seq_len)
         self.max_pages = pool.pages_for(self.max_seq_len)
         self.eos_token_id = eos_token_id
-        self.chunk = int(prefill_chunk)
+        self.prefix_cache = prefix_cache
+        self.chunk = int(prefill_chunk) if prefill_chunk else None
         self.lock = threading.RLock()
         self.waiting: list[Request] = []      # kept sorted by arrival
         self.slots: list[Request | None] = [None] * self.max_batch
@@ -182,6 +200,13 @@ class Scheduler:
         self.occupancy_sum = 0.0
         self.completed = 0
         self.evictions = 0
+        # prefix-cache and prefill accounting (all under self.lock)
+        self.prefix_page_hits = 0
+        self.prefix_page_misses = 0
+        self.prefix_tokens_saved = 0
+        self.prompt_tokens = 0           # context tokens at admissions
+        self.prefill_tokens_computed = 0
+        self.cow_copies = 0
         self.chunks = 0
 
     # -- submission ----------------------------------------------------------
@@ -229,6 +254,31 @@ class Scheduler:
         with self.lock:
             return len(self.waiting)
 
+    def prefix_hit_rate(self):
+        """Context tokens served from the prefix cache over context tokens
+        admitted (None before any admission or without a cache)."""
+        with self.lock:
+            if self.prefix_cache is None or not self.prompt_tokens:
+                return None
+            return self.prefix_tokens_saved / self.prompt_tokens
+
+    def prefix_stats(self) -> dict:
+        with self.lock:
+            stats = {
+                "page_hits": self.prefix_page_hits,
+                "page_misses": self.prefix_page_misses,
+                "tokens_saved": self.prefix_tokens_saved,
+                "prompt_tokens": self.prompt_tokens,
+                "prefill_tokens_computed": self.prefill_tokens_computed,
+                "cow_copies": self.cow_copies,
+                "enabled": self.prefix_cache is not None,
+            }
+        rate = self.prefix_hit_rate()
+        stats["hit_rate"] = round(rate, 4) if rate is not None else None
+        if self.prefix_cache is not None:
+            stats["entries"] = len(self.prefix_cache)
+        return stats
+
     # -- the iteration -------------------------------------------------------
 
     def step(self) -> bool:
@@ -250,34 +300,129 @@ class Scheduler:
                 return i
         return None
 
+    def _claim_prefix(self, ctx, req: Request):
+        """``(claimed_pages, chain_keys, matched_tokens)`` for one
+        admission: claim the longest cached page-aligned prefix of ``ctx``
+        (references taken). A full cover is capped at ``len(ctx) - 1``
+        tokens: the last token is recomputed because its logits seed
+        generation, and its KV write then copies the shared tail page. The
+        keys are memoized on ``req``, so a blocked request does not hash
+        its context again every iteration. Hits and misses are counted at
+        admission, not here. Called under ``self.lock``."""
+        cache = self.prefix_cache
+        if cache is None:
+            return [], [], 0
+        if req._pending_keys_len == len(ctx):
+            keys = req._pending_keys
+        else:
+            keys = cache.keys_for(ctx)
+            req._pending_keys, req._pending_keys_len = keys, len(ctx)
+        claimed = cache.claim(keys) if keys else []
+        matched = len(claimed) * self.pool.page_size
+        if matched >= len(ctx):
+            matched = len(ctx) - 1
+        return claimed, keys, matched
+
+    def _insert_prefix(self, req: Request) -> None:
+        """Register the now fully written full pages of ``req``'s context
+        so later requests can claim them."""
+        cache = self.prefix_cache
+        if cache is None:
+            return
+        n_full = req._prefill_target // self.pool.page_size
+        if n_full:
+            cache.insert(req._chain_keys[:n_full], req.pages[:n_full])
+
     def _admit(self) -> int:
         admitted = 0
-        with self.lock:
-            while self.waiting:
+        ps = self.pool.page_size
+        while True:
+            with self.lock:
+                if not self.waiting:
+                    break
                 slot = self._free_slot()
                 if slot is None:
                     break
                 req = self.waiting[0]
-                ctx_len = req.cur_len()
-                # +1: headroom so the request's first decode write cannot
-                # immediately evict
-                if self.pool.pages_for(ctx_len + 1) > self.pool.free_pages:
-                    break                              # FIFO head-of-line wait
-                req.pages = self.pool.alloc(self.pool.pages_for(ctx_len))
+                ctx = req.context()
+                ctx_len = len(ctx)
+                claimed, keys, matched = self._claim_prefix(ctx, req)
+                # +1: headroom so the request's first decode write (the
+                # token prefill samples) cannot evict at once
+                need_new = self.pool.pages_for(ctx_len + 1) - len(claimed)
+                if claimed and len(claimed) * ps >= ctx_len and \
+                        self.pool.refcount(claimed[(ctx_len - 1) // ps]) > 1:
+                    # full cover: the recomputed last token's write lands
+                    # in a claimed page; when that page is shared, the
+                    # copy-on-write takes one more page
+                    need_new += 1
+                if need_new > self.pool.available_pages:
+                    if claimed:        # hand the claims back (cached state)
+                        self.pool.free(claimed)
+                    break                          # FIFO head-of-line wait
+                try:
+                    fresh = self.pool.alloc(
+                        self.pool.pages_for(ctx_len) - len(claimed))
+                except PagePoolExhausted:
+                    if claimed:
+                        self.pool.free(claimed)
+                    break
                 self.waiting.pop(0)
+                if self.prefix_cache is not None:
+                    # admission succeeded: now the claim outcome counts
+                    self.prefix_cache.note_result(len(claimed),
+                                                  len(keys) - len(claimed))
+                    self.prefix_page_hits += len(claimed)
+                    self.prefix_page_misses += len(keys) - len(claimed)
+                req.pages = claimed + fresh
                 req.slot = slot
-                req.prefilled = 0
+                req.prefilled = matched
                 req._prefill_target = ctx_len
+                req._cached_tokens = matched
+                req._chain_keys = keys
+                self.prefix_tokens_saved += matched
+                self.prompt_tokens += ctx_len
+                self.prefill_tokens_computed += ctx_len - matched
                 row = self.tables[slot]
                 row[:] = 0
                 row[:len(req.pages)] = req.pages
                 self.slots[slot] = req
                 req.state = RUNNING
+            # a mid-page suffix start (full-cover cap) or any other write
+            # into a shared page copies the page before device work
+            if not self._make_writable(req, req.prefilled,
+                                       ctx_len - req.prefilled):
+                continue          # req was evicted while making headroom
+            if self.chunk:
                 admitted += 1
+                continue          # chunked mode: device work interleaves
+            try:
+                first = self.programs.prefill(req)
+            except Exception as e:   # noqa: BLE001 — request-scoped failure
+                self._release(req)
+                req._finish(FAILED, f"prefill failed: {e!r}")
+                continue
+            with self.lock:
+                # the scheduler owns prefill progress; decode picks the
+                # slot up only once this is set
+                req.prefilled = req._prefill_target
+                if matched:           # the suffix ran as one chunk
+                    self.chunks += 1
+            self._finish_prefill(req, first)
+            admitted += 1
         return admitted
 
+    def _finish_prefill(self, req: Request, first: int) -> None:
+        """Shared tail of a completed prefill (monolithic or final chunk):
+        register the cacheable pages, emit the first token."""
+        self._insert_prefix(req)
+        req._emit(first)
+        self._maybe_complete(req)
+
     def _release(self, req: Request) -> None:
-        """Take req out of its slot and free its pages."""
+        """Take req out of its slot and drop its page references (shared
+        pages stay live for their other owners; exclusive keyed pages fall
+        to the cached state)."""
         with self.lock:
             if req.pages:
                 self.pool.free(req.pages)
@@ -304,14 +449,17 @@ class Scheduler:
 
     def _evict(self, victim: Request) -> None:
         self._release(victim)
+        victim.evictions += 1
         with self.lock:
             self.evictions += 1
             self._enqueue(victim)
 
     def _evict_for(self, req: Request) -> bool:
-        """Pool exhausted while growing ``req``: evict the youngest OTHER
-        active request. False when req itself is the youngest (or alone):
-        req is evicted instead."""
+        """Pool exhausted while growing or copying for ``req``: evict the
+        youngest OTHER active request. False when req itself is the
+        youngest (or alone): req is evicted instead. Eviction drops only
+        the victim's references, so a page shared with another request
+        stays allocated for it."""
         with self.lock:
             others = [r for r in self.slots
                       if r is not None and r is not req]
@@ -322,10 +470,50 @@ class Scheduler:
         self._evict(victim)
         return True
 
+    def _make_writable(self, req: Request, pos: int, n: int) -> bool:
+        """Copy-on-write: every page holding positions ``[pos, pos + n)``
+        of ``req`` must be exclusively owned before a KV write lands there.
+        A page at refcount > 1 is copied to a fresh page and remapped in
+        req's table; the shared original (and its cache entry) stays
+        intact for its other owners. False when req lost its slot while
+        making room for a copy."""
+        if n <= 0:
+            return req.slot is not None
+        ps = self.pool.page_size
+        for idx in range(pos // ps, (pos + n - 1) // ps + 1):
+            while True:
+                with self.lock:
+                    if req.slot is None:
+                        return False
+                    if idx >= len(req.pages):
+                        break        # not allocated yet: growth allocs fresh
+                    page = req.pages[idx]
+                    if self.pool.refcount(page) <= 1:
+                        break        # exclusive already
+                try:
+                    fresh = self.pool.alloc(1)[0]
+                except PagePoolExhausted:
+                    if not self._evict_for(req):
+                        return False
+                    continue
+                self.pool.copy_page(page, fresh)
+                with self.lock:
+                    if req.slot is None:      # evicted meanwhile
+                        self.pool.free([fresh])
+                        return False
+                    self.pool.free([req.pages[idx]])    # drop the shared ref
+                    req.pages[idx] = fresh
+                    self.tables[req.slot][idx] = fresh
+                    self.cow_copies += 1
+                break
+        return True
+
     def _prefill_chunks(self) -> int:
-        """Advance seated not-yet-prefilled requests by chunks, oldest
-        first, spending at most one chunk's worth of tokens this
-        iteration."""
+        """Chunked prefill: advance seated not-yet-prefilled requests by
+        chunks, oldest first, spending at most one chunk's worth of
+        tokens this iteration."""
+        if not self.chunk:
+            return 0
         budget = self.chunk
         ran = 0
         with self.lock:
@@ -339,10 +527,12 @@ class Scheduler:
             with self.lock:
                 if req.slot is None or req.prefill_done:
                     continue
-                n = min(self.chunk, req._prefill_target - req.prefilled,
-                        budget)
+                start = req.prefilled
+                n = min(self.chunk, req._prefill_target - start, budget)
             if n <= 0:
                 continue
+            if not self._make_writable(req, start, n):
+                continue             # evicted while making room
             try:
                 tok = self.programs.prefill_chunk(req, n)
             except Exception as e:   # noqa: BLE001 — request-scoped failure
@@ -352,18 +542,19 @@ class Scheduler:
             budget -= n
             ran += 1
             with self.lock:
+                req.prefilled = max(req.prefilled, start + n)
                 self.chunks += 1
             if tok is not None:      # final chunk sampled the first token
-                req._emit(tok)
-                self._maybe_complete(req)
+                self._finish_prefill(req, tok)
         return ran
 
     def _ensure_pages(self, req: Request) -> bool:
-        """Grow req's table to cover its next write position, evicting the
-        youngest active request on exhaustion. False when req is no longer
-        seated."""
-        while req.slot is not None and \
-                len(req.pages) < self.pool.pages_for(req.cur_len()):
+        """Grow req's table to cover its next write position (evicting the
+        youngest active request on exhaustion) and copy the write page if
+        it is shared. False when req is no longer seated."""
+        if req.slot is None:
+            return False
+        while len(req.pages) < self.pool.pages_for(req.cur_len()):
             try:
                 page = self.pool.alloc(1)[0]
             except PagePoolExhausted:
@@ -373,7 +564,7 @@ class Scheduler:
             with self.lock:
                 req.pages.append(page)
                 self.tables[req.slot][len(req.pages) - 1] = page
-        return req.slot is not None
+        return self._make_writable(req, req.cur_len() - 1, 1)
 
     def _masked_tables(self):
         """Page tables for one batched step: empty and still-prefilling

@@ -54,7 +54,7 @@ def test_serving_logits_match_jax(models):
     shape = (cfg.num_layers, 17, cfg.num_kv_heads, 8, cfg.head_dim)
     jsm = JaxServingModel(jm, fused_block=False).bind_pool(
         jax_kv.PagePool(*shape))
-    tsm = ServingModel(tm).bind_pool(PagePool(*shape))
+    tsm = ServingModel(tm, fused_block=False).bind_pool(PagePool(*shape))
     max_pages = 16
     # two 13-token requests, each prefilled in chunks of 8 and 5 tokens
     tables = np.zeros((3, max_pages), np.int32)

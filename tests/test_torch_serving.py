@@ -28,8 +28,10 @@ from paddle_tpu_torch.serving import (LLMEngine, PageDoubleFree, PagePool,
                                       RequestRejected, ServingConfig,
                                       kv_cache)
 
+# slice 1's path: chunked prefill on the per-op dataflow, no prefix cache
+# (the default config is held against JAX in test_torch_default_serving.py)
 ENGINE = dict(page_size=8, num_pages=33, max_batch=2, max_new_tokens=6,
-              prefill_chunk=8)
+              prefill_chunk=8, fused_block=False, prefix_cache=False)
 PROMPTS = [[5, 9, 11, 2, 7], [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9]]
 
 
@@ -100,8 +102,7 @@ def test_chunk_attention_matches_jax(start):
 
 def test_greedy_engine_token_exact_vs_jax_engine_and_generate(models):
     jm, tm = models
-    jeng = JaxEngine(jm, JaxConfig(**ENGINE, fused_block=False,
-                                   prefix_cache=False))
+    jeng = JaxEngine(jm, JaxConfig(**ENGINE))
     teng = _port_engine(tm)
     try:
         for prompt in PROMPTS:
@@ -156,9 +157,8 @@ def test_stream_sampling_and_rejection(models):
 
 def test_unported_options_raise(models):
     _, tm = models
-    for kw in (dict(fused_block=True), dict(prefix_cache=True),
-               dict(spec_k=2), dict(quant="weight_only_int8"),
-               dict(fused_decode_layer=True), dict(prefill_chunk=None)):
+    for kw in (dict(spec_k=2), dict(quant="weight_only_int8"),
+               dict(fused_decode_layer=True), dict(prefill_budget=8)):
         with pytest.raises(NotImplementedError):
             _port_engine(tm, **kw)
 
