@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero:
    (the block epilogue's dropped positions identical), and cold-L2 times
    of the kernel, the plain version and, where one exists, the single
    PyTorch call that computes the same function, beside the least time
-   the card could take (``bound_ms``).
+   the card could take (``bound_ms``). The decode layer is also timed
+   through the port's composite path (``composite_ms``) and broken down
+   by its phases.
 4. serve   — Llama-3-8B at full width and depth, random weights from a
-   seed, served by two ``LLMEngine``s over the same model, 12 greedy
+   seed, served by three ``LLMEngine``s over the same model, 12 greedy
    requests each on 8 slots; every kernel's launch count is set to 0
    just before each engine's run and read just after:
    a. chunked prefill on the per-op path, no prefix cache (four kernels
@@ -25,19 +27,27 @@ Phases, in order; any failure exits non-zero:
       flash kernel, the block epilogues, the prefix cache. Every prompt
       is a shared 512-token system prompt plus a unique suffix, and one
       request repeats another's whole page-aligned prompt (the full-cover
-      cap and copy-on-write). All six kernels must have launched, every
-      request after the first must claim the system prompt's 32 pages,
-      and no page may leak.
+      cap and copy-on-write). All six kernels of that path must have
+      launched, every request after the first must claim the system
+      prompt's 32 pages, and no page may leak;
+   c. ``ServingConfig(fused_decode_layer=True)`` on engine b's traffic:
+      its construction tunes the decode layer's ``block_i`` into a
+      temporary cache file (a second construction must hit the cache),
+      then every decode step must launch the decode-layer kernel once per
+      layer and mmha never, with engine b's prefix-cache claims.
 5. parity  — at full width, through the kernels and through the plain
    versions, logits compared: the first decode step of every request of
-   engine a (after chunked prefill), and of every request of engine b its
-   monolithic-prefill logits and its first fused decode step.
+   engine a (after chunked prefill), of every request of engine b its
+   monolithic-prefill logits and its first fused decode step, and of every
+   request of engine c its first fused-layer decode step.
 6. profile — torch.profiler breakdown of a per-op decode step (batch 8),
-   a 512-token prefill chunk, a fused decode step (batch 8) and a
-   1024-token monolithic prefill: the port's kernels, matrix products,
-   the rest, and the device's idle share.
-7. summary — one JSON line of every kernel's launches (on engine b's
-   run) and times, then the last line ``{"ok": true, "device": {...}}``.
+   a 512-token prefill chunk, a fused decode step (batch 8), a
+   fused-layer decode step (batch 8) and a 1024-token monolithic prefill:
+   the port's kernels, matrix products, the rest, and the device's idle
+   share.
+7. summary — one JSON line of every kernel's launches (the decode layer's
+   on engine c's run, the others' on engine b's) and times, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
 """
@@ -145,11 +155,11 @@ def phase_build():
 
 
 def _record(results, name, shape, err, tol, ms, plain_ms, library_ms,
-            nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
+            nbytes, flops, flops_per_s=F32_FLOPS_PER_S, **extra):
     bms, by = bound(nbytes, flops, flops_per_s)
     row = {"kernel": name, "shape": shape, "max_abs_err": err, "tol": tol,
            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bms, "bound_by": by}
+           "bound_ms": bms, "bound_by": by, **extra}
     emit(row)
     if not err <= tol:
         fail(f"{name} {shape}: max abs error {err} > tolerance {tol}")
@@ -225,17 +235,9 @@ def phase_kernels(torch, dev):
     # mmha: B=8, H=32, Hkv=8, D=128, page 16, ragged positions; row 0 is
     # inactive (pos 0, all-trash table); pages handed out shuffled
     b, h, h_kv, d, ps, max_pages = 8, 32, 8, 128, 16, 2048 // 16
-    pos = dpos.to(torch.int32)
-    need = [0] + [(int(p) + 1 + ps - 1) // ps for p in pos[1:].tolist()]
-    n_pages = 1 + sum(need)
-    perm = (torch.randperm(n_pages - 1, generator=torch.Generator()
-                           .manual_seed(7)) + 1).tolist()
-    tables = torch.zeros(b, max_pages, dtype=torch.int32)
-    nxt = 0
-    for row, k in enumerate(need):
-        tables[row, :k] = torch.tensor(perm[nxt:nxt + k], dtype=torch.int32)
-        nxt += k
-    tables = tables.to(dev)
+    tables, pos, n_pages = _paged(
+        torch, dev, [0] + [int(p) + 1 for p in dpos[1:].tolist()], ps,
+        max_pages, 7)
     k_pool = randn(n_pages, h_kv, ps, d)
     v_pool = randn(n_pages, h_kv, ps, d)
     q = randn(b, 1, h, d)
@@ -263,6 +265,7 @@ def phase_kernels(torch, dev):
             lib, nbytes, 4 * seen * h * d)
     _kernels_flash(torch, dev, randn, timer, results)
     _kernels_epilogue(torch, randn, timer, results)
+    _kernels_decode_layer(torch, dev, randn, timer, results)
     return results
 
 
@@ -375,6 +378,125 @@ def _kernels_epilogue(torch, randn, timer, results):
                 timer(lambda: be.fused_epilogue(*args)),
                 timer(lambda: be.fused_epilogue_plain(*args)), None,
                 2 * (x.numel() + 3 * n + hid * (1 + bias_on)), flops)
+
+
+def _paged(torch, dev, lengths, ps, max_pages, seed):
+    """Page tables that hand out shuffled pages: row r holds lengths[r]
+    positions (0: an inactive row, position 0 and an all-trash table).
+    Returns (tables, pos, n_pages) on the card."""
+    need = [-(-n // ps) for n in lengths]
+    n_pages = 1 + sum(need)
+    perm = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                           .manual_seed(seed)) + 1).tolist()
+    tables = torch.zeros(len(lengths), max_pages, dtype=torch.int32)
+    nxt = 0
+    for row, k in enumerate(need):
+        tables[row, :k] = torch.tensor(perm[nxt:nxt + k], dtype=torch.int32)
+        nxt += k
+    pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+    return tables.to(dev), pos.to(dev), n_pages
+
+
+def decode_layer_tol(torch, args, ref_y, ref_h, eps=1e-5):
+    """(tol_y, tol_h) of the decode layer against its plain version: one
+    bf16 ulp of the largest reference value (2**-7 * max|ref|), plus what
+    the plain version's one extra rounding, of the attention output to
+    bf16, changes on these inputs (the plain version run once more with an
+    f32 query, which keeps its attention output in f32 as the kernel
+    does)."""
+    from paddle_tpu_torch.ops.kernels import decode_layer as dl
+
+    y32, h32 = dl.decode_layer_plain(args[0].float(), *args[1:], eps, eps)
+    return tuple(2.0 ** -7 * ref.float().abs().max().item()
+                 + (ref.float() - r32.float()).abs().max().item()
+                 for ref, r32 in ((ref_y, y32), (ref_h, h32)))
+
+
+def _kernels_decode_layer(torch, dev, randn, timer, results):
+    """The decode layer at Llama-3-8B's width (hidden 4096, I 14336, H 32,
+    D 128, page 16): B 8 over Hkv 8 at positions 0..1500 with an inactive
+    row 0, B 1, a rep-1 case (Hkv 32), and every legal block_i at the
+    first shape. Times: the kernel, the plain version and the port's
+    composite path for the same layer (mmha, o_proj, the block epilogue,
+    gate/up, the SwiGLU kernel, down, the block epilogue), which nothing
+    on the serving path calls; and the kernel's phases from its device
+    clock stamps. Bound: bytes, the weights once plus the visible keys and
+    values; operations counted in f32 on the CUDA cores. No single
+    PyTorch call computes this function."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import autotune
+    from paddle_tpu_torch.ops.kernels import block_epilogue as be
+    from paddle_tpu_torch.ops.kernels import decode_layer as dl
+    from paddle_tpu_torch.ops.kernels import mmha, swiglu
+
+    hd, inter, d, ps, eps = 4096, 14336, 128, 16, 1e-5
+    wo = randn(hd, 32 * d, scale=0.02)
+    wg, wu = randn(inter, hd, scale=0.02), randn(inter, hd, scale=0.02)
+    wd = randn(hd, inter, scale=0.02)
+    w_post = (1.0 + randn(hd).float() * 0.1).to(torch.bfloat16)
+    w_next = (1.0 + randn(hd).float() * 0.1).to(torch.bfloat16)
+    full = [0, 18, 256, 257, 701, 1024, 1201, 1501]
+    cases = [(full, 8, "B 8"), ([901], 8, "B 1"),
+             ([0] + [100 + 190 * r for r in range(1, 8)], 32, "rep 1")]
+    for lengths, h_kv, label in cases:
+        b = len(lengths)
+        tables, pos, n_pages = _paged(torch, dev, lengths, ps, 2048 // ps, 7)
+        args = (randn(b, 32, d), randn(n_pages, h_kv, ps, d),
+                randn(n_pages, h_kv, ps, d), tables, pos, randn(b, hd), wo,
+                w_post, wg, wu, wd, w_next)
+        got = dl.decode_layer(*args, eps, eps)
+        ref = dl.decode_layer_plain(*args, eps, eps)
+        tol_y, tol_h = decode_layer_tol(torch, args, *ref, eps=eps)
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()):
+            fail(f"decode_layer {label}: non-finite output")
+        err_h, _ = compare(torch, got[1], ref[1])
+        if not err_h <= tol_h:
+            fail(f"decode_layer {label} residual: {err_h} > {tol_h}")
+        err, _ = compare(torch, got[0], ref[0])
+        again = dl.decode_layer(*args, eps, eps)
+        if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+            fail(f"decode_layer {label}: two calls on the same inputs differ")
+        if label == "B 8":
+            for block_i in autotune._block_i_candidates(inter):
+                yb, hb = dl.decode_layer(*args, eps, eps, block_i=block_i)
+                e_y, _ = compare(torch, yb, ref[0])
+                e_h, _ = compare(torch, hb, ref[1])
+                emit({"kernel": "decode_layer", "block_i": block_i,
+                      "max_abs_err": e_y, "tol": tol_y,
+                      "max_abs_err_h": e_h, "tol_h": tol_h})
+                if not (e_y <= tol_y and e_h <= tol_h):
+                    fail(f"decode_layer block_i={block_i}: errors {e_y} / "
+                         f"{e_h} > {tol_y} / {tol_h}")
+
+        q, kl, vl = args[:3]
+        hres = args[5]
+
+        def composite():
+            o = mmha.mmha_decode(q[:, None], kl, vl, tables, pos)
+            y1, h1 = be.decode_epilogue(TF.linear(o.reshape(b, -1), wo), hres,
+                                        w_post, eps)
+            z = swiglu.swiglu(TF.linear(y1, wg), TF.linear(y1, wu))
+            return be.decode_epilogue(TF.linear(z, wd), h1, w_next, eps)
+
+        stamps = torch.zeros(6, dtype=torch.int64, device=dev)
+        timer.flush.zero_()
+        dl.decode_layer(*args, eps, eps, stamps=stamps)
+        torch.cuda.synchronize()
+        phases = {n: (stamps[i + 1] - stamps[i]).item() / 1e6
+                  for i, n in enumerate(dl.PHASES)}
+        seen = int((pos + 1).sum())
+        nbytes = 2 * (hd * 32 * d + 3 * hd * inter + 2 * hd
+                      + 2 * seen * h_kv * d + b * 32 * d + 3 * b * hd)
+        flops = 4 * seen * 32 * d + 2 * b * (32 * d * hd + 3 * hd * inter)
+        _record(results, "decode_layer",
+                [b, 32, d, "Hkv", h_kv, "ps", ps, "hidden", hd, "I", inter,
+                 "pos", pos.tolist(), label, "block_i",
+                 dl._pick_block_i(inter)], err, tol_y,
+                timer(lambda: dl.decode_layer(*args, eps, eps)),
+                timer(lambda: dl.decode_layer_plain(*args, eps, eps)), None,
+                nbytes, flops, composite_ms=timer(composite),
+                max_abs_err_h=err_h, tol_h=tol_h, phase_ms=phases)
 
 
 _CHUNKED_PATH = ("mmha", "rms_norm", "rope", "swiglu")
@@ -492,9 +614,24 @@ def phase_serve_default(torch, np, model):
         fail(f"ServingConfig() is not the default path: {cfg}")
     prompts = default_prompts(np, model.cfg.vocab_size)
     reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
-    idle = [n for n, c in launches.items() if c == 0]
+    idle = [n for n, c in launches.items() if c == 0 and n != "decode_layer"]
     if idle:
         fail(f"kernels never launched on the default serving path: {idle}")
+    pages, px = _check_prefix_claims(engine, reqs, stats)
+    emit({"phase": "serve", "engine": "default", "model": "llama3_8b",
+          "config": {"prefill_chunk": cfg.prefill_chunk,
+                     "fused_block": cfg.fused_block,
+                     "prefix_cache": cfg.prefix_cache},
+          "claimed_pages": pages, "prefix_cache": px,
+          "prefix_cache_entries": engine.prefix_cache.stats(),
+          **_serve_row(torch, np, engine, reqs, wall, launches, stats)})
+    return engine, prompts, outs, launches
+
+
+def _check_prefix_claims(engine, reqs, stats):
+    """Every request after the first claims the system prompt's pages and
+    the repeated prompt copies a shared page. Returns (claimed pages per
+    request, prefix-cache stats)."""
     pages = [r._cached_tokens // engine.pool.page_size for r in reqs]
     short = [i for i, n in enumerate(pages[1:], 1)
              if n < SYSTEM_PROMPT // engine.pool.page_size]
@@ -504,14 +641,72 @@ def phase_serve_default(torch, np, model):
     px = stats["prefix_cache"]
     if px["cow_copies"] < 1:
         fail(f"the repeated prompt did not copy a shared page: {px}")
-    emit({"phase": "serve", "engine": "default", "model": "llama3_8b",
-          "config": {"prefill_chunk": cfg.prefill_chunk,
-                     "fused_block": cfg.fused_block,
-                     "prefix_cache": cfg.prefix_cache},
+    return pages, px
+
+
+def _fused_layer_config(ServingConfig):
+    return ServingConfig(max_batch=8, page_size=16, max_seq_len=2048,
+                         num_pages=1025, dtype="bfloat16",
+                         fused_decode_layer=True)
+
+
+def phase_tune(torch, model):
+    """Engine c's construction tunes the decode layer's block_i at its
+    decode shape into a temporary cache file; a second construction must
+    load it with no trial. Returns the second engine."""
+    import tempfile
+
+    from paddle_tpu_torch.ops.kernels import autotune
+    from paddle_tpu_torch.serving import LLMEngine, ServingConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["PADDLE_TPU_TUNE_CACHE"] = os.path.join(tmp, "tuning.json")
+    os.environ.pop("PADDLE_TPU_TUNE", None)
+    cache = autotune.default_cache()
+    t0 = time.perf_counter()
+    first = LLMEngine(model, _fused_layer_config(ServingConfig))
+    tune_s = time.perf_counter() - t0
+    first.shutdown()
+    entry = first.tuning
+    if entry is None or cache.misses != 1 or cache.hits != 0:
+        fail(f"engine c's construction did not measure block_i: {entry}, "
+             f"{cache.stats()}")
+    measured = cache.measure_seconds
+    t0 = time.perf_counter()
+    engine = LLMEngine(model, _fused_layer_config(ServingConfig))
+    again_s = time.perf_counter() - t0
+    if cache.hits != 1 or cache.misses != 1 or \
+            cache.measure_seconds != measured or engine.tuning != entry:
+        fail(f"engine c's second construction measured again: "
+             f"{cache.stats()}")
+    emit({"phase": "tune", "kernel": entry["kernel"],
+          "block_i": entry["block_i"], "ms": entry["ms"],
+          "timings_ms": entry["timings_ms"], "shapes": entry["shapes"],
+          "construct_s": tune_s, "construct_again_s": again_s,
+          "cache": cache.stats()})
+    for name in os.listdir(tmp):
+        os.unlink(os.path.join(tmp, name))
+    os.rmdir(tmp)
+    return engine
+
+
+def phase_serve_fused_layer(torch, np, model, engine, prompts):
+    """Engine c: ``fused_decode_layer=True`` over engine b's traffic."""
+    reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
+    steps = len(engine.step_ms)
+    layers = model.cfg.num_layers
+    if launches["decode_layer"] != layers * steps or steps == 0:
+        fail(f"decode_layer launched {launches['decode_layer']} times in "
+             f"{steps} decode steps, want {layers} per step")
+    if launches["mmha"]:
+        fail(f"mmha launched {launches['mmha']} times: a decode step "
+             f"bypassed the decode layer")
+    pages, px = _check_prefix_claims(engine, reqs, stats)
+    emit({"phase": "serve", "engine": "fused_decode_layer",
+          "model": "llama3_8b", "block_i": engine.tuning["block_i"],
           "claimed_pages": pages, "prefix_cache": px,
-          "prefix_cache_entries": engine.prefix_cache.stats(),
           **_serve_row(torch, np, engine, reqs, wall, launches, stats)})
-    return engine, prompts, outs, launches
+    return outs, launches
 
 
 def _first_decode_logits(torch, sm, engine, prompt):
@@ -639,9 +834,42 @@ def phase_parity_default(torch, model, engine, prompts, served):
     _check_parity("first fused decode step", decode_rows)
 
 
+def phase_parity_fused_layer(torch, model, engine, prompts, served):
+    """Engine c: for every request, its first fused-layer decode step,
+    kernel path vs plain versions, after a monolithic prefill through the
+    kernels into fresh pages."""
+    from paddle_tpu_torch.serving import ServingModel
+
+    sm = ServingModel(model, fused_decode_layer=True).bind_pool(engine.pool)
+    pool, dev = engine.pool, engine.device
+    rows = []
+    for i, prompt in enumerate(prompts):
+        n = len(prompt)
+        pages = pool.alloc(pool.pages_for(n + 1))
+        try:
+            row = torch.zeros(engine.scheduler.max_pages, dtype=torch.int32)
+            row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+            row = row.to(dev)
+            toks = torch.tensor([prompt], device=dev)
+            first = int(sm.prefill_forward(toks, n, row)[0].float().argmax())
+            args = (torch.tensor([first], device=dev),
+                    torch.tensor([n], dtype=torch.int32, device=dev),
+                    row[None])
+            lk = sm.decode_forward(*args)[0].float()
+            lp = sm.decode_forward(*args, plain=True)[0].float()
+            torch.cuda.synchronize()
+        finally:
+            pool.free(pages)
+        r = _parity_row(torch, i, n, lk, lp)
+        r["first_token_is_served"] = first == served[i][0]
+        r["kernel_argmax_is_served"] = int(lk.argmax()) == served[i][1]
+        rows.append(r)
+    _check_parity("first fused-layer decode step", rows)
+
+
 _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "swiglu_kernel", "flash_attention_kernel",
-                "block_epilogue_kernel")
+                "block_epilogue_kernel", "decode_layer_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -705,13 +933,14 @@ def phase_profile(torch, model, engine, prompts):
     """Where a decode step (8 rows at the served prompts' lengths) and a
     512-token prefill chunk (at position 1024) spend their device time, on
     the per-op path and engine a's pool; then a fused decode step and a
-    1024-token monolithic prefill."""
+    fused-layer decode step and a 1024-token monolithic prefill."""
     from paddle_tpu_torch.serving import ServingModel
 
     pool = engine.pool
     dev = engine.device
     sm = ServingModel(model, fused_block=False).bind_pool(pool)
     fused = ServingModel(model).bind_pool(pool)
+    layer = ServingModel(model, fused_decode_layer=True).bind_pool(pool)
     b = engine.config.max_batch
     lens = [len(p) + 32 for p in prompts[:b]]
     tables = torch.zeros(b, engine.scheduler.max_pages, dtype=torch.int32)
@@ -731,6 +960,8 @@ def phase_profile(torch, model, engine, prompts):
             chunk_toks, 1024, 512, tables[0]), reps=2)
         fused_decode = _profile(
             torch, lambda: fused.decode_forward(toks, pos, tables), reps=10)
+        layer_decode = _profile(
+            torch, lambda: layer.decode_forward(toks, pos, tables), reps=10)
         mono_toks = torch.arange(1024, device=dev)[None] + 7
         mono = _profile(torch, lambda: fused.prefill_forward(
             mono_toks, 1024, tables[0]), reps=2)
@@ -739,6 +970,7 @@ def phase_profile(torch, model, engine, prompts):
     emit({"phase": "profile", "decode_step_batch": b, "decode_step": decode,
           "prefill_chunk_512_at_1024": chunk,
           "fused_decode_step": fused_decode,
+          "fused_layer_decode_step": layer_decode,
           "monolithic_prefill_1024": mono})
 
 
@@ -755,6 +987,8 @@ _SOURCES = {
                         "paddle_tpu/ops/kernels/flash_attention_pallas.py:124"),
     "block_epilogue": ("paddle_tpu_torch/csrc/block_epilogue.cu",
                        "paddle_tpu/ops/kernels/block_fused_pallas.py:212"),
+    "decode_layer": ("paddle_tpu_torch/csrc/decode_layer.cu",
+                     "paddle_tpu/ops/kernels/decode_layer_pallas.py:201"),
 }
 
 
@@ -768,6 +1002,8 @@ def main() -> int:
     except ImportError as e:
         fail(f"paddle_tpu_torch not importable from {os.getcwd()}: {e}")
 
+    if os.environ.get("PADDLE_TPU_FUSED_DECODE", "1") == "0":
+        fail("PADDLE_TPU_FUSED_DECODE=0 turns the decode-layer kernel off")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -777,8 +1013,13 @@ def main() -> int:
     model, engine, prompts, served = phase_serve_chunked(torch, np, dev)
     d_engine, d_prompts, d_served, launches = phase_serve_default(
         torch, np, model)
+    c_engine = phase_tune(torch, model)
+    c_served, c_launches = phase_serve_fused_layer(torch, np, model, c_engine,
+                                                   d_prompts)
+    launches["decode_layer"] = c_launches["decode_layer"]
     phase_parity(torch, model, engine, prompts, served)
     phase_parity_default(torch, model, d_engine, d_prompts, d_served)
+    phase_parity_fused_layer(torch, model, c_engine, d_prompts, c_served)
     phase_profile(torch, model, engine, prompts)
 
     summary = []
@@ -791,7 +1032,9 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            "shape": row["shape"],
+            **({"composite_ms": row["composite_ms"]}
+               if "composite_ms" in row else {})})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -46,9 +46,9 @@ class ServingConfig:
     """Static knobs of the serving runtime. The defaults are the JAX
     engine's (``paddle_tpu/serving/engine.py:62-107``) for every ported
     option: monolithic prefill, the fused block epilogues and the prefix
-    cache. The options not ported yet (``quant``, ``fused_decode_layer``,
-    ``spec_k``, ``prefill_budget``) keep their names and raise
-    ``NotImplementedError`` when set."""
+    cache. The options not ported yet (``quant``, ``spec_k``,
+    ``prefill_budget``) keep their names and raise ``NotImplementedError``
+    when set."""
     page_size: int = 16          # token positions per KV page
     num_pages: int = 64          # pool pages incl. the reserved trash page
     max_batch: int = 8           # decode slots (the continuous batch)
@@ -60,7 +60,9 @@ class ServingConfig:
     quant: str | None = None
     fused_block: bool = True     # block-epilogue kernels at every residual
     #                              junction
-    fused_decode_layer: bool = False
+    fused_decode_layer: bool = False   # one decode-layer kernel launch
+    #                              per layer and decode step (block_i tuned
+    #                              at construction)
     prefix_cache: bool = True    # copy-on-write KV page sharing across
     #                              requests with a common prompt prefix
     prefill_chunk: int | None = None   # tokens per prefill chunk (None =
@@ -74,8 +76,8 @@ class ServingConfig:
 
 def _unsupported(cfg: ServingConfig) -> list[str]:
     return [f"{name}={getattr(cfg, name)!r}"
-            for name, off in (("quant", None), ("fused_decode_layer", False),
-                              ("spec_k", 0), ("prefill_budget", None))
+            for name, off in (("quant", None), ("spec_k", 0),
+                              ("prefill_budget", None))
             if getattr(cfg, name) != off]
 
 
@@ -111,7 +113,8 @@ class LLMEngine:
             raise ValueError(f"model lives on {self.device}, engine asked "
                              f"for {want}")
         self.config = cfg
-        self._sm = ServingModel(model, fused_block=cfg.fused_block)
+        self._sm = ServingModel(model, fused_block=cfg.fused_block,
+                                fused_decode_layer=cfg.fused_decode_layer)
         max_seq = cfg.max_seq_len or self._sm.max_pos
         if max_seq > self._sm.max_pos:
             raise ValueError(
@@ -138,6 +141,9 @@ class LLMEngine:
         # runs each prompt at its own length and keeps the buckets only to
         # validate a prompt's length the same way
         self.buckets = _auto_buckets(self.max_seq_len)
+        self.tuning = None     # the block_i tuning entry (or None)
+        if cfg.fused_decode_layer:
+            self._setup_fused_layer()
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         # host-clock milliseconds of each monolithic prefill (a prefix hit
         # runs its suffix as one chunk and counts here), each chunk of
@@ -150,6 +156,25 @@ class LLMEngine:
         self._thread: threading.Thread | None = None
         self._stop_mode: str | None = None
         self._drain_deadline = 0.0
+
+    def _setup_fused_layer(self):
+        """On the card, refuse a model or batch the decode-layer kernel does
+        not take (never run the composite in its place); then tune block_i
+        before the first decode step, as the JAX engine does
+        (``paddle_tpu/serving/engine.py:185-192``)."""
+        sm, cfg = self._sm, self.config
+        if self.device.type == "cuda":
+            why = "fused_block=False or biased o/gate/up/down projections" \
+                if not sm.fused_decode_layer else sm.decode_layer_refusal(
+                    cfg.max_batch, self.scheduler.max_pages)
+            if why:
+                raise ValueError(f"fused_decode_layer=True: the decode-layer "
+                                 f"kernel does not take {why}")
+        if sm._fused_layer_active():
+            from ..ops.kernels import autotune
+            self.tuning = autotune.tune_for_serving(
+                sm, cfg.page_size, cfg.num_pages, self.scheduler.max_pages,
+                cfg.max_batch)
 
     # -- device side the scheduler drives --------------------------------------
 

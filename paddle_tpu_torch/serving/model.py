@@ -22,16 +22,25 @@ monolithic prefill, attention (flash) are the port's kernels; the
 projections, the embedding lookup and the chunk attention are plain
 PyTorch, as the JAX package leaves them to XLA. ``plain=True`` runs every
 kernel's plain PyTorch version instead (a check on the card holds the two
-paths against each other on the same inputs). The speculative verify,
-quantized linears and the fused decode layer are not ported yet.
+paths against each other on the same inputs).
+
+``fused_decode_layer=True`` (with ``fused_block`` and bias-free o/gate/up/
+down projections, the JAX gate at ``paddle_tpu/serving/model.py:95-107``)
+sends each decode step through the decode-layer kernel: per layer, QKV,
+RoPE and the KV writes as before, then one ``decode_layer`` launch from the
+attention to the next layer's normed input. Prefill, chunks and every
+other path are unchanged. The speculative verify and quantized linears are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..nn import functional as F
-from ..ops.kernels import block_epilogue
+from ..ops.kernels import block_epilogue, decode_layer
 from . import kv_cache
 
 __all__ = ["ServingModel"]
@@ -41,7 +50,8 @@ class ServingModel:
     """Prefill, prefill-chunk and decode forwards of a port :class:`Llama`
     over a bound :class:`~.kv_cache.PagePool`."""
 
-    def __init__(self, model, fused_block: bool = True):
+    def __init__(self, model, fused_block: bool = True,
+                 fused_decode_layer: bool = False):
         missing = [n for n in ("embed_tokens", "layers", "norm", "cfg")
                    if getattr(model, n, None) is None]
         if missing:
@@ -55,6 +65,14 @@ class ServingModel:
         self.head_dim = cfg.head_dim
         self.max_pos = cfg.max_position_embeddings
         self.fused_block = bool(fused_block)
+        # the decode-layer kernel folds o/gate/up/down whole: it needs the
+        # fused dataflow and bias-free projections
+        self.fused_decode_layer = bool(fused_decode_layer) and \
+            self.fused_block and all(
+                getattr(mod, "bias", None) is None
+                for layer in model.layers
+                for mod in (layer.self_attn.o_proj, layer.mlp.gate_proj,
+                            layer.mlp.up_proj, layer.mlp.down_proj))
         self.pool: kv_cache.PagePool | None = None
 
     def bind_pool(self, pool: kv_cache.PagePool) -> "ServingModel":
@@ -123,6 +141,25 @@ class ServingModel:
 
     # -- decode --------------------------------------------------------------
 
+    def _fused_layer_active(self) -> bool:
+        """Decode through the decode-layer kernel: asked for, taken by the
+        model, and the user's switch ``PADDLE_TPU_FUSED_DECODE=0`` (the JAX
+        engine's, ``paddle_tpu/serving/model.py:233-246``) not pulled."""
+        return self.fused_decode_layer and \
+            os.environ.get("PADDLE_TPU_FUSED_DECODE", "1") != "0"
+
+    def decode_layer_refusal(self, batch: int, max_pages: int):
+        """Why the decode-layer kernel would not take this model's decode
+        step at ``batch`` rows and ``max_pages`` table entries, or None."""
+        pool, m = self.pool, self.model
+        dtypes = {p.dtype for p in m.parameters()} | {pool.k.dtype}
+        if len(dtypes) != 1:
+            return f"mixed dtypes {sorted(map(str, dtypes))}"
+        return decode_layer.unsupported_reason(
+            (batch, self.n_head, self.head_dim), tuple(pool.k.shape[1:]),
+            max_pages, m.cfg.hidden_size, m.cfg.intermediate_size,
+            pool.k.dtype)
+
     @torch.inference_mode()
     def decode_forward(self, tokens, positions, tables, plain=False):
         """One continuous-batch decode token per row.
@@ -138,8 +175,10 @@ class ServingModel:
         pos = positions.to(torch.int32)
         tab = tables.to(torch.int32)
         b = tokens.shape[0]
-        page_ids = tab.gather(1, (pos // ps).long()[:, None])[:, 0]
-        slots = pos % ps
+        # int64 once per step: the per-layer KV writes index with them as
+        # they are, launching no conversion of their own
+        page_ids = tab.gather(1, (pos // ps).long()[:, None])[:, 0].long()
+        slots = (pos % ps).long()
         cos_t, sin_t = self.model.rope(self.max_pos)
         cos, sin = cos_t[pos.long()], sin_t[pos.long()]     # [B, D] per token
 
@@ -150,9 +189,46 @@ class ServingModel:
         def attend(i, q, k, v):
             return kv_cache.paged_attention(q, pool, i, tab, pos, plain=plain)
 
+        if self._fused_layer_active():
+            return self._decode_forward_fused_layer(tokens, pos, tab, cos,
+                                                    sin, write_kv, plain)
         x = self.model.embed_tokens(tokens.reshape(b, 1).long())
         h = self._layers(x, cos, sin, write_kv, attend, plain)
         return self._logits(h, plain)[:, 0]
+
+    def _decode_forward_fused_layer(self, tokens, pos, tab, cos, sin,
+                                    write_kv, plain):
+        """A decode step through the decode-layer kernel
+        (``paddle_tpu/serving/model.py:357-398``): per layer, QKV, RoPE and
+        the two KV writes (a scatter into the pool cannot ride a kernel that
+        reads through the page table), then one ``decode_layer`` call from
+        the attention to the next layer's normed input and the residual
+        stream. Layer 0's input norm is an RMSNorm, the final norm folds
+        into the last layer's second junction, and the lm head reads the
+        normed state: the fused epilogue path's dataflow."""
+        pool = self.pool
+        layers = list(self.model.layers)
+        b = tokens.shape[0]
+        fn = decode_layer.decode_layer_plain if plain else \
+            decode_layer.decode_layer
+        x = self.model.embed_tokens(tokens.reshape(b, 1).long())
+        hres = x[:, 0]
+        y = layers[0].input_layernorm(x, plain)
+        for i, layer in enumerate(layers):
+            attn = layer.self_attn
+            q, k, v = attn.qkv(y)
+            q, k = F.rope(q, k, sin, cos, plain=plain)
+            write_kv(i, k, v)
+            post = layer.post_attention_layernorm
+            nxt = layers[i + 1].input_layernorm if i + 1 < len(layers) \
+                else self.model.norm
+            mlp = layer.mlp
+            y, hres = fn(q[:, 0], pool.k[i], pool.v[i], tab, pos, hres,
+                         attn.o_proj.weight, post.weight, mlp.gate_proj.weight,
+                         mlp.up_proj.weight, mlp.down_proj.weight, nxt.weight,
+                         eps_post=post.eps, eps_next=nxt.eps)
+            y = y[:, None]
+        return self._head_normed(y)[:, 0]
 
     # -- monolithic prefill --------------------------------------------------
 

@@ -10,14 +10,18 @@ arithmetic and round once to bf16, in another order. The flash kernel
 carries the probabilities into ``P V`` with 16 significant bits (a
 two-term bf16 split), far inside that tolerance; its log-sum-exp is f32
 and is held to 1e-4. The block epilogue's dropout mask is held exactly.
+The decode layer's plain version rounds the attention output to bf16 once
+more than the kernel, which keeps it in f32: its tolerance adds what that
+rounding changes on the same inputs.
 """
 
 import pytest
 import torch
 
 from paddle_tpu_torch.models import llama_tiny
-from paddle_tpu_torch.ops.kernels import WRAPPERS, block_epilogue, \
-    flash_attention, mmha, rms_norm, rope, swiglu
+from paddle_tpu_torch.ops.kernels import WRAPPERS, autotune, \
+    block_epilogue, decode_layer, flash_attention, mmha, rms_norm, rope, \
+    swiglu
 from paddle_tpu_torch.serving import LLMEngine, ServingConfig
 
 pytestmark = pytest.mark.cuda
@@ -74,21 +78,28 @@ def test_rope_kernel(dev, shape, per_token):
            rope.rope_plain(x, ang.cos(), ang.sin()))
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
-def test_mmha_kernel(dev, d, rep):
-    lengths, h_kv, ps, max_pages = [1, 40, 0, 333, 16], 2, 16, 24
+def _tables(dev, lengths, ps, max_pages, seed=0):
+    """Page tables handing out shuffled pages: row r holds lengths[r]
+    positions (0: an inactive row, all trash). Returns (tables, pos,
+    n_pages)."""
     need = [-(-n // ps) for n in lengths]
     n_pages = 1 + sum(need)
-    perm = (torch.randperm(n_pages - 1) + 1).tolist()
+    g = torch.Generator().manual_seed(seed)
+    perm = (torch.randperm(n_pages - 1, generator=g) + 1).tolist()
     tables = torch.zeros(len(lengths), max_pages, dtype=torch.int32)
     nxt = 0
     for r, k in enumerate(need):
         tables[r, :k] = torch.tensor(perm[nxt:nxt + k], dtype=torch.int32)
         nxt += k
-    tables = tables.to(dev)
-    pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32,
-                       device=dev)
+    pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+    return tables.to(dev), pos.to(dev), n_pages
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_mmha_kernel(dev, d, rep):
+    lengths, h_kv, ps = [1, 40, 0, 333, 16], 2, 16
+    tables, pos, n_pages = _tables(dev, lengths, ps, 24)
     kp = _randn(dev, n_pages, h_kv, ps, d, seed=7)
     vp = _randn(dev, n_pages, h_kv, ps, d, seed=8)
     q = _randn(dev, len(lengths), 1, h_kv * rep, d, seed=9)
@@ -201,4 +212,119 @@ def test_engine_runs_every_kernel(dev):
         summary = eng.shutdown()
     assert all(len(o) == 8 for o in outs)
     assert summary["pages_leaked"] == 0
-    assert all(w.launches > 0 for w in WRAPPERS.values())
+    assert all(w.launches > 0 for n, w in WRAPPERS.items()
+               if n != "decode_layer")
+    assert WRAPPERS["decode_layer"].launches == 0   # not on the default path
+
+
+def _layer(dev, b, rep, d, h_kv=2, hd=256, inter=512, ps=16, seed=20):
+    lengths = [0] + [1 + (97 * r) % 300 for r in range(1, b)] if b > 1 \
+        else [77]
+    tables, pos, n_pages = _tables(dev, lengths, ps, 24, seed)
+    h = h_kv * rep
+    norm = (1 + 0.1 * _randn(dev, hd, seed=seed + 1).float()).to(torch.bfloat16)
+    w = lambda *s, k: (_randn(dev, *s, seed=seed + k).float() * 0.05).to(  # noqa: E731
+        torch.bfloat16)
+    return (_randn(dev, b, h, d, seed=seed + 2),
+            _randn(dev, n_pages, h_kv, ps, d, seed=seed + 3),
+            _randn(dev, n_pages, h_kv, ps, d, seed=seed + 4), tables, pos,
+            _randn(dev, b, hd, seed=seed + 5), w(hd, h * d, k=6), norm,
+            w(inter, hd, k=7), w(inter, hd, k=8), w(hd, inter, k=9), norm)
+
+
+def _layer_tol(args, ref_y, ref_h):
+    """(tol_y, tol_h): one bf16 ulp of the largest reference value plus
+    what the plain version's extra bf16 rounding of the attention output
+    changes (the plain version with an f32 query keeps it in f32)."""
+    y32, h32 = decode_layer.decode_layer_plain(args[0].float(), *args[1:],
+                                               1e-5, 1e-5)
+    return tuple(2.0 ** -7 * ref.float().abs().max().item()
+                 + (ref.float() - r32.float()).abs().max().item()
+                 for ref, r32 in ((ref_y, y32), (ref_h, h32)))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("b", [1, 5, 16])
+def test_decode_layer_kernel(dev, d, rep, b):
+    """Against the plain version at every legal block_i; two calls give the
+    same bits; the inactive row (position 0, all-trash table) is finite."""
+    args = _layer(dev, b, rep, d)
+    ref_y, ref_h = decode_layer.decode_layer_plain(*args, 1e-5, 1e-5)
+    tol_y, tol_h = _layer_tol(args, ref_y, ref_h)
+    for block_i in autotune._block_i_candidates(512):
+        y, h = decode_layer.decode_layer(*args, 1e-5, 1e-5, block_i=block_i)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all() and torch.isfinite(h).all()
+        assert (y.float() - ref_y.float()).abs().max().item() <= tol_y
+        assert (h.float() - ref_h.float()).abs().max().item() <= tol_h
+        y2, h2 = decode_layer.decode_layer(*args, 1e-5, 1e-5, block_i=block_i)
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_decode_layer_rejects_what_it_does_not_take(dev):
+    args = _layer(dev, 2, 2, 64)
+    with pytest.raises(ValueError):                       # f32 activations
+        decode_layer.decode_layer(*[a.float() if a.is_floating_point() else a
+                                    for a in args])
+    with pytest.raises(ValueError):                       # block_i 12
+        decode_layer.decode_layer(*args, block_i=12)
+    with pytest.raises(ValueError):                       # block_i 24 ∤ 512
+        decode_layer.decode_layer(*args, block_i=24)
+    with pytest.raises(ValueError):                       # batch 17
+        big = _layer(dev, 17, 2, 64)
+        decode_layer.decode_layer(*big)
+    with pytest.raises(ValueError):                       # D = 32
+        a = list(_layer(dev, 2, 2, 64, hd=128))
+        a[0] = _randn(dev, 2, 4, 32)
+        a[1] = a[2] = _randn(dev, a[1].shape[0], 2, 16, 32)
+        decode_layer.decode_layer(*a)
+    with pytest.raises(ValueError):                       # not contiguous
+        a = list(args)
+        a[5] = torch.cat([a[5], a[5]], 1)[:, ::2]
+        decode_layer.decode_layer(*a)
+
+
+def test_fused_layer_engine_runs_only_the_decode_layer(dev, monkeypatch,
+                                                       tmp_path):
+    """``fused_decode_layer=True``: the construction tunes block_i (a
+    second construction hits the cache), every decode step launches the
+    decode layer once per layer and mmha never."""
+    monkeypatch.setenv("PADDLE_TPU_TUNE_CACHE", str(tmp_path / "tc.json"))
+    model = llama_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                       num_heads=4, num_kv_heads=2, intermediate_size=512)
+    cfg = ServingConfig(fused_decode_layer=True, page_size=16, num_pages=33,
+                        max_batch=2, max_new_tokens=8, dtype="bfloat16")
+    eng = LLMEngine(model, cfg)
+    assert eng.tuning is not None and eng.tuning["block_i"] in (
+        512, 256, 128, 64, 32, 16, 8)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    try:
+        reqs = [eng.submit(list(range(1 + i, 60 + i))) for i in range(3)]
+        outs = [r.result(timeout=300) for r in reqs]
+        steps = eng.stats()["decode_steps"]
+    finally:
+        summary = eng.shutdown()
+    assert all(len(o) == 8 for o in outs)
+    assert summary["pages_leaked"] == 0
+    assert WRAPPERS["decode_layer"].launches == 2 * steps > 0
+    assert WRAPPERS["mmha"].launches == 0
+    cache = autotune.default_cache()
+    hits = cache.hits
+    eng2 = LLMEngine(model, cfg)
+    eng2.shutdown()
+    assert cache.hits == hits + 1 and eng2.tuning == eng.tuning
+
+
+def test_fused_layer_engine_refuses_what_the_kernel_does_not_take(dev):
+    model = llama_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                       num_heads=4, num_kv_heads=2, intermediate_size=512)
+    with pytest.raises(ValueError):                       # batch 17
+        LLMEngine(model, ServingConfig(fused_decode_layer=True, max_batch=17,
+                                       dtype="bfloat16"))
+    with pytest.raises(ValueError):                       # f32 pool
+        LLMEngine(model, ServingConfig(fused_decode_layer=True))
+    with pytest.raises(ValueError):                       # per-op path
+        LLMEngine(model, ServingConfig(fused_decode_layer=True,
+                                       fused_block=False, dtype="bfloat16"))

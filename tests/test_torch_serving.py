@@ -158,7 +158,7 @@ def test_stream_sampling_and_rejection(models):
 def test_unported_options_raise(models):
     _, tm = models
     for kw in (dict(spec_k=2), dict(quant="weight_only_int8"),
-               dict(fused_decode_layer=True), dict(prefill_budget=8)):
+               dict(prefill_budget=8)):
         with pytest.raises(NotImplementedError):
             _port_engine(tm, **kw)
 
