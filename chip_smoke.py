@@ -16,11 +16,16 @@ Phases, in order; any failure exits non-zero:
    PyTorch call that computes the same function, beside the least time
    the card could take (``bound_ms``). The decode layer is also timed
    through the port's composite path (``composite_ms``) and broken down
-   by its phases.
+   by its phases. The weight-only int8 / grouped int8 / int4 kernels run
+   at decode and prefill shapes of Llama-3-8B's projections (yardstick:
+   cuBLAS bf16 ``torch.matmul`` on the dequantized weight), and A8W8 must
+   be bit-identical to its plain version on a construction where
+   ``x / s`` is exact (yardstick: ``torch._int_mm``, the int8
+   contraction alone).
 4. serve   — Llama-3-8B at full width and depth, random weights from a
-   seed, served by three ``LLMEngine``s over the same model, 12 greedy
-   requests each on 8 slots; every kernel's launch count is set to 0
-   just before each engine's run and read just after:
+   seed, served by six ``LLMEngine``s over the same model, 12 greedy
+   requests each on 8 slots (engine f: 4); every kernel's launch count is
+   set to 0 just before each engine's run and read just after:
    a. chunked prefill on the per-op path, no prefix cache (four kernels
       must have launched);
    b. the default ``ServingConfig()``: monolithic prefill through the
@@ -34,20 +39,36 @@ Phases, in order; any failure exits non-zero:
       its construction tunes the decode layer's ``block_i`` into a
       temporary cache file (a second construction must hit the cache),
       then every decode step must launch the decode-layer kernel once per
-      layer and mmha never, with engine b's prefix-cache claims.
+      layer and mmha never, with engine b's prefix-cache claims;
+   d. ``ServingConfig(quant="weight_only_int8")`` on engine b's traffic:
+      every monolithic prefill and decode step launches the int8 kernel
+      once per projection (7 x 32), with engine b's prefix-cache claims;
+   e. the same with ``quant="weight_only_int4"`` and the int4 kernel;
+   f. ``quant="weight_only_int8", quant_group_size=128,
+      fused_decode_layer=True``, the first 4 requests of engine b's
+      traffic, 16 tokens each: the grouped kernel in prefill and on q/k/v
+      in decode, 32 decode-layer launches a step on the dequantized
+      weights, no mmha.
+   Each quantized engine's copies are freed before the next is built.
 5. parity  — at full width, through the kernels and through the plain
    versions, logits compared: the first decode step of every request of
    engine a (after chunked prefill), of every request of engine b its
    monolithic-prefill logits and its first fused decode step, and of every
-   request of engine c its first fused-layer decode step.
+   request of engine c its first fused-layer decode step; the same for
+   engines d, e and f.
 6. profile — torch.profiler breakdown of a per-op decode step (batch 8),
    a 512-token prefill chunk, a fused decode step (batch 8), a
    fused-layer decode step (batch 8) and a 1024-token monolithic prefill:
    the port's kernels, matrix products, the rest, and the device's idle
-   share.
+   share; an int8 decode step (batch 8) and a 1024-token int8 monolithic
+   prefill on engine d.
+   llm_int8 — ``nn.quant.llm_int8_linear`` at x [1024, 4096] bf16 with 4
+   outlier channels, w [14336, 4096] int8 and a bias: one A8W8 launch per
+   call, against its plain path, timed.
 7. summary — one JSON line of every kernel's launches (the decode layer's
-   on engine c's run, the others' on engine b's) and times, then the last
-   line ``{"ok": true, "device": {...}}``.
+   on engine c's run, the weight-only kernels' on engines d, e and f, A8W8's
+   in the llm_int8 phase, the others' on engine b's) and times, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
 """
@@ -61,11 +82,13 @@ import sys
 import time
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, the f32
-# rate outside the tensor cores, where the row kernels compute, and the
-# bf16 tensor-core rate, where flash attention's products run
+# rate outside the tensor cores, where the row kernels compute, the bf16
+# tensor-core rate, where flash attention's and the weight-only kernels'
+# products run, and the int8 tensor-core rate, where A8W8's run
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
+INT8_TC_OPS_PER_S = 1979e12
 
 SERVE_REQUESTS = 12
 SERVE_NEW_TOKENS = 64
@@ -73,6 +96,10 @@ PROMPT_MIN, PROMPT_MAX = 256, 1536
 PARITY_REL_TOL = 0.05    # max |logit diff| <= 5% of the largest plain logit
 SYSTEM_PROMPT = 512       # shared prefix of the default engine's prompts
 SUFFIX_MIN, SUFFIX_MAX = 64, 1024
+QUANT_KERNELS = ("wo_int8", "wo_int8_grouped", "wo_int4", "a8w8")
+QUANT_GROUP = 128         # engine f's quant_group_size
+FUSED_QUANT_REQUESTS, FUSED_QUANT_TOKENS = 4, 16
+LLM_INT8_CALLS = 4        # llm_int8_linear calls of the A8W8 phase's run
 
 
 def fail(msg: str) -> None:
@@ -266,6 +293,8 @@ def phase_kernels(torch, dev):
     _kernels_flash(torch, dev, randn, timer, results)
     _kernels_epilogue(torch, randn, timer, results)
     _kernels_decode_layer(torch, dev, randn, timer, results)
+    _kernels_wo(torch, dev, randn, timer, results)
+    _kernels_a8w8(torch, dev, randn, timer, results)
     return results
 
 
@@ -499,11 +528,119 @@ def _kernels_decode_layer(torch, dev, randn, timer, results):
                 max_abs_err_h=err_h, tol_h=tol_h, phase_ms=phases)
 
 
+def _kernels_wo(torch, dev, randn, timer, results):
+    """The weight-only kernels at Llama-3-8B's projection shapes: decode
+    x [8, 4096] @ [4096, 14336] (gate/up) and [8, 14336] @ [14336, 4096]
+    (down), prefill [1024, 4096] @ [4096, 14336] and a ragged
+    [1531, 4096] @ [4096, 1024] (k_proj); grouped scales at G 128. The
+    yardstick is cuBLAS bf16 ``torch.matmul`` on the dequantized bf16
+    weight, which the port never calls. Bound: the weight, scales,
+    activations and output once over the memory rate, or the products
+    over the bf16 tensor-core rate. Also times the per-call unpacking of
+    one layer's int4 weights that a grouped int4 engine pays (the JAX
+    package's rule: grouped int4 unpacks to dense int8 on every call)."""
+    from paddle_tpu_torch.ops.kernels import wo_matmul as wo
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf = torch.bfloat16
+
+    def int8(*shape, lo=-127):
+        return torch.randint(lo, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 2e-3 + 1e-4
+
+    shapes = ((8, 4096, 14336, "decode gate/up"),
+              (8, 14336, 4096, "decode down"),
+              (1024, 4096, 14336, "prefill gate/up"),
+              (1531, 4096, 1024, "prefill k_proj, ragged"))
+    for name in ("wo_int8", "wo_int8_grouped", "wo_int4"):
+        for m, k, n, label in shapes:
+            x = randn(m, k)
+            if name == "wo_int4":
+                w, s = int8(k, n // 2, lo=-128), scales(n)
+                fn, plain = wo.wo_int4, wo.wo_int4_matmul_plain
+                wd = (wo.unpack_int4_halves(w).float() * s).to(bf)
+                w_bytes = k * n // 2 + 4 * n
+            elif name == "wo_int8_grouped":
+                w, s = int8(k, n), scales(k // QUANT_GROUP, n)
+                fn, plain = wo.wo_int8_grouped, wo.wo_int8_matmul_plain
+                wd = wo.dequant_grouped(w, s).to(bf)
+                w_bytes = k * n + 4 * s.numel()
+            else:
+                w, s = int8(k, n), scales(n)
+                fn, plain = wo.wo_int8, wo.wo_int8_matmul_plain
+                wd = (w.float() * s).to(bf)
+                w_bytes = k * n + 4 * n
+            err, tol = compare(torch, fn(x, w, s), plain(x, w, s))
+            _record(results, name,
+                    [m, k, n, label] + (["G", QUANT_GROUP]
+                                        if name == "wo_int8_grouped" else []),
+                    err, tol, timer(lambda: fn(x, w, s)),
+                    timer(lambda: plain(x, w, s)), timer(lambda: x @ wd),
+                    w_bytes + 2 * m * k + 2 * m * n, 2 * m * k * n,
+                    BF16_TC_FLOPS_PER_S,
+                    library="cuBLAS bf16 torch.matmul, dequantized weight")
+    layer = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+             (4096, 14336), (4096, 14336), (14336, 4096))
+    packed = [int8(k, n // 2, lo=-128) for k, n in layer]
+    ms = timer(lambda: [wo.unpack_int4_halves(p) for p in packed])
+    emit({"kernel": "wo_int4 grouped: unpack_int4_halves of one layer's "
+          "seven weights (plain torch ops)", "ms_per_layer": ms,
+          "ms_per_decode_step_32_layers": 32 * ms,
+          "bytes_per_layer": sum(p.numel() for p in packed) * 3})
+
+
+def _kernels_a8w8(torch, dev, randn, timer, results):
+    """A8W8 at [1024, 4096] @ nk [14336, 4096], the llm_int8 prefill
+    shape: bit-identical to the plain version in both layouts on x =
+    q * 2**-5 with |q| = 127 pinned in every row (s = 2**-5 exactly, so
+    x / s is exact), and within one bf16 ulp of the largest value on
+    random activations (where q can differ only at a rounding tie). The
+    yardstick is ``torch._int_mm`` on the quantized activations, the int8
+    contraction alone. Bound: operations at the int8 tensor-core rate."""
+    from paddle_tpu_torch.ops.kernels import a8w8_matmul as a8
+
+    gen = torch.Generator(device=dev).manual_seed(8888)
+    m, k, n = 1024, 4096, 14336
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    ws = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
+    q = torch.randint(-127, 128, (m, k), generator=gen, device=dev).float()
+    q[:, 0] = 127.0
+    xp = (q * 2.0 ** -5).to(torch.bfloat16)
+    for layout, wl in (("nk", w), ("kn", w.t().contiguous())):
+        got = a8.a8w8_matmul(xp, wl, ws, layout)
+        ref = a8.a8w8_matmul_plain(xp, wl, ws, layout)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"a8w8 ({layout}): not bit-identical on the pinned "
+                 f"construction, {int((got != ref).sum())} elements differ, "
+                 f"max {(got.float() - ref.float()).abs().max().item()}")
+    x = randn(m, k)
+    err, tol = compare(torch, a8.a8w8_matmul(x, w, ws, "nk"),
+                       a8.a8w8_matmul_plain(x, w, ws, "nk"))
+    xq = a8.row_quantize(x)[0].to(torch.int8)
+    wt = w.t()                        # [K, N], column-major: _int_mm's layout
+    try:
+        torch._int_mm(xq, wt)
+        lib, lib_note = timer(lambda: torch._int_mm(xq, wt)), \
+            "torch._int_mm, the int8 contraction alone"
+    except RuntimeError as e:         # a yardstick only: the port never calls it
+        lib, lib_note = None, f"torch._int_mm unavailable: {e}"[:200]
+    _record(results, "a8w8", [m, k, n, "nk", "bit-identical on pinned x"],
+            err, tol, timer(lambda: a8.a8w8_matmul(x, w, ws, "nk")),
+            timer(lambda: a8.a8w8_matmul_plain(x, w, ws, "nk")), lib,
+            2 * m * k + n * k + 4 * n + 2 * m * n, 2 * m * k * n,
+            INT8_TC_OPS_PER_S, library=lib_note)
+
+
 _CHUNKED_PATH = ("mmha", "rms_norm", "rope", "swiglu")
 
 
-def _serve(torch, np, engine, prompts):
-    """Serve ``prompts`` (greedy, SERVE_NEW_TOKENS each) after a warm-up,
+def _serve(torch, np, engine, prompts, new_tokens=SERVE_NEW_TOKENS):
+    """Serve ``prompts`` (greedy, ``new_tokens`` each) after a warm-up,
     with every kernel's launch count set to 0 just before and read just
     after. Returns (requests, outputs, wall seconds, launches, stats)."""
     from paddle_tpu_torch.ops.kernels import WRAPPERS
@@ -516,7 +653,7 @@ def _serve(torch, np, engine, prompts):
     for w in WRAPPERS.values():
         w.launches = 0
     t0 = time.perf_counter()
-    reqs = [engine.submit(p, max_new_tokens=SERVE_NEW_TOKENS, temperature=0.0)
+    reqs = [engine.submit(p, max_new_tokens=new_tokens, temperature=0.0)
             for p in prompts]
     outs = [r.result(timeout=900) for r in reqs]
     wall = time.perf_counter() - t0
@@ -525,17 +662,17 @@ def _serve(torch, np, engine, prompts):
     summary = engine.shutdown()
     vocab = engine._sm.cfg.vocab_size
     for i, toks in enumerate(outs):
-        if len(toks) != SERVE_NEW_TOKENS or \
+        if len(toks) != new_tokens or \
                 not all(0 <= t < vocab for t in toks):
-            fail(f"request {i}: {len(toks)} tokens, want "
-                 f"{SERVE_NEW_TOKENS} in-vocab")
+            fail(f"request {i}: {len(toks)} tokens, want {new_tokens} "
+                 f"in-vocab")
     if summary["pages_leaked"] or engine.pool.leaked() or engine.pool.lost():
         fail(f"pages leaked or lost: {summary}, lost {engine.pool.lost()}")
     return reqs, outs, wall, launches, stats
 
 
 def _serve_row(torch, np, engine, reqs, wall, launches, stats):
-    gen_tokens = SERVE_NEW_TOKENS * len(reqs)
+    gen_tokens = sum(len(r.tokens) for r in reqs)
     mean = lambda xs: float(np.mean(xs)) if xs else None  # noqa: E731
     return {"requests": len(reqs),
             "prompt_lens": [len(r.prompt) for r in reqs],
@@ -614,7 +751,8 @@ def phase_serve_default(torch, np, model):
         fail(f"ServingConfig() is not the default path: {cfg}")
     prompts = default_prompts(np, model.cfg.vocab_size)
     reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
-    idle = [n for n, c in launches.items() if c == 0 and n != "decode_layer"]
+    idle = [n for n, c in launches.items()
+            if c == 0 and n not in ("decode_layer",) + QUANT_KERNELS]
     if idle:
         fail(f"kernels never launched on the default serving path: {idle}")
     pages, px = _check_prefix_claims(engine, reqs, stats)
@@ -707,6 +845,108 @@ def phase_serve_fused_layer(torch, np, model, engine, prompts):
           "claimed_pages": pages, "prefix_cache": px,
           **_serve_row(torch, np, engine, reqs, wall, launches, stats)})
     return outs, launches
+
+
+def _quant_config(ServingConfig, **kw):
+    return ServingConfig(max_batch=8, page_size=16, max_seq_len=2048,
+                         num_pages=1025, dtype="bfloat16", **kw)
+
+
+def phase_serve_quant(torch, np, model, prompts, label, quant):
+    """Engines d and e: ``quant`` on engine b's configuration and traffic.
+    Every monolithic prefill (a prefix hit's suffix included) and every
+    decode step runs each of the 7 projections of each layer through the
+    quant's kernel once; the other quantized kernels never launch."""
+    from paddle_tpu_torch.serving import LLMEngine, ServingConfig
+
+    kernel = {"weight_only_int8": "wo_int8", "weight_only_int4": "wo_int4"}[
+        quant]
+    t0 = time.perf_counter()
+    engine = LLMEngine(model, _quant_config(ServingConfig, quant=quant))
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
+    forwards = len(engine.prefill_ms) + len(engine.step_ms)
+    want = 7 * model.cfg.num_layers * forwards
+    if launches[kernel] != want or forwards == 0:
+        fail(f"{label}: {kernel} launched {launches[kernel]} times in "
+             f"{forwards} forwards, want {want} (7 per layer)")
+    stray = [n for n in QUANT_KERNELS if n != kernel and launches[n]]
+    idle = [n for n in ("mmha", "rms_norm", "rope", "swiglu",
+                        "flash_attention", "block_epilogue")
+            if launches[n] == 0]
+    if stray or idle:
+        fail(f"{label}: launched {stray}, never launched {idle}")
+    pages, px = _check_prefix_claims(engine, reqs, stats)
+    emit({"phase": "serve", "engine": label, "model": "llama3_8b",
+          "quant": quant, "construct_s": construct_s,
+          "quantized_bytes": _quant_bytes(engine._sm),
+          "claimed_pages": pages, "prefix_cache": px,
+          **_serve_row(torch, np, engine, reqs, wall, launches, stats)})
+    return engine, outs, launches
+
+
+def _quant_bytes(sm):
+    return sum(t.numel() * t.element_size()
+               for pair in sm._qweights.values() for t in pair)
+
+
+def phase_serve_quant_fused_layer(torch, np, model, prompts):
+    """Engine f: grouped int8 (G 128) with ``fused_decode_layer=True``.
+    Its construction quantizes, dequantizes o/gate/up/down once for the
+    decode-layer kernel and tunes block_i into a temporary cache file.
+    Every decode step launches the decode layer once per layer and mmha
+    never; the grouped kernel runs the 7 projections of every prefill and
+    q/k/v of every decode step."""
+    import tempfile
+
+    from paddle_tpu_torch.serving import LLMEngine, ServingConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["PADDLE_TPU_TUNE_CACHE"] = os.path.join(tmp, "tuning.json")
+    try:
+        t0 = time.perf_counter()
+        engine = LLMEngine(model, _quant_config(
+            ServingConfig, quant="weight_only_int8",
+            quant_group_size=QUANT_GROUP, fused_decode_layer=True))
+        torch.cuda.synchronize()
+        construct_s = time.perf_counter() - t0
+    finally:
+        for name in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    if engine.tuning is None or engine.tuning.get("quant") != "int8":
+        fail(f"engine f did not tune block_i for its quant: {engine.tuning}")
+    reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts,
+                                               FUSED_QUANT_TOKENS)
+    steps, prefills = len(engine.step_ms), len(engine.prefill_ms)
+    layers = model.cfg.num_layers
+    want = {"decode_layer": layers * steps, "mmha": 0,
+            "wo_int8_grouped": layers * (7 * prefills + 3 * steps),
+            "wo_int8": 0, "wo_int4": 0}
+    got = {n: launches[n] for n in want}
+    if got != want or steps == 0:
+        fail(f"engine f: launches {got} in {steps} decode steps and "
+             f"{prefills} prefills, want {want}")
+    pages, px = _check_prefix_claims(engine, reqs, stats)
+    emit({"phase": "serve", "engine": "int8_g128_fused_decode_layer",
+          "model": "llama3_8b", "quant": "weight_only_int8",
+          "quant_group_size": QUANT_GROUP, "construct_s": construct_s,
+          "block_i": engine.tuning["block_i"],
+          "quantized_bytes": _quant_bytes(engine._sm),
+          "dequantized_bytes": sum(t.numel() * t.element_size()
+                                   for t in engine._sm._dq_weights.values()),
+          "claimed_pages": pages, "prefix_cache": px,
+          **_serve_row(torch, np, engine, reqs, wall, launches, stats)})
+    return engine, outs, launches
+
+
+def _free(torch):
+    """Release what the engine just dropped (its quantized copies) before
+    the next one is built."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _first_decode_logits(torch, sm, engine, prompt):
@@ -841,6 +1081,14 @@ def phase_parity_fused_layer(torch, model, engine, prompts, served):
     from paddle_tpu_torch.serving import ServingModel
 
     sm = ServingModel(model, fused_decode_layer=True).bind_pool(engine.pool)
+    _parity_first_decode(torch, "first fused-layer decode step", sm, engine,
+                         prompts, served)
+
+
+def _parity_first_decode(torch, what, sm, engine, prompts, served):
+    """For every request, its first decode step through ``sm``, kernel
+    path vs plain versions, after a monolithic prefill through the kernels
+    into fresh pages of ``engine``'s pool."""
     pool, dev = engine.pool, engine.device
     rows = []
     for i, prompt in enumerate(prompts):
@@ -864,12 +1112,14 @@ def phase_parity_fused_layer(torch, model, engine, prompts, served):
         r["first_token_is_served"] = first == served[i][0]
         r["kernel_argmax_is_served"] = int(lk.argmax()) == served[i][1]
         rows.append(r)
-    _check_parity("first fused-layer decode step", rows)
+    _check_parity(what, rows)
 
 
 _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "swiglu_kernel", "flash_attention_kernel",
-                "block_epilogue_kernel", "decode_layer_kernel")
+                "block_epilogue_kernel", "decode_layer_kernel",
+                "wo_matmul_kernel", "a8w8_quantize_kernel",
+                "a8w8_gemm_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -929,6 +1179,98 @@ def _profile(torch, fn, reps: int):
                     for n, us in top]}
 
 
+def _batch_tables(torch, engine, prompts):
+    """A decode batch of ``max_batch`` rows at the lengths of the first
+    prompts plus 32, on pages held from ``engine``'s pool. Returns
+    (tables, tokens, positions, held pages) on the card."""
+    pool, dev = engine.pool, engine.device
+    b = engine.config.max_batch
+    lens = [len(p) + 32 for p in prompts[:b]]
+    tables = torch.zeros(b, engine.scheduler.max_pages, dtype=torch.int32)
+    held = []
+    try:
+        for r, n in enumerate(lens):
+            pages = pool.alloc(pool.pages_for(n + 1))
+            held += pages
+            tables[r, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
+    except Exception:
+        pool.free(held)
+        raise
+    return (tables.to(dev), torch.arange(1, b + 1, device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), held)
+
+
+def phase_profile_quant(torch, engine, prompts, label, prefill=True):
+    """A quantized engine: where a decode step (batch 8) and, with
+    ``prefill``, a 1024-token monolithic prefill spend their device
+    time."""
+    sm, pool, dev = engine._sm, engine.pool, engine.device
+    tables, toks, pos, held = _batch_tables(torch, engine, prompts)
+    out = {"phase": "profile", "engine": label}
+    try:
+        out[f"{label}_decode_step"] = _profile(
+            torch, lambda: sm.decode_forward(toks, pos, tables), reps=10)
+        if prefill:
+            mono_toks = torch.arange(1024, device=dev)[None] + 7
+            out[f"{label}_monolithic_prefill_1024"] = _profile(
+                torch, lambda: sm.prefill_forward(mono_toks, 1024, tables[0]),
+                reps=2)
+    finally:
+        pool.free(held)
+    emit(out)
+
+
+def phase_llm_int8(torch, dev):
+    """``nn.quant.llm_int8_linear`` at the prefill shape x [1024, 4096]
+    bf16 with 4 outlier channels scaled by 40, w [14336, 4096] int8, ws
+    and a bias, called LLM_INT8_CALLS times with every launch count set to
+    0 just before and read just after: each call launches A8W8 once (its
+    dense part) and nothing else. The output matches the plain path within
+    3 bf16 ulps of the largest value (one for A8W8's output, one for the
+    cast of the sum, one for the bias add). Timed cold, with the plain
+    path beside it. Returns the launches of the run."""
+    from paddle_tpu_torch.nn.quant import llm_int8_linear
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    m, k, n = 1024, 4096, 14336
+    x = torch.randn(m, k, generator=gen, device=dev)
+    x[:, [7, 100, 2000, 4000]] *= 40.0
+    x = x.to(torch.bfloat16)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    ws = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
+    bias = (torch.randn(n, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    timer = ColdTimer(torch, dev)
+    calls = LLM_INT8_CALLS
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        for wr in WRAPPERS.values():
+            wr.launches = 0
+        outs = [llm_int8_linear(x, w, bias, ws) for _ in range(calls)]
+        torch.cuda.synchronize()
+        launches = {name: wr.launches for name, wr in WRAPPERS.items()}
+        got = outs[0]
+        ref = llm_int8_linear(x, w, bias, ws, plain=True)
+        err, ulp = compare(torch, got, ref)
+        if not all(torch.equal(o, got) for o in outs[1:]):
+            fail("llm_int8_linear: calls on the same inputs differ")
+        ms = timer(lambda: llm_int8_linear(x, w, bias, ws))
+        plain_ms = timer(lambda: llm_int8_linear(x, w, bias, ws, plain=True))
+    emit({"phase": "llm_int8_linear", "shape": [m, k, n], "outliers": 4,
+          "finite": bool(torch.isfinite(got).all()),
+          "max_abs_err": err, "tol": 3 * ulp, "ms": ms, "plain_ms": plain_ms,
+          "calls": calls, "launches": launches})
+    if launches["a8w8"] != calls or any(
+            c for name, c in launches.items() if name != "a8w8"):
+        fail(f"llm_int8_linear: launches {launches} in {calls} calls, want "
+             f"a8w8 once per call and nothing else")
+    if not err <= 3 * ulp:
+        fail(f"llm_int8_linear: kernel path differs from the plain one by "
+             f"{err} > {3 * ulp}")
+    return launches
+
+
 def phase_profile(torch, model, engine, prompts):
     """Where a decode step (8 rows at the served prompts' lengths) and a
     512-token prefill chunk (at position 1024) spend their device time, on
@@ -941,18 +1283,8 @@ def phase_profile(torch, model, engine, prompts):
     sm = ServingModel(model, fused_block=False).bind_pool(pool)
     fused = ServingModel(model).bind_pool(pool)
     layer = ServingModel(model, fused_decode_layer=True).bind_pool(pool)
-    b = engine.config.max_batch
-    lens = [len(p) + 32 for p in prompts[:b]]
-    tables = torch.zeros(b, engine.scheduler.max_pages, dtype=torch.int32)
-    held = []
+    tables, toks, pos, held = _batch_tables(torch, engine, prompts)
     try:
-        for r, n in enumerate(lens):
-            pages = pool.alloc(pool.pages_for(n + 1))
-            held += pages
-            tables[r, :len(pages)] = torch.tensor(pages, dtype=torch.int32)
-        tables = tables.to(dev)
-        toks = torch.arange(1, b + 1, device=dev)
-        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
         decode = _profile(torch, lambda: sm.decode_forward(toks, pos, tables),
                           reps=10)
         chunk_toks = torch.arange(512, device=dev)[None] + 7
@@ -967,7 +1299,8 @@ def phase_profile(torch, model, engine, prompts):
             mono_toks, 1024, tables[0]), reps=2)
     finally:
         pool.free(held)
-    emit({"phase": "profile", "decode_step_batch": b, "decode_step": decode,
+    emit({"phase": "profile", "decode_step_batch": engine.config.max_batch,
+          "decode_step": decode,
           "prefill_chunk_512_at_1024": chunk,
           "fused_decode_step": fused_decode,
           "fused_layer_decode_step": layer_decode,
@@ -989,6 +1322,14 @@ _SOURCES = {
                        "paddle_tpu/ops/kernels/block_fused_pallas.py:212"),
     "decode_layer": ("paddle_tpu_torch/csrc/decode_layer.cu",
                      "paddle_tpu/ops/kernels/decode_layer_pallas.py:201"),
+    "wo_int8": ("paddle_tpu_torch/csrc/wo_matmul.cu",
+                "paddle_tpu/ops/kernels/wo_matmul_pallas.py:33"),
+    "wo_int8_grouped": ("paddle_tpu_torch/csrc/wo_matmul.cu",
+                        "paddle_tpu/ops/kernels/wo_matmul_pallas.py:41"),
+    "wo_int4": ("paddle_tpu_torch/csrc/wo_matmul.cu",
+                "paddle_tpu/ops/kernels/wo_matmul_pallas.py:176"),
+    "a8w8": ("paddle_tpu_torch/csrc/a8w8_matmul.cu",
+             "paddle_tpu/ops/kernels/a8w8_matmul_pallas.py:50"),
 }
 
 
@@ -1021,6 +1362,35 @@ def main() -> int:
     phase_parity_default(torch, model, d_engine, d_prompts, d_served)
     phase_parity_fused_layer(torch, model, c_engine, d_prompts, c_served)
     phase_profile(torch, model, engine, prompts)
+
+    # quantized serving: each engine's copies are freed before the next
+    qd, qd_served, qd_launches = phase_serve_quant(
+        torch, np, model, d_prompts, "int8", "weight_only_int8")
+    _parity_first_decode(torch, "first int8 decode step", qd._sm, qd,
+                         d_prompts, qd_served)
+    phase_profile_quant(torch, qd, d_prompts, "int8")
+    del qd
+    _free(torch)
+    qe, qe_served, qe_launches = phase_serve_quant(
+        torch, np, model, d_prompts, "int4", "weight_only_int4")
+    _parity_first_decode(torch, "first int4 decode step", qe._sm, qe,
+                         d_prompts, qe_served)
+    del qe
+    _free(torch)
+    f_prompts = d_prompts[:FUSED_QUANT_REQUESTS]
+    qf, qf_served, qf_launches = phase_serve_quant_fused_layer(
+        torch, np, model, f_prompts)
+    _parity_first_decode(torch, "first int8 g128 fused-layer decode step",
+                         qf._sm, qf, f_prompts, qf_served)
+    phase_profile_quant(torch, qf, d_prompts, "int8_g128_fused_layer",
+                        prefill=False)
+    del qf
+    _free(torch)
+    llm_launches = phase_llm_int8(torch, dev)
+    launches["wo_int8"] = qd_launches["wo_int8"]
+    launches["wo_int4"] = qe_launches["wo_int4"]
+    launches["wo_int8_grouped"] = qf_launches["wo_int8_grouped"]
+    launches["a8w8"] = llm_launches["a8w8"]
 
     summary = []
     for name in sorted(kern):

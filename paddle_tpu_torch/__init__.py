@@ -6,8 +6,9 @@ Plain tensor code is PyTorch; every TPU kernel on a ported path is a
 hand-written CUDA kernel for Hopper (``csrc/``), built at first use. The
 package imports neither JAX nor ``paddle_tpu``.
 
-This slice serves Llama through :class:`paddle_tpu_torch.serving.LLMEngine`
-with chunked prefill and the per-op decode path.
+It serves Llama through :class:`paddle_tpu_torch.serving.LLMEngine`
+(float or weight-only quantized); ``nn.quant`` holds the quantized linear
+functions.
 """
 
 from .device import resolve_device

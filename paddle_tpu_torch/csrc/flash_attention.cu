@@ -28,6 +28,8 @@
 #include "common.cuh"
 
 using ptt::bf16;
+using ptt::ld32;
+using ptt::mma_bf16;
 
 namespace {
 
@@ -35,14 +37,6 @@ constexpr int kBQ = 64;  // query rows per block (4 warps x 16)
 constexpr int kBK = 64;  // keys per tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
@@ -54,10 +48,6 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_
   hi = pack2(h0, h1);
   lo = pack2(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
              __float2bfloat16_rn(x1 - __bfloat162float(h1)));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 template <int D>

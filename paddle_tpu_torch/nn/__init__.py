@@ -1,5 +1,5 @@
 """Layers and functional ops of the port."""
 
-from . import functional
+from . import functional, quant
 
-__all__ = ["functional"]
+__all__ = ["functional", "quant"]

@@ -5,15 +5,20 @@ launches its CUDA kernel for a tensor on the card (or raises), and counts
 its launches in a plain ``int`` attribute, ``<wrapper>.launches``.
 """
 
-from . import (block_epilogue, decode_layer, flash_attention, mmha, rms_norm,
-               rope, swiglu)
+from . import (a8w8_matmul, block_epilogue, decode_layer, flash_attention,
+               mmha, rms_norm, rope, swiglu, wo_matmul)
 
 #: every kernel wrapper of the port, by name
 WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
             "rope": rope.rope_apply, "swiglu": swiglu.swiglu,
             "flash_attention": flash_attention.flash_attention,
             "block_epilogue": block_epilogue.fused_epilogue,
-            "decode_layer": decode_layer.decode_layer}
+            "decode_layer": decode_layer.decode_layer,
+            "wo_int8": wo_matmul.wo_int8,
+            "wo_int8_grouped": wo_matmul.wo_int8_grouped,
+            "wo_int4": wo_matmul.wo_int4,
+            "a8w8": a8w8_matmul.a8w8_matmul}
 
-__all__ = ["WRAPPERS", "block_epilogue", "decode_layer", "flash_attention",
-           "mmha", "rms_norm", "rope", "swiglu"]
+__all__ = ["WRAPPERS", "a8w8_matmul", "block_epilogue", "decode_layer",
+           "flash_attention", "mmha", "rms_norm", "rope", "swiglu",
+           "wo_matmul"]

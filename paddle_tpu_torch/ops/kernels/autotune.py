@@ -263,6 +263,7 @@ def tune_for_serving(serving_model, page_size, num_pages, max_pages,
     return tune_decode_layer(
         int(max_batch), m.n_head, m.n_kv, m.head_dim, int(page_size),
         int(max_pages), cfg.hidden_size, cfg.intermediate_size, dtype=dtype,
+        quant=m._quant_dtype if m.quantized else None,
         device=m.pool.k.device, cache=cache, trial=trial)
 
 

@@ -46,9 +46,11 @@ class ServingConfig:
     """Static knobs of the serving runtime. The defaults are the JAX
     engine's (``paddle_tpu/serving/engine.py:62-107``) for every ported
     option: monolithic prefill, the fused block epilogues and the prefix
-    cache. The options not ported yet (``quant``, ``spec_k``,
-    ``prefill_budget``) keep their names and raise ``NotImplementedError``
-    when set."""
+    cache. ``quant`` ("weight_only_int8" | "weight_only_int4", with
+    ``quant_group_size`` G > 0 for scales per group of G input features)
+    runs every decoder-layer projection through the weight-only kernels.
+    The options not ported yet (``spec_k``, ``prefill_budget``) keep their
+    names and raise ``NotImplementedError`` when set."""
     page_size: int = 16          # token positions per KV page
     num_pages: int = 64          # pool pages incl. the reserved trash page
     max_batch: int = 8           # decode slots (the continuous batch)
@@ -57,7 +59,8 @@ class ServingConfig:
     temperature: float = 0.0     # per-request default (0 = greedy)
     top_k: int | None = None     # sampling filter
     eos_token_id: int | None = None
-    quant: str | None = None
+    quant: str | None = None     # None | weight_only_int8 | weight_only_int4
+    quant_group_size: int = -1   # -1: one scale per output channel
     fused_block: bool = True     # block-epilogue kernels at every residual
     #                              junction
     fused_decode_layer: bool = False   # one decode-layer kernel launch
@@ -76,8 +79,7 @@ class ServingConfig:
 
 def _unsupported(cfg: ServingConfig) -> list[str]:
     return [f"{name}={getattr(cfg, name)!r}"
-            for name, off in (("quant", None), ("spec_k", 0),
-                              ("prefill_budget", None))
+            for name, off in (("spec_k", 0), ("prefill_budget", None))
             if getattr(cfg, name) != off]
 
 
@@ -113,7 +115,9 @@ class LLMEngine:
             raise ValueError(f"model lives on {self.device}, engine asked "
                              f"for {want}")
         self.config = cfg
-        self._sm = ServingModel(model, fused_block=cfg.fused_block,
+        self._sm = ServingModel(model, quant=cfg.quant,
+                                quant_group_size=cfg.quant_group_size,
+                                fused_block=cfg.fused_block,
                                 fused_decode_layer=cfg.fused_decode_layer)
         max_seq = cfg.max_seq_len or self._sm.max_pos
         if max_seq > self._sm.max_pos:
@@ -130,7 +134,8 @@ class LLMEngine:
         self.prefix_cache = None
         if cfg.prefix_cache:
             self.prefix_cache = PrefixCache(self.pool, model_fingerprint(
-                model, quant=cfg.quant, dtype=cfg.dtype,
+                model, quant=cfg.quant,
+                quant_group_size=cfg.quant_group_size, dtype=cfg.dtype,
                 page_size=cfg.page_size))
         self.scheduler = Scheduler(self.pool, self, cfg.max_batch,
                                    self.max_seq_len,

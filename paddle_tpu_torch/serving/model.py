@@ -29,8 +29,19 @@ down projections, the JAX gate at ``paddle_tpu/serving/model.py:95-107``)
 sends each decode step through the decode-layer kernel: per layer, QKV,
 RoPE and the KV writes as before, then one ``decode_layer`` launch from the
 attention to the next layer's normed input. Prefill, chunks and every
-other path are unchanged. The speculative verify and quantized linears are
-not ported yet.
+other path are unchanged. The speculative verify is not ported yet.
+
+``quant`` (None | "weight_only_int8" | "weight_only_int4" | "int8" |
+"int4", the JAX names, ``paddle_tpu/serving/model.py:31-40``) quantizes
+every decoder-layer linear (q, k, v, o, gate, up, down) once at
+construction, from ``linear.weight.t()`` (``[in, out]``, the JAX layout),
+per channel or in groups of ``quant_group_size`` along K; each of those
+projections then runs through the weight-only kernels
+(``nn.quant.weight_only_linear``) in every forward. The lm head and the
+embeddings stay float. With ``fused_decode_layer`` the decode-layer kernel
+is fed the quantized values of o/gate/up/down dequantized once at
+construction (the JAX rule, ``:129-140``), in the model's dtype and
+``[out, in]`` layout; q/k/v keep the weight-only kernels.
 """
 
 from __future__ import annotations
@@ -40,17 +51,30 @@ import os
 import torch
 
 from ..nn import functional as F
+from ..nn.quant import weight_dequantize, weight_only_linear, weight_quantize
 from ..ops.kernels import block_epilogue, decode_layer
 from . import kv_cache
 
 __all__ = ["ServingModel"]
+
+_QUANT_ALGOS = {"weight_only_int8": "int8", "weight_only_int4": "int4",
+                "int8": "int8", "int4": "int4"}
+
+#: (tag, block, linear) per decoder layer: the linears the quant path swaps
+_LAYER_LINEARS = (
+    ("q", "self_attn", "q_proj"), ("k", "self_attn", "k_proj"),
+    ("v", "self_attn", "v_proj"), ("o", "self_attn", "o_proj"),
+    ("gate", "mlp", "gate_proj"), ("up", "mlp", "up_proj"),
+    ("down", "mlp", "down_proj"),
+)
 
 
 class ServingModel:
     """Prefill, prefill-chunk and decode forwards of a port :class:`Llama`
     over a bound :class:`~.kv_cache.PagePool`."""
 
-    def __init__(self, model, fused_block: bool = True,
+    def __init__(self, model, quant: str | None = None,
+                 quant_group_size: int = -1, fused_block: bool = True,
                  fused_decode_layer: bool = False):
         missing = [n for n in ("embed_tokens", "layers", "norm", "cfg")
                    if getattr(model, n, None) is None]
@@ -74,6 +98,39 @@ class ServingModel:
                 for mod in (layer.self_attn.o_proj, layer.mlp.gate_proj,
                             layer.mlp.up_proj, layer.mlp.down_proj))
         self.pool: kv_cache.PagePool | None = None
+        self._quant_dtype = None
+        self._qweights: dict = {}
+        self._dq_weights: dict = {}
+        if quant:
+            self._quantize(quant, quant_group_size)
+
+    @torch.no_grad()
+    def _quantize(self, quant, group_size):
+        """Quantize every decoder-layer linear once; on a fused-layer model
+        also dequantize o/gate/up/down once for the decode-layer kernel."""
+        if quant not in _QUANT_ALGOS:
+            raise ValueError(f"quant must be one of {sorted(_QUANT_ALGOS)}, "
+                             f"got {quant!r}")
+        algo = quant if quant.startswith("weight_only_") else \
+            "weight_only_" + quant
+        self._quant_dtype = _QUANT_ALGOS[quant]
+        for i, layer in enumerate(self.model.layers):
+            for tag, block, name in _LAYER_LINEARS:
+                mod = getattr(getattr(layer, block), name)
+                self._qweights[(tag, i)] = weight_quantize(
+                    mod.weight.t(), algo=algo, group_size=group_size)
+                if self.fused_decode_layer and tag in ("o", "gate", "up",
+                                                       "down"):
+                    # the decode-layer kernel reads dense [out, in] weights
+                    # in the model's dtype: the quantized values, rounded
+                    # once to that dtype (the JAX engine keeps them in f32)
+                    self._dq_weights[(tag, i)] = weight_dequantize(
+                        *self._qweights[(tag, i)], algo=algo).t().to(
+                            mod.weight.dtype).contiguous()
+
+    @property
+    def quantized(self) -> bool:
+        return bool(self._qweights)
 
     def bind_pool(self, pool: kv_cache.PagePool) -> "ServingModel":
         if (pool.num_layers, pool.num_kv_heads, pool.head_dim) != \
@@ -95,6 +152,48 @@ class ServingModel:
         return block_epilogue.decode_epilogue(x, residual, norm_mod.weight,
                                               norm_mod.eps, plain=plain)
 
+    def _linear(self, tag, i, x, module, plain):
+        """One decoder-layer projection: the float ``nn.Linear``, or the
+        weight-only kernel on its quantized weight."""
+        q = self._qweights.get((tag, i))
+        if q is None:
+            return module(x)
+        qw, scale = q
+        return weight_only_linear(x, qw, bias=module.bias, weight_scale=scale,
+                                  weight_dtype=self._quant_dtype, plain=plain)
+
+    def _qkv(self, i, layer, h, plain):
+        attn = layer.self_attn
+        if not self._qweights:
+            return attn.qkv(h)
+        b, s, _ = h.shape
+        return (self._linear("q", i, h, attn.q_proj, plain)
+                .reshape(b, s, self.n_head, self.head_dim),
+                self._linear("k", i, h, attn.k_proj, plain)
+                .reshape(b, s, self.n_kv, self.head_dim),
+                self._linear("v", i, h, attn.v_proj, plain)
+                .reshape(b, s, self.n_kv, self.head_dim))
+
+    def _mlp(self, i, mlp, y, plain):
+        """The SwiGLU MLP; quantized, gate and up through the weight-only
+        kernel, the SwiGLU kernel between them and down
+        (``paddle_tpu/serving/model.py:186-192``)."""
+        if not self._qweights:
+            return mlp(y, plain)
+        g = self._linear("gate", i, y, mlp.gate_proj, plain)
+        u = self._linear("up", i, y, mlp.up_proj, plain)
+        return self._linear("down", i, F.swiglu(g, u, plain=plain),
+                            mlp.down_proj, plain)
+
+    def _layer_mats(self, i, layer):
+        """(wo, wg, wu, wd) the decode-layer kernel folds: the dequantized
+        copies on a quant model."""
+        dq, mlp = self._dq_weights, layer.mlp
+        return (dq.get(("o", i), layer.self_attn.o_proj.weight),
+                dq.get(("gate", i), mlp.gate_proj.weight),
+                dq.get(("up", i), mlp.up_proj.weight),
+                dq.get(("down", i), mlp.down_proj.weight))
+
     def _head_normed(self, x):
         """lm head over an already normalized hidden state."""
         m = self.model
@@ -115,23 +214,24 @@ class ServingModel:
         y = layers[0].input_layernorm(x, plain) if fused else None
         for i, layer in enumerate(layers):
             h = y if fused else layer.input_layernorm(x, plain)
-            attn = layer.self_attn
-            q, k, v = attn.qkv(h)
+            q, k, v = self._qkv(i, layer, h, plain)
             q, k = F.rope(q, k, sin, cos, plain=plain)
             write_kv(i, k, v)
             out = attend(i, q, k, v)
-            attn_out = attn.o_proj(out.reshape(b, s, self.n_head * self.head_dim))
+            attn_out = self._linear(
+                "o", i, out.reshape(b, s, self.n_head * self.head_dim),
+                layer.self_attn.o_proj, plain)
             post = layer.post_attention_layernorm
             if fused:
                 y, hres = self._junction(attn_out, hres, post, plain)
                 nxt = layers[i + 1].input_layernorm if i + 1 < len(layers) \
                     else self.model.norm
-                y, hres = self._junction(layer.mlp(y, plain), hres, nxt,
-                                         plain)
+                y, hres = self._junction(self._mlp(i, layer.mlp, y, plain),
+                                         hres, nxt, plain)
             else:
                 y2, x = F.fused_rms_norm_add(attn_out, x, post.weight,
                                              post.eps, plain=plain)
-                x = x + layer.mlp(y2, plain)
+                x = x + self._mlp(i, layer.mlp, y2, plain)
         return y if fused else x
 
     def _logits(self, h, plain):
@@ -215,17 +315,15 @@ class ServingModel:
         hres = x[:, 0]
         y = layers[0].input_layernorm(x, plain)
         for i, layer in enumerate(layers):
-            attn = layer.self_attn
-            q, k, v = attn.qkv(y)
+            q, k, v = self._qkv(i, layer, y, plain)
             q, k = F.rope(q, k, sin, cos, plain=plain)
             write_kv(i, k, v)
             post = layer.post_attention_layernorm
             nxt = layers[i + 1].input_layernorm if i + 1 < len(layers) \
                 else self.model.norm
-            mlp = layer.mlp
-            y, hres = fn(q[:, 0], pool.k[i], pool.v[i], tab, pos, hres,
-                         attn.o_proj.weight, post.weight, mlp.gate_proj.weight,
-                         mlp.up_proj.weight, mlp.down_proj.weight, nxt.weight,
+            wo, wg, wu, wd = self._layer_mats(i, layer)
+            y, hres = fn(q[:, 0], pool.k[i], pool.v[i], tab, pos, hres, wo,
+                         post.weight, wg, wu, wd, nxt.weight,
                          eps_post=post.eps, eps_next=nxt.eps)
             y = y[:, None]
         return self._head_normed(y)[:, 0]

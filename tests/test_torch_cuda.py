@@ -12,19 +12,25 @@ two-term bf16 split), far inside that tolerance; its log-sum-exp is f32
 and is held to 1e-4. The block epilogue's dropout mask is held exactly.
 The decode layer's plain version rounds the attention output to bf16 once
 more than the kernel, which keeps it in f32: its tolerance adds what that
-rounding changes on the same inputs.
+rounding changes on the same inputs. The weight-only kernels sum exact
+products in f32 and round once, as their plain versions do (one ulp).
+A8W8 is held bit for bit where ``x / s`` is exact, and on random
+activations to one ulp plus one quantisation step of a row (a rounding
+tie may land on either side).
 """
 
 import pytest
 import torch
 
 from paddle_tpu_torch.models import llama_tiny
-from paddle_tpu_torch.ops.kernels import WRAPPERS, autotune, \
+from paddle_tpu_torch.ops.kernels import WRAPPERS, a8w8_matmul, autotune, \
     block_epilogue, decode_layer, flash_attention, mmha, rms_norm, rope, \
-    swiglu
+    swiglu, wo_matmul
 from paddle_tpu_torch.serving import LLMEngine, ServingConfig
 
 pytestmark = pytest.mark.cuda
+
+QUANT_KERNELS = ("wo_int8", "wo_int8_grouped", "wo_int4", "a8w8")
 
 
 @pytest.fixture
@@ -212,9 +218,10 @@ def test_engine_runs_every_kernel(dev):
         summary = eng.shutdown()
     assert all(len(o) == 8 for o in outs)
     assert summary["pages_leaked"] == 0
+    off_path = ("decode_layer",) + QUANT_KERNELS
     assert all(w.launches > 0 for n, w in WRAPPERS.items()
-               if n != "decode_layer")
-    assert WRAPPERS["decode_layer"].launches == 0   # not on the default path
+               if n not in off_path)
+    assert all(WRAPPERS[n].launches == 0 for n in off_path)  # not on this path
 
 
 def _layer(dev, b, rep, d, h_kv=2, hd=256, inter=512, ps=16, seed=20):
@@ -328,3 +335,167 @@ def test_fused_layer_engine_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):                       # per-op path
         LLMEngine(model, ServingConfig(fused_decode_layer=True,
                                        fused_block=False, dtype="bfloat16"))
+
+
+# -- quantized products -------------------------------------------------------
+
+def _int8(dev, *shape, seed=0, lo=-127, hi=128):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+def _scales(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(shape, generator=g, device=dev) * 0.02 + 0.001
+
+
+# (K, N): Llama-3-8B's widths, and widths off every tile multiple the
+# kernels take (K not a multiple of the 64 / 256 k-tile, N not a multiple
+# of the 32 / 128 column tile)
+_WO_SHAPES = [(4096, 1024), (1000, 1056), (264, 2080)]
+_ROWS = [1, 5, 8, 16, 128, 1531]
+
+
+@pytest.mark.parametrize("m", _ROWS)
+@pytest.mark.parametrize("k,n", _WO_SHAPES)
+@pytest.mark.parametrize("kind", ["int8", "int8_grouped", "int4"])
+def test_wo_kernels(dev, m, k, n, kind):
+    """Each weight-only kernel against its plain version: the same f32
+    sums of exact products, rounded once (one bf16 ulp of the largest
+    reference value)."""
+    x = _randn(dev, m, k, seed=m)
+    if kind == "int4":
+        w = _int8(dev, k, n // 2, seed=1, lo=-128)
+        s = _scales(dev, n, seed=2)
+        got, ref = wo_matmul.wo_int4(x, w, s), \
+            wo_matmul.wo_int4_matmul_plain(x, w, s)
+    else:
+        w = _int8(dev, k, n, seed=1)
+        s = _scales(dev, k // 8, n, seed=2) if kind == "int8_grouped" \
+            else _scales(dev, n, seed=2)
+        fn = wo_matmul.wo_int8_grouped if kind == "int8_grouped" \
+            else wo_matmul.wo_int8
+        got, ref = fn(x, w, s), wo_matmul.wo_int8_matmul_plain(x, w, s)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _close(got, ref)
+
+
+def test_wo_matmul_leading_dims_and_counts(dev):
+    x = _randn(dev, 2, 3, 256, seed=3)
+    w = _int8(dev, 256, 64, seed=4)
+    s = _scales(dev, 64, seed=5)
+    for wr in WRAPPERS.values():
+        wr.launches = 0
+    got = wo_matmul.wo_int8_matmul(x, w, s)
+    _close(got, wo_matmul.wo_int8_matmul_plain(x, w, s))
+    wo_matmul.wo_int8_matmul(x, w, _scales(dev, 4, 64, seed=6))
+    packed = wo_matmul.pack_int4_halves(_int8(dev, 256, 64, seed=7, lo=-7,
+                                              hi=8))
+    out4 = wo_matmul.wo_int4_matmul(x, packed, s)
+    assert got.shape == out4.shape == (2, 3, 64)
+    assert (WRAPPERS["wo_int8"].launches, WRAPPERS["wo_int8_grouped"].launches,
+            WRAPPERS["wo_int4"].launches) == (1, 1, 1)
+
+
+def test_wo_kernels_reject_what_they_do_not_take(dev):
+    x, w, s = _randn(dev, 4, 256), _int8(dev, 256, 64), _scales(dev, 64)
+    with pytest.raises(ValueError):                       # f32 activations
+        wo_matmul.wo_int8(x.float(), w, s)
+    with pytest.raises(ValueError):                       # K % 8
+        wo_matmul.wo_int8(_randn(dev, 4, 252), _int8(dev, 252, 64), s)
+    with pytest.raises(ValueError):                       # N % 16
+        wo_matmul.wo_int8(x, _int8(dev, 256, 72), _scales(dev, 72))
+    with pytest.raises(ValueError):                       # int4: N % 32
+        wo_matmul.wo_int4(x, _int8(dev, 256, 24), _scales(dev, 48))
+    with pytest.raises(ValueError):                       # not int8
+        wo_matmul.wo_int8_matmul(x, w.float(), s)
+
+
+def _pinned(dev, m, k, seed=0):
+    """x = q * 2**-5 with integer q in [-127, 127] and |q| = 127 pinned in
+    column 0, so s = 2**-5 exactly and x / s has no rounding at all."""
+    q = _int8(dev, m, k, seed=seed).float()
+    q[:, 0] = 127.0
+    return (q * 2.0 ** -5).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", _ROWS)
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+def test_a8w8_kernel_bit_identical_on_pinned_construction(dev, m, layout):
+    k, n = 384, 272
+    x = _pinned(dev, m, k, seed=m)
+    w = _int8(dev, k, n, seed=2)
+    ws = _scales(dev, n, seed=3)
+    wl = w.t().contiguous() if layout == "nk" else w
+    got = a8w8_matmul.a8w8_matmul(x, wl, ws, layout)
+    ref = a8w8_matmul.a8w8_matmul_plain(x, wl, ws, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("m", _ROWS)
+@pytest.mark.parametrize("k,n", [(4096, 1024), (1008, 1040), (272, 200)])
+def test_a8w8_kernel_random(dev, m, k, n):
+    """Random activations: the quantized q may differ where x / s lands
+    within rounding of a half, so the tolerance is one bf16 ulp of the
+    largest reference value plus one quantisation step of the row."""
+    x = _randn(dev, m, k, seed=m)
+    w = _int8(dev, n, k, seed=2)
+    ws = _scales(dev, n, seed=3)
+    got = a8w8_matmul.a8w8_matmul(x, w, ws, "nk")
+    ref = a8w8_matmul.a8w8_matmul_plain(x, w, ws, "nk")
+    _, s = a8w8_matmul.row_quantize(x)
+    step = (s * 127.0 * ws.max()).max().item()
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * ref.float().abs().max().item() + step, err
+
+
+def test_a8w8_rejects_what_it_does_not_take(dev):
+    w, ws = _int8(dev, 64, 256), _scales(dev, 64)
+    with pytest.raises(ValueError):                       # f32 activations
+        a8w8_matmul.a8w8_matmul(torch.zeros(4, 256, device=dev), w, ws, "nk")
+    with pytest.raises(ValueError):                       # K % 16
+        a8w8_matmul.a8w8_matmul(_randn(dev, 4, 248), _int8(dev, 64, 248), ws,
+                                "nk")
+    with pytest.raises(ValueError):                       # kn: N % 16
+        a8w8_matmul.a8w8_matmul(_randn(dev, 4, 256), _int8(dev, 256, 40),
+                                _scales(dev, 40), "kn")
+
+
+@pytest.mark.parametrize("quant,group,fused,kernel", [
+    ("weight_only_int8", -1, False, "wo_int8"),
+    ("weight_only_int4", -1, False, "wo_int4"),
+    ("weight_only_int8", 64, True, "wo_int8_grouped"),
+])
+def test_quant_engine_launches_a_wo_kernel_per_projection(
+        dev, monkeypatch, tmp_path, quant, group, fused, kernel):
+    """A quant engine runs each of the 7 projections of every layer through
+    its weight-only kernel once per forward (on the fused-layer engine: all
+    7 in prefill, q/k/v in decode, where the decode layer takes the rest)."""
+    monkeypatch.setenv("PADDLE_TPU_TUNE_CACHE", str(tmp_path / "tc.json"))
+    model = llama_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                       num_heads=4, num_kv_heads=2, intermediate_size=512)
+    eng = LLMEngine(model, ServingConfig(
+        page_size=16, num_pages=33, max_batch=2, max_new_tokens=8,
+        dtype="bfloat16", quant=quant, quant_group_size=group,
+        fused_decode_layer=fused))
+    for w in WRAPPERS.values():
+        w.launches = 0
+    try:
+        reqs = [eng.submit(list(range(1 + i, 60 + i))) for i in range(3)]
+        outs = [r.result(timeout=300) for r in reqs]
+        prefills = len(eng.prefill_ms) + len(eng.chunk_ms)
+        steps = len(eng.step_ms)
+    finally:
+        summary = eng.shutdown()
+    assert all(len(o) == 8 for o in outs) and summary["pages_leaked"] == 0
+    layers = model.cfg.num_layers
+    per_step = 3 if fused else 7
+    assert WRAPPERS[kernel].launches == layers * (7 * prefills
+                                                  + per_step * steps) > 0
+    assert all(WRAPPERS[n].launches == 0 for n in QUANT_KERNELS
+               if n != kernel)
+    assert WRAPPERS["decode_layer"].launches == (layers * steps if fused
+                                                 else 0)

@@ -263,11 +263,22 @@ def test_escape_hatch(models, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(spec_k=2), dict(quant="weight_only_int8"),
                                 dict(prefill_budget=8)])
-def test_engine_still_refuses_unported_options(models, kw):
+def test_engine_still_refuses_unported_options(models, no_tune, kw):
+    """``spec_k`` and ``prefill_budget`` still raise; ``quant`` is ported:
+    a fused-layer int8 engine constructs and serves."""
     _, tm = models
-    with pytest.raises(NotImplementedError):
-        LLMEngine(tm, ServingConfig(fused_decode_layer=True, **kw),
-                  device="cpu")
+    if "quant" not in kw:
+        with pytest.raises(NotImplementedError):
+            LLMEngine(tm, ServingConfig(fused_decode_layer=True, **kw),
+                      device="cpu")
+        return
+    eng = LLMEngine(tm, ServingConfig(fused_decode_layer=True, **_SERVE_CFG,
+                                      **kw), device="cpu")
+    try:
+        assert eng._sm._fused_layer_active() and eng._sm.quantized
+        assert len(eng.generate(_PROMPTS[0], timeout=300)) == 6
+    finally:
+        assert eng.shutdown()["pages_leaked"] == 0
 
 
 # -- the block_i tuner's cache ----------------------------------------------------

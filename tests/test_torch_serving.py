@@ -157,8 +157,7 @@ def test_stream_sampling_and_rejection(models):
 
 def test_unported_options_raise(models):
     _, tm = models
-    for kw in (dict(spec_k=2), dict(quant="weight_only_int8"),
-               dict(prefill_budget=8)):
+    for kw in (dict(spec_k=2), dict(prefill_budget=8)):
         with pytest.raises(NotImplementedError):
             _port_engine(tm, **kw)
 
