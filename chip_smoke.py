@@ -65,10 +65,20 @@ Phases, in order; any failure exits non-zero:
    llm_int8 — ``nn.quant.llm_int8_linear`` at x [1024, 4096] bf16 with 4
    outlier channels, w [14336, 4096] int8 and a bias: one A8W8 launch per
    call, against its plain path, timed.
+   train — once the serving model and engines are freed: Llama-3-8B's
+   width cut to 4 layers (``fused_blocks = False``, bf16 with f32 master
+   weights) trains on one fixed B 2 x S 2048 batch through the backward
+   kernels and the AdamW kernel: parity of the loss and of every gradient
+   with the plain path, 8 steps with a falling loss, the exact launches of
+   every step, step time, tokens/s, peak memory and a profile of a step.
+   Phase 3 holds the four training kernels (RMSNorm, SwiGLU and
+   flash-attention backward, AdamW) against their plain versions at the
+   train phase's shapes.
 7. summary — one JSON line of every kernel's launches (the decode layer's
    on engine c's run, the weight-only kernels' on engines d, e and f, A8W8's
-   in the llm_int8 phase, the others' on engine b's) and times, then the
-   last line ``{"ok": true, "device": {...}}``.
+   in the llm_int8 phase, the training kernels' in one train step, the
+   others' on engine b's) and times, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
 """
@@ -76,6 +86,7 @@ The script imports neither JAX nor ``paddle_tpu``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -100,6 +111,18 @@ QUANT_KERNELS = ("wo_int8", "wo_int8_grouped", "wo_int4", "a8w8")
 QUANT_GROUP = 128         # engine f's quant_group_size
 FUSED_QUANT_REQUESTS, FUSED_QUANT_TOKENS = 4, 16
 LLM_INT8_CALLS = 4        # llm_int8_linear calls of the A8W8 phase's run
+TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd",
+                 "adamw")
+TRAIN_LAYERS = 4          # Llama-3-8B's width, depth cut to fit the state
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS = 8
+TRAIN_LOSS_TOL = 5e-3     # kernels vs plain: loss, relative
+# Each gradient, relative L2. Both bf16 paths lie 1.2-4.5% from the f32
+# gradient of the same weights (PR 5's first runs, PERF.md §6), so the
+# kernel path is held against the plain one at 5e-2, and against f32 to no
+# more than 1.1x the plain path's own distance from it.
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_F32_RATIO = 1.1
 
 
 def fail(msg: str) -> None:
@@ -295,7 +318,175 @@ def phase_kernels(torch, dev):
     _kernels_decode_layer(torch, dev, randn, timer, results)
     _kernels_wo(torch, dev, randn, timer, results)
     _kernels_a8w8(torch, dev, randn, timer, results)
+    _kernels_train(torch, dev, randn, timer, results)
     return results
+
+
+def _rel_l2(torch, got, ref):
+    torch.cuda.synchronize()
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _grad_timer(torch, timer, out, inputs, grad_out):
+    """Cold time of autograd's backward of ``out`` (a graph built once)
+    with respect to ``inputs``: a library call's backward as a yardstick."""
+    return timer(lambda: torch.autograd.grad(out, inputs, grad_out,
+                                             retain_graph=True))
+
+
+def _kernels_train(torch, dev, randn, timer, results):
+    """The training kernels at the train phase's shapes (Llama-3-8B's
+    width, TRAIN_BATCH x TRAIN_SEQ = 2 x 2048 tokens): the RMSNorm backward
+    [4096, 4096] with and without the residual sum's cotangent (dx within
+    one bf16 ulp; dw within 1e-3 of its largest value plus the one bf16
+    rounding of the result), the SwiGLU backward [4096, 14336] (one ulp),
+    the flash-attention backward at q [2, 2048, 32, 128] over 8 kv heads,
+    causal, then packed segments at [2, 1024] and full attention at
+    [1, 1024] and D 64 (dq, dk, dv within 1e-2 relative L2 of the plain f32
+    version), and AdamW over a [14336, 4096] parameter with an f32 master
+    and a bf16 gradient (bit for bit). Yardsticks, timed only: autograd of
+    ``F.rms_norm`` and of ``F.scaled_dot_product_attention(enable_gqa=
+    True)``, and ``torch.optim.AdamW(fused=True)``'s step on an f32
+    parameter of the same size with an f32 gradient (the same 28 bytes an
+    element)."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import adamw, flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import rms_norm, swiglu
+
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig()
+    rows, hid, inter = TRAIN_BATCH * TRAIN_SEQ, cfg.hidden_size, \
+        cfg.intermediate_size
+    w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
+    h, g = randn(rows, hid), randn(rows, hid)
+    for with_gh in (False, True):
+        gh = randn(rows, hid) if with_gh else None
+        dx, dw = rms_norm.rms_norm_bwd(h, w, g, gh, 1e-5)
+        rdx, rdw = rms_norm.rms_norm_bwd_plain(h, w, g, gh, 1e-5)
+        err, tol = compare(torch, dx, rdx)
+        err_w, _ = compare(torch, dw, rdw)
+        tol_w = (1e-3 + 2.0 ** -7) * rdw.float().abs().max().item()
+        if not err_w <= tol_w:
+            fail(f"rms_norm_bwd dw: {err_w} > {tol_w}")
+        lib = None
+        if not with_gh:
+            xl = h.clone().requires_grad_()
+            wl = w.clone().requires_grad_()
+            lib = _grad_timer(torch, timer, TF.rms_norm(xl, (hid,), wl, 1e-5),
+                              (xl, wl), g)
+        n = rows * hid
+        _record(results, "rms_norm_bwd",
+                [rows, hid] + (["residual cotangent"] if with_gh else []),
+                err, tol,
+                timer(lambda: rms_norm.rms_norm_bwd(h, w, g, gh, 1e-5)),
+                timer(lambda: rms_norm.rms_norm_bwd_plain(h, w, g, gh, 1e-5)),
+                lib, 2 * n * (3 + with_gh) + 2 * hid * 2, 10 * n,
+                dw_err=err_w, dw_tol=tol_w)
+
+    gg, uu, dy = randn(rows, inter), randn(rows, inter), randn(rows, inter)
+    got, ref = swiglu.swiglu_bwd(gg, uu, dy), swiglu.swiglu_bwd_plain(gg, uu, dy)
+    err_u, tol_u = compare(torch, got[1], ref[1])
+    if not err_u <= tol_u:
+        fail(f"swiglu_bwd du: {err_u} > {tol_u}")
+    err, tol = compare(torch, got[0], ref[0])
+    n = rows * inter
+    _record(results, "swiglu_bwd", [rows, inter], err, tol,
+            timer(lambda: swiglu.swiglu_bwd(gg, uu, dy)),
+            timer(lambda: swiglu.swiglu_bwd_plain(gg, uu, dy)), None,
+            5 * n * 2, 12 * n)
+    del gg, uu, dy, got, ref
+
+    hq, h_kv, half = cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ // 2
+    for b, s, d, causal, with_seg in (
+            (TRAIN_BATCH, TRAIN_SEQ, cfg.head_dim, True, False),
+            (2, half, cfg.head_dim, True, True), (1, half, 64, False, False)):
+        q, do = randn(b, s, hq, d), randn(b, s, hq, d)
+        k, v = randn(b, s, h_kv, d), randn(b, s, h_kv, d)
+        seg = None
+        if with_seg:
+            seg = torch.zeros(b, s, dtype=torch.int32)
+            seg[0, s // 10:], seg[0, s // 3:], seg[0, s // 3 + 1:] = 1, 2, 3
+            seg[1, s // 2:] = 1
+            seg = seg.to(dev)
+        out, lse = fa.flash_attention(q, k, v, causal, seg, True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, seg)
+        ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, seg)
+        errs = {nm: _rel_l2(torch, a, r)
+                for nm, a, r in zip(("dq", "dk", "dv"), got, ref)}
+        if not all(torch.isfinite(a).all() for a in got):
+            fail("flash_attention_bwd: non-finite gradients")
+        if not max(errs.values()) <= 1e-2:
+            fail(f"flash_attention_bwd {[b, s, hq, d]}: relative L2 {errs} "
+                 f"> 1e-2")
+        del ref
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        if seg is None:
+            pairs = b * (s * (s + 1) // 2 if causal else s * s)
+            lo = TF.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)
+        else:
+            pairs = sum(_segment_pairs(row) for row in seg.cpu())
+            mask = ((seg[:, :, None] == seg[:, None, :])
+                    & torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+                    )[:, None]
+            lo = TF.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+        lib = _grad_timer(torch, timer, lo, (qt, kt, vt), do.transpose(1, 2))
+        del lo, qt, kt, vt
+        nbytes = 2 * (3 * q.numel() + 2 * k.numel()) + 4 * b * hq * s \
+            + 2 * (q.numel() + 2 * k.numel()) + (4 * b * s if with_seg else 0)
+        _record(results, "flash_attention_bwd",
+                [b, s, hq, d, "Hkv", h_kv, "causal" if causal else "full"]
+                + (["segments"] if with_seg else []),
+                max(errs.values()), 1e-2,
+                timer(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                     causal, seg)),
+                timer(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, out, lse, do, causal, seg), iters=5),
+                lib, nbytes, 2.5 * 4 * hq * d * pairs, BF16_TC_FLOPS_PER_S,
+                rel_l2=errs, error_metric="max relative L2 of dq, dk, dv")
+        del q, k, v, do, out, lse, got
+
+    rows_w, cols_w = inter, hid
+    n = rows_w * cols_w
+    gen = torch.Generator(device=dev).manual_seed(77)
+    master = torch.randn(rows_w, cols_w, generator=gen, device=dev) * 0.02
+    grad = (torch.randn(rows_w, cols_w, generator=gen, device=dev)
+            * 1e-3).to(torch.bfloat16)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, wd=0.01)
+    scal = adamw.adamw_scalars(torch.tensor(1e-4, device=dev),
+                               torch.tensor(3.0, device=dev), 0.9, 0.999)
+    state = [master.to(torch.bfloat16), torch.rand_like(master) * 1e-3,
+             torch.rand_like(master) * 1e-6, master]
+    ref = [t.clone() for t in state]
+    adamw.adamw_update(state[0], grad, state[1], state[2], scal,
+                       master=state[3], **kw)
+    adamw.adamw_update_plain(ref[0], grad, ref[1], ref[2], scal,
+                             master=ref[3], **kw)
+    torch.cuda.synchronize()
+    err = max((a.float() - r.float()).abs().max().item()
+              for a, r in zip(state, ref))
+    if not all(torch.equal(a, r) for a, r in zip(state, ref)):
+        fail(f"adamw: kernel and plain version differ (max abs {err})")
+    del ref
+    lib_p = torch.nn.Parameter(master.clone())
+    lib_p.grad = grad.float()
+    lib_opt = torch.optim.AdamW([lib_p], lr=1e-4, weight_decay=0.01,
+                                fused=True)
+    lib = timer(lib_opt.step)
+    del lib_p, lib_opt
+    _record(results, "adamw", [rows_w, cols_w, "f32 master", "bf16 grad"],
+            err, 0.0,
+            timer(lambda: adamw.adamw_update(state[0], grad, state[1],
+                                             state[2], scal, master=state[3],
+                                             **kw)),
+            timer(lambda: adamw.adamw_update_plain(
+                state[0], grad, state[1], state[2], scal, master=state[3],
+                **kw)),
+            lib, 28 * n, 15 * n)
 
 
 def _segment_pairs(seg_row):
@@ -752,7 +943,8 @@ def phase_serve_default(torch, np, model):
     prompts = default_prompts(np, model.cfg.vocab_size)
     reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
     idle = [n for n, c in launches.items()
-            if c == 0 and n not in ("decode_layer",) + QUANT_KERNELS]
+            if c == 0 and n not in ("decode_layer",) + QUANT_KERNELS
+            + TRAIN_KERNELS]
     if idle:
         fail(f"kernels never launched on the default serving path: {idle}")
     pages, px = _check_prefix_claims(engine, reqs, stats)
@@ -1119,7 +1311,10 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "swiglu_kernel", "flash_attention_kernel",
                 "block_epilogue_kernel", "decode_layer_kernel",
                 "wo_matmul_kernel", "a8w8_quantize_kernel",
-                "a8w8_gemm_kernel")
+                "a8w8_gemm_kernel", "rms_norm_bwd_kernel",
+                "swiglu_bwd_kernel", "flash_bwd_delta_kernel",
+                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                "adamw_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -1271,6 +1466,150 @@ def phase_llm_int8(torch, dev):
     return launches
 
 
+def _train_step(torch, model, opt, ids, labels):
+    """One forward, backward and optimizer step; returns the loss."""
+    _, loss = model(ids, labels=labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def phase_train(torch, dev):
+    """Llama training at Llama-3-8B's width, cut to TRAIN_LAYERS layers:
+    ``llama3_8b(num_layers=4)`` in bf16 from a seed with ``fused_blocks =
+    False``, ``AdamW(1e-4, weight_decay=0.01, multi_precision=True,
+    grad_clip=ClipGradByGlobalNorm(1.0))``, one fixed batch of B x S random
+    tokens (labels: the next token).
+    a. parity: one forward and backward through the kernels and one with
+       ``plain=True`` from the same weights, and one with ``plain=True``
+       on an f32 copy of them: the bf16 losses within 0.5% relative; every
+       parameter's gradient within TRAIN_GRAD_TOL relative L2 of the plain
+       path's, and no farther from the f32 gradient than TRAIN_F32_RATIO
+       times the plain path's distance from it;
+    b. TRAIN_STEPS AdamW steps through the kernels: every loss finite and
+       the last below the first; then, on a fresh random batch, a loss no
+       lower than ln(vocab) - 1 (memorising the batch cannot do better on
+       uniform tokens; a causal leak would);
+    c. every step's launches, set to 0 just before it and read just after:
+       rms_norm and rms_norm_bwd 2L+1, rope 4L, swiglu and swiglu_bwd L,
+       flash_attention and flash_attention_bwd L (one call of the backward
+       wrapper launches its delta, dq and dk/dv kernels and counts once),
+       adamw one per parameter (9L+3), nothing else;
+    d. step time (host clock to a synchronise, steps 2 on), tokens/s, peak
+       memory, and a torch.profiler breakdown of one step.
+    Returns the launches of one step."""
+    from paddle_tpu_torch.models import llama3_8b
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    layers = TRAIN_LAYERS
+    model = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0,
+                      num_layers=layers)
+    model.fused_blocks = False
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=gen, device=dev)
+    ids, labels = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+
+    # a. parity: kernels, then the plain versions, from the same weights;
+    # both against the plain path on an f32 copy of those weights
+    def grads_of(net, plain):
+        _, loss = net(ids, labels=labels, plain=plain)
+        loss.backward()
+        out = {n: p.grad for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    loss_k, g_k = grads_of(model, False)
+    loss_p, g_p = grads_of(model, True)
+    ref = llama3_8b(device=dev, dtype=torch.float32, seed=None,
+                    num_layers=layers)
+    ref.load_state_dict(model.state_dict())
+    ref.fused_blocks = False
+    loss_r, g_r = grads_of(ref, True)
+    del ref
+    names = list(g_k)
+    rel = {n: _rel_l2(torch, g_k[n], g_p[n]) for n in names}
+    rel_k32 = {n: _rel_l2(torch, g_k[n], g_r[n]) for n in names}
+    rel_p32 = {n: _rel_l2(torch, g_p[n], g_r[n]) for n in names}
+    del g_k, g_p, g_r
+    worst = max(rel, key=rel.get)
+    ratio = {n: rel_k32[n] / max(rel_p32[n], 1e-12) for n in names}
+    worst_ratio = max(ratio, key=ratio.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit({"phase": "train_parity", "loss_kernels": loss_k,
+          "loss_plain": loss_p, "loss_f32": loss_r, "loss_rel_diff": loss_rel,
+          "loss_tol": TRAIN_LOSS_TOL, "worst_grad": worst,
+          "worst_grad_rel_l2": rel[worst], "grad_tol": TRAIN_GRAD_TOL,
+          "worst_f32_ratio_grad": worst_ratio,
+          "worst_f32_ratio": ratio[worst_ratio],
+          "f32_ratio_tol": TRAIN_F32_RATIO, "grad_rel_l2": rel,
+          "kernels_vs_f32": rel_k32, "plain_vs_f32": rel_p32})
+    if not (loss_rel <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL
+            and ratio[worst_ratio] <= TRAIN_F32_RATIO):
+        fail(f"train parity: loss {loss_rel} (tol {TRAIN_LOSS_TOL}), "
+             f"{worst} gradient {rel[worst]} (tol {TRAIN_GRAD_TOL}), "
+             f"{worst_ratio} {rel_k32[worst_ratio]} from f32 against the "
+             f"plain path's {rel_p32[worst_ratio]} (tol x{TRAIN_F32_RATIO})")
+
+    # b.-c. steps through the kernels, each one's launches counted alone
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    want = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+            "rope": 4 * layers, "swiglu": layers, "swiglu_bwd": layers,
+            "flash_attention": layers, "flash_attention_bwd": layers,
+            "adamw": 9 * layers + 3}
+    losses, step_ms, launches = [], [], None
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        losses.append(_train_step(torch, model, opt, ids, labels))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+        if got != want:
+            fail(f"train step {step}: launches {got}, want {want}")
+        launches = {n: w.launches for n, w in WRAPPERS.items()}
+    losses = [x.item() for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a fresh batch of random tokens: memorising the training batch cannot
+    # bring its loss below ln(vocab), the entropy of uniform tokens; a
+    # causal mask that let a position see its label would
+    held = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=gen, device=dev)
+    with torch.no_grad():
+        heldout = model(held[:, :-1].contiguous(),
+                        labels=held[:, 1:].contiguous())[1].item()
+    uniform = math.log(cfg.vocab_size)
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    emit({"phase": "train", "model": "llama3_8b", "layers": layers,
+          "hidden": cfg.hidden_size, "intermediate": cfg.intermediate_size,
+          "vocab": cfg.vocab_size, "params": n_params,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+          "step_ms": step_ms, "step_ms_mean_after_first": mean_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
+          "peak_memory_gb": peak_gb, "launches_per_step": launches,
+          "heldout_loss": heldout, "uniform_loss": uniform})
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} not finite or not falling")
+    if not heldout >= uniform - 1.0:
+        fail(f"train: loss {heldout} on a fresh random batch is below "
+             f"ln(vocab) - 1 = {uniform - 1.0}: a position sees its label")
+    prof = _profile(torch, lambda: _train_step(torch, model, opt, ids,
+                                               labels), reps=2)
+    emit({"phase": "profile", "train_step": prof})
+    return launches
+
+
 def phase_profile(torch, model, engine, prompts):
     """Where a decode step (8 rows at the served prompts' lengths) and a
     512-token prefill chunk (at position 1024) spend their device time, on
@@ -1330,6 +1669,15 @@ _SOURCES = {
                 "paddle_tpu/ops/kernels/wo_matmul_pallas.py:176"),
     "a8w8": ("paddle_tpu_torch/csrc/a8w8_matmul.cu",
              "paddle_tpu/ops/kernels/a8w8_matmul_pallas.py:50"),
+    "rms_norm_bwd": ("paddle_tpu_torch/csrc/rms_norm.cu",
+                     "paddle_tpu/ops/kernels/rms_norm_pallas.py:114"),
+    "swiglu_bwd": ("paddle_tpu_torch/csrc/swiglu.cu",
+                   "paddle_tpu/ops/kernels/swiglu_pallas.py:117"),
+    "flash_attention_bwd": (
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/ops/kernels/flash_attention_pallas.py:340"),
+    "adamw": ("paddle_tpu_torch/csrc/adamw.cu",
+              "paddle_tpu/ops/kernels/adamw_pallas.py:59"),
 }
 
 
@@ -1391,6 +1739,13 @@ def main() -> int:
     launches["wo_int4"] = qe_launches["wo_int4"]
     launches["wo_int8_grouped"] = qf_launches["wo_int8_grouped"]
     launches["a8w8"] = llm_launches["a8w8"]
+
+    # training, once every serving model and engine is freed
+    del model, engine, d_engine, c_engine
+    _free(torch)
+    train_launches = phase_train(torch, dev)
+    for name in TRAIN_KERNELS:
+        launches[name] = train_launches[name]
 
     summary = []
     for name in sorted(kern):

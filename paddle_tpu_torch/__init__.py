@@ -8,7 +8,8 @@ package imports neither JAX nor ``paddle_tpu``.
 
 It serves Llama through :class:`paddle_tpu_torch.serving.LLMEngine`
 (float or weight-only quantized); ``nn.quant`` holds the quantized linear
-functions.
+functions. It trains Llama (``fused_blocks=False``) through the backward
+kernels and :class:`paddle_tpu_torch.optimizer.AdamW`'s fused update.
 """
 
 from .device import resolve_device

@@ -5,12 +5,15 @@ RMSNorm, rotate-half RoPE, SwiGLU MLP and grouped-query attention as
 keys (``embed_tokens.weight``, ``layers.{i}.self_attn.q_proj.weight``, ...,
 ``norm.weight``, ``lm_head.weight``); ``models/convert.py`` carries a JAX
 model's weights across. The modules hold the weights and the per-op
-pieces the serving model (``serving/model.py``) strings together;
-:meth:`Llama.forward` is the whole-sequence inference forward through the
-fused trunk (flash attention, block epilogues). Labels, the loss and
-``caches`` wait for the training slice. Linear weights are stored
-``[out, in]`` as ``torch.nn.Linear`` keeps them (the JAX package stores
-``[in, out]``).
+pieces the serving model (``serving/model.py``) strings together.
+:meth:`Llama.forward` is the causal whole-sequence forward, with the loss
+when ``labels`` are given. ``Llama.fused_blocks`` (default True, the
+counterpart of ``FLAGS_use_fused_blocks``) picks the fused trunk (flash
+attention, block epilogues) or the layer loop of the JAX escape hatch
+(``fused_blocks = False``), which trains through the backward kernels; the
+fused trunk's backward (the block-epilogue backward) is not ported and
+raises. ``caches`` are not ported. Linear weights are stored ``[out, in]``
+as ``torch.nn.Linear`` keeps them (the JAX package stores ``[in, out]``).
 
 Parameters are made on the target device and drawn from a seeded
 ``torch.Generator`` with the JAX init's std: ``initializer_range`` for
@@ -92,6 +95,17 @@ class LlamaAttention(nn.Module):
                 self.k_proj(x).reshape(b, s, self.n_kv, self.head_dim),
                 self.v_proj(x).reshape(b, s, self.n_kv, self.head_dim))
 
+    def forward(self, x, cos, sin, plain=False):
+        """Causal self-attention of ``x [B, S, hidden]``: projections, RoPE,
+        flash attention over the shared kv heads, ``o_proj``
+        (``paddle_tpu/models/llama.py:155-170``)."""
+        b, s, _ = x.shape
+        q, k, v = self.qkv(x)
+        q, k = F.rope(q, k, sin, cos, plain=plain)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             plain=plain)
+        return self.o_proj(out.reshape(b, s, self.n_head * self.head_dim))
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig):
@@ -115,6 +129,15 @@ class LlamaDecoderLayer(nn.Module):
                                                 cfg.rms_norm_eps)
         self.mlp = LlamaMLP(cfg)
 
+    def forward(self, x, cos, sin, plain=False):
+        """One layer of the unfused trunk (``paddle_tpu/models/llama.py:
+        211-224``): ``x + attn(norm(x))`` through the fused residual-add
+        norm, then ``h + mlp(y)``."""
+        a = self.self_attn(self.input_layernorm(x, plain), cos, sin, plain)
+        post = self.post_attention_layernorm
+        y, h = F.fused_rms_norm_add(a, x, post.weight, post.eps, plain=plain)
+        return h + self.mlp(y, plain)
+
 
 class Llama(nn.Module):
     """Llama LM on ``device`` (default ``cuda``) in ``dtype``. ``seed``
@@ -136,6 +159,9 @@ class Llama(nn.Module):
         self.to(dtype)              # still on meta: no memory yet
         self.to_empty(device=dev)
         self._rope_cache: dict[int, tuple] = {}
+        #: the fused trunk (block epilogues at every junction) or the layer
+        #: loop; only the layer loop has a backward
+        self.fused_blocks = True
         if seed is not None:
             self.init_weights(seed)
 
@@ -183,14 +209,8 @@ class Llama(nn.Module):
         layers = list(self.layers)
         y = layers[0].input_layernorm(x, plain)
         h = x
-        b, s, _ = x.shape
         for i, layer in enumerate(layers):
-            attn = layer.self_attn
-            q, k, v = attn.qkv(y)
-            q, k = F.rope(q, k, sin, cos, plain=plain)
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                 plain=plain)
-            a = attn.o_proj(out.reshape(b, s, attn.n_head * attn.head_dim))
+            a = layer.self_attn(y, cos, sin, plain)
             post = layer.post_attention_layernorm
             y, h = F.fused_dropout_add_norm(a, h, post.weight, None, p=0.0,
                                             epsilon=post.eps, plain=plain)
@@ -201,16 +221,29 @@ class Llama(nn.Module):
                                             epsilon=nxt.eps, plain=plain)
         return y
 
-    @torch.no_grad()
-    def forward(self, input_ids, plain=False):
-        """Logits ``[B, S, vocab]`` of ``input_ids [B, S]``: the causal
-        whole-sequence forward (``paddle_tpu/models/llama.py:300-331``,
-        its fused-trunk branch). ``plain=True`` runs every kernel's plain
-        version."""
+    def forward(self, input_ids, labels=None, plain=False):
+        """Logits ``[B, S, vocab]`` of ``input_ids [B, S]``, or ``(logits,
+        loss)`` with ``labels [B, S]``: the causal whole-sequence forward
+        (``paddle_tpu/models/llama.py:300-331``), through the fused trunk
+        or, with ``fused_blocks = False``, the layer loop. The loss is the
+        mean cross entropy of the logits taken to f32 (``ignore_index``
+        -100), as the JAX package computes it. ``plain=True`` runs every
+        kernel's plain version, forward and backward."""
         cos, sin = self.rope(input_ids.shape[1])
         x = self.embed_tokens(input_ids.long())
-        return self._head(self._fused_trunk(x, cos, sin, plain), plain,
-                          normed=True)
+        if self.fused_blocks:
+            logits = self._head(self._fused_trunk(x, cos, sin, plain), plain,
+                                normed=True)
+        else:
+            for layer in self.layers:
+                x = layer(x, cos, sin, plain)
+            logits = self._head(x, plain)
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(
+            logits.reshape(-1, self.cfg.vocab_size).float(),
+            labels.reshape(-1))
+        return logits, loss
 
 
 def llama_tiny(device=None, dtype=torch.float32, seed=0, **kw) -> Llama:

@@ -1,5 +1,5 @@
 """Layers and functional ops of the port."""
 
-from . import functional, quant
+from . import clip, functional, quant
 
-__all__ = ["functional", "quant"]
+__all__ = ["clip", "functional", "quant"]

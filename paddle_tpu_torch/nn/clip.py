@@ -1,0 +1,49 @@
+"""Gradient clipping by global norm (counterpart of
+``paddle_tpu/nn/clip.py`` ``ClipGradByGlobalNorm`` :52), in plain PyTorch.
+
+A clip object is given to an optimizer as ``grad_clip=`` and applied to
+its ``(param, grad)`` list before the update. Everything stays on the
+device: the norm is a 0-d tensor and nothing synchronises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ClipGradBase", "ClipGradByGlobalNorm"]
+
+
+class ClipGradBase:
+    def __call__(self, params_grads):
+        raise NotImplementedError
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
+    """Scale every gradient by ``min(clip_norm / max(global_norm, 1e-12),
+    1)``, where the global norm is taken in f32 over all gradients. A
+    parameter with ``need_clip = False`` is left out of the norm and of the
+    scaling. New gradient tensors are returned; ``param.grad`` is left as
+    it is."""
+
+    #: the global norm of the most recent call (a 0-d f32 tensor on the
+    #: gradients' device), None before any call or when nothing was clipped
+    last_global_norm = None
+
+    def __init__(self, clip_norm, group_name="default_group",
+                 auto_skip_clip=False):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        clipped = [g is not None and getattr(p, "need_clip", True)
+                   for p, g in params_grads]
+        sq = [g.float().square().sum()
+              for (_, g), c in zip(params_grads, clipped) if c]
+        if not sq:
+            self.last_global_norm = None
+            return params_grads
+        global_norm = torch.sqrt(torch.stack(sq).sum())
+        self.last_global_norm = global_norm
+        scale = torch.clamp(self.clip_norm / global_norm.clamp_min(1e-12),
+                            max=1.0)
+        return [(p, g * scale.to(g.dtype)) if c else (p, g)
+                for (p, g), c in zip(params_grads, clipped)]

@@ -1,16 +1,27 @@
-"""Functional ops of the Llama serving path (counterparts of
+"""Functional ops of the Llama serving and training paths (counterparts of
 ``paddle_tpu/nn/functional/__init__.py`` ``rms_norm`` (:90),
 ``fused_rms_norm_add`` (:115), ``fused_dropout_add_norm`` (:139),
-``scaled_dot_product_attention`` (:391), ``rope`` (:505) and
-``paddle_tpu/ops/activation.py`` ``swiglu`` (:159)).
+``scaled_dot_product_attention`` (:391), ``rope`` (:505),
+``paddle_tpu/ops/activation.py`` ``swiglu`` (:159) and
+``paddle_tpu/nn/functional/loss.py`` ``cross_entropy`` (:32-79)).
 
 Dispatch is the kernel wrapper's: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``plain=True`` runs the plain
 PyTorch version on any device; it exists so a check on the card can hold
 the kernel path against the plain one on the same inputs.
+
+Where grad is enabled and an operand requires it, each op goes through its
+``torch.autograd.Function``, whose backward is the backward kernel (or,
+with ``plain=True``, the plain backward); otherwise it calls the forward
+wrapper directly, as the serving path always has. The block epilogue's
+backward (``paddle_tpu/ops/kernels/block_fused_pallas.py:252`` ``_bwd``)
+is not ported: a gradient through :func:`fused_dropout_add_norm` raises
+``NotImplementedError`` rather than differentiating the plain version.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..ops.kernels import block_epilogue as _bep
 from ..ops.kernels import flash_attention as _fa
@@ -19,18 +30,44 @@ from ..ops.kernels import rope as _rope
 from ..ops.kernels import swiglu as _swiglu
 
 __all__ = ["rms_norm", "fused_rms_norm_add", "fused_dropout_add_norm",
-           "scaled_dot_product_attention", "rope", "swiglu"]
+           "scaled_dot_product_attention", "rope", "swiglu", "cross_entropy"]
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def rms_norm(x, weight, epsilon=1e-6, plain=False):
+    if _needs_grad(x, weight):
+        return _rms.RMSNormFunction.apply(x, weight, None, epsilon, plain)
     fn = _rms.rms_norm_plain if plain else _rms.rms_norm
     return fn(x, weight, None, epsilon)
 
 
 def fused_rms_norm_add(x, residual, weight, epsilon=1e-6, plain=False):
     """``(rmsnorm(x + residual) * weight, x + residual)``."""
+    if _needs_grad(x, residual, weight):
+        return _rms.RMSNormFunction.apply(x, weight, residual, epsilon, plain)
     fn = _rms.rms_norm_plain if plain else _rms.rms_norm
     return fn(x, weight, residual, epsilon)
+
+
+class _EpilogueNoBackward(torch.autograd.Function):
+    """The block epilogue's forward under autograd; its backward (row 10 of
+    PERF.md's kernel table) is not ported and raises."""
+
+    @staticmethod
+    def forward(ctx, fn, x, residual, weight, bias, *args):
+        return fn(x, residual, weight, bias, *args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the block-epilogue backward (paddle_tpu/ops/kernels/"
+            "block_fused_pallas.py:252 _bwd, row 10 of PERF.md's kernel "
+            "table) is not ported yet: train with Llama.fused_blocks = "
+            "False, or run the fused trunk under torch.no_grad()")
 
 
 def fused_dropout_add_norm(x, residual, weight, bias=None, p=0.0,
@@ -47,8 +84,11 @@ def fused_dropout_add_norm(x, residual, weight, bias=None, p=0.0,
     is an argument here, never drawn from a framework generator.
     ``training=False`` turns dropout off."""
     fn = _bep.fused_epilogue_plain if plain else _bep.fused_epilogue
-    return fn(x, residual, weight, bias, int(seed),
-              float(p) if training else 0.0, epsilon, activation, norm)
+    args = (int(seed), float(p) if training else 0.0, epsilon, activation,
+            norm)
+    if _needs_grad(x, residual, weight, bias):
+        return _EpilogueNoBackward.apply(fn, x, residual, weight, bias, *args)
+    return fn(x, residual, weight, bias, *args)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -62,17 +102,87 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "scaled_dot_product_attention: attn_mask and dropout are not "
             "ported yet; only the flash-attention case (no mask, no "
             "dropout) is")
-    return _fa.flash_attention_forward(query, key, value, causal=is_causal,
-                                       plain=plain)
+    return flash_attention(query, key, value, causal=is_causal, plain=plain)
+
+
+def flash_attention(q, k, v, causal=False, segment_ids=None, plain=False):
+    """``[B, S, H, D]`` attention (``paddle_tpu/ops/kernels/
+    flash_attention.py`` ``flash_attention`` :213): causal or full, with
+    optional int ``segment_ids [B, S]`` (a query sees only keys of its own
+    segment); ``k``/``v`` may carry fewer heads (GQA). Differentiable
+    through the backward kernels."""
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(torch.int32)
+    if _needs_grad(q, k, v):
+        return _fa.FlashAttentionFunction.apply(q, k, v, causal, segment_ids,
+                                                plain)
+    return _fa.flash_attention_forward(q, k, v, causal=causal,
+                                       segment_ids=segment_ids, plain=plain)
 
 
 def rope(q, k, sin, cos, plain=False):
     """Rotate-half RoPE on ``q`` and ``k`` ``[B, S, H, D]``; ``cos``/``sin``
     are f32 tables ``[S, D]`` or ``[B*S, D]`` (one row per token)."""
-    fn = _rope.rope_plain if plain else _rope.rope_apply
-    return fn(q, cos, sin), fn(k, cos, sin)
+    def one(x):
+        if _needs_grad(x):
+            return _rope.RoPEFunction.apply(x, cos, sin, plain)
+        return (_rope.rope_plain if plain else _rope.rope_apply)(x, cos, sin)
+    return one(q), one(k)
 
 
 def swiglu(g, u, plain=False):
+    if _needs_grad(g, u):
+        return _swiglu.SwiGLUFunction.apply(g, u, plain)
     fn = _swiglu.swiglu_plain if plain else _swiglu.swiglu
     return fn(g, u)
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"cross_entropy: reduction must be 'mean', 'sum' or "
+                     f"'none', got {reduction!r}")
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """Softmax cross entropy with hard labels, in plain PyTorch with the
+    log-softmax in f32 (``paddle_tpu/nn/functional/loss.py:32-79``): labels
+    equal to ``ignore_index`` add nothing and leave the mean's
+    denominator; an optional per-class ``weight`` scales each row's loss,
+    and the weighted mean divides by the weights of the counted rows.
+    Soft labels and label smoothing are not ported yet and raise."""
+    if soft_label:
+        raise NotImplementedError("cross_entropy: soft_label=True is not "
+                                  "ported yet")
+    if label_smoothing:
+        raise NotImplementedError("cross_entropy: label_smoothing is not "
+                                  "ported yet")
+    x = input.float()
+    logp = torch.log_softmax(x, dim=axis) if use_softmax \
+        else torch.log(x.clamp_min(1e-12))
+    idx = label
+    if idx.dim() == logp.dim() and idx.shape[axis] == 1:
+        idx = idx.squeeze(axis)
+    idx = idx.long()
+    valid = idx != ignore_index
+    safe = torch.where(valid, idx, torch.zeros_like(idx))
+    picked = logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    zero = torch.zeros((), dtype=logp.dtype, device=logp.device)
+    loss = -picked
+    if weight is not None:
+        cw = weight.to(device=logp.device, dtype=logp.dtype)[safe]
+        loss = torch.where(valid, loss * cw, zero)
+        if reduction == "mean":
+            return loss.sum() / torch.where(valid, cw, zero).sum().clamp_min(
+                1e-12)
+    else:
+        loss = torch.where(valid, loss, zero)
+        if reduction == "mean":
+            return loss.sum() / valid.sum().to(loss.dtype).clamp_min(1.0)
+    return _reduce(loss, reduction)

@@ -5,20 +5,25 @@ launches its CUDA kernel for a tensor on the card (or raises), and counts
 its launches in a plain ``int`` attribute, ``<wrapper>.launches``.
 """
 
-from . import (a8w8_matmul, block_epilogue, decode_layer, flash_attention,
-               mmha, rms_norm, rope, swiglu, wo_matmul)
+from . import (a8w8_matmul, adamw, block_epilogue, decode_layer,
+               flash_attention, mmha, rms_norm, rope, swiglu, wo_matmul)
 
 #: every kernel wrapper of the port, by name
 WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
+            "rms_norm_bwd": rms_norm.rms_norm_bwd,
             "rope": rope.rope_apply, "swiglu": swiglu.swiglu,
+            "swiglu_bwd": swiglu.swiglu_bwd,
             "flash_attention": flash_attention.flash_attention,
+            "flash_attention_bwd": flash_attention.flash_attention_bwd,
             "block_epilogue": block_epilogue.fused_epilogue,
             "decode_layer": decode_layer.decode_layer,
             "wo_int8": wo_matmul.wo_int8,
             "wo_int8_grouped": wo_matmul.wo_int8_grouped,
             "wo_int4": wo_matmul.wo_int4,
-            "a8w8": a8w8_matmul.a8w8_matmul}
+            "a8w8": a8w8_matmul.a8w8_matmul,
+            "adamw": adamw.adamw_update}
 
-__all__ = ["WRAPPERS", "a8w8_matmul", "block_epilogue", "decode_layer",
+__all__ = ["WRAPPERS", "a8w8_matmul", "adamw", "block_epilogue",
+           "decode_layer",
            "flash_attention", "mmha", "rms_norm", "rope", "swiglu",
            "wo_matmul"]

@@ -33,7 +33,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("rms_norm", "swiglu", "rope", "mmha", "block_epilogue",
-           "flash_attention", "decode_layer", "wo_matmul", "a8w8_matmul")
+           "flash_attention", "flash_attention_bwd", "decode_layer",
+           "wo_matmul", "a8w8_matmul", "adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

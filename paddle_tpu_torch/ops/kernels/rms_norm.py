@@ -1,8 +1,10 @@
-"""RMSNorm with an optional residual add: CUDA kernel and plain version.
+"""RMSNorm with an optional residual add, forward and backward: CUDA
+kernels, plain versions and the autograd Function.
 
 Replaces ``paddle_tpu/ops/kernels/rms_norm_pallas.py`` ``_fused_fwd``
-(:82; kernel bodies :31-44), reached through ``rms_norm_fused``. Source:
-``paddle_tpu_torch/csrc/rms_norm.cu``.
+(:82; kernel bodies :31-44) and ``_fused_bwd`` (:114; kernel body
+:46-66), reached through the custom_vjp ``rms_norm_fused`` (:154-176).
+Source: ``paddle_tpu_torch/csrc/rms_norm.cu``.
 
 What bounds it on the H100: bytes — one read of ``x`` (and ``res``) and
 one write of ``y`` (and ``h``) per row, a few operations per element. The
@@ -15,6 +17,16 @@ Numerics follow the TPU kernel, not the JAX composite: ``h`` stays in f32,
 (``paddle_tpu/nn/functional/__init__.py:104-110``) casts ``h * rstd`` to
 the input dtype before multiplying by ``w``; in bf16 that rounds twice
 and can differ from this version by one bf16 ulp.
+
+Backward (:class:`RMSNormFunction`): the forward saves ``h`` (the pre-norm
+sum, or ``x`` without a residual) in the input dtype and the backward
+recomputes rstd from it. The cotangent of the returned sum joins ``dx``
+and ``d(residual) = dx`` (:162-173). One difference from the JAX
+backward: that cotangent is added to ``dx`` in f32 inside the kernel, before
+``dx`` is rounded, where the JAX package adds it after the rounding; in
+f32 the two agree. What bounds the backward: bytes — ``h`` and ``g`` (and
+the sum's cotangent) read once and ``dx`` written once; ``dw`` comes as one
+f32 partial row per group of rows, summed by the wrapper.
 """
 
 from __future__ import annotations
@@ -25,10 +37,15 @@ import torch
 
 from . import _build
 
-__all__ = ["rms_norm", "rms_norm_plain"]
+__all__ = ["rms_norm", "rms_norm_plain", "rms_norm_bwd", "rms_norm_bwd_plain",
+           "RMSNormFunction"]
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                  ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
+_MAX_HIDDEN = 8192       # the backward kernel: 4 vectors a thread, 256 threads
+_ROW_GROUPS = 264        # backward: aim at two blocks for each of 132 SMs
 
 
 def _check(x, weight, residual):
@@ -89,3 +106,105 @@ def rms_norm(x, weight, residual=None, eps=1e-6):
 
 
 rms_norm.launches = 0
+
+
+def _check_bwd(h, weight, g, g_h):
+    if not (h.is_floating_point() and weight.is_floating_point()):
+        raise TypeError(f"rms_norm backward takes floating tensors, got "
+                        f"{h.dtype} and {weight.dtype}")
+    if h.dim() < 1 or weight.shape != h.shape[-1:]:
+        raise ValueError(f"rms_norm backward: weight {tuple(weight.shape)} "
+                         f"does not match the last dim of h {tuple(h.shape)}")
+    for t in (g, g_h):
+        if t is not None and (t.shape != h.shape or t.dtype != h.dtype
+                              or t.device != h.device):
+            raise ValueError(f"rms_norm backward: cotangent {t.dtype} "
+                             f"{tuple(t.shape)} must match h {h.dtype} "
+                             f"{tuple(h.shape)} on {h.device}")
+    if weight.device != h.device:
+        raise ValueError("rms_norm backward: operands on different devices")
+
+
+def rms_norm_bwd_plain(h, weight, g, g_h=None, eps=1e-6):
+    """The backward in plain PyTorch: ``(dx, dw)`` of ``y = rmsnorm(h) * w``
+    for the cotangent ``g`` of ``y`` (and ``g_h`` of the returned sum,
+    added to ``dx`` before its one rounding); ``dw`` in the weight's
+    dtype."""
+    _check_bwd(h, weight, g, g_h)
+    hidden = h.shape[-1]
+    hf, gf = h.float(), g.float()
+    rstd = torch.rsqrt(hf.square().mean(-1, keepdim=True) + eps)
+    u = gf * weight.float()
+    dot = (hf * u).sum(-1, keepdim=True)
+    dx = rstd * u - hf * (rstd * rstd * rstd) * (dot * (1.0 / hidden))
+    if g_h is not None:
+        dx = dx + g_h.float()
+    dw = (gf * hf * rstd).reshape(-1, hidden).sum(0)
+    return dx.to(h.dtype), dw.to(weight.dtype)
+
+
+def rms_norm_bwd(h, weight, g, g_h=None, eps=1e-6):
+    """``(dx, dw)``, as :func:`rms_norm_bwd_plain`. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (bf16, contiguous,
+    last dim a multiple of 8 and at most 8192) or raises."""
+    _check_bwd(h, weight, g, g_h)
+    if h.device.type == "cpu":
+        return rms_norm_bwd_plain(h, weight, g, g_h, eps)
+    if h.device.type != "cuda":
+        raise ValueError(f"rms_norm backward: no kernel for device {h.device}")
+    hidden = h.shape[-1]
+    if h.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
+        raise TypeError(f"rms_norm backward kernel takes bf16, got {h.dtype} "
+                        f"/ {weight.dtype}")
+    if hidden % 8 or hidden > _MAX_HIDDEN:
+        raise ValueError(f"rms_norm backward kernel needs hidden % 8 == 0 and "
+                         f"hidden <= {_MAX_HIDDEN}, got {hidden}")
+    if not all(t.is_contiguous() for t in (h, weight, g, g_h)
+               if t is not None):
+        raise ValueError("rms_norm backward kernel takes contiguous tensors")
+    _build.require_aligned("rms_norm backward", h, weight, g, g_h)
+    rows = h.numel() // hidden
+    per_block = max(1, min(32, -(-rows // _ROW_GROUPS)))
+    dx = torch.empty_like(h)
+    part = torch.empty(max(1, -(-rows // per_block)), hidden,
+                       dtype=torch.float32, device=h.device)
+    if rows == 0:
+        part.zero_()
+    fn = _build.function("rms_norm", "ptt_rms_norm_bwd", _BWD_ARGS)
+    err = fn(h.data_ptr(), weight.data_ptr(), g.data_ptr(),
+             None if g_h is None else g_h.data_ptr(), dx.data_ptr(),
+             part.data_ptr(), rows, per_block, hidden, float(eps),
+             _build.stream_of(h))
+    _build.check(err, "rms_norm backward")
+    rms_norm_bwd.launches += 1
+    return dx, part.sum(0).to(weight.dtype)
+
+
+rms_norm_bwd.launches = 0
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """``rms_norm`` with its backward kernel (the custom_vjp of
+    ``rms_norm_fused``). ``apply(x, weight, residual, eps, plain)`` returns
+    ``y``, or ``(y, h)`` with a residual; ``plain`` runs the plain forward
+    and the plain backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, residual, eps, plain):
+        fwd = rms_norm_plain if plain else rms_norm
+        out = fwd(x, weight, residual, eps)
+        h = x if residual is None else out[1]
+        ctx.save_for_backward(h, weight)
+        ctx.eps, ctx.plain, ctx.has_res = eps, plain, residual is not None
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_y, g_h=None):
+        h, weight = ctx.saved_tensors
+        if g_y is None:
+            return g_h, None, g_h, None, None
+        bwd = rms_norm_bwd_plain if ctx.plain else rms_norm_bwd
+        dx, dw = bwd(h, weight, g_y.contiguous(),
+                     None if g_h is None else g_h.contiguous(), ctx.eps)
+        return dx, dw, (dx if ctx.has_res else None), None, None

@@ -1,8 +1,11 @@
-"""Rotate-half rotary position embedding: CUDA kernel and plain version.
+"""Rotate-half rotary position embedding: CUDA kernel, plain version and
+the autograd Function.
 
 Replaces ``paddle_tpu/ops/kernels/rope_pallas.py`` ``_rope_call`` (:48;
-kernel body :28-36), reached through ``rope_apply`` (:86). Source:
-``paddle_tpu_torch/csrc/rope.cu``.
+kernel body :28-36), reached through the custom_vjp ``rope_apply``
+(:86-103). Source: ``paddle_tpu_torch/csrc/rope.cu``. Rotation is
+orthogonal, so the backward is the same kernel with ``-sin``
+(:class:`RoPEFunction`); the tables take no gradient.
 
 What bounds it on the H100: bytes — ``x`` read once and written once, the
 f32 cos/sin rows read once per token. The kernel gives each token one
@@ -25,7 +28,7 @@ import torch
 
 from . import _build
 
-__all__ = ["rope_apply", "rope_plain"]
+__all__ = ["rope_apply", "rope_plain", "RoPEFunction"]
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -84,3 +87,20 @@ def rope_apply(x, cos, sin):
 
 
 rope_apply.launches = 0
+
+
+class RoPEFunction(torch.autograd.Function):
+    """RoPE with its adjoint, rotation by ``-theta``: ``apply(x, cos, sin,
+    plain)``; ``plain`` runs the plain version both ways."""
+
+    @staticmethod
+    def forward(ctx, x, cos, sin, plain):
+        ctx.save_for_backward(cos, sin)
+        ctx.plain = plain
+        return (rope_plain if plain else rope_apply)(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, dy):
+        cos, sin = ctx.saved_tensors
+        fn = rope_plain if ctx.plain else rope_apply
+        return fn(dy.contiguous(), cos, -sin), None, None, None

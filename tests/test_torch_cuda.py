@@ -16,21 +16,30 @@ rounding changes on the same inputs. The weight-only kernels sum exact
 products in f32 and round once, as their plain versions do (one ulp).
 A8W8 is held bit for bit where ``x / s`` is exact, and on random
 activations to one ulp plus one quantisation step of a row (a rounding
-tie may land on either side).
+tie may land on either side). The backward kernels: RMSNorm's dx and
+SwiGLU's dg, du to one ulp, RMSNorm's dw (an f32 sum over the rows in
+another order, then one rounding) to 1e-3 relative of its largest value;
+flash attention's dq, dk, dv to 1e-2 relative L2 (the kernel feeds bf16
+q, k, v, dO and 16-bit P and dS to the tensor cores, the plain version
+computes in f32). AdamW is held bit for bit: the kernel rounds each
+operation on its own, as the plain version's tensor ops do.
 """
 
 import pytest
 import torch
 
 from paddle_tpu_torch.models import llama_tiny
-from paddle_tpu_torch.ops.kernels import WRAPPERS, a8w8_matmul, autotune, \
-    block_epilogue, decode_layer, flash_attention, mmha, rms_norm, rope, \
-    swiglu, wo_matmul
+from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+from paddle_tpu_torch.ops.kernels import WRAPPERS, a8w8_matmul, adamw, \
+    autotune, block_epilogue, decode_layer, flash_attention, mmha, \
+    rms_norm, rope, swiglu, wo_matmul
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import LLMEngine, ServingConfig
 
 pytestmark = pytest.mark.cuda
 
 QUANT_KERNELS = ("wo_int8", "wo_int8_grouped", "wo_int4", "a8w8")
+TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd", "adamw")
 
 
 @pytest.fixture
@@ -218,7 +227,7 @@ def test_engine_runs_every_kernel(dev):
         summary = eng.shutdown()
     assert all(len(o) == 8 for o in outs)
     assert summary["pages_leaked"] == 0
-    off_path = ("decode_layer",) + QUANT_KERNELS
+    off_path = ("decode_layer",) + QUANT_KERNELS + TRAIN_KERNELS
     assert all(w.launches > 0 for n, w in WRAPPERS.items()
                if n not in off_path)
     assert all(WRAPPERS[n].launches == 0 for n in off_path)  # not on this path
@@ -499,3 +508,165 @@ def test_quant_engine_launches_a_wo_kernel_per_projection(
                if n != kernel)
     assert WRAPPERS["decode_layer"].launches == (layers * steps if fused
                                                  else 0)
+
+
+# -- training kernels ------------------------------------------------------------
+
+def _rel_l2(got, ref):
+    torch.cuda.synchronize()
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.parametrize("rows,hidden", [(1, 64), (37, 4096), (300, 8192),
+                                         (5, 2056)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rms_norm_bwd_kernel(dev, rows, hidden, residual):
+    h, g = _randn(dev, rows, hidden, seed=30), _randn(dev, rows, hidden, seed=31)
+    w = (1.0 + 0.1 * _randn(dev, hidden, seed=32).float()).to(torch.bfloat16)
+    g_h = _randn(dev, rows, hidden, seed=33) if residual else None
+    dx, dw = rms_norm.rms_norm_bwd(h, w, g, g_h, 1e-5)
+    rdx, rdw = rms_norm.rms_norm_bwd_plain(h, w, g, g_h, 1e-5)
+    _close(dx, rdx)
+    err = (dw.float() - rdw.float()).abs().max().item()
+    assert err <= 1e-3 * rdw.float().abs().max().item() + 2.0 ** -7 * \
+        rdw.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("shape", [(3, 77), (5, 14336), (1, 5)])
+def test_swiglu_bwd_kernel(dev, shape):
+    g, u = _randn(dev, *shape, seed=34), _randn(dev, *shape, seed=35)
+    dy = _randn(dev, *shape, seed=36)
+    dg, du = swiglu.swiglu_bwd(g, u, dy)
+    rdg, rdu = swiglu.swiglu_bwd_plain(g, u, dy)
+    _close(dg, rdg)
+    _close(du, rdu)
+
+
+FLASH_BWD_CASES = [
+    # b, s, h, h_kv, d, causal, segments
+    (1, 128, 4, 2, 64, True, False),
+    (2, 200, 8, 2, 128, True, True),
+    (1, 77, 4, 4, 128, False, False),
+    (2, 256, 8, 1, 64, False, True),
+    (1, 1, 2, 1, 128, True, False),
+    (1, 300, 16, 2, 128, True, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,h_kv,d,causal,with_seg", FLASH_BWD_CASES)
+def test_flash_attention_bwd_kernel(dev, b, s, h, h_kv, d, causal, with_seg):
+    q, do = _randn(dev, b, s, h, d, seed=37), _randn(dev, b, s, h, d, seed=38)
+    k, v = _randn(dev, b, s, h_kv, d, seed=39), _randn(dev, b, s, h_kv, d,
+                                                        seed=40)
+    seg = None
+    if with_seg:
+        seg = torch.zeros(b, s, dtype=torch.int32)
+        seg[0, s // 3:], seg[0, s // 3 + 1:], seg[-1, s // 2:] = 1, 2, 3
+        seg = seg.to(dev)
+    out, lse = flash_attention.flash_attention(q, k, v, causal, seg, True)
+    got = flash_attention.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                              seg)
+    ref = flash_attention.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                    causal, seg)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a).all(), name
+        if r.float().norm() == 0:
+            # S = 1, causal: the one query sees only its own key, P = 1 and
+            # dS = dP - delta = 0 exactly; the kernel's two f32 sums of the
+            # same products (dO V^T and rowsum(dO * O)) may differ in the
+            # last bits
+            assert (a.float() - r.float()).abs().max().item() <= 1e-5, name
+            continue
+        assert _rel_l2(a, r) <= 1e-2, (name, _rel_l2(a, r))
+
+
+@pytest.mark.parametrize("n", [4096, 1000003])
+@pytest.mark.parametrize("form", ["master", "f32", "bf16", "f32_grad"])
+def test_adamw_kernel_is_bit_exact(dev, n, form):
+    """Three steps with an lr change and an lr factor; the kernel and the
+    plain version on copies of the same state give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    w0 = torch.randn(n, generator=gen, device=dev)
+    master = w0.clone() if form == "master" else None
+    param = w0.clone() if form in ("f32", "f32_grad") else \
+        w0.to(torch.bfloat16)
+    state = [param, torch.zeros(n, device=dev), torch.zeros(n, device=dev),
+             master]
+    ref = [None if t is None else t.clone() for t in state]
+    kw = dict(beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1)
+    for step, (lr, mult) in enumerate(((1e-3, 1.0), (3e-4, 0.5),
+                                       (2e-3, 1.0)), start=1):
+        g = torch.randn(n, generator=gen, device=dev)
+        if form != "f32_grad":
+            g = g.to(torch.bfloat16)
+        scal = adamw.adamw_scalars(torch.tensor(lr, device=dev),
+                                   torch.tensor(float(step), device=dev),
+                                   0.9, 0.95)
+        adamw.adamw_update(state[0], g, state[1], state[2], scal,
+                           master=state[3], lr_mult=mult, **kw)
+        adamw.adamw_update_plain(ref[0], g, ref[1], ref[2], scal,
+                                 master=ref[3], lr_mult=mult, **kw)
+    torch.cuda.synchronize()
+    for a, r in zip(state, ref):
+        if a is not None:
+            assert torch.equal(a, r)
+
+
+def test_training_kernels_reject_what_they_do_not_take(dev):
+    x = torch.zeros(2, 64, device=dev)                    # f32 on the card
+    with pytest.raises(TypeError):
+        rms_norm.rms_norm_bwd(x, torch.ones(64, device=dev), x)
+    wide = torch.zeros(2, 16384, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                       # hidden > 8192
+        rms_norm.rms_norm_bwd(wide, wide[0], wide)
+    with pytest.raises(TypeError):
+        swiglu.swiglu_bwd(x, x, x)
+    q = torch.zeros(1, 8, 2, 64, device=dev)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_bwd(
+            q, q, q, q, torch.zeros(2, 8, device=dev), q)
+    p = torch.zeros(8, device=dev, dtype=torch.float16)
+    scal = torch.zeros(4, device=dev)
+    with pytest.raises(TypeError):
+        adamw.adamw_update(p, p, torch.zeros(8, device=dev),
+                           torch.zeros(8, device=dev), scal, beta1=0.9,
+                           beta2=0.99, eps=1e-8, wd=0.0)
+
+
+def test_llama_training_step_through_kernels(dev):
+    """A 2-layer llama_tiny-shaped bf16 model with ``fused_blocks=False``:
+    one forward, backward and multi-precision AdamW step launches each
+    training kernel the expected number of times, and its gradients agree
+    with the plain path's."""
+    layers = 2
+    model = llama_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                       num_heads=4, num_kv_heads=2, intermediate_size=512)
+    model.fused_blocks = False
+    gen = torch.Generator(device=dev).manual_seed(42)
+    ids = torch.randint(0, 512, (2, 100), generator=gen, device=dev)
+    labels = torch.randint(0, 512, (2, 100), generator=gen, device=dev)
+    _, loss_p = model(ids, labels=labels, plain=True)
+    loss_p.backward()
+    ref = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    for w in WRAPPERS.values():
+        w.launches = 0
+    _, loss = model(ids, labels=labels)
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    n_params = len(list(model.parameters()))
+    want = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+            "rope": 4 * layers, "swiglu": layers, "swiglu_bwd": layers,
+            "flash_attention": layers, "flash_attention_bwd": layers,
+            "adamw": n_params}
+    got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    assert got == want
+    assert n_params == 9 * layers + 3
+    assert abs(loss.item() - loss_p.item()) <= 5e-3 * abs(loss_p.item())
+    for name, g in grads.items():
+        assert _rel_l2(g, ref[name]) <= 2e-2, name
