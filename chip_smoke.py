@@ -66,18 +66,30 @@ Phases, in order; any failure exits non-zero:
    outlier channels, w [14336, 4096] int8 and a bias: one A8W8 launch per
    call, against its plain path, timed.
    train — once the serving model and engines are freed: Llama-3-8B's
-   width cut to 4 layers (``fused_blocks = False``, bf16 with f32 master
-   weights) trains on one fixed B 2 x S 2048 batch through the backward
-   kernels and the AdamW kernel: parity of the loss and of every gradient
-   with the plain path, 8 steps with a falling loss, the exact launches of
-   every step, step time, tokens/s, peak memory and a profile of a step.
-   Phase 3 holds the four training kernels (RMSNorm, SwiGLU and
-   flash-attention backward, AdamW) against their plain versions at the
-   train phase's shapes.
+   width cut to 4 layers (bf16 with f32 master weights) on one fixed B 2 x
+   S 2048 batch through the backward kernels and the AdamW kernel: parity
+   of the loss and of every gradient with the plain path and an f32 copy
+   on the fused trunk (the default: the block epilogue and its backward
+   at every junction) and on the unfused trunk, one unfused step and 8
+   fused steps with a falling loss, the exact launches of every step, step
+   time, tokens/s, peak memory and a profile of a step on each trunk.
+   packed_mlp — ``nn.functional.swiglu(x)`` on one packed operand in an
+   MLP with a fused gate/up projection at Llama-3-8B's widths, forward and
+   backward: one launch of each packed SwiGLU kernel, gradients against
+   the plain path.
+   train_gpt — GPT-2 small at full width and depth (12 layers, 124M,
+   vocab 50304) on B 8 x S 1024 through the block epilogue (layer norm
+   with its bias) and its backward, flash attention forward and backward
+   and AdamW: parity, 8 steps with their launches, a falling loss, step
+   time, tokens/s, MFU, peak memory and a profile of a step.
+   Phase 3 holds the training kernels (RMSNorm, SwiGLU, flash-attention
+   and block-epilogue backward, packed SwiGLU and its backward, AdamW)
+   against their plain versions at the train phases' shapes.
 7. summary — one JSON line of every kernel's launches (the decode layer's
    on engine c's run, the weight-only kernels' on engines d, e and f, A8W8's
-   in the llm_int8 phase, the training kernels' in one train step, the
-   others' on engine b's) and times, then the last line
+   in the llm_int8 phase, the training kernels' in one fused-trunk train
+   step, the packed SwiGLU kernels' in the packed_mlp phase, the others' on
+   engine b's) and times, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
@@ -112,7 +124,8 @@ QUANT_GROUP = 128         # engine f's quant_group_size
 FUSED_QUANT_REQUESTS, FUSED_QUANT_TOKENS = 4, 16
 LLM_INT8_CALLS = 4        # llm_int8_linear calls of the A8W8 phase's run
 TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd",
-                 "adamw")
+                 "adamw", "block_epilogue_bwd")
+PACKED_KERNELS = ("swiglu_packed", "swiglu_packed_bwd")
 TRAIN_LAYERS = 4          # Llama-3-8B's width, depth cut to fit the state
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS = 8
@@ -123,6 +136,16 @@ TRAIN_LOSS_TOL = 5e-3     # kernels vs plain: loss, relative
 # more than 1.1x the plain path's own distance from it.
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_F32_RATIO = 1.1
+GPT_BATCH, GPT_SEQ = 8, 1024   # GPT-2 small's train phase: B 8 x S 1024
+GPT_STEPS = 8
+# GPT-2 small's parity runs over 4 batches. Its layer-norm weights and
+# biases have 768 entries, and on one batch the ratio of a gradient's
+# distance from f32 through the kernels to the plain path's scatters by a
+# few percent around 1 (the train_parity line's per_batch summary shows
+# each batch's worst, mean and spread), so the largest of 148 gradients
+# can pass 1.1 by chance; summed over 4 batches the spread halves, and the
+# same TRAIN_F32_RATIO holds every gradient.
+GPT_PARITY_BATCHES = 4
 
 
 def fail(msg: str) -> None:
@@ -319,6 +342,8 @@ def phase_kernels(torch, dev):
     _kernels_wo(torch, dev, randn, timer, results)
     _kernels_a8w8(torch, dev, randn, timer, results)
     _kernels_train(torch, dev, randn, timer, results)
+    _kernels_epilogue_bwd(torch, randn, timer, results)
+    _kernels_swiglu_packed(torch, randn, timer, results)
     return results
 
 
@@ -487,6 +512,121 @@ def _kernels_train(torch, dev, randn, timer, results):
                 state[0], grad, state[1], state[2], scal, master=state[3],
                 **kw)),
             lib, 28 * n, 15 * n)
+
+
+def _kernels_epilogue_bwd(torch, randn, timer, results):
+    """The block-epilogue backward at the train phases' junctions: [4096,
+    4096] rms with the residual stream's cotangent (Llama-3-8B's width, B 2
+    x S 2048) and [8192, 768] layer norm with its bias and that cotangent
+    (GPT-2 small, B 8 x S 1024); then one functional row each at [4096,
+    4096] for gelu with layer norm, a bias and p = 0.2, and for swiglu
+    (x [4096, 8192]) with rms and p = 0.4. dx and dres within one bf16 ulp
+    of the plain version, the f32 dw and db within 1e-3 of their largest
+    values; with dropout, dx is zero exactly where the forward's counter
+    hash dropped. A second call must give the same bits (no atomics).
+    Yardstick, for the act-free p = 0 rows: autograd of ``F.rms_norm`` /
+    ``F.layer_norm`` on ``x + residual`` with both cotangents."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import block_epilogue as be
+
+    for rows, hid, act, norm, p, bias_on in (
+            (TRAIN_BATCH * TRAIN_SEQ, 4096, None, "rms", 0.0, False),
+            (GPT_BATCH * GPT_SEQ, 768, None, "layer", 0.0, True),
+            (4096, 4096, "gelu", "layer", 0.2, True),
+            (4096, 4096, "swiglu", "rms", 0.4, False)):
+        xw = 2 * hid if act == "swiglu" else hid
+        w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
+        h, gy, gh = randn(rows, hid), randn(rows, hid), randn(rows, hid)
+        x = randn(rows, xw) if act else None
+        args = (h, x, w, gy, gh, 1234, p, 1e-5, act, norm, bias_on)
+        got = be.fused_epilogue_bwd(*args)
+        ref = be.fused_epilogue_bwd_plain(*args)
+        err_r, tol_r = compare(torch, got[1], ref[1])
+        if not err_r <= tol_r:
+            fail(f"block_epilogue_bwd dres: {err_r} > {tol_r}")
+        err, tol = compare(torch, got[0], ref[0])
+        sums = {}
+        for nm, a, r in (("dw", got[2], ref[2]), ("db", got[3], ref[3])):
+            if r is None:
+                continue
+            e, _ = compare(torch, a, r)
+            t = 1e-3 * r.abs().max().item()
+            if not e <= t:
+                fail(f"block_epilogue_bwd {nm}: {e} > {t}")
+            sums[f"{nm}_err"], sums[f"{nm}_tol"] = e, t
+        again = be.fused_epilogue_bwd(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None):
+            fail("block_epilogue_bwd: two calls on the same inputs differ")
+        del got, ref, again
+        if p:
+            # a zero gy leaves dx = mask(gh) * scale: zero exactly where the
+            # forward dropped (gh bounded away from 0)
+            gh1 = (gh.float().abs() + 1.0).to(gh.dtype)
+            dx0 = be.fused_epilogue_bwd(h, None, w, torch.zeros_like(gy), gh1,
+                                        1234, p, 1e-5, None, norm,
+                                        bias_on)[0]
+            keep = be.keep_mask(rows, hid, 1234, p, h.device)
+            bad = int(((dx0 != 0) != keep).sum())
+            if bad:
+                fail(f"block_epilogue_bwd dropout: the kernel kept other "
+                     f"positions than the counter hash at {bad} of "
+                     f"{keep.numel()} elements")
+        lib = None
+        if act is None and not p:
+            xl = randn(rows, hid).requires_grad_()
+            rl = randn(rows, hid).requires_grad_()
+            wl = w.clone().requires_grad_()
+            hl = xl + rl
+            if norm == "rms":
+                yl, ins = TF.rms_norm(hl, (hid,), wl, 1e-5), (xl, rl, wl)
+            else:
+                bl = randn(hid, scale=0.1).requires_grad_()
+                yl = TF.layer_norm(hl, (hid,), wl, bl, 1e-5)
+                ins = (xl, rl, wl, bl)
+            lib = timer(lambda: torch.autograd.grad(
+                (yl, hl), ins, (gy, gh), retain_graph=True))
+            del xl, rl, hl, yl, ins
+        n = rows * hid
+        # h, gy, gh read and dres written; x read and dx written (dx alone
+        # without act); w read; f32 dw (and db) written
+        nbytes = 2 * (4 * n + (2 * x.numel() if act else n) + hid) \
+            + 4 * hid * (1 + bias_on)
+        flops = n * (14 + 6 * (norm == "layer") + 2 * bias_on + 15 * (p > 0)
+                     + {None: 0, "gelu": 16, "swiglu": 12}[act])
+        _record(results, "block_epilogue_bwd",
+                [rows, hid, f"act={act}", norm, f"p={p}",
+                 "bias" if bias_on else "no bias", "residual cotangent"],
+                err, tol, timer(lambda: be.fused_epilogue_bwd(*args)),
+                timer(lambda: be.fused_epilogue_bwd_plain(*args), iters=5),
+                lib, nbytes, flops, dres_err=err_r, **sums)
+        del h, gy, gh, x
+
+
+def _kernels_swiglu_packed(torch, randn, timer, results):
+    """Packed SwiGLU at the packed-MLP phase's shape, x [4096, 2 x 14336]
+    (Llama-3-8B's intermediate width, B 2 x S 2048 tokens): the gate and
+    its backward within one bf16 ulp. No single PyTorch call computes
+    either."""
+    from paddle_tpu_torch.ops.kernels import swiglu
+
+    rows, inter = TRAIN_BATCH * TRAIN_SEQ, 14336
+    x, dy = randn(rows, 2 * inter), randn(rows, inter)
+    err, tol = compare(torch, swiglu.swiglu_packed(x),
+                       swiglu.swiglu_packed_plain(x))
+    n = rows * inter
+    _record(results, "swiglu_packed", [rows, 2 * inter], err, tol,
+            timer(lambda: swiglu.swiglu_packed(x)),
+            timer(lambda: swiglu.swiglu_packed_plain(x)), None,
+            3 * n * 2, 6 * n)
+    err, tol = compare(torch, swiglu.swiglu_packed_bwd(x, dy),
+                       swiglu.swiglu_packed_bwd_plain(x, dy))
+    _record(results, "swiglu_packed_bwd", [rows, 2 * inter], err, tol,
+            timer(lambda: swiglu.swiglu_packed_bwd(x, dy)),
+            timer(lambda: swiglu.swiglu_packed_bwd_plain(x, dy)), None,
+            5 * n * 2, 12 * n)
 
 
 def _segment_pairs(seg_row):
@@ -944,7 +1084,7 @@ def phase_serve_default(torch, np, model):
     reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
     idle = [n for n, c in launches.items()
             if c == 0 and n not in ("decode_layer",) + QUANT_KERNELS
-            + TRAIN_KERNELS]
+            + TRAIN_KERNELS + PACKED_KERNELS]
     if idle:
         fail(f"kernels never launched on the default serving path: {idle}")
     pages, px = _check_prefix_claims(engine, reqs, stats)
@@ -1314,7 +1454,8 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "a8w8_gemm_kernel", "rms_norm_bwd_kernel",
                 "swiglu_bwd_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                "adamw_kernel")
+                "adamw_kernel", "block_epilogue_bwd_kernel",
+                "swiglu_packed_kernel", "swiglu_packed_bwd_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -1475,97 +1616,89 @@ def _train_step(torch, model, opt, ids, labels):
     return loss.detach()
 
 
-def phase_train(torch, dev):
-    """Llama training at Llama-3-8B's width, cut to TRAIN_LAYERS layers:
-    ``llama3_8b(num_layers=4)`` in bf16 from a seed with ``fused_blocks =
-    False``, ``AdamW(1e-4, weight_decay=0.01, multi_precision=True,
-    grad_clip=ClipGradByGlobalNorm(1.0))``, one fixed batch of B x S random
-    tokens (labels: the next token).
-    a. parity: one forward and backward through the kernels and one with
-       ``plain=True`` from the same weights, and one with ``plain=True``
-       on an f32 copy of them: the bf16 losses within 0.5% relative; every
-       parameter's gradient within TRAIN_GRAD_TOL relative L2 of the plain
-       path's, and no farther from the f32 gradient than TRAIN_F32_RATIO
-       times the plain path's distance from it;
-    b. TRAIN_STEPS AdamW steps through the kernels: every loss finite and
-       the last below the first; then, on a fresh random batch, a loss no
-       lower than ln(vocab) - 1 (memorising the batch cannot do better on
-       uniform tokens; a causal leak would);
-    c. every step's launches, set to 0 just before it and read just after:
-       rms_norm and rms_norm_bwd 2L+1, rope 4L, swiglu and swiglu_bwd L,
-       flash_attention and flash_attention_bwd L (one call of the backward
-       wrapper launches its delta, dq and dk/dv kernels and counts once),
-       adamw one per parameter (9L+3), nothing else;
-    d. step time (host clock to a synchronise, steps 2 on), tokens/s, peak
-       memory, and a torch.profiler breakdown of one step.
-    Returns the launches of one step."""
-    from paddle_tpu_torch.models import llama3_8b
-    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
-    from paddle_tpu_torch.ops.kernels import WRAPPERS
-    from paddle_tpu_torch.optimizer import AdamW
-
-    torch.cuda.reset_peak_memory_stats()
-    layers = TRAIN_LAYERS
-    model = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0,
-                      num_layers=layers)
-    model.fused_blocks = False
-    cfg = model.cfg
-    n_params = sum(p.numel() for p in model.parameters())
-    gen = torch.Generator(device=dev).manual_seed(2024)
-    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
-                         generator=gen, device=dev)
-    ids, labels = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
-
-    # a. parity: kernels, then the plain versions, from the same weights;
-    # both against the plain path on an f32 copy of those weights
-    def grads_of(net, plain):
+def _grad_parity(torch, what, model, ref, batches):
+    """Forward and backward of ``model`` through the kernels and with
+    ``plain=True`` from the same weights, and with ``plain=True`` through
+    ``ref``, an f32 copy of them, on each ``(ids, labels)`` of
+    ``batches``: the mean bf16 losses within TRAIN_LOSS_TOL relative;
+    every parameter's gradient within TRAIN_GRAD_TOL relative L2 of the
+    plain path's, and no farther from the f32 gradient than
+    TRAIN_F32_RATIO times the plain path's distance from it. Over several
+    batches a relative L2 distance is ``sqrt(sum_b |a_b - r_b|^2) /
+    sqrt(sum_b |r_b|^2)``; over one it is the plain relative L2. With
+    several batches, each batch's own f32 ratios are summarised beside the
+    gate (the worst, the mean and the spread over the gradients)."""
+    def grads_of(net, plain, ids, labels):
         _, loss = net(ids, labels=labels, plain=plain)
         loss.backward()
         out = {n: p.grad for n, p in net.named_parameters()}
         net.zero_grad(set_to_none=True)
         return loss.item(), out
 
-    loss_k, g_k = grads_of(model, False)
-    loss_p, g_p = grads_of(model, True)
-    ref = llama3_8b(device=dev, dtype=torch.float32, seed=None,
-                    num_layers=layers)
-    ref.load_state_dict(model.state_dict())
-    ref.fused_blocks = False
-    loss_r, g_r = grads_of(ref, True)
-    del ref
-    names = list(g_k)
-    rel = {n: _rel_l2(torch, g_k[n], g_p[n]) for n in names}
-    rel_k32 = {n: _rel_l2(torch, g_k[n], g_r[n]) for n in names}
-    rel_p32 = {n: _rel_l2(torch, g_p[n], g_r[n]) for n in names}
-    del g_k, g_p, g_r
+    def sq(a, b=None):
+        d = a.float() if b is None else a.float() - b.float()
+        return d.square().sum().item()
+
+    losses = {"kernels": 0.0, "plain": 0.0, "f32": 0.0}
+    acc = {k: {} for k in ("kp", "p", "k32", "p32", "r")}
+    per_batch = []
+    for ids, labels in batches:
+        loss_k, g_k = grads_of(model, False, ids, labels)
+        loss_p, g_p = grads_of(model, True, ids, labels)
+        loss_r, g_r = grads_of(ref, True, ids, labels)
+        for key, val in (("kernels", loss_k), ("plain", loss_p),
+                         ("f32", loss_r)):
+            losses[key] += val / len(batches)
+        ratios = {}
+        for n in g_k:
+            d = {"kp": sq(g_k[n], g_p[n]), "p": sq(g_p[n]),
+                 "k32": sq(g_k[n], g_r[n]), "p32": sq(g_p[n], g_r[n]),
+                 "r": sq(g_r[n])}
+            for key, val in d.items():
+                acc[key][n] = acc[key].get(n, 0.0) + val
+            ratios[n] = math.sqrt(d["k32"] / max(d["p32"], 1e-30))
+        del g_k, g_p, g_r
+        top = max(ratios, key=ratios.get)
+        mean = sum(ratios.values()) / len(ratios)
+        per_batch.append({
+            "worst_f32_ratio": ratios[top], "worst_f32_ratio_grad": top,
+            "mean_f32_ratio": mean,
+            "sd_f32_ratio": math.sqrt(sum((r - mean) ** 2 for r in
+                                          ratios.values()) / len(ratios))})
+    names = list(acc["kp"])
+    rel = {n: math.sqrt(acc["kp"][n] / acc["p"][n]) for n in names}
+    rel_k32 = {n: math.sqrt(acc["k32"][n] / acc["r"][n]) for n in names}
+    rel_p32 = {n: math.sqrt(acc["p32"][n] / acc["r"][n]) for n in names}
     worst = max(rel, key=rel.get)
     ratio = {n: rel_k32[n] / max(rel_p32[n], 1e-12) for n in names}
     worst_ratio = max(ratio, key=ratio.get)
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    emit({"phase": "train_parity", "loss_kernels": loss_k,
-          "loss_plain": loss_p, "loss_f32": loss_r, "loss_rel_diff": loss_rel,
+    loss_rel = abs(losses["kernels"] - losses["plain"]) / abs(losses["plain"])
+    emit({"phase": "train_parity", "what": what, "batches": len(batches),
+          "loss_kernels": losses["kernels"], "loss_plain": losses["plain"],
+          "loss_f32": losses["f32"], "loss_rel_diff": loss_rel,
           "loss_tol": TRAIN_LOSS_TOL, "worst_grad": worst,
           "worst_grad_rel_l2": rel[worst], "grad_tol": TRAIN_GRAD_TOL,
           "worst_f32_ratio_grad": worst_ratio,
           "worst_f32_ratio": ratio[worst_ratio],
-          "f32_ratio_tol": TRAIN_F32_RATIO, "grad_rel_l2": rel,
+          "f32_ratio_tol": TRAIN_F32_RATIO, "per_batch": per_batch,
+          "grad_rel_l2": rel,
           "kernels_vs_f32": rel_k32, "plain_vs_f32": rel_p32})
     if not (loss_rel <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL
             and ratio[worst_ratio] <= TRAIN_F32_RATIO):
-        fail(f"train parity: loss {loss_rel} (tol {TRAIN_LOSS_TOL}), "
+        fail(f"{what} parity: loss {loss_rel} (tol {TRAIN_LOSS_TOL}), "
              f"{worst} gradient {rel[worst]} (tol {TRAIN_GRAD_TOL}), "
              f"{worst_ratio} {rel_k32[worst_ratio]} from f32 against the "
              f"plain path's {rel_p32[worst_ratio]} (tol x{TRAIN_F32_RATIO})")
 
-    # b.-c. steps through the kernels, each one's launches counted alone
-    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
-                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
-    want = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-            "rope": 4 * layers, "swiglu": layers, "swiglu_bwd": layers,
-            "flash_attention": layers, "flash_attention_bwd": layers,
-            "adamw": 9 * layers + 3}
+
+def _train_steps(torch, what, model, opt, ids, labels, steps, want):
+    """``steps`` optimizer steps, each one's launches set to 0 just before
+    it and read just after, and held to ``want``. Returns (losses, host ms
+    per step to a synchronise, the launches of the last step)."""
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
     losses, step_ms, launches = [], [], None
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         torch.cuda.synchronize()
         for w in WRAPPERS.values():
             w.launches = 0
@@ -1575,38 +1708,238 @@ def phase_train(torch, dev):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
         if got != want:
-            fail(f"train step {step}: launches {got}, want {want}")
+            fail(f"{what} step {step}: launches {got}, want {want}")
         launches = {n: w.launches for n, w in WRAPPERS.items()}
-    losses = [x.item() for x in losses]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # a fresh batch of random tokens: memorising the training batch cannot
-    # bring its loss below ln(vocab), the entropy of uniform tokens; a
-    # causal mask that let a position see its label would
-    held = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
-                         generator=gen, device=dev)
+    return [x.item() for x in losses], step_ms, launches
+
+
+def _heldout(torch, model, gen, vocab, batch, seq):
+    """The loss on a fresh batch of random tokens: memorising the training
+    batch cannot bring it below ln(vocab), the entropy of uniform tokens; a
+    causal mask that let a position see its label would."""
+    held = torch.randint(0, vocab, (batch, seq + 1), generator=gen,
+                         device=model.device)
     with torch.no_grad():
-        heldout = model(held[:, :-1].contiguous(),
-                        labels=held[:, 1:].contiguous())[1].item()
-    uniform = math.log(cfg.vocab_size)
-    steady = step_ms[1:]
-    mean_ms = sum(steady) / len(steady)
-    emit({"phase": "train", "model": "llama3_8b", "layers": layers,
-          "hidden": cfg.hidden_size, "intermediate": cfg.intermediate_size,
-          "vocab": cfg.vocab_size, "params": n_params,
-          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
-          "step_ms": step_ms, "step_ms_mean_after_first": mean_ms,
-          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
-          "peak_memory_gb": peak_gb, "launches_per_step": launches,
-          "heldout_loss": heldout, "uniform_loss": uniform})
+        loss = model(held[:, :-1].contiguous(),
+                     labels=held[:, 1:].contiguous())[1].item()
+    return loss, math.log(vocab)
+
+
+def _check_curve(what, losses, heldout, uniform):
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
-        fail(f"train: losses {losses} not finite or not falling")
+        fail(f"{what}: losses {losses} not finite or not falling")
     if not heldout >= uniform - 1.0:
-        fail(f"train: loss {heldout} on a fresh random batch is below "
+        fail(f"{what}: loss {heldout} on a fresh random batch is below "
              f"ln(vocab) - 1 = {uniform - 1.0}: a position sees its label")
+
+
+def phase_train(torch, dev):
+    """Llama training at Llama-3-8B's width, cut to TRAIN_LAYERS layers:
+    ``llama3_8b(num_layers=4)`` in bf16 from a seed,
+    ``AdamW(1e-4, weight_decay=0.01, multi_precision=True,
+    grad_clip=ClipGradByGlobalNorm(1.0))``, one fixed batch of B x S random
+    tokens (labels: the next token).
+    a. parity (``_grad_parity``) on the fused trunk (the default), then on
+       the unfused trunk (``fused_blocks = False``);
+    b. one step on the unfused trunk, its launches: rms_norm and
+       rms_norm_bwd 2L+1, rope 4L, swiglu and swiglu_bwd L,
+       flash_attention and flash_attention_bwd L (one call of the backward
+       wrapper launches its delta, dq and dk/dv kernels and counts once),
+       adamw one per parameter (9L+3), nothing else;
+    c. TRAIN_STEPS steps on the fused trunk, each one's launches: rms_norm
+       and rms_norm_bwd 1 (the first input_layernorm), block_epilogue and
+       block_epilogue_bwd 2L, rope 4L, swiglu, swiglu_bwd,
+       flash_attention and flash_attention_bwd L, adamw 9L+3, nothing
+       else; every loss finite and the last below the first; then, on a
+       fresh random batch, a loss no lower than ln(vocab) - 1;
+    d. step time of the fused trunk (host clock to a synchronise, steps 2
+       on), tokens/s, peak memory, and a torch.profiler breakdown of one
+       step.
+    Returns the launches of one fused-trunk step."""
+    from paddle_tpu_torch.models import llama3_8b
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    layers = TRAIN_LAYERS
+    model = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0,
+                      num_layers=layers)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=gen, device=dev)
+    ids, labels = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+
+    ref = llama3_8b(device=dev, dtype=torch.float32, seed=None,
+                    num_layers=layers)
+    ref.load_state_dict(model.state_dict())
+    for fused in (True, False):
+        model.fused_blocks = ref.fused_blocks = fused
+        _grad_parity(torch, f"llama {'fused' if fused else 'unfused'} trunk",
+                     model, ref, [(ids, labels)])
+    del ref
+
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    n_tensors = 9 * layers + 3
+    unfused = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+               "rope": 4 * layers, "swiglu": layers, "swiglu_bwd": layers,
+               "flash_attention": layers, "flash_attention_bwd": layers,
+               "adamw": n_tensors}
+    _, unfused_ms, _ = _train_steps(torch, "llama unfused train", model, opt,
+                                    ids, labels, 1, unfused)
+    model.fused_blocks = True
+    fused = {"rms_norm": 1, "rms_norm_bwd": 1,
+             "block_epilogue": 2 * layers, "block_epilogue_bwd": 2 * layers,
+             "rope": 4 * layers, "swiglu": layers, "swiglu_bwd": layers,
+             "flash_attention": layers, "flash_attention_bwd": layers,
+             "adamw": n_tensors}
+    losses, step_ms, launches = _train_steps(
+        torch, "llama fused train", model, opt, ids, labels, TRAIN_STEPS,
+        fused)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    heldout, uniform = _heldout(torch, model, gen, cfg.vocab_size,
+                                TRAIN_BATCH, TRAIN_SEQ)
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    emit({"phase": "train", "model": "llama3_8b", "trunk": "fused",
+          "layers": layers, "hidden": cfg.hidden_size,
+          "intermediate": cfg.intermediate_size, "vocab": cfg.vocab_size,
+          "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "losses": losses, "step_ms": step_ms,
+          "step_ms_mean_after_first": mean_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3,
+          "unfused_step_ms": unfused_ms, "peak_memory_gb": peak_gb,
+          "launches_per_step": launches, "unfused_launches_per_step":
+          unfused, "heldout_loss": heldout, "uniform_loss": uniform})
+    _check_curve("llama train", losses, heldout, uniform)
     prof = _profile(torch, lambda: _train_step(torch, model, opt, ids,
                                                labels), reps=2)
-    emit({"phase": "profile", "train_step": prof})
+    model.fused_blocks = False
+    prof_unfused = _profile(torch, lambda: _train_step(torch, model, opt, ids,
+                                                       labels), reps=2)
+    emit({"phase": "profile", "train_step": prof,
+          "train_step_unfused": prof_unfused})
+    return launches
+
+
+def phase_packed_mlp(torch, dev):
+    """``nn.functional.swiglu(x)`` on one packed operand, through a user's
+    MLP with a fused gate/up projection at Llama-3-8B's widths
+    (``gate_up [2 x 14336, 4096]``, ``down [4096, 14336]``, bf16, x of B 2
+    x S 2048 tokens): forward and backward, the launches set to 0 just
+    before and read just after (swiglu_packed and swiglu_packed_bwd once,
+    nothing else), and the gradients of x and of both weights within
+    TRAIN_GRAD_TOL relative L2 of the plain path's. Returns the
+    launches."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    hid, inter = 4096, 14336
+    gen = torch.Generator(device=dev).manual_seed(99)
+    gate_up = torch.nn.Linear(hid, 2 * inter, bias=False, device=dev,
+                              dtype=torch.bfloat16)
+    down = torch.nn.Linear(inter, hid, bias=False, device=dev,
+                           dtype=torch.bfloat16)
+    with torch.no_grad():
+        gate_up.weight.normal_(0.0, 0.02, generator=gen)
+        down.weight.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(TRAIN_BATCH * TRAIN_SEQ, hid, generator=gen, device=dev
+                    ).to(torch.bfloat16).requires_grad_()
+    params = (x, gate_up.weight, down.weight)
+
+    def run(plain):
+        out = down(F.swiglu(gate_up(x), plain=plain))
+        loss = out.float().square().mean()
+        return torch.autograd.grad(loss, params)
+
+    ref = run(True)
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    got = run(False)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in WRAPPERS.items()}
+    want = {"swiglu_packed": 1, "swiglu_packed_bwd": 1}
+    rel = {n: _rel_l2(torch, a, r)
+           for n, a, r in zip(("x", "gate_up", "down"), got, ref)}
+    emit({"phase": "packed_mlp", "tokens": x.shape[0], "hidden": hid,
+          "intermediate": inter, "grad_rel_l2": rel,
+          "launches": {n: c for n, c in launches.items() if c}})
+    if {n: c for n, c in launches.items() if c} != want:
+        fail(f"packed mlp: launches {launches}, want {want}")
+    if not max(rel.values()) <= TRAIN_GRAD_TOL:
+        fail(f"packed mlp: gradients {rel} > {TRAIN_GRAD_TOL} from plain")
+    return launches
+
+
+def phase_train_gpt(torch, dev):
+    """GPT-2 small at full width and depth (12 layers, 124M parameters,
+    vocab 50304, S 1024; ``gpt2_small`` in bf16 from a seed) trains on the
+    fused trunk with ``AdamW(3e-4, weight_decay=0.01, multi_precision=True,
+    grad_clip=ClipGradByGlobalNorm(1.0))`` on one fixed batch of B 8 x S
+    1024 random tokens: parity (``_grad_parity``) against the plain path
+    and an f32 copy over that batch and GPT_PARITY_BATCHES - 1 more;
+    GPT_STEPS steps, each one's launches block_epilogue
+    and block_epilogue_bwd 2L, flash_attention and flash_attention_bwd L,
+    adamw one per parameter (12L+4), nothing else; a finite, falling loss
+    and the fresh-batch check; step time, tokens/s, MFU (tokens/s times
+    ``flops_per_token(S)`` over the bf16 tensor-core peak), peak memory and
+    a profile of one step. Returns the launches of one step."""
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt2_small(device=dev, dtype=torch.bfloat16, seed=0)
+    cfg = model.cfg
+    layers = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    toks = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ + 1),
+                         generator=gen, device=dev)
+    ids, labels = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+    ref = gpt2_small(device=dev, dtype=torch.float32, seed=None)
+    ref.load_state_dict(model.state_dict())
+    batches = [(ids, labels)]
+    for _ in range(GPT_PARITY_BATCHES - 1):
+        more = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ + 1),
+                             generator=gen, device=dev)
+        batches.append((more[:, :-1].contiguous(), more[:, 1:].contiguous()))
+    _grad_parity(torch, "gpt2_small", model, ref, batches)
+    del ref, batches
+    opt = AdamW(3e-4, parameters=model.parameters(), weight_decay=0.01,
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    n_tensors = len(list(model.parameters()))
+    want = {"block_epilogue": 2 * layers, "block_epilogue_bwd": 2 * layers,
+            "flash_attention": layers, "flash_attention_bwd": layers,
+            "adamw": n_tensors}
+    if n_tensors != 12 * layers + 4:
+        fail(f"gpt2_small has {n_tensors} parameter tensors, want "
+             f"{12 * layers + 4}")
+    losses, step_ms, launches = _train_steps(
+        torch, "gpt2 train", model, opt, ids, labels, GPT_STEPS, want)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    heldout, uniform = _heldout(torch, model, gen, cfg.vocab_size, GPT_BATCH,
+                                GPT_SEQ)
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    tokens_per_s = GPT_BATCH * GPT_SEQ / mean_ms * 1e3
+    fpt = model.flops_per_token(GPT_SEQ)
+    emit({"phase": "train_gpt", "model": "gpt2_small", "layers": layers,
+          "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
+          "params": model.num_params(non_embedding=False),
+          "batch": GPT_BATCH, "seq": GPT_SEQ, "losses": losses,
+          "step_ms": step_ms, "step_ms_mean_after_first": mean_ms,
+          "tokens_per_s": tokens_per_s, "flops_per_token": fpt,
+          "mfu": tokens_per_s * fpt / BF16_TC_FLOPS_PER_S,
+          "peak_memory_gb": peak_gb, "launches_per_step": launches,
+          "heldout_loss": heldout, "uniform_loss": uniform})
+    _check_curve("gpt2 train", losses, heldout, uniform)
+    prof = _profile(torch, lambda: _train_step(torch, model, opt, ids,
+                                               labels), reps=3)
+    emit({"phase": "profile", "gpt2_train_step": prof})
     return launches
 
 
@@ -1678,6 +2011,12 @@ _SOURCES = {
         "paddle_tpu/ops/kernels/flash_attention_pallas.py:340"),
     "adamw": ("paddle_tpu_torch/csrc/adamw.cu",
               "paddle_tpu/ops/kernels/adamw_pallas.py:59"),
+    "block_epilogue_bwd": ("paddle_tpu_torch/csrc/block_epilogue.cu",
+                           "paddle_tpu/ops/kernels/block_fused_pallas.py:252"),
+    "swiglu_packed": ("paddle_tpu_torch/csrc/swiglu.cu",
+                      "paddle_tpu/ops/kernels/swiglu_pallas.py:99"),
+    "swiglu_packed_bwd": ("paddle_tpu_torch/csrc/swiglu.cu",
+                          "paddle_tpu/ops/kernels/swiglu_pallas.py:136"),
 }
 
 
@@ -1746,6 +2085,12 @@ def main() -> int:
     train_launches = phase_train(torch, dev)
     for name in TRAIN_KERNELS:
         launches[name] = train_launches[name]
+    _free(torch)
+    packed_launches = phase_packed_mlp(torch, dev)
+    for name in PACKED_KERNELS:
+        launches[name] = packed_launches[name]
+    _free(torch)
+    phase_train_gpt(torch, dev)
 
     summary = []
     for name in sorted(kern):

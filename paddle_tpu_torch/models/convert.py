@@ -1,10 +1,14 @@
-"""Carry a JAX ``paddle_tpu`` Llama's weights into the port's :class:`Llama`.
+"""Carry a JAX ``paddle_tpu`` Llama's or GPT's weights into the port's
+:class:`Llama` or :class:`GPT`.
 
 The JAX model's ``state_dict()`` arrives as numpy arrays under the same
 keys. ``paddle_tpu``'s ``Linear`` stores its weight ``[in, out]``
 (``paddle_tpu/nn/layers/common.py:21-40``) where ``torch.nn.Linear``
-stores ``[out, in]``, so every linear weight (``*_proj.weight``,
-``lm_head.weight``) is transposed; embedding and RMSNorm weights are not.
+stores ``[out, in]``, so every linear weight (Llama's ``*_proj.weight``;
+GPT's ``attn.qkv``, ``attn.proj``, ``mlp.fc`` and ``mlp.proj`` weights;
+``lm_head.weight``) is transposed. Biases, embeddings and norm weights
+and biases are copied as they are. A transposed ``attn.qkv`` weight keeps
+the JAX output order, so its output still splits as ``[B, S, 3, H, D]``.
 """
 
 from __future__ import annotations
@@ -12,18 +16,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .gpt import GPT, GPTConfig
 from .llama import Llama, LlamaConfig
 
-__all__ = ["llama_from_jax_state"]
+__all__ = ["llama_from_jax_state", "gpt_from_jax_state"]
 
-_LINEAR_SUFFIXES = ("_proj.weight", "lm_head.weight")
+_LLAMA_LINEAR = ("_proj.weight", "lm_head.weight")
+_GPT_LINEAR = ("attn.qkv.weight", "attn.proj.weight", "mlp.fc.weight",
+               "mlp.proj.weight", "lm_head.weight")
 
 
 def llama_from_jax_state(state, cfg: LlamaConfig, device=None,
                          dtype=torch.float32) -> Llama:
     """A port :class:`Llama` on ``device`` (default ``cuda``) holding the
     weights in ``state`` (name -> numpy array, the JAX model's keys)."""
-    model = Llama(cfg, device=device, dtype=dtype, seed=None)
+    return _load(Llama(cfg, device=device, dtype=dtype, seed=None), state,
+                 _LLAMA_LINEAR)
+
+
+def gpt_from_jax_state(state, cfg: GPTConfig, device=None,
+                       dtype=torch.float32) -> GPT:
+    """A port :class:`GPT` on ``device`` (default ``cuda``) holding the
+    weights in ``state`` (name -> numpy array, the JAX model's keys)."""
+    return _load(GPT(cfg, device=device, dtype=dtype, seed=None), state,
+                 _GPT_LINEAR)
+
+
+def _load(model, state, linear_suffixes):
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
@@ -33,7 +52,7 @@ def llama_from_jax_state(state, cfg: LlamaConfig, device=None,
     with torch.no_grad():
         for name, param in own.items():
             arr = np.asarray(state[name])
-            if name.endswith(_LINEAR_SUFFIXES):
+            if name.endswith(linear_suffixes):
                 arr = arr.T
             if arr.shape != tuple(param.shape):
                 raise ValueError(f"{name}: shape {arr.shape} (after layout "

@@ -10,9 +10,9 @@ pieces the serving model (``serving/model.py``) strings together.
 when ``labels`` are given. ``Llama.fused_blocks`` (default True, the
 counterpart of ``FLAGS_use_fused_blocks``) picks the fused trunk (flash
 attention, block epilogues) or the layer loop of the JAX escape hatch
-(``fused_blocks = False``), which trains through the backward kernels; the
-fused trunk's backward (the block-epilogue backward) is not ported and
-raises. ``caches`` are not ported. Linear weights are stored ``[out, in]``
+(``fused_blocks = False``); both train through the backward kernels, the
+fused trunk through the block-epilogue backward at every junction.
+``caches`` are not ported. Linear weights are stored ``[out, in]``
 as ``torch.nn.Linear`` keeps them (the JAX package stores ``[in, out]``).
 
 Parameters are made on the target device and drawn from a seeded
@@ -160,7 +160,7 @@ class Llama(nn.Module):
         self.to_empty(device=dev)
         self._rope_cache: dict[int, tuple] = {}
         #: the fused trunk (block epilogues at every junction) or the layer
-        #: loop; only the layer loop has a backward
+        #: loop; both have a backward
         self.fused_blocks = True
         if seed is not None:
             self.init_weights(seed)

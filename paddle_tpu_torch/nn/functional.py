@@ -1,22 +1,22 @@
-"""Functional ops of the Llama serving and training paths (counterparts of
-``paddle_tpu/nn/functional/__init__.py`` ``rms_norm`` (:90),
-``fused_rms_norm_add`` (:115), ``fused_dropout_add_norm`` (:139),
-``scaled_dot_product_attention`` (:391), ``rope`` (:505),
-``paddle_tpu/ops/activation.py`` ``swiglu`` (:159) and
-``paddle_tpu/nn/functional/loss.py`` ``cross_entropy`` (:32-79)).
+"""Functional ops of the Llama and GPT serving and training paths
+(counterparts of ``paddle_tpu/nn/functional/__init__.py`` ``layer_norm``
+(:65), ``rms_norm`` (:90), ``fused_rms_norm_add`` (:115),
+``fused_dropout_add_norm`` (:139), ``scaled_dot_product_attention``
+(:391), ``rope`` (:505), ``paddle_tpu/ops/activation.py`` ``gelu`` (:44)
+and ``swiglu`` (:159), and ``paddle_tpu/nn/functional/loss.py``
+``cross_entropy`` (:32-79)).
 
 Dispatch is the kernel wrapper's: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``plain=True`` runs the plain
 PyTorch version on any device; it exists so a check on the card can hold
-the kernel path against the plain one on the same inputs.
+the kernel path against the plain one on the same inputs. ``layer_norm``
+and ``gelu`` are plain tensor code, as the JAX package computes them
+outside any Pallas kernel.
 
-Where grad is enabled and an operand requires it, each op goes through its
-``torch.autograd.Function``, whose backward is the backward kernel (or,
-with ``plain=True``, the plain backward); otherwise it calls the forward
-wrapper directly, as the serving path always has. The block epilogue's
-backward (``paddle_tpu/ops/kernels/block_fused_pallas.py:252`` ``_bwd``)
-is not ported: a gradient through :func:`fused_dropout_add_norm` raises
-``NotImplementedError`` rather than differentiating the plain version.
+Where grad is enabled and an operand requires it, each kernel op goes
+through its ``torch.autograd.Function``, whose backward is the backward
+kernel (or, with ``plain=True``, the plain backward); otherwise it calls
+the forward wrapper directly, as the serving path always has.
 """
 
 from __future__ import annotations
@@ -29,13 +29,41 @@ from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import rope as _rope
 from ..ops.kernels import swiglu as _swiglu
 
-__all__ = ["rms_norm", "fused_rms_norm_add", "fused_dropout_add_norm",
-           "scaled_dot_product_attention", "rope", "swiglu", "cross_entropy"]
+__all__ = ["layer_norm", "gelu", "rms_norm", "fused_rms_norm_add",
+           "fused_dropout_add_norm", "scaled_dot_product_attention", "rope",
+           "swiglu", "cross_entropy"]
 
 
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def layer_norm(x, normalized_shape=None, weight=None, bias=None,
+               epsilon=1e-5):
+    """Layer norm over the last ``len(normalized_shape)`` dims (default
+    1), with JAX's rounding: statistics in f32 for a bf16 or f16 ``x``,
+    the normalised value cast to x's dtype, then ``* weight + bias``."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    n_axes = len(normalized_shape) if normalized_shape is not None else 1
+    dims = tuple(range(x.dim() - n_axes, x.dim()))
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    mean = xf.mean(dims, keepdim=True)
+    var = (xf - mean).square().mean(dims, keepdim=True)
+    out = ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def gelu(x, approximate=False):
+    """GELU, the tanh form with ``approximate=True`` (GPT's MLP), else the
+    erf form, in x's dtype."""
+    return torch.nn.functional.gelu(x, approximate="tanh" if approximate
+                                    else "none")
 
 
 def rms_norm(x, weight, epsilon=1e-6, plain=False):
@@ -53,23 +81,6 @@ def fused_rms_norm_add(x, residual, weight, epsilon=1e-6, plain=False):
     return fn(x, weight, residual, epsilon)
 
 
-class _EpilogueNoBackward(torch.autograd.Function):
-    """The block epilogue's forward under autograd; its backward (row 10 of
-    PERF.md's kernel table) is not ported and raises."""
-
-    @staticmethod
-    def forward(ctx, fn, x, residual, weight, bias, *args):
-        return fn(x, residual, weight, bias, *args)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the block-epilogue backward (paddle_tpu/ops/kernels/"
-            "block_fused_pallas.py:252 _bwd, row 10 of PERF.md's kernel "
-            "table) is not ported yet: train with Llama.fused_blocks = "
-            "False, or run the fused trunk under torch.no_grad()")
-
-
 def fused_dropout_add_norm(x, residual, weight, bias=None, p=0.0,
                            epsilon=1e-6, norm="rms", activation=None, seed=0,
                            training=True, plain=False):
@@ -83,11 +94,12 @@ def fused_dropout_add_norm(x, residual, weight, bias=None, p=0.0,
     index, the same bits as the JAX package's for the same seed; the seed
     is an argument here, never drawn from a framework generator.
     ``training=False`` turns dropout off."""
-    fn = _bep.fused_epilogue_plain if plain else _bep.fused_epilogue
     args = (int(seed), float(p) if training else 0.0, epsilon, activation,
             norm)
     if _needs_grad(x, residual, weight, bias):
-        return _EpilogueNoBackward.apply(fn, x, residual, weight, bias, *args)
+        return _bep.BlockEpilogueFunction.apply(x, residual, weight, bias,
+                                                *args, plain)
+    fn = _bep.fused_epilogue_plain if plain else _bep.fused_epilogue
     return fn(x, residual, weight, bias, *args)
 
 
@@ -130,11 +142,18 @@ def rope(q, k, sin, cos, plain=False):
     return one(q), one(k)
 
 
-def swiglu(g, u, plain=False):
-    if _needs_grad(g, u):
-        return _swiglu.SwiGLUFunction.apply(g, u, plain)
+def swiglu(x, y=None, plain=False):
+    """``silu(x) * y``; with ``y`` None, ``x`` is packed ``[.., 2I]`` (gate
+    half first) and the gate runs on both halves in place."""
+    if y is None:
+        if _needs_grad(x):
+            return _swiglu.SwiGLUPackedFunction.apply(x, plain)
+        fn = _swiglu.swiglu_packed_plain if plain else _swiglu.swiglu_packed
+        return fn(x)
+    if _needs_grad(x, y):
+        return _swiglu.SwiGLUFunction.apply(x, y, plain)
     fn = _swiglu.swiglu_plain if plain else _swiglu.swiglu
-    return fn(g, u)
+    return fn(x, y)
 
 
 def _reduce(loss, reduction):

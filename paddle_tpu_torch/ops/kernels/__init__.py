@@ -13,9 +13,12 @@ WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
             "rms_norm_bwd": rms_norm.rms_norm_bwd,
             "rope": rope.rope_apply, "swiglu": swiglu.swiglu,
             "swiglu_bwd": swiglu.swiglu_bwd,
+            "swiglu_packed": swiglu.swiglu_packed,
+            "swiglu_packed_bwd": swiglu.swiglu_packed_bwd,
             "flash_attention": flash_attention.flash_attention,
             "flash_attention_bwd": flash_attention.flash_attention_bwd,
             "block_epilogue": block_epilogue.fused_epilogue,
+            "block_epilogue_bwd": block_epilogue.fused_epilogue_bwd,
             "decode_layer": decode_layer.decode_layer,
             "wo_int8": wo_matmul.wo_int8,
             "wo_int8_grouped": wo_matmul.wo_int8_grouped,

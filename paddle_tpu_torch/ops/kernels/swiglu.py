@@ -1,16 +1,25 @@
-"""SwiGLU gate ``silu(g) * u``, forward and backward: CUDA kernels, plain
-versions and the autograd Function.
+"""SwiGLU gate ``silu(g) * u``, forward and backward, on two operands or
+on one packed ``[.., 2I]`` operand: CUDA kernels, plain versions and the
+autograd Functions.
 
 Replaces ``paddle_tpu/ops/kernels/swiglu_pallas.py`` ``_fused_fwd`` (:81;
 kernel body :45-48) and ``_fused_bwd`` (:117; kernel body :58-66), reached
-through the custom_vjp ``swiglu_fused`` (:162-179). Source:
-``paddle_tpu_torch/csrc/swiglu.cu``.
+through the custom_vjp ``swiglu_fused`` (:162-179), and the packed pair
+``_fused_fwd_packed`` (:99; kernel body :51-55) and ``_fused_bwd_packed``
+(:136; kernel body :68-77), reached through ``swiglu_packed``
+(:182-209). Source: ``paddle_tpu_torch/csrc/swiglu.cu``.
 
-What bounds both on the H100: bytes — the forward reads two tensors and
-writes one, the backward reads three (``g``, ``u``, ``dy``) and writes two
-(``dg``, ``du``), a few operations per element. Each kernel is a
+What bounds all four on the H100: bytes — the forward reads two halves
+and writes one, the backward reads three (``g``, ``u``, ``dy``) and writes
+two (``dg``, ``du``), a few operations per element. Each kernel is a
 grid-stride loop over 16-byte vectors (8 elements a thread per step), f32
-inside; the backward recomputes the sigmoid from ``g``.
+inside; the backward recomputes the sigmoid from ``g``. The packed kernels
+read the gate and up halves of each ``[2I]`` row in place and write the
+backward's ``[dg | du]`` packed the same way, so no split or concatenated
+copy is made; they need ``I % 8 == 0`` (every vector inside one half).
+The JAX dispatch sends a packed row to its kernel only when ``2I % 256 ==
+0`` (``paddle_tpu/ops/activation.py:168-172``); the port's wrapper
+launches for every ``I % 8 == 0`` on the card and raises otherwise.
 """
 
 from __future__ import annotations
@@ -22,10 +31,16 @@ import torch
 from . import _build
 
 __all__ = ["swiglu", "swiglu_plain", "swiglu_bwd", "swiglu_bwd_plain",
-           "SwiGLUFunction"]
+           "SwiGLUFunction", "swiglu_packed", "swiglu_packed_plain",
+           "swiglu_packed_bwd", "swiglu_packed_bwd_plain",
+           "SwiGLUPackedFunction"]
 
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+_PACKED_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_void_p]
+_PACKED_BWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p]
 
 
 def _check(g, u):
@@ -127,3 +142,116 @@ class SwiGLUFunction(torch.autograd.Function):
         bwd = swiglu_bwd_plain if ctx.plain else swiglu_bwd
         dg, du = bwd(g, u, dy.contiguous())
         return dg, du, None
+
+
+# -- packed: one [.., 2I] operand, gate half first ------------------------------
+
+def _check_packed(x, dy=None):
+    if not x.is_floating_point():
+        raise TypeError(f"packed swiglu takes a floating tensor, got "
+                        f"{x.dtype}")
+    if x.dim() < 1 or x.shape[-1] % 2:
+        raise ValueError(f"packed swiglu takes x [..., 2I], got "
+                         f"{tuple(x.shape)}")
+    if dy is not None and (dy.shape != x.shape[:-1] + (x.shape[-1] // 2,)
+                           or dy.dtype != x.dtype or dy.device != x.device):
+        raise ValueError(f"packed swiglu backward: dy {dy.dtype} "
+                         f"{tuple(dy.shape)} does not fit x {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def _packed_launch_check(what, *tensors):
+    x = tensors[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16, got {x.dtype}")
+    if (x.shape[-1] // 2) % 8:
+        raise ValueError(f"{what} kernel needs I % 8 == 0, got x "
+                         f"{tuple(x.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} kernel takes contiguous tensors")
+    _build.require_aligned(what, *tensors)
+
+
+def swiglu_packed_plain(x):
+    """``silu(x[..., :I]) * x[..., I:]`` in plain PyTorch, f32 inside."""
+    _check_packed(x)
+    i = x.shape[-1] // 2
+    xf = x.float()
+    g = xf[..., :i]
+    return (g * torch.sigmoid(g) * xf[..., i:]).to(x.dtype)
+
+
+def swiglu_packed(x):
+    """``[.., I]`` gate of a packed ``[.., 2I]`` row. A CPU tensor takes
+    :func:`swiglu_packed_plain`; a CUDA tensor launches the kernel (bf16,
+    contiguous, I % 8 == 0) or raises."""
+    _check_packed(x)
+    if x.device.type == "cpu":
+        return swiglu_packed_plain(x)
+    _packed_launch_check("packed swiglu", x)
+    i = x.shape[-1] // 2
+    y = torch.empty(x.shape[:-1] + (i,), dtype=x.dtype, device=x.device)
+    fn = _build.function("swiglu", "ptt_swiglu_packed", _PACKED_ARGS)
+    err = fn(x.data_ptr(), y.data_ptr(), x.numel() // (2 * i) if i else 0,
+             i, _build.stream_of(x))
+    _build.check(err, "packed swiglu")
+    swiglu_packed.launches += 1
+    return y
+
+
+swiglu_packed.launches = 0
+
+
+def swiglu_packed_bwd_plain(x, dy):
+    """``dx = [dg | du]`` of the packed gate for the cotangent ``dy``,
+    f32 inside, as :func:`swiglu_bwd_plain` computes each half."""
+    _check_packed(x, dy)
+    i = x.shape[-1] // 2
+    xf = x.float()
+    g, u = xf[..., :i], xf[..., i:]
+    sig = torch.sigmoid(g)
+    s = g * sig
+    dyf = dy.float()
+    return torch.cat([dyf * u * sig * (1.0 + g - s), dyf * s],
+                     dim=-1).to(x.dtype)
+
+
+def swiglu_packed_bwd(x, dy):
+    """``dx [.., 2I]``, as :func:`swiglu_packed_bwd_plain`. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (bf16,
+    contiguous, I % 8 == 0) or raises."""
+    _check_packed(x, dy)
+    if x.device.type == "cpu":
+        return swiglu_packed_bwd_plain(x, dy)
+    _packed_launch_check("packed swiglu backward", x, dy)
+    i = x.shape[-1] // 2
+    dx = torch.empty_like(x)
+    fn = _build.function("swiglu", "ptt_swiglu_packed_bwd", _PACKED_BWD_ARGS)
+    err = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+             x.numel() // (2 * i) if i else 0, i, _build.stream_of(x))
+    _build.check(err, "packed swiglu backward")
+    swiglu_packed_bwd.launches += 1
+    return dx
+
+
+swiglu_packed_bwd.launches = 0
+
+
+class SwiGLUPackedFunction(torch.autograd.Function):
+    """The packed gate with its backward kernel (the custom_vjp of
+    ``swiglu_packed``, which saves ``x``). ``apply(x, plain)``; ``plain``
+    runs the plain forward and the plain backward."""
+
+    @staticmethod
+    def forward(ctx, x, plain):
+        ctx.save_for_backward(x)
+        ctx.plain = plain
+        return (swiglu_packed_plain if plain else swiglu_packed)(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        bwd = swiglu_packed_bwd_plain if ctx.plain else swiglu_packed_bwd
+        return bwd(x, dy.contiguous()), None

@@ -9,8 +9,10 @@ parameters of 8192 elements or more to its kernel (:100-106); the port
 sends every one, which computes the same function. Adam couples a float
 ``weight_decay`` into the gradient before the update (L2); AdamW decays
 the weights, decoupled, for every parameter that ``apply_decay_param_fun``
-(called with the parameter's name) accepts, and ``lr_ratio(param)`` scales
-the learning rate per parameter.
+(called with the parameter's name) accepts. A parameter's
+``optimize_attr["learning_rate"]`` scales the learning rate for it, as
+``paddle_tpu/optimizer/optimizer.py:101-105`` reads it, and AdamW's
+``lr_ratio(param)`` scales it once more (:174-176).
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ class Adam(Optimizer):
         self._scalars = None
 
     def _lr_mult(self, p) -> float:
-        return 1.0
+        attr = getattr(p, "optimize_attr", None) or {}
+        return float(attr.get("learning_rate", 1.0))
 
     def _decoupled_decay_for(self, p) -> float:
         return 0.0          # plain Adam couples decay into the gradient
@@ -100,7 +103,9 @@ class AdamW(Adam):
         self._lr_ratio = lr_ratio
 
     def _lr_mult(self, p) -> float:
-        return 1.0 if self._lr_ratio is None else float(self._lr_ratio(p))
+        mult = super()._lr_mult(p)
+        return mult if self._lr_ratio is None else \
+            mult * float(self._lr_ratio(p))
 
     def _decoupled_decay_for(self, p) -> float:
         if self._apply_decay_param_fun is not None and \

@@ -17,8 +17,10 @@ products in f32 and round once, as their plain versions do (one ulp).
 A8W8 is held bit for bit where ``x / s`` is exact, and on random
 activations to one ulp plus one quantisation step of a row (a rounding
 tie may land on either side). The backward kernels: RMSNorm's dx and
-SwiGLU's dg, du to one ulp, RMSNorm's dw (an f32 sum over the rows in
-another order, then one rounding) to 1e-3 relative of its largest value;
+SwiGLU's dg, du (two operands or one packed row) to one ulp, RMSNorm's
+dw (an f32 sum over the rows in another order, then one rounding) to 1e-3
+relative of its largest value; the block epilogue's dx and dres to one
+ulp, its f32 dw and db to 1e-3 relative of their largest values;
 flash attention's dq, dk, dv to 1e-2 relative L2 (the kernel feeds bf16
 q, k, v, dO and 16-bit P and dS to the tensor cores, the plain version
 computes in f32). AdamW is held bit for bit: the kernel rounds each
@@ -28,7 +30,7 @@ operation on its own, as the plain version's tensor ops do.
 import pytest
 import torch
 
-from paddle_tpu_torch.models import llama_tiny
+from paddle_tpu_torch.models import gpt2_tiny, llama_tiny
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops.kernels import WRAPPERS, a8w8_matmul, adamw, \
     autotune, block_epilogue, decode_layer, flash_attention, mmha, \
@@ -39,7 +41,8 @@ from paddle_tpu_torch.serving import LLMEngine, ServingConfig
 pytestmark = pytest.mark.cuda
 
 QUANT_KERNELS = ("wo_int8", "wo_int8_grouped", "wo_int4", "a8w8")
-TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd", "adamw")
+TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd", "adamw",
+                 "block_epilogue_bwd", "swiglu_packed", "swiglu_packed_bwd")
 
 
 @pytest.fixture
@@ -670,3 +673,139 @@ def test_llama_training_step_through_kernels(dev):
     assert abs(loss.item() - loss_p.item()) <= 5e-3 * abs(loss_p.item())
     for name, g in grads.items():
         assert _rel_l2(g, ref[name]) <= 2e-2, name
+
+
+def _sum_close(got, ref):
+    """An f32 sum over rows taken in another order: 1e-3 of its largest
+    value."""
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1e-3 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("act,norm,p,bias_on", EPI_CASES)
+@pytest.mark.parametrize("rows,hidden,with_gh", [(1, 64, True),
+                                                 (37, 4096, True),
+                                                 (1000, 768, False),
+                                                 (5, 12288, True)])
+def test_block_epilogue_bwd_kernel(dev, act, norm, p, bias_on, rows, hidden,
+                                   with_gh):
+    xw = 2 * hidden if act == "swiglu" else hidden
+    x = _randn(dev, rows, xw, seed=50) if act else None
+    h = _randn(dev, rows, hidden, seed=51)
+    w = _randn(dev, hidden, seed=52)
+    gy = _randn(dev, rows, hidden, seed=53)
+    gh = _randn(dev, rows, hidden, seed=54) if with_gh else None
+    args = (h, x, w, gy, gh, 1234, p, 1e-5, act, norm, bias_on)
+    got = block_epilogue.fused_epilogue_bwd(*args)
+    ref = block_epilogue.fused_epilogue_bwd_plain(*args)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    _sum_close(got[2], ref[2])
+    if bias_on:
+        _sum_close(got[3], ref[3])
+    else:
+        assert got[3] is None
+    # repeatable: no atomics, the same sums every run
+    again = block_epilogue.fused_epilogue_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)
+               if a is not None)
+    if p:
+        # a zero gy leaves dres = gh, and dx zero exactly where the forward
+        # dropped (gh bounded away from 0)
+        gh1 = (_randn(dev, rows, hidden, seed=55).float().abs() + 1.0).to(
+            torch.bfloat16)
+        dx0 = block_epilogue.fused_epilogue_bwd(
+            h, None, w, torch.zeros_like(gy), gh1, 1234, p, 1e-5, None,
+            norm, bias_on)[0]
+        keep = block_epilogue.keep_mask(rows, hidden, 1234, p, dev)
+        assert torch.equal(dx0 != 0, keep)
+
+
+@pytest.mark.parametrize("shape", [(3, 2 * 64), (4096, 2 * 14336),
+                                   (2, 5, 2 * 8)])
+def test_swiglu_packed_kernels(dev, shape):
+    x = _randn(dev, *shape, seed=56)
+    dy = _randn(dev, *shape[:-1], shape[-1] // 2, seed=57)
+    _close(swiglu.swiglu_packed(x), swiglu.swiglu_packed_plain(x))
+    _close(swiglu.swiglu_packed_bwd(x, dy),
+           swiglu.swiglu_packed_bwd_plain(x, dy))
+
+
+def test_new_training_kernels_reject_what_they_do_not_take(dev):
+    x = torch.zeros(2, 64, device=dev)                    # f32 on the card
+    with pytest.raises(TypeError):
+        block_epilogue.fused_epilogue_bwd(x, None, torch.ones(64, device=dev),
+                                          x)
+    wide = torch.zeros(2, 16384, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                       # shared memory
+        block_epilogue.fused_epilogue_bwd(wide, None, wide[0], wide,
+                                          norm="layer", has_bias=True)
+    with pytest.raises(TypeError):
+        swiglu.swiglu_packed(x)
+    odd = torch.zeros(2, 2 * 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                       # I % 8 != 0
+        swiglu.swiglu_packed(odd)
+
+
+def _fused_step_launches(model, ids, labels):
+    """Gradients of the plain path, then one kernel step's launches and
+    gradients (multi-precision AdamW, global-norm clip)."""
+    _, loss_p = model(ids, labels=labels, plain=True)
+    loss_p.backward()
+    ref = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    for w in WRAPPERS.values():
+        w.launches = 0
+    _, loss = model(ids, labels=labels)
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    assert abs(loss.item() - loss_p.item()) <= 5e-3 * abs(loss_p.item())
+    for name, g in grads.items():
+        assert _rel_l2(g, ref[name]) <= 5e-2, name
+    return got
+
+
+def test_llama_fused_trunk_training_step_through_kernels(dev):
+    """The default fused trunk: one step launches the block epilogue and
+    its backward at both junctions of every layer."""
+    layers = 2
+    model = llama_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                       num_heads=4, num_kv_heads=2, intermediate_size=512)
+    assert model.fused_blocks
+    gen = torch.Generator(device=dev).manual_seed(43)
+    ids = torch.randint(0, 512, (2, 100), generator=gen, device=dev)
+    labels = torch.randint(0, 512, (2, 100), generator=gen, device=dev)
+    got = _fused_step_launches(model, ids, labels)
+    assert got == {"rms_norm": 1, "rms_norm_bwd": 1,
+                   "block_epilogue": 2 * layers,
+                   "block_epilogue_bwd": 2 * layers, "rope": 4 * layers,
+                   "swiglu": layers, "swiglu_bwd": layers,
+                   "flash_attention": layers,
+                   "flash_attention_bwd": layers,
+                   "adamw": 9 * layers + 3}
+
+
+def test_gpt_training_step_through_kernels(dev):
+    """A 2-layer GPT at head dim 64 on the fused trunk: the block
+    epilogue (layer norm with its bias) forward and backward at every
+    junction, flash attention forward and backward, AdamW; nothing
+    else."""
+    layers = 2
+    model = gpt2_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                      num_heads=4)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    ids = torch.randint(0, 1024, (2, 100), generator=gen, device=dev)
+    labels = torch.randint(0, 1024, (2, 100), generator=gen, device=dev)
+    got = _fused_step_launches(model, ids, labels)
+    assert got == {"block_epilogue": 2 * layers,
+                   "block_epilogue_bwd": 2 * layers,
+                   "flash_attention": layers,
+                   "flash_attention_bwd": layers,
+                   "adamw": 12 * layers + 4}

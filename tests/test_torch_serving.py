@@ -115,6 +115,34 @@ def test_greedy_engine_token_exact_vs_jax_engine_and_generate(models):
         assert teng.shutdown()["pages_leaked"] == 0
 
 
+@pytest.mark.parametrize("path", ["chunked", "default"])
+def test_eos_stops_at_the_first_eos_token(models, path):
+    """With ``eos_token_id`` set to a token that greedy decoding emits
+    mid-stream, each request's output is the plain greedy output cut after
+    its first EOS (the EOS kept); a request that never emits it runs to
+    ``max_new_tokens``. Both requests run in one batch, on the chunked
+    per-op path and on the default ``ServingConfig()`` path."""
+    _, tm = models
+    kw = dict(max_new_tokens=12)
+    if path == "default":
+        kw.update(prefill_chunk=None, fused_block=True, prefix_cache=True)
+    plain = _port_engine(tm, **kw)
+    try:
+        want = [plain.generate(p, timeout=300) for p in PROMPTS]
+    finally:
+        plain.shutdown()
+    eos = want[0][len(want[0]) // 2]
+    assert eos not in want[0][:len(want[0]) // 2]
+    cut = [w[:w.index(eos) + 1] if eos in w else w for w in want]
+    assert len(cut[0]) < len(want[0])
+    eng = _port_engine(tm, eos_token_id=eos, **kw)
+    try:
+        reqs = [eng.submit(p) for p in PROMPTS]
+        assert [r.result(300) for r in reqs] == cut
+    finally:
+        assert eng.shutdown()["pages_leaked"] == 0
+
+
 def test_more_requests_than_slots_with_eviction(models):
     """5 requests on 3 slots and a pool too small for all of them at full
     length: the youngest is evicted and requeued, every request completes

@@ -2,14 +2,15 @@
 
 A ``llama_tiny`` (2 layers, hidden 64, vocab 512, intermediate 128, f32)
 is built in ``paddle_tpu`` from a seed and carried across with
-``llama_from_jax_state``. The JAX side runs its unfused trunk
-(``use_fused_blocks`` 0) with its Pallas kernels in interpret mode, so its
+``llama_from_jax_state``. The JAX side runs with its Pallas kernels in
+interpret mode, on its unfused trunk (``use_fused_blocks`` 0), where its
 training step reaches the RMSNorm, RoPE, flash-attention, SwiGLU and AdamW
-kernels; the port's ``fused_blocks = False`` model runs the plain versions
-of its kernels on the CPU (no launch is counted). Tolerances: 1e-5
-relative on the loss, 1e-4 on every gradient and on the weights after
-three AdamW steps (the same f32 math through two layers, summed in
-another order).
+kernels, or on its fused trunk (``use_fused_blocks`` 1), where it also
+reaches the block-epilogue forward and backward kernels; the port's model
+runs the same trunk (``fused_blocks``) through the plain versions of its
+kernels on the CPU (no launch is counted). Tolerances: 1e-5 relative on
+the loss, 1e-4 on every gradient and on the weights after three AdamW
+steps (the same f32 math through two layers, summed in another order).
 """
 
 import dataclasses
@@ -21,9 +22,9 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.models.llama import llama_tiny as jax_llama_tiny
 from paddle_tpu.ops.kernels import _common as jax_kern
-from paddle_tpu.ops.kernels import (adamw_pallas, flash_attention_pallas,
-                                    rms_norm_pallas, rope_pallas,
-                                    swiglu_pallas)
+from paddle_tpu.ops.kernels import (adamw_pallas, block_fused_pallas,
+                                    flash_attention_pallas, rms_norm_pallas,
+                                    rope_pallas, swiglu_pallas)
 from paddle_tpu_torch.models import LlamaConfig, llama_from_jax_state
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops.kernels import WRAPPERS
@@ -40,6 +41,10 @@ JAX_KERNELS = ((rms_norm_pallas, "_fused_fwd"), (rms_norm_pallas, "_fused_bwd"),
                (flash_attention_pallas, "flash_attention_backward"),
                (swiglu_pallas, "_fused_fwd"), (swiglu_pallas, "_fused_bwd"),
                (adamw_pallas, "_adamw_call"))
+#: the fused trunk: its junctions go through the block epilogue, forward
+#: and backward; the first ``input_layernorm`` stays an RMSNorm
+JAX_FUSED_KERNELS = JAX_KERNELS + ((block_fused_pallas, "_fwd"),
+                                   (block_fused_pallas, "_bwd"))
 
 
 @pytest.fixture
@@ -56,6 +61,32 @@ def jax_train():
         jax_kern.force_interpret(False)
 
 
+@pytest.fixture
+def jax_fused():
+    """The JAX package with its Pallas kernels in interpret mode and the
+    fused trunk; both restored after the test."""
+    flags = paddle.get_flags(["use_fused_blocks"])
+    jax_kern.force_interpret(True)
+    paddle.set_flags({"use_fused_blocks": 1})
+    try:
+        yield
+    finally:
+        paddle.set_flags(flags)
+        jax_kern.force_interpret(False)
+
+
+def _count_reached(monkeypatch, kernels):
+    """Wrap each JAX kernel entry; returns the dict of those called."""
+    reached = {}
+    for mod, name in kernels:
+        def counted(*a, _fn=getattr(mod, name), _key=(mod.__name__, name),
+                    **kw):
+            reached[_key] = reached.get(_key, 0) + 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    return reached
+
+
 @pytest.fixture(autouse=True)
 def _no_launches_on_cpu():
     for w in WRAPPERS.values():
@@ -64,13 +95,14 @@ def _no_launches_on_cpu():
     assert all(w.launches == 0 for w in WRAPPERS.values())
 
 
-def _models(seed=11):
+def _models(seed=11, fused=False):
     paddle.seed(seed)
     jm = jax_llama_tiny()
     state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     cfg = LlamaConfig(**dataclasses.asdict(jm.cfg))
     tm = llama_from_jax_state(state, cfg, device="cpu")
-    tm.fused_blocks = False
+    tm.fused_blocks = fused
+    assert jm._use_fused_blocks() == fused
     return jm, tm
 
 
@@ -102,7 +134,6 @@ def test_loss_and_gradients_match_jax(jax_train, ignore):
     """One (input_ids, labels) batch: the loss and every parameter's
     gradient; ``ignore`` labels of -100 at the start of each row."""
     jm, tm = _models()
-    assert not jm._use_fused_blocks()
     ids, labels = _batch(ignore=ignore)
     _, jloss = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
     jloss.backward()
@@ -135,13 +166,7 @@ def test_three_optimizer_steps_match_jax(jax_train, monkeypatch, kind):
     cls, kw = OPTIMIZERS[kind]
     kw = dict(kw)
     clip = kw.pop("clip", None)
-    reached = {}
-    for mod, name in JAX_KERNELS:
-        def counted(*a, _fn=getattr(mod, name), _key=(mod.__name__, name),
-                    **kw):
-            reached[_key] = reached.get(_key, 0) + 1
-            return _fn(*a, **kw)
-        monkeypatch.setattr(mod, name, counted)
+    reached = _count_reached(monkeypatch, JAX_KERNELS)
     jm, tm = _models(seed=5)
     jopt = getattr(paddle.optimizer, cls)(
         1e-3, parameters=jm.parameters(), fuse=False, grad_clip=None
@@ -211,15 +236,97 @@ def test_set_lr_and_unported_options():
         opt.minimize(torch.zeros(()))
 
 
-def test_fused_blocks_training_raises(jax_train):
-    """The fused trunk has no backward yet: its loss runs forward but
-    ``backward`` raises, naming the block-epilogue backward."""
-    _, tm = _models()
-    tm.fused_blocks = True
-    ids, labels = _batch()
+@pytest.mark.parametrize("ignore", [0, 5])
+def test_fused_blocks_training_matches_jax(jax_fused, monkeypatch, ignore):
+    """The fused trunk (the default) trains: one batch's loss and every
+    gradient against the JAX fused trunk, whose backward reaches the
+    block-epilogue backward kernel ``_bwd``."""
+    reached = _count_reached(monkeypatch, JAX_FUSED_KERNELS)
+    jm, tm = _models(fused=True)
+    ids, labels = _batch(ignore=ignore)
+    _, jloss = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+    jloss.backward()
     _, loss = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
-    with pytest.raises(NotImplementedError, match="block-epilogue backward"):
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss.numpy()), **LOSS_TOL)
+    got = dict(tm.named_parameters())
+    for name, g in _jax_grads(jm).items():
+        np.testing.assert_allclose(got[name].grad.numpy(), g, **GRAD_TOL,
+                                   err_msg=name)
+    assert (block_fused_pallas.__name__, "_bwd") in reached, reached
+
+
+def test_fused_blocks_three_adamw_steps_match_jax(jax_fused, monkeypatch):
+    """Three AdamW steps on the fused trunk, a new batch each: the same
+    losses and weights; the JAX steps reach every kernel of the fused
+    trunk's path."""
+    reached = _count_reached(monkeypatch, JAX_FUSED_KERNELS)
+    jm, tm = _models(seed=5, fused=True)
+    jopt = paddle.optimizer.AdamW(
+        1e-3, parameters=jm.parameters(), weight_decay=0.01, fuse=False,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    opt = AdamW(1e-3, parameters=tm.parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    for step in range(3):
+        ids, labels = _batch(seed=step + 1)
+        _, jloss = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+        jloss.backward()
+        jopt.step()
+        jopt.clear_grad()
+        _, loss = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
         loss.backward()
+        opt.step()
+        opt.clear_grad()
+        np.testing.assert_allclose(loss.item(), float(jloss.numpy()),
+                                   **LOSS_TOL)
+    got = tm.state_dict()
+    for name, w in _jax_weights(jm).items():
+        np.testing.assert_allclose(got[name].numpy(), w, **GRAD_TOL,
+                                   err_msg=name)
+    assert set(reached) == {(m.__name__, n) for m, n in JAX_FUSED_KERNELS}, \
+        reached
+
+
+@pytest.mark.parametrize("cls", ["Adam", "AdamW"])
+def test_per_parameter_learning_rate_matches_jax(cls):
+    """A parameter whose ``optimize_attr["learning_rate"]`` is 0.5 (as
+    ``ParamAttr(learning_rate=0.5)`` sets it) steps at half the rate, in
+    the port as in the JAX optimizer; AdamW's ``lr_ratio`` multiplies
+    it."""
+    rng = np.random.default_rng(4)
+    w0 = rng.standard_normal((8, 16)).astype(np.float32)
+    b0 = rng.standard_normal(16).astype(np.float32)
+    gw = rng.standard_normal((8, 16)).astype(np.float32)
+    gb = rng.standard_normal(16).astype(np.float32)
+    kw = {"lr_ratio": lambda p: 0.25} if cls == "AdamW" else {}
+    jw = paddle.create_parameter([8, 16], "float32")
+    jb = paddle.create_parameter([16], "float32")
+    jw.set_value(w0)
+    jb.set_value(b0)
+    jw.optimize_attr = {"learning_rate": 0.5}
+    jopt = getattr(paddle.optimizer, cls)(0.1, parameters=[jw, jb],
+                                          fuse=False, **kw)
+    tw = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    tb = torch.nn.Parameter(torch.from_numpy(b0.copy()))
+    tw.optimize_attr = {"learning_rate": 0.5}
+    opt = getattr(optimizer, cls)(0.1, parameters=[tw, tb], **kw)
+    for _ in range(2):
+        (paddle.sum(jw * paddle.to_tensor(gw))
+         + paddle.sum(jb * paddle.to_tensor(gb))).backward()
+        jopt.step()
+        jopt.clear_grad()
+        ((tw * torch.from_numpy(gw)).sum()
+         + (tb * torch.from_numpy(gb)).sum()).backward()
+        opt.step()
+        opt.clear_grad()
+    np.testing.assert_allclose(tw.detach().numpy(), jw.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(tb.detach().numpy(), jb.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    # the scaled parameter moved half as far as the unscaled one would
+    step_w = np.abs(tw.detach().numpy() - w0)
+    step_b = np.abs(tb.detach().numpy() - b0)
+    np.testing.assert_allclose(step_w.mean() / step_b.mean(), 0.5, rtol=0.2)
 
 
 def test_inference_forward_unchanged(jax_train):
