@@ -82,15 +82,31 @@ Phases, in order; any failure exits non-zero:
    with its bias) and its backward, flash attention forward and backward
    and AdamW: parity, 8 steps with their launches, a falling loss, step
    time, tokens/s, MFU, peak memory and a profile of a step.
+   optimizers — SGD, Momentum (Nesterov; bf16 with master weights),
+   Adagrad, Adadelta, Adamax, centered RMSProp with momentum, Adam with
+   ``L1Decay``, SGD with ``L2Decay`` and ``ClipGradByValue``, Momentum with
+   ``ClipGradByNorm``: 3 steps each on GPT-2 small's embedding, first-block
+   and final-norm shapes on the card against the same steps on CPU copies,
+   the last step on the card under ``set_sync_debug_mode("error")``; LBFGS
+   with a closure on a least-squares problem, its loss falling.
+   train_lamb — GPT-2 small at full width and depth with ``Lamb``
+   (multi_precision, 1-D parameters excluded from the decay, a global-norm
+   clip) under ``LinearWarmup(CosineAnnealingDecay(2e-3, T_max=8))`` and
+   the loss ``ParallelCrossEntropy()(logits, labels).mean()``: parity, 8
+   steps with their launches (lamb once per parameter, parallel_ce once),
+   the learning rate at the schedule's value, a step that does not
+   synchronise, a falling loss, one Lamb step against the plain version,
+   step time, tokens/s, MFU, peak memory and a profile of a step.
    Phase 3 holds the training kernels (RMSNorm, SwiGLU, flash-attention
-   and block-epilogue backward, packed SwiGLU and its backward, AdamW)
-   against their plain versions at the train phases' shapes.
+   and block-epilogue backward, packed SwiGLU and its backward, AdamW,
+   LAMB and the cross-entropy row statistics) against their plain versions
+   at the train phases' shapes.
 7. summary — one JSON line of every kernel's launches (the decode layer's
    on engine c's run, the weight-only kernels' on engines d, e and f, A8W8's
    in the llm_int8 phase, the training kernels' in one fused-trunk train
-   step, the packed SwiGLU kernels' in the packed_mlp phase, the others' on
-   engine b's) and times, then the last line
-   ``{"ok": true, "device": {...}}``.
+   step, the packed SwiGLU kernels' in the packed_mlp phase, LAMB's and the
+   cross entropy's in one train_lamb step, the others' on engine b's) and
+   times, then the last line ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
 """
@@ -126,6 +142,7 @@ LLM_INT8_CALLS = 4        # llm_int8_linear calls of the A8W8 phase's run
 TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd",
                  "adamw", "block_epilogue_bwd")
 PACKED_KERNELS = ("swiglu_packed", "swiglu_packed_bwd")
+LAMB_KERNELS = ("lamb", "parallel_ce")
 TRAIN_LAYERS = 4          # Llama-3-8B's width, depth cut to fit the state
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS = 8
@@ -146,6 +163,18 @@ GPT_STEPS = 8
 # can pass 1.1 by chance; summed over 4 batches the spread halves, and the
 # same TRAIN_F32_RATIO holds every gradient.
 GPT_PARITY_BATCHES = 4
+# train_lamb's schedule: LinearWarmup(CosineAnnealingDecay(2e-3, T_max=8),
+# warmup_steps=2, start_lr=0.0, end_lr=2e-3)
+LAMB_PEAK_LR, LAMB_T_MAX, LAMB_WARMUP = 2e-3, 8, 2
+# phase 3's LAMB shapes (Llama-3-8B's largest parameter, GPT-2 small's
+# embedding) and cross-entropy logits (Llama-3-8B's at B 2 x S 2048, GPT-2
+# small's at B 8 x S 1024)
+LAMB_SHAPES = ((14336, 4096), (50304, 768))
+CE_SHAPES = ((4096, 128256), (8192, 50304))
+# The optimizers phase: card against CPU, relative L2 of each parameter.
+# The same f32 operations on both (AdamW's kernel rounds as its plain
+# version does); only a norm's or a power's last bits differ.
+OPT_REL_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -344,6 +373,8 @@ def phase_kernels(torch, dev):
     _kernels_train(torch, dev, randn, timer, results)
     _kernels_epilogue_bwd(torch, randn, timer, results)
     _kernels_swiglu_packed(torch, randn, timer, results)
+    _kernels_lamb(torch, dev, timer, results)
+    _kernels_parallel_ce(torch, dev, timer, results)
     return results
 
 
@@ -627,6 +658,105 @@ def _kernels_swiglu_packed(torch, randn, timer, results):
             timer(lambda: swiglu.swiglu_packed_bwd(x, dy)),
             timer(lambda: swiglu.swiglu_packed_bwd_plain(x, dy)), None,
             5 * n * 2, 12 * n)
+
+
+def _kernels_lamb(torch, dev, timer, results):
+    """LAMB at Llama-3-8B's largest parameter, [14336, 4096], and GPT-2
+    small's embedding, [50304, 768]: an f32 master, its bf16 copy and a
+    bf16 gradient at step 3 of warm moments. The moments bit for bit; the
+    f32 master within 1e-6 of its largest entry and the trust ratio within
+    1e-6 relative (the kernel sums the norms in another order than
+    ``torch.sum``); the bf16 parameter within one bf16 ulp. No PyTorch call
+    computes LAMB: no library time."""
+    from paddle_tpu_torch.ops.kernels import adamw, lamb
+
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, wd=0.01)
+    scal = adamw.adamw_scalars(torch.tensor(2e-3, device=dev),
+                               torch.tensor(3.0, device=dev), 0.9, 0.999)
+    gen = torch.Generator(device=dev).manual_seed(78)
+    for rows, cols in LAMB_SHAPES:
+        n = rows * cols
+        master = torch.randn(rows, cols, generator=gen, device=dev) * 0.02
+        grad = (torch.randn(rows, cols, generator=gen, device=dev)
+                * 1e-3).to(torch.bfloat16)
+        state = [master.to(torch.bfloat16),
+                 torch.randn(rows, cols, generator=gen, device=dev) * 1e-4,
+                 torch.rand(rows, cols, generator=gen, device=dev) * 1e-7,
+                 master]
+        ref = [t.clone() for t in state]
+        trust = lamb.lamb_update(state[0], grad, state[1], state[2], scal,
+                                 master=state[3], **kw)
+        want = lamb.lamb_update_plain(ref[0], grad, ref[1], ref[2], scal,
+                                      master=ref[3], **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(state[1], ref[1]) and torch.equal(state[2],
+                                                              ref[2])):
+            fail(f"lamb {[rows, cols]}: moments differ from the plain "
+                 f"version")
+        trust_rel = abs(trust.item() - want.item()) / want.item()
+        if not trust_rel <= 1e-6:
+            fail(f"lamb {[rows, cols]}: trust {trust.item()} against "
+                 f"{want.item()} ({trust_rel} > 1e-6 relative)")
+        err_p, tol_p = compare(torch, state[0], ref[0])
+        if not err_p <= tol_p:
+            fail(f"lamb {[rows, cols]}: bf16 parameter {err_p} > {tol_p}")
+        err = (state[3] - ref[3]).abs().max().item()
+        tol = 1e-6 * ref[3].abs().max().item()
+        del ref
+        _record(results, "lamb", [rows, cols, "f32 master", "bf16 grad"],
+                err, tol,
+                timer(lambda: lamb.lamb_update(state[0], grad, state[1],
+                                               state[2], scal,
+                                               master=state[3], **kw)),
+                timer(lambda: lamb.lamb_update_plain(
+                    state[0], grad, state[1], state[2], scal,
+                    master=state[3], **kw)),
+                None, 40 * n, 27 * n, trust=trust.item(),
+                trust_rel_err=trust_rel, param_err=err_p, param_tol=tol_p)
+        del state, grad, master
+
+
+def _kernels_parallel_ce(torch, dev, timer, results):
+    """The cross-entropy row statistics at Llama-3-8B's training logits,
+    [4096, 128256], and GPT-2 small's, [8192, 50304], bf16, with every
+    97th label at ``ignore_index``: the row max and the target logit
+    exactly, the sum of exponentials within 1e-5 relative, and the loss of
+    ``c_softmax_with_cross_entropy`` within 1e-5 absolute of the plain
+    path's. Yardstick, timed only: ``F.cross_entropy(logits.float(),
+    labels, reduction="none")``."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import parallel_ce as pce
+
+    gen = torch.Generator(device=dev).manual_seed(79)
+    for n, v in CE_SHAPES:
+        x = (torch.randn(n, v, generator=gen, device=dev) * 2).to(
+            torch.bfloat16)
+        lab = torch.randint(0, v, (n,), generator=gen, device=dev)
+        lab[::97] = -100
+        safe = torch.where(lab == -100, torch.zeros_like(lab), lab)
+        got = pce.row_stats(x, safe)
+        ref = pce.row_stats_plain(x, safe)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])):
+            fail(f"parallel_ce {[n, v]}: row max or target logit differs")
+        se_rel = ((got[1] - ref[1]).abs() / ref[1]).max().item()
+        if not se_rel <= 1e-5:
+            fail(f"parallel_ce {[n, v]}: sum of exponentials {se_rel} > "
+                 f"1e-5 relative")
+        loss = pce.c_softmax_with_cross_entropy(x, lab, ignore_index=-100)
+        loss_p = pce.c_softmax_with_cross_entropy(x, lab, ignore_index=-100,
+                                                  plain=True)
+        err = (loss - loss_p).abs().max().item()
+        del got, ref, loss, loss_p
+        lib = timer(lambda: TF.cross_entropy(x.float(), lab,
+                                             reduction="none"))
+        _record(results, "parallel_ce", [n, v, "bf16", "ignore 1/97"],
+                err, 1e-5, timer(lambda: pce.row_stats(x, safe)),
+                timer(lambda: pce.row_stats_plain(x, safe), iters=5), lib,
+                2 * n * v + 8 * n + 12 * n, 4 * n * v, se_rel_err=se_rel,
+                error_metric="max abs loss error")
+        del x, lab, safe
 
 
 def _segment_pairs(seg_row):
@@ -1084,7 +1214,7 @@ def phase_serve_default(torch, np, model):
     reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
     idle = [n for n, c in launches.items()
             if c == 0 and n not in ("decode_layer",) + QUANT_KERNELS
-            + TRAIN_KERNELS + PACKED_KERNELS]
+            + TRAIN_KERNELS + PACKED_KERNELS + LAMB_KERNELS]
     if idle:
         fail(f"kernels never launched on the default serving path: {idle}")
     pages, px = _check_prefix_claims(engine, reqs, stats)
@@ -1455,7 +1585,9 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "swiglu_bwd_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                 "adamw_kernel", "block_epilogue_bwd_kernel",
-                "swiglu_packed_kernel", "swiglu_packed_bwd_kernel")
+                "swiglu_packed_kernel", "swiglu_packed_bwd_kernel",
+                "lamb_moments_kernel", "lamb_apply_kernel",
+                "ce_row_stats_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -1467,7 +1599,7 @@ def _profile(torch, fn, reps: int):
     share is 1 - device busy time / unprofiled wall time (the profiler
     slows the host, so its own timeline overstates idleness). The port's
     launches per call come from the wrappers' counts over the timed
-    calls."""
+    calls; its kernels' device time per call is also given by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.ops.kernels import WRAPPERS
@@ -1498,11 +1630,16 @@ def _profile(torch, fn, reps: int):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     buckets = {"port_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    own: dict = {}
     for name, us in by_name.items():
-        key = "port_kernels" if any(k in name for k in _OWN_KERNELS) else \
+        mine = [k for k in _OWN_KERNELS if k in name]
+        key = "port_kernels" if mine else \
             "matmul" if any(k in name.lower() for k in _GEMM_MARKS) else \
             "other"
         buckets[key] += us
+        if mine:
+            k = max(mine, key=len)       # rms_norm_bwd_kernel, not rms_norm
+            own[k] = own.get(k, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     busy_ms = busy / reps / 1e3
     return {"wall_ms_per_call": wall_ms, "device_events": len(kernels),
@@ -1511,6 +1648,7 @@ def _profile(torch, fn, reps: int):
             "busy_ms_per_call": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "ms_per_call": {k: v / reps / 1e3 for k, v in buckets.items()},
+            "port_ms_per_call": {k: v / reps / 1e3 for k, v in own.items()},
             "top": [{"kernel": n[:90], "ms_per_call": us / reps / 1e3}
                     for n, us in top]}
 
@@ -1616,7 +1754,7 @@ def _train_step(torch, model, opt, ids, labels):
     return loss.detach()
 
 
-def _grad_parity(torch, what, model, ref, batches):
+def _grad_parity(torch, what, model, ref, batches, loss_fn=None):
     """Forward and backward of ``model`` through the kernels and with
     ``plain=True`` from the same weights, and with ``plain=True`` through
     ``ref``, an f32 copy of them, on each ``(ids, labels)`` of
@@ -1627,9 +1765,14 @@ def _grad_parity(torch, what, model, ref, batches):
     batches a relative L2 distance is ``sqrt(sum_b |a_b - r_b|^2) /
     sqrt(sum_b |r_b|^2)``; over one it is the plain relative L2. With
     several batches, each batch's own f32 ratios are summarised beside the
-    gate (the worst, the mean and the spread over the gradients)."""
+    gate (the worst, the mean and the spread over the gradients).
+    ``loss_fn(net, plain, ids, labels)``, where given, computes the loss
+    in place of the model's own ``labels`` path."""
     def grads_of(net, plain, ids, labels):
-        _, loss = net(ids, labels=labels, plain=plain)
+        if loss_fn is None:
+            _, loss = net(ids, labels=labels, plain=plain)
+        else:
+            loss = loss_fn(net, plain, ids, labels)
         loss.backward()
         out = {n: p.grad for n, p in net.named_parameters()}
         net.zero_grad(set_to_none=True)
@@ -1691,10 +1834,12 @@ def _grad_parity(torch, what, model, ref, batches):
              f"plain path's {rel_p32[worst_ratio]} (tol x{TRAIN_F32_RATIO})")
 
 
-def _train_steps(torch, what, model, opt, ids, labels, steps, want):
-    """``steps`` optimizer steps, each one's launches set to 0 just before
-    it and read just after, and held to ``want``. Returns (losses, host ms
-    per step to a synchronise, the launches of the last step)."""
+def _train_steps(torch, what, model, opt, ids, labels, steps, want,
+                 step_fn=None):
+    """``steps`` optimizer steps (``step_fn()`` where given, else
+    :func:`_train_step`), each one's launches set to 0 just before it and
+    read just after, and held to ``want``. Returns (losses, host ms per
+    step to a synchronise, the launches of the last step)."""
     from paddle_tpu_torch.ops.kernels import WRAPPERS
 
     losses, step_ms, launches = [], [], None
@@ -1703,7 +1848,8 @@ def _train_steps(torch, what, model, opt, ids, labels, steps, want):
         for w in WRAPPERS.values():
             w.launches = 0
         t0 = time.perf_counter()
-        losses.append(_train_step(torch, model, opt, ids, labels))
+        losses.append(step_fn() if step_fn is not None else
+                      _train_step(torch, model, opt, ids, labels))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
@@ -1943,6 +2089,280 @@ def phase_train_gpt(torch, dev):
     return launches
 
 
+def _optimizer_cases(torch, opt_mod, reg, clip):
+    """(label, optimizer class, kwargs, bf16 with master weights) of the
+    optimizers phase."""
+    return [
+        ("SGD", opt_mod.SGD, dict(learning_rate=0.1), False),
+        ("Momentum nesterov", opt_mod.Momentum,
+         dict(learning_rate=0.05, use_nesterov=True), False),
+        ("Momentum multi_precision", opt_mod.Momentum,
+         dict(learning_rate=0.05, use_nesterov=True, multi_precision=True),
+         True),
+        ("Adagrad", opt_mod.Adagrad, dict(learning_rate=0.05), False),
+        ("Adadelta", opt_mod.Adadelta, dict(learning_rate=1.0), False),
+        ("Adamax", opt_mod.Adamax, dict(learning_rate=0.01), False),
+        ("RMSProp centered momentum", opt_mod.RMSProp,
+         dict(learning_rate=0.01, centered=True, momentum=0.9), False),
+        ("Adam L1Decay", opt_mod.Adam,
+         dict(learning_rate=0.01, weight_decay=reg.L1Decay(1e-4)), False),
+        ("SGD L2Decay ClipGradByValue", opt_mod.SGD,
+         dict(learning_rate=0.1, weight_decay=reg.L2Decay(1e-3),
+              grad_clip=clip.ClipGradByValue(1e-3)), False),
+        ("Momentum ClipGradByNorm", opt_mod.Momentum,
+         dict(learning_rate=0.05, grad_clip=clip.ClipGradByNorm(0.5)),
+         False)]
+
+
+def phase_optimizers(torch, dev):
+    """The element-wise optimizers on the card against the same steps on
+    CPU copies: the parameter shapes of GPT-2 small's embeddings, first
+    block and final norm (f32, or bf16 with f32 master weights), weights
+    and three fixed gradients made from a seed; each optimizer takes 3
+    steps on both, the last one on the card under
+    ``set_sync_debug_mode("error")``; every parameter (and master weight)
+    within OPT_REL_TOL relative L2 of the CPU run's. Then LBFGS with a
+    closure on a seeded least-squares problem on the card: its loss must
+    fall over three ``step`` calls of 4 iterations and end within 1e-4
+    relative of the least-squares optimum (``torch.linalg.lstsq`` in f64 on
+    the CPU)."""
+    from paddle_tpu_torch import optimizer as opt_mod
+    from paddle_tpu_torch import regularizer as reg
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.nn import clip
+
+    shapes = [(n, tuple(p.shape)) for n, p in
+              gpt2_small(device="meta", seed=None).named_parameters()
+              if n.startswith(("wte", "wpe", "blocks.0.", "ln_f"))]
+    gen = torch.Generator().manual_seed(80)
+    w0 = [torch.randn(s, generator=gen) * 0.02 for _, s in shapes]
+    grads = [[torch.randn(s, generator=gen) * 1e-2 for _, s in shapes]
+             for _ in range(3)]
+    rows = []
+    for label, cls, kw, master in _optimizer_cases(torch, opt_mod, reg,
+                                                   clip):
+        dtype = torch.bfloat16 if master else torch.float32
+        runs = {}
+        for where in ("cpu", dev):
+            params = [torch.nn.Parameter(w.to(where, dtype, copy=True))
+                      for w in w0]
+            opt = cls(parameters=params, **kw)
+            for step, gs in enumerate(grads):
+                for p, g in zip(params, gs):
+                    p.grad = g.to(where, dtype, copy=True)
+                if where != "cpu" and step == len(grads) - 1:
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        opt.step()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                else:
+                    opt.step()
+                opt.clear_grad()
+            out = [p.detach().float().cpu() for p in params]
+            if master:
+                state = opt.state_dict()["master_weights"]
+                out += [state[f"param_{i}"].cpu() for i in range(len(params))]
+            runs[str(where)] = out
+        rel = max(_rel_l2(torch, a, b)
+                  for a, b in zip(runs[str(dev)], runs["cpu"]))
+        rows.append({"optimizer": label, "worst_rel_l2": rel})
+        if not rel <= OPT_REL_TOL:
+            fail(f"optimizer {label}: card and CPU differ by {rel} relative "
+                 f"L2 (> {OPT_REL_TOL})")
+    # LBFGS on a least-squares problem whose A has singular values in
+    # about [0.4, 1.2], so that its first step (a unit step along -g)
+    # already lowers the loss
+    a = (torch.randn(2048, 512, generator=gen) * 0.8 / math.sqrt(2048)).to(dev)
+    b = torch.randn(2048, generator=gen).to(dev)
+    x = torch.nn.Parameter(torch.zeros(512, device=dev))
+    lbfgs = opt_mod.LBFGS(learning_rate=1.0, max_iter=4, history_size=10,
+                          parameters=[x])
+
+    def closure():
+        lbfgs.clear_grad()
+        loss = 0.5 * (a @ x - b).square().sum()
+        loss.backward()
+        return loss
+
+    start = closure().item()
+    losses = [lbfgs.step(closure).item() for _ in range(3)]
+    sol = torch.linalg.lstsq(a.double().cpu(), b.double().cpu()[:, None])
+    best = 0.5 * (a.double().cpu() @ sol.solution[:, 0]
+                  - b.double().cpu()).square().sum().item()
+    emit({"phase": "optimizers", "params": [n for n, _ in shapes],
+          "elements": sum(math.prod(s) for _, s in shapes), "steps": 3,
+          "tol": OPT_REL_TOL, "cases": rows, "lbfgs_start_loss": start,
+          "lbfgs_losses": losses, "lbfgs_optimum": best})
+    if not (losses[2] < losses[1] < losses[0] < start
+            and losses[2] <= best * (1 + 1e-4)):
+        fail(f"LBFGS: losses {start} -> {losses} do not fall to the "
+             f"optimum {best}")
+
+
+def _lamb_schedule(opt_mod):
+    return opt_mod.lr.LinearWarmup(
+        opt_mod.lr.CosineAnnealingDecay(LAMB_PEAK_LR, T_max=LAMB_T_MAX),
+        warmup_steps=LAMB_WARMUP, start_lr=0.0, end_lr=LAMB_PEAK_LR)
+
+
+def _lamb_lr(epoch):
+    """The schedule's value at ``epoch``, written out."""
+    if epoch < LAMB_WARMUP:
+        return LAMB_PEAK_LR * epoch / LAMB_WARMUP
+    t = epoch - LAMB_WARMUP
+    return LAMB_PEAK_LR * (1 + math.cos(math.pi * t / LAMB_T_MAX)) / 2
+
+
+def _lamb_step_parity(torch, model, opt, loss_fn, ids, labels):
+    """One more step's clipped gradients, then every parameter's Lamb
+    update through the kernel and through the plain version from copies of
+    the optimizer's state: the moments bit for bit, the master weights
+    within 1e-6 of their largest entry, the bf16 parameters within one
+    bf16 ulp and the trust ratio within 1e-6 relative."""
+    from paddle_tpu_torch.ops.kernels import adamw, lamb
+
+    loss_fn(model, False, ids, labels).backward()
+    params = [p for p in model.parameters() if p.grad is not None]
+    pgs = opt._grad_clip([(p, p.grad) for p in params])
+    scal = adamw.adamw_scalars(opt._lr_tensor, opt._step_tensor + 1.0,
+                               opt._beta1, opt._beta2)
+    worst = {"master": 0.0, "param": 0.0, "trust": 0.0}
+    for p, g in pgs:
+        wd = 0.0 if opt._exclude_fn(p) else opt._lamb_wd
+        state = [p.detach().clone(),
+                 opt._accumulators["moment1"][id(p)].clone(),
+                 opt._accumulators["moment2"][id(p)].clone(),
+                 opt._master_weights[id(p)].clone()]
+        ref = [t.clone() for t in state]
+        kw = dict(beta1=opt._beta1, beta2=opt._beta2, eps=opt._epsilon,
+                  wd=wd)
+        t_k = lamb.lamb_update(state[0], g, state[1], state[2], scal,
+                               master=state[3], **kw)
+        t_p = lamb.lamb_update_plain(ref[0], g, ref[1], ref[2], scal,
+                                     master=ref[3], **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(state[1], ref[1]) and torch.equal(state[2],
+                                                              ref[2])):
+            fail(f"lamb step: moments differ from the plain version")
+        scale = ref[3].abs().max().item()
+        worst["master"] = max(worst["master"], (state[3] - ref[3]).abs()
+                              .max().item() / max(scale, 1e-30))
+        err_p, tol_p = compare(torch, state[0], ref[0])
+        worst["param"] = max(worst["param"], err_p / max(tol_p, 1e-30))
+        worst["trust"] = max(worst["trust"],
+                             abs(t_k.item() - t_p.item()) / t_p.item())
+    model.zero_grad(set_to_none=True)
+    if not (worst["master"] <= 1e-6 and worst["param"] <= 1.0
+            and worst["trust"] <= 1e-6):
+        fail(f"lamb step against the plain version: {worst}")
+    return dict(worst, tensors=len(pgs))
+
+
+def phase_train_lamb(torch, dev):
+    """GPT-2 small at full width and depth trained with the optimizer and
+    loss surface of a BERT-style large-batch recipe: ``Lamb(
+    learning_rate=LinearWarmup(CosineAnnealingDecay(2e-3, T_max=8),
+    warmup_steps=2, start_lr=0.0, end_lr=2e-3), lamb_weight_decay=0.01,
+    exclude_from_weight_decay_fn=lambda p: p.ndim == 1,
+    multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))`` and the
+    loss ``ParallelCrossEntropy()(logits, labels).mean()``, bf16 weights
+    from a seed, one fixed batch of B 8 x S 1024 random tokens:
+    a. loss and gradient parity (``_grad_parity`` with that loss) against
+       the plain path and an f32 copy over GPT_PARITY_BATCHES batches;
+    b. GPT_STEPS steps, the scheduler stepped after each: the launches of
+       each step (block_epilogue and its backward 2L, flash_attention and
+       its backward L, lamb one per parameter, parallel_ce once, nothing
+       else), ``opt.get_lr()`` at the schedule's value before every step,
+       ``opt.step()`` and the scheduler's step under
+       ``set_sync_debug_mode("error")``, a finite, falling loss and the
+       fresh-batch check; step time, tokens/s, MFU and peak memory;
+    c. one Lamb step through the kernel against the plain version from the
+       optimizer's state (``_lamb_step_parity``);
+    d. a profile of one step. Returns the launches of one step."""
+    from paddle_tpu_torch import optimizer as opt_mod
+    from paddle_tpu_torch.distributed import ParallelCrossEntropy
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt2_small(device=dev, dtype=torch.bfloat16, seed=0)
+    cfg = model.cfg
+    layers = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    batches = []
+    for _ in range(GPT_PARITY_BATCHES):
+        toks = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ + 1),
+                             generator=gen, device=dev)
+        batches.append((toks[:, :-1].contiguous(), toks[:, 1:].contiguous()))
+    ids, labels = batches[0]
+    ce = ParallelCrossEntropy()
+
+    def loss_fn(net, plain, ids, labels):
+        return ce(net(ids, plain=plain), labels, plain=plain).mean()
+
+    ref = gpt2_small(device=dev, dtype=torch.float32, seed=None)
+    ref.load_state_dict(model.state_dict())
+    _grad_parity(torch, "gpt2_small lamb + ParallelCrossEntropy", model, ref,
+                 batches, loss_fn)
+    del ref, batches
+    sched = _lamb_schedule(opt_mod)
+    opt = opt_mod.Lamb(learning_rate=sched, lamb_weight_decay=0.01,
+                       exclude_from_weight_decay_fn=lambda p: p.ndim == 1,
+                       multi_precision=True, parameters=model.parameters(),
+                       grad_clip=ClipGradByGlobalNorm(1.0))
+    lrs = []
+
+    def step():
+        lrs.append(opt.get_lr())
+        loss = loss_fn(model, False, ids, labels)
+        loss.backward()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+            sched.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        opt.clear_grad()
+        return loss.detach()
+
+    n_tensors = len(list(model.parameters()))
+    want = {"block_epilogue": 2 * layers, "block_epilogue_bwd": 2 * layers,
+            "flash_attention": layers, "flash_attention_bwd": layers,
+            "lamb": n_tensors, "parallel_ce": 1}
+    losses, step_ms, launches = _train_steps(
+        torch, "gpt2 lamb train", model, opt, ids, labels, GPT_STEPS, want,
+        step_fn=step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_lrs = [_lamb_lr(e) for e in range(GPT_STEPS)]
+    if any(abs(a - b) > 1e-6 * LAMB_PEAK_LR for a, b in zip(lrs, want_lrs)):
+        fail(f"lamb train: learning rates {lrs}, want the schedule's "
+             f"{want_lrs}")
+    heldout, uniform = _heldout(torch, model, gen, cfg.vocab_size, GPT_BATCH,
+                                GPT_SEQ)
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    tokens_per_s = GPT_BATCH * GPT_SEQ / mean_ms * 1e3
+    fpt = model.flops_per_token(GPT_SEQ)
+    step_parity = _lamb_step_parity(torch, model, opt, loss_fn, ids, labels)
+    emit({"phase": "train_lamb", "model": "gpt2_small", "layers": layers,
+          "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
+          "params": model.num_params(non_embedding=False),
+          "param_tensors": n_tensors, "batch": GPT_BATCH, "seq": GPT_SEQ,
+          "losses": losses, "lrs": lrs, "schedule_lrs": want_lrs,
+          "step_ms": step_ms, "step_ms_mean_after_first": mean_ms,
+          "tokens_per_s": tokens_per_s, "flops_per_token": fpt,
+          "mfu": tokens_per_s * fpt / BF16_TC_FLOPS_PER_S,
+          "peak_memory_gb": peak_gb, "launches_per_step": launches,
+          "heldout_loss": heldout, "uniform_loss": uniform,
+          "lamb_step_vs_plain": step_parity, "sync_free_optimizer_step": True})
+    _check_curve("gpt2 lamb train", losses, heldout, uniform)
+    prof = _profile(torch, step, reps=3)
+    emit({"phase": "profile", "gpt2_lamb_train_step": prof})
+    return launches
+
+
 def phase_profile(torch, model, engine, prompts):
     """Where a decode step (8 rows at the served prompts' lengths) and a
     512-token prefill chunk (at position 1024) spend their device time, on
@@ -2017,6 +2437,10 @@ _SOURCES = {
                       "paddle_tpu/ops/kernels/swiglu_pallas.py:99"),
     "swiglu_packed_bwd": ("paddle_tpu_torch/csrc/swiglu.cu",
                           "paddle_tpu/ops/kernels/swiglu_pallas.py:136"),
+    "lamb": ("paddle_tpu_torch/csrc/lamb.cu",
+             "paddle_tpu/ops/kernels/lamb_pallas.py:78"),
+    "parallel_ce": ("paddle_tpu_torch/csrc/cross_entropy.cu",
+                    "paddle_tpu/ops/kernels/ce_pallas.py:66"),
 }
 
 
@@ -2091,6 +2515,12 @@ def main() -> int:
         launches[name] = packed_launches[name]
     _free(torch)
     phase_train_gpt(torch, dev)
+    _free(torch)
+    phase_optimizers(torch, dev)
+    _free(torch)
+    lamb_launches = phase_train_lamb(torch, dev)
+    for name in LAMB_KERNELS:
+        launches[name] = lamb_launches[name]
 
     summary = []
     for name in sorted(kern):

@@ -8,8 +8,11 @@ package imports neither JAX nor ``paddle_tpu``.
 
 It serves Llama through :class:`paddle_tpu_torch.serving.LLMEngine`
 (float or weight-only quantized); ``nn.quant`` holds the quantized linear
-functions. It trains Llama (``fused_blocks=False``) through the backward
-kernels and :class:`paddle_tpu_torch.optimizer.AdamW`'s fused update.
+functions. It trains Llama and GPT-2 through the backward kernels, with
+every optimizer of ``paddle_tpu_torch.optimizer`` (AdamW and Lamb through
+their kernels), its learning-rate schedulers (``optimizer.lr``),
+``regularizer`` and ``nn.clip``, and the loss of
+``distributed.ParallelCrossEntropy`` through the cross-entropy kernel.
 """
 
 from .device import resolve_device

@@ -25,6 +25,9 @@
 #include "common.cuh"
 
 using ptt::bf16;
+using ptt::to_f;
+using ptt::load4;
+using ptt::store4;
 
 namespace {
 
@@ -33,33 +36,6 @@ enum Mode { kF32Param = 0, kMaster = 1, kBf16Param = 2 };
 struct Hyper {
   float b1, omb1, b2, omb2, eps, wd, lr_mult;
 };
-
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
-}
-
-__device__ __forceinline__ void store4(float* p, const float* o) {
-  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-}
-
-__device__ __forceinline__ void load4(const bf16* p, float* o) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(bf16* p, const float* o) {
-  uint2 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-  h[0] = __floats2bfloat162_rn(o[0], o[1]);
-  h[1] = __floats2bfloat162_rn(o[2], o[3]);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // one element; w, m, v updated in place
 __device__ __forceinline__ void adamw_one(float& w, float g, float& m, float& v, float lr,

@@ -38,6 +38,36 @@ __device__ __forceinline__ void store8(bf16* p, const float* in) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// one value of either element type as f32
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// 4 values <-> 4 floats: one 16-byte access for f32, one 8-byte access for
+// bf16 (callers keep the pointer aligned to the access)
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+}
+
+__device__ __forceinline__ void store4(float* p, const float* o) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+
+__device__ __forceinline__ void load4(const bf16* p, float* o) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float* o) {
+  uint2 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+  h[0] = __floats2bfloat162_rn(o[0], o[1]);
+  h[1] = __floats2bfloat162_rn(o[2], o[3]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
 // D += A B for one m16n8k16 tile on the bf16 tensor cores, f32 accumulators
 // (A row-major, B column-major fragments, as mma.sync lays them out)
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {

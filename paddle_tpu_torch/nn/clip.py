@@ -1,21 +1,56 @@
-"""Gradient clipping by global norm (counterpart of
-``paddle_tpu/nn/clip.py`` ``ClipGradByGlobalNorm`` :52), in plain PyTorch.
+"""Gradient clipping (counterpart of ``paddle_tpu/nn/clip.py``
+``ClipGradByValue`` :21, ``ClipGradByNorm`` :37 and
+``ClipGradByGlobalNorm`` :52), in plain PyTorch.
 
 A clip object is given to an optimizer as ``grad_clip=`` and applied to
 its ``(param, grad)`` list before the update. Everything stays on the
-device: the norm is a 0-d tensor and nothing synchronises.
+device: every norm is a 0-d tensor and nothing synchronises.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ClipGradBase", "ClipGradByGlobalNorm"]
+__all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm"]
 
 
 class ClipGradBase:
     def __call__(self, params_grads):
         raise NotImplementedError
+
+
+class ClipGradByValue(ClipGradBase):
+    """Clamp every gradient entry to ``[min, max]`` (``min`` defaults to
+    ``-max``)."""
+
+    def __init__(self, max, min=None):
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    def __call__(self, params_grads):
+        return [(p, g if g is None else g.clamp(self.min, self.max))
+                for p, g in params_grads]
+
+
+class ClipGradByNorm(ClipGradBase):
+    """Scale each gradient by ``min(clip_norm / max(norm, 1e-12), 1)``,
+    its own L2 norm taken in f32."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            if g is None:
+                out.append((p, g))
+                continue
+            norm = torch.sqrt(g.float().square().sum())
+            scale = torch.clamp(self.clip_norm / norm.clamp_min(1e-12),
+                                max=1.0)
+            out.append((p, g * scale.to(g.dtype)))
+        return out
 
 
 class ClipGradByGlobalNorm(ClipGradBase):

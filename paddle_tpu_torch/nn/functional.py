@@ -4,14 +4,14 @@
 ``fused_dropout_add_norm`` (:139), ``scaled_dot_product_attention``
 (:391), ``rope`` (:505), ``paddle_tpu/ops/activation.py`` ``gelu`` (:44)
 and ``swiglu`` (:159), and ``paddle_tpu/nn/functional/loss.py``
-``cross_entropy`` (:32-79)).
+``cross_entropy`` (:32-79) and ``softmax_with_cross_entropy`` (:81-90)).
 
 Dispatch is the kernel wrapper's: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``plain=True`` runs the plain
 PyTorch version on any device; it exists so a check on the card can hold
-the kernel path against the plain one on the same inputs. ``layer_norm``
-and ``gelu`` are plain tensor code, as the JAX package computes them
-outside any Pallas kernel.
+the kernel path against the plain one on the same inputs. ``layer_norm``,
+``gelu`` and the cross entropies are plain tensor code, as the JAX package
+computes them outside any Pallas kernel.
 
 Where grad is enabled and an operand requires it, each kernel op goes
 through its ``torch.autograd.Function``, whose backward is the backward
@@ -31,7 +31,7 @@ from ..ops.kernels import swiglu as _swiglu
 
 __all__ = ["layer_norm", "gelu", "rms_norm", "fused_rms_norm_add",
            "fused_dropout_add_norm", "scaled_dot_product_attention", "rope",
-           "swiglu", "cross_entropy"]
+           "swiglu", "cross_entropy", "softmax_with_cross_entropy"]
 
 
 def _needs_grad(*tensors) -> bool:
@@ -170,21 +170,31 @@ def _reduce(loss, reduction):
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Softmax cross entropy with hard labels, in plain PyTorch with the
-    log-softmax in f32 (``paddle_tpu/nn/functional/loss.py:32-79``): labels
-    equal to ``ignore_index`` add nothing and leave the mean's
-    denominator; an optional per-class ``weight`` scales each row's loss,
-    and the weighted mean divides by the weights of the counted rows.
-    Soft labels and label smoothing are not ported yet and raise."""
-    if soft_label:
-        raise NotImplementedError("cross_entropy: soft_label=True is not "
-                                  "ported yet")
-    if label_smoothing:
-        raise NotImplementedError("cross_entropy: label_smoothing is not "
-                                  "ported yet")
+    """Softmax cross entropy in plain PyTorch with the log-softmax in f32
+    (``paddle_tpu/nn/functional/loss.py:32-79``; ``use_softmax=False``
+    takes ``input`` as probabilities). Hard labels: labels equal to
+    ``ignore_index`` add nothing and leave the mean's denominator; an
+    optional per-class ``weight`` scales each row's loss, and the weighted
+    mean divides by the weights of the counted rows. ``soft_label=True``:
+    ``label`` is a distribution over the classes, the loss
+    ``-sum(label * logp)`` (times ``weight`` per class) and the mean a
+    plain one over the rows. ``label_smoothing`` mixes each hard target
+    with the mean log-probability, and each soft target with the uniform
+    distribution."""
     x = input.float()
     logp = torch.log_softmax(x, dim=axis) if use_softmax \
         else torch.log(x.clamp_min(1e-12))
+    n_class = logp.shape[axis]
+    if soft_label:
+        tgt = label.to(logp.dtype)
+        if label_smoothing > 0.0:
+            tgt = (1 - label_smoothing) * tgt + label_smoothing / n_class
+        if weight is not None:
+            shape = [1] * logp.dim()
+            shape[axis] = n_class
+            tgt = tgt * weight.to(device=logp.device,
+                                  dtype=logp.dtype).reshape(shape)
+        return _reduce(-(tgt * logp).sum(dim=axis), reduction)
     idx = label
     if idx.dim() == logp.dim() and idx.shape[axis] == 1:
         idx = idx.squeeze(axis)
@@ -192,6 +202,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     valid = idx != ignore_index
     safe = torch.where(valid, idx, torch.zeros_like(idx))
     picked = logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    if label_smoothing > 0.0:
+        picked = (1 - label_smoothing) * picked \
+            + label_smoothing * logp.mean(dim=axis)
     zero = torch.zeros((), dtype=logp.dtype, device=logp.device)
     loss = -picked
     if weight is not None:
@@ -205,3 +218,18 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         if reduction == "mean":
             return loss.sum() / valid.sum().to(loss.dtype).clamp_min(1.0)
     return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """The per-row loss of :func:`cross_entropy` (``reduction="none"``;
+    ``paddle_tpu/nn/functional/loss.py:81-90``) and, with
+    ``return_softmax=True``, also ``softmax(logits)`` in the logits'
+    dtype."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis)
+    if return_softmax:
+        return loss, torch.softmax(logits, dim=axis)
+    return loss

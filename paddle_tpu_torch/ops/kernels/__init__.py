@@ -6,7 +6,8 @@ its launches in a plain ``int`` attribute, ``<wrapper>.launches``.
 """
 
 from . import (a8w8_matmul, adamw, block_epilogue, decode_layer,
-               flash_attention, mmha, rms_norm, rope, swiglu, wo_matmul)
+               flash_attention, lamb, mmha, parallel_ce, rms_norm, rope,
+               swiglu, wo_matmul)
 
 #: every kernel wrapper of the port, by name
 WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
@@ -24,9 +25,10 @@ WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
             "wo_int8_grouped": wo_matmul.wo_int8_grouped,
             "wo_int4": wo_matmul.wo_int4,
             "a8w8": a8w8_matmul.a8w8_matmul,
-            "adamw": adamw.adamw_update}
+            "adamw": adamw.adamw_update,
+            "lamb": lamb.lamb_update,
+            "parallel_ce": parallel_ce.row_stats}
 
 __all__ = ["WRAPPERS", "a8w8_matmul", "adamw", "block_epilogue",
-           "decode_layer",
-           "flash_attention", "mmha", "rms_norm", "rope", "swiglu",
-           "wo_matmul"]
+           "decode_layer", "flash_attention", "lamb", "mmha", "parallel_ce",
+           "rms_norm", "rope", "swiglu", "wo_matmul"]

@@ -29,7 +29,8 @@ import torch
 
 from . import _build
 
-__all__ = ["adamw_update", "adamw_update_plain", "adamw_scalars"]
+__all__ = ["adamw_update", "adamw_update_plain", "adamw_scalars",
+           "check_operands", "kernel_form"]
 
 _ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -41,33 +42,69 @@ def adamw_scalars(lr, step, beta1, beta2):
     """f32 ``[lr, 1/(1 - beta1**step), 1/(1 - beta2**step), 0]`` on the
     device of the 0-d f32 tensors ``lr`` and ``step``, computed there in
     f32 as ``adamw_update`` of the JAX package does (:109-114)."""
-    b1 = torch.tensor(beta1, dtype=torch.float32, device=step.device)
-    b2 = torch.tensor(beta2, dtype=torch.float32, device=step.device)
+    # filled on the device: a tensor made from a Python number would be a
+    # copy from the host, which synchronises
+    b1 = torch.full((), beta1, dtype=torch.float32, device=step.device)
+    b2 = torch.full((), beta2, dtype=torch.float32, device=step.device)
     return torch.stack([lr.float().reshape(()), 1.0 / (1.0 - b1 ** step),
                         1.0 / (1.0 - b2 ** step), torch.zeros_like(b1)])
 
 
-def _check(param, grad, m, v, scalars, master):
+def check_operands(what, param, grad, m, v, scalars, master):
+    """Raise unless ``(param, grad, m, v, scalars, master)`` fit an
+    optimizer update: one shape, f32 moments, float parameter and
+    gradient, an f32 master of the parameter's shape, f32 scalars, one
+    device. Shared by the AdamW and LAMB wrappers."""
     if param.shape != grad.shape or m.shape != param.shape \
             or v.shape != param.shape:
-        raise ValueError(f"adamw: param {tuple(param.shape)}, grad "
+        raise ValueError(f"{what}: param {tuple(param.shape)}, grad "
                          f"{tuple(grad.shape)}, m {tuple(m.shape)} and v "
                          f"{tuple(v.shape)} must match")
     if m.dtype != torch.float32 or v.dtype != torch.float32:
-        raise TypeError(f"adamw: moments must be f32, got {m.dtype} / "
+        raise TypeError(f"{what}: moments must be f32, got {m.dtype} / "
                         f"{v.dtype}")
     if not (param.is_floating_point() and grad.is_floating_point()):
-        raise TypeError(f"adamw: param {param.dtype} and grad {grad.dtype} "
+        raise TypeError(f"{what}: param {param.dtype} and grad {grad.dtype} "
                         f"must be floating")
     if master is not None and (master.dtype != torch.float32
                                or master.shape != param.shape):
-        raise ValueError(f"adamw: master must be f32 {tuple(param.shape)}, "
+        raise ValueError(f"{what}: master must be f32 {tuple(param.shape)}, "
                          f"got {master.dtype} {tuple(master.shape)}")
     if scalars.dtype != torch.float32 or scalars.numel() < 3:
-        raise ValueError("adamw: scalars must be f32 [lr, 1/bc1, 1/bc2, ...]")
+        raise ValueError(f"{what}: scalars must be f32 [lr, 1/bc1, 1/bc2, "
+                         f"...]")
     if any(t is not None and t.device != param.device
            for t in (grad, m, v, scalars, master)):
-        raise ValueError("adamw: operands on different devices")
+        raise ValueError(f"{what}: operands on different devices")
+
+
+def kernel_form(what, param, grad, m, v, scalars, master):
+    """``(mode, w32, low)`` of a launch on the card: an f32 parameter
+    updated in place (mode 0), an f32 master with its bf16 copy (1), or a
+    bf16 parameter (2), as ``csrc/adamw.cu`` and ``csrc/lamb.cu`` take
+    them. Raises on what those kernels do not take."""
+    if param.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {param.device}")
+    if master is not None:
+        if param.dtype != torch.bfloat16:
+            raise TypeError(f"{what} kernel writes a bf16 copy of the master, "
+                            f"got param {param.dtype}")
+        form = (_MODE_MASTER, master, param)
+    elif param.dtype == torch.float32:
+        form = (_MODE_F32, param, None)
+    elif param.dtype == torch.bfloat16:
+        form = (_MODE_BF16, None, param)
+    else:
+        raise TypeError(f"{what} kernel takes f32 or bf16 params, got "
+                        f"{param.dtype}")
+    if grad.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} kernel takes bf16 or f32 grads, got "
+                        f"{grad.dtype}")
+    ops = [t for t in (param, grad, m, v, scalars, master) if t is not None]
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError(f"{what} kernel takes contiguous tensors")
+    _build.require_aligned(what, *ops)
+    return form
 
 
 def adamw_update_plain(param, grad, m, v, scalars, *, beta1, beta2, eps, wd,
@@ -75,7 +112,7 @@ def adamw_update_plain(param, grad, m, v, scalars, *, beta1, beta2, eps, wd,
     """The same update in plain PyTorch, one tensor op per operation, in
     place on ``m``, ``v`` and ``master`` (if given, with ``param`` written
     from it) or ``param``."""
-    _check(param, grad, m, v, scalars, master)
+    check_operands("adamw", param, grad, m, v, scalars, master)
     w = master if master is not None else param.float()
     lr = scalars[0] * lr_mult if lr_mult != 1.0 else scalars[0]
     g = grad.float()
@@ -99,32 +136,12 @@ def adamw_update(param, grad, m, v, scalars, *, beta1, beta2, eps, wd,
     parameter. A CPU tensor takes :func:`adamw_update_plain`; a CUDA tensor
     launches the kernel (param f32 or bf16, grad bf16 or f32, contiguous)
     or raises."""
-    _check(param, grad, m, v, scalars, master)
+    check_operands("adamw", param, grad, m, v, scalars, master)
     if param.device.type == "cpu":
         return adamw_update_plain(param, grad, m, v, scalars, beta1=beta1,
                                   beta2=beta2, eps=eps, wd=wd,
                                   lr_mult=lr_mult, master=master)
-    if param.device.type != "cuda":
-        raise ValueError(f"adamw: no kernel for device {param.device}")
-    if master is not None:
-        if param.dtype != torch.bfloat16:
-            raise TypeError(f"adamw kernel writes a bf16 copy of the master, "
-                            f"got param {param.dtype}")
-        mode, w32, low = _MODE_MASTER, master, param
-    elif param.dtype == torch.float32:
-        mode, w32, low = _MODE_F32, param, None
-    elif param.dtype == torch.bfloat16:
-        mode, w32, low = _MODE_BF16, None, param
-    else:
-        raise TypeError(f"adamw kernel takes f32 or bf16 params, got "
-                        f"{param.dtype}")
-    if grad.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"adamw kernel takes bf16 or f32 grads, got "
-                        f"{grad.dtype}")
-    ops = [t for t in (param, grad, m, v, scalars, master) if t is not None]
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("adamw kernel takes contiguous tensors")
-    _build.require_aligned("adamw", *ops)
+    mode, w32, low = kernel_form("adamw", param, grad, m, v, scalars, master)
     fn = _build.function("adamw", "ptt_adamw", _ARGS)
     err = fn(mode, None if w32 is None else w32.data_ptr(),
              None if low is None else low.data_ptr(), grad.data_ptr(),

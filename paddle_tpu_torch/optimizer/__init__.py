@@ -1,6 +1,10 @@
-"""Optimizers of the port (counterpart of ``paddle_tpu/optimizer``)."""
+"""Optimizers and learning-rate schedulers of the port (counterpart of
+``paddle_tpu/optimizer``)."""
 
+from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                         Lamb, Momentum, RMSProp)
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "Adadelta", "Adamax", "RMSProp", "Lamb", "LBFGS"]

@@ -4,22 +4,28 @@
 An optimizer holds a parameter list, reads ``param.grad`` filled by
 ``loss.backward()``, applies the gradient clip and updates the parameters
 in place. The learning rate and the step count live in 0-d f32 tensors on
-the parameters' device, so ``set_lr`` and the bias correction never leave
-the device and :meth:`Optimizer.step` does not synchronise. With
-``multi_precision=True`` every parameter that is not f32 gets an f32
-master copy, which the update reads and writes; the parameter is written
-from it.
+the parameters' device, so ``set_lr``, a scheduler's step and the bias
+correction never leave the device and :meth:`Optimizer.step` does not
+synchronise. With ``multi_precision=True`` every parameter that is not
+f32 gets an f32 master copy, which the update reads and writes; the
+parameter is written from it.
 
 Ported: ``parameters=`` (a list, or groups ``[{"params": [...]}, ...]``,
 flattened as the JAX package does), a float learning rate with
-``get_lr``/``set_lr``, the device step counter, master weights,
-``grad_clip``, ``step``, ``clear_grad(set_to_zero)`` and
-``state_dict``/``set_state_dict`` under the JAX key names
-(``<name>_moment1``, ``master_weights``, ``@step``). ``weight_decay`` is a
-float or None. A parameter's name is
-its ``name`` attribute where it has one, else ``param_<i>`` by its place
-in the list. Not ported yet, and raising: an ``LRScheduler`` as the
-learning rate, ``fuse=True`` (the multi-tensor step of
+``get_lr``/``set_lr`` or an :class:`~.lr.LRScheduler`, which binds to the
+optimizer (:47-58) and makes ``set_lr`` raise (:91-94); ``weight_decay``
+as a float (coupled L2) or an ``L1Decay``/``L2Decay`` object, applied to
+the gradient by :meth:`Optimizer._apply_coupled_weight_decay` (:63-75,
+:222-225); the device step counter, master weights, ``grad_clip``,
+``step``, ``clear_grad(set_to_zero)`` and ``state_dict``/
+``set_state_dict`` under the JAX key names (``<name>_moment1``,
+``master_weights``, ``LR_Scheduler``, ``@step``), which also take a JAX
+optimizer's ``state_dict()`` as numpy arrays. A parameter's name keys
+that state: the name given with it (``parameters`` may hold ``(name,
+param)`` pairs, as ``named_parameters()`` yields them; give the JAX
+parameters' names to carry a JAX optimizer's state across), else its
+``name`` attribute where it has one, else ``param_<i>`` by its place in
+the list. Not ported, and raising: ``fuse=True`` (the multi-tensor step of
 ``optimizer/fused.py``) and ``minimize`` (the static-graph path).
 """
 
@@ -29,6 +35,9 @@ import numbers
 import warnings
 
 import torch
+
+from ..regularizer import L2Decay
+from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
@@ -42,30 +51,42 @@ class Optimizer:
         params = list(parameters)
         if params and isinstance(params[0], dict):
             params = [p for group in params for p in group["params"]]
+        named = [item if isinstance(item, tuple)
+                 else (getattr(item, "name", None), item) for item in params]
+        params = [p for _, p in named]
         if not params:
             raise ValueError("the optimizer got an empty parameter list")
-        if not isinstance(learning_rate, numbers.Real):
-            raise NotImplementedError(
-                "an LRScheduler as the learning rate is not ported yet; "
-                "pass a float and call set_lr")
+        self._lr_scheduler = None
+        if isinstance(learning_rate, LRScheduler):
+            self._lr_scheduler = learning_rate
+            lr0 = float(learning_rate())
+        else:
+            lr0 = float(learning_rate)       # TypeError, as in JAX
         if fuse:
             raise NotImplementedError(
                 "fuse=True (the multi-tensor step of paddle_tpu/optimizer/"
                 "fused.py) is not ported yet")
         self._parameter_list = params
-        self._names = {id(p): getattr(p, "name", None) or f"param_{i}"
-                       for i, p in enumerate(params)}
+        self._names = {id(p): name or f"param_{i}"
+                       for i, (name, p) in enumerate(named)}
         dev = params[0].device
-        self._lr_tensor = torch.tensor(float(learning_rate),
-                                       dtype=torch.float32, device=dev)
+        self._lr_tensor = torch.full((), lr0, dtype=torch.float32,
+                                     device=dev)
         self._step_tensor = torch.zeros((), dtype=torch.float32, device=dev)
         self._step_count = 0
-        if not (weight_decay is None
-                or isinstance(weight_decay, numbers.Real)):
-            raise NotImplementedError(
-                "weight_decay takes a float (regularizer objects are not "
-                "ported yet)")
-        self._weight_decay = weight_decay
+        if self._lr_scheduler is not None:
+            self._lr_scheduler.bind(self)
+        # a float weight_decay is coupled L2 decay; decoupled optimizers
+        # (AdamW) read its coefficient from self._weight_decay instead
+        if isinstance(weight_decay, numbers.Real):
+            self._weight_decay = weight_decay
+            self._regularization = L2Decay(float(weight_decay)) \
+                if weight_decay else None
+        elif weight_decay is None:
+            self._weight_decay = self._regularization = None
+        else:                           # an L1Decay / L2Decay object
+            self._weight_decay = getattr(weight_decay, "_coeff", None)
+            self._regularization = weight_decay
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         # accumulator name -> {id(param): tensor}
@@ -77,7 +98,32 @@ class Optimizer:
         return float(self._lr_tensor)
 
     def set_lr(self, value: float) -> None:
+        if self._lr_scheduler is not None:
+            raise RuntimeError("cannot set_lr when an LRScheduler is in use")
+        self._set_lr_value(value)
+
+    def _set_lr_value(self, value: float) -> None:
+        """Write the rate into the device tensor (a fill kernel: no copy
+        from the host, no synchronisation); the scheduler's hook."""
         self._lr_tensor.fill_(float(value))
+
+    def _lr_mult(self, param) -> float:
+        """The parameter's ``optimize_attr["learning_rate"]`` (1 without
+        one), as ``paddle_tpu/optimizer/optimizer.py:101-105`` reads it."""
+        attr = getattr(param, "optimize_attr", None) or {}
+        return float(attr.get("learning_rate", 1.0))
+
+    def _lr(self, param=None):
+        """The learning rate for ``param``: a 0-d device tensor."""
+        mult = 1.0 if param is None else self._lr_mult(param)
+        return self._lr_tensor if mult == 1.0 else self._lr_tensor * mult
+
+    def _apply_coupled_weight_decay(self, param, grad):
+        """``grad`` with the regularizer's decay of ``param`` added, or
+        ``grad`` itself without one."""
+        if self._regularization is not None:
+            return self._regularization._apply(param, grad)
+        return grad
 
     # -- accumulators -------------------------------------------------------
     def _add_accumulator(self, name, param, fill_value=0.0,
@@ -148,6 +194,8 @@ class Optimizer:
                 self._names[id(p)]: self._master_weights[id(p)]
                 for p in self._parameter_list
                 if id(p) in self._master_weights}
+        if self._lr_scheduler is not None:
+            state["LR_Scheduler"] = self._lr_scheduler.state_dict()
         state["@step"] = self._step_count
         return state
 
@@ -155,12 +203,15 @@ class Optimizer:
         state = dict(state_dict)
         self._step_count = int(state.pop("@step", 0))
         self._step_tensor.fill_(float(self._step_count))
-        if state.pop("LR_Scheduler", None) is not None:
-            raise NotImplementedError("LRScheduler state is not ported yet")
+        sched = state.pop("LR_Scheduler", None)
+        if sched is not None and self._lr_scheduler is not None:
+            self._lr_scheduler.set_state_dict(sched)
         by_name = {self._names[id(p)]: p for p in self._parameter_list}
 
         def put(store, p, value):
-            value = torch.as_tensor(value).to(p.device)
+            if not isinstance(value, torch.Tensor):   # numpy, from JAX
+                value = torch.tensor(value)
+            value = value.to(p.device)
             if id(p) in store:
                 store[id(p)].copy_(value)      # in place, as the JAX package
             else:

@@ -24,7 +24,12 @@ ulp, its f32 dw and db to 1e-3 relative of their largest values;
 flash attention's dq, dk, dv to 1e-2 relative L2 (the kernel feeds bf16
 q, k, v, dO and 16-bit P and dS to the tensor cores, the plain version
 computes in f32). AdamW is held bit for bit: the kernel rounds each
-operation on its own, as the plain version's tensor ops do.
+operation on its own, as the plain version's tensor ops do. LAMB's moments
+are held bit for bit too; its two norms are summed in another order, so
+the trust ratio and the f32 weights are held to 1e-6 relative (of the
+largest weight) and a bf16 parameter to one ulp. The cross-entropy row
+statistics: the row max and the target logit exactly, the sum of
+exponentials (another order, the fast exponential) to 1e-5 relative.
 """
 
 import pytest
@@ -32,9 +37,12 @@ import torch
 
 from paddle_tpu_torch.models import gpt2_tiny, llama_tiny
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+from paddle_tpu_torch import optimizer, regularizer
+from paddle_tpu_torch.distributed import ParallelCrossEntropy
+from paddle_tpu_torch.nn import clip
 from paddle_tpu_torch.ops.kernels import WRAPPERS, a8w8_matmul, adamw, \
-    autotune, block_epilogue, decode_layer, flash_attention, mmha, \
-    rms_norm, rope, swiglu, wo_matmul
+    autotune, block_epilogue, decode_layer, flash_attention, lamb, mmha, \
+    parallel_ce, rms_norm, rope, swiglu, wo_matmul
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import LLMEngine, ServingConfig
 
@@ -42,7 +50,8 @@ pytestmark = pytest.mark.cuda
 
 QUANT_KERNELS = ("wo_int8", "wo_int8_grouped", "wo_int4", "a8w8")
 TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd", "adamw",
-                 "block_epilogue_bwd", "swiglu_packed", "swiglu_packed_bwd")
+                 "block_epilogue_bwd", "swiglu_packed", "swiglu_packed_bwd",
+                 "lamb", "parallel_ce")
 
 
 @pytest.fixture
@@ -809,3 +818,214 @@ def test_gpt_training_step_through_kernels(dev):
                    "flash_attention": layers,
                    "flash_attention_bwd": layers,
                    "adamw": 12 * layers + 4}
+
+
+@pytest.mark.parametrize("n", [7, 768, 1000, 21000, 1000003])
+@pytest.mark.parametrize("form", ["master", "f32", "bf16", "f32_grad"])
+def test_lamb_kernel(dev, n, form):
+    """Three steps with an lr change, an lr factor and weight decay from
+    the same state: the moments bit for bit, the trust ratio and the
+    weights to 1e-6 relative, a bf16 parameter to one ulp."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    w0 = torch.randn(n, generator=gen, device=dev) * 0.1
+    master = w0.clone() if form == "master" else None
+    param = w0.clone() if form in ("f32", "f32_grad") else \
+        w0.to(torch.bfloat16)
+    state = [param, torch.zeros(n, device=dev), torch.zeros(n, device=dev),
+             master]
+    ref = [None if t is None else t.clone() for t in state]
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, wd=0.01)
+    for step, (lr, mult) in enumerate(((1e-3, 1.0), (3e-4, 0.5),
+                                       (2e-3, 1.0)), start=1):
+        g = torch.randn(n, generator=gen, device=dev) * 1e-2
+        if form != "f32_grad":
+            g = g.to(torch.bfloat16)
+        scal = adamw.adamw_scalars(torch.tensor(lr, device=dev),
+                                   torch.tensor(float(step), device=dev),
+                                   0.9, 0.999)
+        trust = lamb.lamb_update(state[0], g, state[1], state[2], scal,
+                                 master=state[3], lr_mult=mult, **kw)
+        want = lamb.lamb_update_plain(ref[0], g, ref[1], ref[2], scal,
+                                      master=ref[3], lr_mult=mult, **kw)
+        torch.cuda.synchronize()
+        assert abs(trust.item() - want.item()) <= 1e-6 * want.item()
+        assert torch.equal(state[1], ref[1]) and torch.equal(state[2], ref[2])
+        for a, r in ((state[0], ref[0]), (state[3], ref[3])):
+            if a is None:
+                continue
+            err = (a.float() - r.float()).abs().max().item()
+            rel = 2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-6
+            assert err <= rel * r.float().abs().max().item(), (step, err)
+        # resynchronise the two so the next step starts from one state
+        for a, r in zip(state, ref):
+            if a is not None:
+                r.copy_(a)
+
+
+def test_lamb_kernel_is_deterministic_and_counts(dev):
+    """Two calls from the same state give the same bits (the partial sums
+    are combined in a fixed order), and each call counts one launch."""
+    n = 3 * 1056 * 1024 + 5
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w = torch.randn(n, generator=gen, device=dev)
+    g = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    scal = adamw.adamw_scalars(torch.tensor(1e-3, device=dev),
+                               torch.tensor(2.0, device=dev), 0.9, 0.999)
+    outs = []
+    lamb.lamb_update.launches = 0
+    for _ in range(2):
+        state = [w.clone(), torch.full_like(w, 1e-3), torch.full_like(w, 1e-6)]
+        trust = lamb.lamb_update(state[0], g, state[1], state[2], scal,
+                                 beta1=0.9, beta2=0.999, eps=1e-6, wd=0.01)
+        outs.append(state + [trust])
+    torch.cuda.synchronize()
+    assert lamb.lamb_update.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("n,v,dtype,vocab_start", [
+    (5, 1000, torch.float32, 0), (3, 1001, torch.bfloat16, 0),
+    (7, 1001, torch.float32, 500), (64, 50304, torch.bfloat16, 0),
+    (2, 128256, torch.bfloat16, 0), (33, 4096, torch.bfloat16, 1024)])
+def test_parallel_ce_kernel(dev, n, v, dtype, vocab_start):
+    gen = torch.Generator(device=dev).manual_seed(n + v)
+    x = (torch.randn(n, v, generator=gen, device=dev) * 4).to(dtype)
+    lab = torch.randint(0, vocab_start + v + 50, (n,), generator=gen,
+                        device=dev)
+    lab[0] = vocab_start + v + 3                  # outside the shard
+    got = parallel_ce.row_stats(x, lab, vocab_start)
+    ref = parallel_ce.row_stats_plain(x, lab, vocab_start)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
+    assert ((got[1] - ref[1]).abs() <= 1e-5 * ref[1]).all()
+    assert got[2][0].item() == torch.tensor(-1e30).item()
+
+
+def test_parallel_cross_entropy_backward_on_the_card(dev):
+    """``ParallelCrossEntropy`` on bf16 logits: one kernel launch in the
+    forward, the loss and the bf16 gradient against the plain path."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(4, 9, 50304, generator=gen, device=dev) * 2).to(
+        torch.bfloat16)
+    lab = torch.randint(0, 50304, (4, 9), generator=gen, device=dev)
+    lab[1, 2] = -100
+    out = []
+    for plain in (True, False):
+        xl = x.clone().requires_grad_()
+        parallel_ce.row_stats.launches = 0
+        loss = ParallelCrossEntropy()(xl, lab, plain=plain)
+        loss.mean().backward()
+        out.append((loss.detach(), xl.grad))
+        assert parallel_ce.row_stats.launches == (0 if plain else 1)
+    torch.cuda.synchronize()
+    (lp, gp), (lk, gk) = out
+    assert (lk - lp).abs().max().item() <= 1e-5
+    _close(gk, gp)
+    assert not gk[1, 2].any()
+
+
+def test_lamb_and_ce_reject_what_they_do_not_take(dev):
+    p = torch.zeros(8, device=dev, dtype=torch.float16)
+    scal = torch.zeros(4, device=dev)
+    with pytest.raises(TypeError):
+        lamb.lamb_update(p, p, torch.zeros(8, device=dev),
+                         torch.zeros(8, device=dev), scal, beta1=0.9,
+                         beta2=0.99, eps=1e-6, wd=0.0)
+    w = torch.zeros(16, device=dev)
+    with pytest.raises(ValueError):                      # not contiguous
+        lamb.lamb_update(w[::2], w[::2], w[::2], w[::2], scal, beta1=0.9,
+                         beta2=0.99, eps=1e-6, wd=0.0)
+    x = torch.zeros(4, 100, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        parallel_ce.row_stats(x, torch.zeros(4, dtype=torch.int64,
+                                             device=dev))
+    y = torch.zeros(4, 100, device=dev)
+    with pytest.raises(ValueError):
+        parallel_ce.row_stats(y.t(), torch.zeros(100, dtype=torch.int64,
+                                                 device=dev))
+
+
+def _sync_free_step(opt, params, gen):
+    """One backward and an ``opt.step()`` that must not synchronise."""
+    loss = sum((p.float() * torch.randn(p.shape, generator=gen,
+                                        device=p.device)).sum()
+               for p in params)
+    loss.backward()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    opt.clear_grad()
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("SGD", dict(weight_decay=regularizer.L2Decay(0.01),
+                 grad_clip=clip.ClipGradByValue(0.5))),
+    ("Momentum", dict(use_nesterov=True,
+                      grad_clip=clip.ClipGradByNorm(1.0))),
+    ("Adagrad", {}), ("Adadelta", {}), ("Adamax", {}),
+    ("RMSProp", dict(centered=True, momentum=0.9)),
+    ("Adam", dict(weight_decay=regularizer.L1Decay(1e-4))),
+    ("AdamW", dict(grad_clip=clip.ClipGradByGlobalNorm(1.0))),
+    ("Lamb", dict(multi_precision=True,
+                  grad_clip=clip.ClipGradByGlobalNorm(1.0)))])
+def test_optimizer_step_does_not_synchronise(dev, name, kw):
+    """Each optimizer's step on the card, with a scheduler bound: no host
+    synchronisation, and a scheduler step neither."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    dtype = torch.bfloat16 if kw.get("multi_precision") else torch.float32
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen, device=dev)
+                                 .to(dtype)) for s in ((64, 48), (48,))]
+    sched = optimizer.lr.LinearWarmup(
+        optimizer.lr.CosineAnnealingDecay(1e-2, T_max=4), warmup_steps=1,
+        start_lr=0.0, end_lr=1e-2)
+    opt = getattr(optimizer, name)(learning_rate=sched, parameters=params,
+                                   **kw)
+    for _ in range(2):
+        _sync_free_step(opt, params, gen)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sched.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.isfinite(p.float()).all() for p in params)
+
+
+def test_gpt_lamb_step_through_kernels(dev):
+    """A 2-layer GPT in bf16 with chip_smoke's train_lamb recipe: one step
+    launches lamb once per parameter and parallel_ce once, beside the
+    trunk's kernels."""
+    layers = 2
+    model = gpt2_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                      num_heads=4)
+    sched = optimizer.lr.LinearWarmup(
+        optimizer.lr.CosineAnnealingDecay(2e-3, T_max=8), warmup_steps=2,
+        start_lr=0.0, end_lr=2e-3)
+    opt = optimizer.Lamb(learning_rate=sched, lamb_weight_decay=0.01,
+                         exclude_from_weight_decay_fn=lambda p: p.ndim == 1,
+                         multi_precision=True,
+                         parameters=model.parameters(),
+                         grad_clip=ClipGradByGlobalNorm(1.0))
+    gen = torch.Generator(device=dev).manual_seed(45)
+    ids = torch.randint(0, 1024, (2, 100), generator=gen, device=dev)
+    labels = torch.randint(0, 1024, (2, 100), generator=gen, device=dev)
+    ce = ParallelCrossEntropy()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        loss = ce(model(ids), labels).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        torch.cuda.synchronize()
+    got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    assert got == {"block_epilogue": 2 * layers,
+                   "block_epilogue_bwd": 2 * layers,
+                   "flash_attention": layers,
+                   "flash_attention_bwd": layers,
+                   "lamb": 12 * layers + 4, "parallel_ce": 1}
+    assert torch.isfinite(loss).item()

@@ -224,13 +224,21 @@ def test_optimizer_state_dict_resumes_bit_exact():
 
 
 def test_set_lr_and_unported_options():
+    """``set_lr`` moves the rate, and raises while a scheduler is bound; a
+    learning rate that is neither a number nor a scheduler raises
+    ``TypeError``, as JAX's ``float(...)`` does; ``fuse=True`` and
+    ``minimize`` are not ported and raise."""
     lin = torch.nn.Linear(4, 4)
     opt = AdamW(1e-3, parameters=lin.parameters())
     opt.set_lr(5e-4)
     assert opt.get_lr() == pytest.approx(5e-4)
+    scheduled = AdamW(optimizer.lr.StepDecay(1e-3, step_size=2),
+                      parameters=lin.parameters())
+    with pytest.raises(RuntimeError):
+        scheduled.set_lr(5e-4)
     with pytest.raises(NotImplementedError):
         AdamW(1e-3, parameters=lin.parameters(), fuse=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         AdamW(lambda: 1e-3, parameters=lin.parameters())
     with pytest.raises(NotImplementedError):
         opt.minimize(torch.zeros(()))
@@ -346,7 +354,7 @@ def test_inference_forward_unchanged(jax_train):
 
 def test_cross_entropy_options_match_jax():
     """Class weights with the weighted mean, ``sum`` and ``none``, against
-    the JAX package's cross_entropy; soft labels raise."""
+    the JAX package's cross_entropy; soft labels too."""
     from paddle_tpu.nn import functional as JF
     from paddle_tpu_torch.nn import functional as TF
 
@@ -367,6 +375,10 @@ def test_cross_entropy_options_match_jax():
                for k, v in kw.items()})
         np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
                                    rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        TF.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                         soft_label=True)
+    soft = rng.dirichlet(np.ones(7), 12).astype(np.float32)
+    want = JF.cross_entropy(paddle.to_tensor(logits), paddle.to_tensor(soft),
+                            soft_label=True)
+    got = TF.cross_entropy(torch.from_numpy(logits), torch.from_numpy(soft),
+                           soft_label=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               rtol=1e-6, atol=1e-6)
