@@ -97,16 +97,34 @@ Phases, in order; any failure exits non-zero:
    the learning rate at the schedule's value, a step that does not
    synchronise, a falling loss, one Lamb step against the plain version,
    step time, tokens/s, MFU, peak memory and a profile of a step.
+   serve_moe — Qwen1.5-MoE-A2.7B (``Qwen2MoeConfig()``: 24 layers, 60
+   experts of 1408, top-4, a shared expert, 14.3 B parameters in bf16)
+   answers 4 prompts of 512 seeded random tokens with 32 greedy tokens
+   each through ``model.generate``, the exact-length host loop: the
+   layer loop's kernels and 72 grouped-product launches a forward, tokens/s,
+   ms a forward, peak memory, each layer's share of slots dropped by
+   capacity, a profile of the prompt's forward.
+   parity_moe — that model, kernel path against plain: every MoE block and
+   every whole layer on the same input (routing pinned), the prompts'
+   last-position logits with the routing pinned, the free-running routing
+   flips by layer (reported), the first served tokens.
+   train_moe — Qwen1.5-MoE's width at 4 layers, B 2 x S 2048, AdamW with
+   master weights and ``ClipGradForMOEByGlobalNorm``: parity with the
+   routing pinned (and free running, reported), 8 steps with their
+   launches, a falling loss, step time, tokens/s, MFU, peak memory and a
+   profile of a step.
    Phase 3 holds the training kernels (RMSNorm, SwiGLU, flash-attention
    and block-epilogue backward, packed SwiGLU and its backward, AdamW,
    LAMB and the cross-entropy row statistics) against their plain versions
-   at the train phases' shapes.
+   at the train phases' shapes, and the grouped expert product at one
+   Qwen1.5-MoE layer's shapes (both weight layouts).
 7. summary — one JSON line of every kernel's launches (the decode layer's
    on engine c's run, the weight-only kernels' on engines d, e and f, A8W8's
    in the llm_int8 phase, the training kernels' in one fused-trunk train
    step, the packed SwiGLU kernels' in the packed_mlp phase, LAMB's and the
-   cross entropy's in one train_lamb step, the others' on engine b's) and
-   times, then the last line ``{"ok": true, "device": {...}}``.
+   cross entropy's in one train_lamb step, the grouped product's in
+   serve_moe's run, the others' on engine b's) and times, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
 """
@@ -175,6 +193,20 @@ CE_SHAPES = ((4096, 128256), (8192, 50304))
 # The same f32 operations on both (AdamW's kernel rounds as its plain
 # version does); only a norm's or a power's last bits differ.
 OPT_REL_TOL = 1e-5
+# Qwen2-MoE (Qwen1.5-MoE-A2.7B's widths): phase 3's grouped products at one
+# layer's shapes for MOE_TOKENS tokens; serve_moe's prompts; train_moe's
+# depth (24 layers cut to 4 so that bf16 weights and grads, f32 masters and
+# both moments, 46.5 GB, fit the card)
+MOE_KERNELS = ("moe_gemm",)
+MOE_TOKENS = 2048
+MOE_REQUESTS, MOE_PROMPT, MOE_NEW_TOKENS = 4, 512, 32
+MOE_TRAIN_LAYERS = 4
+MOE_PARITY_BATCHES = 1
+# parity_moe (a): max abs error <= 2**-5 (four bf16 ulps) of the largest
+# plain magnitude. On one input the two paths round the expert products,
+# the SwiGLU gate, the down product and the sum with the shared expert once
+# each, at values up to one ulp apart.
+MOE_BLOCK_TOL = 2.0 ** -5
 
 
 def fail(msg: str) -> None:
@@ -375,6 +407,7 @@ def phase_kernels(torch, dev):
     _kernels_swiglu_packed(torch, randn, timer, results)
     _kernels_lamb(torch, dev, timer, results)
     _kernels_parallel_ce(torch, dev, timer, results)
+    _kernels_moe_gemm(torch, dev, randn, timer, results)
     return results
 
 
@@ -1214,7 +1247,7 @@ def phase_serve_default(torch, np, model):
     reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
     idle = [n for n, c in launches.items()
             if c == 0 and n not in ("decode_layer",) + QUANT_KERNELS
-            + TRAIN_KERNELS + PACKED_KERNELS + LAMB_KERNELS]
+            + TRAIN_KERNELS + PACKED_KERNELS + LAMB_KERNELS + MOE_KERNELS]
     if idle:
         fail(f"kernels never launched on the default serving path: {idle}")
     pages, px = _check_prefix_claims(engine, reqs, stats)
@@ -1587,7 +1620,7 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "adamw_kernel", "block_epilogue_bwd_kernel",
                 "swiglu_packed_kernel", "swiglu_packed_bwd_kernel",
                 "lamb_moments_kernel", "lamb_apply_kernel",
-                "ce_row_stats_kernel")
+                "ce_row_stats_kernel", "moe_gemm_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -1754,7 +1787,8 @@ def _train_step(torch, model, opt, ids, labels):
     return loss.detach()
 
 
-def _grad_parity(torch, what, model, ref, batches, loss_fn=None):
+def _grad_parity(torch, what, model, ref, batches, loss_fn=None,
+                 grad_tol=TRAIN_GRAD_TOL):
     """Forward and backward of ``model`` through the kernels and with
     ``plain=True`` from the same weights, and with ``plain=True`` through
     ``ref``, an f32 copy of them, on each ``(ids, labels)`` of
@@ -1767,7 +1801,8 @@ def _grad_parity(torch, what, model, ref, batches, loss_fn=None):
     several batches, each batch's own f32 ratios are summarised beside the
     gate (the worst, the mean and the spread over the gradients).
     ``loss_fn(net, plain, ids, labels)``, where given, computes the loss
-    in place of the model's own ``labels`` path."""
+    in place of the model's own ``labels`` path. ``grad_tol=None`` reports
+    the gradients' distance from the plain path's without holding it."""
     def grads_of(net, plain, ids, labels):
         if loss_fn is None:
             _, loss = net(ids, labels=labels, plain=plain)
@@ -1820,16 +1855,17 @@ def _grad_parity(torch, what, model, ref, batches, loss_fn=None):
           "loss_kernels": losses["kernels"], "loss_plain": losses["plain"],
           "loss_f32": losses["f32"], "loss_rel_diff": loss_rel,
           "loss_tol": TRAIN_LOSS_TOL, "worst_grad": worst,
-          "worst_grad_rel_l2": rel[worst], "grad_tol": TRAIN_GRAD_TOL,
+          "worst_grad_rel_l2": rel[worst], "grad_tol": grad_tol,
           "worst_f32_ratio_grad": worst_ratio,
           "worst_f32_ratio": ratio[worst_ratio],
           "f32_ratio_tol": TRAIN_F32_RATIO, "per_batch": per_batch,
           "grad_rel_l2": rel,
           "kernels_vs_f32": rel_k32, "plain_vs_f32": rel_p32})
-    if not (loss_rel <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL
+    if not (loss_rel <= TRAIN_LOSS_TOL
+            and (grad_tol is None or rel[worst] <= grad_tol)
             and ratio[worst_ratio] <= TRAIN_F32_RATIO):
         fail(f"{what} parity: loss {loss_rel} (tol {TRAIN_LOSS_TOL}), "
-             f"{worst} gradient {rel[worst]} (tol {TRAIN_GRAD_TOL}), "
+             f"{worst} gradient {rel[worst]} (tol {grad_tol}), "
              f"{worst_ratio} {rel_k32[worst_ratio]} from f32 against the "
              f"plain path's {rel_p32[worst_ratio]} (tol x{TRAIN_F32_RATIO})")
 
@@ -2363,6 +2399,460 @@ def phase_train_lamb(torch, dev):
     return launches
 
 
+# -- Qwen2-MoE: the grouped expert product, serving, parity and training -------
+
+def _moe_counts(torch, dev, e, n_slots, capacity, seed):
+    """Kept slots per expert from a seeded skewed draw: ``n_slots`` routed
+    slots spread over ``e`` experts with weights ``exp(1.5 z)``, ``z``
+    standard normal, each expert capped at ``capacity``; expert 0 gets none
+    and expert 1 a full queue."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.exp(1.5 * torch.randn(e, generator=gen, device=dev))
+    draw = torch.multinomial(p / p.sum(), n_slots, replacement=True,
+                             generator=gen)
+    counts = torch.bincount(draw, minlength=e).clamp(max=capacity)
+    counts[0], counts[1] = 0, capacity
+    return counts.to(torch.int32)
+
+
+def _kernels_moe_gemm(torch, dev, randn, timer, results):
+    """The grouped expert product at one Qwen1.5-MoE layer's shapes at
+    n = MOE_TOKENS tokens (60 experts, top-4, capacity factor 2.0: capacity
+    ``ceil(2 * n * 4 / 60)``), bf16: gate/up ``[60, C, 2048] @ [60, 2048,
+    1408]``, down ``[60, C, 1408] @ [60, 1408, 2048]`` and the backward's
+    dx ``[60, C, 1408] @ w_up^T``, the weight read as the transposed view
+    of the forward's ``[60, 2048, 1408]`` stack. Counts from a seeded
+    skewed draw (``_moe_counts``) with an empty and a full expert; every
+    padding row of x is random. Within one bf16 ulp of the plain version,
+    and exactly zero past each count. Bound: the weights of the experts
+    with a live row read once, the live rows of x read once, the whole
+    output written once, over the memory rate; against ``2 * sum(counts) *
+    H * F`` operations on the bf16 tensor cores. Yardstick, timed only:
+    ``torch.bmm`` on x with its padding rows zeroed (the dense einsum XLA
+    runs without the kernel)."""
+    from paddle_tpu_torch.ops.kernels import moe_gemm
+
+    e, k, h, f = 60, 4, 2048, 1408
+    n = MOE_TOKENS
+    cap = math.ceil(2.0 * n * k / e)
+    counts = _moe_counts(torch, dev, e, n * k, cap, seed=81)
+    live = moe_gemm.live_rows(counts, cap)
+    w_gate = randn(e, h, f, scale=0.02)
+    w_down = randn(e, f, h, scale=0.02)
+    x = randn(e, cap, h)
+    act = randn(e, cap, f)
+    cases = [("gate/up", x, w_gate), ("down", act, w_down),
+             ("dx, w^T", act, w_gate.transpose(1, 2))]
+    rows_live = int(counts.sum())
+    experts_live = int((counts > 0).sum())
+    for label, a, w in cases:
+        kin, nout = a.shape[2], w.shape[2]
+        got = moe_gemm.grouped_matmul(a, w, counts)
+        ref = moe_gemm.grouped_matmul_plain(a, w, counts)
+        err, tol = compare(torch, got, ref)
+        if got.masked_select(~live).any():
+            fail(f"moe_gemm {label}: non-zero output past the counts")
+        padded = torch.where(live, a, torch.zeros((), dtype=a.dtype,
+                                                  device=dev))
+        lib = timer(lambda: torch.bmm(padded, w))
+        nbytes = (experts_live * kin * nout + rows_live * kin
+                  + e * cap * nout) * 2 + 4 * e
+        _record(results, "moe_gemm",
+                [label, list(a.shape), list(w.shape), "counts", rows_live],
+                err, tol, timer(lambda: moe_gemm.grouped_matmul(a, w, counts)),
+                timer(lambda: moe_gemm.grouped_matmul_plain(a, w, counts),
+                      iters=5), lib, nbytes, 2 * rows_live * kin * nout,
+                BF16_TC_FLOPS_PER_S, capacity=cap, experts_live=experts_live,
+                weight_layout="[E, F, H] viewed as [E, H, F]"
+                if not w.is_contiguous() else "[E, H, F]")
+        del got, ref, padded
+    del w_gate, w_down, x, act
+
+
+def _moe_path_launches(layers, forwards=1, train=False):
+    """The kernel launches of ``forwards`` Qwen2-MoE forwards (with
+    ``train``, one train step) at ``layers`` MoE layers on the layer loop:
+    rms_norm 2L+1, rope 2L (4L with the backward, RoPE's backward being its
+    forward), flash attention L, swiglu 2L (the shared expert and the
+    routed experts' gate), the grouped product 3L (6L with the backward's
+    dx); with ``train``, the backward kernels of each."""
+    want = {"rms_norm": 2 * layers + 1, "rope": 2 * layers,
+            "flash_attention": layers, "swiglu": 2 * layers,
+            "moe_gemm": 3 * layers}
+    if train:
+        want["rope"] *= 2
+        want["moe_gemm"] *= 2
+        want.update({"rms_norm_bwd": 2 * layers + 1, "swiglu_bwd": 2 * layers,
+                     "flash_attention_bwd": layers})
+    return {n: c * forwards for n, c in want.items()}
+
+
+def _moe_prompts(torch, dev, vocab):
+    gen = torch.Generator(device=dev).manual_seed(2027)
+    return torch.randint(0, vocab, (MOE_REQUESTS, MOE_PROMPT), generator=gen,
+                         device=dev)
+
+
+def _kept_log(model):
+    """Forward hooks on every MoE layer that log each call's kept slots and
+    routed slots by layer. Returns (log, hook handles)."""
+    log = {}
+
+    def hook_of(i):
+        def hook(mod, inp, _out):
+            n = inp[0].numel() // inp[0].shape[-1]
+            log.setdefault(i, []).append((mod.counts.sum(), n * mod.top_k))
+        return hook
+    handles = [layer.mlp.register_forward_hook(hook_of(i))
+               for i, layer in enumerate(model.layers) if not layer.is_dense]
+    return log, handles
+
+
+def _drop_share(log):
+    """Per MoE layer, the share of routed slots dropped by capacity over
+    every logged call."""
+    return {i: 1.0 - sum(int(c) for c, _ in calls) / sum(r for _, r in calls)
+            for i, calls in log.items()}
+
+
+class _GateTap:
+    """Forward hooks on every MoE layer's gate. Each call's output (the
+    router logits) is kept by layer in ``out``; a layer found in ``pin``
+    has its gate's output replaced by the value of ``pin[layer]``, so that
+    a forward routes every token as the run that produced those logits
+    did. The replacement is ``pin + (out - out.detach())``: exactly
+    ``pin``'s value, and the cotangent still reaches the gate."""
+
+    def __init__(self, model):
+        self.out, self.pin = {}, {}
+        self.top_k = {}
+        self.handles = []
+        for i, layer in enumerate(model.layers):
+            if not layer.is_dense:
+                self.top_k[i] = layer.mlp.top_k
+                self.handles.append(
+                    layer.mlp.gate.register_forward_hook(self._hook(i)))
+
+    def _hook(self, i):
+        def hook(_mod, _inp, out):
+            if i in self.pin:
+                return self.pin[i].to(out.dtype) + (out - out.detach())
+            self.out[i] = out.detach()
+        return hook
+
+    def sets(self, i, logits):
+        """Each token's top-k expert set (sorted) of router ``logits``."""
+        probs = logits.float().softmax(-1)
+        return probs.topk(self.top_k[i], dim=-1).indices.sort(-1).values
+
+    def flips(self, i, a, b):
+        """Tokens whose top-k sets under logits ``a`` and ``b`` differ."""
+        return int((self.sets(i, a) != self.sets(i, b)).any(-1).sum())
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def phase_serve_moe(torch, dev):
+    """Qwen1.5-MoE-A2.7B at full width and depth (``Qwen2MoeConfig()``: 24
+    layers, 60 experts of 1408, top-4, a shared expert of 5632, vocab
+    151936; 14.3 B parameters, 28.6 GB in bf16, random weights from a
+    seed) answers MOE_REQUESTS prompts of MOE_PROMPT seeded random tokens
+    with MOE_NEW_TOKENS greedy tokens each through ``model.generate``, the
+    exact-length host loop: one whole forward per emitted token. Every
+    kernel count is set to 0 just before and read just after; the run must
+    launch exactly the layer loop's kernels (``_moe_path_launches``) per
+    forward, the grouped product 3 x 24 times, nothing else. Forward hooks
+    time each forward with CUDA events (nothing synchronises inside the
+    loop) and log each MoE layer's kept slots. Reports generated tokens/s,
+    the first forward's ms (the prompt, B x S tokens) and the mean of the
+    rest, peak memory, each layer's share of routed slots dropped by
+    capacity, and a profile of the prompt's forward. Returns (model,
+    prompts, generated buffer, launches of the run)."""
+    from paddle_tpu_torch.models import Qwen2Moe, Qwen2MoeConfig
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Qwen2Moe(Qwen2MoeConfig(), device=dev, dtype=torch.bfloat16,
+                     seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = model.cfg
+    prompts = _moe_prompts(torch, dev, cfg.vocab_size)
+    kept, kept_hooks = _kept_log(model)
+    marks = []
+
+    def pre(_mod, _inp):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append([ev, None, WRAPPERS["moe_gemm"].launches])
+
+    def post(_mod, _inp, _out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1][1] = ev
+        marks[-1][2] = WRAPPERS["moe_gemm"].launches - marks[-1][2]
+
+    hooks = [model.register_forward_pre_hook(pre),
+             model.register_forward_hook(post)]
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=MOE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in WRAPPERS.items()}
+    for h in hooks:
+        h.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_ms = [a.elapsed_time(b) for a, b, _ in marks]
+    per_fwd = [c for _, _, c in marks]
+    drops = _drop_share(kept)
+    for h in kept_hooks:
+        h.remove()
+    want = _moe_path_launches(cfg.num_layers, len(marks))
+    got = {n: c for n, c in launches.items() if c}
+    new = out[:, MOE_PROMPT:]
+    emit({"phase": "serve_moe", "model": "qwen2_moe (Qwen1.5-MoE-A2.7B)",
+          "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+          "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+          "vocab": cfg.vocab_size, "params": model.num_params(),
+          "activated_params": model.num_activated_params(),
+          "build_s": build_s, "requests": MOE_REQUESTS,
+          "prompt": MOE_PROMPT, "new_tokens": MOE_NEW_TOKENS,
+          "wall_s": wall,
+          "tokens_per_s": MOE_REQUESTS * MOE_NEW_TOKENS / wall,
+          "forwards": len(marks), "first_forward_ms": fwd_ms[0],
+          "rest_forward_ms_mean": sum(fwd_ms[1:]) / max(len(fwd_ms) - 1, 1),
+          "forward_ms": fwd_ms, "moe_gemm_per_forward": sorted(set(per_fwd)),
+          "peak_memory_gb": peak_gb, "drop_share_by_layer": drops,
+          "launches": got})
+    if tuple(out.shape) != (MOE_REQUESTS, MOE_PROMPT + MOE_NEW_TOKENS) or \
+            not torch.equal(out[:, :MOE_PROMPT], prompts) or \
+            not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+        fail(f"serve_moe: generated buffer {tuple(out.shape)} is not the "
+             f"prompts followed by {MOE_NEW_TOKENS} tokens of the vocab")
+    if len(marks) != MOE_NEW_TOKENS or \
+            set(per_fwd) != {3 * cfg.num_layers} or got != want:
+        fail(f"serve_moe: {len(marks)} forwards, moe_gemm per forward "
+             f"{sorted(set(per_fwd))} (want {3 * cfg.num_layers}), launches "
+             f"{got}, want {want}")
+    with torch.no_grad():
+        prof = _profile(torch, lambda: model(prompts), reps=2)
+    emit({"phase": "profile", "qwen2_moe_prompt_forward": prof})
+    return model, prompts, out, launches
+
+
+def phase_parity_moe(torch, model, prompts, served):
+    """Qwen1.5-MoE at full width, the kernel path against ``plain=True``,
+    over the prompts:
+    a. every layer on the same input: forward hooks capture, on the plain
+       path, each layer's input and output, its MoE block's input and
+       output and its gate's output. Each MoE block runs through the
+       kernels on its captured input (the gate is the same product on
+       both paths, so the routing is identical), and each whole layer on
+       its captured input with its gate's output pinned to the captured one
+       (``_GateTap``: the routing identical again); both within
+       MOE_BLOCK_TOL. The whole layer runs once more unpinned, and the
+       tokens whose top-k set then differs are counted;
+    b. end to end: the kernel path's forward, its gates' outputs kept; the
+       plain path with every gate's output pinned to the kernel path's, so
+       both route every token alike: each prompt's last-position logits
+       within PARITY_REL_TOL (5% of the largest plain logit). Free running
+       (reported, not held: a bf16 near-tie at the top-k boundary flips a
+       token's experts, and the flip spreads through the later layers;
+       PERF.md §6, Qwen2-MoE): the plain path's own logits against the kernel
+       path's and the tokens whose top-k set differs, by layer;
+    c. the first served token of each prompt is the kernel path's argmax
+       (the same computation as the served run's first forward)."""
+    tap = _GateTap(model)
+    captured = {}
+
+    def grab(i, what):
+        def hook(_mod, inp, out):
+            captured.setdefault(i, {})[what] = (inp[0], out)
+        return hook
+
+    hooks = []
+    for i, layer in enumerate(model.layers):
+        hooks.append(layer.register_forward_hook(grab(i, "layer")))
+        hooks.append(layer.mlp.register_forward_hook(grab(i, "mlp")))
+    with torch.no_grad():
+        lp = model(prompts, plain=True)[:, -1].float()
+        for h in hooks:
+            h.remove()
+        plain_gates = dict(tap.out)
+        cos, sin = model.rope(prompts.shape[1])
+        rows = []
+        for i, layer in enumerate(model.layers):
+            x_in, y_plain = captured[i]["mlp"]
+            blk = _tol_row(torch, layer.mlp(x_in), y_plain)
+            x_in, h_plain = captured[i]["layer"]
+            tap.pin = {i: plain_gates[i]} if i in plain_gates else {}
+            whole = _tol_row(torch, layer(x_in, cos, sin), h_plain)
+            tap.pin = {}
+            row = {"index": i, "moe_block": blk, "whole_layer_pinned": whole}
+            if i in plain_gates:
+                layer(x_in, cos, sin)
+                row["tokens_flipped_unpinned"] = tap.flips(
+                    i, tap.out[i], plain_gates[i])
+            rows.append(row)
+        del captured
+        lk = model(prompts)[:, -1].float()
+        kernel_gates = dict(tap.out)
+        tap.pin = kernel_gates
+        lpp = model(prompts, plain=True)[:, -1].float()
+        tap.pin = {}
+    flips = {i: tap.flips(i, kernel_gates[i], plain_gates[i])
+             for i in plain_gates}
+    tap.remove()
+    first_flip = next((i for i in sorted(flips) if flips[i]), None)
+    pinned = [_parity_row(torch, r, MOE_PROMPT, lk[r], lpp[r])
+              for r in range(lk.shape[0])]
+    free = [_parity_row(torch, r, MOE_PROMPT, lk[r], lp[r])
+            for r in range(lk.shape[0])]
+    served_first = served[:, MOE_PROMPT].tolist()
+    emit({"phase": "parity_moe", "block_tol": MOE_BLOCK_TOL,
+          "per_layer": rows, "e2e_pinned": pinned,
+          "e2e_free_running": free,
+          "free_running_tokens_flipped_by_layer": flips,
+          "free_running_first_layer_with_flips": first_flip,
+          "first_served_token_is_kernel_argmax":
+              served_first == lk.argmax(-1).tolist()})
+    bad = [r for r in rows if not (r["moe_block"]["ok"]
+                                   and r["whole_layer_pinned"]["ok"])]
+    if bad:
+        fail(f"parity_moe (a): layers {[r['index'] for r in bad]} outside "
+             f"{MOE_BLOCK_TOL}: {bad[0]}")
+    for r in pinned:
+        if not r["max_abs_err"] <= r["tol"]:
+            fail(f"parity_moe (b): request {r['request']}: last-position "
+                 f"logits with the routing pinned differ by "
+                 f"{r['max_abs_err']} > {r['tol']}")
+    if served_first != lk.argmax(-1).tolist():
+        fail(f"parity_moe (c): first served tokens {served_first} are not "
+             f"the kernel path's argmax {lk.argmax(-1).tolist()}")
+
+
+def _tol_row(torch, got, ref):
+    """Max abs and relative L2 error of ``got`` against ``ref``, held to
+    MOE_BLOCK_TOL: max abs <= MOE_BLOCK_TOL x the largest |ref|."""
+    d = got.float() - ref.float()
+    scale = ref.float().abs().max().item()
+    err = d.abs().max().item()
+    return {"max_abs_err": err, "max_abs_ref": scale,
+            "rel_l2": (d.norm() / ref.float().norm()).item(),
+            "ok": err <= MOE_BLOCK_TOL * scale}
+
+
+def phase_train_moe(torch, dev):
+    """Qwen1.5-MoE's widths trained at MOE_TRAIN_LAYERS layers (24 cut to 4:
+    bf16 weights and grads, f32 master weights and both moments, 2.90 B
+    parameters, 46.5 GB): ``Qwen2MoeConfig(num_layers=4)`` in bf16 from a
+    seed, ``AdamW(1e-4, weight_decay=0.01, multi_precision=True,
+    grad_clip=ClipGradForMOEByGlobalNorm(1.0))`` (each ``[E, ...]`` expert
+    stack one parameter, one AdamW launch), one fixed batch of B 2 x S
+    2048 random tokens (n = 4096 tokens a layer, capacity 547):
+    a. parity (``_grad_parity``) of the loss (the cross entropy plus
+       ``router_aux_loss_coef * l_aux``) and of every gradient with the
+       plain path and an f32 copy over MOE_PARITY_BATCHES batches, with
+       the routing pinned: the plain path's and the f32 copy's gates give
+       the kernel path's router logits (``_GateTap``; their cotangent
+       still reaches the gate), so the three route every token alike and
+       differ in their arithmetic only. Free running, a bf16 near-tie at
+       the top-k boundary routes a token apart (PERF.md §6, Qwen2-MoE): that
+       run holds the loss and the f32 ratio of every gradient and reports
+       the gradients' distance from the plain path's;
+    b. TRAIN_STEPS steps, each one's launches the layer loop's forward and
+       backward kernels (``_moe_path_launches(train=True)``) and adamw one
+       per parameter (14L+3), nothing else; a finite, falling loss and the
+       fresh-batch check;
+    c. step time, tokens/s, MFU (tokens/s times ``flops_per_token(S)`` over
+       the bf16 tensor-core peak), peak memory and a profile of one step.
+    Returns the launches of one step."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        ClipGradForMOEByGlobalNorm
+    from paddle_tpu_torch.models import Qwen2Moe, Qwen2MoeConfig
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    layers = MOE_TRAIN_LAYERS
+    cfg = Qwen2MoeConfig(num_layers=layers)
+    model = Qwen2Moe(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(2028)
+    batches = []
+    for _ in range(MOE_PARITY_BATCHES):
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                             generator=gen, device=dev)
+        batches.append((toks[:, :-1].contiguous(), toks[:, 1:].contiguous()))
+    ids, labels = batches[0]
+    ref = Qwen2Moe(cfg, device=dev, dtype=torch.float32, seed=None)
+    ref.load_state_dict(model.state_dict())
+    taps = {id(model): _GateTap(model), id(ref): _GateTap(ref)}
+    routes = {}
+
+    def pinned_loss(net, plain, ids, labels):
+        tap = taps[id(net)]
+        if net is model and not plain:
+            _, loss = net(ids, labels=labels)
+            routes.clear()
+            routes.update(tap.out)
+            return loss
+        tap.pin = routes
+        try:
+            return net(ids, labels=labels, plain=plain)[1]
+        finally:
+            tap.pin = {}
+
+    _grad_parity(torch, "qwen2_moe, routing pinned", model, ref, batches,
+                 pinned_loss)
+    _grad_parity(torch, "qwen2_moe, free running", model, ref, batches,
+                 grad_tol=None)
+    for tap in taps.values():
+        tap.remove()
+    del ref, batches, taps, routes
+    _free(torch)
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                multi_precision=True,
+                grad_clip=ClipGradForMOEByGlobalNorm(1.0))
+    n_tensors = len(list(model.parameters()))
+    if n_tensors != 14 * layers + 3:
+        fail(f"qwen2_moe has {n_tensors} parameter tensors, want "
+             f"{14 * layers + 3}")
+    want = dict(_moe_path_launches(layers, train=True), adamw=n_tensors)
+    losses, step_ms, launches = _train_steps(
+        torch, "qwen2_moe train", model, opt, ids, labels, TRAIN_STEPS, want)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    heldout, uniform = _heldout(torch, model, gen, cfg.vocab_size,
+                                TRAIN_BATCH, TRAIN_SEQ)
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3
+    fpt = model.flops_per_token(TRAIN_SEQ)
+    emit({"phase": "train_moe", "model": "qwen2_moe (Qwen1.5-MoE widths)",
+          "layers": layers, "hidden": cfg.hidden_size,
+          "experts": cfg.num_experts, "vocab": cfg.vocab_size,
+          "params": model.num_params(),
+          "activated_params": model.num_activated_params(),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "capacity": math.ceil(cfg.capacity_factor * TRAIN_BATCH * TRAIN_SEQ
+                                * cfg.num_experts_per_tok / cfg.num_experts),
+          "losses": losses, "step_ms": step_ms,
+          "step_ms_mean_after_first": mean_ms, "tokens_per_s": tokens_per_s,
+          "flops_per_token": fpt,
+          "mfu": tokens_per_s * fpt / BF16_TC_FLOPS_PER_S,
+          "peak_memory_gb": peak_gb, "launches_per_step": launches,
+          "heldout_loss": heldout, "uniform_loss": uniform})
+    _check_curve("qwen2_moe train", losses, heldout, uniform)
+    prof = _profile(torch, lambda: _train_step(torch, model, opt, ids,
+                                               labels), reps=2)
+    emit({"phase": "profile", "qwen2_moe_train_step": prof})
+    return launches
+
+
 def phase_profile(torch, model, engine, prompts):
     """Where a decode step (8 rows at the served prompts' lengths) and a
     512-token prefill chunk (at position 1024) spend their device time, on
@@ -2441,6 +2931,8 @@ _SOURCES = {
              "paddle_tpu/ops/kernels/lamb_pallas.py:78"),
     "parallel_ce": ("paddle_tpu_torch/csrc/cross_entropy.cu",
                     "paddle_tpu/ops/kernels/ce_pallas.py:66"),
+    "moe_gemm": ("paddle_tpu_torch/csrc/moe_gemm.cu",
+                 "paddle_tpu/ops/kernels/moe_gemm_pallas.py:74"),
 }
 
 
@@ -2521,6 +3013,17 @@ def main() -> int:
     lamb_launches = phase_train_lamb(torch, dev)
     for name in LAMB_KERNELS:
         launches[name] = lamb_launches[name]
+
+    # Qwen2-MoE: served at full width and depth, then trained at 4 layers
+    _free(torch)
+    moe_model, moe_prompts, moe_served, moe_launches = phase_serve_moe(
+        torch, dev)
+    for name in MOE_KERNELS:
+        launches[name] = moe_launches[name]
+    phase_parity_moe(torch, moe_model, moe_prompts, moe_served)
+    del moe_model
+    _free(torch)
+    phase_train_moe(torch, dev)
 
     summary = []
     for name in sorted(kern):

@@ -1,5 +1,5 @@
-"""Carry a JAX ``paddle_tpu`` Llama's or GPT's weights into the port's
-:class:`Llama` or :class:`GPT`.
+"""Carry a JAX ``paddle_tpu`` Llama's, GPT's or Qwen2-MoE's weights into the
+port's :class:`Llama`, :class:`GPT` or :class:`Qwen2Moe`.
 
 The JAX model's ``state_dict()`` arrives as numpy arrays under the same
 keys. ``paddle_tpu``'s ``Linear`` stores its weight ``[in, out]``
@@ -9,6 +9,9 @@ GPT's ``attn.qkv``, ``attn.proj``, ``mlp.fc`` and ``mlp.proj`` weights;
 ``lm_head.weight``) is transposed. Biases, embeddings and norm weights
 and biases are copied as they are. A transposed ``attn.qkv`` weight keeps
 the JAX output order, so its output still splits as ``[B, S, 3, H, D]``.
+Qwen2-MoE's router weight (``mlp.gate.gate.weight``) is transposed too;
+its stacked experts (``mlp.expert_{0,1,2}``, ``[E, in, out]``) are copied
+as they are, the port keeping the JAX layout there.
 """
 
 from __future__ import annotations
@@ -18,12 +21,15 @@ import torch
 
 from .gpt import GPT, GPTConfig
 from .llama import Llama, LlamaConfig
+from .qwen2_moe import Qwen2Moe, Qwen2MoeConfig
 
-__all__ = ["llama_from_jax_state", "gpt_from_jax_state"]
+__all__ = ["llama_from_jax_state", "gpt_from_jax_state",
+           "qwen2_moe_from_jax_state"]
 
 _LLAMA_LINEAR = ("_proj.weight", "lm_head.weight")
 _GPT_LINEAR = ("attn.qkv.weight", "attn.proj.weight", "mlp.fc.weight",
                "mlp.proj.weight", "lm_head.weight")
+_QWEN2_MOE_LINEAR = ("_proj.weight", "lm_head.weight", "mlp.gate.gate.weight")
 
 
 def llama_from_jax_state(state, cfg: LlamaConfig, device=None,
@@ -40,6 +46,14 @@ def gpt_from_jax_state(state, cfg: GPTConfig, device=None,
     weights in ``state`` (name -> numpy array, the JAX model's keys)."""
     return _load(GPT(cfg, device=device, dtype=dtype, seed=None), state,
                  _GPT_LINEAR)
+
+
+def qwen2_moe_from_jax_state(state, cfg: Qwen2MoeConfig, device=None,
+                             dtype=torch.float32) -> Qwen2Moe:
+    """A port :class:`Qwen2Moe` on ``device`` (default ``cuda``) holding the
+    weights in ``state`` (name -> numpy array, the JAX model's keys)."""
+    return _load(Qwen2Moe(cfg, device=device, dtype=dtype, seed=None), state,
+                 _QWEN2_MOE_LINEAR)
 
 
 def _load(model, state, linear_suffixes):

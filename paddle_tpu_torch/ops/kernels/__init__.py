@@ -6,8 +6,8 @@ its launches in a plain ``int`` attribute, ``<wrapper>.launches``.
 """
 
 from . import (a8w8_matmul, adamw, block_epilogue, decode_layer,
-               flash_attention, lamb, mmha, parallel_ce, rms_norm, rope,
-               swiglu, wo_matmul)
+               flash_attention, lamb, mmha, moe_gemm, parallel_ce, rms_norm,
+               rope, swiglu, wo_matmul)
 
 #: every kernel wrapper of the port, by name
 WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
@@ -27,8 +27,9 @@ WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
             "a8w8": a8w8_matmul.a8w8_matmul,
             "adamw": adamw.adamw_update,
             "lamb": lamb.lamb_update,
-            "parallel_ce": parallel_ce.row_stats}
+            "parallel_ce": parallel_ce.row_stats,
+            "moe_gemm": moe_gemm.grouped_matmul}
 
 __all__ = ["WRAPPERS", "a8w8_matmul", "adamw", "block_epilogue",
-           "decode_layer", "flash_attention", "lamb", "mmha", "parallel_ce",
-           "rms_norm", "rope", "swiglu", "wo_matmul"]
+           "decode_layer", "flash_attention", "lamb", "mmha", "moe_gemm",
+           "parallel_ce", "rms_norm", "rope", "swiglu", "wo_matmul"]

@@ -34,7 +34,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("rms_norm", "swiglu", "rope", "mmha", "block_epilogue",
            "flash_attention", "flash_attention_bwd", "decode_layer",
-           "wo_matmul", "a8w8_matmul", "adamw", "lamb", "cross_entropy")
+           "wo_matmul", "a8w8_matmul", "adamw", "lamb", "cross_entropy",
+           "moe_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

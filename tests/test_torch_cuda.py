@@ -14,7 +14,10 @@ The decode layer's plain version rounds the attention output to bf16 once
 more than the kernel, which keeps it in f32: its tolerance adds what that
 rounding changes on the same inputs. The weight-only kernels sum exact
 products in f32 and round once, as their plain versions do (one ulp).
-A8W8 is held bit for bit where ``x / s`` is exact, and on random
+The grouped expert product sums exact
+bf16 products in f32 and rounds once, as its plain version does (one ulp),
+and writes exact zeros past each expert's count. A8W8 is held bit for bit
+where ``x / s`` is exact, and on random
 activations to one ulp plus one quantisation step of a row (a rounding
 tie may land on either side). The backward kernels: RMSNorm's dx and
 SwiGLU's dg, du (two operands or one packed row) to one ulp, RMSNorm's
@@ -42,7 +45,9 @@ from paddle_tpu_torch.distributed import ParallelCrossEntropy
 from paddle_tpu_torch.nn import clip
 from paddle_tpu_torch.ops.kernels import WRAPPERS, a8w8_matmul, adamw, \
     autotune, block_epilogue, decode_layer, flash_attention, lamb, mmha, \
-    parallel_ce, rms_norm, rope, swiglu, wo_matmul
+    moe_gemm, parallel_ce, rms_norm, rope, swiglu, wo_matmul
+from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+from paddle_tpu_torch.models.qwen2_moe import _SwiGLU
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import LLMEngine, ServingConfig
 
@@ -52,6 +57,7 @@ QUANT_KERNELS = ("wo_int8", "wo_int8_grouped", "wo_int4", "a8w8")
 TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd", "adamw",
                  "block_epilogue_bwd", "swiglu_packed", "swiglu_packed_bwd",
                  "lamb", "parallel_ce")
+MOE_KERNELS = ("moe_gemm",)
 
 
 @pytest.fixture
@@ -239,7 +245,8 @@ def test_engine_runs_every_kernel(dev):
         summary = eng.shutdown()
     assert all(len(o) == 8 for o in outs)
     assert summary["pages_leaked"] == 0
-    off_path = ("decode_layer",) + QUANT_KERNELS + TRAIN_KERNELS
+    off_path = ("decode_layer",) + QUANT_KERNELS + TRAIN_KERNELS + \
+        MOE_KERNELS
     assert all(w.launches > 0 for n, w in WRAPPERS.items()
                if n not in off_path)
     assert all(WRAPPERS[n].launches == 0 for n in off_path)  # not on this path
@@ -1029,3 +1036,79 @@ def test_gpt_lamb_step_through_kernels(dev):
                    "flash_attention_bwd": layers,
                    "lamb": 12 * layers + 4, "parallel_ce": 1}
     assert torch.isfinite(loss).item()
+
+
+# -- the grouped expert product (MoE) ---------------------------------------------
+
+def _grouped_operands(dev, e, c, h, f, transposed, seed):
+    """x with non-zero padding rows, w as [E, H, F] or as the transposed
+    view of an [E, F, H] tensor, and counts holding 0, c and partial
+    fills."""
+    x = _randn(dev, e, c, h, seed=seed)
+    if transposed:
+        w = (_randn(dev, e, f, h, seed=seed + 1) * 0.05).transpose(1, 2)
+    else:
+        w = _randn(dev, e, h, f, seed=seed + 1) * 0.05
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    counts = torch.randint(0, c + 1, (e,), generator=g, device=dev,
+                           dtype=torch.int32)
+    counts[0], counts[-1] = 0, c
+    return x, w, counts
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["ehf", "efh^T"])
+@pytest.mark.parametrize("e,c,h,f", [(4, 10, 256, 384), (3, 274, 2048, 1408),
+                                     (3, 274, 1408, 2048), (2, 65, 24, 40),
+                                     (2, 1, 16, 8)])
+def test_grouped_matmul_kernel(dev, e, c, h, f, transposed):
+    x, w, counts = _grouped_operands(dev, e, c, h, f, transposed, seed=c + f)
+    before = WRAPPERS["moe_gemm"].launches
+    got = moe_gemm.grouped_matmul(x, w, counts)
+    assert WRAPPERS["moe_gemm"].launches == before + 1
+    ref = moe_gemm.grouped_matmul_plain(x, w, counts)
+    _close(got, ref)
+    live = moe_gemm.live_rows(counts, c)
+    assert not got.masked_select(~live).any()     # padding never leaks
+
+
+def test_grouped_matmul_takes_bf16_only(dev):
+    x, w, counts = _grouped_operands(dev, 2, 8, 16, 16, False, seed=3)
+    with pytest.raises(TypeError, match="bf16"):
+        moe_gemm.grouped_matmul(x.float(), w.float(), counts)
+    with pytest.raises(ValueError, match="% 8"):
+        moe_gemm.grouped_matmul(x[..., :12], w[:, :12], counts)
+
+
+def test_moe_layer_forward_and_backward_on_the_card(dev):
+    """One MoELayer (8 experts of 256, top-2, a shared expert, capacity
+    factor 0.5) forward and backward through the kernels against the plain
+    path from the same weights: the routing is identical (the gate is one
+    product on both paths), the output and every gradient within 2e-2
+    relative L2 (bf16 roundings of the products and the SwiGLU gate), and
+    three grouped launches each way."""
+    torch.manual_seed(0)
+    experts = [_SwiGLU(512, 256, 0.05, 2) for _ in range(8)]
+    layer = MoELayer(512, experts, gate={"type": "gshard", "top_k": 2},
+                     capacity_factor=0.5,
+                     shared_experts=_SwiGLU(512, 512, 0.05, 2)).to(
+        dev, torch.bfloat16)
+    x = _randn(dev, 4, 64, 512, seed=4).requires_grad_()
+    cot = _randn(dev, 4, 64, 512, seed=5)
+
+    def run(plain):
+        out = layer(x, plain=plain)
+        (out.float() * cot.float()).sum().add(layer.l_aux).backward()
+        grads = [x.grad] + [p.grad for p in layer.parameters()]
+        res = [out.detach()] + [g.clone() for g in grads]
+        x.grad = None
+        layer.zero_grad(set_to_none=True)
+        return res, layer.l_aux.item()
+
+    ref, aux_p = run(True)
+    WRAPPERS["moe_gemm"].launches = 0
+    got, aux_k = run(False)
+    assert WRAPPERS["moe_gemm"].launches == 6
+    assert aux_k == aux_p
+    for a, r in zip(got, ref):
+        err = ((a.float() - r.float()).norm() / r.float().norm()).item()
+        assert err <= 2e-2, err
