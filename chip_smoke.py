@@ -97,6 +97,20 @@ Phases, in order; any failure exits non-zero:
    the learning rate at the schedule's value, a step that does not
    synchronise, a falling loss, one Lamb step against the plain version,
    step time, tokens/s, MFU, peak memory and a profile of a step.
+   incubate — the incubate fused ops' path: 12 post-LN blocks at GPT-2
+   small's width (hidden 768, 12 heads, FFN 3072, bf16, dropout 0.1)
+   written only with ``incubate.softmax_mask_fuse[_upper_triangle]``,
+   ``incubate.nn.FusedLinear``, ``FusedBiasDropoutResidualLayerNorm`` and
+   ``FusedDropoutAdd``, each linear's weight and bias gradients
+   accumulated into f32 ``main_grad`` buffers by
+   ``fused_linear_param_grad_add`` from a hook on its output: (a) two
+   causal micro-batches of B 4 x S 1024 and (b) one encoder batch with a
+   padding mask, forward and backward, each through the kernels and,
+   from the same seed, the plain path: exact launches, the same dropout
+   draws, parity of the output, dx and every main_grad, the first layer's
+   attention against the flash kernel, the main_grads against autograd's
+   weight gradients, ms a micro-batch on each path, peak memory and a
+   profile of a micro-batch.
    serve_moe — Qwen1.5-MoE-A2.7B (``Qwen2MoeConfig()``: 24 layers, 60
    experts of 1408, top-4, a shared expert, 14.3 B parameters in bf16)
    answers 4 prompts of 512 seeded random tokens with 32 greedy tokens
@@ -116,14 +130,18 @@ Phases, in order; any failure exits non-zero:
    Phase 3 holds the training kernels (RMSNorm, SwiGLU, flash-attention
    and block-epilogue backward, packed SwiGLU and its backward, AdamW,
    LAMB and the cross-entropy row statistics) against their plain versions
-   at the train phases' shapes, and the grouped expert product at one
-   Qwen1.5-MoE layer's shapes (both weight layouts).
+   at the train phases' shapes, the grouped expert product at one
+   Qwen1.5-MoE layer's shapes (both weight layouts), and the incubate
+   kernels (masked and causal softmax and its backward, bias-dropout-
+   residual layer norm and its backward, dropout-add both ways, the
+   weight-gradient accumulation) at GPT-2 small's and Llama-3-8B's shapes.
 7. summary — one JSON line of every kernel's launches (the decode layer's
    on engine c's run, the weight-only kernels' on engines d, e and f, A8W8's
    in the llm_int8 phase, the training kernels' in one fused-trunk train
    step, the packed SwiGLU kernels' in the packed_mlp phase, LAMB's and the
-   cross entropy's in one train_lamb step, the grouped product's in
-   serve_moe's run, the others' on engine b's) and times, then the last
+   cross entropy's in one train_lamb step, the incubate kernels' over the
+   incubate phase's runs (a) and (b), the grouped product's in serve_moe's
+   run, the others' on engine b's) and times, then the last
    line ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
@@ -207,6 +225,24 @@ MOE_PARITY_BATCHES = 1
 # the SwiGLU gate, the down product and the sum with the shared expert once
 # each, at values up to one ulp apart.
 MOE_BLOCK_TOL = 2.0 ** -5
+# The incubate slice (rows 18-21): its path is INCUBATE_LAYERS post-LN
+# blocks at GPT-2 small's width (hidden 768, 12 heads of 64, FFN 3072),
+# depth and S (GPT_SEQ), dropout 0.1, two micro-batches of B 4
+INCUBATE_KERNELS = ("softmax_mask", "softmax_mask_tri", "softmax_mask_bwd",
+                    "bias_dropout_ln", "bias_dropout_ln_bwd", "dropout_add",
+                    "dropout_add_bwd", "linear_grad_add")
+INCUBATE_LAYERS, INCUBATE_HIDDEN, INCUBATE_HEADS = 12, 768, 12
+INCUBATE_BATCH, INCUBATE_SEQ, INCUBATE_P = 4, 1024, 0.1
+INCUBATE_SEED = 2028
+# phase 3's incubate shapes: softmax (B, H, S, masked); rows of the layer
+# norm (rows, hidden, masked) and of dropout-add (rows, hidden); the
+# weight-gradient accumulations (M, K, N, accumulator dtype)
+INCUBATE_SOFTMAX = ((8, 12, 1024, True), (8, 12, 1024, False),
+                    (2, 32, 2048, False))
+INCUBATE_LN = ((8192, 768, True), (8192, 768, False), (4096, 4096, True))
+INCUBATE_DROPOUT = ((8192, 768), (4096, 4096))
+INCUBATE_GRAD = ((8192, 768, 3072, "float32"), (4096, 4096, 14336, "float32"),
+                 (8192, 768, 3072, "bfloat16"))
 
 
 def fail(msg: str) -> None:
@@ -408,6 +444,7 @@ def phase_kernels(torch, dev):
     _kernels_lamb(torch, dev, timer, results)
     _kernels_parallel_ce(torch, dev, timer, results)
     _kernels_moe_gemm(torch, dev, randn, timer, results)
+    _kernels_incubate(torch, dev, randn, timer, results)
     return results
 
 
@@ -1247,7 +1284,8 @@ def phase_serve_default(torch, np, model):
     reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
     idle = [n for n, c in launches.items()
             if c == 0 and n not in ("decode_layer",) + QUANT_KERNELS
-            + TRAIN_KERNELS + PACKED_KERNELS + LAMB_KERNELS + MOE_KERNELS]
+            + TRAIN_KERNELS + PACKED_KERNELS + LAMB_KERNELS + MOE_KERNELS
+            + INCUBATE_KERNELS]
     if idle:
         fail(f"kernels never launched on the default serving path: {idle}")
     pages, px = _check_prefix_claims(engine, reqs, stats)
@@ -1620,7 +1658,11 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "adamw_kernel", "block_epilogue_bwd_kernel",
                 "swiglu_packed_kernel", "swiglu_packed_bwd_kernel",
                 "lamb_moments_kernel", "lamb_apply_kernel",
-                "ce_row_stats_kernel", "moe_gemm_kernel")
+                "ce_row_stats_kernel", "moe_gemm_kernel",
+                "softmax_mask_kernel", "softmax_mask_bwd_kernel",
+                "bias_dropout_ln_kernel", "bias_dropout_ln_bwd_kernel",
+                "bdl_partial_sum_kernel", "dropout_add_kernel",
+                "linear_grad_add_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -2399,6 +2441,501 @@ def phase_train_lamb(torch, dev):
     return launches
 
 
+# -- the incubate fused ops: masked softmax, bias-dropout-residual layer norm,
+# dropout-add and the weight-gradient accumulation ---------------------------
+
+def _pad_mask(torch, dev, batch, seq, seed):
+    """An additive ``[batch, 1, seq, seq]`` bf16 padding mask: 0 before each
+    sequence's length, -1e4 from it on, the lengths drawn from ``seed`` in
+    [seq / 2, seq]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(seq // 2, seq + 1, (batch,), generator=gen,
+                            device=dev)
+    past = torch.arange(seq, device=dev)[None, :] >= lengths[:, None]
+    mask = torch.where(past, -1e4, 0.0).to(torch.bfloat16)
+    return mask[:, None, None, :].expand(batch, 1, seq, seq).contiguous(), \
+        lengths
+
+
+def _kernels_incubate(torch, dev, randn, timer, results):
+    """The incubate kernels at the shapes of the incubate phase (GPT-2
+    small: 12 heads, S 1024, B 8, hidden 768, FFN 3072) and at Llama-3-8B's
+    (32 heads at S 2048; hidden 4096, FFN 14336), bf16:
+
+    - row 18: the masked softmax at [8, 12, 1024, 1024] with a padding mask
+      [8, 1, 1024, 1024] (-1e4 past each seeded length), the causal one
+      there and at [2, 32, 2048, 2048], the backward there (yardstick
+      ``torch._softmax_backward_data``);
+    - row 19: [8192, 768] with the p = 0.1 mask and maskless, [4096, 4096]
+      with the mask, forward and backward (dgamma, dbeta, dbias within 1e-3
+      of their largest values);
+    - row 20: [8192, 768] and [4096, 4096] at p = 0.1, forward and
+      backward, bit for bit, the dropped positions the counter hash's;
+    - row 21: GPT-2's ``mlp.fc`` (x [8192, 768], dy [8192, 3072]) and
+      Llama-3-8B's gate (x [4096, 4096], dy [4096, 14336]) into f32 within
+      1e-4 of the largest plain value (f32 sums in another order), and the
+      ``mlp.fc`` shape once into bf16 (yardstick: ``torch.matmul(x.t(),
+      dy)``, the bf16 product alone).
+
+    Rows 18-20 within one bf16 ulp of the plain version. Bounds: each
+    input read once and each output written once (the mask's distinct
+    bytes once), over the memory rate; row 21's 2 M K N operations on the
+    bf16 tensor cores."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops.kernels import bias_dropout_ln as bdl
+    from paddle_tpu_torch.ops.kernels import dropout_add as da
+    from paddle_tpu_torch.ops.kernels import linear_grad_add as lga
+    from paddle_tpu_torch.ops.kernels import softmax_mask as sm
+
+    bf = torch.bfloat16
+    # row 18
+    for b, h, s, masked in INCUBATE_SOFTMAX:
+        x = randn(b, h, s, s, scale=3.0)
+        n = x.numel()
+        if masked:
+            mask, _ = _pad_mask(torch, dev, b, s, seed=91)
+            args, name = (x, mask), "softmax_mask"
+            fn, plain = sm.softmax_mask, sm.softmax_mask_plain
+        else:
+            mask, args, name = None, (x,), "softmax_mask_tri"
+            fn, plain = sm.softmax_mask_tri, sm.softmax_mask_tri_plain
+        got, ref = fn(*args), plain(*args)
+        err, tol = compare(torch, got, ref)
+        mask_bytes = 0 if mask is None else mask.numel() * 2
+        _record(results, name, [b, h, s, s] + (["mask", list(mask.shape)]
+                                               if masked else ["causal"]),
+                err, tol, timer(lambda: fn(*args)),
+                timer(lambda: plain(*args), iters=5), None,
+                4 * n + mask_bytes, 6 * n)
+        if masked:
+            dy = randn(b, h, s, s)
+            got_b = sm.softmax_mask_bwd(got, dy)
+            err, tol = compare(torch, got_b, sm.softmax_mask_bwd_plain(got,
+                                                                       dy))
+            lib = timer(lambda: torch._softmax_backward_data(dy, got, -1,
+                                                             bf))
+            _record(results, "softmax_mask_bwd", [b, h, s, s], err, tol,
+                    timer(lambda: sm.softmax_mask_bwd(got, dy)),
+                    timer(lambda: sm.softmax_mask_bwd_plain(got, dy),
+                          iters=5), lib, 6 * n, 4 * n)
+            del dy, got_b
+        del x, got, ref, mask, args
+    # row 19
+    for rows, hid, masked in INCUBATE_LN:
+        x, res = randn(rows, hid), randn(rows, hid)
+        bias, beta = randn(hid, scale=0.1), randn(hid, scale=0.1)
+        gamma = (1.0 + randn(hid).float() * 0.1).to(bf)
+        mask = IF.dropout_mask((rows, hid), 0.1, dev) if masked else None
+        args = (x, bias, res, mask, gamma, beta, 1e-5)
+        got, ref = bdl.bias_dropout_ln(*args), bdl.bias_dropout_ln_plain(*args)
+        err_h, tol_h = compare(torch, got[1], ref[1])
+        if not err_h <= tol_h:
+            fail(f"bias_dropout_ln h: {err_h} > {tol_h}")
+        err, tol = compare(torch, got[0], ref[0])
+        n = rows * hid
+        shape = [rows, hid, "mask p=0.1" if masked else "maskless"]
+        _record(results, "bias_dropout_ln", shape, err, tol,
+                timer(lambda: bdl.bias_dropout_ln(*args)),
+                timer(lambda: bdl.bias_dropout_ln_plain(*args), iters=5),
+                None, n * (8 + 4 * masked) + 6 * hid, n * (10 + masked),
+                h_err=err_h)
+        dy = randn(rows, hid)
+        bargs = (ref[1], mask, gamma, dy, 1e-5)
+        gb, rb = bdl.bias_dropout_ln_bwd(*bargs), \
+            bdl.bias_dropout_ln_bwd_plain(*bargs)
+        err_r, tol_r = compare(torch, gb[1], rb[1])
+        if not err_r <= tol_r:
+            fail(f"bias_dropout_ln_bwd dres: {err_r} > {tol_r}")
+        sums = {}
+        for nm, a, r in zip(("dgamma", "dbeta", "dbias"), gb[2:], rb[2:]):
+            e, _ = compare(torch, a, r)
+            t = 1e-3 * r.abs().max().item()
+            if not e <= t:
+                fail(f"bias_dropout_ln_bwd {nm}: {e} > {t}")
+            sums[f"{nm}_err"], sums[f"{nm}_tol"] = e, t
+        again = bdl.bias_dropout_ln_bwd(*bargs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(gb, again)):
+            fail("bias_dropout_ln_bwd: two calls on the same inputs differ")
+        err, tol = compare(torch, gb[0], rb[0])
+        _record(results, "bias_dropout_ln_bwd", shape, err, tol,
+                timer(lambda: bdl.bias_dropout_ln_bwd(*bargs)),
+                timer(lambda: bdl.bias_dropout_ln_bwd_plain(*bargs),
+                      iters=5), None,
+                n * (8 + 4 * masked) + 2 * hid + 12 * hid,
+                n * (16 + 2 * masked), dres_err=err_r, **sums)
+        del x, res, mask, got, ref, dy, gb, rb, again, args, bargs
+    # row 20
+    for rows, hid in INCUBATE_DROPOUT:
+        x, res = randn(rows, hid), randn(rows, hid)
+        n = rows * hid
+        got = da.dropout_add(x, res, 1234, 0.1)
+        ref = da.dropout_add_plain(x, res, 1234, 0.1)
+        err, tol = compare(torch, got, ref)
+        if not torch.equal(got, ref):
+            fail(f"dropout_add [{rows}, {hid}]: not bit for bit the plain "
+                 f"version (max abs error {err})")
+        ones = torch.ones_like(x)
+        keep = da.keep_mask(rows, hid, 1234, 0.1, dev)
+        for fn in (da.dropout_add_bwd, da.dropout_add_bwd_plain):
+            bad = int(((fn(ones, 1234, 0.1) != 0) != keep).sum())
+            if bad:
+                fail(f"dropout_add: {fn.__name__} kept other positions than "
+                     f"the counter hash at {bad} of {n} elements")
+        _record(results, "dropout_add", [rows, hid, "p=0.1"], err, tol,
+                timer(lambda: da.dropout_add(x, res, 1234, 0.1)),
+                timer(lambda: da.dropout_add_plain(x, res, 1234, 0.1)),
+                None, 6 * n, 14 * n)
+        got = da.dropout_add_bwd(x, 1234, 0.1)
+        ref = da.dropout_add_bwd_plain(x, 1234, 0.1)
+        err, tol = compare(torch, got, ref)
+        if not torch.equal(got, ref):
+            fail(f"dropout_add_bwd [{rows}, {hid}]: not bit for bit the "
+                 f"plain version (max abs error {err})")
+        _record(results, "dropout_add_bwd", [rows, hid, "p=0.1"], err, tol,
+                timer(lambda: da.dropout_add_bwd(x, 1234, 0.1)),
+                timer(lambda: da.dropout_add_bwd_plain(x, 1234, 0.1)),
+                None, 4 * n, 13 * n)
+        del x, res, got, ref, ones, keep
+    # row 21
+    for m, k, nn_, acc_name in INCUBATE_GRAD:
+        acc_dt = getattr(torch, acc_name)
+        x, dy = randn(m, k), randn(m, nn_)
+        acc0 = randn(k, nn_, scale=4.0).to(acc_dt)
+        got = lga.linear_grad_add(x, dy, acc0.clone())
+        ref = lga.linear_grad_add_plain(x, dy, acc0.clone())
+        if acc_dt == torch.float32:
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = 1e-4 * ref.abs().max().item()
+        else:
+            err, tol = compare(torch, got, ref)
+        scratch = acc0.clone()
+        esz = 4 if acc_dt == torch.float32 else 2
+        _record(results, "linear_grad_add",
+                [f"x [{m}, {k}]", f"dy [{m}, {nn_}]",
+                 f"acc {acc_name}"], err, tol,
+                timer(lambda: lga.linear_grad_add(x, dy, scratch)),
+                timer(lambda: lga.linear_grad_add_plain(x, dy, scratch),
+                      iters=5),
+                timer(lambda: torch.matmul(x.t(), dy)),
+                2 * (m * k + m * nn_) + 2 * esz * k * nn_, 2 * m * k * nn_,
+                BF16_TC_FLOPS_PER_S, library="torch.matmul(x.t(), dy), the "
+                "bf16 product alone")
+        del x, dy, acc0, got, ref, scratch
+
+
+class _IncubateBlocks:
+    """INCUBATE_LAYERS post-LN transformer blocks at GPT-2 small's width
+    (hidden 768, 12 heads of 64, FFN 3072, layer-norm eps 1e-5), bf16, from
+    a seed, written only with the port's public incubate entry points:
+
+        qkv = FusedLinear(768, 2304)(x);  q, k, v = split
+        s   = q @ k^T / 8
+        p   = softmax_mask_fuse_upper_triangle(s)   (or softmax_mask_fuse(s,
+                                                     pad_mask))
+        o   = FusedLinear(768, 768, bias_attr=False)(p @ v)
+        h1  = FusedBiasDropoutResidualLayerNorm(768, dropout_rate=0.1)(o, x)
+        g   = FusedLinear(3072, 768)(gelu(FusedLinear(768, 3072)(h1)))
+        out = FusedDropoutAdd(p=0.1)(g, h1)
+
+    The linears' weights do not require grad: as in Paddle's ``main_grad``
+    flow, a hook on each linear's output accumulates its weight and bias
+    gradients by ``fused_linear_param_grad_add(x_in, dy, main_grad, dbias,
+    multi_precision=True)`` into f32 buffers (``self.main``)."""
+
+    def __init__(self, torch, dev):
+        from paddle_tpu_torch.incubate import nn as inn
+
+        self.torch = torch
+        bf = torch.bfloat16
+        hid = INCUBATE_HIDDEN
+        gen = torch.Generator(device=dev).manual_seed(2029)
+        self.layers = []
+        for i in range(INCUBATE_LAYERS):
+            mods = {
+                "qkv": inn.FusedLinear(hid, 3 * hid, device=dev, dtype=bf,
+                                       seed=4 * i),
+                "out": inn.FusedLinear(hid, hid, bias_attr=False, device=dev,
+                                       dtype=bf, seed=4 * i + 1),
+                "ln1": inn.FusedBiasDropoutResidualLayerNorm(
+                    hid, dropout_rate=INCUBATE_P, device=dev, dtype=bf),
+                "fc": inn.FusedLinear(hid, 4 * hid, device=dev, dtype=bf,
+                                      seed=4 * i + 2),
+                "proj": inn.FusedLinear(4 * hid, hid, device=dev, dtype=bf,
+                                        seed=4 * i + 3),
+                "add": inn.FusedDropoutAdd(p=INCUBATE_P)}
+            with torch.no_grad():
+                for name in ("qkv", "fc", "proj"):
+                    mods[name].bias.normal_(0.0, 0.02, generator=gen)
+                for name in ("linear_bias", "ln_bias"):
+                    getattr(mods["ln1"], name).normal_(0.0, 0.02,
+                                                       generator=gen)
+            for mod in mods.values():
+                mod.requires_grad_(False)
+            self.layers.append(mods)
+        self.linears = [(f"{i}.{n}", m[n]) for i, m in enumerate(self.layers)
+                        for n in ("qkv", "out", "fc", "proj")]
+        self.reset_main()
+        self.hooks = True
+        self.attn0 = None
+
+    def reset_main(self):
+        torch = self.torch
+        self.main = {
+            name: (torch.zeros(mod.weight.shape, device=mod.weight.device),
+                   None if mod.bias is None else
+                   torch.zeros(mod.bias.shape, device=mod.weight.device))
+            for name, mod in self.linears}
+
+    def _linear(self, name, mod, inp, plain):
+        from paddle_tpu_torch.incubate.nn import functional as IF
+
+        out = mod(inp)
+        if self.hooks:
+            mg = self.main[name]
+
+            def hook(g):
+                IF.fused_linear_param_grad_add(
+                    inp, g, mg[0], mg[1], multi_precision=True,
+                    has_bias=mg[1] is not None, plain=plain)
+            out.register_hook(hook)
+        return out
+
+    def forward(self, x, plain, pad_mask=None, keep_attn0=False):
+        from paddle_tpu_torch import incubate
+        from paddle_tpu_torch.nn import functional as TF
+
+        b, s, hid = x.shape
+        heads = INCUBATE_HEADS
+        h = x
+        for i, m in enumerate(self.layers):
+            qkv = self._linear(f"{i}.qkv", m["qkv"], h, plain).reshape(
+                b, s, 3, heads, hid // heads)
+            q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+            sc = q @ k.transpose(-1, -2) / 8.0
+            if pad_mask is None:
+                p = incubate.softmax_mask_fuse_upper_triangle(sc, plain=plain)
+            else:
+                p = incubate.softmax_mask_fuse(sc, pad_mask, plain=plain)
+            o = (p @ v).transpose(1, 2)
+            if keep_attn0 and i == 0:
+                self.attn0 = [t.detach() for t in (
+                    qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], o)]
+            o = self._linear(f"{i}.out", m["out"], o.reshape(b, s, hid),
+                             plain)
+            h1 = m["ln1"](o, h, plain=plain)
+            f = self._linear(f"{i}.fc", m["fc"], h1, plain)
+            g = self._linear(f"{i}.proj", m["proj"], TF.gelu(f), plain)
+            h = m["add"](g, h1, plain=plain)
+        return h
+
+
+def _incubate_run(torch, blocks, xs, plain, pad_mask=None, keep_attn0=False):
+    """Forward and backward of ``out.float().square().mean()`` for each
+    micro-batch of ``xs`` after ``seed(INCUBATE_SEED)``, with fresh
+    ``main_grad`` buffers; the draws of every dropout are logged. Returns
+    (outputs, dx of each micro-batch, the main grads, the launches, host ms
+    of each micro-batch to a synchronise, the logged draws)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    draws = []
+    draw_mask, draw_seed = IF.dropout_mask, IF.dropout_seed
+
+    def log(fn):
+        def logged(*a):
+            draws.append(fn(*a))
+            return draws[-1]
+        return logged
+    IF.dropout_mask, IF.dropout_seed = log(draw_mask), log(draw_seed)
+    try:
+        blocks.reset_main()
+        paddle_tpu_torch.seed(INCUBATE_SEED)
+        torch.cuda.synchronize()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        outs, dxs, ms = [], [], []
+        for x0 in xs:
+            t0 = time.perf_counter()
+            x = x0.clone().requires_grad_()
+            out = blocks.forward(x, plain, pad_mask, keep_attn0)
+            out.float().square().mean().backward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out.detach())
+            dxs.append(x.grad)
+        launches = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    finally:
+        IF.dropout_mask, IF.dropout_seed = draw_mask, draw_seed
+    return outs, dxs, blocks.main, launches, ms, draws
+
+
+def _incubate_parity(torch, what, got, ref):
+    """The kernel run against the plain run from the same seed: the same
+    dropout draws (so the same kept positions of rows 19 and 20), each
+    output within PARITY_REL_TOL of its largest plain value, dx and every
+    main_grad and bias grad within TRAIN_GRAD_TOL relative L2."""
+    gd, rd = got[5], ref[5]
+    if len(gd) != len(rd) or not all(
+            (a == b) if isinstance(a, int) else torch.equal(a, b)
+            for a, b in zip(gd, rd)):
+        fail(f"{what}: the kernel and plain runs drew other dropout masks "
+             f"or seeds")
+    out_err = 0.0
+    for a, b in zip(got[0], ref[0]):
+        err, _ = compare(torch, a, b)
+        tol = PARITY_REL_TOL * b.float().abs().max().item()
+        if not err <= tol:
+            fail(f"{what}: output max abs error {err} > {tol}")
+        out_err = max(out_err, err / b.float().abs().max().item())
+    rel = {"dx": max(_rel_l2(torch, a, b) for a, b in zip(got[1], ref[1]))}
+    for name, (w, bias) in ref[2].items():
+        rel[f"{name}.weight"] = _rel_l2(torch, got[2][name][0], w)
+        if bias is not None:
+            rel[f"{name}.bias"] = _rel_l2(torch, got[2][name][1], bias)
+    worst = max(rel, key=rel.get)
+    if rel[worst] > TRAIN_GRAD_TOL:
+        fail(f"{what}: {worst} relative L2 {rel[worst]} > {TRAIN_GRAD_TOL}")
+    return {"out_max_err_rel": out_err, "worst_grad": worst,
+            "worst_grad_rel_l2": rel[worst], "dx_rel_l2": rel["dx"],
+            "draws": len(gd)}
+
+
+def phase_incubate(torch, dev):
+    """The incubate slice's path: ``_IncubateBlocks`` (12 layers, GPT-2
+    small's width) through the port's public incubate entry points.
+
+    (a) causal: two micro-batches of B 4 x S 1024, forward and backward of
+    ``out.float().square().mean()``; (b) encoder: one batch of B 4 x S 1024
+    with a [4, 1, 1024, 1024] padding mask from seeded lengths in
+    [512, 1024]. Each through the kernels and, from the same seed, through
+    ``plain=True``. Checks: the exact launches of every kernel ((a): 24 of
+    the causal softmax, of its backward and of rows 19 and 20 forward and
+    backward each, 96 of row 21; (b): 12 of the masked softmax and of its
+    backward and of rows 19-20 each way, 48 of row 21, nothing else);
+    parity (``_incubate_parity``); the first layer's causal attention of
+    micro-batch 0 through row 18 against the flash kernel on the same q,
+    k, v within 1e-2 relative L2; every main_grad of (a) against the f32
+    sum of ``torch.autograd.grad`` of the same weights over the two
+    micro-batches (the same draws) within TRAIN_GRAD_TOL relative L2.
+    Reports ms a micro-batch on each path, peak memory and a profile of a
+    micro-batch. Returns the launches of (a) and (b) together."""
+    from paddle_tpu_torch.nn import functional as TF
+
+    torch.cuda.reset_peak_memory_stats()
+    layers, b, s = INCUBATE_LAYERS, INCUBATE_BATCH, INCUBATE_SEQ
+    blocks = _IncubateBlocks(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(2030)
+    xs = [torch.randn(b, s, INCUBATE_HIDDEN, generator=gen,
+                      device=dev).to(torch.bfloat16) for _ in range(3)]
+    micro, enc = xs[:2], xs[2:]
+
+    got = _incubate_run(torch, blocks, micro, False, keep_attn0=True)
+    want = {"softmax_mask_tri": 2 * layers, "softmax_mask_bwd": 2 * layers,
+            "bias_dropout_ln": 2 * layers, "bias_dropout_ln_bwd": 2 * layers,
+            "dropout_add": 2 * layers, "dropout_add_bwd": 2 * layers,
+            "linear_grad_add": 8 * layers}
+    if got[3] != want:
+        fail(f"incubate (a) launches {got[3]}, want {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernel_main = got[2]        # a later run fills buffers of its own
+    # row 18 against flash attention (row 7) on layer 0's q, k, v
+    q, k, v, o = blocks.attn0
+    flash = TF.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    flash_rel = _rel_l2(torch, o, flash)
+    if not flash_rel <= 1e-2:
+        fail(f"incubate: causal attention through row 18 lies {flash_rel} "
+             f"(relative L2) from the flash kernel's")
+    blocks.attn0 = None
+    ref = _incubate_run(torch, blocks, micro, True)
+    parity_a = _incubate_parity(torch, "incubate (a)", got, ref)
+    plain_ms = ref[4]
+    del ref
+
+    # every main_grad of (a) against autograd's weight gradients, summed in
+    # f32 over the two micro-batches, from the same draws
+    import paddle_tpu_torch
+    params = [(name, mod) for name, mod in blocks.linears]
+    for _, mod in params:
+        mod.requires_grad_(True)
+    blocks.hooks = False
+    paddle_tpu_torch.seed(INCUBATE_SEED)
+    sums = {}
+    for x0 in micro:
+        out = blocks.forward(x0, False)
+        flat = [t for _, mod in params for t in (mod.weight, mod.bias)
+                if t is not None]
+        grads = iter(torch.autograd.grad(out.float().square().mean(), flat))
+        for name, mod in params:
+            gw = next(grads).float()
+            gb = None if mod.bias is None else next(grads).float()
+            acc = sums.get(name)
+            sums[name] = (gw, gb) if acc is None else (
+                acc[0] + gw, None if gb is None else acc[1] + gb)
+        del out, flat
+    for _, mod in params:
+        mod.requires_grad_(False)
+    blocks.hooks = True
+    auto_rel = {}
+    for name, (gw, gb) in sums.items():
+        auto_rel[f"{name}.weight"] = _rel_l2(torch, kernel_main[name][0], gw)
+        if gb is not None:
+            auto_rel[f"{name}.bias"] = _rel_l2(torch, kernel_main[name][1],
+                                               gb)
+    worst_auto = max(auto_rel, key=auto_rel.get)
+    if auto_rel[worst_auto] > TRAIN_GRAD_TOL:
+        fail(f"incubate: main_grad {worst_auto} lies {auto_rel[worst_auto]} "
+             f"(relative L2) from autograd's sum")
+    del sums
+
+    # (b) the encoder variant with a padding mask
+    pad, lengths = _pad_mask(torch, dev, b, s, seed=2031)
+    enc_got = _incubate_run(torch, blocks, enc, False, pad_mask=pad)
+    want_b = {"softmax_mask": layers, "softmax_mask_bwd": layers,
+              "bias_dropout_ln": layers, "bias_dropout_ln_bwd": layers,
+              "dropout_add": layers, "dropout_add_bwd": layers,
+              "linear_grad_add": 4 * layers}
+    if enc_got[3] != want_b:
+        fail(f"incubate (b) launches {enc_got[3]}, want {want_b}")
+    enc_ref = _incubate_run(torch, blocks, enc, True, pad_mask=pad)
+    parity_b = _incubate_parity(torch, "incubate (b)", enc_got, enc_ref)
+    for out in enc_got[0] + got[0]:
+        if not torch.isfinite(out).all():
+            fail("incubate: a non-finite output")
+
+    launches = dict(got[3])
+    for name, n in enc_got[3].items():
+        launches[name] = launches.get(name, 0) + n
+    emit({"phase": "incubate", "layers": layers, "hidden": INCUBATE_HIDDEN,
+          "heads": INCUBATE_HEADS, "batch": b, "seq": s, "p": INCUBATE_P,
+          "causal_ms_per_microbatch": got[4],
+          "causal_plain_ms_per_microbatch": plain_ms,
+          "encoder_ms": enc_got[4], "encoder_plain_ms": enc_ref[4],
+          "encoder_lengths": lengths.tolist(),
+          "launches_causal": got[3], "launches_encoder": enc_got[3],
+          "parity_causal": parity_a, "parity_encoder": parity_b,
+          "flash_rel_l2": flash_rel, "main_grad_vs_autograd_worst": worst_auto,
+          "main_grad_vs_autograd_rel_l2": auto_rel[worst_auto],
+          "peak_memory_gb": peak_gb})
+    del got, enc_got, enc_ref, kernel_main
+
+    def microbatch():
+        x = micro[0].clone().requires_grad_()
+        blocks.forward(x, False).float().square().mean().backward()
+
+    def microbatch_plain():
+        x = micro[0].clone().requires_grad_()
+        blocks.forward(x, True).float().square().mean().backward()
+    prof = _profile(torch, microbatch, reps=3)
+    prof_plain = _profile(torch, microbatch_plain, reps=2)
+    emit({"phase": "profile", "incubate_causal_microbatch": prof,
+          "incubate_causal_microbatch_plain": prof_plain})
+    return launches
+
+
 # -- Qwen2-MoE: the grouped expert product, serving, parity and training -------
 
 def _moe_counts(torch, dev, e, n_slots, capacity, seed):
@@ -2933,6 +3470,25 @@ _SOURCES = {
                     "paddle_tpu/ops/kernels/ce_pallas.py:66"),
     "moe_gemm": ("paddle_tpu_torch/csrc/moe_gemm.cu",
                  "paddle_tpu/ops/kernels/moe_gemm_pallas.py:74"),
+    "softmax_mask": ("paddle_tpu_torch/csrc/softmax_mask.cu",
+                     "paddle_tpu/ops/kernels/softmax_mask_pallas.py:67"),
+    "softmax_mask_tri": ("paddle_tpu_torch/csrc/softmax_mask.cu",
+                         "paddle_tpu/ops/kernels/softmax_mask_pallas.py:88"),
+    "softmax_mask_bwd": ("paddle_tpu_torch/csrc/softmax_mask.cu",
+                         "paddle_tpu/ops/kernels/softmax_mask_pallas.py:106"),
+    "bias_dropout_ln": (
+        "paddle_tpu_torch/csrc/bias_dropout_ln.cu",
+        "paddle_tpu/ops/kernels/bias_dropout_ln_pallas.py:96"),
+    "bias_dropout_ln_bwd": (
+        "paddle_tpu_torch/csrc/bias_dropout_ln.cu",
+        "paddle_tpu/ops/kernels/bias_dropout_ln_pallas.py:125"),
+    "dropout_add": ("paddle_tpu_torch/csrc/dropout_add.cu",
+                    "paddle_tpu/ops/kernels/dropout_add_pallas.py:98"),
+    "dropout_add_bwd": ("paddle_tpu_torch/csrc/dropout_add.cu",
+                        "paddle_tpu/ops/kernels/dropout_add_pallas.py:118"),
+    "linear_grad_add": (
+        "paddle_tpu_torch/csrc/linear_grad_add.cu",
+        "paddle_tpu/ops/kernels/linear_grad_add_pallas.py:66"),
 }
 
 
@@ -3013,6 +3569,10 @@ def main() -> int:
     lamb_launches = phase_train_lamb(torch, dev)
     for name in LAMB_KERNELS:
         launches[name] = lamb_launches[name]
+    _free(torch)
+    incubate_launches = phase_incubate(torch, dev)
+    for name in INCUBATE_KERNELS:
+        launches[name] = incubate_launches[name]
 
     # Qwen2-MoE: served at full width and depth, then trained at 4 layers
     _free(torch)

@@ -13,9 +13,14 @@ every optimizer of ``paddle_tpu_torch.optimizer`` (AdamW and Lamb through
 their kernels), its learning-rate schedulers (``optimizer.lr``),
 ``regularizer`` and ``nn.clip``, and the loss of
 ``distributed.ParallelCrossEntropy`` through the cross-entropy kernel.
+``incubate`` holds the fused ops (masked softmax, bias-dropout-residual
+layer norm, dropout-add, the linear weight-gradient accumulation) over
+their kernels; :func:`seed` seeds the random state their dropout draws
+from.
 """
 
+from .core.generator import seed
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "seed"]
 __version__ = "0.1.0"

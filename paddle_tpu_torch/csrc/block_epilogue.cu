@@ -5,6 +5,7 @@
 // (kernel body `_fwd_kernel`). Per row of the [N, H] output:
 //   z = act(x)            act: none | gelu (tanh form) | swiglu (x is [N, 2H])
 //   z = keep ? z * scale : 0      keep = fmix32(idx ^ seed * 0x9E3779B9) >= threshold
+//                                  (ptt::fmix32, common.cuh, shared with dropout_add.cu)
 //   h = z + residual
 //   y = norm(h) * w (+ b) norm: rms | layer; statistics in f32
 // and writes y and h (cast once). The dropout mask is murmur3's finalizer
@@ -42,18 +43,10 @@ namespace {
 
 constexpr float kGeluK = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float kGeluC = 0.044715f;
-constexpr uint32_t kGolden = 0x9E3779B9u;
+using ptt::fmix32;
+using ptt::kGolden;
 
 enum Act { kNone = 0, kGelu = 1, kSwiglu = 2 };
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
 
 // Block-wide sum; every thread receives the total. A __syncthreads()
 // before the scratch write lets the function be called back to back.

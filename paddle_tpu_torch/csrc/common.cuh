@@ -38,9 +38,26 @@ __device__ __forceinline__ void store8(bf16* p, const float* in) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// 8 floats through two 16-byte accesses (the f32 counterparts of the above)
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* p, const float* in) {
+  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(in[4], in[5], in[6], in[7]);
+}
+
 // one value of either element type as f32
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// one f32 value stored as either element type (rounded to nearest)
+__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // 4 values <-> 4 floats: one 16-byte access for f32, one 8-byte access for
 // bf16 (callers keep the pointer aligned to the access)
@@ -81,6 +98,21 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
 // two neighbouring bf16 values of shared memory as one fragment register
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The counter-hash dropout's bits: murmur3's 32-bit finalizer (public
+// domain, Austin Appleby), as paddle_tpu/ops/kernels/dropout_add_pallas.py
+// `_fmix32`. An element is kept where fmix32(idx ^ seed * kGolden) >=
+// threshold, idx its uint32 flat index (wrapping as jnp.uint32 does).
+constexpr uint32_t kGolden = 0x9E3779B9u;  // 2^32 / phi
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -11,7 +11,10 @@ and biases are copied as they are. A transposed ``attn.qkv`` weight keeps
 the JAX output order, so its output still splits as ``[B, S, 3, H, D]``.
 Qwen2-MoE's router weight (``mlp.gate.gate.weight``) is transposed too;
 its stacked experts (``mlp.expert_{0,1,2}``, ``[E, in, out]``) are copied
-as they are, the port keeping the JAX layout there.
+as they are, the port keeping the JAX layout there. The incubate layers
+(``FusedLinear``, ``FusedDropoutAdd``, ``FusedBiasDropoutResidualLayerNorm``)
+keep JAX's layout throughout, so their state is copied with no
+transposition.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from .llama import Llama, LlamaConfig
 from .qwen2_moe import Qwen2Moe, Qwen2MoeConfig
 
 __all__ = ["llama_from_jax_state", "gpt_from_jax_state",
-           "qwen2_moe_from_jax_state"]
+           "qwen2_moe_from_jax_state", "incubate_from_jax_state"]
 
 _LLAMA_LINEAR = ("_proj.weight", "lm_head.weight")
 _GPT_LINEAR = ("attn.qkv.weight", "attn.proj.weight", "mlp.fc.weight",
@@ -54,6 +57,13 @@ def qwen2_moe_from_jax_state(state, cfg: Qwen2MoeConfig, device=None,
     weights in ``state`` (name -> numpy array, the JAX model's keys)."""
     return _load(Qwen2Moe(cfg, device=device, dtype=dtype, seed=None), state,
                  _QWEN2_MOE_LINEAR)
+
+
+def incubate_from_jax_state(module, state):
+    """Copy a JAX incubate layer's ``state_dict()`` (numpy arrays, the same
+    keys) into the port's ``module`` in place, with no transposition; missing
+    or extra keys raise. Returns ``module``."""
+    return _load(module, state, ())
 
 
 def _load(model, state, linear_suffixes):

@@ -2,9 +2,10 @@
 (counterparts of ``paddle_tpu/nn/functional/__init__.py`` ``layer_norm``
 (:65), ``rms_norm`` (:90), ``fused_rms_norm_add`` (:115),
 ``fused_dropout_add_norm`` (:139), ``scaled_dot_product_attention``
-(:391), ``rope`` (:505), ``paddle_tpu/ops/activation.py`` ``gelu`` (:44)
-and ``swiglu`` (:159), and ``paddle_tpu/nn/functional/loss.py``
-``cross_entropy`` (:32-79) and ``softmax_with_cross_entropy`` (:81-90)).
+(:391), ``rope`` (:505), ``dropout`` (:295),
+``paddle_tpu/ops/activation.py`` ``gelu`` (:44) and ``swiglu`` (:159),
+and ``paddle_tpu/nn/functional/loss.py`` ``cross_entropy`` (:32-79) and
+``softmax_with_cross_entropy`` (:81-90)).
 
 Dispatch is the kernel wrapper's: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``plain=True`` runs the plain
@@ -23,13 +24,14 @@ from __future__ import annotations
 
 import torch
 
+from ..core import generator as _gen
 from ..ops.kernels import block_epilogue as _bep
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import rope as _rope
 from ..ops.kernels import swiglu as _swiglu
 
-__all__ = ["layer_norm", "gelu", "rms_norm", "fused_rms_norm_add",
+__all__ = ["layer_norm", "gelu", "dropout", "rms_norm", "fused_rms_norm_add",
            "fused_dropout_add_norm", "scaled_dot_product_attention", "rope",
            "swiglu", "cross_entropy", "softmax_with_cross_entropy"]
 
@@ -64,6 +66,31 @@ def gelu(x, approximate=False):
     erf form, in x's dtype."""
     return torch.nn.functional.gelu(x, approximate="tanh" if approximate
                                     else "none")
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
+    """Dropout in plain tensor code, as JAX's composite (:295-313): off in
+    eval or at ``p == 0`` (``downscale_in_infer`` scales by ``1 - p`` in
+    eval); in training, a Bernoulli keep mask over ``x``'s shape (1 on the
+    axes not in ``axis``) drawn on x's device from the default generator,
+    and the kept values divided by ``1 - p`` (``upscale_in_train``) or
+    kept as they are (``downscale_in_infer``), in x's dtype."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout mode must be 'upscale_in_train' or "
+                         f"'downscale_in_infer', got {mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    axes = None if axis is None else \
+        {a % x.dim() for a in ([axis] if isinstance(axis, int) else axis)}
+    shape = tuple(n if axes is None or i in axes else 1
+                  for i, n in enumerate(x.shape))
+    keep = torch.empty(shape, device=x.device).bernoulli_(
+        1.0 - p, generator=_gen.default_generator.generator(x.device)) > 0
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
 
 
 def rms_norm(x, weight, epsilon=1e-6, plain=False):

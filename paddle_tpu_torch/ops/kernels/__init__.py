@@ -5,9 +5,10 @@ launches its CUDA kernel for a tensor on the card (or raises), and counts
 its launches in a plain ``int`` attribute, ``<wrapper>.launches``.
 """
 
-from . import (a8w8_matmul, adamw, block_epilogue, decode_layer,
-               flash_attention, lamb, mmha, moe_gemm, parallel_ce, rms_norm,
-               rope, swiglu, wo_matmul)
+from . import (a8w8_matmul, adamw, bias_dropout_ln, block_epilogue,
+               decode_layer, dropout_add, flash_attention, lamb,
+               linear_grad_add, mmha, moe_gemm, parallel_ce, rms_norm, rope,
+               softmax_mask, swiglu, wo_matmul)
 
 #: every kernel wrapper of the port, by name
 WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
@@ -28,8 +29,17 @@ WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
             "adamw": adamw.adamw_update,
             "lamb": lamb.lamb_update,
             "parallel_ce": parallel_ce.row_stats,
-            "moe_gemm": moe_gemm.grouped_matmul}
+            "moe_gemm": moe_gemm.grouped_matmul,
+            "softmax_mask": softmax_mask.softmax_mask,
+            "softmax_mask_tri": softmax_mask.softmax_mask_tri,
+            "softmax_mask_bwd": softmax_mask.softmax_mask_bwd,
+            "bias_dropout_ln": bias_dropout_ln.bias_dropout_ln,
+            "bias_dropout_ln_bwd": bias_dropout_ln.bias_dropout_ln_bwd,
+            "dropout_add": dropout_add.dropout_add,
+            "dropout_add_bwd": dropout_add.dropout_add_bwd,
+            "linear_grad_add": linear_grad_add.linear_grad_add}
 
-__all__ = ["WRAPPERS", "a8w8_matmul", "adamw", "block_epilogue",
-           "decode_layer", "flash_attention", "lamb", "mmha", "moe_gemm",
-           "parallel_ce", "rms_norm", "rope", "swiglu", "wo_matmul"]
+__all__ = ["WRAPPERS", "a8w8_matmul", "adamw", "bias_dropout_ln",
+           "block_epilogue", "decode_layer", "dropout_add", "flash_attention",
+           "lamb", "linear_grad_add", "mmha", "moe_gemm", "parallel_ce",
+           "rms_norm", "rope", "softmax_mask", "swiglu", "wo_matmul"]

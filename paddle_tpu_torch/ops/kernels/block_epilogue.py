@@ -20,9 +20,11 @@ and returns ``(y, h)`` in the residual's dtype. The dropout mask is
 murmur3's 32-bit finalizer over the global flat index of the ``[N, H]``
 output, ``fmix32(idx ^ seed * 0x9E3779B9)``, kept where it is ``>=
 threshold`` (``paddle_tpu/ops/kernels/dropout_add_pallas.py:57-74,
-135-138``). It is a function of the data alone, so the kernel, the plain
-version and the TPU kernel drop the same elements, bit for bit, and the
-backward regenerates the forward's mask from the seed.
+135-138``; the hash lives in ``dropout_add.py`` and ``csrc/common.cuh``,
+shared with the dropout-add kernel). It is a function of the data alone,
+so the kernel, the plain version and the TPU kernel drop the same
+elements, bit for bit, and the backward regenerates the forward's mask
+from the seed.
 
 The backward takes the saved ``h`` (and ``x`` when ``act`` is set), the
 cotangent ``gy`` of ``y`` and, optionally, ``gh`` of ``h``; it recomputes
@@ -53,6 +55,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .dropout_add import dropout_params, keep_mask
 
 __all__ = ["fused_epilogue", "fused_epilogue_plain", "fused_epilogue_bwd",
            "fused_epilogue_bwd_plain", "BlockEpilogueFunction",
@@ -65,7 +68,6 @@ VALID_NORMS = ("rms", "layer")
 #: sqrt(2/pi) and the cubic coefficient of the tanh gelu approximation
 _GELU_K = 0.7978845608028654
 _GELU_C = 0.044715
-_GOLDEN = 0x9E3779B9
 _MASK32 = 0xFFFFFFFF
 _ACT_CODE = {None: 0, "gelu": 1, "swiglu": 2}
 
@@ -80,39 +82,6 @@ _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
 _SMS, _SM_THREADS = 132, 2048
 #: shared memory a backward block may take (of 227 KB), less the static part
 _BWD_SMEM = 227 * 1024 - 1024
-
-
-def dropout_params(p: float):
-    """``(threshold, scale)`` for drop probability ``p``
-    (``dropout_add_pallas._params``)."""
-    threshold = min(int(p * 4294967296.0), 4294967295)
-    return threshold, 1.0 / (1.0 - p)
-
-
-def _mul32(a, c: int):
-    """``a * c mod 2**32`` for an int64 tensor ``a`` in ``[0, 2**32)``,
-    split so that no product leaves int64."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
-
-
-def _fmix32(h):
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
-def keep_mask(n_rows: int, hidden: int, seed: int, p: float, device="cpu"):
-    """Bool ``[n_rows, hidden]``: the elements the counter-hash dropout
-    keeps (uint32 arithmetic carried in int64)."""
-    threshold, _ = dropout_params(p)
-    idx = torch.arange(n_rows * hidden, dtype=torch.int64,
-                       device=device) & _MASK32
-    key = ((int(seed) & _MASK32) * _GOLDEN) & _MASK32
-    bits = _fmix32(idx ^ key)
-    return (bits >= threshold).reshape(n_rows, hidden)
 
 
 def _gelu_tanh(xf):

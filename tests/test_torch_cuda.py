@@ -33,6 +33,13 @@ the trust ratio and the f32 weights are held to 1e-6 relative (of the
 largest weight) and a bf16 parameter to one ulp. The cross-entropy row
 statistics: the row max and the target logit exactly, the sum of
 exponentials (another order, the fast exponential) to 1e-5 relative.
+The incubate kernels: the masked softmax and its backward to one ulp; the
+bias-dropout-residual layer norm's y, h, dx and dres to one ulp and its
+f32 dgamma, dbeta and dbias to 1e-3 relative of their largest values;
+dropout-add bit for bit (the same f32 product and sum, never contracted,
+one rounding) with its dropped positions the counter hash's; the linear
+weight-gradient accumulation into f32 to 1e-4 of the largest plain value
+(f32 sums in another order) and into bf16 to one ulp.
 """
 
 import pytest
@@ -44,8 +51,9 @@ from paddle_tpu_torch import optimizer, regularizer
 from paddle_tpu_torch.distributed import ParallelCrossEntropy
 from paddle_tpu_torch.nn import clip
 from paddle_tpu_torch.ops.kernels import WRAPPERS, a8w8_matmul, adamw, \
-    autotune, block_epilogue, decode_layer, flash_attention, lamb, mmha, \
-    moe_gemm, parallel_ce, rms_norm, rope, swiglu, wo_matmul
+    autotune, bias_dropout_ln, block_epilogue, decode_layer, dropout_add, \
+    flash_attention, lamb, linear_grad_add, mmha, moe_gemm, parallel_ce, \
+    rms_norm, rope, softmax_mask, swiglu, wo_matmul
 from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 from paddle_tpu_torch.models.qwen2_moe import _SwiGLU
 from paddle_tpu_torch.optimizer import AdamW
@@ -58,6 +66,9 @@ TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd", "adamw",
                  "block_epilogue_bwd", "swiglu_packed", "swiglu_packed_bwd",
                  "lamb", "parallel_ce")
 MOE_KERNELS = ("moe_gemm",)
+INCUBATE_KERNELS = ("softmax_mask", "softmax_mask_tri", "softmax_mask_bwd",
+                    "bias_dropout_ln", "bias_dropout_ln_bwd", "dropout_add",
+                    "dropout_add_bwd", "linear_grad_add")
 
 
 @pytest.fixture
@@ -246,7 +257,7 @@ def test_engine_runs_every_kernel(dev):
     assert all(len(o) == 8 for o in outs)
     assert summary["pages_leaked"] == 0
     off_path = ("decode_layer",) + QUANT_KERNELS + TRAIN_KERNELS + \
-        MOE_KERNELS
+        MOE_KERNELS + INCUBATE_KERNELS
     assert all(w.launches > 0 for n, w in WRAPPERS.items()
                if n not in off_path)
     assert all(WRAPPERS[n].launches == 0 for n in off_path)  # not on this path
@@ -1112,3 +1123,234 @@ def test_moe_layer_forward_and_backward_on_the_card(dev):
     for a, r in zip(got, ref):
         err = ((a.float() - r.float()).norm() / r.float().norm()).item()
         assert err <= 2e-2, err
+
+
+# -- the incubate fused ops: masked softmax, bias-dropout-residual layer
+# norm, dropout-add, the weight-gradient accumulation ------------------------
+
+def _rand(dev, *shape, seed=0, dtype=torch.bfloat16):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("x_shape,mask_shape", [
+    ((2, 3, 5, 16), (2, 1, 5, 16)), ((2, 3, 5, 16), (1, 1, 5, 16)),
+    ((2, 3, 5, 16), (2, 1, 1, 16)), ((2, 3, 5, 16), (16,)),
+    ((2, 3, 5, 16), (2, 3, 5, 16)), ((8, 12, 64, 1024), (8, 1, 64, 1024)),
+    ((1, 2, 3, 2048), (1, 1, 3, 1))])
+def test_softmax_mask_kernel(dev, dtype, x_shape, mask_shape):
+    x = _rand(dev, *x_shape, seed=60, dtype=dtype) * 4
+    mask = _rand(dev, *mask_shape, seed=61, dtype=dtype) * 3
+    before = WRAPPERS["softmax_mask"].launches
+    got = softmax_mask.softmax_mask(x, mask)
+    assert WRAPPERS["softmax_mask"].launches == before + 1
+    _close(got, softmax_mask.softmax_mask_plain(x, mask))
+    dy = _rand(dev, *x_shape, seed=62, dtype=dtype)
+    _close(softmax_mask.softmax_mask_bwd(got, dy),
+           softmax_mask.softmax_mask_bwd_plain(got, dy))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 3, 8, 8), (2, 3, 5, 24),
+                                   (1, 2, 24, 8), (2, 12, 1024, 1024)])
+def test_softmax_mask_tri_kernel(dev, dtype, shape):
+    x = _rand(dev, *shape, seed=63, dtype=dtype) * 4
+    got = softmax_mask.softmax_mask_tri(x)
+    ref = softmax_mask.softmax_mask_tri_plain(x)
+    _close(got, ref)
+    sq, sk = shape[-2:]
+    above = (torch.arange(sk, device=dev)[None, :]
+             > torch.arange(sq, device=dev)[:, None])
+    assert not got[..., above].any()              # the top-left triangle
+
+
+def test_softmax_mask_fully_masked_row_is_nan_on_both(dev):
+    x = _rand(dev, 1, 2, 3, 16, seed=64)
+    mask = torch.zeros(1, 1, 3, 16, device=dev)
+    mask[0, 0, 1] = float("-inf")
+    got = softmax_mask.softmax_mask(x, mask)
+    ref = softmax_mask.softmax_mask_plain(x, mask)
+    assert torch.isnan(got[:, :, 1]).all() and torch.isnan(ref[:, :, 1]).all()
+    _close(got[:, :, 0], ref[:, :, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("rows,hidden", [(1, 64), (51, 768), (8192, 768),
+                                         (300, 4096), (7, 8192)])
+def test_bias_dropout_ln_kernels(dev, dtype, with_mask, rows, hidden):
+    x = _rand(dev, rows, hidden, seed=70, dtype=dtype)
+    res = _rand(dev, rows, hidden, seed=71, dtype=dtype)
+    bias = _rand(dev, hidden, seed=72, dtype=dtype) * 0.1
+    gamma = 1.0 + _rand(dev, hidden, seed=73, dtype=dtype) * 0.1
+    beta = _rand(dev, hidden, seed=74, dtype=dtype) * 0.1
+    mask = None
+    if with_mask:
+        g = torch.Generator(device=dev).manual_seed(75)
+        mask = (torch.rand(rows, hidden, generator=g, device=dev) >= 0.1
+                ).float() / 0.9
+    args = (x, bias, res, mask, gamma, beta, 1e-5)
+    before = WRAPPERS["bias_dropout_ln"].launches
+    got = bias_dropout_ln.bias_dropout_ln(*args)
+    assert WRAPPERS["bias_dropout_ln"].launches == before + 1
+    ref = bias_dropout_ln.bias_dropout_ln_plain(*args)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    dy = _rand(dev, rows, hidden, seed=76, dtype=dtype)
+    bargs = (ref[1], mask, gamma, dy, 1e-5)
+    got = bias_dropout_ln.bias_dropout_ln_bwd(*bargs)
+    ref = bias_dropout_ln.bias_dropout_ln_bwd_plain(*bargs)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    for a, r in zip(got[2:], ref[2:]):
+        _sum_close(a, r)
+    again = bias_dropout_ln.bias_dropout_ln_bwd(*bargs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bias_dropout_ln_rejects_what_it_does_not_take(dev):
+    x = torch.zeros(2, 8200, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(8200, device=dev)
+    with pytest.raises(ValueError, match="hidden"):
+        bias_dropout_ln.bias_dropout_ln(x, v, x, None, v, v, 1e-5)
+    h = torch.zeros(2, 64, device=dev, dtype=torch.float16)
+    w = torch.zeros(64, device=dev)
+    with pytest.raises(TypeError):
+        bias_dropout_ln.bias_dropout_ln(h, w, h, None, w, w, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,p", [((8192, 768), 0.1), ((3, 7, 11), 0.5),
+                                     ((5,), 0.3), ((4096, 4096), 0.1)])
+def test_dropout_add_kernels(dev, dtype, shape, p):
+    x = _rand(dev, *shape, seed=80, dtype=dtype)
+    res = _rand(dev, *shape, seed=81, dtype=dtype)
+    before = (WRAPPERS["dropout_add"].launches,
+              WRAPPERS["dropout_add_bwd"].launches)
+    got = dropout_add.dropout_add(x, res, 12345, p)
+    assert torch.equal(got, dropout_add.dropout_add_plain(x, res, 12345, p))
+    dx = dropout_add.dropout_add_bwd(x, 12345, p)
+    assert torch.equal(dx, dropout_add.dropout_add_bwd_plain(x, 12345, p))
+    assert (WRAPPERS["dropout_add"].launches,
+            WRAPPERS["dropout_add_bwd"].launches) == \
+        (before[0] + 1, before[1] + 1)
+    ones = torch.ones(shape, device=dev, dtype=dtype)
+    keep = dropout_add.keep_mask(1, x.numel(), 12345, p, dev).reshape(shape)
+    assert torch.equal(dropout_add.dropout_add_bwd(ones, 12345, p) != 0, keep)
+
+
+@pytest.mark.parametrize("acc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1000, 64, 72), (8192, 768, 3072),
+                                   (33, 136, 8), (1, 8, 264),
+                                   (4096, 256, 1024)])
+def test_linear_grad_add_kernel(dev, acc_dtype, m, k, n):
+    x = _rand(dev, m, k, seed=90)
+    dy = _rand(dev, m, n, seed=91)
+    acc = _rand(dev, k, n, seed=92, dtype=acc_dtype) * 4
+    want = linear_grad_add.linear_grad_add_plain(x, dy, acc.clone())
+    before = WRAPPERS["linear_grad_add"].launches
+    got = linear_grad_add.linear_grad_add(x, dy, acc)
+    assert WRAPPERS["linear_grad_add"].launches == before + 1
+    assert got.data_ptr() == acc.data_ptr()           # in place
+    if acc_dtype == torch.float32:
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    else:
+        _close(got, want)
+
+
+def test_linear_grad_add_rejects_what_it_does_not_take(dev):
+    x = torch.zeros(4, 12, device=dev, dtype=torch.bfloat16)
+    dy = torch.zeros(4, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="% 8"):
+        linear_grad_add.linear_grad_add(
+            x, dy, torch.zeros(12, 16, device=dev))
+    with pytest.raises(TypeError):
+        linear_grad_add.linear_grad_add(
+            x[:, :8].float(), dy.float(), torch.zeros(8, 16, device=dev))
+
+
+def test_incubate_block_through_kernels(dev):
+    """Two post-LN blocks of the incubate ops (hidden 256, 4 heads, S 128,
+    p 0.1) forward and backward through the kernels and through the plain
+    path after the same seed: the output within 5% of the largest plain
+    value, dx and every accumulated main_grad within 5e-2 relative L2, and
+    the exact launches of every kernel."""
+    from paddle_tpu_torch import seed as seed_all
+    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch.incubate import nn as inn
+    import paddle_tpu_torch.incubate.nn.functional as IF
+
+    hid, heads, s, layers = 256, 4, 128, 2
+    mods = []
+    for i in range(layers):
+        mods.append(dict(
+            qkv=inn.FusedLinear(hid, 3 * hid, device=dev,
+                                dtype=torch.bfloat16, seed=10 * i),
+            out=inn.FusedLinear(hid, hid, bias_attr=False, device=dev,
+                                dtype=torch.bfloat16, seed=10 * i + 1),
+            ln1=inn.FusedBiasDropoutResidualLayerNorm(
+                hid, 0.1, device=dev, dtype=torch.bfloat16),
+            fc=inn.FusedLinear(hid, 4 * hid, device=dev,
+                               dtype=torch.bfloat16, seed=10 * i + 2),
+            proj=inn.FusedLinear(4 * hid, hid, device=dev,
+                                 dtype=torch.bfloat16, seed=10 * i + 3),
+            add=inn.FusedDropoutAdd(0.1)))
+    x0 = _rand(dev, 2, s, hid, seed=95)
+
+    def run(plain):
+        seed_all(7)
+        grads = {}
+
+        def lin(name, mod, inp):
+            out = mod(inp)
+            mg = grads.setdefault(name, [
+                torch.zeros(mod.weight.shape, device=dev),
+                None if mod.bias is None else
+                torch.zeros(mod.bias.shape, device=dev)])
+
+            def hook(g):
+                IF.fused_linear_param_grad_add(
+                    inp, g, mg[0], mg[1], multi_precision=True,
+                    has_bias=mg[1] is not None, plain=plain)
+            out.register_hook(hook)
+            return out
+
+        x = x0.clone().requires_grad_()
+        h = x
+        for i, m in enumerate(mods):
+            with torch.no_grad():
+                for mod in m.values():
+                    mod.requires_grad_(False)
+            qkv = lin(f"{i}.qkv", m["qkv"], h).reshape(2, s, 3, heads, -1)
+            q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+            sc = q @ k.transpose(-1, -2) / 8.0
+            p = incubate.softmax_mask_fuse_upper_triangle(sc, plain=plain)
+            o = (p @ v).transpose(1, 2).reshape(2, s, hid)
+            o = lin(f"{i}.out", m["out"], o)
+            h1 = m["ln1"](o, h, plain=plain)
+            f = lin(f"{i}.fc", m["fc"], h1)
+            g = lin(f"{i}.proj", m["proj"],
+                    torch.nn.functional.gelu(f))
+            h = m["add"](g, h1, plain=plain)
+        h.float().square().mean().backward()
+        return h.detach(), x.grad, grads
+
+    ref = run(True)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    got = run(False)
+    want = {"softmax_mask_tri": 2, "softmax_mask_bwd": 2,
+            "bias_dropout_ln": 2, "bias_dropout_ln_bwd": 2,
+            "dropout_add": 2, "dropout_add_bwd": 2, "linear_grad_add": 8}
+    assert {n: w.launches for n, w in WRAPPERS.items() if w.launches} == want
+    err = (got[0].float() - ref[0].float()).abs().max().item()
+    assert err <= 0.05 * ref[0].float().abs().max().item(), err
+    pairs = [(got[1], ref[1])] + [
+        (a, b) for n in ref[2] for a, b in zip(got[2][n], ref[2][n])
+        if b is not None]
+    for a, b in pairs:
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 5e-2, rel
