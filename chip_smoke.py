@@ -8,7 +8,27 @@ Run from the root of the repository, on a machine with one NVIDIA H100:
 Phases, in order; any failure exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile every kernel from ``paddle_tpu_torch/csrc``.
+2. build   — compile every kernel from ``paddle_tpu_torch/csrc`` (ptxas's
+   resource-usage log kept beside each library).
+   analysis — the kernel analysis tier (``paddle_tpu_torch.analysis.
+   kernels``, rules CK200-CK209) on the card: the H100 preset held against
+   the card's properties; every plane over ``paddle_tpu_torch/ops/kernels``
+   — each module's declared launches (``ck_examples()``: the JAX
+   ``pk_examples()`` shapes and every phase-3 row's shape, each with a tail
+   shape) checked over their grids, ptxas's registers, shared memory and
+   spills joined into one resource sheet per launch (and per compiled
+   kernel no example launches), every example and tail launched once
+   under ``torch.profiler`` (grid, block, shared memory and registers as
+   declared) and once inside poisoned guard bands (no band changed, no
+   sentinel left, no poison read, the plain version's result): no
+   unwaived error and no ``__global__`` function left unlaunched; one line
+   per sheet. Then row 22, the planted demo (``csrc/analysis_demo.cu``):
+   its findings map one to one onto its plants (CK200 vmem_overflow,
+   CK201 overlapping_writes, CK202 coverage_gap, CK203 oob_read, CK206
+   missing_check, nothing on vmem_scalar_mulf), the card refuses the
+   overflow, the coverage gap leaves the sentinel in rows 128-255 and the
+   out-of-bounds read brings the poison into the output; each runnable
+   plant is timed. Phase 3 takes every row's bound from these sheets.
 3. kernels — each kernel against its plain PyTorch version on the card at
    the serving path's shapes (bf16): max abs error within its tolerance
    (the block epilogue's dropped positions identical), and cold-L2 times
@@ -135,13 +155,18 @@ Phases, in order; any failure exits non-zero:
    kernels (masked and causal softmax and its backward, bias-dropout-
    residual layer norm and its backward, dropout-add both ways, the
    weight-gradient accumulation) at GPT-2 small's and Llama-3-8B's shapes.
+   Every row's bytes and operations are those of the analysis phase's
+   resource sheet at its shape; its ``predicted_ms`` must agree with the
+   row's ``bound_ms`` within 1%, and the row carries the sheet's
+   registers, shared memory, spills and occupancy.
 7. summary — one JSON line of every kernel's launches (the decode layer's
    on engine c's run, the weight-only kernels' on engines d, e and f, A8W8's
    in the llm_int8 phase, the training kernels' in one fused-trunk train
    step, the packed SwiGLU kernels' in the packed_mlp phase, LAMB's and the
    cross entropy's in one train_lamb step, the incubate kernels' over the
    incubate phase's runs (a) and (b), the grouped product's in serve_moe's
-   run, the others' on engine b's) and times, then the last
+   run, the others' on engine b's, the demo plants' in the analysis
+   phase) and times, then the last
    line ``{"ok": true, "device": {...}}``.
 
 The script imports neither JAX nor ``paddle_tpu``.
@@ -245,6 +270,20 @@ INCUBATE_GRAD = ((8192, 768, 3072, "float32"), (4096, 4096, 14336, "float32"),
                  (8192, 768, 3072, "bfloat16"))
 
 
+# the analysis phase: each plant of the demo and the rules its findings must
+# name, exactly (row 22)
+DEMO_RULES = {"vmem_overflow": {"CK200"}, "overlapping_writes": {"CK201"},
+              "coverage_gap": {"CK202"}, "oob_read": {"CK203"},
+              "vmem_scalar_mulf": set(), "missing_check": {"CK206"}}
+DEMO_REPLACES = {"vmem_overflow": 38, "overlapping_writes": 48,
+                 "coverage_gap": 60, "oob_read": 72, "vmem_scalar_mulf": 89}
+RATES = {"f32": F32_FLOPS_PER_S, "bf16": BF16_TC_FLOPS_PER_S,
+         "int8": INT8_TC_OPS_PER_S}
+#: (library, label) -> the analysis phase's resource sheets of that
+#: example, one a kernel it launches
+SHEETS: dict = {}
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -324,12 +363,165 @@ def phase_build():
           "sources": [f"paddle_tpu_torch/csrc/{n}.cu" for n in _build.SOURCES]})
 
 
+def phase_analysis(torch):
+    """The kernel analysis tier on the card: the H100 preset against the
+    card, every plane over ``paddle_tpu_torch/ops/kernels/`` (no unwaived
+    error, no ``__global__`` left unlaunched), one line per resource sheet,
+    then the planted demo (row 22). Fills :data:`SHEETS` for phase 3.
+    Returns the demo plants' rows of the summary line."""
+    from paddle_tpu_torch import cost_model
+    from paddle_tpu_torch.analysis.cli import apply_allowlist, load_allowlist
+    from paddle_tpu_torch.analysis.diagnostics import ERROR, format_text
+    from paddle_tpu_torch.analysis.kernels import ALLOWLIST_NAME, collect
+
+    t0 = time.perf_counter()
+    diffs = cost_model.check_preset("h100")
+    if diffs:
+        fail(f"the h100 preset differs from the card: {diffs}")
+    report: list = []
+    findings, sheets = collect(["paddle_tpu_torch/ops/kernels/"],
+                               report=report)
+    kept, waived = apply_allowlist(findings, load_allowlist(ALLOWLIST_NAME))
+    for f in kept:
+        print(format_text(f, show_hint=False), flush=True)
+    for sheet in sheets:
+        print("sheet", sheet.line_text(), flush=True)
+        if sheet.label:
+            SHEETS.setdefault((sheet.library, sheet.label), []).append(sheet)
+    errors = [f for f in kept if f.severity == ERROR]
+    unlaunched = [f for f in kept if f.rule_id == "CK209"
+                  and "not launched" in f.message]
+    emit({"phase": "analysis", "preset": "h100", "examples": len(report),
+          "sheets": len(sheets),
+          "static_sheets": sum(1 for x in sheets if not x.label),
+          "kernels_profiled": sum(len(r["kernels"]) for r in report),
+          "findings": {sev: sum(1 for f in kept if f.severity == sev)
+                       for sev in ("error", "warning", "info")},
+          "waived": [f"{f.rule_id} {os.path.basename(f.file)}"
+                     for f in waived],
+          "worst_guard": max((r.get("max_err", 0.0) / r["tol"]
+                              for r in report if r.get("tol")), default=0.0)})
+    if errors or unlaunched:
+        fail(f"analysis: {len(errors)} unwaived error(s), "
+             f"{len(unlaunched)} kernel(s) no example launches: "
+             f"{[f.message for f in errors + unlaunched][:5]}")
+    rows = _analysis_demo(torch)
+    emit({"phase": "analysis", "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def _plant_of(f):
+    """The plant a demo finding belongs to: its ``[label]``, else the
+    function it sits in."""
+    if f.message.startswith("["):
+        return f.message[1:f.message.index("]")].removesuffix(" tail")
+    return f.symbol
+
+
+def _analysis_demo(torch):
+    """Row 22: the demo's findings map one to one onto its plants, and on
+    the card the refused overflow, the copy of the overlapping writes, the
+    sentinel left by the coverage gap and the poison read past the input
+    show. Each runnable plant is then timed against its plain version."""
+    from paddle_tpu_torch.analysis.diagnostics import INFO
+    from paddle_tpu_torch.analysis.kernels import collect, demo, guard
+
+    for k in demo.LAUNCHES:
+        demo.LAUNCHES[k] = 0
+    report: list = []
+    findings, sheets = collect([demo.__file__], report=report)
+    launches = dict(demo.LAUNCHES)
+    for sheet in sheets:
+        print("sheet", sheet.line_text(), flush=True)
+    got = {p: set() for p in DEMO_RULES}
+    for f in findings:
+        if f.severity != INFO:
+            got.setdefault(_plant_of(f), set()).add(f.rule_id)
+        print(f"demo {f.rule_id} {f.severity}: {f.message}", flush=True)
+    if got != DEMO_RULES:
+        fail(f"analysis demo: findings by plant {got}, expected "
+             f"{DEMO_RULES}")
+    on_card = {p: [f.message for f in findings if _plant_of(f) == p]
+               for p in DEMO_RULES}
+    checks = {
+        "vmem_overflow refused": any("refused" in m
+                                     for m in on_card["vmem_overflow"]),
+        "coverage_gap sentinel in rows 128-255": any(
+            "16384 of 32768 elements of o still hold the sentinel" in m
+            for m in on_card["coverage_gap"]),
+        "oob_read poison read, bands unchanged": any(
+            "NaN in o" in m for m in on_card["oob_read"])
+        and not any("guard band" in m for m in on_card["oob_read"]),
+        "overlapping_writes equals the copy": not any(
+            "differs" in m or "sentinel" in m
+            for m in on_card["overlapping_writes"])}
+    emit({"phase": "analysis_demo", "findings": {p: sorted(r) for p, r in
+                                                  got.items()},
+          "card": checks, "launches": launches})
+    if not all(checks.values()):
+        fail(f"analysis demo on the card: {checks}")
+    if launches["vmem_overflow"] or not all(
+            launches[p] for p in launches if p != "vmem_overflow"):
+        fail(f"analysis demo launches {launches}")
+
+    dev = torch.device("cuda")
+    timer = ColdTimer(torch, dev)
+    by_label = {s.label: s for s in sheets if s.label}
+    errs = {r["label"]: r for r in report}
+    library = {"vmem_overflow": lambda t: torch.add(t["x"], t["x"]),
+               "overlapping_writes": lambda t: t["o"].copy_(t["x"]),
+               "coverage_gap": lambda t: t["o"][:128].copy_(t["x"]),
+               "oob_read": lambda t: t["o"][:128].copy_(t["x"]),
+               "vmem_scalar_mulf": None}
+    rows = []
+    stream = torch.cuda.current_stream().cuda_stream
+    for ex in demo.ck_examples():
+        t = guard.make_inputs(torch, ex, dev)
+        s = by_label[ex.label]
+        refused = "refused" in errs[ex.label]
+        bms, by = bound(s.nbytes, s.flops, RATES[s.unit])
+        lib = library[ex.label]
+        rows.append({
+            "name": f"analysis_demo.{ex.label}", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/analysis_demo.cu",
+            "replaces": "paddle_tpu/analysis/kernels/demo.py:"
+                        f"{DEMO_REPLACES[ex.label]}",
+            "launches": launches[ex.label],
+            "max_abs_err": None if refused else errs[ex.label]["max_err"],
+            "ms": None if refused else timer(lambda: ex.launch(t, stream)),
+            "plain_ms": timer(lambda: ex.plain(t)), "bound_ms": bms,
+            "bound_by": by,
+            "library_ms": None if lib is None else timer(lambda: lib(t)),
+            **({"refused": errs[ex.label]["refused"]} if refused else {})})
+        emit({"kernel": rows[-1]["name"], **{k: v for k, v in rows[-1].items()
+                                             if k != "name"}})
+    return rows
+
+
 def _record(results, name, shape, err, tol, ms, plain_ms, library_ms,
-            nbytes, flops, flops_per_s=F32_FLOPS_PER_S, **extra):
-    bms, by = bound(nbytes, flops, flops_per_s)
+            sheet, **extra):
+    """One phase-3 row. ``sheet`` is ``(library, label)`` of the analysis
+    phase's resource sheet at this row's shape: the bound is taken from its
+    byte and operation counts (one count for both phases), and must agree
+    with the sheet's ``predicted_ms`` within 1%."""
+    kernels = SHEETS.get(sheet)
+    if not kernels:
+        fail(f"{name} {shape}: no resource sheet {sheet} from the analysis "
+             f"phase")
+    s = kernels[0]          # the example's counts ride every one of its sheets
+    bms, by = bound(s.nbytes, s.flops, RATES[s.unit])
+    if not abs(bms - s.predicted_ms) <= 0.01 * s.predicted_ms:
+        fail(f"{name} {shape}: bound {bms} ms against the sheet's "
+             f"predicted {s.predicted_ms} ms (more than 1% apart)")
     row = {"kernel": name, "shape": shape, "max_abs_err": err, "tol": tol,
            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bms, "bound_by": by, **extra}
+           "bound_ms": bms, "bound_by": by, "predicted_ms": s.predicted_ms,
+           "sheet": list(sheet),
+           "resources": [{"kernel": k.kernel, "regs": k.registers,
+                          "smem": [k.static_smem, k.dynamic_smem],
+                          "spills": [k.spill_stores, k.spill_loads],
+                          "occupancy": k.occupancy, "blocks": k.grid,
+                          "waves": k.waves} for k in kernels], **extra}
     emit(row)
     if not err <= tol:
         fail(f"{name} {shape}: max abs error {err} > tolerance {tol}")
@@ -367,12 +559,12 @@ def phase_kernels(torch, dev):
             err, tol = compare(torch, got, ref)
             lib = None if with_res else timer(
                 lambda: TF.rms_norm(x, (hid,), w, 1e-5))
-            nbytes = 2 * rows * hid * (2 if with_res else 1) * 2 + 2 * hid
             _record(results, "rms_norm",
                     [rows, hid] + (["residual"] if with_res else []),
                     err, tol, timer(lambda: rms_norm.rms_norm(x, w, r, 1e-5)),
                     timer(lambda: rms_norm.rms_norm_plain(x, w, r, 1e-5)),
-                    lib, nbytes, 5 * rows * hid)
+                    lib, ("rms_norm", f"phase3 [{rows}, {hid}]"
+                          + (" residual" if with_res else "")))
 
     # swiglu: [8, 14336] and [512, 14336]
     inter = 14336
@@ -382,7 +574,7 @@ def phase_kernels(torch, dev):
         _record(results, "swiglu", [rows, inter], err, tol,
                 timer(lambda: swiglu.swiglu(g, u)),
                 timer(lambda: swiglu.swiglu_plain(g, u)), None,
-                3 * rows * inter * 2, 6 * rows * inter)
+                ("swiglu", f"phase3 [{rows}, {inter}]"))
 
     # rope: decode q [8,1,32,128] at ragged positions (per-token tables),
     # prefill-chunk q [1,512,32,128] and k [1,512,8,128]
@@ -396,11 +588,10 @@ def phase_kernels(torch, dev):
         x = randn(*shape)
         err, tol = compare(torch, rope.rope_apply(x, c, s),
                            rope.rope_plain(x, c, s))
-        n = x.numel()
         _record(results, "rope", shape, err, tol,
                 timer(lambda: rope.rope_apply(x, c, s)),
                 timer(lambda: rope.rope_plain(x, c, s)), None,
-                2 * n * 2 + 2 * c.numel() * 4, 3 * n)
+                ("rope", f"phase3 {shape}"))
 
     # mmha: B=8, H=32, Hkv=8, D=128, page 16, ragged positions; row 0 is
     # inactive (pos 0, all-trash table); pages handed out shuffled
@@ -426,13 +617,11 @@ def phase_kernels(torch, dev):
     vr = vc.repeat_interleave(h // h_kv, dim=1)
     lib = timer(lambda: TF.scaled_dot_product_attention(qt, kr, vr,
                                                         attn_mask=mask))
-    seen = int((pos + 1).sum())
-    nbytes = 2 * seen * h_kv * d * 2 + 2 * q.numel() * 2 + tables.numel() * 4
     _record(results, "mmha", [b, 1, h, d, "Hkv", h_kv, "ps", ps,
                               "pos", pos.tolist()], err, tol,
             timer(lambda: mmha.mmha_decode(q, k_pool, v_pool, tables, pos)),
             timer(lambda: mmha.mmha_plain(q, k_pool, v_pool, tables, pos)),
-            lib, nbytes, 4 * seen * h * d)
+            lib, ("mmha", "phase3 [8, 1, 32, 128]"))
     _kernels_flash(torch, dev, randn, timer, results)
     _kernels_epilogue(torch, randn, timer, results)
     _kernels_decode_layer(torch, dev, randn, timer, results)
@@ -502,13 +691,13 @@ def _kernels_train(torch, dev, randn, timer, results):
             wl = w.clone().requires_grad_()
             lib = _grad_timer(torch, timer, TF.rms_norm(xl, (hid,), wl, 1e-5),
                               (xl, wl), g)
-        n = rows * hid
         _record(results, "rms_norm_bwd",
                 [rows, hid] + (["residual cotangent"] if with_gh else []),
                 err, tol,
                 timer(lambda: rms_norm.rms_norm_bwd(h, w, g, gh, 1e-5)),
                 timer(lambda: rms_norm.rms_norm_bwd_plain(h, w, g, gh, 1e-5)),
-                lib, 2 * n * (3 + with_gh) + 2 * hid * 2, 10 * n,
+                lib, ("rms_norm", f"phase3 [{rows}, {hid}]"
+                      + (" residual cotangent" if with_gh else "")),
                 dw_err=err_w, dw_tol=tol_w)
 
     gg, uu, dy = randn(rows, inter), randn(rows, inter), randn(rows, inter)
@@ -517,11 +706,10 @@ def _kernels_train(torch, dev, randn, timer, results):
     if not err_u <= tol_u:
         fail(f"swiglu_bwd du: {err_u} > {tol_u}")
     err, tol = compare(torch, got[0], ref[0])
-    n = rows * inter
     _record(results, "swiglu_bwd", [rows, inter], err, tol,
             timer(lambda: swiglu.swiglu_bwd(gg, uu, dy)),
             timer(lambda: swiglu.swiglu_bwd_plain(gg, uu, dy)), None,
-            5 * n * 2, 12 * n)
+            ("swiglu", f"phase3 bwd [{rows}, {inter}]"))
     del gg, uu, dy, got, ref
 
     hq, h_kv, half = cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ // 2
@@ -532,10 +720,8 @@ def _kernels_train(torch, dev, randn, timer, results):
         k, v = randn(b, s, h_kv, d), randn(b, s, h_kv, d)
         seg = None
         if with_seg:
-            seg = torch.zeros(b, s, dtype=torch.int32)
-            seg[0, s // 10:], seg[0, s // 3:], seg[0, s // 3 + 1:] = 1, 2, 3
-            seg[1, s // 2:] = 1
-            seg = seg.to(dev)
+            seg = fa.segment_ids(s, [[s // 10, s // 3, s // 3 + 1],
+                                     [s // 2]]).to(dev)
         out, lse = fa.flash_attention(q, k, v, causal, seg, True)
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, seg)
         ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, seg)
@@ -550,11 +736,9 @@ def _kernels_train(torch, dev, randn, timer, results):
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         if seg is None:
-            pairs = b * (s * (s + 1) // 2 if causal else s * s)
             lo = TF.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                  enable_gqa=True)
         else:
-            pairs = sum(_segment_pairs(row) for row in seg.cpu())
             mask = ((seg[:, :, None] == seg[:, None, :])
                     & torch.ones(s, s, dtype=torch.bool, device=dev).tril()
                     )[:, None]
@@ -562,8 +746,6 @@ def _kernels_train(torch, dev, randn, timer, results):
                                                  enable_gqa=True)
         lib = _grad_timer(torch, timer, lo, (qt, kt, vt), do.transpose(1, 2))
         del lo, qt, kt, vt
-        nbytes = 2 * (3 * q.numel() + 2 * k.numel()) + 4 * b * hq * s \
-            + 2 * (q.numel() + 2 * k.numel()) + (4 * b * s if with_seg else 0)
         _record(results, "flash_attention_bwd",
                 [b, s, hq, d, "Hkv", h_kv, "causal" if causal else "full"]
                 + (["segments"] if with_seg else []),
@@ -572,12 +754,14 @@ def _kernels_train(torch, dev, randn, timer, results):
                                                      causal, seg)),
                 timer(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, out, lse, do, causal, seg), iters=5),
-                lib, nbytes, 2.5 * 4 * hq * d * pairs, BF16_TC_FLOPS_PER_S,
+                lib, ("flash_attention_bwd",
+                      f"phase3 bwd [{b}, {s}, {hq}, {d}] "
+                      + ("causal" if causal else "full")
+                      + (" segments" if with_seg else "")),
                 rel_l2=errs, error_metric="max relative L2 of dq, dk, dv")
         del q, k, v, do, out, lse, got
 
     rows_w, cols_w = inter, hid
-    n = rows_w * cols_w
     gen = torch.Generator(device=dev).manual_seed(77)
     master = torch.randn(rows_w, cols_w, generator=gen, device=dev) * 0.02
     grad = (torch.randn(rows_w, cols_w, generator=gen, device=dev)
@@ -612,7 +796,7 @@ def _kernels_train(torch, dev, randn, timer, results):
             timer(lambda: adamw.adamw_update_plain(
                 state[0], grad, state[1], state[2], scal, master=state[3],
                 **kw)),
-            lib, 28 * n, 15 * n)
+            lib, ("adamw", f"phase3 [{rows_w}, {cols_w}]"))
 
 
 def _kernels_epilogue_bwd(torch, randn, timer, results):
@@ -690,19 +874,15 @@ def _kernels_epilogue_bwd(torch, randn, timer, results):
             lib = timer(lambda: torch.autograd.grad(
                 (yl, hl), ins, (gy, gh), retain_graph=True))
             del xl, rl, hl, yl, ins
-        n = rows * hid
-        # h, gy, gh read and dres written; x read and dx written (dx alone
-        # without act); w read; f32 dw (and db) written
-        nbytes = 2 * (4 * n + (2 * x.numel() if act else n) + hid) \
-            + 4 * hid * (1 + bias_on)
-        flops = n * (14 + 6 * (norm == "layer") + 2 * bias_on + 15 * (p > 0)
-                     + {None: 0, "gelu": 16, "swiglu": 12}[act])
         _record(results, "block_epilogue_bwd",
                 [rows, hid, f"act={act}", norm, f"p={p}",
                  "bias" if bias_on else "no bias", "residual cotangent"],
                 err, tol, timer(lambda: be.fused_epilogue_bwd(*args)),
                 timer(lambda: be.fused_epilogue_bwd_plain(*args), iters=5),
-                lib, nbytes, flops, dres_err=err_r, **sums)
+                lib, ("block_epilogue",
+                      f"phase3 bwd [{rows}, {hid}] act={act} {norm} p={p}"
+                      + (" bias" if bias_on else "")),
+                dres_err=err_r, **sums)
         del h, gy, gh, x
 
 
@@ -717,17 +897,16 @@ def _kernels_swiglu_packed(torch, randn, timer, results):
     x, dy = randn(rows, 2 * inter), randn(rows, inter)
     err, tol = compare(torch, swiglu.swiglu_packed(x),
                        swiglu.swiglu_packed_plain(x))
-    n = rows * inter
     _record(results, "swiglu_packed", [rows, 2 * inter], err, tol,
             timer(lambda: swiglu.swiglu_packed(x)),
             timer(lambda: swiglu.swiglu_packed_plain(x)), None,
-            3 * n * 2, 6 * n)
+            ("swiglu", f"phase3 packed [{rows}, 2 x {inter}]"))
     err, tol = compare(torch, swiglu.swiglu_packed_bwd(x, dy),
                        swiglu.swiglu_packed_bwd_plain(x, dy))
     _record(results, "swiglu_packed_bwd", [rows, 2 * inter], err, tol,
             timer(lambda: swiglu.swiglu_packed_bwd(x, dy)),
             timer(lambda: swiglu.swiglu_packed_bwd_plain(x, dy)), None,
-            5 * n * 2, 12 * n)
+            ("swiglu", f"phase3 packed bwd [{rows}, 2 x {inter}]"))
 
 
 def _kernels_lamb(torch, dev, timer, results):
@@ -745,7 +924,6 @@ def _kernels_lamb(torch, dev, timer, results):
                                torch.tensor(3.0, device=dev), 0.9, 0.999)
     gen = torch.Generator(device=dev).manual_seed(78)
     for rows, cols in LAMB_SHAPES:
-        n = rows * cols
         master = torch.randn(rows, cols, generator=gen, device=dev) * 0.02
         grad = (torch.randn(rows, cols, generator=gen, device=dev)
                 * 1e-3).to(torch.bfloat16)
@@ -781,7 +959,8 @@ def _kernels_lamb(torch, dev, timer, results):
                 timer(lambda: lamb.lamb_update_plain(
                     state[0], grad, state[1], state[2], scal,
                     master=state[3], **kw)),
-                None, 40 * n, 27 * n, trust=trust.item(),
+                None, ("lamb", f"phase3 [{rows}, {cols}]"),
+                trust=trust.item(),
                 trust_rel_err=trust_rel, param_err=err_p, param_tol=tol_p)
         del state, grad, master
 
@@ -824,15 +1003,9 @@ def _kernels_parallel_ce(torch, dev, timer, results):
         _record(results, "parallel_ce", [n, v, "bf16", "ignore 1/97"],
                 err, 1e-5, timer(lambda: pce.row_stats(x, safe)),
                 timer(lambda: pce.row_stats_plain(x, safe), iters=5), lib,
-                2 * n * v + 8 * n + 12 * n, 4 * n * v, se_rel_err=se_rel,
+                ("cross_entropy", f"phase3 [{n}, {v}]"), se_rel_err=se_rel,
                 error_metric="max abs loss error")
         del x, lab, safe
-
-
-def _segment_pairs(seg_row):
-    """Causal (query, key) pairs inside the segments of one row."""
-    _, counts = seg_row.unique_consecutive(return_counts=True)
-    return sum(int(n) * (int(n) + 1) // 2 for n in counts)
 
 
 def _kernels_flash(torch, dev, randn, timer, results):
@@ -852,10 +1025,7 @@ def _kernels_flash(torch, dev, randn, timer, results):
         q, k, v = randn(b, s, h, d), randn(b, s, h_kv, d), randn(b, s, h_kv, d)
         seg = None
         if with_seg:
-            seg = torch.zeros(b, s, dtype=torch.int32)
-            seg[0, 100:], seg[0, 300:], seg[0, 301:] = 1, 2, 3
-            seg[1, 256:] = 1
-            seg = seg.to(dev)
+            seg = fa.segment_ids(s, [[100, 300, 301], [256]]).to(dev)
         got = fa.flash_attention(q, k, v, True, seg, with_seg)
         ref = fa.flash_attention_plain(q, k, v, True, seg, with_seg)
         if with_seg:
@@ -868,18 +1038,14 @@ def _kernels_flash(torch, dev, randn, timer, results):
         err, tol = compare(torch, got, ref)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if seg is None:
-            pairs = b * s * (s + 1) // 2
             lib = timer(lambda: TF.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
         else:
-            pairs = sum(_segment_pairs(row) for row in seg.cpu())
             mask = ((seg[:, :, None] == seg[:, None, :])
                     & torch.ones(s, s, dtype=torch.bool, device=dev).tril()
                     )[:, None]
             lib = timer(lambda: TF.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + \
-            (4 * b * h * s + 4 * b * s if with_seg else 0)
         _record(results, "flash_attention",
                 [b, s, h, d, "Hkv", h_kv, "causal"]
                 + (["segments", "lse"] if with_seg else []), err, tol,
@@ -887,7 +1053,8 @@ def _kernels_flash(torch, dev, randn, timer, results):
                                                  with_seg)),
                 timer(lambda: fa.flash_attention_plain(q, k, v, True, seg,
                                                        with_seg)),
-                lib, nbytes, 4 * h * d * pairs, BF16_TC_FLOPS_PER_S)
+                lib, ("flash_attention", f"phase3 [{b}, {s}, {h}, {d}] causal"
+                      + (" segments lse" if with_seg else "")))
 
 
 def _kernels_epilogue(torch, randn, timer, results):
@@ -929,31 +1096,20 @@ def _kernels_epilogue(torch, randn, timer, results):
                     fail(f"block_epilogue dropout: {fn.__name__} dropped "
                          f"other positions than the counter hash at {bad} "
                          f"of {keep.numel()} elements")
-        n = rows * hid
-        flops = n * (6 + 3 * (norm == "layer") + bias_on
-                     + {None: 0, "gelu": 9, "swiglu": 5}[act] + 14 * (p > 0))
         _record(results, "block_epilogue",
                 [rows, hid, f"act={act}", norm, f"p={p}",
                  "bias" if bias_on else "no bias"], err, tol,
                 timer(lambda: be.fused_epilogue(*args)),
                 timer(lambda: be.fused_epilogue_plain(*args)), None,
-                2 * (x.numel() + 3 * n + hid * (1 + bias_on)), flops)
+                ("block_epilogue", f"phase3 [{rows}, {hid}] act={act} {norm} "
+                 f"p={p}" + (" bias" if bias_on else "")))
 
 
 def _paged(torch, dev, lengths, ps, max_pages, seed):
-    """Page tables that hand out shuffled pages: row r holds lengths[r]
-    positions (0: an inactive row, position 0 and an all-trash table).
-    Returns (tables, pos, n_pages) on the card."""
-    need = [-(-n // ps) for n in lengths]
-    n_pages = 1 + sum(need)
-    perm = (torch.randperm(n_pages - 1, generator=torch.Generator()
-                           .manual_seed(seed)) + 1).tolist()
-    tables = torch.zeros(len(lengths), max_pages, dtype=torch.int32)
-    nxt = 0
-    for row, k in enumerate(need):
-        tables[row, :k] = torch.tensor(perm[nxt:nxt + k], dtype=torch.int32)
-        nxt += k
-    pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+    """``mmha.paged_tables`` (the analysis examples' tables) on the card:
+    (tables, pos, n_pages)."""
+    from paddle_tpu_torch.ops.kernels.mmha import paged_tables
+    tables, pos, n_pages = paged_tables(lengths, ps, max_pages, seed)
     return tables.to(dev), pos.to(dev), n_pages
 
 
@@ -1045,17 +1201,14 @@ def _kernels_decode_layer(torch, dev, randn, timer, results):
         torch.cuda.synchronize()
         phases = {n: (stamps[i + 1] - stamps[i]).item() / 1e6
                   for i, n in enumerate(dl.PHASES)}
-        seen = int((pos + 1).sum())
-        nbytes = 2 * (hd * 32 * d + 3 * hd * inter + 2 * hd
-                      + 2 * seen * h_kv * d + b * 32 * d + 3 * b * hd)
-        flops = 4 * seen * 32 * d + 2 * b * (32 * d * hd + 3 * hd * inter)
         _record(results, "decode_layer",
                 [b, 32, d, "Hkv", h_kv, "ps", ps, "hidden", hd, "I", inter,
                  "pos", pos.tolist(), label, "block_i",
                  dl._pick_block_i(inter)], err, tol_y,
                 timer(lambda: dl.decode_layer(*args, eps, eps)),
                 timer(lambda: dl.decode_layer_plain(*args, eps, eps)), None,
-                nbytes, flops, composite_ms=timer(composite),
+                ("decode_layer", f"phase3 {label}"),
+                composite_ms=timer(composite),
                 max_abs_err_h=err_h, tol_h=tol_h, phase_ms=phases)
 
 
@@ -1093,25 +1246,21 @@ def _kernels_wo(torch, dev, randn, timer, results):
                 w, s = int8(k, n // 2, lo=-128), scales(n)
                 fn, plain = wo.wo_int4, wo.wo_int4_matmul_plain
                 wd = (wo.unpack_int4_halves(w).float() * s).to(bf)
-                w_bytes = k * n // 2 + 4 * n
             elif name == "wo_int8_grouped":
                 w, s = int8(k, n), scales(k // QUANT_GROUP, n)
                 fn, plain = wo.wo_int8_grouped, wo.wo_int8_matmul_plain
                 wd = wo.dequant_grouped(w, s).to(bf)
-                w_bytes = k * n + 4 * s.numel()
             else:
                 w, s = int8(k, n), scales(n)
                 fn, plain = wo.wo_int8, wo.wo_int8_matmul_plain
                 wd = (w.float() * s).to(bf)
-                w_bytes = k * n + 4 * n
             err, tol = compare(torch, fn(x, w, s), plain(x, w, s))
             _record(results, name,
                     [m, k, n, label] + (["G", QUANT_GROUP]
                                         if name == "wo_int8_grouped" else []),
                     err, tol, timer(lambda: fn(x, w, s)),
                     timer(lambda: plain(x, w, s)), timer(lambda: x @ wd),
-                    w_bytes + 2 * m * k + 2 * m * n, 2 * m * k * n,
-                    BF16_TC_FLOPS_PER_S,
+                    ("wo_matmul", f"phase3 {name} [{m}, {k}, {n}]"),
                     library="cuBLAS bf16 torch.matmul, dequantized weight")
     layer = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
              (4096, 14336), (4096, 14336), (14336, 4096))
@@ -1163,8 +1312,8 @@ def _kernels_a8w8(torch, dev, randn, timer, results):
     _record(results, "a8w8", [m, k, n, "nk", "bit-identical on pinned x"],
             err, tol, timer(lambda: a8.a8w8_matmul(x, w, ws, "nk")),
             timer(lambda: a8.a8w8_matmul_plain(x, w, ws, "nk")), lib,
-            2 * m * k + n * k + 4 * n + 2 * m * n, 2 * m * k * n,
-            INT8_TC_OPS_PER_S, library=lib_note)
+            ("a8w8_matmul", f"phase3 [{m}, {k}] @ nk [{n}, {k}]"),
+            library=lib_note)
 
 
 _CHUNKED_PATH = ("mmha", "rms_norm", "rope", "swiglu")
@@ -2491,7 +2640,6 @@ def _kernels_incubate(torch, dev, randn, timer, results):
     # row 18
     for b, h, s, masked in INCUBATE_SOFTMAX:
         x = randn(b, h, s, s, scale=3.0)
-        n = x.numel()
         if masked:
             mask, _ = _pad_mask(torch, dev, b, s, seed=91)
             args, name = (x, mask), "softmax_mask"
@@ -2501,12 +2649,12 @@ def _kernels_incubate(torch, dev, randn, timer, results):
             fn, plain = sm.softmax_mask_tri, sm.softmax_mask_tri_plain
         got, ref = fn(*args), plain(*args)
         err, tol = compare(torch, got, ref)
-        mask_bytes = 0 if mask is None else mask.numel() * 2
         _record(results, name, [b, h, s, s] + (["mask", list(mask.shape)]
                                                if masked else ["causal"]),
                 err, tol, timer(lambda: fn(*args)),
                 timer(lambda: plain(*args), iters=5), None,
-                4 * n + mask_bytes, 6 * n)
+                ("softmax_mask", f"phase3 [{b}, {h}, {s}, {s}] "
+                 + ("mask" if masked else "causal")))
         if masked:
             dy = randn(b, h, s, s)
             got_b = sm.softmax_mask_bwd(got, dy)
@@ -2517,7 +2665,8 @@ def _kernels_incubate(torch, dev, randn, timer, results):
             _record(results, "softmax_mask_bwd", [b, h, s, s], err, tol,
                     timer(lambda: sm.softmax_mask_bwd(got, dy)),
                     timer(lambda: sm.softmax_mask_bwd_plain(got, dy),
-                          iters=5), lib, 6 * n, 4 * n)
+                          iters=5), lib,
+                    ("softmax_mask", f"phase3 bwd [{b}, {h}, {s}, {s}]"))
             del dy, got_b
         del x, got, ref, mask, args
     # row 19
@@ -2532,12 +2681,11 @@ def _kernels_incubate(torch, dev, randn, timer, results):
         if not err_h <= tol_h:
             fail(f"bias_dropout_ln h: {err_h} > {tol_h}")
         err, tol = compare(torch, got[0], ref[0])
-        n = rows * hid
         shape = [rows, hid, "mask p=0.1" if masked else "maskless"]
         _record(results, "bias_dropout_ln", shape, err, tol,
                 timer(lambda: bdl.bias_dropout_ln(*args)),
                 timer(lambda: bdl.bias_dropout_ln_plain(*args), iters=5),
-                None, n * (8 + 4 * masked) + 6 * hid, n * (10 + masked),
+                None, ("bias_dropout_ln", f"phase3 [{rows}, {hid}] {shape[2]}"),
                 h_err=err_h)
         dy = randn(rows, hid)
         bargs = (ref[1], mask, gamma, dy, 1e-5)
@@ -2562,8 +2710,8 @@ def _kernels_incubate(torch, dev, randn, timer, results):
                 timer(lambda: bdl.bias_dropout_ln_bwd(*bargs)),
                 timer(lambda: bdl.bias_dropout_ln_bwd_plain(*bargs),
                       iters=5), None,
-                n * (8 + 4 * masked) + 2 * hid + 12 * hid,
-                n * (16 + 2 * masked), dres_err=err_r, **sums)
+                ("bias_dropout_ln", f"phase3 bwd [{rows}, {hid}] {shape[2]}"),
+                dres_err=err_r, **sums)
         del x, res, mask, got, ref, dy, gb, rb, again, args, bargs
     # row 20
     for rows, hid in INCUBATE_DROPOUT:
@@ -2585,7 +2733,7 @@ def _kernels_incubate(torch, dev, randn, timer, results):
         _record(results, "dropout_add", [rows, hid, "p=0.1"], err, tol,
                 timer(lambda: da.dropout_add(x, res, 1234, 0.1)),
                 timer(lambda: da.dropout_add_plain(x, res, 1234, 0.1)),
-                None, 6 * n, 14 * n)
+                None, ("dropout_add", f"phase3 [{rows}, {hid}]"))
         got = da.dropout_add_bwd(x, 1234, 0.1)
         ref = da.dropout_add_bwd_plain(x, 1234, 0.1)
         err, tol = compare(torch, got, ref)
@@ -2595,7 +2743,7 @@ def _kernels_incubate(torch, dev, randn, timer, results):
         _record(results, "dropout_add_bwd", [rows, hid, "p=0.1"], err, tol,
                 timer(lambda: da.dropout_add_bwd(x, 1234, 0.1)),
                 timer(lambda: da.dropout_add_bwd_plain(x, 1234, 0.1)),
-                None, 4 * n, 13 * n)
+                None, ("dropout_add", f"phase3 bwd [{rows}, {hid}]"))
         del x, res, got, ref, ones, keep
     # row 21
     for m, k, nn_, acc_name in INCUBATE_GRAD:
@@ -2611,7 +2759,6 @@ def _kernels_incubate(torch, dev, randn, timer, results):
         else:
             err, tol = compare(torch, got, ref)
         scratch = acc0.clone()
-        esz = 4 if acc_dt == torch.float32 else 2
         _record(results, "linear_grad_add",
                 [f"x [{m}, {k}]", f"dy [{m}, {nn_}]",
                  f"acc {acc_name}"], err, tol,
@@ -2619,9 +2766,9 @@ def _kernels_incubate(torch, dev, randn, timer, results):
                 timer(lambda: lga.linear_grad_add_plain(x, dy, scratch),
                       iters=5),
                 timer(lambda: torch.matmul(x.t(), dy)),
-                2 * (m * k + m * nn_) + 2 * esz * k * nn_, 2 * m * k * nn_,
-                BF16_TC_FLOPS_PER_S, library="torch.matmul(x.t(), dy), the "
-                "bf16 product alone")
+                ("linear_grad_add", f"phase3 x [{m}, {k}] dy [{m}, {nn_}] "
+                 + ("f32" if acc_name == "float32" else "bf16")),
+                library="torch.matmul(x.t(), dy), the bf16 product alone")
         del x, dy, acc0, got, ref, scratch
 
 
@@ -2938,20 +3085,6 @@ def phase_incubate(torch, dev):
 
 # -- Qwen2-MoE: the grouped expert product, serving, parity and training -------
 
-def _moe_counts(torch, dev, e, n_slots, capacity, seed):
-    """Kept slots per expert from a seeded skewed draw: ``n_slots`` routed
-    slots spread over ``e`` experts with weights ``exp(1.5 z)``, ``z``
-    standard normal, each expert capped at ``capacity``; expert 0 gets none
-    and expert 1 a full queue."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    p = torch.exp(1.5 * torch.randn(e, generator=gen, device=dev))
-    draw = torch.multinomial(p / p.sum(), n_slots, replacement=True,
-                             generator=gen)
-    counts = torch.bincount(draw, minlength=e).clamp(max=capacity)
-    counts[0], counts[1] = 0, capacity
-    return counts.to(torch.int32)
-
-
 def _kernels_moe_gemm(torch, dev, randn, timer, results):
     """The grouped expert product at one Qwen1.5-MoE layer's shapes at
     n = MOE_TOKENS tokens (60 experts, top-4, capacity factor 2.0: capacity
@@ -2959,7 +3092,8 @@ def _kernels_moe_gemm(torch, dev, randn, timer, results):
     1408]``, down ``[60, C, 1408] @ [60, 1408, 2048]`` and the backward's
     dx ``[60, C, 1408] @ w_up^T``, the weight read as the transposed view
     of the forward's ``[60, 2048, 1408]`` stack. Counts from a seeded
-    skewed draw (``_moe_counts``) with an empty and a full expert; every
+    skewed draw (``moe_gemm.skewed_counts``, the analysis phase's examples'
+    counts) with an empty and a full expert; every
     padding row of x is random. Within one bf16 ulp of the plain version,
     and exactly zero past each count. Bound: the weights of the experts
     with a live row read once, the live rows of x read once, the whole
@@ -2972,18 +3106,20 @@ def _kernels_moe_gemm(torch, dev, randn, timer, results):
     e, k, h, f = 60, 4, 2048, 1408
     n = MOE_TOKENS
     cap = math.ceil(2.0 * n * k / e)
-    counts = _moe_counts(torch, dev, e, n * k, cap, seed=81)
+    counts = moe_gemm.skewed_counts(e, n * k, cap, seed=81).to(dev)
     live = moe_gemm.live_rows(counts, cap)
     w_gate = randn(e, h, f, scale=0.02)
     w_down = randn(e, f, h, scale=0.02)
     x = randn(e, cap, h)
     act = randn(e, cap, f)
-    cases = [("gate/up", x, w_gate), ("down", act, w_down),
-             ("dx, w^T", act, w_gate.transpose(1, 2))]
+    cases = [("gate/up", x, w_gate, "gate/up [60, 274, 2048] @ [60, 2048, "
+              "1408]"),
+             ("down", act, w_down, "down [60, 274, 1408] @ [60, 1408, 2048]"),
+             ("dx, w^T", act, w_gate.transpose(1, 2),
+              "dx [60, 274, 1408] @ [60, 2048, 1408]^T")]
     rows_live = int(counts.sum())
     experts_live = int((counts > 0).sum())
-    for label, a, w in cases:
-        kin, nout = a.shape[2], w.shape[2]
+    for label, a, w, sheet in cases:
         got = moe_gemm.grouped_matmul(a, w, counts)
         ref = moe_gemm.grouped_matmul_plain(a, w, counts)
         err, tol = compare(torch, got, ref)
@@ -2992,14 +3128,12 @@ def _kernels_moe_gemm(torch, dev, randn, timer, results):
         padded = torch.where(live, a, torch.zeros((), dtype=a.dtype,
                                                   device=dev))
         lib = timer(lambda: torch.bmm(padded, w))
-        nbytes = (experts_live * kin * nout + rows_live * kin
-                  + e * cap * nout) * 2 + 4 * e
         _record(results, "moe_gemm",
                 [label, list(a.shape), list(w.shape), "counts", rows_live],
                 err, tol, timer(lambda: moe_gemm.grouped_matmul(a, w, counts)),
                 timer(lambda: moe_gemm.grouped_matmul_plain(a, w, counts),
-                      iters=5), lib, nbytes, 2 * rows_live * kin * nout,
-                BF16_TC_FLOPS_PER_S, capacity=cap, experts_live=experts_live,
+                      iters=5), lib, ("moe_gemm", f"phase3 {sheet}"),
+                capacity=cap, experts_live=experts_live,
                 weight_layout="[E, F, H] viewed as [E, H, F]"
                 if not w.is_contiguous() else "[E, H, F]")
         del got, ref, padded
@@ -3509,6 +3643,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_device(torch)
     phase_build()
+    demo_rows = phase_analysis(torch)
     kern = phase_kernels(torch, dev)
     model, engine, prompts, served = phase_serve_chunked(torch, np, dev)
     d_engine, d_prompts, d_served, launches = phase_serve_default(
@@ -3598,7 +3733,7 @@ def main() -> int:
             "shape": row["shape"],
             **({"composite_ms": row["composite_ms"]}
                if "composite_ms" in row else {})})
-    emit({"kernels": summary})
+    emit({"kernels": summary + demo_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,6 +8,10 @@ by a hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is reused. The first kernel call builds every source at
 once, one ``nvcc`` process each, all started together. A missing ``nvcc``
 or a failed compile raises :class:`KernelBuildError`; nothing falls back.
+``--resource-usage`` makes ptxas print each kernel's registers, shared
+memory, stack frame and spills; that log is kept beside its library
+(:func:`usage_path`) for the kernel analyzer's resource sheets
+(``paddle_tpu_torch/analysis/kernels/resources.py``).
 
 Every C entry point takes device pointers and the stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises when
@@ -27,7 +31,8 @@ import time
 from pathlib import Path
 
 __all__ = ["KernelBuildError", "SOURCES", "build_all", "function", "check",
-           "stream_of", "require_aligned"]
+           "stream_of", "require_aligned", "lib_path", "usage_path",
+           "resource_usage"]
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -36,9 +41,9 @@ SOURCES = ("rms_norm", "swiglu", "rope", "mmha", "block_epilogue",
            "flash_attention", "flash_attention_bwd", "decode_layer",
            "wo_matmul", "a8w8_matmul", "adamw", "lamb", "cross_entropy",
            "moe_gemm", "softmax_mask", "bias_dropout_ln", "dropout_add",
-           "linear_grad_add")
+           "linear_grad_add", "analysis_demo")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "--resource-usage")
 
 _lock = threading.Lock()
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -70,11 +75,23 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def usage_path(name: str) -> Path:
+    """Where the ptxas resource-usage log of library ``name`` is kept."""
+    return lib_path(name).with_suffix(".usage.txt")
+
+
+def resource_usage(name: str) -> str:
+    """The ptxas resource-usage log of library ``name`` (built first)."""
+    build_all((name,))
+    return usage_path(name).read_text()
+
+
 def build_all(names=SOURCES) -> float:
     """Compile every library not built yet, one nvcc process per source,
     all running at once. Returns the seconds spent (0 when all are built)."""
     t0 = time.perf_counter()
-    todo = [n for n in names if not lib_path(n).is_file()]
+    todo = [n for n in names
+            if not (lib_path(n).is_file() and usage_path(n).is_file())]
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -93,6 +110,10 @@ def build_all(names=SOURCES) -> float:
         if proc.returncode:
             errors.append(f"--- {n}.cu (exit {proc.returncode}) ---\n{log}")
         else:
+            usage = usage_path(n)
+            usage.with_name(f"{usage.name}.{os.getpid()}.tmp").write_text(log)
+            os.replace(usage.with_name(f"{usage.name}.{os.getpid()}.tmp"),
+                       usage)
             os.replace(tmp, out)
     if errors:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))

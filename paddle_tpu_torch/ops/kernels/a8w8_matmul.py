@@ -128,16 +128,77 @@ def a8w8_matmul(x, w_q, w_scales, layout="kn"):
     s = torch.empty(m, dtype=torch.float32, device=x.device)
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     _build.require_aligned("a8w8_matmul", x2, w_q, ws, q, s, y)
-    stream = _build.stream_of(x2)
-    quant = _build.function("a8w8_matmul", "ptt_a8w8_quantize", _Q_ARGS)
-    _build.check(quant(x2.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
-                       stream), "a8w8_matmul quantize")
-    gemm = _build.function("a8w8_matmul", "ptt_a8w8_gemm", _G_ARGS)
-    _build.check(gemm(q.data_ptr(), s.data_ptr(), w_q.data_ptr(),
-                      ws.data_ptr(), y.data_ptr(), m, n, k,
-                      int(layout == "nk"), stream), "a8w8_matmul")
+    _launch(x2, w_q, ws, q, s, y, layout, _build.stream_of(x2))
     a8w8_matmul.launches += 1
     return y.reshape(*lead, n)
 
 
 a8w8_matmul.launches = 0
+
+
+def _launch(x2, w_q, ws, q, s, y, layout, stream):
+    """Both C entries (row quantization, then the int8 product) on
+    operands the caller allocated."""
+    m, k = x2.shape
+    quant = _build.function("a8w8_matmul", "ptt_a8w8_quantize", _Q_ARGS)
+    _build.check(quant(x2.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
+                       stream), "a8w8_matmul quantize")
+    gemm = _build.function("a8w8_matmul", "ptt_a8w8_gemm", _G_ARGS)
+    _build.check(gemm(q.data_ptr(), s.data_ptr(), w_q.data_ptr(),
+                      ws.data_ptr(), y.data_ptr(), m, y.shape[1], k,
+                      int(layout == "nk"), stream), "a8w8_matmul")
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+def _ex(label, m, k, n, layout):
+    """Two launches: the row quantization (a block a row: q's row and its
+    scale) and the product (a block a [64, 128] output tile, 4 warps)."""
+    from ._examples import model, uniform
+    mm = model()
+    w_shape = (n, k) if layout == "nk" else (k, n)
+    ops = [mm.Operand("x", (m, k), torch.bfloat16),
+           mm.Operand("w", w_shape, torch.int8),
+           mm.Operand("ws", (n,), torch.float32,
+                      data=uniform((n,), torch.float32, 1e-4, 2.1e-3)),
+           mm.Operand("q", (m, k), torch.int8, "out"),
+           mm.Operand("s", (m,), torch.float32, "out"),
+           mm.Operand("y", (m, n), torch.bfloat16, "out")]
+
+    def plain(t):
+        q, s = row_quantize(t["x"])
+        return {"q": q.to(torch.int8), "s": s.reshape(-1),
+                "y": a8w8_matmul_plain(t["x"], t["w"], t["ws"], layout)}
+
+    def launch(t, stream):
+        _launch(t["x"], t["w"], t["ws"], t["q"], t["s"], t["y"], layout,
+                stream)
+
+    kernels = [
+        mm.KernelLaunch("a8w8_quantize_kernel", m, 256,
+                        writes=[mm.rows_map("q", m, k),
+                                mm.TileMap("s", (1,), lambda x, y, z: (x,))],
+                        reads=[mm.rows_map("x", m, k)]),
+        mm.KernelLaunch(f"a8w8_gemm_kernel<{str(layout == 'nk').lower()}>",
+                        (-(-m // 64), -(-n // 128)), 128,
+                        writes=[mm.TileMap("y", (64, 128),
+                                           lambda x, y, z: (x, y))])]
+    return mm.Example(label, "a8w8_matmul", ops, kernels, launch, plain,
+                      flops=2 * m * k * n,
+                      nbytes=2 * m * k + n * k + 4 * n + 2 * m * n,
+                      unit="int8", tol={"q": 1 / 127, "s": 1e-6,
+                                        "y": 2.0 ** -7})
+
+
+def ck_examples():
+    """At ``a8w8_matmul_pallas.pk_examples``' shapes (x [512, 1024] @ [1024,
+    2048], both layouts) and phase 3's (the llm_int8 prefill [1024, 4096] @
+    nk [14336, 4096]); tails with M, N and K past their last full tile."""
+    from ._examples import with_tail
+    return [with_tail(_ex, label, dict(m=m, k=k, n=n, layout=layout),
+                      dict(m=37, k=1040, n=1008, layout=layout))
+            for label, m, k, n, layout in (
+                ("a8w8_kn", 512, 1024, 2048, "kn"),
+                ("a8w8_nk", 512, 1024, 2048, "nk"),
+                ("phase3 [1024, 4096] @ nk [14336, 4096]", 1024, 4096, 14336,
+                 "nk"))]

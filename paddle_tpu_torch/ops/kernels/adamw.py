@@ -141,16 +141,96 @@ def adamw_update(param, grad, m, v, scalars, *, beta1, beta2, eps, wd,
         return adamw_update_plain(param, grad, m, v, scalars, beta1=beta1,
                                   beta2=beta2, eps=eps, wd=wd,
                                   lr_mult=lr_mult, master=master)
-    mode, w32, low = kernel_form("adamw", param, grad, m, v, scalars, master)
-    fn = _build.function("adamw", "ptt_adamw", _ARGS)
-    err = fn(mode, None if w32 is None else w32.data_ptr(),
-             None if low is None else low.data_ptr(), grad.data_ptr(),
-             int(grad.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
-             scalars.data_ptr(), param.numel(), float(beta1),
-             float(1 - beta1), float(beta2), float(1 - beta2), float(eps),
-             float(wd), float(lr_mult), _build.stream_of(param))
-    _build.check(err, "adamw")
+    _launch(kernel_form("adamw", param, grad, m, v, scalars, master), grad,
+            m, v, scalars, beta1, beta2, eps, wd, lr_mult,
+            _build.stream_of(param))
     adamw_update.launches += 1
 
 
 adamw_update.launches = 0
+
+
+def _launch(form, grad, m, v, scalars, beta1, beta2, eps, wd, lr_mult,
+            stream):
+    """The C entry on ``kernel_form``'s ``(mode, w32, low)``."""
+    mode, w32, low = form
+    fn = _build.function("adamw", "ptt_adamw", _ARGS)
+    err = fn(mode, None if w32 is None else w32.data_ptr(),
+             None if low is None else low.data_ptr(), grad.data_ptr(),
+             int(grad.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
+             scalars.data_ptr(), m.numel(), float(beta1), float(1 - beta1),
+             float(beta2), float(1 - beta2), float(eps), float(wd),
+             float(lr_mult), stream)
+    _build.check(err, "adamw")
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+#: hyper-parameters of the examples (phase 3's)
+EXAMPLE_HYPER = dict(beta1=0.9, beta2=0.999, eps=1e-8, wd=0.01)
+
+
+def example_state(m, shape, grad_dtype, lr, m_data, v_scale):
+    """Operands of an optimizer example with an f32 master and its bf16
+    copy (``prepare`` writes the copy): master ``0.02 N``, grad ``1e-3 N``
+    in ``grad_dtype``, warm moments (``m_data`` makes m, v is uniform in
+    ``[0, v_scale)``), the step-3 scalars of ``lr``."""
+    from ._examples import fixed, normal, uniform
+    f32 = torch.float32
+    scal = adamw_scalars(torch.tensor(lr), torch.tensor(3.0), 0.9, 0.999)
+    ops = [m.Operand("w32", shape, f32, "inout", data=normal(shape, f32,
+                                                             0.02)),
+           m.Operand("p", shape, torch.bfloat16, "inout"),
+           m.Operand("g", shape, grad_dtype, data=normal(shape, grad_dtype,
+                                                         1e-3)),
+           m.Operand("m", shape, f32, "inout", data=m_data),
+           m.Operand("v", shape, f32, "inout", data=uniform(shape, f32, 0,
+                                                            v_scale)),
+           m.Operand("scal", (4,), f32, data=fixed(scal))]
+
+    def prepare(t):
+        t["p"] = t["w32"].to(torch.bfloat16)
+    return ops, prepare
+
+
+def _ex(label, shape, grad_dtype):
+    """A grid-stride loop of 4 elements a thread over at most 8 blocks an
+    SM: block b updates chunks b, b + grid, ... of 1024 elements in place."""
+    from ._examples import model
+    mm = model()
+    n = shape[0] * shape[1]
+    grid = max(1, min(132 * 8, -(-(n // 4) // 256)))
+    from ._examples import uniform
+    ops, prepare = example_state(mm, shape, grad_dtype, 1e-4,
+                                 uniform(shape, torch.float32, 0, 1e-3), 1e-6)
+    maps = [mm.stride_map(k, n, 1024, grid) for k in ("w32", "p", "m", "v")]
+
+    def plain(t):
+        adamw_update_plain(t["p"], t["g"], t["m"], t["v"], t["scal"],
+                           master=t["w32"], **EXAMPLE_HYPER)
+        return {k: t[k] for k in ("w32", "p", "m", "v")}
+
+    def launch(t, stream):
+        _launch((_MODE_MASTER, t["w32"], t["p"]), t["g"], t["m"], t["v"],
+                t["scal"], stream=stream, lr_mult=1.0, **EXAMPLE_HYPER)
+
+    gt = "__nv_bfloat16" if grad_dtype == torch.bfloat16 else "float"
+    kern = mm.KernelLaunch(f"adamw_kernel<{gt},{_MODE_MASTER}>", grid, 256,
+                           writes=maps)
+    return mm.Example(label, "adamw", ops, [kern], launch, plain,
+                      flops=15 * n, nbytes=(28 if grad_dtype == torch.bfloat16
+                                            else 30) * n,
+                      tol=0.0, prepare=prepare)
+
+
+def ck_examples():
+    """At ``adamw_pallas.pk_examples``' shape ([4096, 1024], f32 master and
+    gradient, bf16 out) and phase 3's ([14336, 4096], f32 master, bf16
+    gradient): bit for bit the plain version; tails with an element count
+    that is not a multiple of 4."""
+    from ._examples import with_tail
+    return [with_tail(_ex, label, dict(shape=shape, grad_dtype=gd),
+                      dict(shape=(37, 1001), grad_dtype=gd))
+            for label, shape, gd in (
+                ("adamw_update", (4096, 1024), torch.float32),
+                ("phase3 [14336, 4096]", (14336, 4096), torch.bfloat16))]

@@ -117,18 +117,26 @@ def bias_dropout_ln(x, bias, residual, mask, gamma, beta, eps):
         mask = mask.float().contiguous()
     y, h = torch.empty_like(x), torch.empty_like(x)
     _build.require_aligned("bias_dropout_ln", x, residual, mask, y, h, *vecs)
-    fn = _build.function("bias_dropout_ln", "ptt_bias_dropout_ln", _ARGS)
-    err = fn(x.data_ptr(), vecs[0].data_ptr(), residual.data_ptr(),
-             None if mask is None else mask.data_ptr(), vecs[1].data_ptr(),
-             vecs[2].data_ptr(), y.data_ptr(), h.data_ptr(),
-             x.numel() // hd, hd, float(eps), int(x.dtype == torch.float32),
-             _build.stream_of(x))
-    _build.check(err, "bias_dropout_ln")
+    bias32, gamma32, beta32 = vecs
+    _launch_fwd(x, bias32, residual, mask, gamma32, beta32, y, h, eps,
+                _build.stream_of(x))
     bias_dropout_ln.launches += 1
     return y, h
 
 
 bias_dropout_ln.launches = 0
+
+
+def _launch_fwd(x, bias, residual, mask, gamma, beta, y, h, eps, stream):
+    """The forward's C entry on operands the caller allocated (f32
+    vectors and mask)."""
+    hd = x.shape[-1]
+    fn = _build.function("bias_dropout_ln", "ptt_bias_dropout_ln", _ARGS)
+    err = fn(x.data_ptr(), bias.data_ptr(), residual.data_ptr(),
+             None if mask is None else mask.data_ptr(), gamma.data_ptr(),
+             beta.data_ptr(), y.data_ptr(), h.data_ptr(), x.numel() // hd, hd,
+             float(eps), int(x.dtype == torch.float32), stream)
+    _build.check(err, "bias_dropout_ln")
 
 
 def _kernel_checks(x, other, what):
@@ -191,10 +199,7 @@ def bias_dropout_ln_bwd(h, mask, gamma, dy, eps):
     if mask is not None:
         mask = mask.float().contiguous()
     rows = h.numel() // hd
-    threads = max(32, -(-hd // 256) * 32)          # the kernel's choice
-    n_blocks = _SMS * max(4, _SM_THREADS // threads)
-    per_block = max(1, -(-rows // n_blocks))
-    n_part = max(1, -(-rows // per_block))
+    _, _, n_part = _bwd_layout(rows, hd)
     dx, dres = torch.empty_like(h), torch.empty_like(h)
     part = torch.empty(3, n_part, hd, dtype=torch.float32, device=h.device)
     # no rows, no block: the sums are zero
@@ -202,18 +207,145 @@ def bias_dropout_ln_bwd(h, mask, gamma, dy, eps):
         3, hd, dtype=torch.float32, device=h.device)
     _build.require_aligned("bias_dropout_ln backward", h, dy, mask, g, dx,
                            dres, part)
-    fn = _build.function("bias_dropout_ln", "ptt_bias_dropout_ln_bwd",
-                         _BWD_ARGS)
-    err = fn(h.data_ptr(), None if mask is None else mask.data_ptr(),
-             g.data_ptr(), dy.data_ptr(), dx.data_ptr(), dres.data_ptr(),
-             part.data_ptr(), out.data_ptr(), rows, per_block, hd,
-             float(eps), int(h.dtype == torch.float32), _build.stream_of(h))
-    _build.check(err, "bias_dropout_ln backward")
+    _launch_bwd(h, mask, g, dy, dx, dres, part, out, eps, _build.stream_of(h))
     bias_dropout_ln_bwd.launches += 1
     return dx, dres, out[0], out[1], out[2]
 
 
 bias_dropout_ln_bwd.launches = 0
+
+
+def _bwd_layout(rows, hd):
+    """(threads, rows a block, blocks) of the backward's rows kernel."""
+    threads = max(32, -(-hd // 256) * 32)          # the kernel's choice
+    n_blocks = _SMS * max(4, _SM_THREADS // threads)
+    per_block = max(1, -(-rows // n_blocks))
+    return threads, per_block, max(1, -(-rows // per_block))
+
+
+def _launch_bwd(h, mask, gamma, dy, dx, dres, part, out, eps, stream):
+    """The backward's C entry (the rows kernel, then the fixed-order sum of
+    its partials) on operands the caller allocated."""
+    hd = h.shape[-1]
+    rows = h.numel() // hd
+    fn = _build.function("bias_dropout_ln", "ptt_bias_dropout_ln_bwd",
+                         _BWD_ARGS)
+    err = fn(h.data_ptr(), None if mask is None else mask.data_ptr(),
+             gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), dres.data_ptr(),
+             part.data_ptr(), out.data_ptr(), rows,
+             _bwd_layout(rows, hd)[1], hd, float(eps),
+             int(h.dtype == torch.float32), stream)
+    _build.check(err, "bias_dropout_ln backward")
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+def dropout_scale_mask(rows, hd, p, seed):
+    """A kept-and-scaled f32 mask ``[rows, hd]`` on the CPU: 1 / (1 - p)
+    where kept, 0 where dropped, from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    keep = torch.rand(rows, hd, generator=gen) >= p
+    return keep.float() / (1.0 - p)
+
+
+def _ex(label, rows, hd, masked, bwd, dtype=torch.bfloat16):
+    """Forward: a block a row (y and h). Backward: a block a group of rows
+    (dx, dres, three f32 partial rows), then a second kernel sums the
+    partials column by column in a fixed order into [3, hidden]."""
+    from ._examples import CTYPE, fixed, model, normal
+    m = model()
+    f32 = torch.float32
+    threads = max(32, -(-(hd // 8) // 32) * 32)
+    ops = [m.Operand("gamma", (hd,), f32, data=normal((hd,), f32, 0.1, 1.0))]
+    mk = None
+    if masked:
+        mk = dropout_scale_mask(rows, hd, 0.1, seed=5)
+        ops.append(m.Operand("mask", (rows, hd), f32, data=fixed(mk)))
+    n = rows * hd
+    targs = f"<{CTYPE[dtype]},{str(masked).lower()}>"
+    if not bwd:
+        ops += [m.Operand("x", (rows, hd), dtype),
+                m.Operand("res", (rows, hd), dtype),
+                m.Operand("bias", (hd,), f32, data=normal((hd,), f32, 0.1)),
+                m.Operand("beta", (hd,), f32, data=normal((hd,), f32, 0.1)),
+                m.Operand("y", (rows, hd), dtype, "out"),
+                m.Operand("h", (rows, hd), dtype, "out")]
+
+        def plain(t):
+            y, h = bias_dropout_ln_plain(t["x"], t["bias"], t["res"],
+                                         t.get("mask"), t["gamma"],
+                                         t["beta"], 1e-5)
+            return {"y": y, "h": h}
+
+        def launch(t, stream):
+            _launch_fwd(t["x"], t["bias"], t["res"], t.get("mask"),
+                        t["gamma"], t["beta"], t["y"], t["h"], 1e-5, stream)
+
+        kern = m.KernelLaunch(
+            "bias_dropout_ln_kernel" + targs, rows, threads,
+            writes=[m.rows_map("y", rows, hd), m.rows_map("h", rows, hd)],
+            reads=[m.rows_map("x", rows, hd), m.rows_map("res", rows, hd)])
+        return m.Example(label, "bias_dropout_ln", ops, [kern], launch, plain,
+                         flops=n * (10 + masked),
+                         nbytes=n * (8 + 4 * masked) + 12 * hd)
+    _, per, blocks = _bwd_layout(rows, hd)
+    ops += [m.Operand("h", (rows, hd), dtype), m.Operand("dy", (rows, hd), dtype),
+            m.Operand("dx", (rows, hd), dtype, "out"),
+            m.Operand("dres", (rows, hd), dtype, "out"),
+            m.Operand("part", (3, blocks, hd), f32, "out"),
+            m.Operand("out", (3, hd), f32, "out")]
+
+    def plain(t):
+        dx, dres, dg, db, dbias = bias_dropout_ln_bwd_plain(
+            t["h"], t.get("mask"), t["gamma"], t["dy"], 1e-5)
+        return {"dx": dx, "dres": dres, "out": torch.stack([dg, db, dbias])}
+
+    def launch(t, stream):
+        _launch_bwd(t["h"], t.get("mask"), t["gamma"], t["dy"], t["dx"],
+                    t["dres"], t["part"], t["out"], 1e-5, stream)
+
+    kernels = [
+        m.KernelLaunch("bias_dropout_ln_bwd_kernel" + targs, blocks, threads,
+                       writes=[m.rows_map("dx", rows, hd, per),
+                               m.rows_map("dres", rows, hd, per),
+                               m.TileMap("part", (1, 1, hd), lambda x, y, z: [
+                                   (a, x, 0) for a in range(3)])]),
+        m.KernelLaunch("bdl_partial_sum_kernel", -(-3 * hd // 32), 256,
+                       writes=[m.TileMap("out", (32,), lambda x, y, z: (x,),
+                                         view=(3 * hd,))])]
+    return m.Example(label, "bias_dropout_ln", ops, kernels, launch, plain,
+                     flops=n * (16 + 2 * masked),
+                     nbytes=n * (8 + 4 * masked) + 16 * hd,
+                     tol={"out": 1e-3, "*": 2.0 ** -7})
+
+
+def ck_examples():
+    """At ``bias_dropout_ln_pallas.pk_examples``' shape ([512, 1024]:
+    forward maskless and with a mask, the backward with it) and phase 3's
+    (GPT-2 small's [8192, 768] with the p = 0.1 mask and maskless,
+    Llama-3-8B's [4096, 4096] with it; forward and backward); tails with a
+    hidden width that leaves threads of the last warp idle and a partial
+    last group of rows."""
+    from ._examples import with_tail
+    out = []
+    for label, rows, hd, masked, bwd in (
+            ("fused_fwd", 512, 1024, False, False),
+            ("fused_fwd_mask", 512, 1024, True, False),
+            ("fused_bwd", 512, 1024, True, True)):
+        out.append(with_tail(_ex, label, dict(rows=rows, hd=hd, masked=masked,
+                                              bwd=bwd),
+                             dict(rows=1061, hd=1000, masked=masked,
+                                  bwd=bwd)))
+    for rows, hd, masked in ((8192, 768, True), (8192, 768, False),
+                             (4096, 4096, True)):
+        for bwd in (False, True):
+            label = (f"phase3 {'bwd ' if bwd else ''}[{rows}, {hd}] "
+                     f"{'mask p=0.1' if masked else 'maskless'}")
+            out.append(with_tail(_ex, label, dict(rows=rows, hd=hd,
+                                                  masked=masked, bwd=bwd),
+                                 dict(rows=1061, hd=hd + 8, masked=masked,
+                                      bwd=bwd)))
+    return out
 
 
 class BiasDropoutLNFunction(torch.autograd.Function):

@@ -183,23 +183,30 @@ def fused_epilogue(x, residual, weight, bias=None, seed=0, p=0.0, eps=1e-6,
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("block epilogue kernel takes contiguous tensors")
     _build.require_aligned("block_epilogue", *ops)
-    drop = 0.0 < p < 1.0
-    threshold, scale = dropout_params(p) if drop else (0, 1.0)
     y = torch.empty_like(residual)
     h = torch.empty_like(residual)
-    fn = _build.function("block_epilogue", "ptt_block_epilogue", _ARGS)
-    err = fn(x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
-             None if bias is None else bias.data_ptr(), y.data_ptr(),
-             h.data_ptr(), residual.numel() // hd, hd, _ACT_CODE[act],
-             int(norm == "layer"), int(drop), float(eps),
-             int(seed) & _MASK32, threshold, float(scale),
-             _build.stream_of(x))
-    _build.check(err, "block_epilogue")
+    _launch(x, residual, weight, bias, y, h, seed, p, eps, act, norm,
+            _build.stream_of(x))
     fused_epilogue.launches += 1
     return y, h
 
 
 fused_epilogue.launches = 0
+
+
+def _launch(x, residual, weight, bias, y, h, seed, p, eps, act, norm,
+            stream):
+    """The forward's C entry on operands the caller allocated."""
+    hd = residual.shape[-1]
+    drop = 0.0 < p < 1.0
+    threshold, scale = dropout_params(p) if drop else (0, 1.0)
+    fn = _build.function("block_epilogue", "ptt_block_epilogue", _ARGS)
+    err = fn(x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
+             None if bias is None else bias.data_ptr(), y.data_ptr(),
+             h.data_ptr(), residual.numel() // hd, hd, _ACT_CODE[act],
+             int(norm == "layer"), int(drop), float(eps),
+             int(seed) & _MASK32, threshold, float(scale), stream)
+    _build.check(err, "block_epilogue")
 
 
 def _check_bwd(h, x, weight, gy, gh, act, norm, has_bias):
@@ -308,12 +315,7 @@ def fused_epilogue_bwd(h, x, weight, gy, gh=None, seed=0, p=0.0, eps=1e-6,
                          "tensors")
     _build.require_aligned("block epilogue backward", *ops)
     rows = h.numel() // hd
-    threads = min(1024, max(32, -(-hd // 256) * 32))   # the kernel's choice
-    n_blocks = _SMS * max(4, _SM_THREADS // threads)
-    per_block = max(1, -(-rows // n_blocks))
-    n_part = max(1, -(-rows // per_block))
-    drop = 0.0 < p < 1.0
-    threshold, scale = dropout_params(p) if drop else (0, 1.0)
+    _, _, n_part = _bwd_layout(rows, hd)
     dx = torch.empty_like(h if x is None else x)
     dres = torch.empty_like(h)
     # every block writes its whole partial row; no rows, no block
@@ -321,6 +323,32 @@ def fused_epilogue_bwd(h, x, weight, gy, gh=None, seed=0, p=0.0, eps=1e-6,
     dw_part = part(n_part, hd, dtype=torch.float32, device=h.device)
     db_part = part(n_part, hd, dtype=torch.float32, device=h.device) \
         if has_bias else None
+    _launch_bwd(h, x, weight, gy, gh, dx, dres, dw_part, db_part, seed, p,
+                eps, act, norm, has_bias, _build.stream_of(h))
+    fused_epilogue_bwd.launches += 1
+    return (dx, dres, dw_part.sum(0),
+            None if db_part is None else db_part.sum(0))
+
+
+fused_epilogue_bwd.launches = 0
+
+
+def _bwd_layout(rows, hd):
+    """(threads, rows a block, blocks) of the backward: blocks of rows to
+    fill the card, at least four an SM."""
+    threads = min(1024, max(32, -(-hd // 256) * 32))   # the kernel's choice
+    n_blocks = _SMS * max(4, _SM_THREADS // threads)
+    per_block = max(1, -(-rows // n_blocks))
+    return threads, per_block, max(1, -(-rows // per_block))
+
+
+def _launch_bwd(h, x, weight, gy, gh, dx, dres, dw_part, db_part, seed, p,
+                eps, act, norm, has_bias, stream):
+    """The backward's C entry on operands the caller allocated."""
+    hd = h.shape[-1]
+    rows = h.numel() // hd
+    drop = 0.0 < p < 1.0
+    threshold, scale = dropout_params(p) if drop else (0, 1.0)
     fn = _build.function("block_epilogue", "ptt_block_epilogue_bwd",
                          _BWD_ARGS)
     err = fn(h.data_ptr(), None if x is None else x.data_ptr(),
@@ -328,17 +356,11 @@ def fused_epilogue_bwd(h, x, weight, gy, gh=None, seed=0, p=0.0, eps=1e-6,
              None if gh is None else gh.data_ptr(), dx.data_ptr(),
              dres.data_ptr(), dw_part.data_ptr(),
              None if db_part is None else db_part.data_ptr(), rows,
-             per_block, hd, _ACT_CODE[act], int(norm == "layer"),
-             int(bool(has_bias)), int(drop), float(eps),
-             int(seed) & _MASK32, threshold, float(scale),
-             _build.stream_of(h))
+             _bwd_layout(rows, hd)[1], hd, _ACT_CODE[act],
+             int(norm == "layer"), int(bool(has_bias)), int(drop),
+             float(eps), int(seed) & _MASK32, threshold, float(scale),
+             stream)
     _build.check(err, "block_epilogue backward")
-    fused_epilogue_bwd.launches += 1
-    return (dx, dres, dw_part.sum(0),
-            None if db_part is None else db_part.sum(0))
-
-
-fused_epilogue_bwd.launches = 0
 
 
 class BlockEpilogueFunction(torch.autograd.Function):
@@ -397,3 +419,153 @@ def decode_epilogue(x, residual, weight, eps=1e-6, plain=False):
     dropout-free."""
     fn = fused_epilogue_plain if plain else fused_epilogue
     return fn(x, residual, weight, None, 0, 0.0, eps, None, "rms")
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_ACT_FLOPS = {None: 0, "gelu": 9, "swiglu": 5}
+_ACT_BWD_FLOPS = {None: 0, "gelu": 16, "swiglu": 12}
+
+
+def _targs(act, norm, bias, drop):
+    b = ("true" if v else "false" for v in (norm == "layer", bias, drop))
+    return f"<{_ACT_CODE[act]},{','.join(b)}>"
+
+
+def _ex_fwd(label, rows, hidden, act, norm, p, bias):
+    """One block a row: y and h rows written, x, the residual, w (and b)
+    read."""
+    from ._examples import model, normal, row_threads
+    m = model()
+    bf = torch.bfloat16
+    xw = hidden * (2 if act == "swiglu" else 1)
+    ops = [m.Operand("x", (rows, xw), bf), m.Operand("res", (rows, hidden), bf),
+           m.Operand("w", (hidden,), bf, data=normal((hidden,), bf, 0.1, 1.0)),
+           m.Operand("y", (rows, hidden), bf, "out"),
+           m.Operand("h", (rows, hidden), bf, "out")]
+    reads = [m.rows_map("x", rows, xw), m.rows_map("res", rows, hidden),
+             m.whole_map("w", (hidden,))]
+    if bias:
+        ops.append(m.Operand("b", (hidden,), bf, data=normal((hidden,), bf,
+                                                             0.1)))
+        reads.append(m.whole_map("b", (hidden,)))
+    args = (1234, p, 1e-5, act, norm)
+
+    def plain(t):
+        y, h = fused_epilogue_plain(t["x"], t["res"], t["w"], t.get("b"),
+                                    *args)
+        return {"y": y, "h": h}
+
+    def launch(t, stream):
+        _launch(t["x"], t["res"], t["w"], t.get("b"), t["y"], t["h"], *args,
+                stream)
+
+    kern = m.KernelLaunch(
+        "block_epilogue_kernel" + _targs(act, norm, bias, 0 < p < 1), rows,
+        row_threads(hidden // 8), smem=4 * hidden,
+        writes=[m.rows_map("y", rows, hidden), m.rows_map("h", rows, hidden)],
+        reads=reads)
+    n = rows * hidden
+    flops = n * (6 + 3 * (norm == "layer") + bias + _ACT_FLOPS[act]
+                 + 14 * (0 < p < 1))
+    return m.Example(label, "block_epilogue", ops, [kern], launch, plain,
+                     flops=flops, nbytes=2 * (rows * xw + 3 * n
+                                              + hidden * (1 + bias)))
+
+
+def _ex_bwd(label, rows, hidden, act, norm, p, bias, with_gh=True):
+    """Blocks of ``per`` rows: dx and dres rows written, one f32 partial
+    row of dw (and db) a block, summed by the wrapper."""
+    from ._examples import model, normal
+    m = model()
+    bf, f32 = torch.bfloat16, torch.float32
+    xw = hidden * (2 if act == "swiglu" else 1)
+    threads, per, blocks = _bwd_layout(rows, hidden)
+    ops = [m.Operand("h", (rows, hidden), bf),
+           m.Operand("w", (hidden,), bf, data=normal((hidden,), bf, 0.1, 1.0)),
+           m.Operand("gy", (rows, hidden), bf),
+           m.Operand("dx", (rows, xw), bf, "out"),
+           m.Operand("dres", (rows, hidden), bf, "out"),
+           m.Operand("dw_part", (blocks, hidden), f32, "out")]
+    writes = [m.rows_map("dx", rows, xw, per),
+              m.rows_map("dres", rows, hidden, per),
+              m.rows_map("dw_part", blocks, hidden)]
+    if act:
+        ops.append(m.Operand("x", (rows, xw), bf))
+    if with_gh:
+        ops.append(m.Operand("gh", (rows, hidden), bf))
+    if bias:
+        ops.append(m.Operand("db_part", (blocks, hidden), f32, "out"))
+        writes.append(m.rows_map("db_part", blocks, hidden))
+    args = (1234, p, 1e-5, act, norm, bias)
+
+    def plain(t):
+        dx, dres, dw, db = fused_epilogue_bwd_plain(
+            t["h"], t.get("x"), t["w"], t["gy"], t.get("gh"), *args)
+        out = {"dx": dx, "dres": dres, "dw_part": dw}
+        if bias:
+            out["db_part"] = db
+        return out
+
+    def launch(t, stream):
+        _launch_bwd(t["h"], t.get("x"), t["w"], t["gy"], t.get("gh"),
+                    t["dx"], t["dres"], t["dw_part"], t.get("db_part"),
+                    *args, stream)
+
+    kern = m.KernelLaunch(
+        "block_epilogue_bwd_kernel" + _targs(act, norm, bias, 0 < p < 1),
+        blocks, threads, smem=(4 if bias else 3) * hidden * 4, writes=writes)
+    n = rows * hidden
+    flops = n * (14 + 6 * (norm == "layer") + 2 * bias + 15 * (0 < p < 1)
+                 + _ACT_BWD_FLOPS[act])
+    nbytes = 2 * (4 * n + (2 * rows * xw if act else n) + hidden) \
+        + 4 * hidden * (1 + bias)
+    return m.Example(label, "block_epilogue", ops, [kern], launch, plain,
+                     flops=flops, nbytes=nbytes,
+                     tol={"dw_part": 1e-3, "db_part": 1e-3, "*": 2.0 ** -7},
+                     reduce={"dw_part": lambda v: v.sum(0),
+                             "db_part": lambda v: v.sum(0)})
+
+
+def ck_examples():
+    """At ``block_fused_pallas.pk_examples``' shapes (attention and SwiGLU
+    junctions and the backward at [512, 1024]) and phase 3's (the forward
+    at hidden 4096: [8] and [1024] rows plain, [512] rows with gelu,
+    swiglu, dropout 0.1 and layer norm with a bias; the backward at
+    Llama-3-8B's and GPT-2 small's junctions and two functional rows); each
+    with a tail of an odd row count and a hidden width that leaves threads
+    of the last warp idle."""
+    from ._examples import with_tail
+    out = []
+    fwd = [("attn_epilogue_fwd", 512, 1024, None, "rms", 0.0, False),
+           ("mlp_swiglu_fwd", 512, 1024, "swiglu", "rms", 0.0, False)]
+    for rows, act, norm, p, bias in (
+            (8, None, "rms", 0.0, False), (1024, None, "rms", 0.0, False),
+            (512, "gelu", "rms", 0.0, False),
+            (512, "swiglu", "rms", 0.0, False),
+            (512, None, "rms", 0.1, False), (512, None, "layer", 0.0, True)):
+        fwd.append((f"phase3 [{rows}, 4096] act={act} {norm} p={p}"
+                    + (" bias" if bias else ""), rows, 4096, act, norm, p,
+                    bias))
+    for label, rows, hidden, act, norm, p, bias in fwd:
+        out.append(with_tail(
+            _ex_fwd, label, dict(rows=rows, hidden=hidden, act=act,
+                                 norm=norm, p=p, bias=bias),
+            dict(rows=rows + 3, hidden=hidden + 8, act=act, norm=norm, p=p,
+                 bias=bias)))
+    bwd = [("epilogue_bwd", 512, 1024, None, "rms", 0.0, False, False)]
+    for rows, hidden, act, norm, p, bias in (
+            (4096, 4096, None, "rms", 0.0, False),
+            (8192, 768, None, "layer", 0.0, True),
+            (4096, 4096, "gelu", "layer", 0.2, True),
+            (4096, 4096, "swiglu", "rms", 0.4, False)):
+        bwd.append((f"phase3 bwd [{rows}, {hidden}] act={act} {norm} p={p}"
+                    + (" bias" if bias else ""), rows, hidden, act, norm, p,
+                    bias, True))
+    for label, rows, hidden, act, norm, p, bias, gh in bwd:
+        out.append(with_tail(
+            _ex_bwd, label, dict(rows=rows, hidden=hidden, act=act,
+                                 norm=norm, p=p, bias=bias, with_gh=gh),
+            dict(rows=1061, hidden=hidden + 8, act=act, norm=norm, p=p,
+                 bias=bias, with_gh=gh)))
+    return out

@@ -250,19 +250,126 @@ def decode_layer(q, k_layer, v_layer, tables, pos, hres, wo, w_post, wg, wu,
                          "on q's device")
     y = torch.empty_like(hres)
     h_out = torch.empty_like(hres)
-    n_scratch = _build.function("decode_layer", "ptt_decode_layer_scratch",
-                                [ctypes.c_int] * 4)(b, h * d, hd, i_size)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
-    fn = _build.function("decode_layer", "ptt_decode_layer", _ARGS)
-    err = fn(*(t.data_ptr() for t in ops), y.data_ptr(), h_out.data_ptr(),
-             scratch.data_ptr(), b, h_kv, h // h_kv, d, ps, tables.shape[1],
-             hd, i_size, block_i, float(eps_post), float(eps_next),
-             None if stamps is None else stamps.data_ptr(),
-             _build.stream_of(q))
-    _build.check(err, "decode_layer")
+    scratch = torch.empty(scratch_floats(b, h * d, hd, i_size),
+                          dtype=torch.float32, device=q.device)
+    _launch(ops, y, h_out, scratch, eps_post, eps_next, block_i, stamps,
+            _build.stream_of(q))
     decode_layer.launches += 1
     return y, h_out
 
 
 decode_layer.launches = 0
+
+
+def scratch_floats(b, hd_in, hd, i_size) -> int:
+    """f32 scratch the kernel needs (the C entry's own count)."""
+    return _build.function("decode_layer", "ptt_decode_layer_scratch",
+                           [ctypes.c_int] * 4)(b, hd_in, hd, i_size)
+
+
+def _launch(ops, y, h_out, scratch, eps_post, eps_next, block_i, stamps,
+            stream):
+    """The C entry on operands the caller allocated; ``ops`` is ``(q,
+    k_layer, v_layer, tables, pos, hres, wo, w_post, wg, wu, wd,
+    w_next)``."""
+    q, k_layer, tables, hres, wg = ops[0], ops[1], ops[3], ops[5], ops[8]
+    b, h, d = q.shape
+    _, h_kv, ps, _ = k_layer.shape
+    fn = _build.function("decode_layer", "ptt_decode_layer", _ARGS)
+    err = fn(*(t.data_ptr() for t in ops), y.data_ptr(), h_out.data_ptr(),
+             scratch.data_ptr(), b, h_kv, h // h_kv, d, ps, tables.shape[1],
+             hres.shape[1], wg.shape[0], int(block_i), float(eps_post),
+             float(eps_next), None if stamps is None else stamps.data_ptr(),
+             stream)
+    _build.check(err, "decode_layer")
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_THREADS = 512
+#: dynamic shared memory: the [8, 4096] f32 activation tile, the attention
+#: merge scratch and the per-row sums
+_SMEM = (8 * 4096 + 16 * 16 + 16) * 4
+_NAMES = ("q", "k", "v", "tables", "pos", "hres", "wo", "w_post", "wg", "wu",
+          "wd", "w_next")
+
+
+def _ex(label, lengths, h, h_kv, d, hd, i_size, ps=16, max_pages=128,
+        seed=7):
+    """One cooperative launch of one block a multiprocessor, its phases
+    split by grid barriers: the writes of y, h and the scratch depend on
+    the phase schedule (writes=None; the guard plane checks them)."""
+    from ._examples import fixed, model, normal
+    from .mmha import paged_tables
+    m = model()
+    bf = torch.bfloat16
+    b = len(lengths)
+    tables, pos, n_pages = paged_tables(lengths, ps, max_pages, seed)
+    shapes = {"q": (b, h, d), "k": (n_pages, h_kv, ps, d),
+              "v": (n_pages, h_kv, ps, d), "hres": (b, hd),
+              "wo": (hd, h * d), "wg": (i_size, hd), "wu": (i_size, hd),
+              "wd": (hd, i_size)}
+    ops = []
+    for n in _NAMES:
+        if n == "tables":
+            ops.append(m.Operand(n, tuple(tables.shape), torch.int32,
+                                 data=fixed(tables)))
+        elif n == "pos":
+            ops.append(m.Operand(n, (b,), torch.int32, data=fixed(pos)))
+        elif n in ("w_post", "w_next"):
+            ops.append(m.Operand(n, (hd,), bf, data=normal((hd,), bf, 0.1,
+                                                           1.0)))
+        elif n.startswith("w"):
+            ops.append(m.Operand(n, shapes[n], bf, data=normal(shapes[n], bf,
+                                                               0.02)))
+        else:
+            ops.append(m.Operand(n, shapes[n], bf))
+    n_scratch = b * (h * d + 2 * hd + i_size + 2 * -(-hd // 32))
+    ops += [m.Operand("y", (b, hd), bf, "out"),
+            m.Operand("h", (b, hd), bf, "out"),
+            m.Operand("scratch", (n_scratch,), torch.float32, "out")]
+    block_i = _pick_block_i(i_size)
+
+    def plain(t):
+        # the kernel keeps the attention output in f32: so does an f32 q
+        args = [t[n] for n in _NAMES]
+        args[0] = args[0].float()
+        y, h_next = decode_layer_plain(*args, 1e-5, 1e-5)
+        return {"y": y, "h": h_next}
+
+    def launch(t, stream):
+        _launch(tuple(t[n] for n in _NAMES), t["y"], t["h"], t["scratch"],
+                1e-5, 1e-5, block_i, None, stream)
+
+    kern = m.KernelLaunch(f"decode_layer_kernel<{d}>", 132, _THREADS,
+                          smem=_SMEM, writes=None, cooperative=True)
+    seen = int((pos + 1).sum())
+    nbytes = 2 * (hd * h * d + 3 * hd * i_size + 2 * hd
+                  + 2 * seen * h_kv * d + b * h * d + 3 * b * hd)
+    flops = 4 * seen * h * d + 2 * b * (h * d * hd + 3 * hd * i_size)
+    return m.Example(label, "decode_layer", ops, [kern], launch, plain,
+                     flops=flops, nbytes=nbytes, tol=2.0 ** -6)
+
+
+def ck_examples():
+    """At ``decode_layer_pallas.pk_examples``' shape (B 4, H 8 over Hkv 4,
+    D 64, hidden 512, I 1024; the JAX example is f32, the kernel takes
+    bf16) and phase 3's (Llama-3-8B's layer: B 8 over Hkv 8 at positions
+    0..1500 with an inactive row 0, B 1, and REP 1 over Hkv 32); tails with
+    positions that end inside a page and a batch that is not a multiple of
+    the kernel's 8-row passes."""
+    from ._examples import with_tail
+    tail = dict(lengths=[1, 37, 100], h=8, h_kv=4, d=64, hd=520,
+                i_size=1040)
+    out = [with_tail(_ex, "decode_layer",
+                     dict(lengths=[64, 48, 30, 17], h=8, h_kv=4, d=64, hd=512,
+                          i_size=1024, max_pages=4), tail)]
+    for label, lengths, h_kv in (
+            ("phase3 B 8", [0, 18, 256, 257, 701, 1024, 1201, 1501], 8),
+            ("phase3 B 1", [901], 8),
+            ("phase3 rep 1", [0] + [100 + 190 * r for r in range(1, 8)], 32)):
+        out.append(with_tail(_ex, label, dict(lengths=lengths, h=32,
+                                              h_kv=h_kv, d=128, hd=4096,
+                                              i_size=14336), tail))
+    return out
 

@@ -113,7 +113,7 @@ def dropout_add_bwd_plain(dy, seed: int, p: float):
                        0.0).to(dy.dtype)
 
 
-def _launch(x, residual, seed, p, what):
+def _run(x, residual, seed, p, what):
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -122,15 +122,20 @@ def _launch(x, residual, seed, p, what):
     if not all(t.is_contiguous() for t in ops):
         raise ValueError(f"{what} kernel takes contiguous tensors")
     _build.require_aligned(what, *ops)
-    threshold, scale = dropout_params(p)
     out = torch.empty_like(x)
+    _launch(x, residual, out, seed, p, what, _build.stream_of(x))
+    return out
+
+
+def _launch(x, residual, out, seed, p, what, stream):
+    """The C entry on operands the caller allocated (``residual`` None:
+    the backward)."""
+    threshold, scale = dropout_params(p)
     fn = _build.function("dropout_add", "ptt_dropout_add", _ARGS)
     err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
              out.data_ptr(), x.numel(), int(x.dtype == torch.float32),
-             int(seed) & _MASK32, threshold, float(scale),
-             _build.stream_of(x))
+             int(seed) & _MASK32, threshold, float(scale), stream)
     _build.check(err, what)
-    return out
 
 
 def dropout_add(x, residual, seed: int, p: float):
@@ -141,7 +146,7 @@ def dropout_add(x, residual, seed: int, p: float):
     _check(x, residual, "dropout_add")
     if x.device.type == "cpu":
         return dropout_add_plain(x, residual, seed, p)
-    y = _launch(x, residual, seed, p, "dropout_add")
+    y = _run(x, residual, seed, p, "dropout_add")
     dropout_add.launches += 1
     return y
 
@@ -155,7 +160,7 @@ def dropout_add_bwd(dy, seed: int, p: float):
     _check(dy, None, "dropout_add backward")
     if dy.device.type == "cpu":
         return dropout_add_bwd_plain(dy, seed, p)
-    dx = _launch(dy, None, seed, p, "dropout_add backward")
+    dx = _run(dy, None, seed, p, "dropout_add backward")
     dropout_add_bwd.launches += 1
     return dx
 
@@ -182,3 +187,56 @@ class DropoutAddFunction(torch.autograd.Function):
         bwd = dropout_add_bwd_plain if ctx.plain else dropout_add_bwd
         dx = bwd(dy, *ctx.args) if ctx.needs_input_grad[0] else None
         return dx, dy, None, None, None
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_THREADS = 256
+
+
+def _ex(label, rows, hd, bwd, dtype=torch.bfloat16):
+    """A grid-stride loop of 8 elements a thread over at most 8 blocks an
+    SM: block b covers chunks b, b + grid, ... of 2048 elements (block 0
+    also the fewer than 8 past the last whole vector)."""
+    from ._examples import CTYPE, model
+    m = model()
+    n = rows * hd
+    grid = max(1, min(132 * 8, -(-(n // 8) // _THREADS)))
+    ops = [m.Operand("x", (rows, hd), dtype),
+           m.Operand("y", (rows, hd), dtype, "out")]
+    if not bwd:
+        ops.append(m.Operand("res", (rows, hd), dtype))
+
+    def plain(t):
+        if bwd:
+            return {"y": dropout_add_bwd_plain(t["x"], 1234, 0.1)}
+        return {"y": dropout_add_plain(t["x"], t["res"], 1234, 0.1)}
+
+    def launch(t, stream):
+        _launch(t["x"], t.get("res"), t["y"], 1234, 0.1, label, stream)
+
+    kern = m.KernelLaunch(
+        f"dropout_add_kernel<{CTYPE[dtype]},{str(not bwd).lower()}>", grid,
+        _THREADS, writes=[m.stride_map("y", n, 8 * _THREADS, grid)])
+    return m.Example(label, "dropout_add", ops, [kern], launch, plain,
+                     flops=(13 if bwd else 14) * n,
+                     nbytes=(2 if bwd else 3) * n * dtype.itemsize, tol=0.0)
+
+
+def ck_examples():
+    """At ``dropout_add_pallas.pk_examples``' shape ([512, 1024], forward
+    and backward) and phase 3's ([8192, 768] and [4096, 4096] at p = 0.1,
+    both ways): bit for bit the plain version; tails whose element count
+    is not a multiple of 8."""
+    from ._examples import with_tail
+    out = []
+    for label, rows, hd, bwd in (
+            ("dropout_add_fwd", 512, 1024, False),
+            ("dropout_add_bwd", 512, 1024, True),
+            ("phase3 [8192, 768]", 8192, 768, False),
+            ("phase3 bwd [8192, 768]", 8192, 768, True),
+            ("phase3 [4096, 4096]", 4096, 4096, False),
+            ("phase3 bwd [4096, 4096]", 4096, 4096, True)):
+        out.append(with_tail(_ex, label, dict(rows=rows, hd=hd, bwd=bwd),
+                             dict(rows=37, hd=1001, bwd=bwd)))
+    return out

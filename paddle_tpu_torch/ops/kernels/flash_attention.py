@@ -149,18 +149,24 @@ def flash_attention(q, k, v, causal=False, segment_ids=None, with_lse=False):
     out = torch.empty_like(q)
     lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device) \
         if with_lse else None
-    fn = _build.function("flash_attention", "ptt_flash_attention", _ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             None if segment_ids is None else segment_ids.data_ptr(),
-             out.data_ptr(), None if lse is None else lse.data_ptr(),
-             b, s, h, k.shape[2], d, int(bool(causal)),
-             float(1.0 / math.sqrt(d)), _build.stream_of(q))
-    _build.check(err, "flash_attention")
+    _launch(q, k, v, segment_ids, out, lse, causal, _build.stream_of(q))
     flash_attention.launches += 1
     return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
+
+
+def _launch(q, k, v, segment_ids, out, lse, causal, stream):
+    """The forward's C entry on operands the caller allocated."""
+    b, s, h, d = q.shape
+    fn = _build.function("flash_attention", "ptt_flash_attention", _ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if segment_ids is None else segment_ids.data_ptr(),
+             out.data_ptr(), None if lse is None else lse.data_ptr(),
+             b, s, h, k.shape[2], d, int(bool(causal)),
+             float(1.0 / math.sqrt(d)), stream)
+    _build.check(err, "flash_attention")
 
 
 def flash_attention_forward(q, k, v, causal=False, segment_ids=None,
@@ -270,20 +276,29 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False,
     _build.require_aligned("flash_attention backward", q, k, v, out, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
+    _launch_bwd(q, k, v, out, lse, do, segment_ids, delta, dq, dk, dv, causal,
+                _build.stream_of(q))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _launch_bwd(q, k, v, out, lse, do, segment_ids, delta, dq, dk, dv,
+                causal, stream):
+    """The backward's C entry (delta, dq and dk/dv kernels) on operands the
+    caller allocated."""
+    b, s, h, d = q.shape
     fn = _build.function("flash_attention_bwd", "ptt_flash_attention_bwd",
                          _BWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              do.data_ptr(), lse.data_ptr(),
              None if segment_ids is None else segment_ids.data_ptr(),
              delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             b, s, h, h_kv, d, int(bool(causal)), float(1.0 / math.sqrt(d)),
-             _build.stream_of(q))
+             b, s, h, k.shape[2], d, int(bool(causal)),
+             float(1.0 / math.sqrt(d)), stream)
     _build.check(err, "flash_attention backward")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -306,3 +321,188 @@ class FlashAttentionFunction(torch.autograd.Function):
         bwd = flash_attention_bwd_plain if ctx.plain else flash_attention_bwd
         dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), ctx.causal, seg)
         return dq, dk, dv, None, None, None
+
+
+def segment_ids(s, cuts):
+    """``[len(cuts), s]`` int32 segment ids on the CPU: row r's id rises by
+    one at each position of ``cuts[r]``."""
+    seg = torch.zeros(len(cuts), s, dtype=torch.int32)
+    for r, row in enumerate(cuts):
+        for c in row:
+            seg[r, c:] += 1
+    return seg
+
+
+def visible_pairs(b, s, causal, seg=None):
+    """(query, key) pairs the mask leaves visible: what the bound counts."""
+    if seg is None:
+        return b * (s * (s + 1) // 2 if causal else s * s)
+    total = 0
+    for row in seg:
+        _, counts = row.unique_consecutive(return_counts=True)
+        total += sum(int(n) * (int(n) + 1) // 2 if causal else int(n) ** 2
+                     for n in counts)
+    return total
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_BQ = 64                     # query rows a forward / dq block
+_BK = 64                     # keys a dk/dv block
+_THREADS = 128
+
+
+def _operands(m, b, s, h, h_kv, d, cuts):
+    from ._examples import fixed
+    bf = torch.bfloat16
+    ops = [m.Operand("q", (b, s, h, d), bf), m.Operand("k", (b, s, h_kv, d), bf),
+           m.Operand("v", (b, s, h_kv, d), bf)]
+    seg = None
+    if cuts is not None:
+        seg = segment_ids(s, cuts)
+        ops.append(m.Operand("seg", (b, s), torch.int32, data=fixed(seg)))
+    return ops, seg
+
+
+def _q_tiles(m, name, b, s, h, d, bq):
+    """Block (x, y): query tile ``n_qt - 1 - x`` (heaviest causal tiles
+    first) of head ``y % H`` in batch ``y // H``."""
+    n_qt = -(-s // bq)
+    return m.TileMap(name, (1, bq, 1, d), lambda x, y, z: (
+        y // h, n_qt - 1 - x, y % h, 0))
+
+
+def _ex_fwd(label, b, s, h, h_kv, d, causal, with_lse=False, cuts=None):
+    from ._examples import model
+    m = model()
+    ops, seg = _operands(m, b, s, h, h_kv, d, cuts)
+    ops.append(m.Operand("out", (b, s, h, d), torch.bfloat16, "out"))
+    n_qt = -(-s // _BQ)
+    writes = [_q_tiles(m, "out", b, s, h, d, _BQ)]
+    if with_lse:
+        ops.append(m.Operand("lse", (b * h, s), torch.float32, "out"))
+        writes.append(m.TileMap("lse", (1, _BQ), lambda x, y, z: (
+            y, n_qt - 1 - x)))
+
+    def plain(t):
+        res = flash_attention_plain(t["q"], t["k"], t["v"], causal,
+                                    t.get("seg"), with_lse)
+        return {"out": res[0], "lse": res[1]} if with_lse else {"out": res}
+
+    def launch(t, stream):
+        _launch(t["q"], t["k"], t["v"], t.get("seg"), t["out"], t.get("lse"),
+                causal, stream)
+
+    kern = m.KernelLaunch(f"flash_attention_kernel<{d}>", (n_qt, b * h),
+                          _THREADS, writes=writes,
+                          reads=[_q_tiles(m, "q", b, s, h, d, _BQ)])
+    q_el, kv_el = b * s * h * d, b * s * h_kv * d
+    nbytes = 2 * (2 * q_el + 2 * kv_el) + (4 * b * h * s if with_lse else 0) \
+        + (4 * b * s if cuts is not None else 0)
+    return m.Example(label, "flash_attention", ops, [kern], launch, plain,
+                     flops=4 * h * d * visible_pairs(b, s, causal, seg),
+                     nbytes=nbytes, unit="bf16",
+                     tol={"lse": 1e-5, "*": 2.0 ** -7})
+
+
+def _ex_bwd(label, b, s, h, h_kv, d, causal, cuts=None):
+    """Three launches: delta (a warp a (b, s, h) row), dq (a block a query
+    tile of one head) and dk/dv (a block a key tile of one kv head)."""
+    from ._examples import model
+    m = model()
+    bf, f32 = torch.bfloat16, torch.float32
+    ops, seg = _operands(m, b, s, h, h_kv, d, cuts)
+    ops += [m.Operand("out", (b, s, h, d), bf), m.Operand("do", (b, s, h, d), bf),
+            m.Operand("lse", (b * h, s), f32),
+            m.Operand("delta", (b * h, s), f32, "out"),
+            m.Operand("dq", (b, s, h, d), bf, "out"),
+            m.Operand("dk", (b, s, h_kv, d), bf, "out"),
+            m.Operand("dv", (b, s, h_kv, d), bf, "out")]
+    rows = b * s * h
+    warps = _THREADS // 32
+
+    def delta_index(x, y, z):
+        out = []
+        for r in range(x * warps, min((x + 1) * warps, rows)):
+            hh, ss, bb = r % h, (r // h) % s, r // (h * s)
+            out.append(((bb * h + hh) * s + ss,))
+        return out
+
+    n_kt = -(-s // _BK)
+    kv_tiles = [m.TileMap(n, (1, _BK, 1, d), lambda x, y, z: (
+        y // h_kv, x, y % h_kv, 0)) for n in ("dk", "dv")]
+    kernels = [
+        m.KernelLaunch(f"flash_bwd_delta_kernel<{d}>", -(-rows // warps),
+                       _THREADS, writes=[m.TileMap("delta", (1,), delta_index,
+                                                   view=(b * h * s,))]),
+        m.KernelLaunch(f"flash_bwd_dq_kernel<{d}>", (-(-s // _BQ), b * h),
+                       _THREADS, writes=[_q_tiles(m, "dq", b, s, h, d, _BQ)]),
+        m.KernelLaunch(f"flash_bwd_dkv_kernel<{d}>", (n_kt, b * h_kv),
+                       _THREADS, smem=(2 * _BK + 2 * 32) * (d + 8) * 2
+                       + (3 * 32 + _BK) * 4, writes=kv_tiles)]
+
+    def prepare(t):
+        t["out"], t["lse"] = flash_attention_plain(
+            t["q"], t["k"], t["v"], causal, t.get("seg"), True)
+
+    def plain(t):
+        dq, dk, dv = flash_attention_bwd_plain(
+            t["q"], t["k"], t["v"], t["out"], t["lse"], t["do"], causal,
+            t.get("seg"))
+        delta = (t["do"].float() * t["out"].float()).sum(-1)   # [B, S, H]
+        return {"dq": dq, "dk": dk, "dv": dv,
+                "delta": delta.permute(0, 2, 1).reshape(b * h, s)}
+
+    def launch(t, stream):
+        _launch_bwd(t["q"], t["k"], t["v"], t["out"], t["lse"], t["do"],
+                    t.get("seg"), t["delta"], t["dq"], t["dk"], t["dv"],
+                    causal, stream)
+
+    q_el, kv_el = b * s * h * d, b * s * h_kv * d
+    nbytes = 2 * (3 * q_el + 2 * kv_el) + 4 * b * h * s \
+        + 2 * (q_el + 2 * kv_el) + (4 * b * s if cuts is not None else 0)
+    return m.Example(label, "flash_attention_bwd", ops, kernels, launch, plain,
+                     flops=2.5 * 4 * h * d * visible_pairs(b, s, causal, seg),
+                     nbytes=nbytes, unit="bf16", prepare=prepare,
+                     tol={"delta": 1e-4, "*": 2.0 ** -5})
+
+
+def ck_examples():
+    """At ``flash_attention_pallas.pk_examples``' shapes (q [2, 1024, 8,
+    128] over 2 kv heads: causal, full with the log-sum-exp, the causal
+    backward) and phase 3's (causal prefill at S 1024, 1531 and 2048, a
+    packed [2, 512] batch with segments and the log-sum-exp; the backward
+    at [2, 2048, 32, 128] causal, [2, 1024] with segments and [1, 1024] at
+    D 64 full); tails at an S that ends inside a tile, D 64, GQA 2."""
+    from ._examples import with_tail
+    tail = dict(b=1, s=100, h=4, h_kv=2, d=64)
+    out = [with_tail(_ex_fwd, "fwd_causal", dict(b=2, s=1024, h=8, h_kv=2,
+                                                 d=128, causal=True),
+                     dict(tail, causal=True)),
+           with_tail(_ex_fwd, "fwd_lse", dict(b=2, s=1024, h=8, h_kv=2, d=128,
+                                              causal=False, with_lse=True),
+                     dict(tail, causal=False, with_lse=True))]
+    for s in (1024, 1531, 2048):
+        out.append(with_tail(_ex_fwd, f"phase3 [1, {s}, 32, 128] causal",
+                             dict(b=1, s=s, h=32, h_kv=8, d=128, causal=True),
+                             dict(tail, causal=True)))
+    out.append(with_tail(
+        _ex_fwd, "phase3 [2, 512, 32, 128] causal segments lse",
+        dict(b=2, s=512, h=32, h_kv=8, d=128, causal=True, with_lse=True,
+             cuts=[[100, 300, 301], [256]]),
+        dict(tail, b=2, causal=True, with_lse=True, cuts=[[10, 30], [57]])))
+    out.append(with_tail(_ex_bwd, "bwd_causal", dict(b=2, s=1024, h=8, h_kv=2,
+                                                     d=128, causal=True),
+                         dict(tail, causal=True)))
+    for label, b, s, d, causal, cuts in (
+            ("phase3 bwd [2, 2048, 32, 128] causal", 2, 2048, 128, True,
+             None),
+            ("phase3 bwd [2, 1024, 32, 128] causal segments", 2, 1024, 128,
+             True, [[102, 341, 342], [512]]),
+            ("phase3 bwd [1, 1024, 32, 64] full", 1, 1024, 64, False, None)):
+        out.append(with_tail(_ex_bwd, label, dict(b=b, s=s, h=32, h_kv=8, d=d,
+                                                  causal=causal, cuts=cuts),
+                             dict(tail, b=b, causal=causal,
+                                  cuts=None if cuts is None
+                                  else [[10, 30], [57]][:b])))
+    return out

@@ -78,24 +78,97 @@ def lamb_update(param, grad, m, v, scalars, *, beta1, beta2, eps, wd,
         return lamb_update_plain(param, grad, m, v, scalars, beta1=beta1,
                                  beta2=beta2, eps=eps, wd=wd,
                                  lr_mult=lr_mult, master=master)
-    mode, w32, low = kernel_form("lamb", param, grad, m, v, scalars, master)
+    form = kernel_form("lamb", param, grad, m, v, scalars, master)
     if param.numel() == 0:
         raise ValueError("lamb kernel takes a non-empty parameter")
-    fn = _build.function("lamb", "ptt_lamb", _ARGS)
     max_blocks = _build.function("lamb", "ptt_lamb_max_blocks", [])()
     part = torch.empty(2 * max_blocks, dtype=torch.float32,
                        device=param.device)
     trust = torch.empty((), dtype=torch.float32, device=param.device)
-    err = fn(mode, None if w32 is None else w32.data_ptr(),
-             None if low is None else low.data_ptr(), grad.data_ptr(),
-             int(grad.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
-             scalars.data_ptr(), param.numel(), float(beta1),
-             float(1 - beta1), float(beta2), float(1 - beta2), float(eps),
-             float(wd), float(lr_mult), part.data_ptr(), trust.data_ptr(),
-             _build.stream_of(param))
-    _build.check(err, "lamb")
+    _launch(form, grad, m, v, scalars, beta1, beta2, eps, wd, lr_mult, part,
+            trust, _build.stream_of(param))
     lamb_update.launches += 1
     return trust
 
 
 lamb_update.launches = 0
+
+
+def _launch(form, grad, m, v, scalars, beta1, beta2, eps, wd, lr_mult, part,
+            trust, stream):
+    """The C entry (moments, then apply) on ``kernel_form``'s ``(mode, w32,
+    low)``; ``part`` holds two floats a block of the grid."""
+    mode, w32, low = form
+    fn = _build.function("lamb", "ptt_lamb", _ARGS)
+    err = fn(mode, None if w32 is None else w32.data_ptr(),
+             None if low is None else low.data_ptr(), grad.data_ptr(),
+             int(grad.dtype == torch.bfloat16), m.data_ptr(), v.data_ptr(),
+             scalars.data_ptr(), m.numel(), float(beta1), float(1 - beta1),
+             float(beta2), float(1 - beta2), float(eps), float(wd),
+             float(lr_mult), part.data_ptr(), trust.data_ptr(), stream)
+    _build.check(err, "lamb")
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_THREADS, _MAX_BLOCKS = 256, 132 * 8
+_HYPER = dict(beta1=0.9, beta2=0.999, eps=1e-6, wd=0.01)
+
+
+def _ex(label, shape, grad_dtype):
+    """Two grid-stride launches of the same grid: the moments (m and v in
+    place, a pair of partial norms a block) and the apply (every block
+    sums the partials; w32 and its bf16 copy in place, block 0 the
+    trust ratio)."""
+    from ._examples import model
+    from .adamw import _MODE_MASTER, example_state
+    mm = model()
+    n = shape[0] * shape[1]
+    grid = max(1, min(_MAX_BLOCKS, -(-(n // 4) // _THREADS)))
+    from ._examples import normal
+    ops, prepare = example_state(mm, shape, grad_dtype, 2e-3,
+                                 normal(shape, torch.float32, 1e-4), 1e-7)
+    ops += [mm.Operand("part", (2 * grid,), torch.float32, "out"),
+            mm.Operand("trust", (1,), torch.float32, "out")]
+    chunk = 4 * _THREADS
+    moments = [mm.stride_map(k, n, chunk, grid) for k in ("m", "v")] + [
+        mm.TileMap("part", (1,), lambda x, y, z: [(x,), (grid + x,)])]
+    apply = [mm.stride_map(k, n, chunk, grid) for k in ("w32", "p")] + [
+        mm.TileMap("trust", (1,), lambda x, y, z: [(0,)] if x == 0 else [])]
+
+    def plain(t):
+        trust = lamb_update_plain(t["p"], t["g"], t["m"], t["v"], t["scal"],
+                                  master=t["w32"], **_HYPER)
+        out = {k: t[k] for k in ("w32", "p", "m", "v")}
+        out["trust"] = trust.reshape(1)
+        return out
+
+    def launch(t, stream):
+        _launch((_MODE_MASTER, t["w32"], t["p"]), t["g"], t["m"], t["v"],
+                t["scal"], lr_mult=1.0, part=t["part"], trust=t["trust"],
+                stream=stream, **_HYPER)
+
+    gt = "__nv_bfloat16" if grad_dtype == torch.bfloat16 else "float"
+    kernels = [mm.KernelLaunch(f"lamb_moments_kernel<{gt},{_MODE_MASTER}>",
+                               grid, _THREADS, writes=moments),
+               mm.KernelLaunch(f"lamb_apply_kernel<{_MODE_MASTER}>", grid,
+                               _THREADS, writes=apply)]
+    return mm.Example(label, "lamb", ops, kernels, launch, plain,
+                      flops=27 * n, nbytes=(40 if grad_dtype == torch.bfloat16
+                                            else 42) * n,
+                      tol={"m": 0.0, "v": 0.0, "w32": 1e-6, "trust": 1e-6,
+                           "p": 2.0 ** -7}, prepare=prepare)
+
+
+def ck_examples():
+    """At ``lamb_pallas.pk_examples``' shape ([4096, 1024], f32 master and
+    gradient) and phase 3's ([14336, 4096] and [50304, 768], f32 master,
+    bf16 gradient); tails with an element count that is not a multiple of
+    4 and a grid below the cap."""
+    from ._examples import with_tail
+    return [with_tail(_ex, label, dict(shape=shape, grad_dtype=gd),
+                      dict(shape=(37, 1001), grad_dtype=gd))
+            for label, shape, gd in (
+                ("lamb_update", (4096, 1024), torch.float32),
+                ("phase3 [14336, 4096]", (14336, 4096), torch.bfloat16),
+                ("phase3 [50304, 768]", (50304, 768), torch.bfloat16))]

@@ -95,12 +95,68 @@ def linear_grad_add(x2, dy2, acc):
                          "in place")
     x2, dy2 = x2.contiguous(), dy2.contiguous()
     _build.require_aligned("linear_grad_add", x2, dy2, acc)
-    fn = _build.function("linear_grad_add", "ptt_linear_grad_add", _ARGS)
-    err = fn(x2.data_ptr(), dy2.data_ptr(), acc.data_ptr(), m, k, n,
-             int(acc.dtype == torch.float32), _build.stream_of(x2))
-    _build.check(err, "linear_grad_add")
+    _launch(x2, dy2, acc, _build.stream_of(x2))
     linear_grad_add.launches += 1
     return acc
 
 
 linear_grad_add.launches = 0
+
+
+def _launch(x2, dy2, acc, stream):
+    """The C entry on operands the caller allocated."""
+    m, k = x2.shape
+    fn = _build.function("linear_grad_add", "ptt_linear_grad_add", _ARGS)
+    err = fn(x2.data_ptr(), dy2.data_ptr(), acc.data_ptr(), m, k,
+             dy2.shape[1], int(acc.dtype == torch.float32), stream)
+    _build.check(err, "linear_grad_add")
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_TILE, _THREADS = 128, 256
+
+
+def _ex(label, m, k, n, acc_dtype):
+    """A block a [128, 128] tile of the accumulator (grid N / 128, K /
+    128), updated in place after its K-by-M contraction."""
+    from ._examples import CTYPE, model, normal
+    mm = model()
+    ops = [mm.Operand("x", (m, k), torch.bfloat16),
+           mm.Operand("dy", (m, n), torch.bfloat16),
+           mm.Operand("acc", (k, n), acc_dtype, "inout",
+                      data=normal((k, n), acc_dtype, 4.0))]
+
+    def plain(t):
+        return {"acc": linear_grad_add_plain(t["x"], t["dy"], t["acc"])}
+
+    def launch(t, stream):
+        _launch(t["x"], t["dy"], t["acc"], stream)
+
+    kern = mm.KernelLaunch(
+        f"linear_grad_add_kernel<{CTYPE[acc_dtype]}>",
+        (-(-n // _TILE), -(-k // _TILE)), _THREADS,
+        writes=[mm.TileMap("acc", (_TILE, _TILE), lambda x, y, z: (y, x))])
+    esz = acc_dtype.itemsize
+    return mm.Example(label, "linear_grad_add", ops, [kern], launch, plain,
+                      flops=2 * m * k * n,
+                      nbytes=2 * (m * k + m * n) + 2 * esz * k * n,
+                      unit="bf16", tol=1e-4 if esz == 4 else 2.0 ** -7)
+
+
+def ck_examples():
+    """At ``linear_grad_add_pallas.pk_examples``' shape (x [512, 1024], dy
+    [512, 2048] into f32 [1024, 2048]) and phase 3's (GPT-2 small's
+    ``mlp.fc`` into f32 and bf16, Llama-3-8B's gate into f32); tails with
+    K and N past their last full tile and an odd M."""
+    from ._examples import with_tail
+    return [with_tail(_ex, label, dict(m=m, k=k, n=n, acc_dtype=dt),
+                      dict(m=37, k=136, n=264, acc_dtype=dt))
+            for label, m, k, n, dt in (
+                ("grad_acc", 512, 1024, 2048, torch.float32),
+                ("phase3 x [8192, 768] dy [8192, 3072] f32", 8192, 768, 3072,
+                 torch.float32),
+                ("phase3 x [4096, 4096] dy [4096, 14336] f32", 4096, 4096,
+                 14336, torch.float32),
+                ("phase3 x [8192, 768] dy [8192, 3072] bf16", 8192, 768, 3072,
+                 torch.bfloat16))]

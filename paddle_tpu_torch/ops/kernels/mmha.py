@@ -116,13 +116,94 @@ def mmha_decode(q, k_pool, v_pool, tables, pos):
         raise ValueError("mmha kernel takes contiguous tensors")
     _build.require_aligned("mmha", q, k_pool, v_pool)
     out = torch.empty_like(q)
-    fn = _build.function("mmha", "ptt_mmha_paged", _ARGS)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h_kv,
-             h // h_kv, d, ps, tables.shape[1], _build.stream_of(q))
-    _build.check(err, "mmha")
+    _launch(q, k_pool, v_pool, tables, pos, out, _build.stream_of(q))
     mmha_decode.launches += 1
     return out
 
 
 mmha_decode.launches = 0
+
+
+def _launch(q, k_pool, v_pool, tables, pos, out, stream):
+    """The C entry on operands the caller allocated."""
+    b, _, h, d = q.shape
+    _, h_kv, ps, _ = k_pool.shape
+    fn = _build.function("mmha", "ptt_mmha_paged", _ARGS)
+    _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                    tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b,
+                    h_kv, h // h_kv, d, ps, tables.shape[1], stream), "mmha")
+
+
+def paged_tables(lengths, page_size, max_pages, seed):
+    """Page tables that hand out shuffled pages, on the CPU: row r holds
+    ``lengths[r]`` positions (0: an inactive row, position 0 and an
+    all-trash table). Returns ``(tables [B, max_pages] int32, pos [B]
+    int32, n_pages)``; page 0 is the trash page."""
+    need = [-(-n // page_size) for n in lengths]
+    n_pages = 1 + sum(need)
+    perm = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                           .manual_seed(seed)) + 1).tolist()
+    tables = torch.zeros(len(lengths), max_pages, dtype=torch.int32)
+    nxt = 0
+    for row, k in enumerate(need):
+        tables[row, :k] = torch.tensor(perm[nxt:nxt + k], dtype=torch.int32)
+        nxt += k
+    pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+    return tables, pos, n_pages
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7):
+    """One block of 8 warps a (kv head, row): grid (Hkv, B); the block
+    writes the REP query heads of its kv head. The keys and values it
+    reads go through the page table (not declared as tiles)."""
+    from ._examples import fixed, model
+    m = model()
+    bf = torch.bfloat16
+    b, rep = len(lengths), h // h_kv
+    tables, pos, n_pages = paged_tables(lengths, ps, max_pages, seed)
+    ops = [m.Operand("q", (b, 1, h, d), bf),
+           m.Operand("k", (n_pages, h_kv, ps, d), bf),
+           m.Operand("v", (n_pages, h_kv, ps, d), bf),
+           m.Operand("tables", tuple(tables.shape), torch.int32,
+                     data=fixed(tables)),
+           m.Operand("pos", (b,), torch.int32, data=fixed(pos)),
+           m.Operand("out", (b, 1, h, d), bf, "out")]
+    heads = m.TileMap("out", (1, 1, rep * d), lambda g, r, z: (r, g, 0),
+                      view=(b, h_kv, rep * d))
+    kern = m.KernelLaunch(
+        f"mmha_paged_kernel<{d},{rep}>", (h_kv, b), 256, writes=[heads],
+        reads=[m.TileMap("q", heads.block, heads.index, view=heads.view)])
+
+    def plain(t):
+        return {"out": mmha_plain(t["q"], t["k"], t["v"], t["tables"],
+                                  t["pos"])}
+
+    def launch(t, stream):
+        _launch(t["q"], t["k"], t["v"], t["tables"], t["pos"], t["out"],
+                stream)
+
+    seen = int((pos + 1).sum())
+    return m.Example(label, "mmha", ops, [kern], launch, plain,
+                     flops=4 * seen * h * d,
+                     nbytes=2 * seen * h_kv * d * 2 + 2 * b * h * d * 2
+                     + tables.numel() * 4)
+
+
+def ck_examples():
+    """At ``mmha_pallas.pk_examples``' shape (q [8, 1, 32, 128] over 8 kv
+    heads and 2048 positions a row; the JAX cache is contiguous, the
+    port's is paged) and phase 3's (the same q at positions 0..1500 with
+    an inactive row 0); a tail at D 64, REP 4 and lengths that end inside
+    a page and inside a round of the block's 32 position streams."""
+    from ._examples import with_tail
+    out = []
+    for label, lengths in (
+            ("mmha_decode", [2048] * 8),
+            ("phase3 [8, 1, 32, 128]", [0, 18, 256, 257, 701, 1024, 1201,
+                                        1501])):
+        out.append(with_tail(_ex, label, dict(lengths=lengths, h=32, h_kv=8,
+                                              d=128),
+                             dict(lengths=[1, 37, 100], h=8, h_kv=2, d=64)))
+    return out

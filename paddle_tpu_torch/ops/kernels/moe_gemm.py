@@ -105,15 +105,99 @@ def grouped_matmul(x, w, counts):
     counts = counts.to(torch.int32).contiguous()
     out = torch.empty(e, c, f, dtype=x.dtype, device=x.device)
     _build.require_aligned("grouped_matmul", x, w, out)
-    fn = _build.function("moe_gemm", "ptt_moe_gemm", _ARGS)
-    err = fn(x.data_ptr(), w.data_ptr(), counts.data_ptr(), out.data_ptr(),
-             e, c, h, f, w_nk, _build.stream_of(x))
-    _build.check(err, "grouped_matmul")
+    _launch(x, w, counts, out, w_nk, _build.stream_of(x))
     grouped_matmul.launches += 1
     return out
 
 
 grouped_matmul.launches = 0
+
+
+def _launch(x, w, counts, out, w_nk, stream):
+    """The C entry on operands the caller allocated; ``w`` is the stored
+    ``[E, H, F]`` (``w_nk`` 0) or ``[E, F, H]`` (``w_nk`` 1) tensor."""
+    e, c, h = x.shape
+    fn = _build.function("moe_gemm", "ptt_moe_gemm", _ARGS)
+    err = fn(x.data_ptr(), w.data_ptr(), counts.data_ptr(), out.data_ptr(),
+             e, c, h, out.shape[2], int(w_nk), stream)
+    _build.check(err, "grouped_matmul")
+
+
+def skewed_counts(e, n_slots, capacity, seed):
+    """Kept slots per expert from a seeded skewed draw, on the CPU:
+    ``n_slots`` routed slots spread over ``e`` experts with weights
+    ``exp(1.5 z)``, ``z`` standard normal, each expert capped at
+    ``capacity``; expert 0 gets none and expert 1 a full queue. int32."""
+    gen = torch.Generator().manual_seed(seed)
+    p = torch.exp(1.5 * torch.randn(e, generator=gen))
+    draw = torch.multinomial(p / p.sum(), n_slots, replacement=True,
+                             generator=gen)
+    counts = torch.bincount(draw, minlength=e).clamp(max=capacity)
+    counts[0], counts[1] = 0, capacity
+    return counts.to(torch.int32)
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_BM, _BN, _THREADS = 64, 128, 128
+
+
+def _ex(label, e, c, k, n, counts, w_nk=False):
+    """A block a [64, 128] tile of one expert's output, grid (C / 64,
+    N / 128, E): a tile past the count is written with zeros and never
+    multiplied. ``w_nk``: the weight stored [E, N, K] (the backward's
+    transposed view of a forward stack)."""
+    from ._examples import fixed, model, normal
+    m = model()
+    bf = torch.bfloat16
+    w_shape = (e, n, k) if w_nk else (e, k, n)
+    ops = [m.Operand("x", (e, c, k), bf),
+           m.Operand("w", w_shape, bf, data=normal(w_shape, bf, 0.02)),
+           m.Operand("counts", (e,), torch.int32, data=fixed(counts)),
+           m.Operand("out", (e, c, n), bf, "out")]
+
+    def plain(t):
+        w = t["w"].transpose(1, 2) if w_nk else t["w"]
+        return {"out": grouped_matmul_plain(t["x"], w, t["counts"])}
+
+    def launch(t, stream):
+        _launch(t["x"], t["w"], t["counts"], t["out"], w_nk, stream)
+
+    kern = m.KernelLaunch(
+        f"moe_gemm_kernel<{str(w_nk).lower()}>",
+        (-(-c // _BM), -(-n // _BN), e), _THREADS,
+        writes=[m.TileMap("out", (1, _BM, _BN), lambda x, y, z: (z, x, y))])
+    rows = int(counts.clamp(0, c).sum())
+    experts = int((counts > 0).sum())
+    return m.Example(label, "moe_gemm", ops, [kern], launch, plain,
+                     flops=2 * rows * k * n,
+                     nbytes=(experts * k * n + rows * k + e * c * n) * 2
+                     + 4 * e, unit="bf16")
+
+
+def ck_examples():
+    """At ``moe_gemm_pallas.pk_examples``' shape (x [8, 256, 1024] @ [8,
+    1024, 4096]) and phase 3's (one Qwen1.5-MoE layer at 2048 tokens: 60
+    experts of capacity 274, gate/up [60, 274, 2048] @ [60, 2048, 1408],
+    down [60, 274, 1408] @ [60, 1408, 2048], and dx through the transposed
+    view of the gate/up stack), counts from ``skewed_counts`` with an empty
+    and a full expert; tails with C, K and N past their last full tile."""
+    from ._examples import with_tail
+    cap = 274
+    counts = skewed_counts(60, 2048 * 4, cap, seed=81)
+    tail = dict(e=3, c=37, k=72, n=136,
+                counts=torch.tensor([0, 37, 20], dtype=torch.int32))
+    return [with_tail(_ex, label, dict(e=e, c=c, k=k, n=n, counts=cn,
+                                       w_nk=nk), dict(tail, w_nk=nk))
+            for label, e, c, k, n, cn, nk in (
+                ("grouped_gemm", 8, 256, 1024, 4096,
+                 skewed_counts(8, 1024, 256, seed=0), False),
+                ("phase3 gate/up [60, 274, 2048] @ [60, 2048, 1408]", 60, cap,
+                 2048, 1408, counts, False),
+                ("phase3 down [60, 274, 1408] @ [60, 1408, 2048]", 60, cap,
+                 1408, 2048, counts, False),
+                ("phase3 dx [60, 274, 1408] @ [60, 2048, 1408]^T", 60, cap,
+                 1408, 2048, counts, True))]
 
 
 class GroupedMatmulFunction(torch.autograd.Function):

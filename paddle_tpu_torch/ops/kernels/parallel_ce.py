@@ -90,17 +90,28 @@ def row_stats(logits2, labels, vocab_start=0):
     labels = labels.to(torch.int64).contiguous()
     mx, se, tg = (torch.empty(n, dtype=torch.float32, device=logits2.device)
                   for _ in range(3))
-    vec = int(v * logits2.element_size() % 16 == 0)
-    fn = _build.function("cross_entropy", "ptt_ce_row_stats", _ARGS)
-    err = fn(logits2.data_ptr(), int(logits2.dtype == torch.bfloat16),
-             labels.data_ptr(), n, v, int(vocab_start), mx.data_ptr(),
-             se.data_ptr(), tg.data_ptr(), vec, _build.stream_of(logits2))
-    _build.check(err, "row_stats")
+    _launch(logits2, labels, vocab_start, mx, se, tg,
+            _build.stream_of(logits2))
     row_stats.launches += 1
     return mx, se, tg
 
 
 row_stats.launches = 0
+
+
+def _vectorized(logits2) -> bool:
+    """Every row a whole number of 16-byte vectors."""
+    return logits2.shape[1] * logits2.element_size() % 16 == 0
+
+
+def _launch(logits2, labels, vocab_start, mx, se, tg, stream):
+    """The C entry on operands the caller allocated (int64 labels)."""
+    n, v = logits2.shape
+    fn = _build.function("cross_entropy", "ptt_ce_row_stats", _ARGS)
+    err = fn(logits2.data_ptr(), int(logits2.dtype == torch.bfloat16),
+             labels.data_ptr(), n, v, int(vocab_start), mx.data_ptr(),
+             se.data_ptr(), tg.data_ptr(), int(_vectorized(logits2)), stream)
+    _build.check(err, "row_stats")
 
 
 class CrossEntropyFunction(torch.autograd.Function):
@@ -153,3 +164,51 @@ def c_softmax_with_cross_entropy(logits, label, vocab_start=0,
     ``logits``."""
     return CrossEntropyFunction.apply(logits, label, int(vocab_start),
                                       ignore_index, plain)
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+def _ex(label, n, v, dtype):
+    """A block a row: its max, sum of exponentials and target logit."""
+    from ._examples import CTYPE, model, normal
+    m = model()
+    ops = [m.Operand("logits", (n, v), dtype, data=normal((n, v), dtype, 2.0)),
+           m.Operand("labels", (n,), torch.int64,
+                     data=lambda gen, dev: torch.randint(
+                         0, v, (n,), generator=gen, device=dev)),
+           m.Operand("mx", (n,), torch.float32, "out"),
+           m.Operand("se", (n,), torch.float32, "out"),
+           m.Operand("tg", (n,), torch.float32, "out")]
+    per_row = [m.TileMap(k, (1,), lambda x, y, z: (x,))
+               for k in ("mx", "se", "tg")]
+    vec = str(v * dtype.itemsize % 16 == 0).lower()
+
+    def plain(t):
+        mx, se, tg = row_stats_plain(t["logits"], t["labels"])
+        return {"mx": mx, "se": se, "tg": tg}
+
+    def launch(t, stream):
+        _launch(t["logits"], t["labels"], 0, t["mx"], t["se"], t["tg"],
+                stream)
+
+    kern = m.KernelLaunch(f"ce_row_stats_kernel<{CTYPE[dtype]},{vec}>", n,
+                          256, writes=per_row,
+                          reads=[m.rows_map("logits", n, v)])
+    return m.Example(label, "cross_entropy", ops, [kern], launch, plain,
+                     flops=4 * n * v,
+                     nbytes=dtype.itemsize * n * v + 8 * n + 12 * n,
+                     tol={"se": 1e-5, "*": 0.0})
+
+
+def ck_examples():
+    """At ``ce_pallas.pk_examples``' shape (f32 logits [512, 4096]; the
+    port's labels are int64) and phase 3's (bf16 [4096, 128256] and [8192,
+    50304]); tails with a vocabulary that is not a whole number of 16-byte
+    vectors (the unvectorized kernel)."""
+    from ._examples import with_tail
+    return [with_tail(_ex, label, dict(n=n, v=v, dtype=dt),
+                      dict(n=37, v=1001, dtype=dt))
+            for label, n, v, dt in (
+                ("row_stats", 512, 4096, torch.float32),
+                ("phase3 [4096, 128256]", 4096, 128256, torch.bfloat16),
+                ("phase3 [8192, 50304]", 8192, 50304, torch.bfloat16))]

@@ -96,16 +96,38 @@ def rms_norm(x, weight, residual=None, eps=1e-6):
     _build.require_aligned("rms_norm", x, weight, residual)
     y = torch.empty_like(x)
     h = None if residual is None else torch.empty_like(x)
-    fn = _build.function("rms_norm", "ptt_rms_norm", _ARGS)
-    err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
-             weight.data_ptr(), y.data_ptr(), None if h is None else h.data_ptr(),
-             x.numel() // hidden, hidden, float(eps), _build.stream_of(x))
-    _build.check(err, "rms_norm")
+    _launch_fwd(x, weight, residual, y, h, eps, _build.stream_of(x))
     rms_norm.launches += 1
     return y if residual is None else (y, h)
 
 
 rms_norm.launches = 0
+
+
+def _launch_fwd(x, weight, residual, y, h, eps, stream):
+    """The forward's C entry on operands the caller allocated."""
+    hidden = x.shape[-1]
+    fn = _build.function("rms_norm", "ptt_rms_norm", _ARGS)
+    err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
+             weight.data_ptr(), y.data_ptr(), None if h is None else h.data_ptr(),
+             x.numel() // hidden, hidden, float(eps), stream)
+    _build.check(err, "rms_norm")
+
+
+def _bwd_rows_per_block(rows: int) -> int:
+    return max(1, min(32, -(-rows // _ROW_GROUPS)))
+
+
+def _launch_bwd(h, weight, g, g_h, dx, part, eps, stream):
+    """The backward's C entry on operands the caller allocated."""
+    hidden = h.shape[-1]
+    rows = h.numel() // hidden
+    fn = _build.function("rms_norm", "ptt_rms_norm_bwd", _BWD_ARGS)
+    err = fn(h.data_ptr(), weight.data_ptr(), g.data_ptr(),
+             None if g_h is None else g_h.data_ptr(), dx.data_ptr(),
+             part.data_ptr(), rows, _bwd_rows_per_block(rows), hidden,
+             float(eps), stream)
+    _build.check(err, "rms_norm backward")
 
 
 def _check_bwd(h, weight, g, g_h):
@@ -164,18 +186,13 @@ def rms_norm_bwd(h, weight, g, g_h=None, eps=1e-6):
         raise ValueError("rms_norm backward kernel takes contiguous tensors")
     _build.require_aligned("rms_norm backward", h, weight, g, g_h)
     rows = h.numel() // hidden
-    per_block = max(1, min(32, -(-rows // _ROW_GROUPS)))
+    per_block = _bwd_rows_per_block(rows)
     dx = torch.empty_like(h)
     part = torch.empty(max(1, -(-rows // per_block)), hidden,
                        dtype=torch.float32, device=h.device)
     if rows == 0:
         part.zero_()
-    fn = _build.function("rms_norm", "ptt_rms_norm_bwd", _BWD_ARGS)
-    err = fn(h.data_ptr(), weight.data_ptr(), g.data_ptr(),
-             None if g_h is None else g_h.data_ptr(), dx.data_ptr(),
-             part.data_ptr(), rows, per_block, hidden, float(eps),
-             _build.stream_of(h))
-    _build.check(err, "rms_norm backward")
+    _launch_bwd(h, weight, g, g_h, dx, part, eps, _build.stream_of(h))
     rms_norm_bwd.launches += 1
     return dx, part.sum(0).to(weight.dtype)
 
@@ -208,3 +225,110 @@ class RMSNormFunction(torch.autograd.Function):
         dx, dw = bwd(h, weight, g_y.contiguous(),
                      None if g_h is None else g_h.contiguous(), ctx.eps)
         return dx, dw, (dx if ctx.has_res else None), None, None
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+def _ex_fwd(label, rows, hidden, residual):
+    from ._examples import model, normal, row_threads
+    m = model()
+    bf = torch.bfloat16
+    ops = [m.Operand("x", (rows, hidden), bf),
+           m.Operand("w", (hidden,), bf, data=normal((hidden,), bf, 0.1, 1.0)),
+           m.Operand("y", (rows, hidden), bf, "out")]
+    writes = [m.rows_map("y", rows, hidden)]
+    reads = [m.rows_map("x", rows, hidden), m.whole_map("w", (hidden,))]
+    if residual:
+        ops += [m.Operand("res", (rows, hidden), bf),
+                m.Operand("h", (rows, hidden), bf, "out")]
+        writes.append(m.rows_map("h", rows, hidden))
+        reads.append(m.rows_map("res", rows, hidden))
+
+    def plain(t):
+        out = rms_norm_plain(t["x"], t["w"], t.get("res"), 1e-5)
+        return {"y": out[0], "h": out[1]} if residual else {"y": out}
+
+    def launch(t, stream):
+        _launch_fwd(t["x"], t["w"], t.get("res"), t["y"], t.get("h"), 1e-5,
+                    stream)
+
+    kern = m.KernelLaunch(
+        f"rms_norm_kernel<{'true' if residual else 'false'}>", rows,
+        row_threads(hidden // 8), smem=4 * hidden, writes=writes, reads=reads)
+    return m.Example(label, "rms_norm", ops, [kern], launch, plain,
+                     flops=5 * rows * hidden,
+                     nbytes=2 * rows * hidden * (2 if residual else 1) * 2
+                     + 2 * hidden)
+
+
+def _ex_bwd(label, rows, hidden, with_gh):
+    from ._examples import model, normal
+    m = model()
+    bf = torch.bfloat16
+    per = _bwd_rows_per_block(rows)
+    blocks = -(-rows // per)
+    vecs = hidden // 8
+    threads = min(256, -(-vecs // 32) * 32)
+    v = -(-vecs // threads)
+    ops = [m.Operand("h", (rows, hidden), bf),
+           m.Operand("w", (hidden,), bf, data=normal((hidden,), bf, 0.1, 1.0)),
+           m.Operand("g", (rows, hidden), bf),
+           m.Operand("dx", (rows, hidden), bf, "out"),
+           m.Operand("part", (blocks, hidden), torch.float32, "out")]
+    reads = [m.rows_map("h", rows, hidden, per), m.rows_map("g", rows, hidden,
+                                                            per),
+             m.whole_map("w", (hidden,))]
+    if with_gh:
+        ops.append(m.Operand("gh", (rows, hidden), bf))
+        reads.append(m.rows_map("gh", rows, hidden, per))
+
+    def plain(t):
+        hf, gf = t["h"].float(), t["g"].float()
+        rstd = torch.rsqrt(hf.square().mean(-1, keepdim=True) + 1e-5)
+        dx = rms_norm_bwd_plain(t["h"], t["w"], t["g"], t.get("gh"), 1e-5)[0]
+        contrib = torch.zeros(blocks * per, hidden, device=hf.device)
+        contrib[:rows] = gf * hf * rstd
+        return {"dx": dx, "part": contrib.view(blocks, per, hidden).sum(1)}
+
+    def launch(t, stream):
+        _launch_bwd(t["h"], t["w"], t["g"], t.get("gh"), t["dx"], t["part"],
+                    1e-5, stream)
+
+    kern = m.KernelLaunch(
+        f"rms_norm_bwd_kernel<{v}>", blocks, threads,
+        writes=[m.rows_map("dx", rows, hidden, per),
+                m.rows_map("part", blocks, hidden)], reads=reads)
+    return m.Example(label, "rms_norm", ops, [kern], launch, plain,
+                     flops=10 * rows * hidden,
+                     nbytes=2 * rows * hidden * (3 + with_gh) + 2 * hidden * 2,
+                     tol=2.0 ** -6)
+
+
+def ck_examples():
+    """The forward at ``rms_norm_pallas.pk_examples``' shapes ([512, 1024])
+    and phase 3's ([8, 4096], [512, 4096], with and without the residual),
+    the backward at [512, 1024] and phase 3's [4096, 4096] (with and
+    without the sum's cotangent); each with a tail of an odd row count and
+    a hidden width that leaves threads of the last warp idle."""
+    from ._examples import with_tail
+    out = []
+    for label, rows, hidden, res in (
+            ("rms_fwd_plain", 512, 1024, False),
+            ("rms_fwd_res", 512, 1024, True),
+            ("phase3 [8, 4096]", 8, 4096, False),
+            ("phase3 [8, 4096] residual", 8, 4096, True),
+            ("phase3 [512, 4096]", 512, 4096, False),
+            ("phase3 [512, 4096] residual", 512, 4096, True)):
+        out.append(with_tail(_ex_fwd, label,
+                             dict(rows=rows, hidden=hidden, residual=res),
+                             dict(rows=rows + 3, hidden=hidden + 8,
+                                  residual=res)))
+    for label, rows, hidden, gh in (
+            ("rms_bwd", 512, 1024, False),
+            ("phase3 [4096, 4096]", 4096, 4096, False),
+            ("phase3 [4096, 4096] residual cotangent", 4096, 4096, True)):
+        out.append(with_tail(_ex_bwd, label,
+                             dict(rows=rows, hidden=hidden, with_gh=gh),
+                             dict(rows=rows + 5, hidden=hidden + 8,
+                                  with_gh=gh)))
+    return out

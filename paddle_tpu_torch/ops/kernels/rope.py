@@ -78,15 +78,21 @@ def rope_apply(x, cos, sin):
         raise ValueError("rope kernel takes contiguous tensors")
     _build.require_aligned("rope", x, cos, sin)
     out = torch.empty_like(x)
-    fn = _build.function("rope", "ptt_rope", _ARGS)
-    err = fn(x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-             b * s, h, d, s, int(cos.shape[0] == b * s), _build.stream_of(x))
-    _build.check(err, "rope")
+    _launch(x, cos, sin, out, _build.stream_of(x))
     rope_apply.launches += 1
     return out
 
 
 rope_apply.launches = 0
+
+
+def _launch(x, cos, sin, out, stream):
+    """The C entry on operands the caller allocated."""
+    b, s, h, d = x.shape
+    fn = _build.function("rope", "ptt_rope", _ARGS)
+    _build.check(fn(x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                    out.data_ptr(), b * s, h, d, s,
+                    int(cos.shape[0] == b * s), stream), "rope")
 
 
 class RoPEFunction(torch.autograd.Function):
@@ -104,3 +110,58 @@ class RoPEFunction(torch.autograd.Function):
         cos, sin = ctx.saved_tensors
         fn = rope_plain if ctx.plain else rope_apply
         return fn(dy.contiguous(), cos, -sin), None, None, None
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+def _ex(label, b, s, h, d, per_token):
+    """One block a token: it rotates the token's [H, D] row by table row
+    t (per-token tables) or t % S (one row a position)."""
+    from ._examples import model, uniform
+    m = model()
+    tokens = b * s
+    rows = tokens if per_token else s
+    threads = h * d // 4
+    threads = 32 if threads < 32 else (256 if threads > 256
+                                       else -(-threads // 32) * 32)
+    f32 = torch.float32
+    ops = [m.Operand("x", (b, s, h, d), torch.bfloat16),
+           m.Operand("cos", (rows, d), f32, data=uniform((rows, d), f32, -1, 1)),
+           m.Operand("sin", (rows, d), f32, data=uniform((rows, d), f32, -1, 1)),
+           m.Operand("out", (b, s, h, d), torch.bfloat16, "out")]
+    table = m.TileMap("cos", (1, d), lambda t, y, z: (t if per_token
+                                                      else t % s, 0))
+    table_s = m.TileMap("sin", (1, d), table.index)
+    kern = m.KernelLaunch(
+        "rope_kernel", tokens, threads,
+        writes=[m.rows_map("out", tokens, h * d)],
+        reads=[m.rows_map("x", tokens, h * d), table, table_s])
+
+    def plain(t):
+        return {"out": rope_plain(t["x"], t["cos"], t["sin"])}
+
+    def launch(t, stream):
+        _launch(t["x"], t["cos"], t["sin"], t["out"], stream)
+
+    n = tokens * h * d
+    return m.Example(label, "rope", ops, [kern], launch, plain, flops=3 * n,
+                     nbytes=2 * n * 2 + 2 * rows * d * 4)
+
+
+def ck_examples():
+    """At ``rope_pallas.pk_examples``' shape (x [2, 1024, 16, 128], tables
+    [1024, 128] shared by the batch) and phase 3's (decode q [8, 1, 32, 128]
+    with per-token tables; prefill q [1, 512, 32, 128] and k [1, 512, 8,
+    128]); tails of an odd token count and a head width whose threads do
+    not fill the last warp."""
+    from ._examples import with_tail
+    out = []
+    for label, b, s, h, d, per in (
+            ("rope", 2, 1024, 16, 128, False),
+            ("phase3 [8, 1, 32, 128]", 8, 1, 32, 128, True),
+            ("phase3 [1, 512, 32, 128]", 1, 512, 32, 128, True),
+            ("phase3 [1, 512, 8, 128]", 1, 512, 8, 128, True)):
+        out.append(with_tail(_ex, label, dict(b=b, s=s, h=h, d=d,
+                                              per_token=per),
+                             dict(b=b, s=s + 37, h=3, d=68, per_token=per)))
+    return out

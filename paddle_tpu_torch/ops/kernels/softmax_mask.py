@@ -130,24 +130,30 @@ def _kernel_checks(x, what, smem):
 def _forward(x, mask, what):
     _kernel_checks(x, what, 4 * x.shape[-1])
     x = x.contiguous()
+    if mask is not None and mask.dtype not in _KERNEL_DTYPES:
+        mask = mask.float()
+    y = torch.empty_like(x)
+    _build.require_aligned(what, x, y)
+    _launch_fwd(x, mask, y, what, _build.stream_of(x))
+    return y
+
+
+def _launch_fwd(x, mask, y, what, stream):
+    """The forward's C entry on operands the caller allocated: ``mask``
+    (bf16 or f32, broadcasting to x) or None for the causal triangle."""
     b, h, sq, sk = x.shape
     strides = (0, 0, 0, 0)
     mask_f32 = 1
     if mask is not None:
-        if mask.dtype not in _KERNEL_DTYPES:
-            mask = mask.float()
         mask_f32 = int(mask.dtype == torch.float32)
         # the broadcast view's strides are 0 on every broadcast axis
         strides = mask.expand(b, h, sq, sk).stride()
-    y = torch.empty_like(x)
-    _build.require_aligned(what, x, y)
     fn = _build.function("softmax_mask", "ptt_softmax_mask", _ARGS)
     err = fn(x.data_ptr(), None if mask is None else mask.data_ptr(),
              y.data_ptr(), b * h * sq, h, sq, sk, *strides,
              int(x.dtype == torch.float32), mask_f32, int(mask is None),
-             _build.stream_of(x))
+             stream)
     _build.check(err, what)
-    return y
 
 
 def softmax_mask(x, mask):
@@ -198,16 +204,21 @@ def softmax_mask_bwd(y, dy):
     y, dy = y.contiguous(), dy.contiguous()
     dx = torch.empty_like(y)
     _build.require_aligned("softmax_mask backward", y, dy, dx)
-    fn = _build.function("softmax_mask", "ptt_softmax_mask_bwd", _BWD_ARGS)
-    err = fn(y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-             y.numel() // y.shape[-1], y.shape[-1],
-             int(y.dtype == torch.float32), _build.stream_of(y))
-    _build.check(err, "softmax_mask backward")
+    _launch_bwd(y, dy, dx, _build.stream_of(y))
     softmax_mask_bwd.launches += 1
     return dx
 
 
 softmax_mask_bwd.launches = 0
+
+
+def _launch_bwd(y, dy, dx, stream):
+    """The backward's C entry on operands the caller allocated."""
+    fn = _build.function("softmax_mask", "ptt_softmax_mask_bwd", _BWD_ARGS)
+    err = fn(y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+             y.numel() // y.shape[-1], y.shape[-1],
+             int(y.dtype == torch.float32), stream)
+    _build.check(err, "softmax_mask backward")
 
 
 def reduce_to_mask(dx, mask_shape, mask_dtype):
@@ -264,3 +275,97 @@ class SoftmaxMaskTriFunction(torch.autograd.Function):
         (y,) = ctx.saved_tensors
         bwd = softmax_mask_bwd_plain if ctx.plain else softmax_mask_bwd
         return bwd(y, dy.contiguous()), None
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+def pad_mask(batch, seq, seed):
+    """An additive ``[batch, 1, seq, seq]`` bf16 padding mask on the CPU: 0
+    before each sequence's length, -1e4 from it on, the lengths drawn from
+    ``seed`` in [seq / 2, seq]."""
+    gen = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(seq // 2, seq + 1, (batch,), generator=gen)
+    past = torch.arange(seq)[None, :] >= lengths[:, None]
+    mask = torch.where(past, -1e4, 0.0).to(torch.bfloat16)
+    return mask[:, None, None, :].expand(batch, 1, seq, seq).contiguous()
+
+
+def _threads(sk):
+    return max(32, min(1024, -(-(sk // 8) // 32) * 32))
+
+
+def _ex(label, b, h, sq, sk, kind, dtype=torch.bfloat16):
+    """A block a row of scores (``kind``: "mask" with a [B, 1, Sq, Sk]
+    padding mask, "tri" the causal triangle, or "bwd"); the row in shared
+    memory as f32 (two rows for the backward)."""
+    from ._examples import CTYPE, fixed, model, normal
+    m = model()
+    shape = (b, h, sq, sk)
+    rows = b * h * sq
+    n = rows * sk
+    ct = CTYPE[dtype]
+    if kind == "bwd":
+        ops = [m.Operand("y", shape, dtype), m.Operand("dy", shape, dtype),
+               m.Operand("dx", shape, dtype, "out")]
+
+        def prepare(t):
+            t["y"] = torch.softmax(t["y"].float() * 3.0, -1).to(dtype)
+
+        def plain(t):
+            return {"dx": softmax_mask_bwd_plain(t["y"], t["dy"])}
+
+        def launch(t, stream):
+            _launch_bwd(t["y"], t["dy"], t["dx"], stream)
+
+        kern = m.KernelLaunch(f"softmax_mask_bwd_kernel<{ct}>", rows,
+                              _threads(sk), smem=8 * sk,
+                              writes=[m.rows_map("dx", rows, sk)])
+        return m.Example(label, "softmax_mask", ops, [kern], launch, plain,
+                         flops=4 * n, nbytes=3 * n * dtype.itemsize,
+                         prepare=prepare)
+    ops = [m.Operand("x", shape, dtype, data=normal(shape, dtype, 3.0)),
+           m.Operand("y", shape, dtype, "out")]
+    mask_bytes = 0
+    if kind == "mask":
+        mk = pad_mask(b, sk, seed=91)[:, :, :sq]
+        ops.append(m.Operand("mask", tuple(mk.shape), torch.bfloat16,
+                             data=fixed(mk)))
+        mask_bytes = mk.numel() * 2
+
+    def plain(t):
+        if kind == "mask":
+            return {"y": softmax_mask_plain(t["x"], t["mask"])}
+        return {"y": softmax_mask_tri_plain(t["x"])}
+
+    def launch(t, stream):
+        _launch_fwd(t["x"], t.get("mask"), t["y"], label, stream)
+
+    mt = "__nv_bfloat16" if kind == "mask" else "float"
+    kern = m.KernelLaunch(
+        f"softmax_mask_kernel<{ct},{mt},{str(kind == 'tri').lower()}>", rows,
+        _threads(sk), smem=4 * sk, writes=[m.rows_map("y", rows, sk)],
+        reads=[m.rows_map("x", rows, sk)])
+    return m.Example(label, "softmax_mask", ops, [kern], launch, plain,
+                     flops=6 * n, nbytes=2 * n * dtype.itemsize + mask_bytes)
+
+
+def ck_examples():
+    """At ``softmax_mask_pallas.pk_examples``' shapes (16 heads of [512,
+    512] scores as [2, 8, 512, 512], a [2, 1, 512, 512] mask) and phase 3's
+    (GPT-2 small's [8, 12, 1024, 1024] with a padding mask, causal, and the
+    backward; causal [2, 32, 2048, 2048]); tails with a key length that
+    leaves threads of the last warp idle and an odd row count."""
+    from ._examples import with_tail
+    out = []
+    for label, b, h, s, kind in (
+            ("softmax_mask_fwd", 2, 8, 512, "mask"),
+            ("softmax_tri_fwd", 2, 8, 512, "tri"),
+            ("softmax_bwd", 2, 8, 512, "bwd"),
+            ("phase3 [8, 12, 1024, 1024] mask", 8, 12, 1024, "mask"),
+            ("phase3 [8, 12, 1024, 1024] causal", 8, 12, 1024, "tri"),
+            ("phase3 [2, 32, 2048, 2048] causal", 2, 32, 2048, "tri"),
+            ("phase3 bwd [8, 12, 1024, 1024]", 8, 12, 1024, "bwd")):
+        out.append(with_tail(_ex, label, dict(b=b, h=h, sq=s, sk=s,
+                                              kind=kind),
+                             dict(b=1, h=3, sq=1000, sk=1000, kind=kind)))
+    return out

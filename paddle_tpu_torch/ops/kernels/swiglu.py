@@ -73,15 +73,19 @@ def swiglu(g, u):
         raise ValueError("swiglu kernel takes contiguous tensors")
     _build.require_aligned("swiglu", g, u)
     y = torch.empty_like(g)
-    fn = _build.function("swiglu", "ptt_swiglu", _ARGS)
-    err = fn(g.data_ptr(), u.data_ptr(), y.data_ptr(), g.numel(),
-             _build.stream_of(g))
-    _build.check(err, "swiglu")
+    _launch(g, u, y, _build.stream_of(g))
     swiglu.launches += 1
     return y
 
 
 swiglu.launches = 0
+
+
+def _launch(g, u, y, stream):
+    """The forward's C entry on operands the caller allocated."""
+    fn = _build.function("swiglu", "ptt_swiglu", _ARGS)
+    _build.check(fn(g.data_ptr(), u.data_ptr(), y.data_ptr(), g.numel(),
+                    stream), "swiglu")
 
 
 def swiglu_bwd_plain(g, u, dy):
@@ -114,15 +118,19 @@ def swiglu_bwd(g, u, dy):
         raise ValueError("swiglu backward kernel takes contiguous tensors")
     _build.require_aligned("swiglu backward", g, u, dy)
     dg, du = torch.empty_like(g), torch.empty_like(g)
-    fn = _build.function("swiglu", "ptt_swiglu_bwd", _BWD_ARGS)
-    err = fn(g.data_ptr(), u.data_ptr(), dy.data_ptr(), dg.data_ptr(),
-             du.data_ptr(), g.numel(), _build.stream_of(g))
-    _build.check(err, "swiglu backward")
+    _launch_bwd(g, u, dy, dg, du, _build.stream_of(g))
     swiglu_bwd.launches += 1
     return dg, du
 
 
 swiglu_bwd.launches = 0
+
+
+def _launch_bwd(g, u, dy, dg, du, stream):
+    """The backward's C entry on operands the caller allocated."""
+    fn = _build.function("swiglu", "ptt_swiglu_bwd", _BWD_ARGS)
+    _build.check(fn(g.data_ptr(), u.data_ptr(), dy.data_ptr(), dg.data_ptr(),
+                    du.data_ptr(), g.numel(), stream), "swiglu backward")
 
 
 class SwiGLUFunction(torch.autograd.Function):
@@ -193,15 +201,21 @@ def swiglu_packed(x):
     _packed_launch_check("packed swiglu", x)
     i = x.shape[-1] // 2
     y = torch.empty(x.shape[:-1] + (i,), dtype=x.dtype, device=x.device)
-    fn = _build.function("swiglu", "ptt_swiglu_packed", _PACKED_ARGS)
-    err = fn(x.data_ptr(), y.data_ptr(), x.numel() // (2 * i) if i else 0,
-             i, _build.stream_of(x))
-    _build.check(err, "packed swiglu")
+    _launch_packed(x, y, _build.stream_of(x))
     swiglu_packed.launches += 1
     return y
 
 
 swiglu_packed.launches = 0
+
+
+def _launch_packed(x, y, stream):
+    """The packed forward's C entry on operands the caller allocated."""
+    i = x.shape[-1] // 2
+    fn = _build.function("swiglu", "ptt_swiglu_packed", _PACKED_ARGS)
+    _build.check(fn(x.data_ptr(), y.data_ptr(),
+                    x.numel() // (2 * i) if i else 0, i, stream),
+                 "packed swiglu")
 
 
 def swiglu_packed_bwd_plain(x, dy):
@@ -228,15 +242,21 @@ def swiglu_packed_bwd(x, dy):
     _packed_launch_check("packed swiglu backward", x, dy)
     i = x.shape[-1] // 2
     dx = torch.empty_like(x)
-    fn = _build.function("swiglu", "ptt_swiglu_packed_bwd", _PACKED_BWD_ARGS)
-    err = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-             x.numel() // (2 * i) if i else 0, i, _build.stream_of(x))
-    _build.check(err, "packed swiglu backward")
+    _launch_packed_bwd(x, dy, dx, _build.stream_of(x))
     swiglu_packed_bwd.launches += 1
     return dx
 
 
 swiglu_packed_bwd.launches = 0
+
+
+def _launch_packed_bwd(x, dy, dx, stream):
+    """The packed backward's C entry on operands the caller allocated."""
+    i = x.shape[-1] // 2
+    fn = _build.function("swiglu", "ptt_swiglu_packed_bwd", _PACKED_BWD_ARGS)
+    _build.check(fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                    x.numel() // (2 * i) if i else 0, i, stream),
+                 "packed swiglu backward")
 
 
 class SwiGLUPackedFunction(torch.autograd.Function):
@@ -255,3 +275,128 @@ class SwiGLUPackedFunction(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         bwd = swiglu_packed_bwd_plain if ctx.plain else swiglu_packed_bwd
         return bwd(x, dy.contiguous()), None
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_THREADS, _MAX_BLOCKS = 256, 132 * 16
+
+
+def _blocks(n8: int) -> int:
+    return max(1, min(_MAX_BLOCKS, -(-n8 // _THREADS)))
+
+
+def _packed_bwd_map(rows, width, grid):
+    """dx [rows, 2I] seen as [rows, 2, I]: vector v (row v // (I / 8),
+    column 8 (v % (I / 8))) writes its 8 columns in both halves, and block
+    b takes vectors [256 j, 256 (j + 1)) for j = b, b + grid, ... When a
+    row holds whole chunks, a chunk is one (1, 2, 2048) tile."""
+    from ._examples import model
+    m = model()
+    iv = width // 8
+    n_vec = rows * iv
+    n_chunks = -(-n_vec // _THREADS)
+    if iv % _THREADS == 0:
+        per_row = iv // _THREADS
+        return m.TileMap("dx", (1, 2, _THREADS * 8), lambda bx, by, bz: [
+            (j // per_row, 0, j % per_row)
+            for j in range(bx, n_chunks, grid)], view=(rows, 2, width))
+
+    def index(bx, by, bz):
+        out = []
+        for j in range(bx, n_chunks, grid):
+            for v in range(j * _THREADS, min((j + 1) * _THREADS, n_vec)):
+                out += [(v // iv, 0, v % iv), (v // iv, 1, v % iv)]
+        return out
+    return m.TileMap("dx", (1, 1, 8), index, view=(rows, 2, width))
+
+
+def _ex(label, rows, width, kind):
+    """``kind``: "fwd" / "bwd" on [rows, width] operands, or "packed" /
+    "packed_bwd" on x [rows, 2 width]. A grid-stride loop over 8-element
+    vectors: block b covers chunks b, b + grid, ... of 2048 elements."""
+    from ._examples import model
+    m = model()
+    bf = torch.bfloat16
+    n = rows * width
+    grid = _blocks(n // 8)
+    chunk = _THREADS * 8
+    flat = (rows, width)
+    if kind in ("fwd", "bwd"):
+        ins = ["g", "u"] + (["dy"] if kind == "bwd" else [])
+        outs = ["y"] if kind == "fwd" else ["dg", "du"]
+        ops = [m.Operand(k, flat, bf) for k in ins] + \
+            [m.Operand(k, flat, bf, "out") for k in outs]
+        writes = [m.stride_map(k, n, chunk, grid) for k in outs]
+        reads = [m.stride_map(k, n, chunk, grid) for k in ins]
+        if kind == "fwd":
+            def plain(t):
+                return {"y": swiglu_plain(t["g"], t["u"])}
+
+            def launch(t, stream):
+                _launch(t["g"], t["u"], t["y"], stream)
+        else:
+            def plain(t):
+                dg, du = swiglu_bwd_plain(t["g"], t["u"], t["dy"])
+                return {"dg": dg, "du": du}
+
+            def launch(t, stream):
+                _launch_bwd(t["g"], t["u"], t["dy"], t["dg"], t["du"], stream)
+    else:
+        packed = (rows, 2 * width)
+        grid = _blocks(rows * (width // 8))
+        if kind == "packed":
+            ops = [m.Operand("x", packed, bf), m.Operand("y", flat, bf, "out")]
+            writes = [m.stride_map("y", n, chunk, grid)]
+
+            def plain(t):
+                return {"y": swiglu_packed_plain(t["x"])}
+
+            def launch(t, stream):
+                _launch_packed(t["x"], t["y"], stream)
+        else:
+            ops = [m.Operand("x", packed, bf), m.Operand("dy", flat, bf),
+                   m.Operand("dx", packed, bf, "out")]
+            writes = [_packed_bwd_map(rows, width, grid)]
+
+            def plain(t):
+                return {"dx": swiglu_packed_bwd_plain(t["x"], t["dy"])}
+
+            def launch(t, stream):
+                _launch_packed_bwd(t["x"], t["dy"], t["dx"], stream)
+        reads = []
+    name = {"fwd": "swiglu_kernel", "bwd": "swiglu_bwd_kernel",
+            "packed": "swiglu_packed_kernel",
+            "packed_bwd": "swiglu_packed_bwd_kernel"}[kind]
+    fwd = kind in ("fwd", "packed")
+    return m.Example(label, "swiglu", ops,
+                     [m.KernelLaunch(name, grid, _THREADS, writes=writes,
+                                     reads=reads)], launch, plain,
+                     flops=(6 if fwd else 12) * n,
+                     nbytes=(3 if fwd else 5) * n * 2)
+
+
+def ck_examples():
+    """At ``swiglu_pallas.pk_examples``' shapes ([512, 2048]; packed
+    [512, 2 x 2048]) and phase 3's ([8, 14336] and [512, 14336] forward,
+    [4096, 14336] backward, packed [4096, 2 x 14336] both ways); tails with
+    a partial last chunk (and, unpacked, an element count that is not a
+    multiple of 8)."""
+    from ._examples import with_tail
+    out = []
+    for label, rows, width, kind in (
+            ("swiglu_fwd", 512, 2048, "fwd"),
+            ("swiglu_bwd", 512, 2048, "bwd"),
+            ("swiglu_fwd_packed", 512, 2048, "packed"),
+            ("swiglu_bwd_packed", 512, 2048, "packed_bwd"),
+            ("phase3 [8, 14336]", 8, 14336, "fwd"),
+            ("phase3 [512, 14336]", 512, 14336, "fwd"),
+            ("phase3 bwd [4096, 14336]", 4096, 14336, "bwd"),
+            ("phase3 packed [4096, 2 x 14336]", 4096, 14336, "packed"),
+            ("phase3 packed bwd [4096, 2 x 14336]", 4096, 14336,
+             "packed_bwd")):
+        packed = kind.startswith("packed")
+        tail = dict(rows=37, width=width + (8 if packed else 5), kind=kind)
+        out.append(with_tail(_ex, label, dict(rows=rows, width=width,
+                                              kind=kind), tail))
+    return out

@@ -43,6 +43,7 @@ composite (the JAX package's ``_wo_dispatch`` does, with a warning).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -169,11 +170,16 @@ def unsupported_reason(x2, w, scales, int4=False):
 def _launch(name, symbol, args, x2, w, scales, n, *extra):
     y = torch.empty(x2.shape[0], n, dtype=x2.dtype, device=x2.device)
     _build.require_aligned(name, x2, w, scales, y)
+    _call(name, symbol, args, x2, w, scales, y, extra, _build.stream_of(x2))
+    return y
+
+
+def _call(name, symbol, args, x2, w, scales, y, extra, stream):
+    """A C entry on operands the caller allocated."""
     fn = _build.function("wo_matmul", symbol, args)
     err = fn(x2.data_ptr(), w.data_ptr(), scales.data_ptr(), y.data_ptr(),
-             x2.shape[0], n, w.shape[0], *extra, _build.stream_of(x2))
+             x2.shape[0], y.shape[1], w.shape[0], *extra, stream)
     _build.check(err, name)
-    return y
 
 
 def _operands(x2, w, scales, int4=False):
@@ -248,3 +254,79 @@ def wo_int4_matmul(x, w_packed, scales):
     lead, k = x.shape[:-1], w_packed.shape[0]
     return wo_int4(x.reshape(-1, k), w_packed, scales).reshape(
         *lead, 2 * w_packed.shape[1])
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+_MODES = {"wo_int8": 0, "wo_int8_grouped": 1, "wo_int4": 2}
+
+
+def _ex(label, name, m_rows, k, n, group=128):
+    """A block an output tile: [128, 128] past 16 rows (8 warps), else
+    [16, 16] ([16, 32] for int4) with the K loop split over 4 warps. The
+    int4 tile takes byte columns of the packed weight, output columns j
+    and N/2 + j: y seen as [M, 2, N/2]."""
+    from ._examples import model, uniform
+    mm = model()
+    bf = torch.bfloat16
+    int4 = name == "wo_int4"
+    mode = _MODES[name]
+    if m_rows > 16:
+        bm, bn, tpl, threads = 128, 128, "128,128,64,4,2,1", 256
+    else:
+        bm, bn = 16, 32 if int4 else 16
+        tpl, threads = f"16,{bn},256,1,1,4", 128
+    w_shape = (k, n // 2) if int4 else (k, n)
+    s_shape = (k // group, n) if name == "wo_int8_grouped" else (n,)
+    ops = [mm.Operand("x", (m_rows, k), bf),
+           mm.Operand("w", w_shape, torch.int8),
+           mm.Operand("s", s_shape, torch.float32,
+                      data=uniform(s_shape, torch.float32, 1e-4, 2.1e-3)),
+           mm.Operand("y", (m_rows, n), bf, "out")]
+    grid = (-(-m_rows // bm), -(-n // bn))
+    if int4:
+        tile = mm.TileMap("y", (bm, 2, bn // 2), lambda x, yb, z: (x, 0, yb),
+                          view=(m_rows, 2, n // 2))
+    else:
+        tile = mm.TileMap("y", (bm, bn), lambda x, yb, z: (x, yb))
+    symbol = "ptt_" + name
+    args = _ARGS_G if name == "wo_int8_grouped" else _ARGS
+    extra = (group,) if name == "wo_int8_grouped" else ()
+
+    def plain(t):
+        fn = wo_int4_matmul_plain if int4 else wo_int8_matmul_plain
+        return {"y": fn(t["x"], t["w"], t["s"])}
+
+    def launch(t, stream):
+        _call(name, symbol, args, t["x"], t["w"], t["s"], t["y"], extra,
+              stream)
+
+    w_bytes = (k * n // 2 if int4 else k * n) + 4 * math.prod(s_shape)
+    return mm.Example(label, "wo_matmul", ops,
+                      [mm.KernelLaunch(f"wo_matmul_kernel<{mode},{tpl}>",
+                                       grid, threads, writes=[tile])],
+                      launch, plain, flops=2 * m_rows * k * n,
+                      nbytes=w_bytes + 2 * m_rows * k + 2 * m_rows * n,
+                      unit="bf16")
+
+
+def ck_examples():
+    """At ``wo_matmul_pallas.pk_examples``' shapes (x [8, 1024] @ [1024,
+    4096], grouped at G 128, int4 packed [1024, 2048]) and phase 3's
+    (Llama-3-8B's projections: decode [8, 4096] @ [4096, 14336] and [8,
+    14336] @ [14336, 4096], prefill [1024, 4096] @ [4096, 14336] and the
+    ragged [1531, 4096] @ [4096, 1024], each kernel); tails with M, N and K
+    past their last full tile in both tilings."""
+    from ._examples import with_tail
+    out = []
+    for name in ("wo_int8", "wo_int8_grouped", "wo_int4"):
+        small = dict(name=name, m_rows=5, k=1032, n=1056, group=8)
+        big = dict(small, m_rows=37)
+        out.append(with_tail(_ex, name, dict(name=name, m_rows=8, k=1024,
+                                             n=4096), small))
+        for m_rows, k, n in ((8, 4096, 14336), (8, 14336, 4096),
+                             (1024, 4096, 14336), (1531, 4096, 1024)):
+            out.append(with_tail(_ex, f"phase3 {name} [{m_rows}, {k}, {n}]",
+                                 dict(name=name, m_rows=m_rows, k=k, n=n),
+                                 small if m_rows <= 16 else big))
+    return out

@@ -1354,3 +1354,68 @@ def test_incubate_block_through_kernels(dev):
     for a, b in pairs:
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 5e-2, rel
+
+
+# -- the kernel analysis tier on the card (CK200-CK209) ----------------------
+
+@pytest.fixture(scope="module")
+def analysis_on_card():
+    """Every plane over the port's kernel modules, once for this module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    from paddle_tpu_torch.analysis.kernels import collect
+    report = []
+    kernels = os.path.dirname(a8w8_matmul.__file__)
+    findings, sheets = collect([kernels], report=report)
+    return findings, sheets, report
+
+
+def test_analysis_card_plane_is_clean(analysis_on_card):
+    """Every example and its tail launched under the profiler and inside
+    guard bands: no unwaived error (bands unchanged, no sentinel left, no
+    poison read, the plain result), every launch as declared."""
+    from paddle_tpu_torch.analysis.cli import apply_allowlist, load_allowlist
+    from paddle_tpu_torch.analysis.kernels import ALLOWLIST_NAME
+    findings, _, report = analysis_on_card
+    kept, _ = apply_allowlist(findings, load_allowlist(ALLOWLIST_NAME))
+    errors = [f"{f.rule_id} {f.message}" for f in kept
+              if f.severity == "error"]
+    assert errors == []
+    assert all(r["kernels"] and "refused" not in r for r in report)
+    assert len(report) >= 200
+
+
+def test_analysis_sheet_for_every_compiled_kernel(analysis_on_card):
+    from paddle_tpu_torch.analysis.kernels import parse_resource_usage
+    from paddle_tpu_torch.ops.kernels import _build
+    _, sheets, _ = analysis_on_card
+    named = {(s.library, s.kernel) for s in sheets}
+    for lib in _build.SOURCES:
+        if lib == "analysis_demo":
+            continue
+        for u in parse_resource_usage(_build.resource_usage(lib)):
+            assert (lib, u.name) in named, (lib, u.name)
+    launched = [s for s in sheets if s.label]
+    assert all(s.registers and s.fits for s in launched)
+
+
+def test_analysis_demo_plants_on_the_card():
+    """Row 22: the card refuses the overflow; the overlapping writes give
+    the copy; the coverage gap leaves the sentinel in rows 128-255; the
+    out-of-bounds read brings the poison into the output and changes no
+    band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch.analysis.kernels import collect, demo
+    report = []
+    findings, _ = collect([demo.__file__], report=report)
+    msgs = [f.message for f in findings]
+    by = {r["label"]: r for r in report}
+    assert "refused" in by["vmem_overflow"]
+    assert by["overlapping_writes"]["max_err"] == 0.0
+    assert by["vmem_scalar_mulf"]["max_err"] == 0.0
+    assert any("[coverage_gap] 16384 of 32768 elements of o still hold the "
+               "sentinel" in m for m in msgs)
+    assert any("[oob_read] 16384 NaN in o" in m for m in msgs)
+    assert not any("guard band" in m for m in msgs)
