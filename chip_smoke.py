@@ -656,8 +656,9 @@ def _kernels_train(torch, dev, randn, timer, results):
     one bf16 ulp; dw within 1e-3 of its largest value plus the one bf16
     rounding of the result), the SwiGLU backward [4096, 14336] (one ulp),
     the flash-attention backward at q [2, 2048, 32, 128] over 8 kv heads,
-    causal, then packed segments at [2, 1024] and full attention at
-    [1, 1024] and D 64 (dq, dk, dv within 1e-2 relative L2 of the plain f32
+    causal, then packed segments at [2, 1024], full attention at [1, 1024]
+    and D 64, and GPT-2 small's causal [GPT_BATCH, GPT_SEQ, 12, 64] over
+    12 kv heads (dq, dk, dv within 1e-2 relative L2 of the plain f32
     version), and AdamW over a [14336, 4096] parameter with an f32 master
     and a bf16 gradient (bit for bit). Yardsticks, timed only: autograd of
     ``F.rms_norm`` and of ``F.scaled_dot_product_attention(enable_gqa=
@@ -712,10 +713,14 @@ def _kernels_train(torch, dev, randn, timer, results):
             ("swiglu", f"phase3 bwd [{rows}, {inter}]"))
     del gg, uu, dy, got, ref
 
-    hq, h_kv, half = cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ // 2
-    for b, s, d, causal, with_seg in (
-            (TRAIN_BATCH, TRAIN_SEQ, cfg.head_dim, True, False),
-            (2, half, cfg.head_dim, True, True), (1, half, 64, False, False)):
+    half = TRAIN_SEQ // 2
+    for b, s, hq, h_kv, d, causal, with_seg in (
+            (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+             cfg.head_dim, True, False),
+            (2, half, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True,
+             True),
+            (1, half, cfg.num_heads, cfg.num_kv_heads, 64, False, False),
+            (GPT_BATCH, GPT_SEQ, 12, 12, 64, True, False)):
         q, do = randn(b, s, hq, d), randn(b, s, hq, d)
         k, v = randn(b, s, h_kv, d), randn(b, s, h_kv, d)
         seg = None
@@ -758,7 +763,9 @@ def _kernels_train(torch, dev, randn, timer, results):
                       f"phase3 bwd [{b}, {s}, {hq}, {d}] "
                       + ("causal" if causal else "full")
                       + (" segments" if with_seg else "")),
-                rel_l2=errs, error_metric="max relative L2 of dq, dk, dv")
+                rel_l2=errs, error_metric="max relative L2 of dq, dk, dv",
+                host_us=_host_us(torch, lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, do, causal, seg)))
         del q, k, v, do, out, lse, got
 
     rows_w, cols_w = inter, hid
@@ -1008,27 +1015,50 @@ def _kernels_parallel_ce(torch, dev, timer, results):
         del x, lab, safe
 
 
+def _host_us(torch, fn, calls: int = 100, repeats: int = 5) -> float:
+    """Host wall time of one wrapper call in microseconds: the mean of
+    ``calls`` calls with no synchronise between them (the checks, the
+    tensor maps and the launches; the device runs behind), the median of
+    ``repeats`` such means."""
+    means = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        means.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(means)[repeats // 2]
+
+
 def _kernels_flash(torch, dev, randn, timer, results):
     """Flash attention: causal prefill q [1, L, 32, 128] over k/v with 8
-    heads at L = 1024, 1531 (a ragged tail) and 2048, and one packed
-    [2, 512] batch with segment ids and the log-sum-exp. The yardstick is
-    SDPA (``enable_gqa``; with the segment mask where there are segments),
-    timed only. Operations are counted on the bf16 tensor cores, for the
-    (query, key) pairs these inputs make visible."""
+    heads at L = 1024, 1531 (a ragged tail) and 2048, one packed [2, 512]
+    batch with segment ids and the log-sum-exp, and the training forwards
+    with the log-sum-exp: Llama [TRAIN_BATCH, TRAIN_SEQ, 32, 128] over 8 kv
+    heads and GPT-2 small [GPT_BATCH, GPT_SEQ, 12, 64] over 12. The
+    yardstick is SDPA (``enable_gqa``; with the segment mask where there
+    are segments), timed only. Operations are counted on the bf16 tensor
+    cores, for the (query, key) pairs these inputs make visible. Each row
+    carries the wrapper's host time a call (``host_us``)."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
-    h, h_kv, d = 32, 8, 128
-    for b, s, with_seg in ((1, 1024, False), (1, 1531, False),
-                           (1, 2048, False), (2, 512, True)):
+    for b, s, h, h_kv, d, with_seg, with_lse in (
+            (1, 1024, 32, 8, 128, False, False),
+            (1, 1531, 32, 8, 128, False, False),
+            (1, 2048, 32, 8, 128, False, False),
+            (2, 512, 32, 8, 128, True, True),
+            (TRAIN_BATCH, TRAIN_SEQ, 32, 8, 128, False, True),
+            (GPT_BATCH, GPT_SEQ, 12, 12, 64, False, True)):
         q, k, v = randn(b, s, h, d), randn(b, s, h_kv, d), randn(b, s, h_kv, d)
         seg = None
         if with_seg:
             seg = fa.segment_ids(s, [[100, 300, 301], [256]]).to(dev)
-        got = fa.flash_attention(q, k, v, True, seg, with_seg)
-        ref = fa.flash_attention_plain(q, k, v, True, seg, with_seg)
-        if with_seg:
+        got = fa.flash_attention(q, k, v, True, seg, with_lse)
+        ref = fa.flash_attention_plain(q, k, v, True, seg, with_lse)
+        if with_lse:
             torch.cuda.synchronize()
             err_l = (got[1] - ref[1]).abs().max().item()
             tol_l = 1e-4 * (1.0 + ref[1].abs().max().item())
@@ -1036,6 +1066,7 @@ def _kernels_flash(torch, dev, randn, timer, results):
                 fail(f"flash_attention lse: {err_l} > {tol_l}")
             got, ref = got[0], ref[0]
         err, tol = compare(torch, got, ref)
+        del got, ref
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if seg is None:
             lib = timer(lambda: TF.scaled_dot_product_attention(
@@ -1048,13 +1079,19 @@ def _kernels_flash(torch, dev, randn, timer, results):
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))
         _record(results, "flash_attention",
                 [b, s, h, d, "Hkv", h_kv, "causal"]
-                + (["segments", "lse"] if with_seg else []), err, tol,
+                + (["segments"] if with_seg else [])
+                + (["lse"] if with_lse else []), err, tol,
                 timer(lambda: fa.flash_attention(q, k, v, True, seg,
-                                                 with_seg)),
+                                                 with_lse)),
                 timer(lambda: fa.flash_attention_plain(q, k, v, True, seg,
-                                                       with_seg)),
+                                                       with_lse),
+                      iters=5 if b * s > 2048 else 20),
                 lib, ("flash_attention", f"phase3 [{b}, {s}, {h}, {d}] causal"
-                      + (" segments lse" if with_seg else "")))
+                      + (" segments" if with_seg else "")
+                      + (" lse" if with_lse else "")),
+                host_us=_host_us(torch, lambda: fa.flash_attention(
+                    q, k, v, True, seg, with_lse)))
+        del q, k, v
 
 
 def _kernels_epilogue(torch, randn, timer, results):

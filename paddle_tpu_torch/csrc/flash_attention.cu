@@ -1,5 +1,5 @@
-// Flash-attention forward (FlashAttention-2 online softmax), bf16 in and
-// out, f32 logits, probabilities and accumulator.
+// Flash-attention forward (online softmax), bf16 in and out, f32 logits,
+// probabilities and accumulator, designed for the H100 (sm_90a).
 //
 // Replaces paddle_tpu/ops/kernels/flash_attention_pallas.py `_fwd_common`
 // (kernel body `_attn_kernel`), reached through `flash_attention_forward`
@@ -11,239 +11,268 @@
 // Numerics kept from the TPU kernel: logits in f32 scaled by 1/sqrt(D);
 // masked logits are -1e30, not -inf; a masked probability is exactly 0, so
 // a query row with no visible key gives 0; the denominator is clamped at
-// 1e-30; the output is cast to bf16 once. Unlike the TPU kernel, S need not
-// be a multiple of the tile: keys past S are masked and queries past S are
-// not stored.
+// 1e-30; the output is cast to bf16 once. The TPU kernel multiplies f32
+// probabilities by V; the tensor cores take bf16, so P enters P V as two
+// bf16 terms (hi + lo, 16 significant bits), two register-A wgmma into one
+// sum. (Rounding P to bf16 once, as the JAX package's composite does,
+// failed the serving parity gate at Llama-3-8B's depth.) The exponentials
+// are 2^x with log2(e) folded into the scale. Unlike the TPU kernel, S need
+// not be a multiple of the tile: the copies fill rows past S with zeros,
+// keys past S are masked and queries past S are not stored.
 //
-// Bound on the H100: operations (bf16 tensor cores) at the serving path's
-// lengths. Design: one block of 4 warps per (b*h, 64-query tile); each warp
-// owns 16 query rows. Q stays in registers as mma.sync A fragments; a loop
-// walks 64-key tiles (up to the diagonal when causal) through shared memory,
-// K row-major and V transposed, so both products read their B fragments
-// with 32-bit loads. Q K^T is mma.sync m16n8k16 bf16 with f32 accumulation:
-// products of bf16 values are exact in f32. For P V, the f32 probabilities
-// are split as P = hi + lo, two bf16 values, and both halves go through the
-// tensor cores, so P keeps 16 significant bits instead of bf16's 8. The
-// heaviest causal tiles are scheduled first.
-#include "common.cuh"
+// Bound on the H100: operations (bf16 tensor cores, 4 * B * H * S^2 * D
+// over two when causal) at the serving and training lengths. Design (the
+// building blocks are csrc/hopper.cuh): one block of three warpgroups per
+// (b*h, 128-query tile), the heaviest causal tiles first.
+// - Warpgroup 0, the producer, gives up registers (setmaxnreg 24) and one
+//   thread issues TMA copies: the Q tile once, then 128-key K and V tiles
+//   into a ring of two stages, each stage signalled by a `full` mbarrier
+//   (transaction bytes) and released by an `empty` one.
+// - Warpgroups 1 and 2, the consumers, take 240 registers each and own 64
+//   query rows. Per key tile: S = Q K^T is one wgmma chain from shared
+//   memory (m64n128k16, Q and K K-major); the online softmax runs on the
+//   accumulator registers; P is split into bf16 hi + lo in registers and
+//   O += P V is two register-A wgmma (m64nDk16) with V read MN-major
+//   through its descriptor, so no tile is transposed.
+// - Causal: tiles past the diagonal are never loaded; only tiles that cross
+//   it (or hold keys past S, or with segment ids) are masked per element.
+// ptxas gives the launch 168 registers a thread (384 threads, one block an
+// SM); the split after setmaxnreg is 24 (producer) and 240 (consumers):
+// 24 x 128 + 240 x 256 = 168 x 384.
+#include "hopper.cuh"
 
 using ptt::bf16;
-using ptt::ld32;
-using ptt::mma_bf16;
+namespace hp = ptt::hopper;
 
 namespace {
 
-constexpr int kBQ = 64;  // query rows per block (4 warps x 16)
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreads = 128;
+constexpr int kBQ = 128;      // query rows a block: two consumer warpgroups of 64
+constexpr int kBK = 128;      // keys a tile
+constexpr int kStages = 2;    // K/V tiles in flight
+constexpr int kThreads = 384;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// (hi, lo) bf16 halves of two f32 values: x ~= hi + lo to 16 bits.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const bf16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  hi = pack2(h0, h1);
-  lo = pack2(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
-             __float2bfloat16_rn(x1 - __bfloat162float(h1)));
-}
+// dynamic shared memory: 1024 bytes of alignment slack, the Q tile, the K
+// and V rings, the barriers
+template <int D>
+struct FwdSmem {
+  static constexpr int kQ = kBQ * D * 2;
+  static constexpr int kKV = kBK * D * 2;  // one K or V tile
+  static constexpr int kBars = kQ + 2 * kStages * kKV;
+  static constexpr int kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const int* __restrict__ seg,
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg,
                            bf16* __restrict__ out, float* __restrict__ lse, int S, int H, int Hkv,
-                           int causal, float scale) {
-  constexpr int KST = D + 8;    // row stride of the K (and Q staging) tile
-  constexpr int VST = kBK + 8;  // row stride of the transposed V tile
-  constexpr int VPR = D / 8;    // 16-byte vectors per row
-  constexpr int NT = kBK / 8;   // 8-key n-tiles of S per warp
-  constexpr int DT = D / 8;     // 8-wide n-tiles of the output
-  __shared__ __align__(16) bf16 Ks[kBK * KST];
-  __shared__ __align__(16) bf16 Vt[D * VST];
-  __shared__ int qseg[kBQ];
-  __shared__ int kseg[kBK];
+                           int causal, float scale_log2) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);             // [D / 64][kBQ][64]
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::kQ);      // [stage][D / 64][kBK][64]
+  bf16* sV = sK + kStages * kBK * D;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - (int)blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H, hq = bh % H, hk = hq / (H / Hkv);
   const int q0 = qt * kBQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qs_row = (size_t)H * D, kv_row = (size_t)Hkv * D;
-  const bf16* qb = q + (size_t)b * S * qs_row + (size_t)hq * D;
-  const bf16* kb = k + (size_t)b * S * kv_row + (size_t)hk * D;
-  const bf16* vb = v + (size_t)b * S * kv_row + (size_t)hk * D;
-  const int* sb = seg == nullptr ? nullptr : seg + (size_t)b * S;
-
-  // stage the Q tile in Ks (zeros past S), then keep it as A fragments
-  for (int e = tid; e < kBQ * VPR; e += kThreads) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < S) val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * qs_row + c);
-    *reinterpret_cast<uint4*>(&Ks[r * KST + c]) = val;
-  }
-  if (sb != nullptr && tid < kBQ) qseg[tid] = q0 + tid < S ? sb[q0 + tid] : 0;
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8 of the tile
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = ld32(&Ks[r0 * KST + c]);
-    qa[kk][1] = ld32(&Ks[(r0 + 8) * KST + c]);
-    qa[kk][2] = ld32(&Ks[r0 * KST + c + 8]);
-    qa[kk][3] = ld32(&Ks[(r0 + 8) * KST + c + 8]);
-  }
-  const int qrow0 = q0 + r0, qrow1 = q0 + r0 + 8;
-  const int qsg0 = sb != nullptr ? qseg[r0] : 0, qsg1 = sb != nullptr ? qseg[r0 + 8] : 0;
-
-  float o[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
   const int n_kt = (S + kBK - 1) / kBK;
   const int kt_end = causal ? min(n_kt, (q0 + kBQ - 1) / kBK + 1) : n_kt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile (or the Q staging) is fully read
-    for (int e = tid; e < kBK * VPR; e += kThreads) {
-      const int r = e / VPR, c = (e % VPR) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < S) val = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * kv_row + c);
-      *reinterpret_cast<uint4*>(&Ks[r * KST + c]) = val;
-    }
-    for (int e = tid; e < kBK * VPR; e += kThreads) {
-      const int r = e % kBK, c = (e / kBK) * 8;  // neighbouring threads, neighbouring keys
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < S) val = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * kv_row + c);
-      const bf16* pv = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c + j) * VST + r] = pv[j];
-    }
-    if (sb != nullptr && tid < kBK) kseg[tid] = k0 + tid < S ? sb[k0 + tid] : 0;
-    __syncthreads();
+  const int tid = threadIdx.x;
 
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* kr = &Ks[(n * 8 + g) * KST + kk * 16 + 2 * t];
-        mma_bf16(s[n], qa[kk], ld32(kr), ld32(kr + 8));
-      }
+  if (tid == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 8);  // one arrival a consumer warp
     }
-
-    // scale and mask; element e of n-tile n sits at row (e < 2 ? r0 : r0 + 8),
-    // key k0 + n * 8 + 2t + (e & 1)
-    unsigned valid = 0u;  // bit n * 4 + e
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = n * 8 + 2 * t + (e & 1);
-        const int key = k0 + kc;
-        const int qrow = e < 2 ? qrow0 : qrow1;
-        bool ok = key < S;
-        if (causal) ok = ok && key <= qrow;
-        if (sb != nullptr) ok = ok && kseg[kc] == (e < 2 ? qsg0 : qsg1);
-        const float x = ok ? s[n][e] * scale : kNegInf;
-        s[n][e] = x;
-        valid |= (unsigned)ok << (n * 4 + e);
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float a0 = expf(m0 - mx0), a1 = expf(m1 - mx1);
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = (valid >> (n * 4 + e)) & 1u;
-        const float p = ok ? expf(s[n][e] - (e < 2 ? mx0 : mx1)) : 0.f;
-        s[n][e] = p;
-        if (e < 2) ls0 += p; else ls1 += p;
-      }
-    }
-    l0 = a0 * l0 + ls0;  // per-thread partial sums; the quad adds them at the end
-    l1 = a1 * l1 + ls1;
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      o[n][0] *= a0;
-      o[n][1] *= a0;
-      o[n][2] *= a1;
-      o[n][3] *= a1;
-    }
-    // O += P V: the S accumulators of n-tiles 2j, 2j+1 are the A fragment
-    // of the j-th 16-key step
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      uint32_t ph[4], pl[4];
-      split2(s[2 * j][0], s[2 * j][1], ph[0], pl[0]);
-      split2(s[2 * j][2], s[2 * j][3], ph[1], pl[1]);
-      split2(s[2 * j + 1][0], s[2 * j + 1][1], ph[2], pl[2]);
-      split2(s[2 * j + 1][2], s[2 * j + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        const bf16* vr = &Vt[(n * 8 + g) * VST + j * 16 + 2 * t];
-        const uint32_t b0 = ld32(vr), b1 = ld32(vr + 8);
-        mma_bf16(o[n], ph, b0, b1);
-        mma_bf16(o[n], pl, b0, b1);
-      }
-    }
+    hp::mbar_fence_init();
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (tid < 128) {
+    // producer warpgroup: one thread issues every copy
+    hp::reg_dealloc<24>();
+    if (tid == 0) {
+      hp::mbar_arrive_expect_tx(q_full, L::kQ);
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (qrow0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * S + qrow0) * qs_row +
-                                         (size_t)hq * D + c) =
-          __floats2bfloat162_rn(o[n][0] / d0, o[n][1] / d0);
-    if (qrow1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * S + qrow1) * qs_row +
-                                         (size_t)hq * D + c) =
-          __floats2bfloat162_rn(o[n][2] / d1, o[n][3] / d1);
-  }
-  if (lse != nullptr && t == 0) {
-    if (qrow0 < S) lse[(size_t)bh * S + qrow0] = m0 + logf(d0);
-    if (qrow1 < S) lse[(size_t)bh * S + qrow1] = m1 + logf(d1);
+      for (int h = 0; h < D / 64; ++h)
+        hp::tma_load_4d(sQ + h * kBQ * 64, &tq, q_full, h * 64, hq, q0, b);
+      for (int kt = 0; kt < kt_end; ++kt) {
+        const int st = kt % kStages;
+        if (kt >= kStages) hp::mbar_wait(&empty[st], ((kt / kStages) - 1) & 1);
+        hp::mbar_arrive_expect_tx(&full[st], 2 * L::kKV);
+        bf16* kd = sK + st * kBK * D;
+        bf16* vd = sV + st * kBK * D;
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) {
+          hp::tma_load_4d(kd + h * kBK * 64, &tk, &full[st], h * 64, hk, kt * kBK, b);
+          hp::tma_load_4d(vd + h * kBK * 64, &tv, &full[st], h * 64, hk, kt * kBK, b);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: 64 query rows each
+    hp::reg_alloc<240>();
+    const int cw = (tid >> 7) - 1;
+    const int t = tid & 127, warp = t >> 5, lane = t & 31;
+    const int q0w = q0 + cw * 64;
+    const int row0 = q0w + warp * 16 + (lane >> 2), row1 = row0 + 8;
+    const int* sb = seg == nullptr ? nullptr : seg + (size_t)b * S;
+    const int qs0 = sb != nullptr && row0 < S ? sb[row0] : 0;
+    const int qs1 = sb != nullptr && row1 < S ? sb[row1] : 0;
+    const uint32_t q_addr = hp::smem_u32(sQ) + cw * 64 * 128;
+    const uint32_t k_addr = hp::smem_u32(sK), v_addr = hp::smem_u32(sV);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    hp::mbar_wait(q_full, 0);
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int st = kt % kStages;
+      const int k0 = kt * kBK;
+      const uint32_t ka = k_addr + st * L::kKV, va = v_addr + st * L::kKV;
+      hp::mbar_wait(&full[st], (kt / kStages) & 1);
+
+      // S = Q K^T: D / 16 k-steps, each 32 bytes along a 128-byte row
+      float s[kBK / 2];
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        hp::Wgmma<kBK>::template ss<0>(
+            s, hp::desc_kmajor(q_addr + (kk >> 2) * (kBQ * 128) + off),
+            hp::desc_kmajor(ka + (kk >> 2) * (kBK * 128) + off), kk > 0 ? 1 : 0);
+      }
+      hp::wgmma_commit();
+      hp::fence_acc<kBK / 2>(s);
+      hp::wgmma_wait<0>();
+      hp::fence_acc<kBK / 2>(s);
+
+      // scale (log2 units) and mask; element i: row (i & 2 ? row1 : row0),
+      // key k0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+      const bool masked =
+          sb != nullptr || k0 + kBK > S || (causal && k0 + kBK - 1 > q0w);
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) {
+          const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          bool ok = key < S;
+          if (causal) ok = ok && key <= ((i & 2) ? row1 : row0);
+          if (sb != nullptr) ok = ok && sb[min(key, S - 1)] == ((i & 2) ? qs1 : qs0);
+          s[i] = ok ? s[i] * scale_log2 : kNegInf;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) s[i] *= scale_log2;
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        if (i & 2) mx1 = fmaxf(mx1, s[i]);
+        else mx0 = fmaxf(mx0, s[i]);
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // a row that has seen no visible key keeps every probability at 0
+      const float ref0 = mx0 == kNegInf ? 0.f : mx0, ref1 = mx1 == kNegInf ? 0.f : mx1;
+      const float a0 = hp::exp2_approx(m0 - mx0), a1 = hp::exp2_approx(m1 - mx1);
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const float p = hp::exp2_approx(s[i] - ((i & 2) ? ref1 : ref0));
+        s[i] = p;
+        if (i & 2) ls1 += p;
+        else ls0 += p;
+      }
+      l0 = a0 * l0 + ls0;  // per-thread partial sums; the quad adds them at the end
+      l1 = a1 * l1 + ls1;
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+
+      // O += P V: P from registers as hi + lo (two bf16 terms), V's rows
+      // are the reduction (MN-major)
+      uint32_t ph[kBK / 16][4], pl[kBK / 16][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 16; ++j) hp::pack_a_split(&s[8 * j], ph[j], pl[j]);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kBK / 16; ++j) {
+        const uint64_t dv = hp::desc_mnmajor(va + j * 2048, kBK * 128);
+        hp::Wgmma<D>::template rs<1>(o, ph[j], dv, 1);
+        hp::Wgmma<D>::template rs<1>(o, pl[j], dv, 1);
+      }
+      hp::wgmma_commit();
+      hp::fence_acc<D / 2>(o);
+      hp::wgmma_wait<0>();
+      hp::fence_acc<D / 2>(o);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[st]);
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    const size_t qs_row = (size_t)H * D;
+    bf16* ob = out + (size_t)b * S * qs_row + (size_t)hq * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * (lane & 3);
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * qs_row + c) =
+            __floats2bfloat162_rn(o[4 * n] / d0, o[4 * n + 1] / d0);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * qs_row + c) =
+            __floats2bfloat162_rn(o[4 * n + 2] / d1, o[4 * n + 3] / d1);
+    }
+    if (lse != nullptr && (lane & 3) == 0) {
+      if (row0 < S) lse[(size_t)bh * S + row0] = m0 * kLn2 + logf(d0);
+      if (row1 < S) lse[(size_t)bh * S + row1] = m1 * kLn2 + logf(d1);
+    }
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
            int B, int S, int H, int Hkv, int causal, float scale, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  int err = hp::make_bshd_map(&tq, q, B, S, H, D, kBQ);
+  if (err == 0) err = hp::make_bshd_map(&tk, k, B, S, Hkv, D, kBK);
+  if (err == 0) err = hp::make_bshd_map(&tv, v, B, S, Hkv, D, kBK);
+  if (err != 0) return err;
+  constexpr int smem = FwdSmem<D>::kBytes;
+  const cudaError_t attr = hp::allow_smem<flash_attention_kernel<D>>(smem);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<D><<<grid, kThreads, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(seg), static_cast<bf16*>(out), static_cast<float*>(lse), S, H, Hkv,
-      causal, scale);
+  flash_attention_kernel<D><<<grid, kThreads, smem, s>>>(
+      tq, tk, tv, static_cast<const int*>(seg), static_cast<bf16*>(out),
+      static_cast<float*>(lse), S, H, Hkv, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out: [B, S, H, D] bf16; k, v: [B, S, Hkv, D] bf16, H % Hkv == 0;
-// seg: [B, S] int32 or null; lse: [B*H, S] f32 or null; D in {64, 128}.
+// seg: [B, S] int32 or null; lse: [B*H, S] f32 or null; D in {64, 128};
+// every pointer 16-byte aligned (the TMA copies need it).
 PTT_EXPORT int ptt_flash_attention(const void* q, const void* k, const void* v, const void* seg,
                                    void* out, void* lse, int B, int S, int H, int Hkv, int D,
                                    int causal, float scale, void* stream) {

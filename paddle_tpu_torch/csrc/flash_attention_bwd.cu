@@ -1,5 +1,6 @@
 // Flash-attention backward (FlashAttention-2 style), bf16 q/k/v/out/dO in,
-// bf16 dq/dk/dv out, f32 logits, probabilities and accumulators.
+// bf16 dq/dk/dv out, f32 logits, probabilities and accumulators, designed
+// for the H100 (sm_90a).
 //
 // Replaces paddle_tpu/ops/kernels/flash_attention_pallas.py
 // `flash_attention_backward` (the `_dq_kernel` and `_dkv_kernel` calls, with
@@ -9,95 +10,59 @@
 //   P = exp(scale * Q K^T - lse),  dP = dO V^T,  dS = P * (dP - delta),
 //   dQ = scale * dS K,  dV = P^T dO,  dK = scale * dS^T Q.
 // Masking matches the forward: causal and/or segment ids [B, S]; a masked
-// probability is exactly 0; keys and queries past S are masked; any S.
+// probability is exactly 0; keys and queries past S are masked; any S. P
+// and dS are rounded to bf16 once before the products that take them (the
+// tensor cores take bf16), as the forward rounds P before P V.
 //
-// Three launches: delta (one warp per query row), dQ, and dK/dV.
-// - dQ: one block of 4 warps per (b*h, 64-query tile), heaviest causal tiles
-//   first; Q and dO stay in registers as mma.sync A fragments; a loop walks
-//   32-key tiles (up to the diagonal when causal) through shared memory.
-// - dK/dV: one block of 4 warps per (b*hkv, 64-key tile); K and V stay in
-//   shared memory; a loop walks the 32-query tiles of EVERY query head of the
-//   kv head's group, so the GQA group sum is made in f32 registers and dk, dv
-//   are written once in bf16. (The TPU version writes per-query-head f32
-//   partials [B*H, S, D] and sums them afterwards; those buffers are 2 x 67
-//   MB at q [2, 2048, 32, 128].)
-// Products are mma.sync m16n8k16 bf16 with f32 accumulation. A product whose
-// A operand is a probability or a dS tile takes it as two bf16 terms (hi +
-// lo, 16 significant bits), as the forward does for P V. B fragments that
-// pair two neighbouring rows of a row-major tile are built from two 16-bit
-// shared-memory loads (conflict-free with the 8-element row padding), so no
-// tile is stored twice.
+// Three launches, deterministic (no atomics; every output tile is written
+// by one block): delta (one warp per query row), dQ, and dK/dV. Both product
+// kernels are built from csrc/hopper.cuh: a producer warpgroup issues TMA
+// copies into rings of shared-memory stages signalled by mbarriers, and
+// consumer warpgroups run wgmma on them.
+// - dQ: one block of three warpgroups per (b*h, 128-query tile), heaviest
+//   causal tiles first. Q and dO stay in shared memory; 64-key K and V tiles
+//   stream through three stages. Per tile, S = Q K^T and dP = dO V^T are wgmma
+//   chains from shared memory (m64n64k16); dS is formed in registers, and
+//   dQ += dS K is a register-A wgmma with K MN-major. 168 registers at
+//   launch; setmaxnreg 24 (producer) / 240 (two consumers).
+// - dK/dV: one block of two warpgroups per (b*hkv, 64-key tile), two blocks
+//   an SM, so that even q [1, 1024, 32, 64] over 8 kv heads (128 blocks)
+//   covers the card once. K and V stay in shared memory; tiles of BQ queries
+//   (32 at D 128, 64 at D 64) of Q and dO, with their lse and delta, stream
+//   through three stages, over EVERY query head of the kv head's group, so
+//   the GQA group sum is made in f32 registers and dk, dv are written once
+//   in bf16. S^T = K Q^T and dP^T = V dO^T are shared-memory wgmma
+//   (m64nBQk16); dV += P^T dO and dK += dS^T Q are register-A wgmma with dO
+//   and Q MN-major. 128 registers at launch; setmaxnreg 24 (producer) / 232
+//   (consumer). (The TPU version writes per-query-head f32 partials
+//   [B*H, S, D] and sums them afterwards.)
+// In both product kernels a consumer issues a tile's shared-memory products
+// with the previous tile's register-A products and forms dS while those run
+// (FlashAttention-3's overlap inside a warpgroup). The first and last tiles
+// are peeled out of the loop: a wgmma issued under a condition made every
+// kernel slower. (The forward gained nothing from it and keeps the plain
+// order.)
 //
 // Bound on the H100: operations (bf16 tensor cores), 2.5x the forward's
-// 4 * B * H * S^2 * D (halved when causal). The dK/dV block holds two
-// [64 x D] f32 accumulators (16 rows a warp: 2 x D/2 registers a thread);
-// its 32-query step keeps the S and dP tiles at 16 registers each so the
-// whole block fits in registers at D = 128.
-#include "common.cuh"
+// 4 * B * H * S^2 * D (halved when causal).
+#include "hopper.cuh"
 
 using ptt::bf16;
-using ptt::ld32;
-using ptt::mma_bf16;
+namespace hp = ptt::hopper;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kDqBQ = 64;   // dQ kernel: queries per block (4 warps x 16)
-constexpr int kDqBK = 32;   // dQ kernel: keys per step
-constexpr int kKvBK = 64;   // dK/dV kernel: keys per block (4 warps x 16)
-constexpr int kKvBQ = 32;   // dK/dV kernel: queries per step
+constexpr int kDeltaThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// (hi, lo) bf16 halves of two f32 values: x ~= hi + lo to 16 bits.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const bf16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  hi = pack2(h0, h1);
-  lo = pack2(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
-             __float2bfloat16_rn(x1 - __bfloat162float(h1)));
-}
-
-// B fragments (b0, b1) of a 16 (k) x 8 (n) operand stored row-major with k
-// along rows: b0 pairs rows 2t, 2t+1 and b1 rows 2t+8, 2t+9, at column g.
-// `p` points at row 2t, column g of the 16-row step.
-__device__ __forceinline__ void b_rows(const bf16* p, int stride, uint32_t& b0, uint32_t& b1) {
-  b0 = pack2(p[0], p[stride]);
-  b1 = pack2(p[8 * stride], p[9 * stride]);
-}
-
-// A fragments of the 16 x 16 step j taken from f32 accumulators of n-tiles
-// 2j and 2j+1 (the m16n8 C layout is the m16k16 A layout), split hi + lo.
-__device__ __forceinline__ void a_split(const float* c0, const float* c1, uint32_t* hi,
-                                        uint32_t* lo) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// rows [row0, row0 + n) of a bf16 matrix with row stride `ld` elements (D
-// contiguous values a row) into a shared tile of row stride ST; rows at or
-// past S are zeros.
-template <int D>
-__device__ __forceinline__ void stage(bf16* dst, int ST, const bf16* src, size_t ld, int row0,
-                                      int n, int S) {
-  constexpr int VPR = D / 8;
-  for (int e = threadIdx.x; e < n * VPR; e += kThreads) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * ST + c) = val;
-  }
-}
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
 // delta[(b*H + h)*S + s] = sum_d dO * O, in f32; one warp per (b, s, h).
 template <int D>
 __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
                                        float* __restrict__ delta, int rows, int S, int H) {
   constexpr int LANES = D / 8;
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int row = blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   float acc = 0.f;
@@ -115,277 +80,439 @@ __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ out, const bf16*
   }
 }
 
+// -- dQ ---------------------------------------------------------------------
+
+constexpr int kDqBQ = 128;   // queries a block: two consumer warpgroups of 64
+constexpr int kDqBK = 64;    // keys a tile
+constexpr int kDqStages = 3;
+constexpr int kDqThreads = 384;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const int* __restrict__ seg, bf16* __restrict__ dq, int S, int H, int Hkv,
-                        int causal, float scale) {
-  constexpr int ST = D + 8;       // row stride of every shared tile
-  constexpr int NT = kDqBK / 8;   // 8-key n-tiles of S and dP per warp
-  constexpr int DT = D / 8;       // 8-wide n-tiles of dQ
-  constexpr int KS = D / 16;      // 16-deep k-steps over D
-  __shared__ __align__(16) bf16 Ks[kDqBQ * ST];  // Q staging, then K tiles
-  __shared__ __align__(16) bf16 Vs[kDqBQ * ST];  // dO staging, then V tiles
-  __shared__ int qseg[kDqBQ];
-  __shared__ int kseg[kDqBK];
+struct DqSmem {
+  static constexpr int kQ = kDqBQ * D * 2;   // Q or dO
+  static constexpr int kKV = kDqBK * D * 2;  // one K or V tile
+  static constexpr int kBars = 2 * kQ + 2 * kDqStages * kKV;
+  static constexpr int kBytes = 1024 + kBars + 8 * (1 + 2 * kDqStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const int* __restrict__ seg,
+                        bf16* __restrict__ dq, int S, int H, int Hkv, int causal, float scale,
+                        float scale_log2) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);              // [D / 64][kDqBQ][64]
+  bf16* sO = reinterpret_cast<bf16*>(smem + L::kQ);       // dO, the same
+  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * L::kQ);   // [stage][D / 64][kDqBK][64]
+  bf16* sV = sK + kDqStages * kDqBK * D;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
 
   const int n_qt = (S + kDqBQ - 1) / kDqBQ;
   const int qt = n_qt - 1 - (int)blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H, hq = bh % H, hk = hq / (H / Hkv);
   const int q0 = qt * kDqBQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qs_row = (size_t)H * D, kv_row = (size_t)Hkv * D;
-  const bf16* qb = q + (size_t)b * S * qs_row + (size_t)hq * D;
-  const bf16* ob = dout + (size_t)b * S * qs_row + (size_t)hq * D;
-  const bf16* kb = k + (size_t)b * S * kv_row + (size_t)hk * D;
-  const bf16* vb = v + (size_t)b * S * kv_row + (size_t)hk * D;
-  const int* sb = seg == nullptr ? nullptr : seg + (size_t)b * S;
-
-  stage<D>(Ks, ST, qb, qs_row, q0, kDqBQ, S);
-  stage<D>(Vs, ST, ob, qs_row, q0, kDqBQ, S);
-  if (sb != nullptr && tid < kDqBQ) qseg[tid] = q0 + tid < S ? sb[q0 + tid] : 0;
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8 of the tile
-  uint32_t qa[KS][4], da[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = ld32(&Ks[r0 * ST + c]);
-    qa[kk][1] = ld32(&Ks[(r0 + 8) * ST + c]);
-    qa[kk][2] = ld32(&Ks[r0 * ST + c + 8]);
-    qa[kk][3] = ld32(&Ks[(r0 + 8) * ST + c + 8]);
-    da[kk][0] = ld32(&Vs[r0 * ST + c]);
-    da[kk][1] = ld32(&Vs[(r0 + 8) * ST + c]);
-    da[kk][2] = ld32(&Vs[r0 * ST + c + 8]);
-    da[kk][3] = ld32(&Vs[(r0 + 8) * ST + c + 8]);
-  }
-  const int qrow0 = q0 + r0, qrow1 = q0 + r0 + 8;
-  const size_t lrow = (size_t)bh * S;
-  const float lse0 = qrow0 < S ? lse[lrow + qrow0] : 0.f;
-  const float lse1 = qrow1 < S ? lse[lrow + qrow1] : 0.f;
-  const float dl0 = qrow0 < S ? delta[lrow + qrow0] : 0.f;
-  const float dl1 = qrow1 < S ? delta[lrow + qrow1] : 0.f;
-  const int qsg0 = sb != nullptr ? qseg[r0] : 0, qsg1 = sb != nullptr ? qseg[r0 + 8] : 0;
-
-  float acc[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
   const int n_kt = (S + kDqBK - 1) / kDqBK;
   const int kt_end = causal ? min(n_kt, (q0 + kDqBQ - 1) / kDqBK + 1) : n_kt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kDqBK;
-    __syncthreads();  // the previous tile (or the Q / dO staging) is fully read
-    stage<D>(Ks, ST, kb, kv_row, k0, kDqBK, S);
-    stage<D>(Vs, ST, vb, kv_row, k0, kDqBK, S);
-    if (sb != nullptr && tid < kDqBK) kseg[tid] = k0 + tid < S ? sb[k0 + tid] : 0;
-    __syncthreads();
+  const int tid = threadIdx.x;
 
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* kr = &Ks[(n * 8 + g) * ST + kk * 16 + 2 * t];
-        mma_bf16(s[n], qa[kk], ld32(kr), ld32(kr + 8));
-        const bf16* vr = &Vs[(n * 8 + g) * ST + kk * 16 + 2 * t];
-        mma_bf16(dp[n], da[kk], ld32(vr), ld32(vr + 8));
-      }
+  if (tid == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 8);
     }
-    // element e of n-tile n: row (e < 2 ? r0 : r0 + 8), key k0 + n*8 + 2t + (e & 1)
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kc = n * 8 + 2 * t + (e & 1);
-        const int key = k0 + kc;
-        const int qrow = e < 2 ? qrow0 : qrow1;
-        bool ok = key < S;
-        if (causal) ok = ok && key <= qrow;
-        if (sb != nullptr) ok = ok && kseg[kc] == (e < 2 ? qsg0 : qsg1);
-        const float p = ok ? expf(s[n][e] * scale - (e < 2 ? lse0 : lse1)) : 0.f;
-        s[n][e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1));  // dS
-      }
-    }
-    // dQ += dS K: K rows are the k dimension, D the n dimension
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      uint32_t hi[4], lo[4];
-      a_split(s[2 * j], s[2 * j + 1], hi, lo);
-#pragma unroll
-      for (int n = 0; n < DT; ++n) {
-        uint32_t b0, b1;
-        b_rows(&Ks[(j * 16 + 2 * t) * ST + n * 8 + g], ST, b0, b1);
-        mma_bf16(acc[n], hi, b0, b1);
-        mma_bf16(acc[n], lo, b0, b1);
-      }
-    }
+    hp::mbar_fence_init();
   }
+  __syncthreads();
 
-  bf16* dqb = dq + (size_t)b * S * qs_row + (size_t)hq * D;
+  if (tid < 128) {
+    hp::reg_dealloc<24>();
+    if (tid == 0) {
+      hp::mbar_arrive_expect_tx(q_full, 2 * L::kQ);
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (qrow0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)qrow0 * qs_row + c) =
-          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
-    if (qrow1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)qrow1 * qs_row + c) =
-          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+      for (int h = 0; h < D / 64; ++h) {
+        hp::tma_load_4d(sQ + h * kDqBQ * 64, &tq, q_full, h * 64, hq, q0, b);
+        hp::tma_load_4d(sO + h * kDqBQ * 64, &tdo, q_full, h * 64, hq, q0, b);
+      }
+      for (int kt = 0; kt < kt_end; ++kt) {
+        const int st = kt % kDqStages;
+        if (kt >= kDqStages) hp::mbar_wait(&empty[st], ((kt / kDqStages) - 1) & 1);
+        hp::mbar_arrive_expect_tx(&full[st], 2 * L::kKV);
+        bf16* kd = sK + st * kDqBK * D;
+        bf16* vd = sV + st * kDqBK * D;
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) {
+          hp::tma_load_4d(kd + h * kDqBK * 64, &tk, &full[st], h * 64, hk, kt * kDqBK, b);
+          hp::tma_load_4d(vd + h * kDqBK * 64, &tv, &full[st], h * 64, hk, kt * kDqBK, b);
+        }
+      }
+    }
+  } else {
+    hp::reg_alloc<240>();
+    const int cw = (tid >> 7) - 1;
+    const int t = tid & 127, warp = t >> 5, lane = t & 31;
+    const int q0w = q0 + cw * 64;
+    const int row0 = q0w + warp * 16 + (lane >> 2), row1 = row0 + 8;
+    const size_t lrow = (size_t)bh * S;
+    // rows past S: lse +inf makes every probability 0
+    const float lse0 = row0 < S ? lse[lrow + row0] * kLog2e : pos_inf();
+    const float lse1 = row1 < S ? lse[lrow + row1] * kLog2e : pos_inf();
+    const float dl0 = row0 < S ? delta[lrow + row0] : 0.f;
+    const float dl1 = row1 < S ? delta[lrow + row1] : 0.f;
+    const int* sb = seg == nullptr ? nullptr : seg + (size_t)b * S;
+    const int qs0 = sb != nullptr && row0 < S ? sb[row0] : 0;
+    const int qs1 = sb != nullptr && row1 < S ? sb[row1] : 0;
+    const uint32_t q_addr = hp::smem_u32(sQ) + cw * 64 * 128;
+    const uint32_t o_addr = hp::smem_u32(sO) + cw * 64 * 128;
+    const uint32_t k_addr = hp::smem_u32(sK), v_addr = hp::smem_u32(sV);
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    // Tile kt's S and dP are issued with tile kt - 1's dS K, and its dS is
+    // formed while that product runs (first and last tiles peeled)
+    float s[kDqBK / 2], dp[kDqBK / 2];
+    uint32_t da[kDqBK / 16][4];  // dS of the previous tile
+    auto issue_s = [&](int kt) {
+      const int st = kt % kDqStages;
+      const uint32_t ka = k_addr + st * L::kKV, va = v_addr + st * L::kKV;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        hp::Wgmma<kDqBK>::template ss<0>(
+            s, hp::desc_kmajor(q_addr + (kk >> 2) * (kDqBQ * 128) + off),
+            hp::desc_kmajor(ka + (kk >> 2) * (kDqBK * 128) + off), kk > 0 ? 1 : 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        hp::Wgmma<kDqBK>::template ss<0>(
+            dp, hp::desc_kmajor(o_addr + (kk >> 2) * (kDqBQ * 128) + off),
+            hp::desc_kmajor(va + (kk >> 2) * (kDqBK * 128) + off), kk > 0 ? 1 : 0);
+      }
+    };
+    auto issue_dq = [&](int kt) {
+      // dQ += dS K: K's rows are the reduction (MN-major)
+      const uint32_t ka = k_addr + (kt % kDqStages) * L::kKV;
+#pragma unroll
+      for (int j = 0; j < kDqBK / 16; ++j)
+        hp::Wgmma<D>::template rs<1>(acc, da[j], hp::desc_mnmajor(ka + j * 2048, kDqBK * 128), 1);
+    };
+    auto form_ds = [&](int kt) {
+      // element i: row (i & 2 ? row1 : row0), key k0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+      const int k0 = kt * kDqBK;
+      const bool masked = sb != nullptr || k0 + kDqBK > S || (causal && k0 + kDqBK - 1 > q0w);
+#pragma unroll
+      for (int i = 0; i < kDqBK / 2; ++i) {
+        float p = hp::exp2_approx(s[i] * scale_log2 - ((i & 2) ? lse1 : lse0));
+        if (masked) {
+          const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          bool ok = key < S;
+          if (causal) ok = ok && key <= ((i & 2) ? row1 : row0);
+          if (sb != nullptr) ok = ok && sb[min(key, S - 1)] == ((i & 2) ? qs1 : qs0);
+          p = ok ? p : 0.f;
+        }
+        s[i] = p * (dp[i] - ((i & 2) ? dl1 : dl0));  // dS
+      }
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < kDqBK / 16; ++j) hp::pack_a(&s[8 * j], da[j]);
+    };
+    auto release = [&](int kt) {
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[kt % kDqStages]);
+    };
+
+    hp::mbar_wait(q_full, 0);
+    hp::mbar_wait(&full[0], 0);
+    hp::wgmma_fence();
+    issue_s(0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc<kDqBK / 2>(s);
+    hp::fence_acc<kDqBK / 2>(dp);
+    form_ds(0);
+    pack();
+    for (int kt = 1; kt < kt_end; ++kt) {
+      hp::mbar_wait(&full[kt % kDqStages], (kt / kDqStages) & 1);
+      hp::wgmma_fence();
+      issue_s(kt);
+      hp::wgmma_commit();
+      issue_dq(kt - 1);
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();  // S and dP have landed; the previous dS K may still run
+      hp::fence_acc<kDqBK / 2>(s);
+      hp::fence_acc<kDqBK / 2>(dp);
+      form_ds(kt);
+      hp::wgmma_wait<0>();  // the previous dS K is done: its stage and dS are free
+      hp::fence_acc<D / 2>(acc);
+      hp::fence_regs<kDqBK / 4>(&da[0][0]);
+      release(kt - 1);
+      pack();
+    }
+    hp::wgmma_fence();
+    issue_dq(kt_end - 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc<D / 2>(acc);
+    release(kt_end - 1);
+
+    const size_t qs_row = (size_t)H * D;
+    bf16* dqb = dq + (size_t)b * S * qs_row + (size_t)hq * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * (lane & 3);
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row0 * qs_row + c) =
+            __floats2bfloat162_rn(acc[4 * n] * scale, acc[4 * n + 1] * scale);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row1 * qs_row + c) =
+            __floats2bfloat162_rn(acc[4 * n + 2] * scale, acc[4 * n + 3] * scale);
+    }
   }
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * kKvBK + 2 * kKvBQ) * (D + 8) * sizeof(bf16) +
-         (size_t)(3 * kKvBQ + kKvBK) * sizeof(float);
-}
+// -- dK / dV ------------------------------------------------------------------
+
+constexpr int kKvBK = 64;    // keys a block: one consumer warpgroup
+constexpr int kKvStages = 3;
+constexpr int kKvThreads = 256;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const int* __restrict__ seg, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int S, int H, int Hkv, int causal, float scale) {
-  constexpr int ST = D + 8;
-  constexpr int NT = kKvBQ / 8;   // 8-query n-tiles of S^T and dP^T per warp
-  constexpr int DT = D / 8;
-  constexpr int KS = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kKvBK][ST]
-  bf16* Vs = Ks + kKvBK * ST;                 // [kKvBK][ST]
-  bf16* Qs = Vs + kKvBK * ST;                 // [kKvBQ][ST]
-  bf16* Os = Qs + kKvBQ * ST;                 // [kKvBQ][ST]  dO
-  float* lse_s = reinterpret_cast<float*>(Os + kKvBQ * ST);  // [kKvBQ]
-  float* dlt_s = lse_s + kKvBQ;                               // [kKvBQ]
-  int* qseg = reinterpret_cast<int*>(dlt_s + kKvBQ);          // [kKvBQ]
-  int* kseg = qseg + kKvBQ;                                   // [kKvBK]
+struct DkvSmem {
+  static constexpr int kBQ = D == 128 ? 32 : 64;  // queries a step
+  static constexpr int kK = kKvBK * D * 2;         // K or V
+  static constexpr int kQ = kBQ * D * 2;           // one Q or dO tile
+  static constexpr int kVecs = 2 * kK + 2 * kKvStages * kQ;  // [stage][lse2, delta][kBQ] f32
+  static constexpr int kBars = kVecs + kKvStages * 2 * kBQ * 4;
+  static constexpr int kBytes = 1024 + kBars + 8 * (1 + 2 * kKvStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kKvThreads, 2)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const int* __restrict__ seg,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int Hkv,
+                         int causal, float scale, float scale_log2) {
+  using L = DkvSmem<D>;
+  constexpr int BQ = L::kBQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  bf16* sK = reinterpret_cast<bf16*>(smem);                // [D / 64][kKvBK][64]
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * L::kK);    // [stage][D / 64][BQ][64]
+  bf16* sO = sQ + kKvStages * BQ * D;                       // dO, the same
+  float* vecs = reinterpret_cast<float*>(smem + L::kVecs);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kKvStages;
 
   const int k0 = blockIdx.x * kKvBK;  // heaviest causal tiles (small k0) first
   const int bhk = blockIdx.y;
   const int b = bhk / Hkv, hk = bhk % Hkv, rep = H / Hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qs_row = (size_t)H * D, kv_row = (size_t)Hkv * D;
-  const int* sb = seg == nullptr ? nullptr : seg + (size_t)b * S;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt_begin = causal ? k0 / BQ : 0;
+  const int per_head = n_qt - qt_begin;
+  const int steps = rep * per_head;
+  const int tid = threadIdx.x;
 
-  stage<D>(Ks, ST, k + (size_t)b * S * kv_row + (size_t)hk * D, kv_row, k0, kKvBK, S);
-  stage<D>(Vs, ST, v + (size_t)b * S * kv_row + (size_t)hk * D, kv_row, k0, kKvBK, S);
-  if (sb != nullptr && tid < kKvBK) kseg[tid] = k0 + tid < S ? sb[k0 + tid] : 0;
-  const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8 of the tile
-  const int key0 = k0 + r0, key1 = k0 + r0 + 8;
-
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = dva[n][0] = dva[n][1] = dva[n][2] =
-        dva[n][3] = 0.f;
-
-  const int n_qt = (S + kKvBQ - 1) / kKvBQ;
-  const int qt_begin = causal ? k0 / kKvBQ : 0;
-  for (int hq = hk * rep; hq < (hk + 1) * rep; ++hq) {
-    const bf16* qb = q + (size_t)b * S * qs_row + (size_t)hq * D;
-    const bf16* ob = dout + (size_t)b * S * qs_row + (size_t)hq * D;
-    const size_t lrow = ((size_t)b * H + hq) * S;
-    for (int qt = qt_begin; qt < n_qt; ++qt) {
-      const int q0 = qt * kKvBQ;
-      __syncthreads();  // the previous query tile is fully read
-      stage<D>(Qs, ST, qb, qs_row, q0, kKvBQ, S);
-      stage<D>(Os, ST, ob, qs_row, q0, kKvBQ, S);
-      if (tid < kKvBQ) {
-        const bool in = q0 + tid < S;
-        lse_s[tid] = in ? lse[lrow + q0 + tid] : 0.f;
-        dlt_s[tid] = in ? delta[lrow + q0 + tid] : 0.f;
-        if (sb != nullptr) qseg[tid] = in ? sb[q0 + tid] : 0;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: keys are rows, queries the n dimension
-      float st[NT][4], dpt[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        st[n][0] = st[n][1] = st[n][2] = st[n][3] = dpt[n][0] = dpt[n][1] = dpt[n][2] =
-            dpt[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const int c = kk * 16 + 2 * t;
-        uint32_t ka[4], va[4];
-        ka[0] = ld32(&Ks[r0 * ST + c]);
-        ka[1] = ld32(&Ks[(r0 + 8) * ST + c]);
-        ka[2] = ld32(&Ks[r0 * ST + c + 8]);
-        ka[3] = ld32(&Ks[(r0 + 8) * ST + c + 8]);
-        va[0] = ld32(&Vs[r0 * ST + c]);
-        va[1] = ld32(&Vs[(r0 + 8) * ST + c]);
-        va[2] = ld32(&Vs[r0 * ST + c + 8]);
-        va[3] = ld32(&Vs[(r0 + 8) * ST + c + 8]);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const bf16* qr = &Qs[(n * 8 + g) * ST + c];
-          mma_bf16(st[n], ka, ld32(qr), ld32(qr + 8));
-          const bf16* orow = &Os[(n * 8 + g) * ST + c];
-          mma_bf16(dpt[n], va, ld32(orow), ld32(orow + 8));
-        }
-      }
-      // element e of n-tile n: key (e < 2 ? key0 : key1), query q0 + n*8 + 2t + (e & 1)
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = n * 8 + 2 * t + (e & 1);
-          const int qrow = q0 + qc;
-          const int key = e < 2 ? key0 : key1;
-          bool ok = qrow < S && key < S;
-          if (causal) ok = ok && key <= qrow;
-          if (sb != nullptr) ok = ok && qseg[qc] == kseg[e < 2 ? r0 : r0 + 8];
-          const float p = ok ? expf(st[n][e] * scale - lse_s[qc]) : 0.f;
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - dlt_s[qc]);  // dS^T
-        }
-      }
-      // dV += P^T dO and dK += dS^T Q: queries are the k dimension, D the n one
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t ph[4], pl[4], sh[4], sl[4];
-        a_split(st[2 * j], st[2 * j + 1], ph, pl);
-        a_split(dpt[2 * j], dpt[2 * j + 1], sh, sl);
-#pragma unroll
-        for (int n = 0; n < DT; ++n) {
-          uint32_t b0, b1;
-          b_rows(&Os[(j * 16 + 2 * t) * ST + n * 8 + g], ST, b0, b1);
-          mma_bf16(dva[n], ph, b0, b1);
-          mma_bf16(dva[n], pl, b0, b1);
-          b_rows(&Qs[(j * 16 + 2 * t) * ST + n * 8 + g], ST, b0, b1);
-          mma_bf16(dka[n], sh, b0, b1);
-          mma_bf16(dka[n], sl, b0, b1);
-        }
-      }
+  if (tid == 0) {
+    hp::mbar_init(kv_full, 1);
+    for (int s = 0; s < kKvStages; ++s) {
+      hp::mbar_init(&full[s], 32);  // the producer warp's lanes (lse and delta) and the copies
+      hp::mbar_init(&empty[s], 4);
     }
+    hp::mbar_fence_init();
   }
+  __syncthreads();
 
-  bf16* dkb = dk + (size_t)b * S * kv_row + (size_t)hk * D;
-  bf16* dvb = dv + (size_t)b * S * kv_row + (size_t)hk * D;
+  if (tid < 128) {
+    hp::reg_dealloc<24>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        hp::mbar_arrive_expect_tx(kv_full, 2 * L::kK);
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (key0 < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key0 * kv_row + c) =
-          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key0 * kv_row + c) =
-          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+        for (int h = 0; h < D / 64; ++h) {
+          hp::tma_load_4d(sK + h * kKvBK * 64, &tk, kv_full, h * 64, hk, k0, b);
+          hp::tma_load_4d(sV + h * kKvBK * 64, &tv, kv_full, h * 64, hk, k0, b);
+        }
+      }
+      for (int step = 0; step < steps; ++step) {
+        const int hq = hk * rep + step / per_head;
+        const int q0 = (qt_begin + step % per_head) * BQ;
+        const int st = step % kKvStages;
+        if (step >= kKvStages) hp::mbar_wait(&empty[st], ((step / kKvStages) - 1) & 1);
+        float* lv = vecs + st * 2 * BQ;
+        const size_t lrow = ((size_t)b * H + hq) * S;
+        for (int c = lane; c < BQ; c += 32) {
+          const bool in = q0 + c < S;
+          lv[c] = in ? lse[lrow + q0 + c] * kLog2e : pos_inf();  // rows past S: P = 0
+          lv[BQ + c] = in ? delta[lrow + q0 + c] : 0.f;
+        }
+        if (lane == 0) {
+          hp::mbar_arrive_expect_tx(&full[st], 2 * L::kQ);
+          bf16* qd = sQ + st * BQ * D;
+          bf16* od = sO + st * BQ * D;
+#pragma unroll
+          for (int h = 0; h < D / 64; ++h) {
+            hp::tma_load_4d(qd + h * BQ * 64, &tq, &full[st], h * 64, hq, q0, b);
+            hp::tma_load_4d(od + h * BQ * 64, &tdo, &full[st], h * 64, hq, q0, b);
+          }
+        } else {
+          hp::mbar_arrive(&full[st]);
+        }
+      }
     }
-    if (key1 < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key1 * kv_row + c) =
-          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key1 * kv_row + c) =
-          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+  } else {
+    hp::reg_alloc<232>();
+    const int t = tid - 128, warp = t >> 5, lane = t & 31;
+    const int key0 = k0 + warp * 16 + (lane >> 2), key1 = key0 + 8;
+    const int* sb = seg == nullptr ? nullptr : seg + (size_t)b * S;
+    const int ks0 = sb != nullptr && key0 < S ? sb[key0] : 0;
+    const int ks1 = sb != nullptr && key1 < S ? sb[key1] : 0;
+    const uint32_t k_addr = hp::smem_u32(sK), v_addr = hp::smem_u32(sV);
+    const uint32_t q_addr = hp::smem_u32(sQ), o_addr = hp::smem_u32(sO);
+
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    // Step j's S^T and dP^T are issued with step j - 1's dV and dK, and its
+    // P^T and dS^T are formed while those run (first and last steps peeled)
+    float sT[BQ / 2], dpT[BQ / 2];
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];  // P^T and dS^T of the previous step
+    auto issue_s = [&](int step) {
+      // S^T = K Q^T and dP^T = V dO^T: keys are the rows, queries the columns
+      const int st = step % kKvStages;
+      const uint32_t qa = q_addr + st * L::kQ, oa = o_addr + st * L::kQ;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        hp::Wgmma<BQ>::template ss<0>(
+            sT, hp::desc_kmajor(k_addr + (kk >> 2) * (kKvBK * 128) + off),
+            hp::desc_kmajor(qa + (kk >> 2) * (BQ * 128) + off), kk > 0 ? 1 : 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        hp::Wgmma<BQ>::template ss<0>(
+            dpT, hp::desc_kmajor(v_addr + (kk >> 2) * (kKvBK * 128) + off),
+            hp::desc_kmajor(oa + (kk >> 2) * (BQ * 128) + off), kk > 0 ? 1 : 0);
+      }
+    };
+    auto issue_dkv = [&](int step) {
+      // dV += P^T dO and dK += dS^T Q: queries are the reduction (MN-major)
+      const int st = step % kKvStages;
+      const uint32_t qa = q_addr + st * L::kQ, oa = o_addr + st * L::kQ;
+#pragma unroll
+      for (int j = 0; j < BQ / 16; ++j)
+        hp::Wgmma<D>::template rs<1>(dva, pa[j], hp::desc_mnmajor(oa + j * 2048, BQ * 128), 1);
+#pragma unroll
+      for (int j = 0; j < BQ / 16; ++j)
+        hp::Wgmma<D>::template rs<1>(dka, sa[j], hp::desc_mnmajor(qa + j * 2048, BQ * 128), 1);
+    };
+    auto form_ds = [&](int step) {
+      // element i: key (i & 2 ? key1 : key0), query q0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+      const int q0 = (qt_begin + step % per_head) * BQ;
+      const float* lv = vecs + (step % kKvStages) * 2 * BQ;
+      const bool masked = sb != nullptr || (causal && q0 < k0 + kKvBK - 1);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int qc = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        float p = hp::exp2_approx(sT[i] * scale_log2 - lv[qc]);
+        if (masked) {
+          const int qrow = q0 + qc;
+          bool ok = true;
+          if (causal) ok = ((i & 2) ? key1 : key0) <= qrow;
+          if (sb != nullptr) ok = ok && sb[min(qrow, S - 1)] == ((i & 2) ? ks1 : ks0);
+          p = ok ? p : 0.f;
+        }
+        sT[i] = p;
+        dpT[i] = p * (dpT[i] - lv[BQ + qc]);  // dS^T
+      }
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < BQ / 16; ++j) {
+        hp::pack_a(&sT[8 * j], pa[j]);
+        hp::pack_a(&dpT[8 * j], sa[j]);
+      }
+    };
+    auto release = [&](int step) {
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[step % kKvStages]);
+    };
+
+    hp::mbar_wait(kv_full, 0);
+    hp::mbar_wait(&full[0], 0);
+    hp::wgmma_fence();
+    issue_s(0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc<BQ / 2>(sT);
+    hp::fence_acc<BQ / 2>(dpT);
+    form_ds(0);
+    pack();
+    for (int step = 1; step < steps; ++step) {
+      hp::mbar_wait(&full[step % kKvStages], (step / kKvStages) & 1);
+      hp::wgmma_fence();
+      issue_s(step);
+      hp::wgmma_commit();
+      issue_dkv(step - 1);
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();  // S^T and dP^T have landed; the previous dV, dK may still run
+      hp::fence_acc<BQ / 2>(sT);
+      hp::fence_acc<BQ / 2>(dpT);
+      form_ds(step);
+      hp::wgmma_wait<0>();  // the previous dV, dK are done: its stage and operands are free
+      hp::fence_acc<D / 2>(dva);
+      hp::fence_acc<D / 2>(dka);
+      hp::fence_regs<BQ / 4>(&pa[0][0]);
+      hp::fence_regs<BQ / 4>(&sa[0][0]);
+      release(step - 1);
+      pack();
+    }
+    hp::wgmma_fence();
+    issue_dkv(steps - 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_acc<D / 2>(dva);
+    hp::fence_acc<D / 2>(dka);
+    release(steps - 1);
+
+    const size_t kv_row = (size_t)Hkv * D;
+    bf16* dkb = dk + (size_t)b * S * kv_row + (size_t)hk * D;
+    bf16* dvb = dv + (size_t)b * S * kv_row + (size_t)hk * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * (lane & 3);
+      if (key0 < S) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key0 * kv_row + c) =
+            __floats2bfloat162_rn(dka[4 * n] * scale, dka[4 * n + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key0 * kv_row + c) =
+            __floats2bfloat162_rn(dva[4 * n], dva[4 * n + 1]);
+      }
+      if (key1 < S) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)key1 * kv_row + c) =
+            __floats2bfloat162_rn(dka[4 * n + 2] * scale, dka[4 * n + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)key1 * kv_row + c) =
+            __floats2bfloat162_rn(dva[4 * n + 2], dva[4 * n + 3]);
+      }
     }
   }
 }
@@ -394,33 +521,45 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const void* lse, const void* seg, void* delta, void* dq, void* dk, void* dv, int B,
            int S, int H, int Hkv, int causal, float scale, cudaStream_t s) {
+  constexpr int BQ = DkvSmem<D>::kBQ;
+  CUtensorMap q_dq, o_dq, k_dq, v_dq, k_kv, v_kv, q_kv, o_kv;
+  int err = hp::make_bshd_map(&q_dq, q, B, S, H, D, kDqBQ);
+  if (err == 0) err = hp::make_bshd_map(&o_dq, dout, B, S, H, D, kDqBQ);
+  if (err == 0) err = hp::make_bshd_map(&k_dq, k, B, S, Hkv, D, kDqBK);
+  if (err == 0) err = hp::make_bshd_map(&v_dq, v, B, S, Hkv, D, kDqBK);
+  if (err == 0) err = hp::make_bshd_map(&k_kv, k, B, S, Hkv, D, kKvBK);
+  if (err == 0) err = hp::make_bshd_map(&v_kv, v, B, S, Hkv, D, kKvBK);
+  if (err == 0) err = hp::make_bshd_map(&q_kv, q, B, S, H, D, BQ);
+  if (err == 0) err = hp::make_bshd_map(&o_kv, dout, B, S, H, D, BQ);
+  if (err != 0) return err;
+
   const int rows = B * S * H;
-  const int warps = kThreads / 32;
-  flash_bwd_delta_kernel<D><<<(rows + warps - 1) / warps, kThreads, 0, s>>>(
+  const int warps = kDeltaThreads / 32;
+  flash_bwd_delta_kernel<D><<<(rows + warps - 1) / warps, kDeltaThreads, 0, s>>>(
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout), static_cast<float*>(delta),
       rows, S, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  constexpr int dq_smem = DqSmem<D>::kBytes;
+  e = hp::allow_smem<flash_bwd_dq_kernel<D>>(dq_smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid_q((S + kDqBQ - 1) / kDqBQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid_q, kThreads, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<bf16*>(dq), S,
-      H, Hkv, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  flash_bwd_dq_kernel<D><<<grid_q, kDqThreads, dq_smem, s>>>(
+      q_dq, o_dq, k_dq, v_dq, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(seg), static_cast<bf16*>(dq), S, H, Hkv, causal, scale,
+      scale * kLog2e);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  constexpr int kv_smem = DkvSmem<D>::kBytes;
+  e = hp::allow_smem<flash_bwd_dkv_kernel<D>>(kv_smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid_kv((S + kKvBK - 1) / kKvBK, B * Hkv);
-  flash_bwd_dkv_kernel<D><<<grid_kv, kThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, H, Hkv, causal, scale);
+  flash_bwd_dkv_kernel<D><<<grid_kv, kKvThreads, kv_smem, s>>>(
+      k_kv, v_kv, q_kv, o_kv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(seg), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, Hkv,
+      causal, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -428,7 +567,8 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 
 // q, out, dout, dq: [B, S, H, D] bf16; k, v, dk, dv: [B, S, Hkv, D] bf16,
 // H % Hkv == 0; lse: [B*H, S] f32 from the forward; delta: [B*H, S] f32
-// scratch (written here); seg: [B, S] int32 or null; D in {64, 128}.
+// scratch (written here); seg: [B, S] int32 or null; D in {64, 128}; every
+// pointer 16-byte aligned (the TMA copies need it).
 PTT_EXPORT int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* out, const void* dout, const void* lse,
                                        const void* seg, void* delta, void* dq, void* dk, void* dv,

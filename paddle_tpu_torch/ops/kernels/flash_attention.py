@@ -31,16 +31,23 @@ Numerics, in the kernel and the plain version alike: q scaled by
 ``1/sqrt(D)`` in f32, logits and probabilities in f32, masked logits
 ``-1e30`` (not ``-inf``) and masked probabilities exactly 0, so a query with
 no visible key gives 0 (:70-75); the denominator clamped at ``1e-30``; the
-output cast to q's dtype once. The plain version does not follow
-``flash_attention.py`` ``_reference_attention``, which casts the
-probabilities to q's dtype before ``P V``; in f32 the two agree.
+output cast to q's dtype once. The tensor cores take bf16, while the TPU
+kernel multiplies f32 P by V (:76-77): the forward kernel feeds P to
+``P V`` as two bf16 terms (hi + lo, 16 significant bits; rounding P once
+failed the serving parity gate at Llama-3-8B's depth), and the backward
+kernels round P and dS to bf16 once before the products that take them,
+as the JAX package's own composite rounds P to q's dtype before ``P V``
+(``paddle_tpu/ops/kernels/flash_attention.py:60``). The plain versions
+keep P and dS in f32, and the gates hold the kernels to them (one bf16
+ulp forward, 1e-2 relative L2 backward).
 
-The TPU kernel needs ``S`` to be a multiple of its block; this kernel takes
-any ``S``. What bounds it on the H100: bf16 tensor-core operations at the
-serving path's lengths (``4 * B * H * S^2 * D`` over two, causal). The CUDA
-source describes the design; its one deviation from f32 is in ``P V``,
-where the probabilities keep 16 significant bits (a two-term bf16 split)
-instead of 24.
+The TPU kernel needs ``S`` to be a multiple of its block; these kernels
+take any ``S``. What bounds them on the H100: bf16 tensor-core operations
+at the serving and training lengths (``4 * B * H * S^2 * D`` over two,
+causal; 2.5x that backward). The CUDA sources describe the design: TMA
+copies into shared-memory rings signalled by mbarriers, a producer
+warpgroup and consumer warpgroups that run ``wgmma``
+(``paddle_tpu_torch/csrc/hopper.cuh``), no atomics.
 """
 
 from __future__ import annotations
@@ -133,19 +140,8 @@ def flash_attention(q, k, v, causal=False, segment_ids=None, with_lse=False):
         return flash_attention_plain(q, k, v, causal, segment_ids, with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: no kernel for device {q.device}")
-    b, s, h, d = q.shape
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash attention kernel takes bf16, got {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes D in {_HEAD_DIMS}, "
-                         f"got {d}")
-    if b * h > 65535:
-        raise ValueError(f"flash attention kernel takes B*H <= 65535, got "
-                         f"{b * h}")
-    ops = [t for t in (q, k, v, segment_ids) if t is not None]
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("flash attention kernel takes contiguous tensors")
-    _build.require_aligned("flash_attention", q, k, v)
+    _kernel_check("flash attention", (q, k, v), (segment_ids,))
+    b, s, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -155,6 +151,23 @@ def flash_attention(q, k, v, causal=False, segment_ids=None, with_lse=False):
 
 
 flash_attention.launches = 0
+
+
+def _kernel_check(what, tiles, others):
+    """What the kernels take, raised otherwise: bf16 ``tiles`` (q first;
+    the operands read by TMA copies or 16-byte loads, 16-byte aligned), D
+    in {64, 128}, B*H <= 65535 (the grid's y), every operand contiguous."""
+    q = tiles[0]
+    b, _, h, d = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16, got {q.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes D in {_HEAD_DIMS}, got {d}")
+    if b * h > 65535:
+        raise ValueError(f"{what} kernel takes B*H <= 65535, got {b * h}")
+    if not all(t.is_contiguous() for t in tiles + others if t is not None):
+        raise ValueError(f"{what} kernel takes contiguous tensors")
+    _build.require_aligned(what, *tiles)
 
 
 def _launch(q, k, v, segment_ids, out, lse, causal, stream):
@@ -258,22 +271,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention backward: no kernel for device "
                          f"{q.device}")
-    b, s, h, d = q.shape
-    h_kv = k.shape[2]
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash attention backward kernel takes bf16, got "
-                        f"{q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash attention backward kernel takes D in "
-                         f"{_HEAD_DIMS}, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"flash attention backward kernel takes B*H <= "
-                         f"65535, got {b * h}")
-    ops = [t for t in (q, k, v, out, lse, do, segment_ids) if t is not None]
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("flash attention backward kernel takes contiguous "
-                         "tensors")
-    _build.require_aligned("flash_attention backward", q, k, v, out, do)
+    _kernel_check("flash attention backward", (q, k, v, out, do),
+                  (lse, segment_ids))
+    b, s, h, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
     _launch_bwd(q, k, v, out, lse, do, segment_ids, delta, dq, dk, dv, causal,
@@ -346,10 +346,36 @@ def visible_pairs(b, s, causal, seg=None):
 
 
 # -- declared launches for the kernel analyzer -------------------------------
+# (the tiles, threads and shared memory of csrc/flash_attention.cu and
+# csrc/flash_attention_bwd.cu: a producer warpgroup and consumer warpgroups
+# of 128 threads; shared memory is 1024 bytes of alignment slack, the tiles
+# and the mbarriers)
 
-_BQ = 64                     # query rows a forward / dq block
-_BK = 64                     # keys a dk/dv block
-_THREADS = 128
+_FWD_BQ, _FWD_BK, _FWD_STAGES = 128, 128, 2   # forward: queries a block, keys a tile
+_DQ_BQ, _DQ_BK, _DQ_STAGES = 128, 64, 3       # dq: the same
+_KV_BK, _KV_STAGES = 64, 3                    # dk/dv: keys a block
+_DELTA_THREADS = 128
+
+
+def _kv_bq(d):
+    """Queries a dk/dv step."""
+    return 32 if d == 128 else 64
+
+
+def _fwd_smem(d):
+    return 1024 + 2 * d * (_FWD_BQ + 2 * _FWD_STAGES * _FWD_BK) \
+        + 8 * (1 + 2 * _FWD_STAGES)
+
+
+def _dq_smem(d):
+    return 1024 + 2 * d * (2 * _DQ_BQ + 2 * _DQ_STAGES * _DQ_BK) \
+        + 8 * (1 + 2 * _DQ_STAGES)
+
+
+def _kv_smem(d):
+    bq = _kv_bq(d)
+    return 1024 + 2 * d * (2 * _KV_BK + 2 * _KV_STAGES * bq) \
+        + 4 * _KV_STAGES * 2 * bq + 8 * (1 + 2 * _KV_STAGES)
 
 
 def _operands(m, b, s, h, h_kv, d, cuts):
@@ -373,15 +399,17 @@ def _q_tiles(m, name, b, s, h, d, bq):
 
 
 def _ex_fwd(label, b, s, h, h_kv, d, causal, with_lse=False, cuts=None):
+    """One launch: a block of three warpgroups a 128-query tile of one
+    head."""
     from ._examples import model
     m = model()
     ops, seg = _operands(m, b, s, h, h_kv, d, cuts)
     ops.append(m.Operand("out", (b, s, h, d), torch.bfloat16, "out"))
-    n_qt = -(-s // _BQ)
-    writes = [_q_tiles(m, "out", b, s, h, d, _BQ)]
+    n_qt = -(-s // _FWD_BQ)
+    writes = [_q_tiles(m, "out", b, s, h, d, _FWD_BQ)]
     if with_lse:
         ops.append(m.Operand("lse", (b * h, s), torch.float32, "out"))
-        writes.append(m.TileMap("lse", (1, _BQ), lambda x, y, z: (
+        writes.append(m.TileMap("lse", (1, _FWD_BQ), lambda x, y, z: (
             y, n_qt - 1 - x)))
 
     def plain(t):
@@ -394,8 +422,8 @@ def _ex_fwd(label, b, s, h, h_kv, d, causal, with_lse=False, cuts=None):
                 causal, stream)
 
     kern = m.KernelLaunch(f"flash_attention_kernel<{d}>", (n_qt, b * h),
-                          _THREADS, writes=writes,
-                          reads=[_q_tiles(m, "q", b, s, h, d, _BQ)])
+                          384, smem=_fwd_smem(d), writes=writes,
+                          reads=[_q_tiles(m, "q", b, s, h, d, _FWD_BQ)])
     q_el, kv_el = b * s * h * d, b * s * h_kv * d
     nbytes = 2 * (2 * q_el + 2 * kv_el) + (4 * b * h * s if with_lse else 0) \
         + (4 * b * s if cuts is not None else 0)
@@ -406,8 +434,10 @@ def _ex_fwd(label, b, s, h, h_kv, d, causal, with_lse=False, cuts=None):
 
 
 def _ex_bwd(label, b, s, h, h_kv, d, causal, cuts=None):
-    """Three launches: delta (a warp a (b, s, h) row), dq (a block a query
-    tile of one head) and dk/dv (a block a key tile of one kv head)."""
+    """Three launches: delta (a warp a (b, s, h) row), dq (a block of three
+    warpgroups a 128-query tile of one head) and dk/dv (a block of two
+    warpgroups a 64-key tile of one kv head, over the head's query
+    group)."""
     from ._examples import model
     m = model()
     bf, f32 = torch.bfloat16, torch.float32
@@ -419,7 +449,7 @@ def _ex_bwd(label, b, s, h, h_kv, d, causal, cuts=None):
             m.Operand("dk", (b, s, h_kv, d), bf, "out"),
             m.Operand("dv", (b, s, h_kv, d), bf, "out")]
     rows = b * s * h
-    warps = _THREADS // 32
+    warps = _DELTA_THREADS // 32
 
     def delta_index(x, y, z):
         out = []
@@ -428,18 +458,19 @@ def _ex_bwd(label, b, s, h, h_kv, d, causal, cuts=None):
             out.append(((bb * h + hh) * s + ss,))
         return out
 
-    n_kt = -(-s // _BK)
-    kv_tiles = [m.TileMap(n, (1, _BK, 1, d), lambda x, y, z: (
+    kv_tiles = [m.TileMap(n, (1, _KV_BK, 1, d), lambda x, y, z: (
         y // h_kv, x, y % h_kv, 0)) for n in ("dk", "dv")]
     kernels = [
         m.KernelLaunch(f"flash_bwd_delta_kernel<{d}>", -(-rows // warps),
-                       _THREADS, writes=[m.TileMap("delta", (1,), delta_index,
-                                                   view=(b * h * s,))]),
-        m.KernelLaunch(f"flash_bwd_dq_kernel<{d}>", (-(-s // _BQ), b * h),
-                       _THREADS, writes=[_q_tiles(m, "dq", b, s, h, d, _BQ)]),
-        m.KernelLaunch(f"flash_bwd_dkv_kernel<{d}>", (n_kt, b * h_kv),
-                       _THREADS, smem=(2 * _BK + 2 * 32) * (d + 8) * 2
-                       + (3 * 32 + _BK) * 4, writes=kv_tiles)]
+                       _DELTA_THREADS,
+                       writes=[m.TileMap("delta", (1,), delta_index,
+                                         view=(b * h * s,))]),
+        m.KernelLaunch(f"flash_bwd_dq_kernel<{d}>", (-(-s // _DQ_BQ), b * h),
+                       384, smem=_dq_smem(d),
+                       writes=[_q_tiles(m, "dq", b, s, h, d, _DQ_BQ)]),
+        m.KernelLaunch(f"flash_bwd_dkv_kernel<{d}>",
+                       (-(-s // _KV_BK), b * h_kv), 256, smem=_kv_smem(d),
+                       writes=kv_tiles)]
 
     def prepare(t):
         t["out"], t["lse"] = flash_attention_plain(
@@ -470,39 +501,55 @@ def _ex_bwd(label, b, s, h, h_kv, d, causal, cuts=None):
 def ck_examples():
     """At ``flash_attention_pallas.pk_examples``' shapes (q [2, 1024, 8,
     128] over 2 kv heads: causal, full with the log-sum-exp, the causal
-    backward) and phase 3's (causal prefill at S 1024, 1531 and 2048, a
-    packed [2, 512] batch with segments and the log-sum-exp; the backward
-    at [2, 2048, 32, 128] causal, [2, 1024] with segments and [1, 1024] at
-    D 64 full); tails at an S that ends inside a tile, D 64, GQA 2."""
+    backward) and phase 3's: causal prefill at S 1024, 1531 and 2048, a
+    packed [2, 512] batch with segments and the log-sum-exp, the training
+    forwards with the log-sum-exp (Llama [2, 2048, 32, 128] over 8 kv heads,
+    GPT-2 small [8, 1024, 12, 64] over 12); the backward at [2, 2048, 32,
+    128] causal, [2, 1024] with segments, [1, 1024] at D 64 full and GPT-2
+    small's causal shape. Tails at S 200 (inside the second 128-query tile,
+    the fourth 64-key tile and the seventh 32-query step), GQA 2, at the
+    example's D."""
     from ._examples import with_tail
-    tail = dict(b=1, s=100, h=4, h_kv=2, d=64)
+
+    def tail(d, **kw):
+        return dict(dict(b=1, s=200, h=4, h_kv=2, d=d), **kw)
+
     out = [with_tail(_ex_fwd, "fwd_causal", dict(b=2, s=1024, h=8, h_kv=2,
                                                  d=128, causal=True),
-                     dict(tail, causal=True)),
+                     tail(128, causal=True)),
            with_tail(_ex_fwd, "fwd_lse", dict(b=2, s=1024, h=8, h_kv=2, d=128,
                                               causal=False, with_lse=True),
-                     dict(tail, causal=False, with_lse=True))]
+                     tail(128, causal=False, with_lse=True))]
     for s in (1024, 1531, 2048):
         out.append(with_tail(_ex_fwd, f"phase3 [1, {s}, 32, 128] causal",
                              dict(b=1, s=s, h=32, h_kv=8, d=128, causal=True),
-                             dict(tail, causal=True)))
+                             tail(128, causal=True)))
     out.append(with_tail(
         _ex_fwd, "phase3 [2, 512, 32, 128] causal segments lse",
         dict(b=2, s=512, h=32, h_kv=8, d=128, causal=True, with_lse=True,
              cuts=[[100, 300, 301], [256]]),
-        dict(tail, b=2, causal=True, with_lse=True, cuts=[[10, 30], [57]])))
+        tail(128, b=2, causal=True, with_lse=True, cuts=[[10, 130], [57]])))
+    for b, s, h, h_kv, d in ((2, 2048, 32, 8, 128), (8, 1024, 12, 12, 64)):
+        out.append(with_tail(
+            _ex_fwd, f"phase3 [{b}, {s}, {h}, {d}] causal lse",
+            dict(b=b, s=s, h=h, h_kv=h_kv, d=d, causal=True, with_lse=True),
+            tail(d, causal=True, with_lse=True)))
     out.append(with_tail(_ex_bwd, "bwd_causal", dict(b=2, s=1024, h=8, h_kv=2,
                                                      d=128, causal=True),
-                         dict(tail, causal=True)))
-    for label, b, s, d, causal, cuts in (
-            ("phase3 bwd [2, 2048, 32, 128] causal", 2, 2048, 128, True,
+                         tail(128, causal=True)))
+    for label, b, s, h, h_kv, d, causal, cuts in (
+            ("phase3 bwd [2, 2048, 32, 128] causal", 2, 2048, 32, 8, 128,
+             True, None),
+            ("phase3 bwd [2, 1024, 32, 128] causal segments", 2, 1024, 32, 8,
+             128, True, [[102, 341, 342], [512]]),
+            ("phase3 bwd [1, 1024, 32, 64] full", 1, 1024, 32, 8, 64, False,
              None),
-            ("phase3 bwd [2, 1024, 32, 128] causal segments", 2, 1024, 128,
-             True, [[102, 341, 342], [512]]),
-            ("phase3 bwd [1, 1024, 32, 64] full", 1, 1024, 64, False, None)):
-        out.append(with_tail(_ex_bwd, label, dict(b=b, s=s, h=32, h_kv=8, d=d,
-                                                  causal=causal, cuts=cuts),
-                             dict(tail, b=b, causal=causal,
+            ("phase3 bwd [8, 1024, 12, 64] causal", 8, 1024, 12, 12, 64, True,
+             None)):
+        out.append(with_tail(_ex_bwd, label, dict(b=b, s=s, h=h, h_kv=h_kv,
+                                                  d=d, causal=causal,
+                                                  cuts=cuts),
+                             tail(d, b=min(b, 2), causal=causal,
                                   cuts=None if cuts is None
-                                  else [[10, 30], [57]][:b])))
+                                  else [[10, 130], [57]][:b])))
     return out

@@ -25,8 +25,13 @@ dw (an f32 sum over the rows in another order, then one rounding) to 1e-3
 relative of its largest value; the block epilogue's dx and dres to one
 ulp, its f32 dw and db to 1e-3 relative of their largest values;
 flash attention's dq, dk, dv to 1e-2 relative L2 (the kernel feeds bf16
-q, k, v, dO and 16-bit P and dS to the tensor cores, the plain version
-computes in f32). AdamW is held bit for bit: the kernel rounds each
+q, k, v, dO and P and dS rounded to bf16 to the tensor cores, the plain
+version computes in f32; ``tests/test_torch_flash_hopper.py`` models that
+rounding against the JAX kernel), and two backward calls bit for bit (no
+atomics). The Hopper
+building blocks (``csrc/hopper.cuh``: TMA, mbarriers, wgmma and their
+descriptors) are held on one tile against ``torch.matmul`` in f32 to
+1e-5 relative (exact bf16 products, f32 sums in another order). AdamW is held bit for bit: the kernel rounds each
 operation on its own, as the plain version's tensor ops do. LAMB's moments
 are held bit for bit too; its two norms are summed in another order, so
 the trust ratio and the f32 weights are held to 1e-6 relative (of the
@@ -194,6 +199,47 @@ def test_flash_attention_kernel_segments(dev, causal):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
 
 
+EDGE_S = [1, 63, 64, 65, 127, 128, 129, 200]   # around the 64- and 128-row tiles
+
+
+@pytest.mark.parametrize("s", EDGE_S)
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_kernel_tile_edges(dev, s, rep, causal, d):
+    """S at the edges of the forward's 128-query and 128-key tiles (the
+    copies fill rows past S with zeros), GQA 1, 4 and 8, with the
+    log-sum-exp."""
+    b, h_kv = 1, 2
+    q = _randn(dev, b, s, h_kv * rep, d, seed=60)
+    k = _randn(dev, b, s, h_kv, d, seed=61)
+    v = _randn(dev, b, s, h_kv, d, seed=62)
+    got, lse = flash_attention.flash_attention(q, k, v, causal, None, True)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, causal,
+                                                         None, True)
+    assert torch.isfinite(got).all()
+    _close(got, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("s", [65, 129, 300])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_kernel_segments_tile_edges(dev, s, causal, d):
+    """Segments whose cuts fall inside and on the edges of the tiles."""
+    b, h, h_kv = 2, 8, 1
+    seg = flash_attention.segment_ids(
+        s, [[1, 63, 64, s - 1], [s // 2, s // 2 + 1]]).to(dev)
+    q = _randn(dev, b, s, h, d, seed=63)
+    k = _randn(dev, b, s, h_kv, d, seed=64)
+    v = _randn(dev, b, s, h_kv, d, seed=65)
+    got, lse = flash_attention.flash_attention(q, k, v, causal, seg, True)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, causal, seg,
+                                                         True)
+    _close(got, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+
+
 EPI_CASES = [(None, "rms", 0.0, False), (None, "rms", 0.1, False),
              (None, "layer", 0.0, True), (None, "layer", 0.3, False),
              ("gelu", "rms", 0.0, False), ("gelu", "layer", 0.2, True),
@@ -237,6 +283,27 @@ def test_kernels_reject_what_they_do_not_take(dev):
     q = _randn(dev, 1, 8, 2, 32)
     with pytest.raises(ValueError):                       # D = 32: no kernel
         flash_attention.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("what", ["f32", "non-contiguous", "D 96"])
+def test_flash_kernels_reject_what_they_do_not_take(dev, what):
+    d = 96 if what == "D 96" else 64
+    q = _randn(dev, 1, 64, 4, d)
+    k = _randn(dev, 1, 64, 2, d)
+    if what == "f32":
+        q, k = q.float(), k.float()
+    if what == "non-contiguous":
+        k = _randn(dev, 1, 2, 64, d).transpose(1, 2)
+    err = TypeError if what == "f32" else ValueError
+    before = (flash_attention.flash_attention.launches,
+              flash_attention.flash_attention_bwd.launches)
+    with pytest.raises(err):
+        flash_attention.flash_attention(q, k, k, True)
+    lse = torch.zeros(4, 64, device=dev)
+    with pytest.raises(err):
+        flash_attention.flash_attention_bwd(q, k, k, q, lse, q, True)
+    assert before == (flash_attention.flash_attention.launches,
+                      flash_attention.flash_attention_bwd.launches)
 
 
 def test_engine_runs_every_kernel(dev):
@@ -608,6 +675,139 @@ def test_flash_attention_bwd_kernel(dev, b, s, h, h_kv, d, causal, with_seg):
             assert (a.float() - r.float()).abs().max().item() <= 1e-5, name
             continue
         assert _rel_l2(a, r) <= 1e-2, (name, _rel_l2(a, r))
+
+
+def _flash_bwd_case(dev, b, s, h, h_kv, d, causal, seg, seed):
+    q = _randn(dev, b, s, h, d, seed=seed)
+    do = _randn(dev, b, s, h, d, seed=seed + 1)
+    k = _randn(dev, b, s, h_kv, d, seed=seed + 2)
+    v = _randn(dev, b, s, h_kv, d, seed=seed + 3)
+    out, lse = flash_attention.flash_attention(q, k, v, causal, seg, True)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("s", EDGE_S)
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("mode", ["causal", "full", "segments"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_kernel_tile_edges(dev, s, rep, mode, d):
+    """S at the edges of the dq kernel's 128-query / 64-key tiles and the
+    dk/dv kernel's 64-key / 32- or 64-query tiles, GQA 1, 4 and 8 (the
+    group summed in the dk/dv block), causal, full and causal segments."""
+    b, h_kv = 2, 1
+    seg = None
+    if mode == "segments":
+        seg = flash_attention.segment_ids(
+            s, [[c for c in (1, 63, 64, 65, s // 2) if 0 < c < s],
+                [c for c in (s - 1,) if c > 0]]).to(dev)
+    causal = mode != "full"
+    ops = _flash_bwd_case(dev, b, s, h_kv * rep, h_kv, d, causal, seg, 70)
+    got = flash_attention.flash_attention_bwd(*ops, causal, seg)
+    ref = flash_attention.flash_attention_bwd_plain(*ops, causal, seg)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a).all(), name
+        if s == 1 and name != "dv":
+            # one visible key: P = 1, so dS = dP - delta and dq, dk are 0
+            # in exact arithmetic; both sides hold the rounding of two f32
+            # sums of the same products (~1e-8), which a relative norm
+            # cannot compare
+            assert (a.float() - r.float()).abs().max().item() <= 1e-5, name
+            continue
+        assert _rel_l2(a, r) <= 1e-2, (name, _rel_l2(a, r))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_gpt2_train_shape(dev, d):
+    """GPT-2 small's train shape, q [8, 1024, 12, 64] causal over 12 kv
+    heads (and the same at D 128): the forward within one ulp, the
+    backward within 1e-2 relative L2."""
+    b, s, h = 8, 1024, 12
+    ops = _flash_bwd_case(dev, b, s, h, h, d, True, None, 80)
+    q, k, v, out, lse, do = ops
+    ref_out, ref_lse = flash_attention.flash_attention_plain(q, k, v, True,
+                                                             None, True)
+    _close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    got = flash_attention.flash_attention_bwd(*ops, True, None)
+    ref = flash_attention.flash_attention_bwd_plain(*ops, True, None)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_l2(a, r) <= 1e-2, (name, _rel_l2(a, r))
+
+
+@pytest.mark.parametrize("b,s,h,h_kv,d,causal,with_seg", [
+    (2, 1024, 32, 8, 128, True, False), (8, 1024, 12, 12, 64, True, False),
+    (2, 300, 8, 2, 64, False, True)])
+def test_flash_attention_bwd_is_deterministic(dev, b, s, h, h_kv, d, causal,
+                                              with_seg):
+    """Two backward calls on the same inputs return the same bits: no
+    atomics, every output tile written by one block in a fixed order."""
+    seg = flash_attention.segment_ids(s, [[s // 3], [s // 2]][:b] +
+                                      [[]] * max(0, b - 2)).to(dev) \
+        if with_seg else None
+    ops = _flash_bwd_case(dev, b, s, h, h_kv, d, causal, seg, 90)
+    first = flash_attention.flash_attention_bwd(*ops, causal, seg)
+    second = flash_attention.flash_attention_bwd(*ops, causal, seg)
+    torch.cuda.synchronize()
+    for a, r in zip(first, second):
+        assert torch.equal(a.view(torch.int16), r.view(torch.int16))
+    fwd = [flash_attention.flash_attention(*ops[:3], causal, seg, True)
+           for _ in range(2)]
+    assert torch.equal(fwd[0][0].view(torch.int16), fwd[1][0].view(torch.int16))
+    assert torch.equal(fwd[0][1], fwd[1][1])
+
+
+# -- the Hopper building blocks (csrc/hopper.cuh), one tile each ---------------
+
+@pytest.fixture(scope="module")
+def hopper_check(tmp_path_factory):
+    """tests/hopper_check.cu built with the kernels' flags against
+    csrc/hopper.cuh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+    import os
+    import subprocess
+    from paddle_tpu_torch.ops.kernels import _build
+    here = os.path.dirname(os.path.abspath(__file__))
+    so = tmp_path_factory.mktemp("hopper") / "hopper_check.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC_DIR), "-o", str(so),
+                    os.path.join(here, "hopper_check.cu")], check=True)
+    lib = ctypes.CDLL(str(so))
+    for name in ("ptt_check_ss", "ptt_check_rs"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_hopper_wgmma_ss_kmajor(dev, hopper_check, n):
+    """TMA with the 128-byte swizzle, an mbarrier, and the shared-memory
+    wgmma chain with both operands K-major (eight 16-deep steps over two
+    64-column sub-tiles): C = A B^T against torch.matmul in f32."""
+    a, b = _randn(dev, 64, 128, seed=100), _randn(dev, n, 128, seed=101)
+    c = torch.empty(64, n, device=dev)
+    err = hopper_check.ptt_check_ss(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                    n, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    ref = torch.matmul(a.float(), b.float().t())
+    torch.testing.assert_close(c, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_hopper_wgmma_rs_mnmajor(dev, hopper_check, n):
+    """The register-A wgmma with B MN-major (N = 128 spans two sub-tiles,
+    the descriptor's leading offset): A given as an f32 accumulator and
+    packed to bf16 in registers, as the flash kernels form P."""
+    a = torch.randn(64, 64, device=dev)
+    b = _randn(dev, 64, n, seed=102)
+    c = torch.empty(64, n, device=dev)
+    err = hopper_check.ptt_check_rs(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                    n, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    ref = torch.matmul(a.to(torch.bfloat16).float(), b.float())
+    torch.testing.assert_close(c, ref, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("n", [4096, 1000003])
