@@ -1257,9 +1257,11 @@ def _kernels_wo(torch, dev, randn, timer, results):
     yardstick is cuBLAS bf16 ``torch.matmul`` on the dequantized bf16
     weight, which the port never calls. Bound: the weight, scales,
     activations and output once over the memory rate, or the products
-    over the bf16 tensor-core rate. Also times the per-call unpacking of
-    one layer's int4 weights that a grouped int4 engine pays (the JAX
-    package's rule: grouped int4 unpacks to dense int8 on every call)."""
+    over the bf16 tensor-core rate. The int8 rows at gate/up's decode and
+    prefill shapes carry the wrapper's host time a call (``host_us``).
+    Also times the per-call unpacking of one layer's int4 weights that a
+    grouped int4 engine pays (the JAX package's rule: grouped int4 unpacks
+    to dense int8 on every call)."""
     from paddle_tpu_torch.ops.kernels import wo_matmul as wo
 
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -1292,13 +1294,17 @@ def _kernels_wo(torch, dev, randn, timer, results):
                 fn, plain = wo.wo_int8, wo.wo_int8_matmul_plain
                 wd = (w.float() * s).to(bf)
             err, tol = compare(torch, fn(x, w, s), plain(x, w, s))
+            host = {}
+            if name != "wo_int4" and (m, k) in ((8, 4096), (1024, 4096)):
+                host["host_us"] = _host_us(torch, lambda: fn(x, w, s))
             _record(results, name,
                     [m, k, n, label] + (["G", QUANT_GROUP]
                                         if name == "wo_int8_grouped" else []),
                     err, tol, timer(lambda: fn(x, w, s)),
                     timer(lambda: plain(x, w, s)), timer(lambda: x @ wd),
                     ("wo_matmul", f"phase3 {name} [{m}, {k}, {n}]"),
-                    library="cuBLAS bf16 torch.matmul, dequantized weight")
+                    library="cuBLAS bf16 torch.matmul, dequantized weight",
+                    **host)
     layer = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
              (4096, 14336), (4096, 14336), (14336, 4096))
     packed = [int8(k, n // 2, lo=-128) for k, n in layer]
@@ -1837,7 +1843,8 @@ def _parity_first_decode(torch, what, sm, engine, prompts, served):
 _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "swiglu_kernel", "flash_attention_kernel",
                 "block_epilogue_kernel", "decode_layer_kernel",
-                "wo_matmul_kernel", "a8w8_quantize_kernel",
+                "wo_matmul_kernel", "wo_prefill_kernel", "wo_decode_kernel",
+                "a8w8_quantize_kernel",
                 "a8w8_gemm_kernel", "rms_norm_bwd_kernel",
                 "swiglu_bwd_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -1935,21 +1942,19 @@ def _batch_tables(torch, engine, prompts):
             torch.tensor(lens, dtype=torch.int32, device=dev), held)
 
 
-def phase_profile_quant(torch, engine, prompts, label, prefill=True):
-    """A quantized engine: where a decode step (batch 8) and, with
-    ``prefill``, a 1024-token monolithic prefill spend their device
-    time."""
+def phase_profile_quant(torch, engine, prompts, label):
+    """A quantized engine: where a decode step (batch 8) and a 1024-token
+    monolithic prefill spend their device time."""
     sm, pool, dev = engine._sm, engine.pool, engine.device
     tables, toks, pos, held = _batch_tables(torch, engine, prompts)
     out = {"phase": "profile", "engine": label}
     try:
         out[f"{label}_decode_step"] = _profile(
             torch, lambda: sm.decode_forward(toks, pos, tables), reps=10)
-        if prefill:
-            mono_toks = torch.arange(1024, device=dev)[None] + 7
-            out[f"{label}_monolithic_prefill_1024"] = _profile(
-                torch, lambda: sm.prefill_forward(mono_toks, 1024, tables[0]),
-                reps=2)
+        mono_toks = torch.arange(1024, device=dev)[None] + 7
+        out[f"{label}_monolithic_prefill_1024"] = _profile(
+            torch, lambda: sm.prefill_forward(mono_toks, 1024, tables[0]),
+            reps=2)
     finally:
         pool.free(held)
     emit(out)
@@ -3713,8 +3718,7 @@ def main() -> int:
         torch, np, model, f_prompts)
     _parity_first_decode(torch, "first int8 g128 fused-layer decode step",
                          qf._sm, qf, f_prompts, qf_served)
-    phase_profile_quant(torch, qf, d_prompts, "int8_g128_fused_layer",
-                        prefill=False)
+    phase_profile_quant(torch, qf, d_prompts, "int8_g128_fused_layer")
     del qf
     _free(torch)
     llm_launches = phase_llm_int8(torch, dev)

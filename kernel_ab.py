@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Flash attention of one checkout of this repository, on one GPU, for
-comparing two checkouts in one run (the card and its neighbours change
+"""One family of kernels of one checkout of this repository, on one GPU,
+for comparing two checkouts in one run (the card and its neighbours change
 between runs): run it on each tree in turns (A, B, B, A).
 
-    python3 flash_ab.py <checkout root> <tag> [--gpt]
+    python3 kernel_ab.py <checkout root> <tag> flash [--gpt]
+    python3 kernel_ab.py <checkout root> <tag> wo [--engine]
 
-Prints one JSON line per measurement, each with ``tag``:
+Prints one JSON line per measurement, each with ``tag``. Family
+``flash``:
 
 - ``fwd`` / ``bwd``: the flash rows of ``chip_smoke.py``'s phase 3 (and
   the training shapes): the kernel's cold-L2 ms (``chip_smoke.ColdTimer``),
@@ -18,6 +20,18 @@ Prints one JSON line per measurement, each with ``tag``:
 - with ``--gpt``, ``chip_smoke.py``'s ``train_gpt`` phase of that checkout
   (GPT-2 small, B 8 x S 1024: parity, 8 steps, a profile).
 
+Family ``wo`` (the weight-only kernels, rows 12a-12c):
+
+- ``wo``: phase 3's four Llama-3-8B shapes for each kernel (grouped at G
+  128): the kernel's cold-L2 ms, cuBLAS bf16 ``torch.matmul`` on the
+  dequantised weight, their ratio and the kernel's error against its
+  plain version;
+- ``host``: the host time of one int8 wrapper call at gate/up's decode
+  and prefill shapes, measured as for flash;
+- with ``--engine``, engine d of ``chip_smoke.py`` (Llama-3-8B, random
+  weights, ``quant="weight_only_int8"``): the profile of a decode step at
+  batch 8 and of a 1024-token monolithic prefill (``chip_smoke._profile``).
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -29,16 +43,18 @@ import time
 
 
 def main() -> int:
-    root, tag = sys.argv[1], sys.argv[2]
+    root, tag, family = sys.argv[1], sys.argv[2], sys.argv[3]
     sys.path.insert(0, root)
     import torch
-    import torch.nn.functional as TF
 
     import chip_smoke as cs
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    import paddle_tpu_torch
 
-    if not fa.__file__.startswith(root) or not cs.__file__.startswith(root):
+    if not paddle_tpu_torch.__file__.startswith(root) \
+            or not cs.__file__.startswith(root):
         cs.fail(f"{root}: its modules were not the ones imported")
+    if family not in ("flash", "wo"):
+        cs.fail(f"family {family!r}: flash or wo")
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     dev = torch.device("cuda", 0)
@@ -49,12 +65,24 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
+    def emit(**row):
+        print(json.dumps({"tag": tag, **row}), flush=True)
+
+    if family == "flash":
+        _flash(torch, cs, dev, timer, randn, emit)
+    else:
+        _wo(torch, cs, dev, timer, randn, emit)
+    return 0
+
+
+def _flash(torch, cs, dev, timer, randn, emit):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
     def mask_of(seg, s):
         return ((seg[:, :, None] == seg[:, None, :])
                 & torch.ones(s, s, dtype=torch.bool, device=dev).tril())[:, None]
-
-    def emit(**row):
-        print(json.dumps({"tag": tag, **row}), flush=True)
 
     # forward: (b, s, h, h_kv, d, segments, lse), causal
     for b, s, h, h_kv, d, with_seg, lse in (
@@ -114,9 +142,71 @@ def main() -> int:
         bwd = _host_us(torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True))
         emit(host=[b, s, h, h_kv, d], fwd_us=fwd, bwd_us=bwd)
 
-    if "--gpt" in sys.argv[3:]:
+    if "--gpt" in sys.argv[4:]:
         cs.phase_train_gpt(torch, dev)
-    return 0
+
+
+def _wo(torch, cs, dev, timer, randn, emit):
+    from paddle_tpu_torch.ops.kernels import wo_matmul as wo
+
+    bf = torch.bfloat16
+    group = cs.QUANT_GROUP
+
+    def int8(*shape, lo=-127):
+        return torch.randint(lo, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 2e-3 + 1e-4
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    for name in ("wo_int8", "wo_int8_grouped", "wo_int4"):
+        for m, k, n in ((8, 4096, 14336), (8, 14336, 4096),
+                        (1024, 4096, 14336), (1531, 4096, 1024)):
+            x = randn(m, k)
+            if name == "wo_int4":
+                w, s = int8(k, n // 2, lo=-128), scales(n)
+                fn, plain = wo.wo_int4, wo.wo_int4_matmul_plain
+                wd = (wo.unpack_int4_halves(w).float() * s).to(bf)
+            elif name == "wo_int8_grouped":
+                w, s = int8(k, n), scales(k // group, n)
+                fn, plain = wo.wo_int8_grouped, wo.wo_int8_matmul_plain
+                wd = wo.dequant_grouped(w, s).to(bf)
+            else:
+                w, s = int8(k, n), scales(n)
+                fn, plain = wo.wo_int8, wo.wo_int8_matmul_plain
+                wd = (w.float() * s).to(bf)
+            err, tol = cs.compare(torch, fn(x, w, s), plain(x, w, s))
+            lib = timer(lambda: x @ wd)
+            ms = timer(lambda: fn(x, w, s))
+            emit(wo=[name, m, k, n], ms=ms, cublas_ms=lib, ratio=ms / lib,
+                 max_abs_err=err, tol=tol)
+            if name != "wo_int4" and (m, k) in ((8, 4096), (1024, 4096)):
+                emit(host=[name, m, k, n],
+                     us=_host_us(torch, lambda: fn(x, w, s)))
+            del x, w, s, wd
+
+    if "--engine" in sys.argv[4:]:
+        import numpy as np
+
+        from paddle_tpu_torch.models import llama3_8b
+        from paddle_tpu_torch.serving import LLMEngine, ServingConfig
+
+        model = llama3_8b(device=dev, seed=0)
+        engine = LLMEngine(model, cs._quant_config(
+            ServingConfig, quant="weight_only_int8"))
+        prompts = cs.default_prompts(np, model.cfg.vocab_size)
+        sm = engine._sm
+        tables, toks, pos, held = cs._batch_tables(torch, engine, prompts)
+        try:
+            emit(engine_d_decode_step=cs._profile(
+                torch, lambda: sm.decode_forward(toks, pos, tables), reps=10))
+            mono = torch.arange(1024, device=dev)[None] + 7
+            emit(engine_d_monolithic_prefill_1024=cs._profile(
+                torch, lambda: sm.prefill_forward(mono, 1024, tables[0]),
+                reps=2))
+        finally:
+            engine.pool.free(held)
 
 
 def _host_us(torch, fn, calls=100, repeats=5):

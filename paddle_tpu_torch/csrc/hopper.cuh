@@ -1,16 +1,21 @@
 // Hopper (sm_90a) building blocks of the port's redesigned kernels, in
 // inline PTX: warpgroup MMA (wgmma), its shared-memory matrix descriptors,
-// mbarriers, TMA tile loads and register reallocation between warpgroups.
-// The flash-attention kernels (csrc/flash_attention.cu,
-// csrc/flash_attention_bwd.cu) are built from them, and the matrix products
-// that come next (the weight-only and weight-gradient kernels) can be.
+// mbarriers, TMA tile loads (4-D bf16 and 2-D of any element type), the
+// proxy fence for tiles that threads write and wgmma reads, named barriers,
+// thread-block clusters with their distributed shared memory, and register
+// reallocation between warpgroups. The flash-attention kernels
+// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and the int8
+// weight-only kernels (csrc/wo_matmul.cu) are built from them.
 //
 // Shared-memory tiles. Every tile is a stack of sub-tiles of 64 bf16
 // columns (128 bytes a row), one per 64 columns of the operand, each written
-// by one TMA copy with the 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B):
-// 16-byte chunk c of row r lands at chunk c ^ (r % 8). A sub-tile starts on
-// a 1024-byte boundary, so the swizzle the copy applies and the one the
-// descriptor names agree (base offset 0).
+// by one TMA copy with the 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B), or
+// by threads that apply the same swizzle themselves: 16-byte chunk c of row r
+// lands at chunk c ^ (r % 8). A sub-tile starts on a 1024-byte boundary, so
+// the swizzle the writer applies and the one the descriptor names agree (base
+// offset 0). Threads that write a tile wgmma reads (st.shared: the generic
+// proxy) end with fence_proxy_async() and then a barrier, before the wgmma
+// (the async proxy) is issued.
 //
 // Descriptors (sm_90 matrix descriptor, layout SWIZZLE_128B):
 // - K-major (the reduction dimension contiguous, as Q and K are in Q K^T):
@@ -102,6 +107,79 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a 2-D tensor map (coordinates: column, row) into shared memory,
+// as tma_load_4d
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory at `src` into shared memory at
+// `dst`, both 16-byte aligned, as one bulk copy: no tensor map; the
+// barrier's transaction count falls by them when they land
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// -- fences, named barriers, clusters -------------------------------------------
+
+// orders this thread's st.shared writes before the async proxy's later reads
+// of them (a wgmma operand that threads wrote); a barrier follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) among `threads` threads of the
+// block, a multiple of 32. bar.sync wants each warp converged, and the
+// compiler does not know this asm is a barrier: the lanes meet first.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; shared-memory writes before it
+// are visible to the cluster's reads after it (the lanes meet first, as for
+// bar_sync)
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared-memory address `saddr` of this block in block `rank` of the
+// cluster (distributed shared memory)
+__device__ __forceinline__ uint32_t map_rank(uint32_t saddr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // -- register reallocation between warpgroups ----------------------------------
@@ -346,36 +424,76 @@ inline int encode_bshd_map(CUtensorMap* map, const void* base, int B, int S, int
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// encode_bshd_map through a direct-mapped cache keyed by everything a map
-// encodes (the address, the shape and the box): encoding costs microseconds
-// on the host, and a training step or a prefill calls the kernels again and
-// again on the same buffers.
-inline int make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
-                         int rows) {
+// A direct-mapped cache of tensor maps keyed by everything a map encodes (the
+// address and N ints: shape, box, type, swizzle); `encode(map)` fills an
+// entry on a miss. Encoding costs microseconds on the host, and a training
+// step, a prefill or a decode step calls the kernels again and again on the
+// same buffers. One cache per map kind (each instantiation has its own).
+template <int N, typename Encode>
+inline int cached_map(CUtensorMap* map, const void* base, const int (&key)[N], Encode encode) {
   struct Entry {
     const void* base;
-    int dims[5];
+    int key[N];
     CUtensorMap map;
   };
   constexpr int kEntries = 1024;
   static Entry cache[kEntries] = {};
   static std::mutex lock;
-  const int dims[5] = {B, S, H, D, rows};
   uint64_t h = reinterpret_cast<uintptr_t>(base) * 0x9E3779B97F4A7C15ull;
-  for (int d : dims) h = (h ^ (uint64_t)(uint32_t)d) * 0x100000001B3ull;
+  for (int d : key) h = (h ^ (uint64_t)(uint32_t)d) * 0x100000001B3ull;
   Entry& e = cache[(h >> 32) % kEntries];
   std::lock_guard<std::mutex> guard(lock);
-  if (e.base != base || std::memcmp(e.dims, dims, sizeof(dims)) != 0) {
-    const int err = encode_bshd_map(&e.map, base, B, S, H, D, rows);
+  if (e.base != base || std::memcmp(e.key, key, sizeof(key)) != 0) {
+    const int err = encode(&e.map);
     if (err != 0) {
       e.base = nullptr;
       return err;
     }
     e.base = base;
-    std::memcpy(e.dims, dims, sizeof(dims));
+    std::memcpy(e.key, key, sizeof(key));
   }
   *map = e.map;
   return 0;
+}
+
+// encode_bshd_map through the cache
+inline int make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
+                         int rows) {
+  const int key[5] = {B, S, H, D, rows};
+  return cached_map(map, base, key, [&](CUtensorMap* m) {
+    return encode_bshd_map(m, base, B, S, H, D, rows);
+  });
+}
+
+// Tensor map of a row-major [rows, cols] tensor of `type` (`elem_bytes`
+// bytes an element; cols contiguous, rows cols * elem_bytes apart, a
+// multiple of 16) whose box is box_rows x box_cols elements: coordinates
+// (column, row). Elements past the tensor's edges arrive as zeros. With
+// CU_TENSOR_MAP_SWIZZLE_128B a box row holds at most 128 bytes. Returns 0,
+// or a cudaError_t.
+inline int encode_2d_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                         int elem_bytes, int rows, int cols, int box_rows, int box_cols,
+                         CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// encode_2d_map through the cache
+inline int make_2d_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                       int elem_bytes, int rows, int cols, int box_rows, int box_cols,
+                       CUtensorMapSwizzle swizzle) {
+  const int key[7] = {(int)type, elem_bytes, rows, cols, box_rows, box_cols, (int)swizzle};
+  return cached_map(map, base, key, [&](CUtensorMap* m) {
+    return encode_2d_map(m, base, type, elem_bytes, rows, cols, box_rows, box_cols, swizzle);
+  });
 }
 
 // cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per

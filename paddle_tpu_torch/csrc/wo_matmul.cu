@@ -18,45 +18,70 @@
 //                j + N/2 in its high nibble, both sign-extended 4-bit values;
 //                y[:, j] = bf16(acc_lo * s[j]), y[:, j + N/2] = bf16(acc_hi * s[j + N/2]).
 // Products of bf16 values are exact in f32; the int8 and nibble values
-// convert to bf16 exactly (|q| <= 127 fits bf16's 8 significant bits).
-//
-// Bound on the H100: bytes in decode (M = 1..8 rows: the weight read once,
-// 58.7 MB for gate_proj at int8, 0.018 ms at 3.35 TB/s), operations in
-// prefill (M = 64..2048: 120 GFLOP for gate_proj at M 1024, 0.12 ms on the
-// bf16 tensor cores). Design: one kernel template, two tilings. Each k-tile
-// of x (bf16) and of w (int8 or packed bytes) is read from device memory
-// into registers while the previous tile's products run, then converted to
-// bf16 into shared memory with the weight TRANSPOSED ([n][k], k contiguous),
-// so that mma.sync m16n8k16 reads its B fragments with 32-bit loads, as
-// flash_attention.cu does. Two consecutive k rows are converted together
-// and stored as one bf16x2 word; the threads of a warp take consecutive
-// k-row pairs, so those stores hit 32 distinct banks. The conversion is
-// exact and avoids the quarter-rate int-to-float instruction: a byte
+// convert to bf16 exactly (|q| <= 127 fits bf16's 8 significant bits). The
+// conversion avoids the quarter-rate int-to-float instruction: a byte
 // permute places the biased value u = q + 128 (a nibble: q + 8) in the low
 // mantissa of 2^23, one f32 subtraction leaves q, and the top half of its
-// f32 bits is its bf16 (|q| <= 128 has at most 8 significant bits). The
-// first version of this kernel converted with I2F and ran the 1024-row
-// prefill product at 7x its bound, limited by the conversion.
-//   decode  (M <= 16): a 16-row output tile 16 columns wide (int8; 32 for
-//           int4, whose 16-byte chunks hold 32 columns), k-tile 256; the
-//           four warps split each k-tile and their partial sums are added in
-//           a fixed order through shared memory (deterministic, no atomics).
-//           16 columns a block gives 64-896 blocks at Llama-3-8B's widths.
-//   prefill (M > 16): 128 x 128 output tile, k-tile 64, 8 warps as 4 x 2 of
-//           32 x 64: each converted weight tile serves 128 rows.
-// Blocks along x walk the row tiles of one column tile, so a weight tile
-// is read from device memory once and served to the other row tiles from L2.
-#include "common.cuh"
+// f32 bits is its bf16. A grouped weight multiplies that f32 by its scale
+// and rounds the pair to bf16 with cvt.rn.bf16x2.f32.
+//
+// Bound on the H100: bytes in decode (M = 1..16 rows: the weight is read
+// once, 58.7 MB for gate_proj at int8, 0.018 ms at 3.35 TB/s), operations in
+// prefill (M = 64..2048: 120 GFLOP for gate_proj at M 1024, 0.12 ms on the
+// bf16 tensor cores).
+//
+// The int8 kernels (rows 12a, 12b) are built from csrc/hopper.cuh:
+//
+// - Prefill (M > 16), wo_prefill_kernel<MODE, BM>: a BM x 128 output tile
+//   (BM 256 unless the 128-row grid fills the card a wave sooner), 288
+//   threads: two consumer warpgroups of BM / 2 rows, then one producer
+//   warp. One producer thread keeps TMA loads in flight into a ring of up
+//   to six stages, each signalled by a `full` mbarrier (transaction bytes)
+//   and released by an `empty` one: x's [BM, 64] bf16 tile (K-major,
+//   128-byte swizzle), the int8 weight's [64 k, 128 n] tile (128-byte
+//   swizzle) and, grouped, the scale rows the 64 k span. The consumers
+//   dequantise the int8 tile into a bf16 MN-major tile with the 128-byte
+//   swizzle (one 128-byte row holds 64 n of one k), fence the async proxy,
+//   meet at a named barrier, and run wgmma m64n128k16 with both operands in
+//   shared memory (B transposed). Three converted tiles rotate: tile j + 1
+//   is converted while tile j's wgmma runs. One converted [64, 128] tile
+//   serves BM rows, so conversion is 1 / BM of the tensor work. The
+//   per-channel epilogue applies s[n] in f32 and rounds once; the tile
+//   leaves through shared memory as 16-byte row pieces.
+// - Decode (M <= 16), wo_decode_kernel<MODE, TG>: the weight streams through
+//   a ring of up to eight 64 x 128-byte TMA stages a block (three blocks an
+//   SM at 8 tokens), x's 64 k of each stage beside it as one bulk copy a
+//   token row (no tensor map for an activation). Four consumer warps take
+//   one 16-deep k-step of each stage; each thread reads 16 n of four k rows
+//   as 16-byte vectors (conflict-free through the swizzle), converts them
+//   into the A operand of mma.sync m16n8k16 (the weight as A, so 8 tokens
+//   fill n 8: TG groups of 8 tokens). K is split across the blocks of a
+//   cluster so that the blocks fill the card's slots once (k_proj's 8
+//   column tiles of 128 become 64 blocks); each block sums its warps'
+//   partials in shared memory, and block r of the cluster adds the blocks'
+//   partials for its columns through distributed shared memory in rank
+//   order. No atomics: two calls return the same bits.
+//
+// Row 12c (int4) keeps the mma.sync template wo_matmul_kernel: a k-tile of x
+// and of the packed bytes is read into registers while the previous tile's
+// products run, then converted into shared memory with the weight TRANSPOSED
+// ([n][k], k contiguous) so that mma.sync reads 32-bit B fragments; decode:
+// a 16 x 32 output tile, k-tile 256 split over four warps (partial sums
+// added in a fixed order); prefill: 128 x 128, k-tile 64, 8 warps.
+#include <algorithm>
+
+#include "hopper.cuh"
 
 using ptt::bf16;
 using ptt::ld32;
 using ptt::mma_bf16;
+namespace hp = ptt::hopper;
 
 namespace {
 
 enum Mode { kInt8 = 0, kInt8Grouped = 1, kInt4 = 2 };
 
-// two f32 values -> one bf16x2 word, `lo` in the low half (the smaller k)
+// two f32 values -> one bf16x2 word, `lo` in the low half (rounded to nearest)
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -81,14 +106,17 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
+// -- row 12c: the mma.sync template (int4) ------------------------------------
+
 template <int MODE, int BM, int BN, int BK, int WM, int WN, int WK>
 __global__ void __launch_bounds__(WM * WN * WK * 32)
     wo_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ scales, bf16* __restrict__ y, int M, int N,
                      int K, int G) {
+  static_assert(MODE == kInt4, "the int8 modes run wo_prefill_kernel / wo_decode_kernel");
   constexpr int T = WM * WN * WK * 32;              // threads
   constexpr int XST = BK + 8;                       // bf16 row stride of both smem tiles
-  constexpr int WB = MODE == kInt4 ? BN / 2 : BN;   // weight bytes per k row of a tile
+  constexpr int WB = BN / 2;                        // weight bytes per k row of a tile
   constexpr int XCH = BM * BK / 8;                  // 16-byte x chunks of a tile
   constexpr int WCH = (BK / 2) * (WB / 16);         // (2 k rows x 16 bytes) chunks of a tile
   constexpr int XL = (XCH + T - 1) / T, WP = (WCH + T - 1) / T;  // per thread
@@ -105,7 +133,7 @@ __global__ void __launch_bounds__(WM * WN * WK * 32)
   const int g = lane >> 2, t = lane & 3;
   const int wk = warp % WK, wn = (warp / WK) % WN, wm = warp / (WK * WN);
   const int m0 = blockIdx.x * BM;
-  const int NB = MODE == kInt4 ? N / 2 : N;  // bytes per row of w
+  const int NB = N / 2;                      // bytes per row of w
   const int c0 = blockIdx.y * WB;            // first byte column of this tile
 
   uint4 xr[XL], wr[WP][2];
@@ -132,7 +160,7 @@ __global__ void __launch_bounds__(WM * WN * WK * 32)
     }
   };
 
-  auto store = [&](int k0) {
+  auto store = [&]() {
 #pragma unroll
     for (int i = 0; i < XL; ++i) {
       const int e = tid + i * T;
@@ -148,40 +176,17 @@ __global__ void __launch_bounds__(WM * WN * WK * 32)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const uint32_t w0 = word_of(wr[i][0], q), w1 = word_of(wr[i][1], q);
-        if constexpr (MODE == kInt4) {
-          // low nibbles -> columns j, high nibbles -> columns j + N/2
-          const uint32_t l0 = (w0 ^ 0x88888888u) & 0x0F0F0F0Fu;
-          const uint32_t l1 = (w1 ^ 0x88888888u) & 0x0F0F0F0Fu;
-          const uint32_t h0 = ((w0 ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
-          const uint32_t h1 = ((w1 ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
-          uint32_t* dst_hi = dst + (BN / 2) * XST / 2;
+        // low nibbles -> columns j, high nibbles -> columns j + N/2
+        const uint32_t l0 = (w0 ^ 0x88888888u) & 0x0F0F0F0Fu;
+        const uint32_t l1 = (w1 ^ 0x88888888u) & 0x0F0F0F0Fu;
+        const uint32_t h0 = ((w0 ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
+        const uint32_t h1 = ((w1 ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
+        uint32_t* dst_hi = dst + (BN / 2) * XST / 2;
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int j = 4 * q + jj;
-            dst[j * XST / 2] = pack2_exact(biased_byte(l0, jj, 8.f), biased_byte(l1, jj, 8.f));
-            dst_hi[j * XST / 2] =
-                pack2_exact(biased_byte(h0, jj, 8.f), biased_byte(h1, jj, 8.f));
-          }
-        } else {
-          const uint32_t u0 = w0 ^ 0x80808080u, u1 = w1 ^ 0x80808080u;
-          if constexpr (MODE == kInt8Grouped) {
-            const int k = k0 + 2 * kp, col = c0 + cc;
-            const bool ok = col < N && k < K;
-            const float* s0 = scales + (size_t)(k / G) * N + col;
-            const float* s1 = scales + (size_t)((k + 1) / G) * N + col;
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const int j = 4 * q + jj;
-              dst[j * XST / 2] =
-                  ok ? pack2(biased_byte(u0, jj, 128.f) * s0[j], biased_byte(u1, jj, 128.f) * s1[j])
-                     : 0u;
-            }
-          } else {
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj)
-              dst[(4 * q + jj) * XST / 2] =
-                  pack2_exact(biased_byte(u0, jj, 128.f), biased_byte(u1, jj, 128.f));
-          }
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * q + jj;
+          dst[j * XST / 2] = pack2_exact(biased_byte(l0, jj, 8.f), biased_byte(l1, jj, 8.f));
+          dst_hi[j * XST / 2] = pack2_exact(biased_byte(h0, jj, 8.f), biased_byte(h1, jj, 8.f));
         }
       }
     }
@@ -197,7 +202,7 @@ __global__ void __launch_bounds__(WM * WN * WK * 32)
   load(0);
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the previous tile is fully read
-    store(kt * BK);
+    store();
     __syncthreads();
     if (kt + 1 < n_kt) load((kt + 1) * BK);  // in flight during this tile's products
 #pragma unroll
@@ -254,22 +259,10 @@ __global__ void __launch_bounds__(WM * WN * WK * 32)
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int lc = wn * (BN / WN) + nt * 8 + 2 * t;  // even column of the tile
-    int col;
-    bool ok;
-    if constexpr (MODE == kInt4) {
-      const int j = c0 + (lc < BN / 2 ? lc : lc - BN / 2);
-      ok = j < NB;
-      col = lc < BN / 2 ? j : NB + j;
-    } else {
-      col = c0 + lc;
-      ok = col < N;
-    }
-    if (!ok) continue;
-    float s0 = 1.f, s1 = 1.f;
-    if constexpr (MODE != kInt8Grouped) {
-      s0 = scales[col];
-      s1 = scales[col + 1];
-    }
+    const int j = c0 + (lc < BN / 2 ? lc : lc - BN / 2);
+    if (j >= NB) continue;
+    const int col = lc < BN / 2 ? j : NB + j;
+    const float s0 = scales[col], s1 = scales[col + 1];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -278,54 +271,566 @@ __global__ void __launch_bounds__(WM * WN * WK * 32)
         if (r >= M) continue;
         const float v0 = acc[mt][nt][2 * hf], v1 = acc[mt][nt][2 * hf + 1];
         *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * N + col) =
-            MODE == kInt8Grouped ? __floats2bfloat162_rn(v0, v1)
-                                 : __floats2bfloat162_rn(v0 * s0, v1 * s1);
+            __floats2bfloat162_rn(v0 * s0, v1 * s1);
       }
     }
   }
 }
 
-template <int MODE, int BM, int BN, int BK, int WM, int WN, int WK>
-void launch_tiled(const void* x, const void* w, const void* s, void* y, int M, int N, int K,
-                  int G, cudaStream_t stream) {
-  constexpr int WB = MODE == kInt4 ? BN / 2 : BN;  // byte columns of w a block takes
-  const int cols = MODE == kInt4 ? N / 2 : N;
-  const dim3 grid((M + BM - 1) / BM, (cols + WB - 1) / WB);
-  wo_matmul_kernel<MODE, BM, BN, BK, WM, WN, WK><<<grid, WM * WN * WK * 32, 0, stream>>>(
+template <int BM, int BN, int BK, int WM, int WN, int WK>
+void launch_int4(const void* x, const void* w, const void* s, void* y, int M, int N, int K,
+                 cudaStream_t stream) {
+  const dim3 grid((M + BM - 1) / BM, (N / 2 + BN / 2 - 1) / (BN / 2));
+  wo_matmul_kernel<kInt4, BM, BN, BK, WM, WN, WK><<<grid, WM * WN * WK * 32, 0, stream>>>(
       static_cast<const bf16*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(s),
-      static_cast<bf16*>(y), M, N, K, G);
+      static_cast<bf16*>(y), M, N, K, 1);
+}
+
+// -- rows 12a, 12b: the Hopper kernels ----------------------------------------
+
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may opt into
+constexpr int kBK = 64;           // k rows a ring stage (both tilings)
+constexpr int kBN = 128;          // output columns a block: one 128-byte box of int8 weight
+constexpr int kWTile = kBK * kBN;  // bytes of one int8 weight stage
+// prefill
+constexpr int kPreThreads = 288;  // two consumer warpgroups, then one producer warp
+constexpr int kPreStages = 6;     // ring stages at most (fewer where the tiles need room)
+constexpr int kPreConv = 3;       // converted bf16 weight tiles: j - 1 and j read, j + 1 written
+constexpr int kConvTile = kBK * kBN * 2;  // bytes of one: two 64-column sub-tiles
+constexpr int kOutRow = 136;      // bf16 stride of the output tile staged in shared memory
+// decode
+constexpr int kDecThreads = 160;  // four consumer warps, then one producer warp
+constexpr int kDecStages = 8;     // ring stages at most
+constexpr int kDecSplit = 8;      // blocks a cluster at most (the portable cluster size)
+constexpr int kXRow = 72;         // bf16 stride of a stage's x rows, kBK + 8: B reads without conflict
+constexpr int kSms = 132;         // the H100's multiprocessors
+constexpr int kSmemSm = 233472;   // shared memory an SM holds (1 KB of it reserved a block)
+constexpr int kDecBlocks8 = 3;    // blocks an SM of 8 tokens (up to 136 registers a thread)
+constexpr int kDecBlocks16 = 2;   // of 16 tokens
+
+__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// scale rows of [K/G, N] a stage of 64 k rows (starting on a multiple of 64)
+// can span: one where G is a multiple of 64, 64 / G where G divides 64, else
+// at most 63 / G + 2
+__host__ __device__ constexpr int scale_rows(int G) {
+  return G % kBK == 0 ? 1 : kBK % G == 0 ? kBK / G : ((kBK - 1) / G + 2 < kBK ? (kBK - 1) / G + 2 : kBK);
+}
+
+// shared-memory bytes of a stage's scale rows (a 1024-byte multiple, so that
+// every stage's tiles keep the swizzle's alignment)
+__host__ __device__ constexpr int scale_bytes(int mode, int srows) {
+  return mode == kInt8Grouped ? round_up(srows * kBN * 4, 1024) : 0;
+}
+
+// dequantise 8 bytes (one k row, 8 consecutive n) to 8 bf16: per-channel
+// exactly, grouped times its 8 scales and rounded
+template <int MODE>
+__device__ __forceinline__ uint4 dequant8(uint2 q, const float* sc) {
+  const uint32_t u0 = q.x ^ 0x80808080u, u1 = q.y ^ 0x80808080u;
+  float f[8];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    f[jj] = biased_byte(u0, jj, 128.f);
+    f[4 + jj] = biased_byte(u1, jj, 128.f);
+  }
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = MODE == kInt8Grouped ? pack2(f[2 * i] * sc[2 * i], f[2 * i + 1] * sc[2 * i + 1])
+                                : pack2_exact(f[2 * i], f[2 * i + 1]);
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+template <int MODE, int BM>
+__global__ void __launch_bounds__(kPreThreads, 1)
+    wo_prefill_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                      const __grid_constant__ CUtensorMap ts, const float* __restrict__ scales,
+                      bf16* __restrict__ y, int M, int N, int K, int G, int stages, int srows) {
+  constexpr int XB = BM * kBK * 2;  // x tile bytes
+  constexpr int MI = BM / 128;      // m64 tiles a consumer warpgroup
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int stage_bytes = XB + kWTile + scale_bytes(MODE, srows);
+  unsigned char* conv = smem + stages * stage_bytes;  // [kPreConv][2][64 k][64 n] bf16
+  uint64_t* full = reinterpret_cast<uint64_t*>(conv + kPreConv * kConvTile);
+  uint64_t* empty = full + kPreStages;
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kBN;
+  const int n_kt = (K + kBK - 1) / kBK;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // producer warp: one thread issues every copy
+    if (tid == 256) {
+      const uint32_t tx_bytes = XB + kWTile + (MODE == kInt8Grouped ? srows * kBN * 4 : 0);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % stages;
+        if (kt >= stages) hp::mbar_wait(&empty[st], ((kt / stages) - 1) & 1);
+        unsigned char* s = smem + st * stage_bytes;
+        const int k0 = kt * kBK;
+        hp::mbar_arrive_expect_tx(&full[st], tx_bytes);
+        hp::tma_load_4d(s, &tx, &full[st], k0, 0, m0, 0);
+        hp::tma_load_2d(s + XB, &tw, &full[st], n0, k0);
+        if (MODE == kInt8Grouped) hp::tma_load_2d(s + XB + kWTile, &ts, &full[st], n0, k0 / G);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: cw owns rows cw * BM / 2 .. of the tile
+  const int cw = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const uint32_t conv_addr = hp::smem_u32(conv);
+
+  // the int8 tile of k-tile kt -> converted tile kt % kPreConv; warp w takes
+  // rows 2 (w + 8 u) and the next (one a half-warp), 8 n a thread: the
+  // half-warp reads a swizzled 128-byte row without conflict and each
+  // quarter-warp writes one swizzled row of a sub-tile
+  auto convert = [&](int kt) {
+    hp::mbar_wait(&full[kt % stages], (kt / stages) & 1);
+    __syncwarp();
+    const unsigned char* s = smem + (kt % stages) * stage_bytes;
+    const unsigned char* wt = s + XB;
+    const float* st_scales = reinterpret_cast<const float*>(s + XB + kWTile);
+    unsigned char* dst = conv + (kt % kPreConv) * kConvTile;
+    const int j = lane & 15;  // 8-byte group of the row: n 8j .. 8j + 7
+    const int k0 = kt * kBK;
+    float sc[8];
+    if (MODE == kInt8Grouped && G % kBK == 0) ptt::load8(st_scales + 8 * j, sc);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = 2 * (warp + 8 * u) + (lane >> 4);
+      const uint2 q = *reinterpret_cast<const uint2*>(wt + r * 128 + (((j >> 1) ^ (r & 7)) << 4) +
+                                                      ((j & 1) << 3));
+      if (MODE == kInt8Grouped && G % kBK != 0)
+        ptt::load8(st_scales + ((k0 + r) / G - k0 / G) * kBN + 8 * j, sc);
+      *reinterpret_cast<uint4*>(dst + (j >> 3) * (kBK * 128) + r * 128 +
+                                (((j & 7) ^ (r & 7)) << 4)) = dequant8<MODE>(q, sc);
+    }
+    hp::fence_proxy_async();
+  };
+
+  float acc[MI][64];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[i][e] = 0.f;
+
+  convert(0);
+  hp::bar_sync(1, 256);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % stages;
+    const uint32_t xa = hp::smem_u32(smem + st * stage_bytes) + cw * (BM / 2) * 128;
+    const uint32_t ba = conv_addr + (kt % kPreConv) * kConvTile;
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t db = hp::desc_mnmajor(ba + kk * 2048, kBK * 128);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        hp::Wgmma<kBN>::template ss<1>(acc[i], hp::desc_kmajor(xa + i * 64 * 128 + kk * 32), db, 1);
+    }
+    hp::wgmma_commit();
+    if (kt > 0) {
+      // k-tile kt - 1's products are done: its stage goes back to the producer
+#pragma unroll
+      for (int i = 0; i < MI; ++i) hp::fence_acc<64>(acc[i]);
+      hp::wgmma_wait<1>();
+#pragma unroll
+      for (int i = 0; i < MI; ++i) hp::fence_acc<64>(acc[i]);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[(kt - 1) % stages]);
+    }
+    // tile kt + 1 is converted while kt's products run (its buffer was last
+    // read by kt - 2's, done in both warpgroups before the last barrier)
+    if (kt + 1 < n_kt) convert(kt + 1);
+    hp::bar_sync(1, 256);
+  }
+#pragma unroll
+  for (int i = 0; i < MI; ++i) hp::fence_acc<64>(acc[i]);
+  hp::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < MI; ++i) hp::fence_acc<64>(acc[i]);
+
+  // The tile goes out through shared memory (the ring is free once both
+  // warpgroups' products are done): accumulator element e of a thread is
+  // row 16 (warp % 4) + lane / 4 + 8 ((e / 2) % 2), column 8 (e / 4) +
+  // 2 (lane % 4) + e % 2 of its m64 tile, written as bf16 pairs into rows
+  // kOutRow apart (conflict-free), then read back as 16-byte row pieces
+  // and stored coalesced.
+  hp::bar_sync(1, 256);
+  bf16* out = reinterpret_cast<bf16*>(smem);
+  const int r0 = cw * (BM / 2) + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < kBN / 8; ++c) {
+    const int col = 8 * c + 2 * (lane & 3);
+    float s0 = 1.f, s1 = 1.f;
+    if (MODE == kInt8 && n0 + col < N) {
+      s0 = scales[n0 + col];
+      s1 = scales[n0 + col + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 64 * i + 8 * hf) * kOutRow + col) =
+            __floats2bfloat162_rn(acc[i][4 * c + 2 * hf] * s0, acc[i][4 * c + 2 * hf + 1] * s1);
+  }
+  hp::bar_sync(1, 256);
+  for (int e = tid; e < BM * (kBN / 8); e += 256) {
+    const int r = e / (kBN / 8), c = 8 * (e % (kBN / 8));
+    if (m0 + r < M && n0 + c < N)
+      *reinterpret_cast<uint4*>(y + (size_t)(m0 + r) * N + n0 + c) =
+          *reinterpret_cast<const uint4*>(out + r * kOutRow + c);
+  }
+}
+
+// blocks of wo_decode_kernel an SM holds
+__host__ __device__ constexpr int dec_blocks(int tg) { return tg == 1 ? kDecBlocks8 : kDecBlocks16; }
+
+template <int MODE, int TG>
+__global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlocks16)
+    wo_decode_kernel(const bf16* __restrict__ x, const __grid_constant__ CUtensorMap tw,
+                     const __grid_constant__ CUtensorMap ts, const float* __restrict__ scales,
+                     bf16* __restrict__ y, int M, int N, int K, int G, int kslice, int stages,
+                     int srows) {
+  constexpr int TOK = 8 * TG;          // token rows a block holds (rows past M are zeros)
+  constexpr int PART = TOK * kBN * 4;  // bytes of one warp's (or the block's) partial sums
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int stage_bytes = kWTile + scale_bytes(MODE, srows);
+  const int ring = max(stages * stage_bytes, 5 * PART);  // the ring, later the partial sums
+  unsigned char* xring = smem + ring;  // [stage][TOK][kXRow] bf16: x's 64 k of each stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(xring + stages * TOK * kXRow * 2);
+  uint64_t* empty = full + kDecStages;
+
+  const int split = gridDim.x;  // the cluster: the K slices of one column tile
+  const int rank = (int)hp::cluster_rank();
+  const int kbeg = blockIdx.x * kslice;
+  const int nst = (min(K, kbeg + kslice) - kbeg + kBK - 1) / kBK;
+  const int n0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // x rows past M are never copied (and only they are written here, so no
+  // thread's store meets a copy): they stay zero
+  for (int e = tid; e < stages * TOK * (kXRow / 8); e += kDecThreads)
+    if ((e / (kXRow / 8)) % TOK >= M) reinterpret_cast<uint4*>(xring)[e] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 4);  // one arrival a consumer warp
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // producer warp: one thread issues every copy; x's rows enter each
+    // stage as bulk copies of the row's 64 k (no tensor map for x, a fresh
+    // activation on every call)
+    if (tid == 128) {
+      const uint32_t w_bytes = kWTile + (MODE == kInt8Grouped ? srows * kBN * 4 : 0);
+      for (int i = 0; i < nst; ++i) {
+        const int st = i % stages;
+        if (i >= stages) hp::mbar_wait(&empty[st], ((i / stages) - 1) & 1);
+        unsigned char* s = smem + st * stage_bytes;
+        const int k0 = kbeg + i * kBK;
+        const uint32_t x_bytes = min(kBK, K - k0) * 2;
+        hp::mbar_arrive_expect_tx(&full[st], w_bytes + M * x_bytes);
+        hp::tma_load_2d(s, &tw, &full[st], n0, k0);
+        if (MODE == kInt8Grouped) hp::tma_load_2d(s + kWTile, &ts, &full[st], n0, k0 / G);
+        for (int r = 0; r < M; ++r)
+          hp::bulk_load(xring + (st * TOK + r) * kXRow * 2, x + (size_t)r * K + k0, x_bytes,
+                        &full[st]);
+      }
+    }
+    __syncwarp();  // the warp meets __syncthreads together
+  } else {
+    // consumer warps: warp w takes the k-step 16 w .. 16 w + 15 of every
+    // stage. Thread (g, t) reads k rows 2t, 2t + 1, 2t + 8, 2t + 9 of it at
+    // n 16 g .. 16 g + 15; A row g of mma m is n 16 g + 2 m, row g + 8 is
+    // n 16 g + 2 m + 1.
+    const int g = lane >> 2, t = lane & 3;
+    float acc[TG][8][4];
+#pragma unroll
+    for (int a = 0; a < TG; ++a)
+#pragma unroll
+      for (int m = 0; m < 8; ++m) acc[a][m][0] = acc[a][m][1] = acc[a][m][2] = acc[a][m][3] = 0.f;
+
+    for (int i = 0; i < nst; ++i) {
+      const int st = i % stages;
+      hp::mbar_wait(&full[st], (i / stages) & 1);
+      __syncwarp();  // the lanes leave the wait apart; mma.sync needs them together
+      const unsigned char* wt = smem + st * stage_bytes;
+      const float* st_scales = reinterpret_cast<const float*>(wt + kWTile);
+      const int rr = 16 * warp + 2 * t;
+      uint4 q[4];  // k rows rr, rr + 1, rr + 8, rr + 9
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = rr + (h & 1) + 8 * (h >> 1);
+        q[h] = *reinterpret_cast<const uint4*>(wt + r * 128 + ((g ^ (r & 7)) << 4));
+      }
+      // x's B operand: token 8 tg + g, k rr, rr + 1 and rr + 8, rr + 9; the
+      // last stage's columns past K hold an older stage's x (the weight's
+      // rows there are zeros, but the x there need not be finite)
+      const int k0 = kbeg + i * kBK;
+      uint32_t b[TG][2];
+#pragma unroll
+      for (int tg = 0; tg < TG; ++tg) {
+        const bf16* xp = reinterpret_cast<const bf16*>(xring) + (st * TOK + 8 * tg + g) * kXRow + rr;
+        b[tg][0] = k0 + rr < K ? ld32(xp) : 0u;
+        b[tg][1] = k0 + rr + 8 < K ? ld32(xp + 8) : 0u;
+      }
+      // the A operands of mma m = 4 mh .. 4 mh + 3 (n 16 g + 8 mh ..
+      // + 7), in two halves to keep fewer registers live: a[mm][e] (e =
+      // 0, 1: n 16 g + 2 m + e) from k rows (rr, rr + 1), a[mm][2 + e]
+      // from (rr + 8, rr + 9); grouped, each value times the scale of its
+      // own k row
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh) {
+        uint32_t a[4][4];
+        auto pairs = [&](const uint4& ql, const uint4& qh, const float* sl, const float* sh,
+                         int slot) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * mh + jj;
+            const float fl = biased_byte(word_of(ql, j >> 2) ^ 0x80808080u, j & 3, 128.f);
+            const float fh = biased_byte(word_of(qh, j >> 2) ^ 0x80808080u, j & 3, 128.f);
+            a[jj >> 1][slot + (jj & 1)] =
+                MODE == kInt8Grouped ? pack2(fl * sl[jj], fh * sh[jj]) : pack2_exact(fl, fh);
+          }
+        };
+        if (MODE == kInt8Grouped) {
+          // n 16 g + 8 mh .. + 7 of k row kr's scales
+          auto row = [&](int kr, float* sc) {
+            ptt::load8(st_scales + (kr / G - k0 / G) * kBN + 16 * g + 8 * mh, sc);
+          };
+          if (G % 16 == 0) {  // one scale row for the whole k-step
+            float sc[8];
+            row(k0 + rr, sc);
+            pairs(q[0], q[1], sc, sc, 0);
+            pairs(q[2], q[3], sc, sc, 2);
+          } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float sl[8], sh[8];
+              row(k0 + rr + 8 * h, sl);
+              row(k0 + rr + 8 * h + 1, sh);
+              pairs(q[2 * h], q[2 * h + 1], sl, sh, 2 * h);
+            }
+          }
+        } else {
+          pairs(q[0], q[1], nullptr, nullptr, 0);
+          pairs(q[2], q[3], nullptr, nullptr, 2);
+        }
+#pragma unroll
+        for (int tg = 0; tg < TG; ++tg)
+#pragma unroll
+          for (int mm = 0; mm < 4; ++mm) mma_bf16(acc[tg][4 * mh + mm], a[mm], b[tg][0], b[tg][1]);
+      }
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[st]);  // the stage is read
+    }
+
+    // this warp's partial sums: red[warp][token][n]; c0, c2 of mma m are
+    // (token 2t, n 16 g + 2 m and + 1), c1, c3 token 2t + 1
+    __syncwarp();
+    hp::bar_sync(1, 128);  // every warp is done reading the ring
+    float* red = reinterpret_cast<float*>(smem) + warp * TOK * kBN;
+#pragma unroll
+    for (int tg = 0; tg < TG; ++tg)
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int tok = 8 * tg + 2 * t, n = 16 * g + 2 * m;
+        *reinterpret_cast<float2*>(red + tok * kBN + n) = make_float2(acc[tg][m][0], acc[tg][m][2]);
+        *reinterpret_cast<float2*>(red + (tok + 1) * kBN + n) =
+            make_float2(acc[tg][m][1], acc[tg][m][3]);
+      }
+  }
+  __syncthreads();
+  // the block's partial sums, warps added in order
+  float* part = reinterpret_cast<float*>(smem) + 4 * TOK * kBN;
+  if (tid < 128) {
+    const float* red = reinterpret_cast<const float*>(smem);
+#pragma unroll
+    for (int e4 = tid; e4 < TOK * kBN / 4; e4 += 128) {
+      float4 v = reinterpret_cast<const float4*>(red)[e4];
+#pragma unroll
+      for (int w = 1; w < 4; ++w) {
+        const float4 o = reinterpret_cast<const float4*>(red + w * TOK * kBN)[e4];
+        v.x += o.x;
+        v.y += o.y;
+        v.z += o.z;
+        v.w += o.w;
+      }
+      reinterpret_cast<float4*>(part)[e4] = v;
+    }
+  }
+  hp::cluster_sync();
+  // block `rank` of the cluster finishes the 16-column chunks c = rank,
+  // rank + split, ..., adding the blocks' partials in rank order
+  const uint32_t part_addr = hp::smem_u32(part);
+  for (int c = rank; c < kBN / 16; c += split) {
+    for (int e4 = tid; e4 < TOK * 4; e4 += kDecThreads) {
+      const int tok = e4 >> 2, n = 16 * c + 4 * (e4 & 3);
+      const uint32_t off = part_addr + (tok * kBN + n) * 4;
+      float4 v = hp::ld_cluster_f4(hp::map_rank(off, 0));
+      for (int q = 1; q < split; ++q) {
+        const float4 o = hp::ld_cluster_f4(hp::map_rank(off, q));
+        v.x += o.x;
+        v.y += o.y;
+        v.z += o.z;
+        v.w += o.w;
+      }
+      const int col = n0 + n;
+      if (tok < M && col < N) {
+        if (MODE == kInt8) {
+          const float4 s = *reinterpret_cast<const float4*>(scales + col);
+          v.x *= s.x;
+          v.y *= s.y;
+          v.z *= s.z;
+          v.w *= s.w;
+        }
+        __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+        uint2 out;
+        out.x = *reinterpret_cast<uint32_t*>(&lo);
+        out.y = *reinterpret_cast<uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(y + (size_t)tok * N + col) = out;
+      }
+    }
+  }
+  hp::cluster_sync();  // no block leaves while another reads its partials
+}
+
+// The launch plans (paddle_tpu_torch/ops/kernels/wo_matmul.py declares the
+// same ones for the kernel analyzer).
+struct PrefillPlan {
+  int bm, stages, smem;
+};
+
+inline PrefillPlan prefill_plan(int mode, int M, int N, int srows) {
+  const int sb = scale_bytes(mode, srows);
+  auto plan = [&](int bm) {
+    const int stage = bm * kBK * 2 + kWTile + sb;
+    const int fixed = 1024 + kPreConv * kConvTile + 16 * kPreStages;
+    const int stages = std::min(kPreStages, (kSmemMax - fixed) / stage);
+    return PrefillPlan{bm, stages, fixed + stages * stage};
+  };
+  // a 256-row block does twice a 128-row block's products in about 4/3 of
+  // its time: the tall tile wins unless it leaves the card emptier by a
+  // wave (k_proj's 48 tall tiles at 1531 rows against 96 short ones)
+  const int cols = (N + kBN - 1) / kBN;
+  const int waves256 = ((M + 255) / 256 * cols + kSms - 1) / kSms;
+  const int waves128 = ((M + 127) / 128 * cols + kSms - 1) / kSms;
+  const PrefillPlan tall = plan(256);
+  return 4 * waves256 <= 3 * waves128 && tall.stages >= 3 ? tall : plan(128);
+}
+
+struct DecodePlan {
+  int tg, split, kslice, stages, smem;
+};
+
+// The K split fills the card's block slots once (no second round); the
+// ring takes what shared memory those blocks leave.
+inline DecodePlan decode_plan(int mode, int M, int N, int K, int srows) {
+  const int tiles = (N + kBN - 1) / kBN;
+  const int tg = M > 8 ? 2 : 1;
+  const int want = std::max(1, std::min(kDecSplit, dec_blocks(tg) * kSms / tiles));
+  const int kslice = round_up((K + want - 1) / want, kBK);
+  const int stage = kWTile + scale_bytes(mode, srows), x_stage = 8 * tg * kXRow * 2;
+  const int fixed = 1024 + 16 * kDecStages;
+  const int budget = kSmemSm / dec_blocks(tg) - 1024;
+  const int stages = std::max(2, std::min(kDecStages, (budget - fixed) / (stage + x_stage)));
+  const int ring = std::max(stages * stage, 5 * 8 * tg * kBN * 4);
+  return DecodePlan{tg, (K + kslice - 1) / kslice, kslice, stages,
+                    fixed + ring + stages * x_stage};
+}
+
+template <int MODE, int BM>
+int launch_prefill(const CUtensorMap& tw, const CUtensorMap& ts, const void* x, const void* s,
+                   void* y, int M, int N, int K, int G, int srows, const PrefillPlan& p,
+                   cudaStream_t stream) {
+  CUtensorMap tx;
+  const int err = hp::make_bshd_map(&tx, x, 1, M, 1, K, BM);
+  if (err != 0) return err;
+  const cudaError_t attr = hp::allow_smem<wo_prefill_kernel<MODE, BM>>(kSmemMax);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((M + BM - 1) / BM, (N + kBN - 1) / kBN);
+  wo_prefill_kernel<MODE, BM><<<grid, kPreThreads, p.smem, stream>>>(
+      tx, tw, ts, static_cast<const float*>(s), static_cast<bf16*>(y), M, N, K, G, p.stages,
+      srows);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, int TG>
+int launch_decode(const CUtensorMap& tw, const CUtensorMap& ts, const void* x, const void* s,
+                  void* y, int M, int N, int K, int G, int srows, const DecodePlan& p,
+                  cudaStream_t stream) {
+  const cudaError_t attr = hp::allow_smem<wo_decode_kernel<MODE, TG>>(kSmemMax);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.split, (N + kBN - 1) / kBN);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = p.split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, wo_decode_kernel<MODE, TG>, static_cast<const bf16*>(x), tw, ts,
+      static_cast<const float*>(s), static_cast<bf16*>(y), M, N, K, G, p.kslice, p.stages, srows);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <int MODE>
-int launch(const void* x, const void* w, const void* s, void* y, int M, int N, int K, int G,
-           cudaStream_t stream) {
+int launch_int8(const void* x, const void* w, const void* s, void* y, int M, int N, int K, int G,
+                cudaStream_t stream) {
+  if (K == 0) return (int)cudaMemsetAsync(y, 0, (size_t)M * N * sizeof(bf16), stream);
+  const int srows = MODE == kInt8Grouped ? scale_rows(G) : 0;
+  CUtensorMap tw, ts;
+  int err = hp::make_2d_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kBK, kBN,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0 && MODE == kInt8Grouped)
+    err = hp::make_2d_map(&ts, s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / G, N, srows, kBN,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  if (MODE != kInt8Grouped) ts = tw;  // not read
   if (M > 16) {
-    launch_tiled<MODE, 128, 128, 64, 4, 2, 1>(x, w, s, y, M, N, K, G, stream);
-  } else {
-    // a 16-byte chunk of packed int4 bytes holds 32 columns
-    if constexpr (MODE == kInt4)
-      launch_tiled<MODE, 16, 32, 256, 1, 1, 4>(x, w, s, y, M, N, K, G, stream);
-    else
-      launch_tiled<MODE, 16, 16, 256, 1, 1, 4>(x, w, s, y, M, N, K, G, stream);
+    const PrefillPlan p = prefill_plan(MODE, M, N, srows);
+    return p.bm == 256 ? launch_prefill<MODE, 256>(tw, ts, x, s, y, M, N, K, G, srows, p, stream)
+                       : launch_prefill<MODE, 128>(tw, ts, x, s, y, M, N, K, G, srows, p, stream);
   }
-  return (int)cudaGetLastError();
+  const DecodePlan p = decode_plan(MODE, M, N, K, srows);
+  return p.tg == 2 ? launch_decode<MODE, 2>(tw, ts, x, s, y, M, N, K, G, srows, p, stream)
+                   : launch_decode<MODE, 1>(tw, ts, x, s, y, M, N, K, G, srows, p, stream);
 }
 
 }  // namespace
 
 // x: [M, K] bf16; w: [K, N] int8; s: [N] f32; y: [M, N] bf16.
-// K % 8 == 0, N % 16 == 0 (the wrapper checks).
+// K % 8 == 0, N % 16 == 0, every pointer 16-byte aligned (the wrapper checks).
 PTT_EXPORT int ptt_wo_int8(const void* x, const void* w, const void* s, void* y, int M, int N,
                            int K, void* stream) {
   if (M == 0 || N == 0) return 0;
-  return launch<kInt8>(x, w, s, y, M, N, K, 1, static_cast<cudaStream_t>(stream));
+  return launch_int8<kInt8>(x, w, s, y, M, N, K, 1, static_cast<cudaStream_t>(stream));
 }
 
 // x: [M, K] bf16; w: [K, N] int8; s: [K/G, N] f32; y: [M, N] bf16.
 PTT_EXPORT int ptt_wo_int8_grouped(const void* x, const void* w, const void* s, void* y, int M,
                                    int N, int K, int G, void* stream) {
   if (M == 0 || N == 0) return 0;
-  return launch<kInt8Grouped>(x, w, s, y, M, N, K, G, static_cast<cudaStream_t>(stream));
+  return launch_int8<kInt8Grouped>(x, w, s, y, M, N, K, G, static_cast<cudaStream_t>(stream));
 }
 
 // x: [M, K] bf16; w: [K, N/2] packed bytes (halves layout); s: [N] f32;
@@ -333,5 +838,11 @@ PTT_EXPORT int ptt_wo_int8_grouped(const void* x, const void* w, const void* s, 
 PTT_EXPORT int ptt_wo_int4(const void* x, const void* w, const void* s, void* y, int M, int N,
                            int K, void* stream) {
   if (M == 0 || N == 0) return 0;
-  return launch<kInt4>(x, w, s, y, M, N, K, 1, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // a 16-byte chunk of packed int4 bytes holds 32 columns
+  if (M > 16)
+    launch_int4<128, 128, 64, 4, 2, 1>(x, w, s, y, M, N, K, st);
+  else
+    launch_int4<16, 32, 256, 1, 1, 4>(x, w, s, y, M, N, K, st);
+  return (int)cudaGetLastError();
 }

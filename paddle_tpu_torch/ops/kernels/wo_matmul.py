@@ -25,13 +25,18 @@ compute: those round ``x @ w`` to ``x.dtype`` and then multiply by a scale
 cast to ``x.dtype`` (two roundings). In f32 the two agree within f32
 summation order.
 
-What bounds the kernels on the H100: bytes in decode (M = 1..8 rows: the
+What bounds the kernels on the H100: bytes in decode (M = 1..16 rows: the
 weight is read once, 58.7 MB for Llama-3-8B's gate_proj at int8, 0.018 ms
 at 3.35 TB/s), operations in prefill (M = 64..2048: 120 GFLOP for
 gate_proj at M 1024, 0.12 ms at the 989 TFLOP/s bf16 tensor-core rate).
-The design is one ``mma.sync`` bf16 kernel with two tilings (the CUDA
-source describes both): the int8 or nibble tile converts to bf16 exactly
-in shared memory, the scales apply in the f32 epilogue.
+The int8 kernels (the CUDA source describes them) are built from
+``csrc/hopper.cuh``: past 16 rows ``wo_prefill_kernel`` runs ``wgmma`` on
+x's TMA tile and a bf16 tile the consumers dequantise from the int8 TMA
+tile in shared memory; up to 16 rows ``wo_decode_kernel`` streams the
+weight through a TMA ring into ``mma.sync`` (the weight as the A
+operand) and splits K over the blocks of a cluster, whose partial sums
+are added in rank order through distributed shared memory. The int4
+kernel keeps one ``mma.sync`` template with two tilings.
 
 The card path takes bf16 activations only; f32 activations (the CPU
 tests' dtype, which the TPU kernel also takes) raise on the card
@@ -260,22 +265,98 @@ def wo_int4_matmul(x, w_packed, scales):
 
 _MODES = {"wo_int8": 0, "wo_int8_grouped": 1, "wo_int4": 2}
 
+# the launch constants of csrc/wo_matmul.cu (tests/test_torch_wo_hopper.py
+# holds them against the source)
+_SMEM_MAX, _BK, _BN = 232448, 64, 128
+_PRE_THREADS, _PRE_STAGES, _PRE_CONV = 288, 6, 3
+_DEC_THREADS, _DEC_STAGES, _DEC_SPLIT, _XROW = 160, 8, 8, 72
+_SMS, _SMEM_SM, _DEC_BLOCKS8, _DEC_BLOCKS16 = 132, 233472, 3, 2
+
+
+def _round_up(a, b):
+    return -(-a // b) * b
+
+
+def _scale_rows(g):
+    """Scale rows of ``[K/G, N]`` a 64-row stage spans (``scale_rows``)."""
+    if g % _BK == 0:
+        return 1
+    if _BK % g == 0:
+        return _BK // g
+    return min(_BK, (_BK - 1) // g + 2)
+
+
+def _scale_bytes(grouped, srows):
+    return _round_up(srows * _BN * 4, 1024) if grouped else 0
+
+
+def _prefill_plan(grouped, m, n, srows):
+    """``prefill_plan``: (BM, ring stages, dynamic shared memory)."""
+    def plan(bm):
+        stage = bm * _BK * 2 + _BK * _BN + _scale_bytes(grouped, srows)
+        fixed = 1024 + _PRE_CONV * _BK * _BN * 2 + 16 * _PRE_STAGES
+        stages = min(_PRE_STAGES, (_SMEM_MAX - fixed) // stage)
+        return bm, stages, fixed + stages * stage
+
+    def waves(bm):
+        return -(-(-(-m // bm) * -(-n // _BN)) // _SMS)
+    tall = plan(256)
+    return tall if 4 * waves(256) <= 3 * waves(128) and tall[1] >= 3 \
+        else plan(128)
+
+
+def _dec_blocks(tg):
+    return _DEC_BLOCKS8 if tg == 1 else _DEC_BLOCKS16
+
+
+def _decode_plan(grouped, m, n, k, srows):
+    """``decode_plan``: (token groups of 8, K split = cluster size, k a
+    block, ring stages, dynamic shared memory)."""
+    tiles = -(-n // _BN)
+    tg = 2 if m > 8 else 1
+    want = max(1, min(_DEC_SPLIT, _dec_blocks(tg) * _SMS // tiles))
+    kslice = _round_up(-(-k // want), _BK)
+    stage = _BK * _BN + _scale_bytes(grouped, srows)
+    x_stage = 8 * tg * _XROW * 2
+    fixed = 1024 + 16 * _DEC_STAGES
+    budget = _SMEM_SM // _dec_blocks(tg) - 1024
+    stages = max(2, min(_DEC_STAGES, (budget - fixed) // (stage + x_stage)))
+    ring = max(stages * stage, 5 * 8 * tg * _BN * 4)
+    return tg, -(-k // kslice), kslice, stages, fixed + ring + stages * x_stage
+
+
+def _int8_launch(mm, name, m_rows, k, n, group):
+    """The launch of an int8 kernel: past 16 rows one block a [BM, 128]
+    output tile; up to 16 rows a cluster of ``split`` blocks a 128-column
+    tile, block r writing the 16-column chunks r, r + split, .. of it."""
+    grouped = name == "wo_int8_grouped"
+    srows = _scale_rows(group) if grouped else 0
+    mode = _MODES[name]
+    if m_rows > 16:
+        bm, _, smem = _prefill_plan(grouped, m_rows, n, srows)
+        return mm.KernelLaunch(
+            f"wo_prefill_kernel<{mode},{bm}>", (-(-m_rows // bm), -(-n // _BN)),
+            _PRE_THREADS, smem=smem,
+            writes=[mm.TileMap("y", (bm, _BN), lambda x, yb, z: (x, yb))])
+    tg, split, _, _, smem = _decode_plan(grouped, m_rows, n, k, srows)
+    chunks = _BN // 16
+    return mm.KernelLaunch(
+        f"wo_decode_kernel<{mode},{tg}>", (split, -(-n // _BN)), _DEC_THREADS,
+        smem=smem, writes=[mm.TileMap(
+            "y", (m_rows, 16), lambda x, yb, z: [
+                (0, chunks * yb + c) for c in range(x, chunks, split)
+                if (chunks * yb + c) * 16 < n])])
+
 
 def _ex(label, name, m_rows, k, n, group=128):
-    """A block an output tile: [128, 128] past 16 rows (8 warps), else
-    [16, 16] ([16, 32] for int4) with the K loop split over 4 warps. The
-    int4 tile takes byte columns of the packed weight, output columns j
-    and N/2 + j: y seen as [M, 2, N/2]."""
+    """int8: :func:`_int8_launch`. int4: a block an output tile, [128, 128]
+    past 16 rows (8 warps), else [16, 32] with the K loop split over 4
+    warps; the tile takes byte columns of the packed weight, output
+    columns j and N/2 + j: y seen as [M, 2, N/2]."""
     from ._examples import model, uniform
     mm = model()
     bf = torch.bfloat16
     int4 = name == "wo_int4"
-    mode = _MODES[name]
-    if m_rows > 16:
-        bm, bn, tpl, threads = 128, 128, "128,128,64,4,2,1", 256
-    else:
-        bm, bn = 16, 32 if int4 else 16
-        tpl, threads = f"16,{bn},256,1,1,4", 128
     w_shape = (k, n // 2) if int4 else (k, n)
     s_shape = (k // group, n) if name == "wo_int8_grouped" else (n,)
     ops = [mm.Operand("x", (m_rows, k), bf),
@@ -283,12 +364,18 @@ def _ex(label, name, m_rows, k, n, group=128):
            mm.Operand("s", s_shape, torch.float32,
                       data=uniform(s_shape, torch.float32, 1e-4, 2.1e-3)),
            mm.Operand("y", (m_rows, n), bf, "out")]
-    grid = (-(-m_rows // bm), -(-n // bn))
     if int4:
-        tile = mm.TileMap("y", (bm, 2, bn // 2), lambda x, yb, z: (x, 0, yb),
-                          view=(m_rows, 2, n // 2))
+        if m_rows > 16:
+            bm, bn, tpl, threads = 128, 128, "128,128,64,4,2,1", 256
+        else:
+            bm, bn, tpl, threads = 16, 32, "16,32,256,1,1,4", 128
+        launch_decl = mm.KernelLaunch(
+            f"wo_matmul_kernel<2,{tpl}>", (-(-m_rows // bm), -(-n // bn)),
+            threads, writes=[mm.TileMap(
+                "y", (bm, 2, bn // 2), lambda x, yb, z: (x, 0, yb),
+                view=(m_rows, 2, n // 2))])
     else:
-        tile = mm.TileMap("y", (bm, bn), lambda x, yb, z: (x, yb))
+        launch_decl = _int8_launch(mm, name, m_rows, k, n, group)
     symbol = "ptt_" + name
     args = _ARGS_G if name == "wo_int8_grouped" else _ARGS
     extra = (group,) if name == "wo_int8_grouped" else ()
@@ -302,10 +389,8 @@ def _ex(label, name, m_rows, k, n, group=128):
               stream)
 
     w_bytes = (k * n // 2 if int4 else k * n) + 4 * math.prod(s_shape)
-    return mm.Example(label, "wo_matmul", ops,
-                      [mm.KernelLaunch(f"wo_matmul_kernel<{mode},{tpl}>",
-                                       grid, threads, writes=[tile])],
-                      launch, plain, flops=2 * m_rows * k * n,
+    return mm.Example(label, "wo_matmul", ops, [launch_decl], launch, plain,
+                      flops=2 * m_rows * k * n,
                       nbytes=w_bytes + 2 * m_rows * k + 2 * m_rows * n,
                       unit="bf16")
 

@@ -13,7 +13,8 @@ and is held to 1e-4. The block epilogue's dropout mask is held exactly.
 The decode layer's plain version rounds the attention output to bf16 once
 more than the kernel, which keeps it in f32: its tolerance adds what that
 rounding changes on the same inputs. The weight-only kernels sum exact
-products in f32 and round once, as their plain versions do (one ulp).
+products in f32 and round once, as their plain versions do (one ulp); the
+int8 ones return the same bits on two calls (no atomics).
 The grouped expert product sums exact
 bf16 products in f32 and rounds once, as its plain version does (one ulp),
 and writes exact zeros past each expert's count. A8W8 is held bit for bit
@@ -30,8 +31,10 @@ version computes in f32; ``tests/test_torch_flash_hopper.py`` models that
 rounding against the JAX kernel), and two backward calls bit for bit (no
 atomics). The Hopper
 building blocks (``csrc/hopper.cuh``: TMA, mbarriers, wgmma and their
-descriptors) are held on one tile against ``torch.matmul`` in f32 to
-1e-5 relative (exact bf16 products, f32 sums in another order). AdamW is held bit for bit: the kernel rounds each
+descriptors, the proxy fence on a tile the threads write) are held on one
+tile against ``torch.matmul`` in f32 to 1e-5 relative (exact bf16
+products, f32 sums in another order); a 2-D TMA box exactly, zeros past
+the tensor's edges. AdamW is held bit for bit: the kernel rounds each
 operation on its own, as the plain version's tensor ops do. LAMB's moments
 are held bit for bit too; its two norms are summed in another order, so
 the trust ratio and the f32 weights are held to 1e-6 relative (of the
@@ -460,13 +463,19 @@ def _scales(dev, *shape, seed=0):
 # kernels take (K not a multiple of the 64 / 256 k-tile, N not a multiple
 # of the 32 / 128 column tile)
 _WO_SHAPES = [(4096, 1024), (1000, 1056), (264, 2080)]
-_ROWS = [1, 5, 8, 16, 128, 1531]
+# rows on both sides of the decode / prefill switch (16), of the prefill
+# kernels' 64-row wgmma tiles and of their 128- and 256-row block tiles
+_ROWS = [1, 5, 8, 16, 17, 63, 64, 65, 128, 129, 255, 257, 1531]
+# (K, N, kind, G): every group size of 1, 3, 8, 24, 128 that divides K
+_WO_CASES = [(k, n, kind, g) for k, n in _WO_SHAPES
+             for kind, g in [("int8", None), ("int4", None)]
+             + [("int8_grouped", g) for g in (1, 3, 8, 24, 128)]
+             if g is None or k % g == 0]
 
 
 @pytest.mark.parametrize("m", _ROWS)
-@pytest.mark.parametrize("k,n", _WO_SHAPES)
-@pytest.mark.parametrize("kind", ["int8", "int8_grouped", "int4"])
-def test_wo_kernels(dev, m, k, n, kind):
+@pytest.mark.parametrize("k,n,kind,group", _WO_CASES)
+def test_wo_kernels(dev, m, k, n, kind, group):
     """Each weight-only kernel against its plain version: the same f32
     sums of exact products, rounded once (one bf16 ulp of the largest
     reference value)."""
@@ -478,13 +487,34 @@ def test_wo_kernels(dev, m, k, n, kind):
             wo_matmul.wo_int4_matmul_plain(x, w, s)
     else:
         w = _int8(dev, k, n, seed=1)
-        s = _scales(dev, k // 8, n, seed=2) if kind == "int8_grouped" \
+        s = _scales(dev, k // group, n, seed=2) if kind == "int8_grouped" \
             else _scales(dev, n, seed=2)
         fn = wo_matmul.wo_int8_grouped if kind == "int8_grouped" \
             else wo_matmul.wo_int8
         got, ref = fn(x, w, s), wo_matmul.wo_int8_matmul_plain(x, w, s)
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     _close(got, ref)
+
+
+@pytest.mark.parametrize("m,k,n,group", [
+    (m, k, n, g) for m, k, n in ((1, 4096, 1024), (8, 14336, 4096),
+                                 (8, 4096, 14336), (16, 264, 2080),
+                                 (1531, 4096, 1024))
+    for g in (None, 8, 128) if g is None or k % g == 0])
+def test_wo_int8_kernels_are_deterministic(dev, m, k, n, group):
+    """Two calls return the same bits: the decode kernel splits K over a
+    cluster's blocks and adds their partial sums in rank order, never with
+    atomics; the prefill kernel sums each tile in one block. Llama-3-8B's
+    decode shapes give each decode block two windows of x, the last one
+    ending inside its K slice."""
+    x, w = _randn(dev, m, k, seed=7), _int8(dev, k, n, seed=8)
+    s = _scales(dev, n, seed=9) if group is None \
+        else _scales(dev, k // group, n, seed=9)
+    fn = wo_matmul.wo_int8 if group is None else wo_matmul.wo_int8_grouped
+    first, second = fn(x, w, s), fn(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    _close(first, wo_matmul.wo_int8_matmul_plain(x, w, s))
 
 
 def test_wo_matmul_leading_dims_and_counts(dev):
@@ -774,10 +804,16 @@ def hopper_check(tmp_path_factory):
                     str(_build.CSRC_DIR), "-o", str(so),
                     os.path.join(here, "hopper_check.cu")], check=True)
     lib = ctypes.CDLL(str(so))
-    for name in ("ptt_check_ss", "ptt_check_rs"):
+    for name in ("ptt_check_ss", "ptt_check_rs", "ptt_check_mn_store"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.ptt_check_tma_2d.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    lib.ptt_check_tma_2d.restype = ctypes.c_int
+    lib.ptt_check_bulk.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    lib.ptt_check_bulk.restype = ctypes.c_int
     return lib
 
 
@@ -808,6 +844,72 @@ def test_hopper_wgmma_rs_mnmajor(dev, hopper_check, n):
     assert err == 0
     ref = torch.matmul(a.to(torch.bfloat16).float(), b.float())
     torch.testing.assert_close(c, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_hopper_proxy_fence_mn_store(dev, hopper_check, n):
+    """Threads write four B tiles in turn into one MN-major swizzled tile
+    (as the weight-only kernels write their dequantised weight), each
+    followed by fence.proxy.async, a barrier and the wgmma that reads it:
+    C = A (B_0 + .. + B_3) against torch.matmul in f32. A stale tile (a
+    write the async proxy did not see) would show as a wrong sum."""
+    a = _randn(dev, 64, 64, seed=103)
+    b = _randn(dev, 4, 64, n, seed=104)
+    c = torch.empty(64, n, device=dev)
+    err = hopper_check.ptt_check_mn_store(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), n,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    ref = sum(torch.matmul(a.float(), b[r].float()) for r in range(4))
+    torch.testing.assert_close(c, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("elem,rows,cols,box_rows,c0,r0", [
+    (1, 300, 1056, 64, 128, 64),     # int8, inside
+    (1, 300, 1056, 64, 1024, 256),   # int8, past the last row and column
+    (1, 40, 48, 64, 0, 0),           # int8, a box larger than the tensor
+    (4, 37, 1056, 9, 1024, 32),      # f32 scale rows, past both edges
+    (4, 125, 2080, 1, 1920, 124)])   # f32, one row at the last one
+def test_hopper_tma_2d_zero_fill(dev, hopper_check, elem, rows, cols,
+                                 box_rows, c0, r0):
+    """A 2-D tensor-map box (int8 with the 128-byte swizzle, as the
+    weight-only kernels load the weight; f32 unswizzled, as they load the
+    grouped scales), copied out with the swizzle undone: the tensor's
+    elements inside it, zeros past its edges."""
+    g = torch.Generator(device=dev).manual_seed(105)
+    if elem == 1:
+        src = torch.randint(-128, 128, (rows, cols), generator=g, device=dev,
+                            dtype=torch.int8)
+    else:
+        src = torch.rand(rows, cols, generator=g, device=dev) + 0.5
+    out = torch.full((box_rows, 128), 7, dtype=src.dtype, device=dev)
+    err = hopper_check.ptt_check_tma_2d(
+        src.data_ptr(), out.data_ptr(), rows, cols, elem, box_rows, c0, r0,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    want = torch.zeros_like(out)
+    part = src[r0:r0 + box_rows, c0:c0 + 128]
+    want[:part.shape[0], :part.shape[1]] = part
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("rows,bytes_,stride", [(8, 128, 8192), (16, 48, 2064),
+                                               (5, 16, 28672)])
+def test_hopper_bulk_copies(dev, hopper_check, rows, bytes_, stride):
+    """Bulk copies without a tensor map (as the decode kernel brings x's
+    rows into each stage, the last stage shorter), several on one
+    mbarrier: the bytes arrive exactly."""
+    g = torch.Generator(device=dev).manual_seed(106)
+    src = torch.randint(-128, 128, (rows, stride), generator=g, device=dev,
+                        dtype=torch.int8)
+    out = torch.zeros(rows, bytes_, dtype=torch.int8, device=dev)
+    err = hopper_check.ptt_check_bulk(src.data_ptr(), out.data_ptr(), rows,
+                                      bytes_, stride,
+                                      torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, src[:, :bytes_])
 
 
 @pytest.mark.parametrize("n", [4096, 1000003])
