@@ -80,8 +80,9 @@ Phases, in order; any failure exits non-zero:
    a 512-token prefill chunk, a fused decode step (batch 8), a
    fused-layer decode step (batch 8) and a 1024-token monolithic prefill:
    the port's kernels, matrix products, the rest, and the device's idle
-   share; an int8 decode step (batch 8) and a 1024-token int8 monolithic
-   prefill on engine d.
+   share; a decode step (batch 8) and a 1024-token monolithic prefill on
+   each quantized engine (d int8, e int4, f grouped int8 with the fused
+   layer).
    llm_int8 — ``nn.quant.llm_int8_linear`` at x [1024, 4096] bf16 with 4
    outlier channels, w [14336, 4096] int8 and a bias: one A8W8 launch per
    call, against its plain path, timed.
@@ -267,7 +268,10 @@ INCUBATE_SOFTMAX = ((8, 12, 1024, True), (8, 12, 1024, False),
 INCUBATE_LN = ((8192, 768, True), (8192, 768, False), (4096, 4096, True))
 INCUBATE_DROPOUT = ((8192, 768), (4096, 4096))
 INCUBATE_GRAD = ((8192, 768, 3072, "float32"), (4096, 4096, 14336, "float32"),
-                 (8192, 768, 3072, "bfloat16"))
+                 (8192, 768, 3072, "bfloat16"),
+                 # the incubate path's own four products at B 4 x S 1024
+                 (4096, 768, 2304, "float32"), (4096, 768, 768, "float32"),
+                 (4096, 768, 3072, "float32"), (4096, 3072, 768, "float32"))
 
 
 # the analysis phase: each plant of the demo and the rules its findings must
@@ -1257,7 +1261,7 @@ def _kernels_wo(torch, dev, randn, timer, results):
     yardstick is cuBLAS bf16 ``torch.matmul`` on the dequantized bf16
     weight, which the port never calls. Bound: the weight, scales,
     activations and output once over the memory rate, or the products
-    over the bf16 tensor-core rate. The int8 rows at gate/up's decode and
+    over the bf16 tensor-core rate. The rows at gate/up's decode and
     prefill shapes carry the wrapper's host time a call (``host_us``).
     Also times the per-call unpacking of one layer's int4 weights that a
     grouped int4 engine pays (the JAX package's rule: grouped int4 unpacks
@@ -1295,7 +1299,7 @@ def _kernels_wo(torch, dev, randn, timer, results):
                 wd = (w.float() * s).to(bf)
             err, tol = compare(torch, fn(x, w, s), plain(x, w, s))
             host = {}
-            if name != "wo_int4" and (m, k) in ((8, 4096), (1024, 4096)):
+            if (m, k) in ((8, 4096), (1024, 4096)):
                 host["host_us"] = _host_us(torch, lambda: fn(x, w, s))
             _record(results, name,
                     [m, k, n, label] + (["G", QUANT_GROUP]
@@ -1843,7 +1847,7 @@ def _parity_first_decode(torch, what, sm, engine, prompts, served):
 _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "swiglu_kernel", "flash_attention_kernel",
                 "block_epilogue_kernel", "decode_layer_kernel",
-                "wo_matmul_kernel", "wo_prefill_kernel", "wo_decode_kernel",
+                "wo_prefill_kernel", "wo_decode_kernel",
                 "a8w8_quantize_kernel",
                 "a8w8_gemm_kernel", "rms_norm_bwd_kernel",
                 "swiglu_bwd_kernel", "flash_bwd_delta_kernel",
@@ -1855,7 +1859,7 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "softmax_mask_kernel", "softmax_mask_bwd_kernel",
                 "bias_dropout_ln_kernel", "bias_dropout_ln_bwd_kernel",
                 "bdl_partial_sum_kernel", "dropout_add_kernel",
-                "linear_grad_add_kernel")
+                "grad_acc_kernel")
 _GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass")
 
 
@@ -3711,6 +3715,7 @@ def main() -> int:
         torch, np, model, d_prompts, "int4", "weight_only_int4")
     _parity_first_decode(torch, "first int4 decode step", qe._sm, qe,
                          d_prompts, qe_served)
+    phase_profile_quant(torch, qe, d_prompts, "int4")
     del qe
     _free(torch)
     f_prompts = d_prompts[:FUSED_QUANT_REQUESTS]

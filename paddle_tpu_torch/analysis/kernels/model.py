@@ -128,9 +128,10 @@ class KernelLaunch:
     """One launch of a ``__global__`` function: its name as the compiler
     prints it demangled (template arguments included, no namespace),
     grid, block, dynamic shared memory, the tiles its blocks write and
-    read, and whether it is a cooperative launch. ``writes=None`` says
-    its writes depend on the data (rule CK209 notes it; the guard plane
-    still checks the bands and the result)."""
+    read, whether it is a cooperative launch, and its thread-block
+    cluster (blocks a cluster along x, y, z; one by default).
+    ``writes=None`` says its writes depend on the data (rule CK209 notes
+    it; the guard plane still checks the bands and the result)."""
     kernel: str
     grid: tuple
     block: tuple
@@ -138,10 +139,12 @@ class KernelLaunch:
     writes: list | None = dataclasses.field(default_factory=list)
     reads: list = dataclasses.field(default_factory=list)
     cooperative: bool = False
+    cluster: tuple = (1, 1, 1)
 
     def __post_init__(self):
         self.grid = grid3(self.grid)
         self.block = grid3(self.block)
+        self.cluster = grid3(self.cluster)
 
     @property
     def threads(self) -> int:

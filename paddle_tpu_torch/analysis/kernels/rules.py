@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ast
 import itertools
+import math
 import os
 import re
 from dataclasses import dataclass
@@ -122,6 +123,12 @@ def _declared_limits(ex: Example, k: KernelLaunch, preset, out):
         out.append(_find(
             "CK200", f"[{ex.label}] kernel '{k.kernel}': grid {k.grid} past "
             "the card's grid limits", **where))
+    if math.prod(k.cluster) > 8 or any(g % c for g, c in zip(k.grid,
+                                                               k.cluster)):
+        out.append(_find(
+            "CK200", f"[{ex.label}] kernel '{k.kernel}': cluster "
+            f"{k.cluster} over grid {k.grid} (at most 8 blocks, dividing "
+            "each grid dimension)", **where))
 
 
 def _seq(m, k: KernelLaunch):

@@ -4,8 +4,9 @@
 // proxy fence for tiles that threads write and wgmma reads, named barriers,
 // thread-block clusters with their distributed shared memory, and register
 // reallocation between warpgroups. The flash-attention kernels
-// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and the int8
-// weight-only kernels (csrc/wo_matmul.cu) are built from them.
+// (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu), the weight-only
+// kernels (csrc/wo_matmul.cu) and the weight-gradient accumulation
+// (csrc/linear_grad_add.cu) are built from them.
 //
 // Shared-memory tiles. Every tile is a stack of sub-tiles of 64 bf16
 // columns (128 bytes a row), one per 64 columns of the operand, each written
@@ -28,7 +29,8 @@
 //   each 16-deep k-step is 16 rows (2048 bytes); SBO is the 1024 bytes
 //   between groups of 8 reduction rows and LBO the distance between the
 //   sub-tiles that hold N 0-63 and 64-127. The instruction's transpose bit
-//   for B is 1.
+//   for B is 1; an MN-major A (M contiguous, 64 rows of M in one 128-byte
+//   row) takes the same descriptor and transpose bit 1 for A.
 //
 // Accumulators (m64nNk16, f32): thread t of the warpgroup (warp w = t / 32,
 // lane l) holds N / 2 floats; element i is row 16 w + l / 4 + 8 ((i / 2) % 2)
@@ -130,6 +132,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory at `src` (16-byte aligned)
+// into L2, as one bulk prefetch (a hint: nothing waits for it)
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(reinterpret_cast<uint64_t>(src)),
+               "r"(bytes)
+               : "memory");
+}
+
+// brings a tensor map (a __grid_constant__ kernel parameter) into the
+// descriptor cache before its first TMA load
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // -- fences, named barriers, clusters -------------------------------------------
@@ -279,42 +295,45 @@ __device__ __forceinline__ float exp2_approx(float x) {
 }
 
 // D (+)= A B for one m64nNk16 step, f32 accumulators `d` (N / 2 a thread).
-// ss: A and B through descriptors, A K-major; rs: A from registers (N 64
-// and 128, the widths of the kernels' outputs). TB is the transpose bit of
-// B: 0 K-major, 1 MN-major. scale_d 0 overwrites d.
+// ss: A and B through descriptors; rs: A from registers (N 64 and 128, the
+// widths of the kernels' outputs). TB is the transpose bit of B and TA (ss
+// only, 0 unless given) that of A: 0 K-major, 1 MN-major. An MN-major A
+// (x^T of a token-major x, as the weight-gradient product reads it) is laid
+// out and described as an MN-major B is, with M in place of N. scale_d 0
+// overwrites d.
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<32> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<64> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   }
   template <int TB>
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db,
@@ -335,7 +354,7 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -344,7 +363,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -353,7 +372,7 @@ struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   }
   template <int TB>
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db,

@@ -30,7 +30,7 @@
 // prefill (M = 64..2048: 120 GFLOP for gate_proj at M 1024, 0.12 ms on the
 // bf16 tensor cores).
 //
-// The int8 kernels (rows 12a, 12b) are built from csrc/hopper.cuh:
+// All three modes run two kernels built from csrc/hopper.cuh:
 //
 // - Prefill (M > 16), wo_prefill_kernel<MODE, BM>: a BM x 128 output tile
 //   (BM 256 unless the 128-row grid fills the card a wave sooner), 288
@@ -39,7 +39,12 @@
 //   to six stages, each signalled by a `full` mbarrier (transaction bytes)
 //   and released by an `empty` one: x's [BM, 64] bf16 tile (K-major,
 //   128-byte swizzle), the int8 weight's [64 k, 128 n] tile (128-byte
-//   swizzle) and, grouped, the scale rows the 64 k span. The consumers
+//   swizzle) and, grouped, the scale rows the 64 k span. Packed int4: the
+//   weight's box is [64 k, 64 bytes] of the [K, N/2] bytes, unswizzled: its
+//   low nibbles are the tile's columns 0-63 (columns n0/2 .. of y), its
+//   high ones columns 64-127 (N/2 + n0/2 ..), so it fills the same bf16
+//   tile of two 64-column sub-tiles, and the epilogue maps the tile's two
+//   halves onto the two slabs of y and their scales. The consumers
 //   dequantise the int8 tile into a bf16 MN-major tile with the 128-byte
 //   swizzle (one 128-byte row holds 64 n of one k), fence the async proxy,
 //   meet at a named barrier, and run wgmma m64n128k16 with both operands in
@@ -48,7 +53,7 @@
 //   serves BM rows, so conversion is 1 / BM of the tensor work. The
 //   per-channel epilogue applies s[n] in f32 and rounds once; the tile
 //   leaves through shared memory as 16-byte row pieces.
-// - Decode (M <= 16), wo_decode_kernel<MODE, TG>: the weight streams through
+// - Decode (M <= 16), wo_decode_kernel<MODE, TG, NC>: the weight streams through
 //   a ring of up to eight 64 x 128-byte TMA stages a block (three blocks an
 //   SM at 8 tokens), x's 64 k of each stage beside it as one bulk copy a
 //   token row (no tensor map for an activation). Four consumer warps take
@@ -60,14 +65,13 @@
 //   column tiles of 128 become 64 blocks); each block sums its warps'
 //   partials in shared memory, and block r of the cluster adds the blocks'
 //   partials for its columns through distributed shared memory in rank
-//   order. No atomics: two calls return the same bits.
-//
-// Row 12c (int4) keeps the mma.sync template wo_matmul_kernel: a k-tile of x
-// and of the packed bytes is read into registers while the previous tile's
-// products run, then converted into shared memory with the weight TRANSPOSED
-// ([n][k], k contiguous) so that mma.sync reads 32-bit B fragments; decode:
-// a 16 x 32 output tile, k-tile 256 split over four warps (partial sums
-// added in a fixed order); prefill: 128 x 128, k-tile 64, 8 warps.
+//   order. No atomics: two calls return the same bits. Packed int4: a
+//   block takes 128 columns from a [64 k, 64 bytes] box (each thread 8
+//   bytes of a row: 8 columns of each half, an odd t reading its k pairs
+//   in the other order so that no load meets a bank twice), or 256 columns
+//   from a [64 k, 128 bytes] box read as the int8 weight is (16 bytes: 16
+//   columns of each half, sixteen mma tiles a warp, two blocks an SM);
+//   int4_dec_cols picks the one whose grid fills the card more.
 #include <algorithm>
 
 #include "hopper.cuh"
@@ -106,192 +110,11 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
-// -- row 12c: the mma.sync template (int4) ------------------------------------
-
-template <int MODE, int BM, int BN, int BK, int WM, int WN, int WK>
-__global__ void __launch_bounds__(WM * WN * WK * 32)
-    wo_matmul_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                     const float* __restrict__ scales, bf16* __restrict__ y, int M, int N,
-                     int K, int G) {
-  static_assert(MODE == kInt4, "the int8 modes run wo_prefill_kernel / wo_decode_kernel");
-  constexpr int T = WM * WN * WK * 32;              // threads
-  constexpr int XST = BK + 8;                       // bf16 row stride of both smem tiles
-  constexpr int WB = BN / 2;                        // weight bytes per k row of a tile
-  constexpr int XCH = BM * BK / 8;                  // 16-byte x chunks of a tile
-  constexpr int WCH = (BK / 2) * (WB / 16);         // (2 k rows x 16 bytes) chunks of a tile
-  constexpr int XL = (XCH + T - 1) / T, WP = (WCH + T - 1) / T;  // per thread
-  static_assert(WB % 16 == 0 && BK % 32 == 0, "16-byte weight chunks, k16 steps per warp");
-  constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
-  constexpr int TILE_BYTES = (BM + BN) * XST * 2;
-  constexpr int RED_BYTES = (WK - 1) * BM * BN * 4;
-  constexpr int SMEM = TILE_BYTES > RED_BYTES ? TILE_BYTES : RED_BYTES;
-  __shared__ __align__(16) unsigned char smem[SMEM];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Ws = Xs + BM * XST;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wk = warp % WK, wn = (warp / WK) % WN, wm = warp / (WK * WN);
-  const int m0 = blockIdx.x * BM;
-  const int NB = N / 2;                      // bytes per row of w
-  const int c0 = blockIdx.y * WB;            // first byte column of this tile
-
-  uint4 xr[XL], wr[WP][2];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < XL; ++i) {
-      const int e = tid + i * T;
-      const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-      xr[i] = ((XCH % T == 0 || e < XCH) && m0 + r < M && k0 + c < K)
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c)
-                  : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < WP; ++i) {
-      const int e = tid + i * T;
-      const int kp = e % (BK / 2), cc = (e / (BK / 2)) * 16;
-      const int k = k0 + 2 * kp, col = c0 + cc;
-      const bool ok = (WCH % T == 0 || e < WCH) && col < NB;
-      wr[i][0] = ok && k < K ? *reinterpret_cast<const uint4*>(w + (size_t)k * NB + col) : zero;
-      wr[i][1] = ok && k + 1 < K ? *reinterpret_cast<const uint4*>(w + (size_t)(k + 1) * NB + col)
-                                 : zero;
-    }
-  };
-
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < XL; ++i) {
-      const int e = tid + i * T;
-      const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-      if (XCH % T == 0 || e < XCH) *reinterpret_cast<uint4*>(&Xs[r * XST + c]) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < WP; ++i) {
-      const int e = tid + i * T;
-      if (WCH % T != 0 && e >= WCH) continue;
-      const int kp = e % (BK / 2), cc = (e / (BK / 2)) * 16;
-      uint32_t* dst = reinterpret_cast<uint32_t*>(Ws) + (cc * XST) / 2 + kp;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint32_t w0 = word_of(wr[i][0], q), w1 = word_of(wr[i][1], q);
-        // low nibbles -> columns j, high nibbles -> columns j + N/2
-        const uint32_t l0 = (w0 ^ 0x88888888u) & 0x0F0F0F0Fu;
-        const uint32_t l1 = (w1 ^ 0x88888888u) & 0x0F0F0F0Fu;
-        const uint32_t h0 = ((w0 ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
-        const uint32_t h1 = ((w1 ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
-        uint32_t* dst_hi = dst + (BN / 2) * XST / 2;
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int j = 4 * q + jj;
-          dst[j * XST / 2] = pack2_exact(biased_byte(l0, jj, 8.f), biased_byte(l1, jj, 8.f));
-          dst_hi[j * XST / 2] = pack2_exact(biased_byte(h0, jj, 8.f), biased_byte(h1, jj, 8.f));
-        }
-      }
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int n_kt = (K + BK - 1) / BK;
-  load(0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // the previous tile is fully read
-    store();
-    __syncthreads();
-    if (kt + 1 < n_kt) load((kt + 1) * BK);  // in flight during this tile's products
-#pragma unroll
-    for (int ks = wk; ks < BK / 16; ks += WK) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const bf16* xp = &Xs[(wm * (BM / WM) + mt * 16 + g) * XST + ks * 16 + 2 * t];
-        a[mt][0] = ld32(xp);
-        a[mt][1] = ld32(xp + 8 * XST);
-        a[mt][2] = ld32(xp + 8);
-        a[mt][3] = ld32(xp + 8 * XST + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* wp = &Ws[(wn * (BN / WN) + nt * 8 + g) * XST + ks * 16 + 2 * t];
-        const uint32_t b0 = ld32(wp), b1 = ld32(wp + 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-  }
-
-  if constexpr (WK > 1) {
-    // warps 1..WK-1 hand their partial sums to warp 0 of the same output
-    // tile, which adds them in a fixed order
-    constexpr int FR = MT * NT * 4;
-    float* red = reinterpret_cast<float*>(smem);
-    const int wt = wm * WN + wn;
-    __syncthreads();
-    if (wk > 0) {
-      float* mine = red + ((wk - 1) * WM * WN + wt) * FR * 32 + lane;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) mine[((mt * NT + nt) * 4 + e) * 32] = acc[mt][nt][e];
-    }
-    __syncthreads();
-    if (wk > 0) return;
-#pragma unroll
-    for (int o = 1; o < WK; ++o) {
-      const float* theirs = red + ((o - 1) * WM * WN + wt) * FR * 32 + lane;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += theirs[((mt * NT + nt) * 4 + e) * 32];
-    }
-  }
-
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int lc = wn * (BN / WN) + nt * 8 + 2 * t;  // even column of the tile
-    const int j = c0 + (lc < BN / 2 ? lc : lc - BN / 2);
-    if (j >= NB) continue;
-    const int col = lc < BN / 2 ? j : NB + j;
-    const float s0 = scales[col], s1 = scales[col + 1];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = m0 + wm * (BM / WM) + mt * 16 + g + hf * 8;
-        if (r >= M) continue;
-        const float v0 = acc[mt][nt][2 * hf], v1 = acc[mt][nt][2 * hf + 1];
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)r * N + col) =
-            __floats2bfloat162_rn(v0 * s0, v1 * s1);
-      }
-    }
-  }
-}
-
-template <int BM, int BN, int BK, int WM, int WN, int WK>
-void launch_int4(const void* x, const void* w, const void* s, void* y, int M, int N, int K,
-                 cudaStream_t stream) {
-  const dim3 grid((M + BM - 1) / BM, (N / 2 + BN / 2 - 1) / (BN / 2));
-  wo_matmul_kernel<kInt4, BM, BN, BK, WM, WN, WK><<<grid, WM * WN * WK * 32, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w), static_cast<const float*>(s),
-      static_cast<bf16*>(y), M, N, K, 1);
-}
-
-// -- rows 12a, 12b: the Hopper kernels ----------------------------------------
+// -- the Hopper kernels ----------------------------------------------------------
 
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may opt into
 constexpr int kBK = 64;           // k rows a ring stage (both tilings)
 constexpr int kBN = 128;          // output columns a block: one 128-byte box of int8 weight
-constexpr int kWTile = kBK * kBN;  // bytes of one int8 weight stage
 // prefill
 constexpr int kPreThreads = 288;  // two consumer warpgroups, then one producer warp
 constexpr int kPreStages = 6;     // ring stages at most (fewer where the tiles need room)
@@ -309,6 +132,26 @@ constexpr int kDecBlocks8 = 3;    // blocks an SM of 8 tokens (up to 136 registe
 constexpr int kDecBlocks16 = 2;   // of 16 tokens
 
 __host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// bytes of one weight row of a block's tile of `nc` columns: nc int8 values,
+// or nc / 2 bytes of packed int4 (a byte holds a column of each half)
+__host__ __device__ constexpr int w_row(int mode, int nc) { return mode == kInt4 ? nc / 2 : nc; }
+
+// bytes of one weight stage (64 k rows) of a block's tile of `nc` columns
+__host__ __device__ constexpr int w_tile(int mode, int nc = kBN) { return kBK * w_row(mode, nc); }
+
+// output column of column c (even) of the block tile of `nc` columns that
+// starts at column n0 (int4: n0 / 2 is the tile's first byte column; its
+// first nc / 2 columns are low nibbles, columns n0 / 2 + c of y, the rest
+// high nibbles, columns N / 2 + n0 / 2 + c - nc / 2), and whether it exists
+template <int MODE, int NC>
+__device__ __forceinline__ int out_col(int n0, int c, int N) {
+  return MODE == kInt4 ? (c < NC / 2 ? n0 / 2 + c : N / 2 + n0 / 2 + c - NC / 2) : n0 + c;
+}
+template <int MODE, int NC>
+__device__ __forceinline__ bool col_ok(int n0, int c, int N) {
+  return MODE == kInt4 ? n0 / 2 + c % (NC / 2) < N / 2 : n0 + c < N;
+}
 
 // scale rows of [K/G, N] a stage of 64 k rows (starting on a multiple of 64)
 // can span: one where G is a multiple of 64, 64 / G where G divides 64, else
@@ -342,6 +185,23 @@ __device__ __forceinline__ uint4 dequant8(uint2 q, const float* sc) {
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
+// dequantise 8 packed int4 bytes (one k row) to 8 bf16 of the low nibbles
+// and 8 of the high ones, exactly
+__device__ __forceinline__ void dequant_int4(uint2 q, uint4& lo, uint4& hi) {
+  const uint32_t u[2] = {q.x ^ 0x88888888u, q.y ^ 0x88888888u};
+  uint32_t o[2][4];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const uint32_t l = u[w] & 0x0F0F0F0Fu, h = (u[w] >> 4) & 0x0F0F0F0Fu;
+    o[0][2 * w] = pack2_exact(biased_byte(l, 0, 8.f), biased_byte(l, 1, 8.f));
+    o[0][2 * w + 1] = pack2_exact(biased_byte(l, 2, 8.f), biased_byte(l, 3, 8.f));
+    o[1][2 * w] = pack2_exact(biased_byte(h, 0, 8.f), biased_byte(h, 1, 8.f));
+    o[1][2 * w + 1] = pack2_exact(biased_byte(h, 2, 8.f), biased_byte(h, 3, 8.f));
+  }
+  lo = make_uint4(o[0][0], o[0][1], o[0][2], o[0][3]);
+  hi = make_uint4(o[1][0], o[1][1], o[1][2], o[1][3]);
+}
+
 template <int MODE, int BM>
 __global__ void __launch_bounds__(kPreThreads, 1)
     wo_prefill_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
@@ -351,7 +211,8 @@ __global__ void __launch_bounds__(kPreThreads, 1)
   constexpr int MI = BM / 128;      // m64 tiles a consumer warpgroup
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
-  const int stage_bytes = XB + kWTile + scale_bytes(MODE, srows);
+  constexpr int WT = w_tile(MODE);  // weight bytes a stage
+  const int stage_bytes = XB + WT + scale_bytes(MODE, srows);
   unsigned char* conv = smem + stages * stage_bytes;  // [kPreConv][2][64 k][64 n] bf16
   uint64_t* full = reinterpret_cast<uint64_t*>(conv + kPreConv * kConvTile);
   uint64_t* empty = full + kPreStages;
@@ -371,7 +232,7 @@ __global__ void __launch_bounds__(kPreThreads, 1)
   if (tid >= 256) {
     // producer warp: one thread issues every copy
     if (tid == 256) {
-      const uint32_t tx_bytes = XB + kWTile + (MODE == kInt8Grouped ? srows * kBN * 4 : 0);
+      const uint32_t tx_bytes = XB + WT + (MODE == kInt8Grouped ? srows * kBN * 4 : 0);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % stages;
         if (kt >= stages) hp::mbar_wait(&empty[st], ((kt / stages) - 1) & 1);
@@ -379,8 +240,8 @@ __global__ void __launch_bounds__(kPreThreads, 1)
         const int k0 = kt * kBK;
         hp::mbar_arrive_expect_tx(&full[st], tx_bytes);
         hp::tma_load_4d(s, &tx, &full[st], k0, 0, m0, 0);
-        hp::tma_load_2d(s + XB, &tw, &full[st], n0, k0);
-        if (MODE == kInt8Grouped) hp::tma_load_2d(s + XB + kWTile, &ts, &full[st], n0, k0 / G);
+        hp::tma_load_2d(s + XB, &tw, &full[st], MODE == kInt4 ? n0 / 2 : n0, k0);
+        if (MODE == kInt8Grouped) hp::tma_load_2d(s + XB + WT, &ts, &full[st], n0, k0 / G);
       }
     }
     return;
@@ -393,14 +254,31 @@ __global__ void __launch_bounds__(kPreThreads, 1)
   // the int8 tile of k-tile kt -> converted tile kt % kPreConv; warp w takes
   // rows 2 (w + 8 u) and the next (one a half-warp), 8 n a thread: the
   // half-warp reads a swizzled 128-byte row without conflict and each
-  // quarter-warp writes one swizzled row of a sub-tile
+  // quarter-warp writes one swizzled row of a sub-tile. The packed int4
+  // tile ([64 k][64 bytes], unswizzled): thread t takes 8 bytes of rows
+  // t / 8 and t / 8 + 32, the warp 256 consecutive bytes; their low
+  // nibbles are one 16-byte chunk of sub-tile 0, the high ones of sub-tile
+  // 1, each quarter-warp writing one swizzled row of each
   auto convert = [&](int kt) {
     hp::mbar_wait(&full[kt % stages], (kt / stages) & 1);
     __syncwarp();
     const unsigned char* s = smem + (kt % stages) * stage_bytes;
     const unsigned char* wt = s + XB;
-    const float* st_scales = reinterpret_cast<const float*>(s + XB + kWTile);
     unsigned char* dst = conv + (kt % kPreConv) * kConvTile;
+    if constexpr (MODE == kInt4) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = (tid >> 3) + 32 * u, j = tid & 7;
+        uint4 lo, hi;
+        dequant_int4(*reinterpret_cast<const uint2*>(wt + r * 64 + 8 * j), lo, hi);
+        const int at = r * 128 + ((j ^ (r & 7)) << 4);
+        *reinterpret_cast<uint4*>(dst + at) = lo;
+        *reinterpret_cast<uint4*>(dst + kBK * 128 + at) = hi;
+      }
+      hp::fence_proxy_async();
+      return;
+    }
+    const float* st_scales = reinterpret_cast<const float*>(s + XB + WT);
     const int j = lane & 15;  // 8-byte group of the row: n 8j .. 8j + 7
     const int k0 = kt * kBK;
     float sc[8];
@@ -473,9 +351,10 @@ __global__ void __launch_bounds__(kPreThreads, 1)
   for (int c = 0; c < kBN / 8; ++c) {
     const int col = 8 * c + 2 * (lane & 3);
     float s0 = 1.f, s1 = 1.f;
-    if (MODE == kInt8 && n0 + col < N) {
-      s0 = scales[n0 + col];
-      s1 = scales[n0 + col + 1];
+    if (MODE != kInt8Grouped && col_ok<MODE, kBN>(n0, col, N)) {
+      const int oc = out_col<MODE, kBN>(n0, col, N);
+      s0 = scales[oc];
+      s1 = scales[oc + 1];
     }
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -487,26 +366,36 @@ __global__ void __launch_bounds__(kPreThreads, 1)
   hp::bar_sync(1, 256);
   for (int e = tid; e < BM * (kBN / 8); e += 256) {
     const int r = e / (kBN / 8), c = 8 * (e % (kBN / 8));
-    if (m0 + r < M && n0 + c < N)
-      *reinterpret_cast<uint4*>(y + (size_t)(m0 + r) * N + n0 + c) =
+    if (m0 + r < M && col_ok<MODE, kBN>(n0, c, N))
+      *reinterpret_cast<uint4*>(y + (size_t)(m0 + r) * N + out_col<MODE, kBN>(n0, c, N)) =
           *reinterpret_cast<const uint4*>(out + r * kOutRow + c);
   }
 }
 
-// blocks of wo_decode_kernel an SM holds
-__host__ __device__ constexpr int dec_blocks(int tg) { return tg == 1 ? kDecBlocks8 : kDecBlocks16; }
+// blocks of wo_decode_kernel an SM holds: three of 8 tokens over 128
+// columns, else two (a 256-column int4 tile keeps twice the sums)
+__host__ __device__ constexpr int dec_blocks(int tg, int nc = kBN) {
+  return tg == 1 && nc == kBN ? kDecBlocks8 : kDecBlocks16;
+}
 
-template <int MODE, int TG>
-__global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlocks16)
+// NC: output columns a block (128; packed int4 also 256, a 128-byte box)
+template <int MODE, int TG, int NC>
+__global__ void __launch_bounds__(kDecThreads, TG == 1 && NC == kBN ? kDecBlocks8 : kDecBlocks16)
     wo_decode_kernel(const bf16* __restrict__ x, const __grid_constant__ CUtensorMap tw,
                      const __grid_constant__ CUtensorMap ts, const float* __restrict__ scales,
                      bf16* __restrict__ y, int M, int N, int K, int G, int kslice, int stages,
                      int srows) {
   constexpr int TOK = 8 * TG;          // token rows a block holds (rows past M are zeros)
-  constexpr int PART = TOK * kBN * 4;  // bytes of one warp's (or the block's) partial sums
+  constexpr int PART = TOK * NC * 4;   // bytes of one warp's (or the block's) partial sums
+  constexpr int WROW = w_row(MODE, NC);  // bytes of a weight row of a stage: 64 or 128
+  constexpr int MMAS = NC / 16;        // mma.sync tiles a warp covers: 8, or 16
+  // int4: the MMAS / 2 tiles of each nibble half; a lane group g holds SPAN
+  // columns of each half (int8: of the one)
+  constexpr int HALVES = MODE == kInt4 ? 2 : 1, MH = MMAS / HALVES, SPAN = NC / HALVES / 8;
+  static_assert(MODE == kInt4 ? (NC == 128 || NC == 256) : NC == kBN, "tile widths");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
-  const int stage_bytes = kWTile + scale_bytes(MODE, srows);
+  const int stage_bytes = kBK * WROW + scale_bytes(MODE, srows);
   const int ring = max(stages * stage_bytes, 5 * PART);  // the ring, later the partial sums
   unsigned char* xring = smem + ring;  // [stage][TOK][kXRow] bf16: x's 64 k of each stage
   uint64_t* full = reinterpret_cast<uint64_t*>(xring + stages * TOK * kXRow * 2);
@@ -516,7 +405,7 @@ __global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlock
   const int rank = (int)hp::cluster_rank();
   const int kbeg = blockIdx.x * kslice;
   const int nst = (min(K, kbeg + kslice) - kbeg + kBK - 1) / kBK;
-  const int n0 = blockIdx.y * kBN;
+  const int n0 = blockIdx.y * NC;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // x rows past M are never copied (and only they are written here, so no
   // thread's store meets a copy): they stay zero
@@ -536,7 +425,7 @@ __global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlock
     // stage as bulk copies of the row's 64 k (no tensor map for x, a fresh
     // activation on every call)
     if (tid == 128) {
-      const uint32_t w_bytes = kWTile + (MODE == kInt8Grouped ? srows * kBN * 4 : 0);
+      const uint32_t w_bytes = kBK * WROW + (MODE == kInt8Grouped ? srows * kBN * 4 : 0);
       for (int i = 0; i < nst; ++i) {
         const int st = i % stages;
         if (i >= stages) hp::mbar_wait(&empty[st], ((i / stages) - 1) & 1);
@@ -544,8 +433,8 @@ __global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlock
         const int k0 = kbeg + i * kBK;
         const uint32_t x_bytes = min(kBK, K - k0) * 2;
         hp::mbar_arrive_expect_tx(&full[st], w_bytes + M * x_bytes);
-        hp::tma_load_2d(s, &tw, &full[st], n0, k0);
-        if (MODE == kInt8Grouped) hp::tma_load_2d(s + kWTile, &ts, &full[st], n0, k0 / G);
+        hp::tma_load_2d(s, &tw, &full[st], MODE == kInt4 ? n0 / 2 : n0, k0);
+        if (MODE == kInt8Grouped) hp::tma_load_2d(s + kBK * WROW, &ts, &full[st], n0, k0 / G);
         for (int r = 0; r < M; ++r)
           hp::bulk_load(xring + (st * TOK + r) * kXRow * 2, x + (size_t)r * K + k0, x_bytes,
                         &full[st]);
@@ -556,26 +445,37 @@ __global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlock
     // consumer warps: warp w takes the k-step 16 w .. 16 w + 15 of every
     // stage. Thread (g, t) reads k rows 2t, 2t + 1, 2t + 8, 2t + 9 of it at
     // n 16 g .. 16 g + 15; A row g of mma m is n 16 g + 2 m, row g + 8 is
-    // n 16 g + 2 m + 1.
+    // n 16 g + 2 m + 1. Packed int4: the thread's bytes of a row hold SPAN
+    // columns of each half, so A row g of mma m of half h = m / MH is
+    // column SPAN g + 2 (m % MH) of that half, row g + 8 the next; with
+    // 64-byte rows (8 bytes a thread, unswizzled) an odd t reads the rows of
+    // each k pair in the other order, so that each load's four rows meet
+    // both halves of the banks, and its x pairs swap to match.
     const int g = lane >> 2, t = lane & 3;
-    float acc[TG][8][4];
+    float acc[TG][MMAS][4];
 #pragma unroll
     for (int a = 0; a < TG; ++a)
 #pragma unroll
-      for (int m = 0; m < 8; ++m) acc[a][m][0] = acc[a][m][1] = acc[a][m][2] = acc[a][m][3] = 0.f;
+      for (int m = 0; m < MMAS; ++m) acc[a][m][0] = acc[a][m][1] = acc[a][m][2] = acc[a][m][3] = 0.f;
 
     for (int i = 0; i < nst; ++i) {
       const int st = i % stages;
       hp::mbar_wait(&full[st], (i / stages) & 1);
       __syncwarp();  // the lanes leave the wait apart; mma.sync needs them together
       const unsigned char* wt = smem + st * stage_bytes;
-      const float* st_scales = reinterpret_cast<const float*>(wt + kWTile);
+      const float* st_scales = reinterpret_cast<const float*>(wt + kBK * WROW);
       const int rr = 16 * warp + 2 * t;
       uint4 q[4];  // k rows rr, rr + 1, rr + 8, rr + 9
 #pragma unroll
       for (int h = 0; h < 4; ++h) {
-        const int r = rr + (h & 1) + 8 * (h >> 1);
-        q[h] = *reinterpret_cast<const uint4*>(wt + r * 128 + ((g ^ (r & 7)) << 4));
+        if constexpr (WROW == 128) {
+          const int r = rr + (h & 1) + 8 * (h >> 1);
+          q[h] = *reinterpret_cast<const uint4*>(wt + r * 128 + ((g ^ (r & 7)) << 4));
+        } else {
+          const int r = rr + ((h & 1) ^ (t & 1)) + 8 * (h >> 1);
+          const uint2 v = *reinterpret_cast<const uint2*>(wt + r * 64 + 8 * g);
+          q[h] = make_uint4(v.x, v.y, 0u, 0u);
+        }
       }
       // x's B operand: token 8 tg + g, k rr, rr + 1 and rr + 8, rr + 9; the
       // last stage's columns past K hold an older stage's x (the weight's
@@ -587,6 +487,41 @@ __global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlock
         const bf16* xp = reinterpret_cast<const bf16*>(xring) + (st * TOK + 8 * tg + g) * kXRow + rr;
         b[tg][0] = k0 + rr < K ? ld32(xp) : 0u;
         b[tg][1] = k0 + rr + 8 < K ? ld32(xp + 8) : 0u;
+        if (WROW == 64 && (t & 1)) {
+          b[tg][0] = __byte_perm(b[tg][0], 0u, 0x1032u);
+          b[tg][1] = __byte_perm(b[tg][1], 0u, 0x1032u);
+        }
+      }
+      if constexpr (MODE == kInt4) {
+        // mma m, A row g + 8 e: byte 2 (m % MH) + e of the thread's bytes,
+        // nibble half m / MH; four tiles at a time
+#pragma unroll
+        for (int grp = 0; grp < MMAS / 4; ++grp) {
+          uint32_t a[4][4];
+#pragma unroll
+          for (int mm = 0; mm < 4; ++mm) {
+            const int m = 4 * grp + mm, sh = 4 * (m / MH);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int bt = 2 * (m % MH) + e;
+              float f[4];
+#pragma unroll
+              for (int h = 0; h < 4; ++h)
+                f[h] = biased_byte(((word_of(q[h], bt >> 2) ^ 0x88888888u) >> sh) & 0x0F0F0F0Fu,
+                                   bt & 3, 8.f);
+              a[mm][e] = pack2_exact(f[0], f[1]);
+              a[mm][2 + e] = pack2_exact(f[2], f[3]);
+            }
+          }
+#pragma unroll
+          for (int tg = 0; tg < TG; ++tg)
+#pragma unroll
+            for (int mm = 0; mm < 4; ++mm)
+              mma_bf16(acc[tg][4 * grp + mm], a[mm], b[tg][0], b[tg][1]);
+        }
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(&empty[st]);  // the stage is read
+        continue;
       }
       // the A operands of mma m = 4 mh .. 4 mh + 3 (n 16 g + 8 mh ..
       // + 7), in two halves to keep fewer registers live: a[mm][e] (e =
@@ -640,31 +575,32 @@ __global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlock
     }
 
     // this warp's partial sums: red[warp][token][n]; c0, c2 of mma m are
-    // (token 2t, n 16 g + 2 m and + 1), c1, c3 token 2t + 1
+    // (token 2t, n 16 g + 2 m and + 1), c1, c3 token 2t + 1 (int4: n of
+    // half m / MH as above)
     __syncwarp();
     hp::bar_sync(1, 128);  // every warp is done reading the ring
-    float* red = reinterpret_cast<float*>(smem) + warp * TOK * kBN;
+    float* red = reinterpret_cast<float*>(smem) + warp * TOK * NC;
 #pragma unroll
     for (int tg = 0; tg < TG; ++tg)
 #pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int tok = 8 * tg + 2 * t, n = 16 * g + 2 * m;
-        *reinterpret_cast<float2*>(red + tok * kBN + n) = make_float2(acc[tg][m][0], acc[tg][m][2]);
-        *reinterpret_cast<float2*>(red + (tok + 1) * kBN + n) =
+      for (int m = 0; m < MMAS; ++m) {
+        const int tok = 8 * tg + 2 * t, n = (m / MH) * (NC / HALVES) + SPAN * g + 2 * (m % MH);
+        *reinterpret_cast<float2*>(red + tok * NC + n) = make_float2(acc[tg][m][0], acc[tg][m][2]);
+        *reinterpret_cast<float2*>(red + (tok + 1) * NC + n) =
             make_float2(acc[tg][m][1], acc[tg][m][3]);
       }
   }
   __syncthreads();
   // the block's partial sums, warps added in order
-  float* part = reinterpret_cast<float*>(smem) + 4 * TOK * kBN;
+  float* part = reinterpret_cast<float*>(smem) + 4 * TOK * NC;
   if (tid < 128) {
     const float* red = reinterpret_cast<const float*>(smem);
 #pragma unroll
-    for (int e4 = tid; e4 < TOK * kBN / 4; e4 += 128) {
+    for (int e4 = tid; e4 < TOK * NC / 4; e4 += 128) {
       float4 v = reinterpret_cast<const float4*>(red)[e4];
 #pragma unroll
       for (int w = 1; w < 4; ++w) {
-        const float4 o = reinterpret_cast<const float4*>(red + w * TOK * kBN)[e4];
+        const float4 o = reinterpret_cast<const float4*>(red + w * TOK * NC)[e4];
         v.x += o.x;
         v.y += o.y;
         v.z += o.z;
@@ -677,10 +613,10 @@ __global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlock
   // block `rank` of the cluster finishes the 16-column chunks c = rank,
   // rank + split, ..., adding the blocks' partials in rank order
   const uint32_t part_addr = hp::smem_u32(part);
-  for (int c = rank; c < kBN / 16; c += split) {
+  for (int c = rank; c < NC / 16; c += split) {
     for (int e4 = tid; e4 < TOK * 4; e4 += kDecThreads) {
       const int tok = e4 >> 2, n = 16 * c + 4 * (e4 & 3);
-      const uint32_t off = part_addr + (tok * kBN + n) * 4;
+      const uint32_t off = part_addr + (tok * NC + n) * 4;
       float4 v = hp::ld_cluster_f4(hp::map_rank(off, 0));
       for (int q = 1; q < split; ++q) {
         const float4 o = hp::ld_cluster_f4(hp::map_rank(off, q));
@@ -689,9 +625,9 @@ __global__ void __launch_bounds__(kDecThreads, TG == 1 ? kDecBlocks8 : kDecBlock
         v.z += o.z;
         v.w += o.w;
       }
-      const int col = n0 + n;
-      if (tok < M && col < N) {
-        if (MODE == kInt8) {
+      const int col = out_col<MODE, NC>(n0, n, N);
+      if (tok < M && col_ok<MODE, NC>(n0, n, N)) {
+        if (MODE != kInt8Grouped) {
           const float4 s = *reinterpret_cast<const float4*>(scales + col);
           v.x *= s.x;
           v.y *= s.y;
@@ -718,7 +654,7 @@ struct PrefillPlan {
 inline PrefillPlan prefill_plan(int mode, int M, int N, int srows) {
   const int sb = scale_bytes(mode, srows);
   auto plan = [&](int bm) {
-    const int stage = bm * kBK * 2 + kWTile + sb;
+    const int stage = bm * kBK * 2 + w_tile(mode) + sb;
     const int fixed = 1024 + kPreConv * kConvTile + 16 * kPreStages;
     const int stages = std::min(kPreStages, (kSmemMax - fixed) / stage);
     return PrefillPlan{bm, stages, fixed + stages * stage};
@@ -738,17 +674,19 @@ struct DecodePlan {
 };
 
 // The K split fills the card's block slots once (no second round); the
-// ring takes what shared memory those blocks leave.
-inline DecodePlan decode_plan(int mode, int M, int N, int K, int srows) {
-  const int tiles = (N + kBN - 1) / kBN;
+// ring takes what shared memory those blocks leave. `nc`: output columns
+// a block.
+inline DecodePlan decode_plan(int mode, int M, int N, int K, int srows, int nc = kBN) {
+  const int tiles = (N + nc - 1) / nc;
   const int tg = M > 8 ? 2 : 1;
-  const int want = std::max(1, std::min(kDecSplit, dec_blocks(tg) * kSms / tiles));
+  const int blocks = dec_blocks(tg, nc);
+  const int want = std::max(1, std::min(kDecSplit, blocks * kSms / tiles));
   const int kslice = round_up((K + want - 1) / want, kBK);
-  const int stage = kWTile + scale_bytes(mode, srows), x_stage = 8 * tg * kXRow * 2;
+  const int stage = w_tile(mode, nc) + scale_bytes(mode, srows), x_stage = 8 * tg * kXRow * 2;
   const int fixed = 1024 + 16 * kDecStages;
-  const int budget = kSmemSm / dec_blocks(tg) - 1024;
+  const int budget = kSmemSm / blocks - 1024;
   const int stages = std::max(2, std::min(kDecStages, (budget - fixed) / (stage + x_stage)));
-  const int ring = std::max(stages * stage, 5 * 8 * tg * kBN * 4);
+  const int ring = std::max(stages * stage, 5 * 8 * tg * nc * 4);
   return DecodePlan{tg, (K + kslice - 1) / kslice, kslice, stages,
                     fixed + ring + stages * x_stage};
 }
@@ -769,14 +707,14 @@ int launch_prefill(const CUtensorMap& tw, const CUtensorMap& ts, const void* x, 
   return (int)cudaGetLastError();
 }
 
-template <int MODE, int TG>
+template <int MODE, int TG, int NC>
 int launch_decode(const CUtensorMap& tw, const CUtensorMap& ts, const void* x, const void* s,
                   void* y, int M, int N, int K, int G, int srows, const DecodePlan& p,
                   cudaStream_t stream) {
-  const cudaError_t attr = hp::allow_smem<wo_decode_kernel<MODE, TG>>(kSmemMax);
+  const cudaError_t attr = hp::allow_smem<wo_decode_kernel<MODE, TG, NC>>(kSmemMax);
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.split, (N + kBN - 1) / kBN);
+  cfg.gridDim = dim3(p.split, (N + NC - 1) / NC);
   cfg.blockDim = dim3(kDecThreads);
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
@@ -788,19 +726,42 @@ int launch_decode(const CUtensorMap& tw, const CUtensorMap& ts, const void* x, c
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, wo_decode_kernel<MODE, TG>, static_cast<const bf16*>(x), tw, ts,
+      &cfg, wo_decode_kernel<MODE, TG, NC>, static_cast<const bf16*>(x), tw, ts,
       static_cast<const float*>(s), static_cast<bf16*>(y), M, N, K, G, p.kslice, p.stages, srows);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+// Decode columns a block of packed int4: 256 (a 128-byte box of packed
+// bytes a stage row, swizzled as the int8 weight's) where that grid fills the
+// card's decode block slots at least as fully as 128-column blocks (a 64-byte
+// box, unswizzled) do, else 128 (kernel_ab.py times both at the decode
+// shapes: the wider box streams faster where its blocks fill the card, as at
+// gate/up; at N 4096 its K split is capped at 8 blocks and half the slots
+// stay empty).
+inline int int4_dec_cols(int M, int N, int K) {
+  int used[2], slots[2];
+  for (int i = 0; i < 2; ++i) {
+    const int nc = kBN << i;
+    const DecodePlan p = decode_plan(kInt4, M, N, K, 0, nc);
+    slots[i] = dec_blocks(p.tg, nc) * kSms;
+    used[i] = std::min(slots[i], p.split * ((N + nc - 1) / nc));
+  }
+  return (long long)used[1] * slots[0] >= (long long)used[0] * slots[1] ? 2 * kBN : kBN;
+}
+
+// `nc`: decode columns a block (int4 only; the other modes and prefill
+// take kBN)
 template <int MODE>
-int launch_int8(const void* x, const void* w, const void* s, void* y, int M, int N, int K, int G,
-                cudaStream_t stream) {
+int launch_wo(const void* x, const void* w, const void* s, void* y, int M, int N, int K, int G,
+              int nc, cudaStream_t stream) {
   if (K == 0) return (int)cudaMemsetAsync(y, 0, (size_t)M * N * sizeof(bf16), stream);
   const int srows = MODE == kInt8Grouped ? scale_rows(G) : 0;
+  if (MODE != kInt4 || M > 16) nc = kBN;
+  const int wrow = w_row(MODE, nc);
   CUtensorMap tw, ts;
-  int err = hp::make_2d_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kBK, kBN,
-                            CU_TENSOR_MAP_SWIZZLE_128B);
+  int err = hp::make_2d_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K,
+                            MODE == kInt4 ? N / 2 : N, kBK, wrow,
+                            wrow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err == 0 && MODE == kInt8Grouped)
     err = hp::make_2d_map(&ts, s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / G, N, srows, kBN,
                           CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -811,9 +772,15 @@ int launch_int8(const void* x, const void* w, const void* s, void* y, int M, int
     return p.bm == 256 ? launch_prefill<MODE, 256>(tw, ts, x, s, y, M, N, K, G, srows, p, stream)
                        : launch_prefill<MODE, 128>(tw, ts, x, s, y, M, N, K, G, srows, p, stream);
   }
-  const DecodePlan p = decode_plan(MODE, M, N, K, srows);
-  return p.tg == 2 ? launch_decode<MODE, 2>(tw, ts, x, s, y, M, N, K, G, srows, p, stream)
-                   : launch_decode<MODE, 1>(tw, ts, x, s, y, M, N, K, G, srows, p, stream);
+  const DecodePlan p = decode_plan(MODE, M, N, K, srows, nc);
+  if constexpr (MODE == kInt4) {
+    if (nc == 256)
+      return p.tg == 2
+                 ? launch_decode<MODE, 2, 256>(tw, ts, x, s, y, M, N, K, G, srows, p, stream)
+                 : launch_decode<MODE, 1, 256>(tw, ts, x, s, y, M, N, K, G, srows, p, stream);
+  }
+  return p.tg == 2 ? launch_decode<MODE, 2, kBN>(tw, ts, x, s, y, M, N, K, G, srows, p, stream)
+                   : launch_decode<MODE, 1, kBN>(tw, ts, x, s, y, M, N, K, G, srows, p, stream);
 }
 
 }  // namespace
@@ -823,26 +790,30 @@ int launch_int8(const void* x, const void* w, const void* s, void* y, int M, int
 PTT_EXPORT int ptt_wo_int8(const void* x, const void* w, const void* s, void* y, int M, int N,
                            int K, void* stream) {
   if (M == 0 || N == 0) return 0;
-  return launch_int8<kInt8>(x, w, s, y, M, N, K, 1, static_cast<cudaStream_t>(stream));
+  return launch_wo<kInt8>(x, w, s, y, M, N, K, 1, kBN, static_cast<cudaStream_t>(stream));
 }
 
 // x: [M, K] bf16; w: [K, N] int8; s: [K/G, N] f32; y: [M, N] bf16.
 PTT_EXPORT int ptt_wo_int8_grouped(const void* x, const void* w, const void* s, void* y, int M,
                                    int N, int K, int G, void* stream) {
   if (M == 0 || N == 0) return 0;
-  return launch_int8<kInt8Grouped>(x, w, s, y, M, N, K, G, static_cast<cudaStream_t>(stream));
+  return launch_wo<kInt8Grouped>(x, w, s, y, M, N, K, G, kBN, static_cast<cudaStream_t>(stream));
 }
 
 // x: [M, K] bf16; w: [K, N/2] packed bytes (halves layout); s: [N] f32;
-// y: [M, N] bf16. K % 8 == 0, N % 32 == 0.
+// y: [M, N] bf16. K % 8 == 0, N % 32 == 0 (packed rows of 16-byte multiples).
 PTT_EXPORT int ptt_wo_int4(const void* x, const void* w, const void* s, void* y, int M, int N,
                            int K, void* stream) {
   if (M == 0 || N == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // a 16-byte chunk of packed int4 bytes holds 32 columns
-  if (M > 16)
-    launch_int4<128, 128, 64, 4, 2, 1>(x, w, s, y, M, N, K, st);
-  else
-    launch_int4<16, 32, 256, 1, 1, 4>(x, w, s, y, M, N, K, st);
-  return (int)cudaGetLastError();
+  return launch_wo<kInt4>(x, w, s, y, M, N, K, 1, M > 16 ? kBN : int4_dec_cols(M, N, K),
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The same with the decode tile's width given (128 or 256 columns, see
+// int4_dec_cols): kernel_ab.py times both at the decode shapes.
+PTT_EXPORT int ptt_wo_int4_cols(const void* x, const void* w, const void* s, void* y, int M,
+                                int N, int K, int cols, void* stream) {
+  if (cols != 128 && cols != 256) return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  return launch_wo<kInt4>(x, w, s, y, M, N, K, 1, cols, static_cast<cudaStream_t>(stream));
 }

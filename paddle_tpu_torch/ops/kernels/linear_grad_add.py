@@ -19,12 +19,17 @@ JAX's dispatch, which sends products under 2**20 multiply-adds to its
 composite (``use_kernel``, :104-108), the wrapper launches the kernel for
 every size on the card.
 
-What bounds it on the H100: operations at GPT-2's and Llama's widths. One
-block of 8 warps owns a 128 x 128 output tile for the whole M sweep, with
-a cp.async double buffer and mma.sync on the bf16 tensor cores. The card
-path takes bf16 ``x`` and ``dy`` with ``K % 8 == 0`` and ``N % 8 == 0``,
-any ``M``, and a contiguous f32 or bf16 ``acc``, and raises otherwise. A
-CPU tensor takes the plain version.
+What bounds it on the H100: operations at GPT-2's and Llama's widths. A
+block owns a 256 x 128 output tile: a producer warp keeps TMA loads of
+x's and dy's 64-token tiles in flight into a four-stage ring, and two
+consumer warpgroups run ``wgmma`` with both operands MN-major (the tokens
+are the reduction). Where the output tiles alone would leave the card
+idle, the token sweep is split over the 2, 4 or 8 blocks of a cluster,
+whose partial tiles are added in rank order through distributed shared
+memory before the accumulator is read and written once (no atomics: two
+calls give the same bits). The card path takes bf16 ``x`` and ``dy``
+with ``K % 8 == 0`` and ``N % 8 == 0``, any ``M``, and a contiguous f32 or
+bf16 ``acc``, and raises otherwise. A CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -103,23 +108,57 @@ def linear_grad_add(x2, dy2, acc):
 linear_grad_add.launches = 0
 
 
-def _launch(x2, dy2, acc, stream):
-    """The C entry on operands the caller allocated."""
+def _launch(x2, dy2, acc, stream, split=None):
+    """The C entry on operands the caller allocated; ``split`` (1, 2, 4 or
+    8) overrides the plan's cluster split (``kernel_ab.py`` times each)."""
     m, k = x2.shape
-    fn = _build.function("linear_grad_add", "ptt_linear_grad_add", _ARGS)
-    err = fn(x2.data_ptr(), dy2.data_ptr(), acc.data_ptr(), m, k,
-             dy2.shape[1], int(acc.dtype == torch.float32), stream)
+    args = (x2.data_ptr(), dy2.data_ptr(), acc.data_ptr(), m, k,
+            dy2.shape[1], int(acc.dtype == torch.float32))
+    if split is None:
+        fn = _build.function("linear_grad_add", "ptt_linear_grad_add", _ARGS)
+        err = fn(*args, stream)
+    else:
+        fn = _build.function("linear_grad_add", "ptt_linear_grad_add_split",
+                             _ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p])
+        err = fn(*args, split, stream)
     _build.check(err, "linear_grad_add")
 
 
 # -- declared launches for the kernel analyzer -------------------------------
 
-_TILE, _THREADS = 128, 256
+# the launch constants of csrc/linear_grad_add.cu
+# (tests/test_torch_grad_acc_hopper.py holds them against the source)
+_TK, _TN, _TM, _THREADS, _STAGES = 256, 128, 64, 288, 4
+_SPLIT, _SMS, _FIXED_STEPS = 8, 132, 18
+_SMEM = 1024 + _STAGES * (_TK // 64 + _TN // 64) * _TM * 128 + 2 * _STAGES * 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _split(m, k, n):
+    """``grad_split``: the cluster split (1, 2, 4 or 8) with the fewest
+    waves of blocks times (64-token steps a block + its fixed cost); the
+    smaller split on a tie."""
+    tiles, steps = _cdiv(k, _TK) * _cdiv(n, _TN), _cdiv(m, _TM)
+    costs = {s: _cdiv(tiles * s, _SMS) * (_cdiv(steps, s) + _FIXED_STEPS)
+             for s in (1, 2, 4, 8)}
+    return min(costs, key=lambda s: (costs[s], s))
+
+
+def _plan(m, k, n):
+    """(split, grid, 64-token steps a block) of one launch."""
+    split = _split(m, k, n)
+    return (split, (split, _cdiv(k, _TK), _cdiv(n, _TN)),
+            _cdiv(_cdiv(m, _TM), split))
 
 
 def _ex(label, m, k, n, acc_dtype):
-    """A block a [128, 128] tile of the accumulator (grid N / 128, K /
-    128), updated in place after its K-by-M contraction."""
+    """Grid (split, K / 256, N / 128), a cluster of ``split`` blocks along
+    x a [256, 128] tile of the accumulator: block r of the cluster writes
+    its rows r (256 / split) .. (r + 1) (256 / split) - 1, after adding
+    the cluster's partial sums."""
     from ._examples import CTYPE, model, normal
     mm = model()
     ops = [mm.Operand("x", (m, k), torch.bfloat16),
@@ -133,10 +172,15 @@ def _ex(label, m, k, n, acc_dtype):
     def launch(t, stream):
         _launch(t["x"], t["dy"], t["acc"], stream)
 
+    split, grid, _ = _plan(m, k, n)
+    rows = _TK // split
+
+    def strip(x, y, z):            # a strip wholly past K writes nothing
+        return [(y * split + x, z)] if (y * split + x) * rows < k else []
     kern = mm.KernelLaunch(
-        f"linear_grad_add_kernel<{CTYPE[acc_dtype]}>",
-        (-(-n // _TILE), -(-k // _TILE)), _THREADS,
-        writes=[mm.TileMap("acc", (_TILE, _TILE), lambda x, y, z: (y, x))])
+        f"grad_acc_kernel<{CTYPE[acc_dtype]}>", grid, _THREADS, smem=_SMEM,
+        cluster=(split, 1, 1),
+        writes=[mm.TileMap("acc", (rows, _TN), strip)])
     esz = acc_dtype.itemsize
     return mm.Example(label, "linear_grad_add", ops, [kern], launch, plain,
                       flops=2 * m * k * n,
@@ -144,19 +188,33 @@ def _ex(label, m, k, n, acc_dtype):
                       unit="bf16", tol=1e-4 if esz == 4 else 2.0 ** -7)
 
 
+#: the incubate path's four products at B 4 x S 1024 (GPT-2 small's
+#: qkv, out, fc and proj weights), into f32 main_grads
+INCUBATE_SHAPES = ((4096, 768, 2304), (4096, 768, 768), (4096, 768, 3072),
+                   (4096, 3072, 768))
+
+
 def ck_examples():
     """At ``linear_grad_add_pallas.pk_examples``' shape (x [512, 1024], dy
-    [512, 2048] into f32 [1024, 2048]) and phase 3's (GPT-2 small's
-    ``mlp.fc`` into f32 and bf16, Llama-3-8B's gate into f32); tails with
-    K and N past their last full tile and an odd M."""
+    [512, 2048] into f32 [1024, 2048]), phase 3's (GPT-2 small's
+    ``mlp.fc`` into f32 and bf16, Llama-3-8B's gate into f32) and the
+    incubate path's four products; tails with M, K and N past their last
+    full tile at a split of 1 (x [37, 136]), 2 (x [1000, 1800], dy [1000,
+    1000]) and 8 (x [2085, 264], dy [2085, 200]), and rows of a single
+    token (x [1, 8], dy [1, 264])."""
     from ._examples import with_tail
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [("grad_acc", 512, 1024, 2048, f32, (37, 136, 264)),
+             ("phase3 x [8192, 768] dy [8192, 3072] f32", 8192, 768, 3072,
+              f32, (2085, 264, 200)),
+             ("phase3 x [4096, 4096] dy [4096, 14336] f32", 4096, 4096,
+              14336, f32, (1000, 1800, 1000)),
+             ("phase3 x [8192, 768] dy [8192, 3072] bf16", 8192, 768, 3072,
+              bf, (2085, 264, 200))]
+    tails = ((33, 136, 8), (1, 8, 264), (1000, 1800, 1000), (2085, 264, 200))
+    for (m, k, n), tail in zip(INCUBATE_SHAPES, tails):
+        cases.append((f"phase3 x [{m}, {k}] dy [{m}, {n}] f32", m, k, n, f32,
+                      tail))
     return [with_tail(_ex, label, dict(m=m, k=k, n=n, acc_dtype=dt),
-                      dict(m=37, k=136, n=264, acc_dtype=dt))
-            for label, m, k, n, dt in (
-                ("grad_acc", 512, 1024, 2048, torch.float32),
-                ("phase3 x [8192, 768] dy [8192, 3072] f32", 8192, 768, 3072,
-                 torch.float32),
-                ("phase3 x [4096, 4096] dy [4096, 14336] f32", 4096, 4096,
-                 14336, torch.float32),
-                ("phase3 x [8192, 768] dy [8192, 3072] bf16", 8192, 768, 3072,
-                 torch.bfloat16))]
+                      dict(m=tm, k=tk, n=tn, acc_dtype=dt))
+            for label, m, k, n, dt, (tm, tk, tn) in cases]

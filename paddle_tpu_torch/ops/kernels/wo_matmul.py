@@ -29,14 +29,16 @@ What bounds the kernels on the H100: bytes in decode (M = 1..16 rows: the
 weight is read once, 58.7 MB for Llama-3-8B's gate_proj at int8, 0.018 ms
 at 3.35 TB/s), operations in prefill (M = 64..2048: 120 GFLOP for
 gate_proj at M 1024, 0.12 ms at the 989 TFLOP/s bf16 tensor-core rate).
-The int8 kernels (the CUDA source describes them) are built from
-``csrc/hopper.cuh``: past 16 rows ``wo_prefill_kernel`` runs ``wgmma`` on
-x's TMA tile and a bf16 tile the consumers dequantise from the int8 TMA
-tile in shared memory; up to 16 rows ``wo_decode_kernel`` streams the
-weight through a TMA ring into ``mma.sync`` (the weight as the A
-operand) and splits K over the blocks of a cluster, whose partial sums
-are added in rank order through distributed shared memory. The int4
-kernel keeps one ``mma.sync`` template with two tilings.
+All three modes run two kernels (the CUDA source describes them) built
+from ``csrc/hopper.cuh``: past 16 rows ``wo_prefill_kernel`` runs
+``wgmma`` on x's TMA tile and a bf16 tile the consumers dequantise from
+the int8 or packed int4 TMA tile in shared memory; up to 16 rows
+``wo_decode_kernel`` streams the weight through a TMA ring into
+``mma.sync`` (the weight as the A operand) and splits K over the blocks
+of a cluster, whose partial sums are added in rank order through
+distributed shared memory. A packed int4 tile is a box of [64 k, 64
+bytes]: its low nibbles are 64 columns of y's first half, its high ones
+the same 64 columns of the second half.
 
 The card path takes bf16 activations only; f32 activations (the CPU
 tests' dtype, which the TPU kernel also takes) raise on the card
@@ -290,10 +292,17 @@ def _scale_bytes(grouped, srows):
     return _round_up(srows * _BN * 4, 1024) if grouped else 0
 
 
-def _prefill_plan(grouped, m, n, srows):
-    """``prefill_plan``: (BM, ring stages, dynamic shared memory)."""
+def _w_tile(mode, nc=_BN):
+    """``w_tile``: weight bytes of a 64-row stage of ``nc`` columns (mode 0
+    int8, 1 grouped int8, 2 packed int4: half a byte a column)."""
+    return _BK * (nc // 2 if mode == 2 else nc)
+
+
+def _prefill_plan(mode, m, n, srows):
+    """``prefill_plan``: (BM, ring stages, dynamic shared memory); ``mode``
+    as ``_MODES`` (False and True: int8 and grouped int8)."""
     def plan(bm):
-        stage = bm * _BK * 2 + _BK * _BN + _scale_bytes(grouped, srows)
+        stage = bm * _BK * 2 + _w_tile(mode) + _scale_bytes(mode == 1, srows)
         fixed = 1024 + _PRE_CONV * _BK * _BN * 2 + 16 * _PRE_STAGES
         stages = min(_PRE_STAGES, (_SMEM_MAX - fixed) // stage)
         return bm, stages, fixed + stages * stage
@@ -305,54 +314,87 @@ def _prefill_plan(grouped, m, n, srows):
         else plan(128)
 
 
-def _dec_blocks(tg):
-    return _DEC_BLOCKS8 if tg == 1 else _DEC_BLOCKS16
+def _dec_blocks(tg, nc=_BN):
+    """``dec_blocks``: decode blocks an SM."""
+    return _DEC_BLOCKS8 if tg == 1 and nc == _BN else _DEC_BLOCKS16
 
 
-def _decode_plan(grouped, m, n, k, srows):
+def _decode_plan(mode, m, n, k, srows, nc=_BN):
     """``decode_plan``: (token groups of 8, K split = cluster size, k a
-    block, ring stages, dynamic shared memory)."""
-    tiles = -(-n // _BN)
+    block, ring stages, dynamic shared memory) for blocks of ``nc``
+    output columns; ``mode`` as in :func:`_prefill_plan`."""
+    tiles = -(-n // nc)
     tg = 2 if m > 8 else 1
-    want = max(1, min(_DEC_SPLIT, _dec_blocks(tg) * _SMS // tiles))
+    blocks = _dec_blocks(tg, nc)
+    want = max(1, min(_DEC_SPLIT, blocks * _SMS // tiles))
     kslice = _round_up(-(-k // want), _BK)
-    stage = _BK * _BN + _scale_bytes(grouped, srows)
+    stage = _w_tile(mode, nc) + _scale_bytes(mode == 1, srows)
     x_stage = 8 * tg * _XROW * 2
     fixed = 1024 + 16 * _DEC_STAGES
-    budget = _SMEM_SM // _dec_blocks(tg) - 1024
+    budget = _SMEM_SM // blocks - 1024
     stages = max(2, min(_DEC_STAGES, (budget - fixed) // (stage + x_stage)))
-    ring = max(stages * stage, 5 * 8 * tg * _BN * 4)
+    ring = max(stages * stage, 5 * 8 * tg * nc * 4)
     return tg, -(-k // kslice), kslice, stages, fixed + ring + stages * x_stage
 
 
-def _int8_launch(mm, name, m_rows, k, n, group):
-    """The launch of an int8 kernel: past 16 rows one block a [BM, 128]
-    output tile; up to 16 rows a cluster of ``split`` blocks a 128-column
-    tile, block r writing the 16-column chunks r, r + split, .. of it."""
-    grouped = name == "wo_int8_grouped"
-    srows = _scale_rows(group) if grouped else 0
+def _int4_dec_cols(m, n, k):
+    """``int4_dec_cols``: 256 decode columns a block (a 128-byte box) where
+    that grid fills the decode block slots at least as fully as 128-column
+    blocks do, else 128."""
+    used, slots = [], []
+    for nc in (_BN, 2 * _BN):
+        tg, split = _decode_plan(2, m, n, k, 0, nc)[:2]
+        slots.append(_dec_blocks(tg, nc) * _SMS)
+        used.append(min(slots[-1], split * -(-n // nc)))
+    return 2 * _BN if used[1] * slots[0] >= used[0] * slots[1] else _BN
+
+
+def _wo_launch(mm, name, m_rows, k, n, group, nc=None):
+    """The launch of a weight-only kernel: past 16 rows one block a [BM,
+    128] output tile; up to 16 rows a cluster of ``split`` blocks a tile
+    of ``nc`` columns (int4: :func:`_int4_dec_cols` unless given, else 128),
+    block r writing the 16-column chunks r, r + split, .. of it. A packed
+    int4 tile's first half of columns lies in y's first half, its second
+    in y's second: y seen as [M, 2, N/2]."""
     mode = _MODES[name]
+    srows = _scale_rows(group) if mode == 1 else 0
+    int4 = mode == 2
     if m_rows > 16:
-        bm, _, smem = _prefill_plan(grouped, m_rows, n, srows)
-        return mm.KernelLaunch(
-            f"wo_prefill_kernel<{mode},{bm}>", (-(-m_rows // bm), -(-n // _BN)),
-            _PRE_THREADS, smem=smem,
-            writes=[mm.TileMap("y", (bm, _BN), lambda x, yb, z: (x, yb))])
-    tg, split, _, _, smem = _decode_plan(grouped, m_rows, n, k, srows)
-    chunks = _BN // 16
+        bm, _, smem = _prefill_plan(mode, m_rows, n, srows)
+        grid = (-(-m_rows // bm), -(-n // _BN))
+        if int4:
+            tile = mm.TileMap("y", (bm, 2, _BN // 2), lambda x, yb, z: (x, 0, yb),
+                              view=(m_rows, 2, n // 2))
+        else:
+            tile = mm.TileMap("y", (bm, _BN), lambda x, yb, z: (x, yb))
+        return mm.KernelLaunch(f"wo_prefill_kernel<{mode},{bm}>", grid,
+                               _PRE_THREADS, smem=smem, writes=[tile])
+    nc = nc or (_int4_dec_cols(m_rows, n, k) if int4 else _BN)
+    tg, split, _, _, smem = _decode_plan(mode, m_rows, n, k, srows, nc)
+    chunks = nc // 16
+    if int4:
+        half = chunks // 2
+
+        def idx(x, yb, z):
+            out = []
+            for c in range(x, chunks, split):
+                col = yb * (nc // 2) + 16 * (c % half)
+                if col < n // 2:
+                    out.append((0, c // half, col // 16))
+            return out
+        tile = mm.TileMap("y", (m_rows, 1, 16), idx, view=(m_rows, 2, n // 2))
+    else:
+        tile = mm.TileMap("y", (m_rows, 16), lambda x, yb, z: [
+            (0, chunks * yb + c) for c in range(x, chunks, split)
+            if (chunks * yb + c) * 16 < n])
     return mm.KernelLaunch(
-        f"wo_decode_kernel<{mode},{tg}>", (split, -(-n // _BN)), _DEC_THREADS,
-        smem=smem, writes=[mm.TileMap(
-            "y", (m_rows, 16), lambda x, yb, z: [
-                (0, chunks * yb + c) for c in range(x, chunks, split)
-                if (chunks * yb + c) * 16 < n])])
+        f"wo_decode_kernel<{mode},{tg},{nc}>", (split, -(-n // nc)),
+        _DEC_THREADS, smem=smem, cluster=(split, 1, 1), writes=[tile])
 
 
 def _ex(label, name, m_rows, k, n, group=128):
-    """int8: :func:`_int8_launch`. int4: a block an output tile, [128, 128]
-    past 16 rows (8 warps), else [16, 32] with the K loop split over 4
-    warps; the tile takes byte columns of the packed weight, output
-    columns j and N/2 + j: y seen as [M, 2, N/2]."""
+    """One call of a weight-only entry; its launch is
+    :func:`_wo_launch`'s."""
     from ._examples import model, uniform
     mm = model()
     bf = torch.bfloat16
@@ -364,18 +406,7 @@ def _ex(label, name, m_rows, k, n, group=128):
            mm.Operand("s", s_shape, torch.float32,
                       data=uniform(s_shape, torch.float32, 1e-4, 2.1e-3)),
            mm.Operand("y", (m_rows, n), bf, "out")]
-    if int4:
-        if m_rows > 16:
-            bm, bn, tpl, threads = 128, 128, "128,128,64,4,2,1", 256
-        else:
-            bm, bn, tpl, threads = 16, 32, "16,32,256,1,1,4", 128
-        launch_decl = mm.KernelLaunch(
-            f"wo_matmul_kernel<2,{tpl}>", (-(-m_rows // bm), -(-n // bn)),
-            threads, writes=[mm.TileMap(
-                "y", (bm, 2, bn // 2), lambda x, yb, z: (x, 0, yb),
-                view=(m_rows, 2, n // 2))])
-    else:
-        launch_decl = _int8_launch(mm, name, m_rows, k, n, group)
+    launch_decl = _wo_launch(mm, name, m_rows, k, n, group)
     symbol = "ptt_" + name
     args = _ARGS_G if name == "wo_int8_grouped" else _ARGS
     extra = (group,) if name == "wo_int8_grouped" else ()

@@ -7,6 +7,9 @@
 //   rs: C [64, N] = A [64, 64] B [64, N], A from registers (laid out as an
 //       f32 accumulator, then pack_a, as the flash kernels form P), B
 //       MN-major through its descriptor;
+//   ss_t: C [64, N] = A^T B with A stored [64 k, 64 m] and B [64 k, N], both
+//       MN-major (the reduction is the row dimension of both, as tokens are
+//       in the weight-gradient product x^T dy): A's transpose bit set;
 //   mn_store: C [64, N] = A [64, 64] (B_0 + B_1 + B_2 + B_3), each B_r
 //       [64, N] written by the threads into ONE MN-major swizzled tile (as
 //       the weight-only kernels write their dequantised tile), then
@@ -147,6 +150,54 @@ int run_rs(const void* a, const void* b, void* c, cudaStream_t s) {
   if (e != cudaSuccess) return (int)e;
   check_rs_kernel<N><<<1, 128, smem, s>>>(static_cast<const float*>(a), tb,
                                           static_cast<float*>(c));
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+__global__ void __launch_bounds__(128) check_ss_t_kernel(const __grid_constant__ CUtensorMap ta,
+                                                         const __grid_constant__ CUtensorMap tb,
+                                                         float* c) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  bf16* sA = reinterpret_cast<bf16*>(smem);              // [64 k][64 m]
+  bf16* sB = reinterpret_cast<bf16*>(smem + kRK * 64 * 2);  // [N / 64][64 k][64]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kRK * 64 * 2 + kRK * N * 2);
+  if (threadIdx.x == 0) {
+    hp::mbar_init(bar, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hp::mbar_arrive_expect_tx(bar, kRK * (64 + N) * 2);
+    hp::tma_load_4d(sA, &ta, bar, 0, 0, 0, 0);
+    for (int h = 0; h < N / 64; ++h) hp::tma_load_4d(sB + h * kRK * 64, &tb, bar, h * 64, 0, 0, 0);
+  }
+  hp::mbar_wait(bar, 0);
+  float acc[N / 2];
+  const uint32_t a = hp::smem_u32(sA), b = hp::smem_u32(sB);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kRK / 16; ++kk)
+    hp::Wgmma<N>::template ss<1, 1>(acc, hp::desc_mnmajor(a + kk * 2048, kRK * 128),
+                                    hp::desc_mnmajor(b + kk * 2048, kRK * 128), kk > 0 ? 1 : 0);
+  hp::wgmma_commit();
+  hp::fence_acc<N / 2>(acc);
+  hp::wgmma_wait<0>();
+  hp::fence_acc<N / 2>(acc);
+  store_acc<N>(acc, c);
+}
+
+template <int N>
+int run_ss_t(const void* a, const void* b, void* c, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  int err = hp::make_bshd_map(&ta, a, 1, kRK, 1, 64, kRK);
+  if (err == 0) err = hp::make_bshd_map(&tb, b, 1, kRK, 1, N, kRK);
+  if (err != 0) return err;
+  const int smem = 1024 + kRK * (64 + N) * 2 + 8;
+  const cudaError_t e =
+      cudaFuncSetAttribute(check_ss_t_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  check_ss_t_kernel<N><<<1, 128, smem, s>>>(ta, tb, static_cast<float*>(c));
   return (int)cudaGetLastError();
 }
 
@@ -319,5 +370,13 @@ PTT_EXPORT int ptt_check_rs(const void* a, const void* b, void* c, int n, void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 64) return run_rs<64>(a, b, c, s);
   if (n == 128) return run_rs<128>(a, b, c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// a [64 k, 64 m] bf16, b [64 k, n] bf16, c [64 m, n] f32 = a^T b; n in {64, 128}
+PTT_EXPORT int ptt_check_ss_t(const void* a, const void* b, void* c, int n, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 64) return run_ss_t<64>(a, b, c, s);
+  if (n == 128) return run_ss_t<128>(a, b, c, s);
   return (int)cudaErrorInvalidValue;
 }

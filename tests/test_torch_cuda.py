@@ -517,6 +517,44 @@ def test_wo_int8_kernels_are_deterministic(dev, m, k, n, group):
     _close(first, wo_matmul.wo_int8_matmul_plain(x, w, s))
 
 
+# int4: both decode shapes, a 16-token decode, a decode and a prefill whose
+# N/2 (528) ends inside a tile's 64 bytes, the ragged prefill
+_INT4_SHAPES = [(8, 4096, 14336), (8, 14336, 4096), (16, 264, 2080),
+                (5, 1032, 1056), (37, 1032, 1056), (1531, 4096, 1024)]
+
+
+@pytest.mark.parametrize("m,k,n", _INT4_SHAPES)
+def test_wo_int4_kernels_are_deterministic(dev, m, k, n):
+    """Two calls of the int4 kernels return the same bits (the decode
+    kernel's cluster K split adds its partials in rank order), within one
+    bf16 ulp of the plain version."""
+    x = _randn(dev, m, k, seed=7)
+    w, s = _int8(dev, k, n // 2, seed=8, lo=-128), _scales(dev, n, seed=9)
+    first, second = wo_matmul.wo_int4(x, w, s), wo_matmul.wo_int4(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    _close(first, wo_matmul.wo_int4_matmul_plain(x, w, s))
+
+
+@pytest.mark.parametrize("cols", [128, 256])
+@pytest.mark.parametrize("m,k,n", [s for s in _INT4_SHAPES if s[0] <= 16])
+def test_wo_int4_decode_widths(dev, cols, m, k, n):
+    """Both widths of the int4 decode tile (a 64- or a 128-byte box of
+    packed bytes a row) against the plain version, twice the same bits."""
+    x = _randn(dev, m, k, seed=10)
+    w, s = _int8(dev, k, n // 2, seed=11, lo=-128), _scales(dev, n, seed=12)
+    outs = []
+    for _ in range(2):
+        y = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+        wo_matmul._call("wo_int4", "ptt_wo_int4_cols", wo_matmul._ARGS_G, x,
+                        w, s, y, (cols,),
+                        torch.cuda.current_stream().cuda_stream)
+        outs.append(y)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))
+    _close(outs[0], wo_matmul.wo_int4_matmul_plain(x, w, s))
+
+
 def test_wo_matmul_leading_dims_and_counts(dev):
     x = _randn(dev, 2, 3, 256, seed=3)
     w = _int8(dev, 256, 64, seed=4)
@@ -804,7 +842,8 @@ def hopper_check(tmp_path_factory):
                     str(_build.CSRC_DIR), "-o", str(so),
                     os.path.join(here, "hopper_check.cu")], check=True)
     lib = ctypes.CDLL(str(so))
-    for name in ("ptt_check_ss", "ptt_check_rs", "ptt_check_mn_store"):
+    for name in ("ptt_check_ss", "ptt_check_rs", "ptt_check_mn_store",
+                 "ptt_check_ss_t"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -843,6 +882,22 @@ def test_hopper_wgmma_rs_mnmajor(dev, hopper_check, n):
                                     n, torch.cuda.current_stream().cuda_stream)
     assert err == 0
     ref = torch.matmul(a.to(torch.bfloat16).float(), b.float())
+    torch.testing.assert_close(c, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_hopper_wgmma_ss_mnmajor_a(dev, hopper_check, n):
+    """The shared-memory wgmma with A MN-major (its transpose bit set) and
+    B MN-major, as the weight-gradient kernel reads x^T and dy with the
+    tokens as the reduction: C = A^T B for A [64 k, 64 m] and B [64 k, n]
+    against torch.matmul in f32."""
+    a, b = _randn(dev, 64, 64, seed=107), _randn(dev, 64, n, seed=108)
+    c = torch.empty(64, n, device=dev)
+    err = hopper_check.ptt_check_ss_t(a.data_ptr(), b.data_ptr(),
+                                      c.data_ptr(), n,
+                                      torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    ref = torch.matmul(a.float().t(), b.float())
     torch.testing.assert_close(c, ref, rtol=1e-5, atol=1e-4)
 
 
@@ -1542,10 +1597,29 @@ def test_dropout_add_kernels(dev, dtype, shape, p):
     assert torch.equal(dropout_add.dropout_add_bwd(ones, 12345, p) != 0, keep)
 
 
+# (M, K, N): the incubate path's four products, phase 3's, tails past
+# every tile (M past 64 tokens, K past 256, N past 128) at splits 1, 2 and
+# 8, and M = 0; together every split of the plan (the out product takes 4)
+_GRAD_SHAPES = [(1000, 64, 72), (8192, 768, 3072), (33, 136, 8), (1, 8, 264),
+                (4096, 256, 1024), (4096, 768, 2304), (4096, 768, 768),
+                (4096, 768, 3072), (4096, 3072, 768), (4096, 4096, 14336),
+                (37, 136, 264), (1000, 1800, 1000), (2085, 264, 200),
+                (0, 136, 264)]
+
+
+def _grad_close(got, want):
+    """Within 1e-4 of the largest reference value (f32 acc: the same f32
+    sums in another order), or one bf16 ulp of it (bf16 acc)."""
+    torch.cuda.synchronize()
+    if got.dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    else:
+        _close(got, want)
+
+
 @pytest.mark.parametrize("acc_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1000, 64, 72), (8192, 768, 3072),
-                                   (33, 136, 8), (1, 8, 264),
-                                   (4096, 256, 1024)])
+@pytest.mark.parametrize("m,k,n", _GRAD_SHAPES)
 def test_linear_grad_add_kernel(dev, acc_dtype, m, k, n):
     x = _rand(dev, m, k, seed=90)
     dy = _rand(dev, m, n, seed=91)
@@ -1555,12 +1629,36 @@ def test_linear_grad_add_kernel(dev, acc_dtype, m, k, n):
     got = linear_grad_add.linear_grad_add(x, dy, acc)
     assert WRAPPERS["linear_grad_add"].launches == before + 1
     assert got.data_ptr() == acc.data_ptr()           # in place
-    if acc_dtype == torch.float32:
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        assert err <= 1e-4 * want.abs().max().item(), err
-    else:
-        _close(got, want)
+    _grad_close(got, want)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k,n", [(2085, 264, 200), (4096, 768, 768)])
+def test_linear_grad_add_every_split(dev, split, m, k, n):
+    """Each cluster split of the token sweep (the plan's and the others)
+    at a shape with tails and at an incubate shape, f32 acc."""
+    x, dy = _rand(dev, m, k, seed=93), _rand(dev, m, n, seed=94)
+    acc = _rand(dev, k, n, seed=95, dtype=torch.float32) * 4
+    want = linear_grad_add.linear_grad_add_plain(x, dy, acc.clone())
+    linear_grad_add._launch(x, dy, acc, torch.cuda.current_stream().cuda_stream,
+                            split=split)
+    _grad_close(acc, want)
+
+
+@pytest.mark.parametrize("acc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 2304), (4096, 768, 768),
+                                   (8192, 768, 3072), (1000, 1800, 1000),
+                                   (2085, 264, 200), (37, 136, 264)])
+def test_linear_grad_add_is_deterministic(dev, acc_dtype, m, k, n):
+    """Two calls from the same accumulator return the same bits: the
+    cluster's partial tiles are added in rank order, never with atomics
+    (splits 2, 4, 1, 2, 8 and 1 at these shapes)."""
+    x, dy = _rand(dev, m, k, seed=96), _rand(dev, m, n, seed=97)
+    acc = _rand(dev, k, n, seed=98, dtype=acc_dtype) * 4
+    first = linear_grad_add.linear_grad_add(x, dy, acc.clone())
+    second = linear_grad_add.linear_grad_add(x, dy, acc.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_linear_grad_add_rejects_what_it_does_not_take(dev):
