@@ -58,8 +58,10 @@ Family ``grad`` (the weight-gradient accumulation, row 21):
   out and fc products and Llama's gate: ``phases_us`` is the mean over
   blocks of entry to barriers set, to the first stage's arrival, the
   token sweep, the partial tile and the cluster's first meeting, the
-  epilogue, the last meeting; ``wave_starts_us`` the first block start
-  of each wave; ``span_us`` first start to last end.
+  epilogue, the last meeting (an unsplit f32 tile, added into acc by
+  TMA, stamps the last three where it returns: its whole epilogue is the
+  fourth part); ``wave_starts_us`` the first block start of each wave;
+  ``span_us`` first start to last end.
 
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
@@ -344,6 +346,10 @@ def _grad_phases(torch, cs, dev, randn, emit):
         if i == "first":
             line = "if (it == 0) { " + line + " }"
         src = src.replace(anchor, anchor + "\n" + line, 1)
+    direct = "  if (direct) return;"
+    if direct in src:       # an unsplit f32 tile leaves by TMA: stamps 4-6 there
+        src = src.replace(direct, "  if (direct) {\n" + "\n".join(
+            stamp.format(i) for i in (4, 5, 6)) + "\n    return;\n  }", 1)
     last = "  hp::cluster_sync();  // no block leaves while another reads its partials"
     if last not in src:
         cs.fail("--phases: the last cluster meeting is not in the source")

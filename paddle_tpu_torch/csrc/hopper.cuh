@@ -134,6 +134,31 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// adds a box of shared memory at `src` (laid out as the map's box, with its
+// swizzle) into the tensor at (column c0, row c1): an f32 add done in L2,
+// elements past the tensor's edges dropped. Issued into this thread's bulk
+// group: bulk_commit(), then bulk_wait_read<0>() before the shared memory is
+// written again or the block exits.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed bulk groups of this thread still read
+// shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // `bytes` (a multiple of 16) of global memory at `src` (16-byte aligned)
 // into L2, as one bulk prefetch (a hint: nothing waits for it)
 __device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {

@@ -42,8 +42,13 @@
 //   the blocks' partials for rows r (256 / split) .. of the tile through
 //   distributed shared memory in rank order, then the accumulator (its
 //   rows brought into L2 by the producer warp kPrefetchSteps before the
-//   sweep ends), and writes those rows once as 16-byte row pieces. No
-//   atomics: two calls return the same bits.
+//   sweep ends), and writes those rows once as 16-byte row pieces. An
+//   unsplit tile into an f32 accumulator skips all that: it is staged as
+//   four 128-byte-swizzled boxes and added into acc by TMA
+//   (cp.reduce.async.bulk .add: the L2 reads, adds and writes acc, one f32
+//   add an element, as the epilogue would), so no block waits on acc's
+//   read. No atomics: every element is added once, and two calls return
+//   the same bits.
 // - Edges: boxes past M, K or N arrive as zeros (boxes wholly past K or N
 //   are not loaded: they feed only rows and columns that are never
 //   written); the epilogue masks rows past K and columns past N.
@@ -71,8 +76,10 @@ constexpr int kBatch = 8;          // accumulator pieces a thread loads at once 
 constexpr int kSub = kTM * 128;    // bytes of one 64-column sub-tile of a stage
 constexpr int kStageBytes = (kTK / 64 + kTN / 64) * kSub;  // x's four sub-tiles, dy's two
 constexpr int kPartRow = kTN + 8;  // f32 stride of the partial tile: conflict-free float2 writes
+constexpr int kAccBox = kTK * 128;  // bytes of one [256 rows, 32 f32 columns] box of acc
 constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 static_assert(kTK * kPartRow * 4 <= kStages * kStageBytes, "the partial tile fits in the ring");
+static_assert(kTN / 32 * kAccBox <= kStages * kStageBytes, "so do the four boxes of acc");
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return a / b + (a % b != 0); }
 
@@ -100,7 +107,8 @@ __device__ __forceinline__ void acc_store4(bf16* p, float4 v) {
 template <typename A>
 __global__ void __launch_bounds__(kThreads, 1)
     grad_acc_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
-                    A* __restrict__ acc, int M, int K, int N, int msteps) {
+                    const __grid_constant__ CUtensorMap tacc, A* __restrict__ acc, int M, int K,
+                    int N, int msteps) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
@@ -108,6 +116,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int split = gridDim.x;  // the cluster: the token ranges of one output tile
   const int rank = (int)hp::cluster_rank();
+  // an unsplit tile into an f32 accumulator is added into acc by TMA (the
+  // L2 reads, adds and writes acc: one f32 add of the tile's sum, as the
+  // epilogue below does); a bf16 accumulator would round the sum first
+  const bool direct = sizeof(A) == 4 && split == 1;
   const int k0 = blockIdx.y * kTK, n0 = blockIdx.z * kTN;
   const int sbeg = blockIdx.x * msteps;
   const int n_it = max(0, min(cdiv(M, kTM), sbeg + msteps) - sbeg);
@@ -139,6 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) {
       hp::prefetch_tensormap(&tx);
       hp::prefetch_tensormap(&tdy);
+      if (direct) hp::prefetch_tensormap(&tacc);
     }
     const int pf = max(0, n_it - kPrefetchSteps);
     if (n_it == 0) prefetch();
@@ -205,17 +218,43 @@ __global__ void __launch_bounds__(kThreads, 1)
     // 128 cw + 64 i + 16 (warp % 4) + lane / 4 + 8 ((e / 2) % 2), column
     // 8 (e / 4) + 2 (lane % 4) + e % 2
     hp::bar_sync(1, 256);
-    float* part = reinterpret_cast<float*>(smem);
     const int r0 = 128 * cw + 16 * (warp & 3) + (lane >> 2);
+    if (direct) {
+      // four [256 rows, 32 columns] boxes with the 128-byte swizzle (16-byte
+      // chunk q of row r at q ^ (r % 8)), added into acc by TMA; rows past K
+      // and columns past N are dropped by the map
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int e = 0; e < 64; e += 2) {
-        const int row = r0 + 64 * i + 8 * ((e >> 1) & 1);
-        const int col = 8 * (e >> 2) + 2 * (lane & 3);
-        *reinterpret_cast<float2*>(part + row * kPartRow + col) = make_float2(c[i][e], c[i][e + 1]);
+        for (int e = 0; e < 64; e += 2) {
+          const int row = r0 + 64 * i + 8 * ((e >> 1) & 1);
+          const int col = 8 * (e >> 2) + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(smem + (col >> 5) * kAccBox + row * 128 +
+                                     ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4) =
+              make_float2(c[i][e], c[i][e + 1]);
+        }
+      hp::fence_proxy_async();
+      hp::bar_sync(1, 256);
+      if (tid == 0) {
+        for (int b = 0; b < kTN / 32 && n0 + 32 * b < N; ++b)
+          hp::tma_reduce_add_2d(&tacc, smem + b * kAccBox, n0 + 32 * b, k0);
+        hp::bulk_commit();
+        hp::bulk_wait_read<0>();  // the block's shared memory stays until it is read
       }
+    } else {
+      float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 64; e += 2) {
+          const int row = r0 + 64 * i + 8 * ((e >> 1) & 1);
+          const int col = 8 * (e >> 2) + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(part + row * kPartRow + col) =
+              make_float2(c[i][e], c[i][e + 1]);
+        }
+    }
   }
+  if (direct) return;
   hp::cluster_sync();  // every block's partial tile is written
 
   // block `rank` finishes rows rank * R .. rank * R + R - 1 of the tile,
@@ -294,11 +333,15 @@ inline int grad_split(int M, int K, int N) {
 template <typename A>
 int launch(const void* x, const void* dy, void* acc, int M, int K, int N, int split,
            cudaStream_t stream) {
-  CUtensorMap tx, tdy;
+  CUtensorMap tx, tdy, tacc;
   int err = hp::make_2d_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, kTM, 64,
                             CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == 0)
     err = hp::make_2d_map(&tdy, dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, N, kTM, 64,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+  tacc = tx;  // not read unless the kernel adds an unsplit f32 tile by TMA
+  if (err == 0 && sizeof(A) == 4 && split == 1)
+    err = hp::make_2d_map(&tacc, acc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K, N, kTK, 32,
                           CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
   const cudaError_t attr = hp::allow_smem<grad_acc_kernel<A>>(kSmem);
@@ -316,8 +359,8 @@ int launch(const void* x, const void* dy, void* acc, int M, int K, int N, int sp
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
   const int msteps = cdiv(cdiv(M, kTM), split);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, grad_acc_kernel<A>, tx, tdy, static_cast<A*>(acc),
-                                           M, K, N, msteps);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, grad_acc_kernel<A>, tx, tdy, tacc,
+                                           static_cast<A*>(acc), M, K, N, msteps);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 

@@ -26,8 +26,9 @@ consumer warpgroups run ``wgmma`` with both operands MN-major (the tokens
 are the reduction). Where the output tiles alone would leave the card
 idle, the token sweep is split over the 2, 4 or 8 blocks of a cluster,
 whose partial tiles are added in rank order through distributed shared
-memory before the accumulator is read and written once (no atomics: two
-calls give the same bits). The card path takes bf16 ``x`` and ``dy``
+memory before the accumulator is read and written once; an unsplit tile
+into an f32 accumulator is added into it by a TMA reduce-add in L2 (each
+element once: two calls give the same bits). The card path takes bf16 ``x`` and ``dy``
 with ``K % 8 == 0`` and ``N % 8 == 0``, any ``M``, and a contiguous f32 or
 bf16 ``acc``, and raises otherwise. A CPU tensor takes the plain version.
 """
