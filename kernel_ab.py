@@ -5,7 +5,7 @@ between runs): run it on each tree in turns (A, B, B, A).
 
     python3 kernel_ab.py <checkout root> <tag> flash [--gpt]
     python3 kernel_ab.py <checkout root> <tag> wo [--engine]
-    python3 kernel_ab.py <checkout root> <tag> grad [--incubate] [--phases]
+    python3 kernel_ab.py <checkout root> <tag> grad [--incubate]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -29,10 +29,6 @@ Family ``wo`` (the weight-only kernels, rows 12a-12c):
   plain version;
 - ``host``: the host time of one wrapper call of each kernel at gate/up's
   decode and prefill shapes, measured as for flash;
-- ``int4_cols``: where the checkout's int4 decode kernel takes two tile
-  widths (``ptt_wo_int4_cols``: 128 columns from a 64-byte box of packed
-  bytes a row, 256 from a 128-byte box), each width's cold-L2 ms at the
-  decode shapes;
 - with ``--engine``, engines d and e of ``chip_smoke.py`` (Llama-3-8B,
   random weights, ``quant="weight_only_int8"`` and ``"weight_only_int4"``):
   the profile of a decode step at batch 8 and of a 1024-token monolithic
@@ -44,24 +40,10 @@ Family ``grad`` (the weight-gradient accumulation, row 21):
   three rows (into f32, and bf16 at GPT-2's ``mlp.fc``): the kernel's
   cold-L2 ms, ``torch.matmul(x.t(), dy)`` (the bf16 product alone), their
   ratio and the kernel's error against its plain version;
-- ``grad_split``: where the checkout's kernel splits the token sweep over
-  a cluster (``linear_grad_add._split``), the cold-L2 ms of each split 1,
-  2, 4 and 8 at those shapes, beside the plan's;
 - ``host``: the host time of one wrapper call at two shapes, as for flash;
 - with ``--incubate``, ``chip_smoke.py``'s ``incubate`` phase of that
   checkout (12 post-LN blocks at GPT-2 small's width: launches, parity,
-  main_grads, and the profile of a micro-batch);
-- with ``--phases`` (a checkout whose kernel is ``grad_acc_kernel``): a
-  copy of ``csrc/linear_grad_add.cu`` with ``%globaltimer`` stamps at its
-  phase boundaries, written by thread 0 of every block, built into a
-  temporary directory and launched at a tiny shape, the incubate path's
-  out and fc products and Llama's gate: ``phases_us`` is the mean over
-  blocks of entry to barriers set, to the first stage's arrival, the
-  token sweep, the partial tile and the cluster's first meeting, the
-  epilogue, the last meeting (an unsplit f32 tile, added into acc by
-  TMA, stamps the last three where it returns: its whole epilogue is the
-  fourth part); ``wave_starts_us`` the first block start of each wave;
-  ``span_us`` first start to last end.
+  main_grads, and the profile of a micro-batch).
 
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
@@ -217,17 +199,6 @@ def _wo(torch, cs, dev, timer, randn, emit):
             if (m, k) in ((8, 4096), (1024, 4096)):
                 emit(host=[name, m, k, n],
                      us=_host_us(torch, lambda: fn(x, w, s)))
-            if name == "wo_int4" and m <= 16 and _has_int4_cols(wo):
-                stream = torch.cuda.current_stream().cuda_stream
-                y = torch.empty(m, n, dtype=bf, device=dev)
-                for cols in (128, 256):
-                    def call():
-                        wo._call("wo_int4", "ptt_wo_int4_cols", wo._ARGS_G, x,
-                                 w, s, y, (cols,), stream)
-                    call()
-                    err, tol = cs.compare(torch, y, plain(x, w, s))
-                    emit(int4_cols=[cols, m, k, n], ms=timer(call),
-                         max_abs_err=err, tol=tol)
             del x, w, s, wd
 
     if "--engine" in sys.argv[4:]:
@@ -258,16 +229,6 @@ def _wo(torch, cs, dev, timer, randn, emit):
             cs._free(torch)
 
 
-def _has_int4_cols(wo):
-    """Whether the checkout's weight-only library has the width entry."""
-    from paddle_tpu_torch.ops.kernels import _build
-    try:
-        _build.function("wo_matmul", "ptt_wo_int4_cols", wo._ARGS_G)
-    except AttributeError:
-        return False
-    return True
-
-
 # (M, K, N, accumulator dtype): the incubate path's four products, then
 # chip_smoke.py's phase-3 rows (GPT-2 small's mlp.fc, Llama-3-8B's gate)
 GRAD_SHAPES = ((4096, 768, 2304, "float32"), (4096, 768, 768, "float32"),
@@ -279,7 +240,6 @@ GRAD_SHAPES = ((4096, 768, 2304, "float32"), (4096, 768, 768, "float32"),
 def _grad(torch, cs, dev, timer, randn, emit):
     from paddle_tpu_torch.ops.kernels import linear_grad_add as lga
 
-    stream = torch.cuda.current_stream().cuda_stream
     for m, k, n, acc_name in GRAD_SHAPES:
         x, dy = randn(m, k), randn(m, n)
         acc0 = (randn(k, n).float() * 4).to(getattr(torch, acc_name))
@@ -292,12 +252,6 @@ def _grad(torch, cs, dev, timer, randn, emit):
         ms = timer(lambda: lga.linear_grad_add(x, dy, scratch))
         emit(grad=[m, k, n, acc_name], ms=ms, matmul_ms=lib, ratio=ms / lib,
              max_abs_err=err, ref_max=ref.float().abs().max().item())
-        if hasattr(lga, "_split"):
-            row = {"plan": lga._split(m, k, n)}
-            for split in (1, 2, 4, 8):
-                row[str(split)] = timer(lambda: lga._launch(
-                    x, dy, scratch, stream, split=split))
-            emit(grad_split=[m, k, n, acc_name], ms=row)
         del x, dy, acc0, got, ref, scratch
 
     # the wrapper's host time a call
@@ -309,90 +263,6 @@ def _grad(torch, cs, dev, timer, randn, emit):
 
     if "--incubate" in sys.argv[4:]:
         cs.phase_incubate(torch, dev)
-    if "--phases" in sys.argv[4:]:
-        _grad_phases(torch, cs, dev, randn, emit)
-
-
-# (anchor line of csrc/linear_grad_add.cu, stamp index placed after it)
-_STAMPS = (("  extern __shared__ unsigned char smem_raw[];", 0),
-           ("  __syncthreads();\n", 1),
-           ("      hp::mbar_wait(&full[st], (it / kStages) & 1);", "first"),
-           ("    hp::wgmma_wait<0>();", 3),
-           ("  hp::cluster_sync();  // every block's partial tile is written", 4))
-
-
-def _grad_phases(torch, cs, dev, randn, emit):
-    import ctypes
-    import os
-    import subprocess
-    import tempfile
-
-    import numpy as np
-
-    from paddle_tpu_torch.ops.kernels import _build
-    src = (_build.CSRC_DIR / "linear_grad_add.cu").read_text()
-    stamp = ("if (threadIdx.x == 0) g_stamp[blockIdx.x + gridDim.x * "
-             "(blockIdx.y + gridDim.y * blockIdx.z)][{}] = gtime();")
-    head = ("__device__ unsigned long long g_stamp[8192][8];\n"
-            "__device__ __forceinline__ unsigned long long gtime() {\n"
-            "  unsigned long long t;\n"
-            "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
-            "  return t;\n}\n")
-    src = src.replace("namespace {", head + "namespace {", 1)
-    for anchor, i in _STAMPS:
-        if anchor not in src:
-            cs.fail(f"--phases: {anchor!r} not in the kernel source")
-        line = stamp.format(2) if i == "first" else stamp.format(i)
-        if i == "first":
-            line = "if (it == 0) { " + line + " }"
-        src = src.replace(anchor, anchor + "\n" + line, 1)
-    direct = "  if (direct) return;"
-    if direct in src:       # an unsplit f32 tile leaves by TMA: stamps 4-6 there
-        src = src.replace(direct, "  if (direct) {\n" + "\n".join(
-            stamp.format(i) for i in (4, 5, 6)) + "\n    return;\n  }", 1)
-    last = "  hp::cluster_sync();  // no block leaves while another reads its partials"
-    if last not in src:
-        cs.fail("--phases: the last cluster meeting is not in the source")
-    src = src.replace(last, stamp.format(5) + "\n" + last + "\n" + stamp.format(6), 1)
-    src += ("\nPTT_EXPORT int ptt_grad_stamps(void* dst, int n) {\n"
-            "  return (int)cudaMemcpyFromSymbol(dst, g_stamp, (size_t)n * 64);\n}\n")
-    tmp = tempfile.mkdtemp()
-    cu, so = os.path.join(tmp, "phases.cu"), os.path.join(tmp, "phases.so")
-    with open(cu, "w") as f:
-        f.write(src)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
-                    "-o", so, cu], check=True, capture_output=True)
-    lib = ctypes.CDLL(so)
-    run = lib.ptt_linear_grad_add_split
-    run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    get = lib.ptt_grad_stamps
-    get.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    flush = torch.empty(256 << 20, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-    for m, k, n, split in ((64, 256, 128, 1), (4096, 768, 768, 4),
-                           (4096, 768, 3072, 1), (4096, 768, 3072, 8),
-                           (4096, 4096, 14336, 1)):
-        x, dy = randn(m, k), randn(m, n)
-        acc = torch.zeros(k, n, device=dev)
-        for _ in range(2):                       # the second call, cold L2
-            flush.zero_()
-            err = run(x.data_ptr(), dy.data_ptr(), acc.data_ptr(), m, k, n, 1,
-                      split, stream)
-            if err:
-                cs.fail(f"--phases: launch failed with cudaError {err}")
-        torch.cuda.synchronize()
-        blocks = split * -(-k // 256) * -(-n // 128)
-        t = np.zeros((blocks, 8), np.uint64)
-        if get(t.ctypes.data, blocks):
-            cs.fail("--phases: stamps not read")
-        t = t[:, :7].astype(np.int64)
-        rel = (t - t[:, 0].min()) / 1e3
-        starts = np.sort(rel[:, 0])
-        emit(phases=[m, k, n, split],
-             phases_us=[round(float(v), 2) for v in np.diff(rel, axis=1).mean(0)],
-             wave_starts_us=[round(float(v), 1) for v in starts[::132]],
-             span_us=float(rel[:, 6].max()))
-
 
 
 def _host_us(torch, fn, calls=100, repeats=5):

@@ -32,11 +32,9 @@
 //   plus a fixed cost of 18 steps a block, are fewest (`grad_split`). The
 //   fixed cost is measured: a step takes 0.7-0.8 us, and a block spends
 //   11-12 us more on its first stage's arrival, the partial tile, the
-//   cluster's meetings and the accumulator's read and write (kernel_ab.py
-//   grad: its grad_split rows time every split, --phases each part of a
-//   block). The incubate path's
-//   products at M 4096 take 2 (qkv), 4 (out) and 1 (fc, proj), GPT-2's
-//   mlp.fc at M 8192 and Llama's gate 1.
+//   cluster's meetings and the accumulator's read and write (PERF.md, row
+//   21). The incubate path's products at M 4096 take 2 (qkv), 4 (out) and
+//   1 (fc, proj), GPT-2's mlp.fc at M 8192 and Llama's gate 1.
 // - After the sweep every block stages its f32 partial tile in shared
 //   memory (the ring is free by then), the cluster meets, and block r adds
 //   the blocks' partials for rows r (256 / split) .. of the tile through
@@ -47,8 +45,10 @@
 //   four 128-byte-swizzled boxes and added into acc by TMA
 //   (cp.reduce.async.bulk .add: the L2 reads, adds and writes acc, one f32
 //   add an element, as the epilogue would), so no block waits on acc's
-//   read. No atomics: every element is added once, and two calls return
-//   the same bits.
+//   read. Every element of acc has exactly one contributor: one add by
+//   its block's epilogue, or one reduce-add in L2 for an unsplit f32 tile;
+//   the partials of a split are summed in rank order before it. So two
+//   calls return the same bits.
 // - Edges: boxes past M, K or N arrive as zeros (boxes wholly past K or N
 //   are not loaded: they feed only rows and columns that are never
 //   written); the epilogue masks rows past K and columns past N.
@@ -364,15 +364,6 @@ int launch(const void* x, const void* dy, void* acc, int M, int K, int N, int sp
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-int run(const void* x, const void* dy, void* acc, int M, int K, int N, int acc_f32, int split,
-        void* stream) {
-  if (K == 0 || N == 0 || M == 0) return 0;
-  if (split != 1 && split != 2 && split != 4 && split != 8) return (int)cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  return acc_f32 ? launch<float>(x, dy, acc, M, K, N, split, s)
-                 : launch<bf16>(x, dy, acc, M, K, N, split, s);
-}
-
 }  // namespace
 
 // x: [M, K] bf16; dy: [M, N] bf16; acc: [K, N], f32 (acc_f32) or bf16,
@@ -380,12 +371,9 @@ int run(const void* x, const void* dy, void* acc, int M, int K, int N, int acc_f
 // N % 8 == 0; M any size (M == 0 leaves acc as it is).
 PTT_EXPORT int ptt_linear_grad_add(const void* x, const void* dy, void* acc, int M, int K, int N,
                                    int acc_f32, void* stream) {
-  return run(x, dy, acc, M, K, N, acc_f32, grad_split(M, K, N), stream);
-}
-
-// The same with the cluster split given (1, 2, 4 or 8) instead of the
-// plan's: kernel_ab.py times each split at the path's shapes.
-PTT_EXPORT int ptt_linear_grad_add_split(const void* x, const void* dy, void* acc, int M, int K,
-                                         int N, int acc_f32, int split, void* stream) {
-  return run(x, dy, acc, M, K, N, acc_f32, split, stream);
+  if (K == 0 || N == 0 || M == 0) return 0;
+  const int split = grad_split(M, K, N);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return acc_f32 ? launch<float>(x, dy, acc, M, K, N, split, s)
+                 : launch<bf16>(x, dy, acc, M, K, N, split, s);
 }

@@ -71,7 +71,7 @@
 //   in the other order so that no load meets a bank twice), or 256 columns
 //   from a [64 k, 128 bytes] box read as the int8 weight is (16 bytes: 16
 //   columns of each half, sixteen mma tiles a warp, two blocks an SM);
-//   int4_dec_cols picks the one whose grid fills the card more.
+//   int4_dec_cols takes 256 where that grid's K split is not capped.
 #include <algorithm>
 
 #include "hopper.cuh"
@@ -732,21 +732,18 @@ int launch_decode(const CUtensorMap& tw, const CUtensorMap& ts, const void* x, c
 }
 
 // Decode columns a block of packed int4: 256 (a 128-byte box of packed
-// bytes a stage row, swizzled as the int8 weight's) where that grid fills the
-// card's decode block slots at least as fully as 128-column blocks (a 64-byte
-// box, unswizzled) do, else 128 (kernel_ab.py times both at the decode
-// shapes: the wider box streams faster where its blocks fill the card, as at
-// gate/up; at N 4096 its K split is capped at 8 blocks and half the slots
-// stay empty).
-inline int int4_dec_cols(int M, int N, int K) {
-  int used[2], slots[2];
-  for (int i = 0; i < 2; ++i) {
-    const int nc = kBN << i;
-    const DecodePlan p = decode_plan(kInt4, M, N, K, 0, nc);
-    slots[i] = dec_blocks(p.tg, nc) * kSms;
-    used[i] = std::min(slots[i], p.split * ((N + nc - 1) / nc));
-  }
-  return (long long)used[1] * slots[0] >= (long long)used[0] * slots[1] ? 2 * kBN : kBN;
+// bytes a stage row, swizzled as the int8 weight's) where that grid's K split
+// is set by the card's slots, not capped at kDecSplit (its tiles times the
+// cap exceed its block slots), else 128 (a 64-byte box, unswizzled). What the
+// rule models is what PERF.md's row 12c measured: where both widths fill the
+// slots alike the wider box streams faster (gate/up: 256 columns split 4),
+// and where the cap holds 256's split the grid leaves slots empty (down, q/o
+// and k/v: split 8 on 16 or 4 tiles, at most 128 of 264 slots).
+inline int int4_dec_cols(int M, int N) {
+  const int tiles = (N + 2 * kBN - 1) / (2 * kBN);
+  return (long long)tiles * kDecSplit > (long long)dec_blocks(M > 8 ? 2 : 1, 2 * kBN) * kSms
+             ? 2 * kBN
+             : kBN;
 }
 
 // `nc`: decode columns a block (int4 only; the other modes and prefill
@@ -805,15 +802,6 @@ PTT_EXPORT int ptt_wo_int8_grouped(const void* x, const void* w, const void* s, 
 PTT_EXPORT int ptt_wo_int4(const void* x, const void* w, const void* s, void* y, int M, int N,
                            int K, void* stream) {
   if (M == 0 || N == 0) return 0;
-  return launch_wo<kInt4>(x, w, s, y, M, N, K, 1, M > 16 ? kBN : int4_dec_cols(M, N, K),
+  return launch_wo<kInt4>(x, w, s, y, M, N, K, 1, M > 16 ? kBN : int4_dec_cols(M, N),
                           static_cast<cudaStream_t>(stream));
-}
-
-// The same with the decode tile's width given (128 or 256 columns, see
-// int4_dec_cols): kernel_ab.py times both at the decode shapes.
-PTT_EXPORT int ptt_wo_int4_cols(const void* x, const void* w, const void* s, void* y, int M,
-                                int N, int K, int cols, void* stream) {
-  if (cols != 128 && cols != 256) return (int)cudaErrorInvalidValue;
-  if (M == 0 || N == 0) return 0;
-  return launch_wo<kInt4>(x, w, s, y, M, N, K, 1, cols, static_cast<cudaStream_t>(stream));
 }

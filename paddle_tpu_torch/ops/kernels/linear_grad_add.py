@@ -27,10 +27,11 @@ are the reduction). Where the output tiles alone would leave the card
 idle, the token sweep is split over the 2, 4 or 8 blocks of a cluster,
 whose partial tiles are added in rank order through distributed shared
 memory before the accumulator is read and written once; an unsplit tile
-into an f32 accumulator is added into it by a TMA reduce-add in L2 (each
-element once: two calls give the same bits). The card path takes bf16 ``x`` and ``dy``
-with ``K % 8 == 0`` and ``N % 8 == 0``, any ``M``, and a contiguous f32 or
-bf16 ``acc``, and raises otherwise. A CPU tensor takes the plain version.
+into an f32 accumulator is added into it by one TMA reduce-add in L2 an
+element. Each element of ``acc`` has one contributor, so two calls give
+the same bits. The card path takes bf16 ``x`` and ``dy`` with ``K % 8 ==
+0`` and ``N % 8 == 0``, any ``M``, and a contiguous f32 or bf16 ``acc``,
+and raises otherwise. A CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -109,20 +110,13 @@ def linear_grad_add(x2, dy2, acc):
 linear_grad_add.launches = 0
 
 
-def _launch(x2, dy2, acc, stream, split=None):
-    """The C entry on operands the caller allocated; ``split`` (1, 2, 4 or
-    8) overrides the plan's cluster split (``kernel_ab.py`` times each)."""
+def _launch(x2, dy2, acc, stream):
+    """The C entry on operands the caller allocated."""
     m, k = x2.shape
-    args = (x2.data_ptr(), dy2.data_ptr(), acc.data_ptr(), m, k,
-            dy2.shape[1], int(acc.dtype == torch.float32))
-    if split is None:
-        fn = _build.function("linear_grad_add", "ptt_linear_grad_add", _ARGS)
-        err = fn(*args, stream)
-    else:
-        fn = _build.function("linear_grad_add", "ptt_linear_grad_add_split",
-                             _ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p])
-        err = fn(*args, split, stream)
-    _build.check(err, "linear_grad_add")
+    fn = _build.function("linear_grad_add", "ptt_linear_grad_add", _ARGS)
+    _build.check(fn(x2.data_ptr(), dy2.data_ptr(), acc.data_ptr(), m, k,
+                    dy2.shape[1], int(acc.dtype == torch.float32), stream),
+                 "linear_grad_add")
 
 
 # -- declared launches for the kernel analyzer -------------------------------

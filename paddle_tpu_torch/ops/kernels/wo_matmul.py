@@ -337,22 +337,19 @@ def _decode_plan(mode, m, n, k, srows, nc=_BN):
     return tg, -(-k // kslice), kslice, stages, fixed + ring + stages * x_stage
 
 
-def _int4_dec_cols(m, n, k):
-    """``int4_dec_cols``: 256 decode columns a block (a 128-byte box) where
-    that grid fills the decode block slots at least as fully as 128-column
-    blocks do, else 128."""
-    used, slots = [], []
-    for nc in (_BN, 2 * _BN):
-        tg, split = _decode_plan(2, m, n, k, 0, nc)[:2]
-        slots.append(_dec_blocks(tg, nc) * _SMS)
-        used.append(min(slots[-1], split * -(-n // nc)))
-    return 2 * _BN if used[1] * slots[0] >= used[0] * slots[1] else _BN
+def _int4_dec_cols(m, n):
+    """``int4_dec_cols``: 256 decode columns a block (a 128-byte box)
+    where that grid's K split is not capped at ``_DEC_SPLIT`` (its tiles
+    times the cap exceed its block slots), else 128."""
+    tiles = -(-n // (2 * _BN))
+    return 2 * _BN if tiles * _DEC_SPLIT > \
+        _dec_blocks(2 if m > 8 else 1, 2 * _BN) * _SMS else _BN
 
 
-def _wo_launch(mm, name, m_rows, k, n, group, nc=None):
+def _wo_launch(mm, name, m_rows, k, n, group):
     """The launch of a weight-only kernel: past 16 rows one block a [BM,
     128] output tile; up to 16 rows a cluster of ``split`` blocks a tile
-    of ``nc`` columns (int4: :func:`_int4_dec_cols` unless given, else 128),
+    of ``nc`` columns (int4: :func:`_int4_dec_cols`, else 128),
     block r writing the 16-column chunks r, r + split, .. of it. A packed
     int4 tile's first half of columns lies in y's first half, its second
     in y's second: y seen as [M, 2, N/2]."""
@@ -369,7 +366,7 @@ def _wo_launch(mm, name, m_rows, k, n, group, nc=None):
             tile = mm.TileMap("y", (bm, _BN), lambda x, yb, z: (x, yb))
         return mm.KernelLaunch(f"wo_prefill_kernel<{mode},{bm}>", grid,
                                _PRE_THREADS, smem=smem, writes=[tile])
-    nc = nc or (_int4_dec_cols(m_rows, n, k) if int4 else _BN)
+    nc = _int4_dec_cols(m_rows, n) if int4 else _BN
     tg, split, _, _, smem = _decode_plan(mode, m_rows, n, k, srows, nc)
     chunks = nc // 16
     if int4:

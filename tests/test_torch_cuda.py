@@ -536,23 +536,21 @@ def test_wo_int4_kernels_are_deterministic(dev, m, k, n):
     _close(first, wo_matmul.wo_int4_matmul_plain(x, w, s))
 
 
-@pytest.mark.parametrize("cols", [128, 256])
-@pytest.mark.parametrize("m,k,n", [s for s in _INT4_SHAPES if s[0] <= 16])
+@pytest.mark.parametrize("m,k,n,cols", [
+    (8, 4096, 14336, 256), (16, 4096, 14336, 256), (5, 264, 8480, 256),
+    (8, 14336, 4096, 128), (16, 264, 2080, 128), (5, 1032, 1056, 128)])
 def test_wo_int4_decode_widths(dev, cols, m, k, n):
     """Both widths of the int4 decode tile (a 64- or a 128-byte box of
-    packed bytes a row) against the plain version, twice the same bits."""
+    packed bytes a row), each at shapes the plan gives it (N/2 = 4240,
+    1040 and 528 end inside a box), against the plain version, twice the
+    same bits."""
+    assert wo_matmul._int4_dec_cols(m, n) == cols
     x = _randn(dev, m, k, seed=10)
     w, s = _int8(dev, k, n // 2, seed=11, lo=-128), _scales(dev, n, seed=12)
-    outs = []
-    for _ in range(2):
-        y = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
-        wo_matmul._call("wo_int4", "ptt_wo_int4_cols", wo_matmul._ARGS_G, x,
-                        w, s, y, (cols,),
-                        torch.cuda.current_stream().cuda_stream)
-        outs.append(y)
+    first, second = wo_matmul.wo_int4(x, w, s), wo_matmul.wo_int4(x, w, s)
     torch.cuda.synchronize()
-    assert torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))
-    _close(outs[0], wo_matmul.wo_int4_matmul_plain(x, w, s))
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    _close(first, wo_matmul.wo_int4_matmul_plain(x, w, s))
 
 
 def test_wo_matmul_leading_dims_and_counts(dev):
@@ -1632,16 +1630,18 @@ def test_linear_grad_add_kernel(dev, acc_dtype, m, k, n):
     _grad_close(got, want)
 
 
-@pytest.mark.parametrize("split", [1, 2, 4, 8])
-@pytest.mark.parametrize("m,k,n", [(2085, 264, 200), (4096, 768, 768)])
+@pytest.mark.parametrize("m,k,n,split", [
+    (37, 136, 264, 1), (4096, 768, 3072, 1), (1000, 1800, 1000, 2),
+    (4096, 768, 2304, 2), (4096, 768, 768, 4), (2085, 264, 200, 8),
+    (1000, 64, 72, 8), (4096, 256, 1024, 8)])
 def test_linear_grad_add_every_split(dev, split, m, k, n):
-    """Each cluster split of the token sweep (the plan's and the others)
-    at a shape with tails and at an incubate shape, f32 acc."""
+    """Each cluster split of the token sweep, at two shapes the plan gives
+    it (one with tails past every tile), f32 acc."""
+    assert linear_grad_add._split(m, k, n) == split
     x, dy = _rand(dev, m, k, seed=93), _rand(dev, m, n, seed=94)
     acc = _rand(dev, k, n, seed=95, dtype=torch.float32) * 4
     want = linear_grad_add.linear_grad_add_plain(x, dy, acc.clone())
-    linear_grad_add._launch(x, dy, acc, torch.cuda.current_stream().cuda_stream,
-                            split=split)
+    linear_grad_add.linear_grad_add(x, dy, acc)
     _grad_close(acc, want)
 
 
@@ -1651,8 +1651,8 @@ def test_linear_grad_add_every_split(dev, split, m, k, n):
                                    (2085, 264, 200), (37, 136, 264)])
 def test_linear_grad_add_is_deterministic(dev, acc_dtype, m, k, n):
     """Two calls from the same accumulator return the same bits: the
-    cluster's partial tiles are added in rank order, never with atomics
-    (splits 2, 4, 1, 2, 8 and 1 at these shapes)."""
+    cluster's partial tiles are added in rank order, and each acc element
+    has one contributor (splits 2, 4, 1, 2, 8 and 1 at these shapes)."""
     x, dy = _rand(dev, m, k, seed=96), _rand(dev, m, n, seed=97)
     acc = _rand(dev, k, n, seed=98, dtype=acc_dtype) * 4
     first = linear_grad_add.linear_grad_add(x, dy, acc.clone())

@@ -74,15 +74,16 @@ def test_examples_cover_both_kernels_both_modes():
     assert len(_examples()) == 30
 
 
-@pytest.mark.parametrize("cols", [128, 256])
-@pytest.mark.parametrize("m,k,n", [(8, 4096, 14336), (8, 14336, 4096),
-                                   (16, 264, 2080), (5, 1032, 1056)])
+@pytest.mark.parametrize("m,k,n,cols", [
+    (8, 4096, 14336, 256), (16, 4096, 14336, 256), (5, 264, 8480, 256),
+    (16, 1032, 8480, 256), (8, 14336, 4096, 128), (8, 4096, 1024, 128),
+    (16, 264, 2080, 128), (5, 1032, 1056, 128)])
 def test_int4_decode_widths_cover_each_output_element_once(cols, m, k, n):
-    """Both widths of the int4 decode tile: 128 columns from a 64-byte box
-    of packed bytes a row, 256 from a 128-byte box; N/2 = 528 and 1040 end
-    inside a box."""
+    """Both widths of the int4 decode tile, each at shapes the plan gives
+    it: 128 columns from a 64-byte box of packed bytes a row, 256 from a
+    128-byte box; N/2 = 4240, 1040 and 528 end inside a box."""
     from paddle_tpu_torch.ops.kernels._examples import model
-    k_ = wo._wo_launch(model(), "wo_int4", m, k, n, 128, nc=cols)
+    k_ = wo._wo_launch(model(), "wo_int4", m, k, n, 128)
     assert k_.kernel == f"wo_decode_kernel<2,{1 if m <= 8 else 2},{cols}>"
     assert k_.grid == (k_.cluster[0], -(-n // cols), 1)
     (mp,) = k_.writes
@@ -143,8 +144,10 @@ def test_declarations_match_the_source():
         "launch_decode<MODE, 1, kBN>" in src
     assert "launch_decode<MODE, 2, 256>" in src and \
         "launch_decode<MODE, 1, 256>" in src
-    assert "inline int int4_dec_cols(int M, int N, int K)" in src
-    assert "used[1] * slots[0] >= (long long)used[0] * slots[1]" in src
+    assert "inline int int4_dec_cols(int M, int N)" in src
+    assert "return (long long)tiles * kDecSplit > (long long)dec_blocks(" \
+        "M > 8 ? 2 : 1, 2 * kBN) * kSms" in src
+    assert "int4_dec_cols(M, N)," in src and "ptt_wo_int4_cols" not in src
     assert wo._w_tile(0) == wo._w_tile(1) == 8192 and wo._w_tile(2) == 4096
     assert wo._w_tile(2, 256) == 8192
 
@@ -212,12 +215,13 @@ def test_int4_plans_at_the_path_shapes():
     (8, 4096, 14336, 256), (16, 4096, 14336, 256), (8, 14336, 4096, 128),
     (8, 4096, 4096, 128), (8, 4096, 1024, 128), (5, 1032, 1056, 128)])
 def test_int4_decode_width_at_the_path_shapes(m, k, n, cols):
-    """The int4 decode tile is 256 columns wide where those blocks fill the
-    decode slots at least as fully as 128-column ones: gate/up (56 tiles,
-    split 4 at two blocks an SM: 224 of 264 slots, against 336 of 396),
-    and 128 at down, q/o and k/v, where the 8-block K split leaves a
-    256-column grid emptier."""
-    assert wo._int4_dec_cols(m, n, k) == cols
+    """The int4 decode tile is 256 columns wide where that grid's K split
+    is set by the card's slots and not capped at 8 blocks: gate/up (56
+    tiles at two blocks an SM: split 4, 224 of 264 slots); 128 at down,
+    q/o and k/v, whose 16 or 4 tiles of 256 columns would take the capped
+    split 8 and leave at least half the slots empty, and at the small
+    tail."""
+    assert wo._int4_dec_cols(m, n) == cols
 
 
 @pytest.mark.parametrize("k", [64, 264, 1000, 1032, 4096])
