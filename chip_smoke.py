@@ -821,7 +821,9 @@ def _kernels_epilogue_bwd(torch, randn, timer, results):
     values; with dropout, dx is zero exactly where the forward's counter
     hash dropped. A second call must give the same bits (no atomics).
     Yardstick, for the act-free p = 0 rows: autograd of ``F.rms_norm`` /
-    ``F.layer_norm`` on ``x + residual`` with both cotangents."""
+    ``F.layer_norm`` on ``x + residual`` with both cotangents. The call's
+    time holds both of its launches (the rows kernel and the partial-sum
+    kernel); ``split_ms`` gives each one's device ms over 10 warm calls."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.ops.kernels import block_epilogue as be
@@ -885,6 +887,8 @@ def _kernels_epilogue_bwd(torch, randn, timer, results):
             lib = timer(lambda: torch.autograd.grad(
                 (yl, hl), ins, (gy, gh), retain_graph=True))
             del xl, rl, hl, yl, ins
+        split = _profile(torch, lambda: be.fused_epilogue_bwd(*args),
+                         reps=10).get("port_ms_per_call")
         _record(results, "block_epilogue_bwd",
                 [rows, hid, f"act={act}", norm, f"p={p}",
                  "bias" if bias_on else "no bias", "residual cotangent"],
@@ -893,7 +897,7 @@ def _kernels_epilogue_bwd(torch, randn, timer, results):
                 lib, ("block_epilogue",
                       f"phase3 bwd [{rows}, {hid}] act={act} {norm} p={p}"
                       + (" bias" if bias_on else "")),
-                dres_err=err_r, **sums)
+                dres_err=err_r, split_ms=split, **sums)
         del h, gy, gh, x
 
 
@@ -1326,7 +1330,11 @@ def _kernels_a8w8(torch, dev, randn, timer, results):
     x / s is exact), and within one bf16 ulp of the largest value on
     random activations (where q can differ only at a rounding tie). The
     yardstick is ``torch._int_mm`` on the quantized activations, the int8
-    contraction alone. Bound: operations at the int8 tensor-core rate."""
+    contraction alone. Bound: operations at the int8 tensor-core rate.
+    A second row times the same product with a "kn" weight (through its
+    K-major copy). Each row carries ``split_ms``: the device ms of each of
+    the call's kernels (the quantisation apart from the product) over 10
+    warm calls under the profiler."""
     from paddle_tpu_torch.ops.kernels import a8w8_matmul as a8
 
     gen = torch.Generator(device=dev).manual_seed(8888)
@@ -1346,8 +1354,6 @@ def _kernels_a8w8(torch, dev, randn, timer, results):
                  f"construction, {int((got != ref).sum())} elements differ, "
                  f"max {(got.float() - ref.float()).abs().max().item()}")
     x = randn(m, k)
-    err, tol = compare(torch, a8.a8w8_matmul(x, w, ws, "nk"),
-                       a8.a8w8_matmul_plain(x, w, ws, "nk"))
     xq = a8.row_quantize(x)[0].to(torch.int8)
     wt = w.t()                        # [K, N], column-major: _int_mm's layout
     try:
@@ -1356,11 +1362,19 @@ def _kernels_a8w8(torch, dev, randn, timer, results):
             "torch._int_mm, the int8 contraction alone"
     except RuntimeError as e:         # a yardstick only: the port never calls it
         lib, lib_note = None, f"torch._int_mm unavailable: {e}"[:200]
-    _record(results, "a8w8", [m, k, n, "nk", "bit-identical on pinned x"],
-            err, tol, timer(lambda: a8.a8w8_matmul(x, w, ws, "nk")),
-            timer(lambda: a8.a8w8_matmul_plain(x, w, ws, "nk")), lib,
-            ("a8w8_matmul", f"phase3 [{m}, {k}] @ nk [{n}, {k}]"),
-            library=lib_note)
+    for layout, wl, sheet in (
+            ("nk", w, f"phase3 [{m}, {k}] @ nk [{n}, {k}]"),
+            ("kn", w.t().contiguous(), f"phase3 [{m}, {k}] @ kn [{k}, {n}]")):
+        err, tol = compare(torch, a8.a8w8_matmul(x, wl, ws, layout),
+                           a8.a8w8_matmul_plain(x, wl, ws, layout))
+        split = _profile(torch, lambda: a8.a8w8_matmul(x, wl, ws, layout),
+                         reps=10).get("port_ms_per_call")
+        _record(results, "a8w8",
+                [m, k, n, layout, "bit-identical on pinned x"], err, tol,
+                timer(lambda: a8.a8w8_matmul(x, wl, ws, layout)),
+                timer(lambda: a8.a8w8_matmul_plain(x, wl, ws, layout)), lib,
+                ("a8w8_matmul", sheet), library=lib_note, split_ms=split)
+        del wl
 
 
 _CHUNKED_PATH = ("mmha", "rms_norm", "rope", "swiglu")
@@ -1848,11 +1862,12 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "swiglu_kernel", "flash_attention_kernel",
                 "block_epilogue_kernel", "decode_layer_kernel",
                 "wo_prefill_kernel", "wo_decode_kernel",
-                "a8w8_quantize_kernel",
-                "a8w8_gemm_kernel", "rms_norm_bwd_kernel",
+                "a8w8_quantize_kernel", "a8w8_transpose_kernel",
+                "a8w8_wgmma_kernel", "rms_norm_bwd_kernel",
                 "swiglu_bwd_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                "adamw_kernel", "block_epilogue_bwd_kernel",
+                "adamw_kernel", "block_epilogue_bwd_rows_kernel",
+                "block_epilogue_bwd_sum_kernel",
                 "swiglu_packed_kernel", "swiglu_packed_bwd_kernel",
                 "lamb_moments_kernel", "lamb_apply_kernel",
                 "ce_row_stats_kernel", "moe_gemm_kernel",
@@ -1972,7 +1987,10 @@ def phase_llm_int8(torch, dev):
     dense part) and nothing else. The output matches the plain path within
     3 bf16 ulps of the largest value (one for A8W8's output, one for the
     cast of the sum, one for the bias add). Timed cold, with the plain
-    path beside it. Returns the launches of the run."""
+    path beside it, and profiled over 5 warm calls: the device ms of the
+    A8W8 kernels against everything else the call runs (the outlier part:
+    its f32 weight and product, the casts and adds). Returns the launches
+    of the run."""
     from paddle_tpu_torch.nn.quant import llm_int8_linear
     from paddle_tpu_torch.ops.kernels import WRAPPERS
 
@@ -2001,10 +2019,18 @@ def phase_llm_int8(torch, dev):
             fail("llm_int8_linear: calls on the same inputs differ")
         ms = timer(lambda: llm_int8_linear(x, w, bias, ws))
         plain_ms = timer(lambda: llm_int8_linear(x, w, bias, ws, plain=True))
+        prof = _profile(torch, lambda: llm_int8_linear(x, w, bias, ws),
+                        reps=5)
+    a8_ms = sum((prof.get("port_ms_per_call") or {}).values())
+    split = {"a8w8_ms": a8_ms,
+             "outlier_composite_ms": None if "busy_ms_per_call" not in prof
+             else prof["busy_ms_per_call"] - a8_ms,
+             "a8w8_kernels_ms": prof.get("port_ms_per_call"),
+             "wall_ms": prof.get("wall_ms_per_call"), "top": prof.get("top")}
     emit({"phase": "llm_int8_linear", "shape": [m, k, n], "outliers": 4,
           "finite": bool(torch.isfinite(got).all()),
           "max_abs_err": err, "tol": 3 * ulp, "ms": ms, "plain_ms": plain_ms,
-          "calls": calls, "launches": launches})
+          "calls": calls, "launches": launches, "split": split})
     if launches["a8w8"] != calls or any(
             c for name, c in launches.items() if name != "a8w8"):
         fail(f"llm_int8_linear: launches {launches} in {calls} calls, want "

@@ -6,6 +6,8 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> flash [--gpt]
     python3 kernel_ab.py <checkout root> <tag> wo [--engine]
     python3 kernel_ab.py <checkout root> <tag> grad [--incubate]
+    python3 kernel_ab.py <checkout root> <tag> a8w8 [--llm-int8]
+    python3 kernel_ab.py <checkout root> <tag> epi [--train]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -45,6 +47,35 @@ Family ``grad`` (the weight-gradient accumulation, row 21):
   checkout (12 post-LN blocks at GPT-2 small's width: launches, parity,
   main_grads, and the profile of a micro-batch).
 
+Family ``a8w8`` (the A8W8 product, row 13):
+
+- ``a8w8``: the llm_int8 prefill shape x [1024, 4096] @ w [14336, 4096]
+  ("nk", the path's layout) and the same product with a "kn" weight: the
+  call's cold-L2 ms, ``torch._int_mm`` on the quantised operands (the int8
+  contraction alone), their ratio, the error against the plain version,
+  and the device ms of each of the call's kernels (``chip_smoke._profile``
+  over 10 warm calls: the quantisation apart from the product);
+- ``host``: the host time of one wrapper call at a small and the path
+  shape, as for flash;
+- with ``--llm-int8``, ``nn.quant.llm_int8_linear`` at that shape with 4
+  outlier channels: the call's cold-L2 ms and the profile of a call, the
+  A8W8 kernels against the outlier composite (everything else).
+
+Family ``epi`` (the block-epilogue backward, row 10):
+
+- ``epi``: ``chip_smoke.py``'s four phase-3 rows ([4096, 4096] rms and
+  [8192, 768] layer norm with a bias, both with the residual cotangent,
+  and the gelu and swiglu rows with dropout): the call's cold-L2 ms (the
+  partial sums included), autograd of ``F.rms_norm`` / ``F.layer_norm`` on
+  x + residual for the two act-free rows and the ratio (autograd's host
+  work can outlast the timer's L2 flush, so its device time over 10 warm
+  calls and that ratio are given too), the errors against the plain
+  version, and the device ms of each of the call's kernels;
+- ``host``: the host time of one wrapper call at GPT-2 small's shape;
+- with ``--train``, ``chip_smoke.py``'s ``train_gpt`` phase of that
+  checkout (GPT-2 small, B 8 x S 1024: parity, 8 steps, a profile with
+  row 10's device ms and the step's wall).
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -66,8 +97,8 @@ def main() -> int:
     if not paddle_tpu_torch.__file__.startswith(root) \
             or not cs.__file__.startswith(root):
         cs.fail(f"{root}: its modules were not the ones imported")
-    if family not in ("flash", "wo", "grad"):
-        cs.fail(f"family {family!r}: flash, wo or grad")
+    if family not in ("flash", "wo", "grad", "a8w8", "epi"):
+        cs.fail(f"family {family!r}: flash, wo, grad, a8w8 or epi")
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     dev = torch.device("cuda", 0)
@@ -85,8 +116,12 @@ def main() -> int:
         _flash(torch, cs, dev, timer, randn, emit)
     elif family == "wo":
         _wo(torch, cs, dev, timer, randn, emit)
-    else:
+    elif family == "grad":
         _grad(torch, cs, dev, timer, randn, emit)
+    elif family == "a8w8":
+        _a8w8(torch, cs, dev, timer, randn, emit)
+    else:
+        _epi(torch, cs, dev, timer, randn, emit)
     return 0
 
 
@@ -263,6 +298,123 @@ def _grad(torch, cs, dev, timer, randn, emit):
 
     if "--incubate" in sys.argv[4:]:
         cs.phase_incubate(torch, dev)
+
+
+def _split(torch, cs, fn):
+    """Device ms a call of each of the port's kernels that ``fn``
+    launches (10 warm calls under the profiler), the rest, and all of
+    it."""
+    prof = cs._profile(torch, fn, reps=10)
+    return {"kernels_ms": prof.get("port_ms_per_call"),
+            "other_ms": (prof.get("ms_per_call") or {}).get("other"),
+            "matmul_ms": (prof.get("ms_per_call") or {}).get("matmul"),
+            "device_ms": prof.get("busy_ms_per_call"),
+            "launches": prof.get("launches_per_call")}
+
+
+def _a8w8(torch, cs, dev, timer, randn, emit):
+    from paddle_tpu_torch.ops.kernels import a8w8_matmul as a8
+
+    gen = torch.Generator(device=dev).manual_seed(8888)
+    m, k, n = 1024, 4096, 14336
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    ws = torch.rand(n, generator=gen, device=dev) * 2e-3 + 1e-4
+    x = randn(m, k)
+    xq = a8.row_quantize(x)[0].to(torch.int8)
+    wt = w.t()                     # [K, N], column-major: _int_mm's layout
+    lib = timer(lambda: torch._int_mm(xq, wt))
+    for layout, wl in (("nk", w), ("kn", w.t().contiguous())):
+        err, tol = cs.compare(torch, a8.a8w8_matmul(x, wl, ws, layout),
+                              a8.a8w8_matmul_plain(x, wl, ws, layout))
+        ms = timer(lambda: a8.a8w8_matmul(x, wl, ws, layout))
+        emit(a8w8=[m, k, n, layout], ms=ms, int_mm_ms=lib, ratio=ms / lib,
+             max_abs_err=err, tol=tol,
+             **_split(torch, cs, lambda: a8.a8w8_matmul(x, wl, ws, layout)))
+        del wl
+    for mm, kk, nn in ((128, 256, 256), (m, k, n)):
+        xs, wsm = randn(mm, kk), w[:nn, :kk].contiguous()
+        emit(host=["a8w8", mm, kk, nn, "nk"], us=_host_us(
+            torch, lambda: a8.a8w8_matmul(xs, wsm, ws[:nn], "nk")))
+        del xs, wsm
+
+    if "--llm-int8" in sys.argv[4:]:
+        from paddle_tpu_torch.nn.quant import llm_int8_linear
+
+        g2 = torch.Generator(device=dev).manual_seed(99)
+        xo = torch.randn(m, k, generator=g2, device=dev)
+        xo[:, [7, 100, 2000, 4000]] *= 40.0
+        xo = xo.to(torch.bfloat16)
+        bias = (torch.randn(n, generator=g2, device=dev) * 0.1).to(
+            torch.bfloat16)
+        with torch.inference_mode():
+            ms = timer(lambda: llm_int8_linear(xo, w, bias, ws))
+            emit(llm_int8_linear=[m, k, n, "outliers 4"], ms=ms,
+                 **_split(torch, cs, lambda: llm_int8_linear(xo, w, bias, ws)))
+
+
+# (rows, hidden, act, norm, p, bias): chip_smoke.py's phase-3 rows of row 10
+EPI_SHAPES = ((4096, 4096, None, "rms", 0.0, False),
+              (8192, 768, None, "layer", 0.0, True),
+              (4096, 4096, "gelu", "layer", 0.2, True),
+              (4096, 4096, "swiglu", "rms", 0.4, False))
+
+
+def _epi(torch, cs, dev, timer, randn, emit):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import block_epilogue as be
+
+    for rows, hid, act, norm, p, bias_on in EPI_SHAPES:
+        xw = 2 * hid if act == "swiglu" else hid
+        w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
+        h, gy, gh = randn(rows, hid), randn(rows, hid), randn(rows, hid)
+        x = randn(rows, xw) if act else None
+        args = (h, x, w, gy, gh, 1234, p, 1e-5, act, norm, bias_on)
+        got = be.fused_epilogue_bwd(*args)
+        ref = be.fused_epilogue_bwd_plain(*args)
+        errs = {}
+        for nm, a, r in zip(("dx", "dres", "dw", "db"), got, ref):
+            if r is not None:
+                errs[nm] = cs.compare(torch, a, r)[0] / max(
+                    r.float().abs().max().item(), 1e-30)
+        del got, ref
+        lib = lib_dev = None
+        if act is None:
+            xl = randn(rows, hid).requires_grad_()
+            rl = randn(rows, hid).requires_grad_()
+            wl = w.clone().requires_grad_()
+            hl = xl + rl
+            if norm == "rms":
+                yl, ins = TF.rms_norm(hl, (hid,), wl, 1e-5), (xl, rl, wl)
+            else:
+                bl = randn(hid).requires_grad_()
+                yl = TF.layer_norm(hl, (hid,), wl, bl, 1e-5)
+                ins = (xl, rl, wl, bl)
+            def grad():
+                return torch.autograd.grad((yl, hl), ins, (gy, gh),
+                                           retain_graph=True)
+            lib = timer(grad)
+            lib_dev = _split(torch, cs, grad)["device_ms"]
+            del xl, rl, hl, yl, ins, grad
+        ms = timer(lambda: be.fused_epilogue_bwd(*args))
+        split = _split(torch, cs, lambda: be.fused_epilogue_bwd(*args))
+        emit(epi=[rows, hid, f"act={act}", norm, f"p={p}",
+                  "bias" if bias_on else "no bias"], ms=ms, autograd_ms=lib,
+             ratio=None if lib is None else ms / lib,
+             autograd_device_ms=lib_dev,
+             device_ratio=split["device_ms"] / lib_dev
+             if lib_dev and split["device_ms"] else None,
+             rel_err=errs, **split)
+        del h, gy, gh, x
+    h, gy, gh = randn(8192, 768), randn(8192, 768), randn(8192, 768)
+    w = randn(768)
+    emit(host=["block_epilogue_bwd", 8192, 768, "layer", "bias"],
+         us=_host_us(torch, lambda: be.fused_epilogue_bwd(
+             h, None, w, gy, gh, 0, 0.0, 1e-5, None, "layer", True)))
+
+    if "--train" in sys.argv[4:]:
+        cs.phase_train_gpt(torch, dev)
 
 
 def _host_us(torch, fn, calls=100, repeats=5):

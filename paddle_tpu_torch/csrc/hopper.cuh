@@ -5,8 +5,9 @@
 // thread-block clusters with their distributed shared memory, and register
 // reallocation between warpgroups. The flash-attention kernels
 // (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu), the weight-only
-// kernels (csrc/wo_matmul.cu) and the weight-gradient accumulation
-// (csrc/linear_grad_add.cu) are built from them.
+// kernels (csrc/wo_matmul.cu), the weight-gradient accumulation
+// (csrc/linear_grad_add.cu) and the A8W8 product (csrc/a8w8_matmul.cu, the
+// int8 wgmma) are built from them.
 //
 // Shared-memory tiles. Every tile is a stack of sub-tiles of 64 bf16
 // columns (128 bytes a row), one per 64 columns of the operand, each written
@@ -37,7 +38,10 @@
 // and column 8 (i / 4) + 2 (l % 4) + i % 2. A bf16 A operand in registers
 // (the RS form) for the 16-deep k-step j is the accumulator's elements
 // 8j .. 8j + 7 rounded and packed in pairs (pack_a), the layout mma.sync uses;
-// pack_a_split gives it as two bf16 terms for two wgmma into one sum.
+// pack_a_split gives it as two bf16 terms for two wgmma into one sum. The
+// int8 form (WgmmaS8, m64nNk32, s32 accumulators) lays its accumulators out
+// the same way; a K-major int8 tile is the same 128-byte swizzled rows, 128
+// k a sub-tile, a 32-deep k-step 32 bytes further.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, the driver is reached at run time
@@ -278,6 +282,13 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for s32 accumulators (WgmmaS8)
+template <int N>
+__device__ __forceinline__ void fence_acc(int* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // the same for registers an asynchronous wgmma reads as its A operand
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t* r) {
@@ -419,6 +430,51 @@ struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
+// D (+)= A B for one m64nNk32 step of int8 operands, s32 accumulators `d`
+// (N / 2 a thread, laid out as the f32 ones of Wgmma), both operands K-major
+// through descriptors. 8-bit operands have no transpose bits: the reduction
+// dimension is contiguous in both. A 32-deep k-step spans 32 bytes of a
+// 128-byte swizzled row, as a 16-deep bf16 step does, so desc_kmajor and its
+// 32-byte advance a step serve both. scale_d 0 overwrites d. The sums are
+// exact (|q w| <= 127 * 127, 2^17 terms before int32 could overflow).
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<256> {
+  static __device__ __forceinline__ void ss(int* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 

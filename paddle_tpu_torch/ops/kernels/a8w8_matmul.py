@@ -20,8 +20,13 @@ What bounds it on the H100: operations at the int8 tensor-core rate (1979
 TOPS; 0.061 ms for ``[1024, 4096] x [4096, 14336]``). The kernel runs as
 two launches of one source: a quantize pass that writes ``s [M]`` and
 ``q [M, K]`` (the row max needs the whole K row; the TPU kernel recomputes
-it per column block), then an int8 ``mma.sync`` GEMM with the epilogue.
-The wrapper counts one launch per call. The card path takes bf16
+it per column block), a block a row reading the row once, then
+``a8w8_wgmma_kernel``: a TMA ring of q's and the K-major weight's
+128-byte swizzled boxes feeding ``wgmma`` m64n256k32 s8 (two consumer
+warpgroups, one producer warp, a 128 x 256 output tile a block) with the
+f32 epilogue. 8-bit wgmma operands must be K-major, so a "kn" weight is
+first transposed into a K-major scratch copy (a third launch). The
+wrapper counts one launch per call. The card path takes bf16
 activations; a CPU tensor takes the plain version, a CUDA tensor launches
 the kernel or raises. Inference only, as in the JAX package.
 """
@@ -38,7 +43,17 @@ __all__ = ["a8w8_matmul", "a8w8_matmul_plain", "use_kernel",
            "unsupported_reason"]
 
 _Q_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-_G_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_G_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+
+# The launch plans of csrc/a8w8_matmul.cu (the tests hold them against its
+# constants): the row quantization a 128-thread block a row; the
+# product a [_BM, _BN] tile a block of _THREADS threads over a ring of
+# _STAGES stages of q's [_BM, _BK] and the weight's [_BN, _BK] int8 boxes;
+# the "kn" transpose a [_TILE, _TILE] byte tile a block of 256 threads.
+_QUANT_THREADS, _QUANT_VECS = 128, 8
+_BM, _BN, _BK, _THREADS, _STAGES = 128, 256, 128, 288, 4
+_SMEM = 1024 + _STAGES * (_BM + _BN) * _BK + 2 * _STAGES * 8
+_TILE = 64
 
 
 def use_kernel(m, k) -> bool:
@@ -127,8 +142,11 @@ def a8w8_matmul(x, w_q, w_scales, layout="kn"):
     q = torch.empty(m, k, dtype=torch.int8, device=x.device)
     s = torch.empty(m, dtype=torch.float32, device=x.device)
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
-    _build.require_aligned("a8w8_matmul", x2, w_q, ws, q, s, y)
-    _launch(x2, w_q, ws, q, s, y, layout, _build.stream_of(x2))
+    # the K-major copy of a "kn" weight (8-bit wgmma operands are K-major)
+    wt = torch.empty(n, k, dtype=torch.int8, device=x.device) \
+        if layout == "kn" else None
+    _build.require_aligned("a8w8_matmul", x2, w_q, ws, q, s, y, wt)
+    _launch(x2, w_q, ws, q, s, y, layout, _build.stream_of(x2), wt)
     a8w8_matmul.launches += 1
     return y.reshape(*lead, n)
 
@@ -136,9 +154,10 @@ def a8w8_matmul(x, w_q, w_scales, layout="kn"):
 a8w8_matmul.launches = 0
 
 
-def _launch(x2, w_q, ws, q, s, y, layout, stream):
-    """Both C entries (row quantization, then the int8 product) on
-    operands the caller allocated."""
+def _launch(x2, w_q, ws, q, s, y, layout, stream, wt=None):
+    """Both C entries (row quantization, then the int8 product, which
+    transposes a "kn" weight into ``wt [N, K]`` first) on operands the
+    caller allocated."""
     m, k = x2.shape
     quant = _build.function("a8w8_matmul", "ptt_a8w8_quantize", _Q_ARGS)
     _build.check(quant(x2.data_ptr(), q.data_ptr(), s.data_ptr(), m, k,
@@ -146,14 +165,18 @@ def _launch(x2, w_q, ws, q, s, y, layout, stream):
     gemm = _build.function("a8w8_matmul", "ptt_a8w8_gemm", _G_ARGS)
     _build.check(gemm(q.data_ptr(), s.data_ptr(), w_q.data_ptr(),
                       ws.data_ptr(), y.data_ptr(), m, y.shape[1], k,
-                      int(layout == "nk"), stream), "a8w8_matmul")
+                      int(layout == "nk"),
+                      None if wt is None else wt.data_ptr(), stream),
+                 "a8w8_matmul")
 
 
 # -- declared launches for the kernel analyzer -------------------------------
 
 def _ex(label, m, k, n, layout):
-    """Two launches: the row quantization (a block a row: q's row and its
-    scale) and the product (a block a [64, 128] output tile, 4 warps)."""
+    """The row quantization (a block a row: q's row and its scale), for
+    "kn" the weight's transpose into a K-major scratch
+    copy (a 64 x 64 byte tile a block), then the product (a block a [128,
+    256] output tile, 288 threads, the ring in dynamic shared memory)."""
     from ._examples import model, uniform
     mm = model()
     w_shape = (n, k) if layout == "nk" else (k, n)
@@ -164,25 +187,35 @@ def _ex(label, m, k, n, layout):
            mm.Operand("q", (m, k), torch.int8, "out"),
            mm.Operand("s", (m,), torch.float32, "out"),
            mm.Operand("y", (m, n), torch.bfloat16, "out")]
+    kernels = [
+        mm.KernelLaunch("a8w8_quantize_kernel", m, _QUANT_THREADS,
+                        writes=[mm.rows_map("q", m, k),
+                                mm.TileMap("s", (1,), lambda x, y, z: (x,))],
+                        reads=[mm.rows_map("x", m, k)])]
+    if layout == "kn":
+        ops.append(mm.Operand("wt", (n, k), torch.int8, "out"))
+        kernels.append(mm.KernelLaunch(
+            "a8w8_transpose_kernel", (-(-n // _TILE), -(-k // _TILE)), 256,
+            writes=[mm.TileMap("wt", (_TILE, _TILE),
+                               lambda x, y, z: (x, y))],
+            reads=[mm.TileMap("w", (_TILE, _TILE), lambda x, y, z: (y, x))]))
+    kernels.append(mm.KernelLaunch(
+        "a8w8_wgmma_kernel", (-(-m // _BM), -(-n // _BN)), _THREADS,
+        smem=_SMEM,
+        writes=[mm.TileMap("y", (_BM, _BN), lambda x, y, z: (x, y))]))
 
     def plain(t):
         q, s = row_quantize(t["x"])
-        return {"q": q.to(torch.int8), "s": s.reshape(-1),
-                "y": a8w8_matmul_plain(t["x"], t["w"], t["ws"], layout)}
+        out = {"q": q.to(torch.int8), "s": s.reshape(-1),
+               "y": a8w8_matmul_plain(t["x"], t["w"], t["ws"], layout)}
+        if layout == "kn":
+            out["wt"] = t["w"].t().contiguous()
+        return out
 
     def launch(t, stream):
         _launch(t["x"], t["w"], t["ws"], t["q"], t["s"], t["y"], layout,
-                stream)
+                stream, t.get("wt"))
 
-    kernels = [
-        mm.KernelLaunch("a8w8_quantize_kernel", m, 256,
-                        writes=[mm.rows_map("q", m, k),
-                                mm.TileMap("s", (1,), lambda x, y, z: (x,))],
-                        reads=[mm.rows_map("x", m, k)]),
-        mm.KernelLaunch(f"a8w8_gemm_kernel<{str(layout == 'nk').lower()}>",
-                        (-(-m // 64), -(-n // 128)), 128,
-                        writes=[mm.TileMap("y", (64, 128),
-                                           lambda x, y, z: (x, y))])]
     return mm.Example(label, "a8w8_matmul", ops, kernels, launch, plain,
                       flops=2 * m * k * n,
                       nbytes=2 * m * k + n * k + 4 * n + 2 * m * n,
@@ -193,7 +226,8 @@ def _ex(label, m, k, n, layout):
 def ck_examples():
     """At ``a8w8_matmul_pallas.pk_examples``' shapes (x [512, 1024] @ [1024,
     2048], both layouts) and phase 3's (the llm_int8 prefill [1024, 4096] @
-    nk [14336, 4096]); tails with M, N and K past their last full tile."""
+    nk [14336, 4096], and the same product with a "kn" weight); tails with
+    M, N and K past their last full tile."""
     from ._examples import with_tail
     return [with_tail(_ex, label, dict(m=m, k=k, n=n, layout=layout),
                       dict(m=37, k=1040, n=1008, layout=layout))
@@ -201,4 +235,6 @@ def ck_examples():
                 ("a8w8_kn", 512, 1024, 2048, "kn"),
                 ("a8w8_nk", 512, 1024, 2048, "nk"),
                 ("phase3 [1024, 4096] @ nk [14336, 4096]", 1024, 4096, 14336,
-                 "nk"))]
+                 "nk"),
+                ("phase3 [1024, 4096] @ kn [4096, 14336]", 1024, 4096, 14336,
+                 "kn"))]

@@ -30,16 +30,20 @@ The backward takes the saved ``h`` (and ``x`` when ``act`` is set), the
 cotangent ``gy`` of ``y`` and, optionally, ``gh`` of ``h``; it recomputes
 the norm statistics from ``h`` in f32 and returns ``dx`` (x's shape and
 dtype), ``dres = dh`` (h's dtype) and f32 ``dw = sum gy * xhat`` and ``db
-= sum gy``. The kernel writes one f32 partial row of ``dw``/``db`` per
-block of rows, which the wrapper sums, as JAX sums its per-block partials
-outside its kernel (:303-304).
+= sum gy``. The rows kernel writes one f32 partial row of ``dw``/``db``
+per block, and a second kernel of the same call adds them in a fixed order,
+as JAX sums its per-block partials outside its kernel (:303-304).
 
 What bounds both on the H100: bytes — each input row read once, each
 output written once, a few dozen operations per element. The forward
 gives each row one block of 16-byte vectors and keeps the f32 pre-norm
-row in shared memory between the statistics pass and the output pass; the
-backward gives each block a strip of rows, keeps ``h`` and ``gy`` of the
-row in shared memory the same way, and its partial ``dw``/``db`` there.
+row in shared memory between the statistics pass and the output pass. The
+backward gives a row to a group of warps that walks a strip of rows,
+brings its next rows of ``h``, ``gy`` and ``gh`` into shared memory by
+bulk copies while it works on the current one (through hidden 8192),
+reduces the statistics by shuffles (and the group's named barrier), and
+keeps its partial ``dw``/``db`` in registers across the strip; the grid
+fills the card once (:func:`_bwd_plan` mirrors the source's plan).
 
 Unlike the JAX dispatch, which sends arrays under 512 elements to its
 composite (``use_kernel``, :436-448), the wrappers launch the kernels for
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,10 +82,15 @@ _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
 _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
     ctypes.c_void_p]
-#: backward: blocks of rows to fill the H100's 132 SMs with 2048 threads
-#: each (at least four blocks an SM)
-_SMS, _SM_THREADS = 132, 2048
-#: shared memory a backward block may take (of 227 KB), less the static part
+#: the backward's plan (``bwd_plan`` in the source; the tests hold these
+#: against its constants): the H100's SMs, narrow blocks an SM the grid is
+#: sized for, warps of a narrow block, 16-byte vectors a lane holds
+#: (narrow: hidden <= 8192; wide), warps of a wide group at most, partial
+#: rows a column's threads split in the sum kernel
+_SMS, _SMEM_SM, _MAX_THREADS, _BLOCK_WARPS = 132, 233472, 512, 8
+_NARROW_VECS, _WIDE_VECS, _MAX_GROUP_WARPS, _STAGES, _SUM_ROWS = 2, 8, 16, 3, 8
+#: the backward's contract: ``(3 + has_bias) * hidden`` f32 within this
+#: many bytes (hidden <= 19280, 14464 with a bias)
 _BWD_SMEM = 227 * 1024 - 1024
 
 
@@ -289,9 +299,10 @@ def fused_epilogue_bwd_plain(h, x, weight, gy, gh=None, seed=0, p=0.0,
 def fused_epilogue_bwd(h, x, weight, gy, gh=None, seed=0, p=0.0, eps=1e-6,
                        act=None, norm="rms", has_bias=False, x_dtype=None):
     """``(dx, dres, dw, db)``, as :func:`fused_epilogue_bwd_plain`. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
+    tensor takes the plain version; a CUDA tensor launches the kernels
     (bf16, contiguous, hidden % 8 == 0, and ``(3 + has_bias) * hidden``
-    f32 in a block's shared memory) or raises."""
+    f32 within ``_BWD_SMEM`` bytes) or raises. One call counts one
+    launch."""
     _check_bwd(h, x, weight, gy, gh, act, norm, has_bias)
     if h.device.type == "cpu":
         return fused_epilogue_bwd_plain(h, x, weight, gy, gh, seed, p, eps,
@@ -315,36 +326,66 @@ def fused_epilogue_bwd(h, x, weight, gy, gh=None, seed=0, p=0.0, eps=1e-6,
                          "tensors")
     _build.require_aligned("block epilogue backward", *ops)
     rows = h.numel() // hd
-    _, _, n_part = _bwd_layout(rows, hd)
+    nb = 1 + bool(has_bias)
     dx = torch.empty_like(h if x is None else x)
     dres = torch.empty_like(h)
-    # every block writes its whole partial row; no rows, no block
-    part = torch.zeros if rows == 0 else torch.empty
-    dw_part = part(n_part, hd, dtype=torch.float32, device=h.device)
-    db_part = part(n_part, hd, dtype=torch.float32, device=h.device) \
-        if has_bias else None
-    _launch_bwd(h, x, weight, gy, gh, dx, dres, dw_part, db_part, seed, p,
-                eps, act, norm, has_bias, _build.stream_of(h))
+    plan = _bwd_plan(rows, hd, has_bias, gh is not None)
+    part = torch.empty(nb, plan.blocks, hd, dtype=torch.float32,
+                       device=h.device)
+    # the sum kernel writes every column; no rows, no launch
+    out = (torch.zeros if rows == 0 else torch.empty)(
+        nb, hd, dtype=torch.float32, device=h.device)
+    _build.require_aligned("block epilogue backward", part, out)
+    _launch_bwd(h, x, weight, gy, gh, dx, dres, part, out, seed, p, eps, act,
+                norm, has_bias, _build.stream_of(h))
     fused_epilogue_bwd.launches += 1
-    return (dx, dres, dw_part.sum(0),
-            None if db_part is None else db_part.sum(0))
+    return dx, dres, out[0], out[1] if has_bias else None
 
 
 fused_epilogue_bwd.launches = 0
 
 
-def _bwd_layout(rows, hd):
-    """(threads, rows a block, blocks) of the backward: blocks of rows to
-    fill the card, at least four an SM."""
-    threads = min(1024, max(32, -(-hd // 256) * 32))   # the kernel's choice
-    n_blocks = _SMS * max(4, _SM_THREADS // threads)
-    per_block = max(1, -(-rows // n_blocks))
-    return threads, per_block, max(1, -(-rows // per_block))
+class _BwdPlan(NamedTuple):
+    vecs: int            # 16-byte vectors of a row a lane owns
+    group_warps: int     # warps that own a row
+    groups: int          # groups a block
+    threads: int
+    smem: int            # dynamic shared memory of the rows kernel
+    blocks_sm: int       # blocks an SM the grid is sized for
+    rows_per_group: int  # consecutive rows a group walks
+    blocks: int          # partial rows
 
 
-def _launch_bwd(h, x, weight, gy, gh, dx, dres, dw_part, db_part, seed, p,
-                eps, act, norm, has_bias, stream):
-    """The backward's C entry on operands the caller allocated."""
+def _bwd_plan(rows, hd, has_bias, has_gh=True):
+    """The backward's launch plan, as ``bwd_plan`` in the source: a group
+    of ceil(hidden / 512) warps a row through hidden 8192 (2 vectors a
+    lane; 8 / group warps groups a block), their rows staged in shared
+    memory three at a time; above it ceil(hidden / 2048) warps a row (8
+    vectors a lane); as many blocks an SM as shared memory and 128
+    registers a thread allow; the strips sized so that the grid fills the
+    card once."""
+    vecs = hd // 8
+    narrow = vecs <= _NARROW_VECS * 32 * _MAX_GROUP_WARPS
+    v = _NARROW_VECS if narrow else _WIDE_VECS
+    g = max(1, -(-vecs // (32 * v)))
+    ng = max(1, _BLOCK_WARPS // g)
+    threads = ng * g * 32
+    na = 2 + bool(has_gh)
+    smem = ng * _STAGES * (na * hd * 2 + 8) if narrow \
+        else (2 if has_bias else 1) * hd * 4
+    bsm = max(1, min(_SMEM_SM // (smem + 1024), 65536 // (128 * threads)))
+    slots = _SMS * bsm * ng
+    rpg = max(1, -(-rows // slots))
+    blocks = max(1, -(-rows // (rpg * ng)))
+    return _BwdPlan(v, g, ng, threads, smem, bsm, rpg, blocks)
+
+
+def _launch_bwd(h, x, weight, gy, gh, dx, dres, part, out, seed, p, eps,
+                act, norm, has_bias, stream):
+    """The backward's C entry (the rows kernel, then the partial-sum
+    kernel) on operands the caller allocated: ``part [1 + has_bias,
+    blocks, hidden]`` f32 scratch and ``out [1 + has_bias, hidden]``, dw
+    then db."""
     hd = h.shape[-1]
     rows = h.numel() // hd
     drop = 0.0 < p < 1.0
@@ -354,12 +395,10 @@ def _launch_bwd(h, x, weight, gy, gh, dx, dres, dw_part, db_part, seed, p,
     err = fn(h.data_ptr(), None if x is None else x.data_ptr(),
              weight.data_ptr(), gy.data_ptr(),
              None if gh is None else gh.data_ptr(), dx.data_ptr(),
-             dres.data_ptr(), dw_part.data_ptr(),
-             None if db_part is None else db_part.data_ptr(), rows,
-             _bwd_layout(rows, hd)[1], hd, _ACT_CODE[act],
-             int(norm == "layer"), int(bool(has_bias)), int(drop),
-             float(eps), int(seed) & _MASK32, threshold, float(scale),
-             stream)
+             dres.data_ptr(), part.data_ptr(), out.data_ptr(), rows,
+             part.shape[1], hd, _ACT_CODE[act], int(norm == "layer"),
+             int(bool(has_bias)), int(drop), float(eps),
+             int(seed) & _MASK32, threshold, float(scale), stream)
     _build.check(err, "block_epilogue backward")
 
 
@@ -474,57 +513,62 @@ def _ex_fwd(label, rows, hidden, act, norm, p, bias):
 
 
 def _ex_bwd(label, rows, hidden, act, norm, p, bias, with_gh=True):
-    """Blocks of ``per`` rows: dx and dres rows written, one f32 partial
-    row of dw (and db) a block, summed by the wrapper."""
+    """The rows kernel (a group of warps a row, ``groups`` groups a block,
+    each walking ``rows_per_group`` consecutive rows: dx and dres rows
+    written, one f32 partial row of dw, and of db, a block), then the sum
+    kernel (32 columns of [dw; db] a block)."""
     from ._examples import model, normal
     m = model()
     bf, f32 = torch.bfloat16, torch.float32
     xw = hidden * (2 if act == "swiglu" else 1)
-    threads, per, blocks = _bwd_layout(rows, hidden)
+    plan = _bwd_plan(rows, hidden, bias, with_gh)
+    nb = 1 + bool(bias)
+    per = plan.rows_per_group * plan.groups
     ops = [m.Operand("h", (rows, hidden), bf),
            m.Operand("w", (hidden,), bf, data=normal((hidden,), bf, 0.1, 1.0)),
            m.Operand("gy", (rows, hidden), bf),
            m.Operand("dx", (rows, xw), bf, "out"),
            m.Operand("dres", (rows, hidden), bf, "out"),
-           m.Operand("dw_part", (blocks, hidden), f32, "out")]
-    writes = [m.rows_map("dx", rows, xw, per),
-              m.rows_map("dres", rows, hidden, per),
-              m.rows_map("dw_part", blocks, hidden)]
+           m.Operand("part", (nb, plan.blocks, hidden), f32, "out"),
+           m.Operand("out", (nb, hidden), f32, "out")]
     if act:
         ops.append(m.Operand("x", (rows, xw), bf))
     if with_gh:
         ops.append(m.Operand("gh", (rows, hidden), bf))
-    if bias:
-        ops.append(m.Operand("db_part", (blocks, hidden), f32, "out"))
-        writes.append(m.rows_map("db_part", blocks, hidden))
     args = (1234, p, 1e-5, act, norm, bias)
 
     def plain(t):
         dx, dres, dw, db = fused_epilogue_bwd_plain(
             t["h"], t.get("x"), t["w"], t["gy"], t.get("gh"), *args)
-        out = {"dx": dx, "dres": dres, "dw_part": dw}
-        if bias:
-            out["db_part"] = db
-        return out
+        sums = torch.stack([dw, db]) if bias else dw[None]
+        return {"dx": dx, "dres": dres, "part": sums, "out": sums}
 
     def launch(t, stream):
         _launch_bwd(t["h"], t.get("x"), t["w"], t["gy"], t.get("gh"),
-                    t["dx"], t["dres"], t["dw_part"], t.get("db_part"),
-                    *args, stream)
+                    t["dx"], t["dres"], t["part"], t["out"], *args, stream)
 
-    kern = m.KernelLaunch(
-        "block_epilogue_bwd_kernel" + _targs(act, norm, bias, 0 < p < 1),
-        blocks, threads, smem=(4 if bias else 3) * hidden * 4, writes=writes)
+    kernels = [
+        m.KernelLaunch(
+            "block_epilogue_bwd_rows_kernel"
+            + _targs(act, norm, bias, 0 < p < 1)[:-1] + f",{plan.vecs}>",
+            plan.blocks, plan.threads, smem=plan.smem,
+            writes=[m.rows_map("dx", rows, xw, per),
+                    m.rows_map("dres", rows, hidden, per),
+                    m.TileMap("part", (1, 1, hidden), lambda x, y, z: [
+                        (a, x, 0) for a in range(nb)])]),
+        m.KernelLaunch("block_epilogue_bwd_sum_kernel",
+                       -(-nb * hidden // 32), 32 * _SUM_ROWS,
+                       writes=[m.TileMap("out", (32,), lambda x, y, z: (x,),
+                                         view=(nb * hidden,))])]
     n = rows * hidden
     flops = n * (14 + 6 * (norm == "layer") + 2 * bias + 15 * (0 < p < 1)
                  + _ACT_BWD_FLOPS[act])
     nbytes = 2 * (4 * n + (2 * rows * xw if act else n) + hidden) \
         + 4 * hidden * (1 + bias)
-    return m.Example(label, "block_epilogue", ops, [kern], launch, plain,
+    return m.Example(label, "block_epilogue", ops, kernels, launch, plain,
                      flops=flops, nbytes=nbytes,
-                     tol={"dw_part": 1e-3, "db_part": 1e-3, "*": 2.0 ** -7},
-                     reduce={"dw_part": lambda v: v.sum(0),
-                             "db_part": lambda v: v.sum(0)})
+                     tol={"part": 1e-3, "out": 1e-3, "*": 2.0 ** -7},
+                     reduce={"part": lambda v: v.sum(1)})
 
 
 def ck_examples():
@@ -532,9 +576,10 @@ def ck_examples():
     junctions and the backward at [512, 1024]) and phase 3's (the forward
     at hidden 4096: [8] and [1024] rows plain, [512] rows with gelu,
     swiglu, dropout 0.1 and layer norm with a bias; the backward at
-    Llama-3-8B's and GPT-2 small's junctions and two functional rows); each
-    with a tail of an odd row count and a hidden width that leaves threads
-    of the last warp idle."""
+    Llama-3-8B's and GPT-2 small's junctions and two functional rows, and
+    at hidden 12288, where a group of warps is the whole block); each with
+    a tail of an odd row count and a hidden width that leaves threads of
+    the last warp idle."""
     from ._examples import with_tail
     out = []
     fwd = [("attn_epilogue_fwd", 512, 1024, None, "rms", 0.0, False),
@@ -553,7 +598,9 @@ def ck_examples():
                                  norm=norm, p=p, bias=bias),
             dict(rows=rows + 3, hidden=hidden + 8, act=act, norm=norm, p=p,
                  bias=bias)))
-    bwd = [("epilogue_bwd", 512, 1024, None, "rms", 0.0, False, False)]
+    bwd = [("epilogue_bwd", 512, 1024, None, "rms", 0.0, False, False),
+           ("epilogue_bwd_wide", 37, 12288, "gelu", "layer", 0.1, True,
+            True)]
     for rows, hidden, act, norm, p, bias in (
             (4096, 4096, None, "rms", 0.0, False),
             (8192, 768, None, "layer", 0.0, True),
@@ -566,6 +613,6 @@ def ck_examples():
         out.append(with_tail(
             _ex_bwd, label, dict(rows=rows, hidden=hidden, act=act,
                                  norm=norm, p=p, bias=bias, with_gh=gh),
-            dict(rows=1061, hidden=hidden + 8, act=act, norm=norm, p=p,
-                 bias=bias, with_gh=gh)))
+            dict(rows=1061 if hidden <= 8192 else 5, hidden=hidden + 8,
+                 act=act, norm=norm, p=p, bias=bias, with_gh=gh)))
     return out

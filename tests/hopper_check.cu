@@ -19,7 +19,12 @@
 //       f32 unswizzled) copied out element by element, the swizzle undone,
 //       at coordinates that may pass the tensor's edges (zeros there);
 //   bulk: rows of a global tensor brought in by bulk copies (no tensor
-//       map), each signalled on one mbarrier, copied out.
+//       map), each signalled on one mbarrier, copied out;
+//   s8: C [64, 256] s32 = A [64, K] B [256, K]^T for int8 A and B, both
+//       K-major, each brought in by 2-D TMA boxes of 128 bytes a row with
+//       the 128-byte swizzle (as the A8W8 product loads q and the weight),
+//       then WgmmaS8<256>: K = 256 is two sub-tiles of four 32-deep steps,
+//       each step 32 bytes further, the next sub-tile the next box.
 #include "hopper.cuh"
 
 using ptt::bf16;
@@ -311,6 +316,51 @@ __global__ void __launch_bounds__(128) check_bulk_kernel(const unsigned char* sr
   for (int i = threadIdx.x; i < rows * bytes; i += 128) out[i] = smem[i];
 }
 
+constexpr int kS8K = 256;  // s8 reduction depth: two 128-byte sub-tiles
+
+__global__ void __launch_bounds__(128) check_s8_kernel(const __grid_constant__ CUtensorMap ta,
+                                                       const __grid_constant__ CUtensorMap tb,
+                                                       int* c) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sA = smem;                       // [2][64 rows][128 bytes]
+  unsigned char* sB = smem + 2 * 64 * 128;        // [2][256 rows][128 bytes]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sB + 2 * 256 * 128);
+  if (threadIdx.x == 0) {
+    hp::mbar_init(bar, 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hp::mbar_arrive_expect_tx(bar, (64 + 256) * kS8K);
+    for (int h = 0; h < 2; ++h) {
+      hp::tma_load_2d(sA + h * 64 * 128, &ta, bar, h * 128, 0);
+      hp::tma_load_2d(sB + h * 256 * 128, &tb, bar, h * 128, 0);
+    }
+  }
+  hp::mbar_wait(bar, 0);
+  int acc[128];
+  const uint32_t a = hp::smem_u32(sA), b = hp::smem_u32(sB);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kS8K / 32; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    hp::WgmmaS8<256>::ss(acc, hp::desc_kmajor(a + (kk >> 2) * (64 * 128) + off),
+                         hp::desc_kmajor(b + (kk >> 2) * (256 * 128) + off), kk > 0 ? 1 : 0);
+  }
+  hp::wgmma_commit();
+  hp::fence_acc<128>(acc);
+  hp::wgmma_wait<0>();
+  hp::fence_acc<128>(acc);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+#pragma unroll
+  for (int i = 0; i < 128; ++i) {
+    const int row = 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    c[row * 256 + col] = acc[i];
+  }
+}
+
 }  // namespace
 
 // rows x bytes (a multiple of 16) from src rows `stride` bytes apart (16-byte
@@ -379,4 +429,22 @@ PTT_EXPORT int ptt_check_ss_t(const void* a, const void* b, void* c, int n, void
   if (n == 64) return run_ss_t<64>(a, b, c, s);
   if (n == 128) return run_ss_t<128>(a, b, c, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// a [64, 256] int8, b [256, 256] int8, c [64, 256] int32 = a b^T
+PTT_EXPORT int ptt_check_s8(const void* a, const void* b, void* c, void* stream) {
+  CUtensorMap ta, tb;
+  int err = hp::encode_2d_map(&ta, a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 64, kS8K, 64, 128,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = hp::encode_2d_map(&tb, b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 256, kS8K, 256, 128,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const int smem = 1024 + (64 + 256) * kS8K + 8;
+  const cudaError_t e =
+      cudaFuncSetAttribute(check_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  check_s8_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(ta, tb,
+                                                                      static_cast<int*>(c));
+  return (int)cudaGetLastError();
 }

@@ -636,6 +636,49 @@ def test_a8w8_rejects_what_it_does_not_take(dev):
                                 _scales(dev, 40), "kn")
 
 
+# (M, K, N): several waves of 128 x 256 tiles (the llm_int8 prefill: 448
+# tiles on 132 SMs), and tails past every tile edge (M 37, K 1040 = 8 k-steps
+# and 16 bytes, N 1008 = 3 column tiles and 240)
+_A8W8_SHAPES = [(1024, 4096, 14336), (300, 1040, 1008), (37, 1040, 1008)]
+
+
+@pytest.mark.parametrize("m,k,n", _A8W8_SHAPES)
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+def test_a8w8_kernel_waves_and_tails(dev, m, k, n, layout):
+    """Bit-identical on the pinned construction and within one bf16 ulp of
+    the largest value plus a quantisation step on random activations, in
+    both layouts ("kn" through its K-major copy)."""
+    w = _int8(dev, n, k, seed=4)
+    ws = _scales(dev, n, seed=5)
+    wl = w if layout == "nk" else w.t().contiguous()
+    x = _pinned(dev, m, k, seed=6)
+    got = a8w8_matmul.a8w8_matmul(x, wl, ws, layout)
+    ref = a8w8_matmul.a8w8_matmul_plain(x, wl, ws, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    x = _randn(dev, m, k, seed=7)
+    got = a8w8_matmul.a8w8_matmul(x, wl, ws, layout)
+    ref = a8w8_matmul.a8w8_matmul_plain(x, wl, ws, layout)
+    _, s = a8w8_matmul.row_quantize(x)
+    step = (s * 127.0 * ws.max()).max().item()
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * ref.float().abs().max().item() + step, err
+
+
+@pytest.mark.parametrize("m,k,n", _A8W8_SHAPES[:2])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+def test_a8w8_kernel_is_deterministic(dev, m, k, n, layout):
+    w = _int8(dev, n, k, seed=8)
+    wl = w if layout == "nk" else w.t().contiguous()
+    ws = _scales(dev, n, seed=9)
+    x = _randn(dev, m, k, seed=10)
+    a = a8w8_matmul.a8w8_matmul(x, wl, ws, layout)
+    b = a8w8_matmul.a8w8_matmul(x, wl, ws, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 @pytest.mark.parametrize("quant,group,fused,kernel", [
     ("weight_only_int8", -1, False, "wo_int8"),
     ("weight_only_int4", -1, False, "wo_int4"),
@@ -851,6 +894,8 @@ def hopper_check(tmp_path_factory):
     lib.ptt_check_bulk.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     lib.ptt_check_bulk.restype = ctypes.c_int
+    lib.ptt_check_s8.argtypes = [ctypes.c_void_p] * 4
+    lib.ptt_check_s8.restype = ctypes.c_int
     return lib
 
 
@@ -866,6 +911,21 @@ def test_hopper_wgmma_ss_kmajor(dev, hopper_check, n):
     assert err == 0
     ref = torch.matmul(a.float(), b.float().t())
     torch.testing.assert_close(c, ref, rtol=1e-5, atol=1e-4)
+
+
+def test_hopper_wgmma_s8_kmajor(dev, hopper_check):
+    """The int8 wgmma (WgmmaS8<256>, m64n256k32 s8.s8 -> s32) over two
+    K-major 128-byte swizzled sub-tiles brought in by 2-D TMA boxes, each
+    32-deep step 32 bytes further through desc_kmajor: C = A B^T exactly."""
+    a = _int8(dev, 64, 256, seed=110, lo=-128)
+    b = _int8(dev, 256, 256, seed=111, lo=-128)
+    c = torch.empty(64, 256, dtype=torch.int32, device=dev)
+    err = hopper_check.ptt_check_s8(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    ref = a.cpu().long() @ b.cpu().long().t()
+    assert torch.equal(c.cpu().long(), ref)
 
 
 @pytest.mark.parametrize("n", [64, 128])
@@ -1102,6 +1162,76 @@ def test_block_epilogue_bwd_kernel(dev, act, norm, p, bias_on, rows, hidden,
             norm, bias_on)[0]
         keep = block_epilogue.keep_mask(rows, hidden, 1234, p, dev)
         assert torch.equal(dx0 != 0, keep)
+
+
+@pytest.mark.parametrize("act,norm,p,bias_on", EPI_CASES)
+@pytest.mark.parametrize("rows", [1, 37, 8192])
+@pytest.mark.parametrize("hidden", [768, 776, 4096, 8192, 12288])
+def test_block_epilogue_bwd_kernel_widths(dev, act, norm, p, bias_on, rows,
+                                          hidden):
+    """A warp a row (768, 776), groups of 4 and 8 warps (4096, 8192), a
+    wide group of 6 warps summing in shared memory (12288), at one row, an
+    odd count and a whole strip a group; dx and dres within one bf16 ulp,
+    dw and db within 1e-3 of their largest values."""
+    xw = 2 * hidden if act == "swiglu" else hidden
+    x = _randn(dev, rows, xw, seed=60) if act else None
+    h = _randn(dev, rows, hidden, seed=61)
+    w = _randn(dev, hidden, seed=62)
+    gy = _randn(dev, rows, hidden, seed=63)
+    gh = _randn(dev, rows, hidden, seed=64)
+    args = (h, x, w, gy, gh, 1234, p, 1e-5, act, norm, bias_on)
+    got = block_epilogue.fused_epilogue_bwd(*args)
+    ref = block_epilogue.fused_epilogue_bwd_plain(*args)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    _sum_close(got[2], ref[2])
+    if bias_on:
+        _sum_close(got[3], ref[3])
+
+
+@pytest.mark.parametrize("rows,hidden,act,norm,p,bias_on", [
+    (3, 19280, None, "rms", 0.0, False), (3, 19280, "swiglu", "layer", 0.1,
+                                          False),
+    (3, 14464, "gelu", "layer", 0.2, True)])
+def test_block_epilogue_bwd_kernel_at_the_contract_limit(dev, rows, hidden, act,
+                                                         norm, p, bias_on):
+    """The widest rows the wrapper takes ((3 + bias) * hidden f32 within
+    227 KB less 1 KB): a wide group of 10 or 8 warps."""
+    xw = 2 * hidden if act == "swiglu" else hidden
+    x = _randn(dev, rows, xw, seed=70) if act else None
+    h, gy, gh = (_randn(dev, rows, hidden, seed=s) for s in (71, 72, 73))
+    w = _randn(dev, hidden, seed=74)
+    args = (h, x, w, gy, gh, 1234, p, 1e-5, act, norm, bias_on)
+    got = block_epilogue.fused_epilogue_bwd(*args)
+    ref = block_epilogue.fused_epilogue_bwd_plain(*args)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    _sum_close(got[2], ref[2])
+    if bias_on:
+        _sum_close(got[3], ref[3])
+
+
+@pytest.mark.parametrize("rows,hidden,act,norm,p,bias_on", [
+    (8192, 768, None, "layer", 0.0, True), (4096, 4096, None, "rms", 0.0,
+                                            False),
+    (4096, 4096, "swiglu", "rms", 0.4, False), (37, 12288, "gelu", "layer",
+                                                0.2, True)])
+def test_block_epilogue_bwd_is_deterministic(dev, rows, hidden, act, norm, p,
+                                             bias_on):
+    """No atomics: the partial rows are added in a fixed order, so three
+    calls give the same bits."""
+    xw = 2 * hidden if act == "swiglu" else hidden
+    x = _randn(dev, rows, xw, seed=65) if act else None
+    h, gy, gh = (_randn(dev, rows, hidden, seed=s) for s in (66, 67, 68))
+    w = _randn(dev, hidden, seed=69)
+    args = (h, x, w, gy, gh, 1234, p, 1e-5, act, norm, bias_on)
+    runs = [block_epilogue.fused_epilogue_bwd(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a.view(torch.int16) if a.dtype ==
+                               torch.bfloat16 else a, b.view(torch.int16)
+                               if b.dtype == torch.bfloat16 else b)
+                   for a, b in zip(runs[0], other) if a is not None)
 
 
 @pytest.mark.parametrize("shape", [(3, 2 * 64), (4096, 2 * 14336),
