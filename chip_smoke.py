@@ -1176,8 +1176,9 @@ def decode_layer_tol(torch, args, ref_y, ref_h, eps=1e-5):
 def _kernels_decode_layer(torch, dev, randn, timer, results):
     """The decode layer at Llama-3-8B's width (hidden 4096, I 14336, H 32,
     D 128, page 16): B 8 over Hkv 8 at positions 0..1500 with an inactive
-    row 0, B 1, a rep-1 case (Hkv 32), and every legal block_i at the
-    first shape. Times: the kernel, the plain version and the port's
+    row 0, B 1, a rep-1 case (Hkv 32), B 16 (the kernel's 16-row wgmma
+    width: the weights read once), and every legal block_i at the first
+    shape. Times: the kernel, the plain version and the port's
     composite path for the same layer (mmha, o_proj, the block epilogue,
     gate/up, the SwiGLU kernel, down, the block epilogue), which nothing
     on the serving path calls; and the kernel's phases from its device
@@ -1199,7 +1200,8 @@ def _kernels_decode_layer(torch, dev, randn, timer, results):
     w_next = (1.0 + randn(hd).float() * 0.1).to(torch.bfloat16)
     full = [0, 18, 256, 257, 701, 1024, 1201, 1501]
     cases = [(full, 8, "B 8"), ([901], 8, "B 1"),
-             ([0] + [100 + 190 * r for r in range(1, 8)], 32, "rep 1")]
+             ([0] + [100 + 190 * r for r in range(1, 8)], 32, "rep 1"),
+             (full * 2, 8, "B 16")]
     for lengths, h_kv, label in cases:
         b = len(lengths)
         tables, pos, n_pages = _paged(torch, dev, lengths, ps, 2048 // ps, 7)
@@ -1860,7 +1862,7 @@ def _parity_first_decode(torch, what, sm, engine, prompts, served):
 
 _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "swiglu_kernel", "flash_attention_kernel",
-                "block_epilogue_kernel", "decode_layer_kernel",
+                "block_epilogue_kernel", "decode_layer_wgmma_kernel",
                 "wo_prefill_kernel", "wo_decode_kernel",
                 "a8w8_quantize_kernel", "a8w8_transpose_kernel",
                 "a8w8_wgmma_kernel", "rms_norm_bwd_kernel",
@@ -1870,7 +1872,7 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "block_epilogue_bwd_sum_kernel",
                 "swiglu_packed_kernel", "swiglu_packed_bwd_kernel",
                 "lamb_moments_kernel", "lamb_apply_kernel",
-                "ce_row_stats_kernel", "moe_gemm_kernel",
+                "ce_row_stats_kernel", "moe_wgmma_kernel",
                 "softmax_mask_kernel", "softmax_mask_bwd_kernel",
                 "bias_dropout_ln_kernel", "bias_dropout_ln_bwd_kernel",
                 "bdl_partial_sum_kernel", "dropout_add_kernel",
@@ -3163,11 +3165,12 @@ def _kernels_moe_gemm(torch, dev, randn, timer, results):
     ``ceil(2 * n * 4 / 60)``), bf16: gate/up ``[60, C, 2048] @ [60, 2048,
     1408]``, down ``[60, C, 1408] @ [60, 1408, 2048]`` and the backward's
     dx ``[60, C, 1408] @ w_up^T``, the weight read as the transposed view
-    of the forward's ``[60, 2048, 1408]`` stack. Counts from a seeded
-    skewed draw (``moe_gemm.skewed_counts``, the analysis phase's examples'
-    counts) with an empty and a full expert; every
-    padding row of x is random. Within one bf16 ulp of the plain version,
-    and exactly zero past each count. Bound: the weights of the experts
+    of the forward's ``[60, 2048, 1408]`` stack; then gate/up and dx at
+    train_moe's capacity (B 2 x S 2048 = 4096 tokens: 547). Counts from a
+    seeded skewed draw (``moe_gemm.skewed_counts``, the analysis phase's
+    examples' counts) with an empty and a full expert; every padding row of
+    x is random. Within one bf16 ulp of the plain version, exactly zero
+    past each count, and the same bits on a second call. Bound: the weights of the experts
     with a live row read once, the live rows of x read once, the whole
     output written once, over the memory rate; against ``2 * sum(counts) *
     H * F`` operations on the bf16 tensor cores. Yardstick, timed only:
@@ -3176,40 +3179,48 @@ def _kernels_moe_gemm(torch, dev, randn, timer, results):
     from paddle_tpu_torch.ops.kernels import moe_gemm
 
     e, k, h, f = 60, 4, 2048, 1408
-    n = MOE_TOKENS
-    cap = math.ceil(2.0 * n * k / e)
-    counts = moe_gemm.skewed_counts(e, n * k, cap, seed=81).to(dev)
-    live = moe_gemm.live_rows(counts, cap)
     w_gate = randn(e, h, f, scale=0.02)
     w_down = randn(e, f, h, scale=0.02)
-    x = randn(e, cap, h)
-    act = randn(e, cap, f)
-    cases = [("gate/up", x, w_gate, "gate/up [60, 274, 2048] @ [60, 2048, "
-              "1408]"),
-             ("down", act, w_down, "down [60, 274, 1408] @ [60, 1408, 2048]"),
-             ("dx, w^T", act, w_gate.transpose(1, 2),
-              "dx [60, 274, 1408] @ [60, 2048, 1408]^T")]
-    rows_live = int(counts.sum())
-    experts_live = int((counts > 0).sum())
-    for label, a, w, sheet in cases:
-        got = moe_gemm.grouped_matmul(a, w, counts)
-        ref = moe_gemm.grouped_matmul_plain(a, w, counts)
-        err, tol = compare(torch, got, ref)
-        if got.masked_select(~live).any():
-            fail(f"moe_gemm {label}: non-zero output past the counts")
-        padded = torch.where(live, a, torch.zeros((), dtype=a.dtype,
-                                                  device=dev))
-        lib = timer(lambda: torch.bmm(padded, w))
-        _record(results, "moe_gemm",
-                [label, list(a.shape), list(w.shape), "counts", rows_live],
-                err, tol, timer(lambda: moe_gemm.grouped_matmul(a, w, counts)),
-                timer(lambda: moe_gemm.grouped_matmul_plain(a, w, counts),
-                      iters=5), lib, ("moe_gemm", f"phase3 {sheet}"),
-                capacity=cap, experts_live=experts_live,
-                weight_layout="[E, F, H] viewed as [E, H, F]"
-                if not w.is_contiguous() else "[E, H, F]")
-        del got, ref, padded
-    del w_gate, w_down, x, act
+    for n, labels in ((MOE_TOKENS, ("gate/up", "down", "dx, w^T")),
+                      (TRAIN_BATCH * TRAIN_SEQ, ("gate/up", "dx, w^T"))):
+        cap = math.ceil(2.0 * n * k / e)
+        counts = moe_gemm.skewed_counts(e, n * k, cap, seed=81).to(dev)
+        live = moe_gemm.live_rows(counts, cap)
+        x = randn(e, cap, h)
+        act = randn(e, cap, f)
+        cases = {"gate/up": (x, w_gate, f"gate/up [60, {cap}, 2048] @ "
+                             f"[60, 2048, 1408]"),
+                 "down": (act, w_down, f"down [60, {cap}, 1408] @ "
+                          f"[60, 1408, 2048]"),
+                 "dx, w^T": (act, w_gate.transpose(1, 2),
+                             f"dx [60, {cap}, 1408] @ [60, 2048, 1408]^T")}
+        rows_live = int(counts.sum())
+        experts_live = int((counts > 0).sum())
+        for label in labels:
+            a, w, sheet = cases[label]
+            got = moe_gemm.grouped_matmul(a, w, counts)
+            ref = moe_gemm.grouped_matmul_plain(a, w, counts)
+            err, tol = compare(torch, got, ref)
+            if got.masked_select(~live).any():
+                fail(f"moe_gemm {label}: non-zero output past the counts")
+            again = moe_gemm.grouped_matmul(a, w, counts)
+            if not torch.equal(again, got):
+                fail(f"moe_gemm {label}: two calls on the same inputs differ")
+            padded = torch.where(live, a, torch.zeros((), dtype=a.dtype,
+                                                      device=dev))
+            lib = timer(lambda: torch.bmm(padded, w))
+            _record(results, "moe_gemm",
+                    [label, list(a.shape), list(w.shape), "counts", rows_live],
+                    err, tol,
+                    timer(lambda: moe_gemm.grouped_matmul(a, w, counts)),
+                    timer(lambda: moe_gemm.grouped_matmul_plain(a, w, counts),
+                          iters=5), lib, ("moe_gemm", f"phase3 {sheet}"),
+                    capacity=cap, experts_live=experts_live,
+                    weight_layout="[E, F, H] viewed as [E, H, F]"
+                    if not w.is_contiguous() else "[E, H, F]")
+            del got, ref, again, padded
+        del x, act
+    del w_gate, w_down
 
 
 def _moe_path_launches(layers, forwards=1, train=False):

@@ -8,6 +8,8 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> grad [--incubate]
     python3 kernel_ab.py <checkout root> <tag> a8w8 [--llm-int8]
     python3 kernel_ab.py <checkout root> <tag> epi [--train]
+    python3 kernel_ab.py <checkout root> <tag> moe [--train]
+    python3 kernel_ab.py <checkout root> <tag> dl [--engine]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -76,6 +78,32 @@ Family ``epi`` (the block-epilogue backward, row 10):
   checkout (GPT-2 small, B 8 x S 1024: parity, 8 steps, a profile with
   row 10's device ms and the step's wall).
 
+Family ``moe`` (the grouped expert product, row 17):
+
+- ``moe``: ``chip_smoke.py``'s three phase-3 rows (one Qwen1.5-MoE layer
+  at 2048 tokens, capacity 274: gate/up, down and dx through the
+  transposed view of the gate/up stack) and train_moe's capacity 547
+  (4096 tokens: gate/up and dx), counts from ``moe_gemm.skewed_counts``:
+  the kernel's cold-L2 ms, ``torch.bmm`` on x with its padding rows zeroed,
+  their ratio and the error against the plain version;
+- ``host``: the host time of one wrapper call at a small shape and at
+  gate/up's, as for flash;
+- with ``--train``, ``chip_smoke.py``'s ``train_moe`` phase of that
+  checkout (Qwen1.5-MoE's widths at 4 layers, B 2 x S 2048: parity, the
+  steps, a profile of a step with row 17's device ms).
+
+Family ``dl`` (the decode layer, row 11):
+
+- ``dl``: ``chip_smoke.py``'s phase-3 rows (Llama-3-8B's layer: B 8 over
+  Hkv 8 at positions 0..1500, B 1, rep 1 over Hkv 32) and B 16: the
+  kernel's cold-L2 ms, its phases from its clock stamps, the port's
+  composite path (mmha, the projections, the block epilogues, SwiGLU) and
+  the ratio, the errors of y and h against the plain version;
+- ``host``: the host time of one wrapper call at B 8;
+- with ``--engine``, engine c of ``chip_smoke.py`` (Llama-3-8B, random
+  weights, ``fused_decode_layer=True``, block_i tuned into a temporary
+  cache): the profile of a decode step at batch 8.
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -97,8 +125,10 @@ def main() -> int:
     if not paddle_tpu_torch.__file__.startswith(root) \
             or not cs.__file__.startswith(root):
         cs.fail(f"{root}: its modules were not the ones imported")
-    if family not in ("flash", "wo", "grad", "a8w8", "epi"):
-        cs.fail(f"family {family!r}: flash, wo, grad, a8w8 or epi")
+    families = {"flash": _flash, "wo": _wo, "grad": _grad, "a8w8": _a8w8,
+                "epi": _epi, "moe": _moe, "dl": _dl}
+    if family not in families:
+        cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     dev = torch.device("cuda", 0)
@@ -112,16 +142,7 @@ def main() -> int:
     def emit(**row):
         print(json.dumps({"tag": tag, **row}), flush=True)
 
-    if family == "flash":
-        _flash(torch, cs, dev, timer, randn, emit)
-    elif family == "wo":
-        _wo(torch, cs, dev, timer, randn, emit)
-    elif family == "grad":
-        _grad(torch, cs, dev, timer, randn, emit)
-    elif family == "a8w8":
-        _a8w8(torch, cs, dev, timer, randn, emit)
-    else:
-        _epi(torch, cs, dev, timer, randn, emit)
+    families[family](torch, cs, dev, timer, randn, emit)
     return 0
 
 
@@ -415,6 +436,129 @@ def _epi(torch, cs, dev, timer, randn, emit):
 
     if "--train" in sys.argv[4:]:
         cs.phase_train_gpt(torch, dev)
+
+
+def _moe(torch, cs, dev, timer, randn, emit):
+    from paddle_tpu_torch.ops.kernels import moe_gemm
+
+    e, k, h, f = 60, 4, 2048, 1408
+    w_gate, w_down = randn(e, h, f) * 0.02, randn(e, f, h) * 0.02
+    for tokens, rows in ((2048, ("gate/up", "down", "dx")),
+                         (4096, ("gate/up", "dx"))):
+        cap = -(-2 * tokens * k // e)
+        counts = moe_gemm.skewed_counts(e, tokens * k, cap, seed=81).to(dev)
+        live = moe_gemm.live_rows(counts, cap)
+        x, act = randn(e, cap, h), randn(e, cap, f)
+        cases = {"gate/up": (x, w_gate), "down": (act, w_down),
+                 "dx": (act, w_gate.transpose(1, 2))}
+        for label in rows:
+            a, w = cases[label]
+            err, tol = cs.compare(torch, moe_gemm.grouped_matmul(a, w, counts),
+                                  moe_gemm.grouped_matmul_plain(a, w, counts))
+            padded = torch.where(live, a, torch.zeros((), dtype=a.dtype,
+                                                      device=dev))
+            lib = timer(lambda: torch.bmm(padded, w))
+            ms = timer(lambda: moe_gemm.grouped_matmul(a, w, counts))
+            emit(moe=[label, list(a.shape), list(w.shape), "capacity", cap,
+                      "live rows", int(counts.sum())], ms=ms, bmm_ms=lib,
+                 ratio=ms / lib, max_abs_err=err, tol=tol)
+            del padded
+        if tokens == 2048:
+            emit(host=["moe_gemm", "gate/up", e, cap, h, f], us=_host_us(
+                torch, lambda: moe_gemm.grouped_matmul(x, w_gate, counts)))
+        del x, act
+    xs, ws = randn(4, 64, 256), randn(4, 256, 384)
+    cs_small = torch.tensor([0, 64, 10, 33], dtype=torch.int32, device=dev)
+    emit(host=["moe_gemm", 4, 64, 256, 384], us=_host_us(
+        torch, lambda: moe_gemm.grouped_matmul(xs, ws, cs_small)))
+    del w_gate, w_down
+
+    if "--train" in sys.argv[4:]:
+        cs._free(torch)
+        cs.phase_train_moe(torch, dev)
+
+
+def _dl(torch, cs, dev, timer, randn, emit):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import block_epilogue as be
+    from paddle_tpu_torch.ops.kernels import decode_layer as dl
+    from paddle_tpu_torch.ops.kernels import mmha, swiglu
+
+    hd, inter, d, ps, eps = 4096, 14336, 128, 16, 1e-5
+    wo = randn(hd, 32 * d) * 0.02
+    wg, wu = randn(inter, hd) * 0.02, randn(inter, hd) * 0.02
+    wd = randn(hd, inter) * 0.02
+    w_post = (1.0 + randn(hd).float() * 0.1).to(torch.bfloat16)
+    w_next = (1.0 + randn(hd).float() * 0.1).to(torch.bfloat16)
+    full = [0, 18, 256, 257, 701, 1024, 1201, 1501]
+    for lengths, h_kv, label in (
+            (full, 8, "B 8"), ([901], 8, "B 1"),
+            ([0] + [100 + 190 * r for r in range(1, 8)], 32, "rep 1"),
+            (full * 2, 8, "B 16")):
+        b = len(lengths)
+        tables, pos, n_pages = cs._paged(torch, dev, lengths, ps, 2048 // ps, 7)
+        args = (randn(b, 32, d), randn(n_pages, h_kv, ps, d),
+                randn(n_pages, h_kv, ps, d), tables, pos, randn(b, hd), wo,
+                w_post, wg, wu, wd, w_next)
+        got = dl.decode_layer(*args, eps, eps)
+        ref = dl.decode_layer_plain(*args, eps, eps)
+        tol_y, tol_h = cs.decode_layer_tol(torch, args, *ref, eps=eps)
+        err_y = cs.compare(torch, got[0], ref[0])[0]
+        err_h = cs.compare(torch, got[1], ref[1])[0]
+        del got, ref
+        q, kl, vl, hres = args[0], args[1], args[2], args[5]
+
+        def composite():
+            o = mmha.mmha_decode(q[:, None], kl, vl, tables, pos)
+            y1, h1 = be.decode_epilogue(TF.linear(o.reshape(b, -1), wo), hres,
+                                        w_post, eps)
+            z = swiglu.swiglu(TF.linear(y1, wg), TF.linear(y1, wu))
+            return be.decode_epilogue(TF.linear(z, wd), h1, w_next, eps)
+
+        stamps = torch.zeros(6, dtype=torch.int64, device=dev)
+        timer.flush.zero_()
+        dl.decode_layer(*args, eps, eps, stamps=stamps)
+        torch.cuda.synchronize()
+        phases = {n: (stamps[i + 1] - stamps[i]).item() / 1e6
+                  for i, n in enumerate(dl.PHASES)}
+        ms = timer(lambda: dl.decode_layer(*args, eps, eps))
+        comp = timer(composite)
+        emit(dl=[label, "Hkv", h_kv, "pos", pos.tolist()], ms=ms,
+             composite_ms=comp, ratio=ms / comp, phase_ms=phases,
+             max_abs_err=err_y, tol=tol_y, max_abs_err_h=err_h, tol_h=tol_h)
+        if label == "B 8":
+            emit(host=["decode_layer", "B 8"], us=_host_us(
+                torch, lambda: dl.decode_layer(*args, eps, eps)))
+        del args
+    del wo, wg, wu, wd
+
+    if "--engine" in sys.argv[4:]:
+        import os
+        import tempfile
+
+        import numpy as np
+
+        from paddle_tpu_torch.models import llama3_8b
+        from paddle_tpu_torch.serving import (LLMEngine, ServingConfig,
+                                              ServingModel)
+
+        cs._free(torch)
+        tmp = tempfile.mkdtemp(prefix="kernel_ab_tune_")
+        os.environ["PADDLE_TPU_TUNE_CACHE"] = os.path.join(tmp, "tuning.json")
+        model = llama3_8b(device=dev, seed=0)
+        prompts = cs.default_prompts(np, model.cfg.vocab_size)
+        engine = LLMEngine(model, cs._fused_layer_config(ServingConfig))
+        layer = ServingModel(model, fused_decode_layer=True).bind_pool(
+            engine.pool)
+        tables, toks, pos, held = cs._batch_tables(torch, engine, prompts)
+        try:
+            emit(engine_c_decode_step=cs._profile(
+                torch, lambda: layer.decode_forward(toks, pos, tables),
+                reps=10), block_i=(engine.tuning or {}).get("block_i"))
+        finally:
+            engine.pool.free(held)
+            engine.shutdown()
 
 
 def _host_us(torch, fn, calls=100, repeats=5):

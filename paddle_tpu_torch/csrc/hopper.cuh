@@ -6,8 +6,10 @@
 // reallocation between warpgroups. The flash-attention kernels
 // (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu), the weight-only
 // kernels (csrc/wo_matmul.cu), the weight-gradient accumulation
-// (csrc/linear_grad_add.cu) and the A8W8 product (csrc/a8w8_matmul.cu, the
-// int8 wgmma) are built from them.
+// (csrc/linear_grad_add.cu), the A8W8 product (csrc/a8w8_matmul.cu, the
+// int8 wgmma), the grouped expert product (csrc/moe_gemm.cu: 3-D maps) and
+// the decode layer (csrc/decode_layer.cu: the narrow m64n24 / m64n48 wgmma)
+// are built from them.
 //
 // Shared-memory tiles. Every tile is a stack of sub-tiles of 64 bf16
 // columns (128 bytes a row), one per 64 columns of the operand, each written
@@ -101,6 +103,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// whether the phase of parity `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // -- TMA ----------------------------------------------------------------------
 
 // one box of a 4-D tensor map into shared memory; the barrier's transaction
@@ -112,6 +127,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 3-D tensor map (coordinates: column, row, matrix) into
+// shared memory, as tma_load_4d
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -183,6 +209,14 @@ __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
 // of them (a wgmma operand that threads wrote); a barrier follows
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// orders this thread's generic-proxy accesses of global memory against its
+// later async-proxy ones (a TMA load of data that threads of this grid
+// stored: the writers fence before they release, the reader after it
+// acquires)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // barrier `id` (1..15; 0 is __syncthreads) among `threads` threads of the
@@ -339,6 +373,40 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // overwrites d.
 template <int N>
 struct Wgmma;
+
+// N 24 and 48: the decode layer's batch columns, three bf16 terms of 8 or
+// 16 rows each (64 weight rows as A)
+template <>
+struct Wgmma<24> {
+  template <int TB, int TA = 0>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, %12, %13, p, 1, 1, %16, %15;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  template <int TB, int TA = 0>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, %28, %27;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+  }
+};
 
 template <>
 struct Wgmma<32> {
@@ -593,6 +661,36 @@ inline int make_2d_map(CUtensorMap* map, const void* base, CUtensorMapDataType t
   const int key[7] = {(int)type, elem_bytes, rows, cols, box_rows, box_cols, (int)swizzle};
   return cached_map(map, base, key, [&](CUtensorMap* m) {
     return encode_2d_map(m, base, type, elem_bytes, rows, cols, box_rows, box_cols, swizzle);
+  });
+}
+
+// Tensor map of a bf16 [mats, rows, cols] tensor (cols contiguous, rows
+// cols * 2 bytes apart, matrices rows * cols * 2 apart; cols % 8 == 0) whose
+// box is box_mats x box_rows x box_cols elements with the 128-byte swizzle
+// (box_cols * 2 <= 128): coordinates (column, row, matrix). Elements past any
+// edge arrive as zeros, so a box never reads the next matrix's rows. Returns
+// 0, or a cudaError_t.
+inline int encode_3d_map(CUtensorMap* map, const void* base, int mats, int rows, int cols,
+                         int box_mats, int box_rows, int box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, (cuuint32_t)box_mats};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// encode_3d_map through the cache
+inline int make_3d_map(CUtensorMap* map, const void* base, int mats, int rows, int cols,
+                       int box_mats, int box_rows, int box_cols) {
+  const int key[6] = {mats, rows, cols, box_mats, box_rows, box_cols};
+  return cached_map(map, base, key, [&](CUtensorMap* m) {
+    return encode_3d_map(m, base, mats, rows, cols, box_mats, box_rows, box_cols);
   });
 }
 

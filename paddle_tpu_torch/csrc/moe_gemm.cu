@@ -22,195 +22,181 @@
 // Bound on the H100: bytes at Qwen1.5-MoE's widths (one [60, 2048, 1408]
 // weight stack is 346 MB, read once per call: 0.103 ms at 3.35 TB/s,
 // against 0.048 ms for the live rows' products on the tensor cores).
-// Design: one block of 4 warps per (64-row capacity tile, 128-column output
-// tile, expert); blocks along x walk the capacity tiles of one weight tile,
-// so a weight tile is read from device memory once and served to the other
-// capacity tiles from L2. Each block reads counts[e] itself (nothing waits
-// on the host): a tile wholly at or past the count writes its zeros and
-// returns without loading or multiplying; a live tile loads only its live
-// rows (cp.async with a zero source size fills the rest with zeros), and a
-// warp whose 32 rows are all past the count skips its products. Tiles of
-// x and of the weight go through a 3-stage cp.async ring in shared memory
-// (46 KB). mma.sync m16n8k16 reads the x fragments with 32-bit loads; the
-// weight's B fragments come from a [k][n] tile through ldmatrix.trans
-// (w_nk = 0) or from an [n][k] tile with 32-bit loads (w_nk = 1). Every row
-// stride is padded by 16 bytes, so neither read conflicts on a bank.
-#include "common.cuh"
+// Design: a TMA and wgmma kernel built from csrc/hopper.cuh. A block is one
+// work item: (expert, 128-column output tile, group of 128 capacity rows);
+// the grid (N / 128, C / 128, E) runs an expert's column tiles next to each
+// other, so its x rows and, for the later row groups of a full expert, its
+// weight tiles come from L2. At Qwen's counts (65 live rows a live expert on
+// average at capacity 274) nearly every expert is one group, so each weight
+// box crosses from device memory once and feeds every live row of its
+// expert. 288 threads: two consumer warpgroups, one a 64-row tile of the
+// group (with one live tile both multiply it), then one producer warp whose
+// one thread keeps a 3-stage ring in flight; a stage is k 64 deep: the live 64-row x tiles ([64 rows, 64 k]
+// boxes of a 3-D map over [E, C, K], so no box reads the next expert's
+// rows) and the weight's [128 n, 64 k] box (w_nk = 1: K-major, as x) or its
+// two [64 k, 64 n] boxes (w_nk = 0: MN-major, the wgmma's transpose bit
+// set), all with the 128-byte swizzle, signalled by a `full` mbarrier
+// (transaction bytes) and released by an `empty` one. Each consumer
+// warpgroup runs four wgmma m64n128k16 a stage with both operands in shared
+// memory, one group in flight. Each block reads counts[e] itself (nothing
+// waits on the host): a group wholly past the count writes its zeros and
+// returns without loading anything (an empty expert reads no weight); a
+// group loads only its live 64-row tiles, and rows past the count inside a
+// live tile are written as zeros by the epilogue, whatever x held there.
+// Two blocks an SM (99,376 B of shared memory each): four to six stages,
+// 96-192 KB, in flight an SM.
+#include "hopper.cuh"
 
 using ptt::bf16;
-using ptt::ld32;
-using ptt::mma_bf16;
+namespace hp = ptt::hopper;
 
 namespace {
 
-constexpr int BM = 64;       // capacity rows per block (2 warps x 32)
-constexpr int BN = 128;      // output columns per block (2 warps x 64)
-constexpr int BK = 32;       // contraction depth of one stage
-constexpr int STAGES = 3;
-constexpr int THREADS = 128;
-constexpr int AST = BK + 8;        // row stride of the x tile [BM][BK]
-constexpr int BST_KN = BN + 8;     // row stride of a [BK][BN] weight tile
-constexpr int BST_NK = BK + 8;     // row stride of a [BN][BK] weight tile
-constexpr int A_ELEMS = BM * AST;
-constexpr int B_ELEMS = BN * BST_NK > BK * BST_KN ? BN * BST_NK : BK * BST_KN;
-constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
-static_assert(BM * (BK / 8) % THREADS == 0 && BN * (BK / 8) % THREADS == 0,
-              "every thread copies the same number of 16-byte chunks a stage");
+constexpr int kBM = 128;      // capacity rows a block: two consumer warpgroups of 64
+constexpr int kBN = 128;      // output columns a block: the wgmma's N
+constexpr int kBK = 64;       // k a ring stage: one 128-byte swizzled row of bf16
+constexpr int kStages = 3;    // ring stages
+constexpr int kThreads = 288; // two consumer warpgroups, then one producer warp
+constexpr int kXBytes = 64 * kBK * 2;                  // one 64-row x box
+constexpr int kWBytes = kBN * kBK * 2;                 // the weight's boxes
+constexpr int kStageBytes = 2 * kXBytes + kWBytes;
+constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 
-// 16 bytes from global to shared memory, asynchronously; `ok` false writes
-// 16 zero bytes and reads nothing
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 bf16 matrices of shared memory, transposed: lanes 8i..8i+7 give
-// the row addresses of matrix i, and register i receives this lane's pair
-// of matrix i's transpose (rows 2(lane%4) and 2(lane%4)+1 of column lane/4)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) = (column tile, row group,
+// expert), as the header says. tx: x [E, C, K], box [64 k, 64 rows]; tw: w
+// [E, N, K] box [64 k, 128 n] (NK) or [E, K, N] box [64 n, 64 k].
 template <bool NK>
-__global__ void __launch_bounds__(THREADS)
-    moe_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const int* __restrict__ counts, bf16* __restrict__ out, int C, int K, int N) {
-  __shared__ __align__(16) bf16 smem[STAGES * STAGE_ELEMS];
-  const int e = blockIdx.z;
-  const int c0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+__global__ void __launch_bounds__(kThreads, 2)
+    moe_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                     const int* __restrict__ counts, bf16* __restrict__ out, int C, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kBN, c0 = blockIdx.y * kBM, e = blockIdx.z;
   const int count = min(max(__ldg(counts + e), 0), C);
   bf16* o = out + (size_t)e * C * N;
   const int tid = threadIdx.x;
 
   if (c0 >= count) {
-    // the whole tile lies past the count: zeros, never multiplied
-    const int rows = min(BM, C - c0);
+    // the whole group lies past the count: zeros, nothing loaded
+    const int rows = min(kBM, C - c0);
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = tid; i < rows * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), cc = n0 + (i % (BN / 8)) * 8;
+    for (int i = tid; i < rows * (kBN / 8); i += kThreads) {
+      const int r = i / (kBN / 8), cc = n0 + (i % (kBN / 8)) * 8;
       if (cc < N) *reinterpret_cast<uint4*>(o + (size_t)(c0 + r) * N + cc) = zero;
     }
     return;
   }
-
-  const bf16* xe = x + (size_t)e * C * K;
-  const bf16* we = w + (size_t)e * K * N;
-  const int live = count - c0;  // rows of this tile below the count
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;  // 32-row, 64-column warp tile
-  const bool warp_live = wm * 32 < live;
-
-  auto load_tile = [&](int stage, int k0) {
-    bf16* As = smem + stage * STAGE_ELEMS;
-    bf16* Bs = As + A_ELEMS;
-#pragma unroll
-    for (int j = 0; j < BM * (BK / 8) / THREADS; ++j) {
-      const int i = tid + j * THREADS, r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool ok = r < live && k0 + c < K;
-      cp_async16(As + r * AST + c, ok ? xe + (size_t)(c0 + r) * K + k0 + c : xe, ok);
+  const int tiles = count - c0 > 64 ? 2 : 1;  // 64-row tiles with a live row
+  const int n_kt = (K + kBK - 1) / kBK;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 8);  // one arrival a consumer warp
     }
-    if constexpr (NK) {
-#pragma unroll
-      for (int j = 0; j < BN * (BK / 8) / THREADS; ++j) {
-        const int i = tid + j * THREADS, r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        const bool ok = n0 + r < N && k0 + c < K;
-        cp_async16(Bs + r * BST_NK + c, ok ? we + (size_t)(n0 + r) * K + k0 + c : we, ok);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < BK * (BN / 8) / THREADS; ++j) {
-        const int i = tid + j * THREADS, r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        const bool ok = k0 + r < K && n0 + c < N;
-        cp_async16(Bs + r * BST_KN + c, ok ? we + (size_t)(k0 + r) * N + n0 + c : we, ok);
-      }
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int n_kt = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_kt) load_tile(s, s * BK);
-    cp_async_commit();
+    hp::mbar_fence_init();
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's part)
-    __syncthreads();              // ... every thread's part; tile kt-1 is fully read
-    const int nxt = kt + STAGES - 1;
-    if (nxt < n_kt) load_tile(nxt % STAGES, nxt * BK);
-    cp_async_commit();
-    if (!warp_live) continue;
-    const bf16* As = smem + (kt % STAGES) * STAGE_ELEMS;
-    const bf16* Bs = As + A_ELEMS;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16* ap = As + (wm * 32 + mt * 16 + g) * AST + ks * 16 + 2 * t;
-        a[mt][0] = ld32(ap);
-        a[mt][1] = ld32(ap + 8 * AST);
-        a[mt][2] = ld32(ap + 8);
-        a[mt][3] = ld32(ap + 8 * AST + 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {  // two n8 tiles at a time
-        uint32_t b[4];
+  __syncthreads();
+
+  if (tid >= 256) {
+    // producer warp: one thread issues every copy
+    if (tid == 256) {
+      hp::prefetch_tensormap(&tx);
+      hp::prefetch_tensormap(&tw);
+      // an MN-major weight's second box lies wholly past N at a narrow last
+      // tile: it is not loaded (its columns are never stored)
+      const bool second = NK || n0 + 64 < N;
+      const uint32_t bytes = tiles * kXBytes + (second ? kWBytes : kWBytes / 2);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kStages;
+        if (kt >= kStages) hp::mbar_wait(&empty[st], ((kt / kStages) - 1) & 1);
+        unsigned char* s = smem + st * kStageBytes;
+        hp::mbar_arrive_expect_tx(&full[st], bytes);
+        for (int t = 0; t < tiles; ++t)
+          hp::tma_load_3d(s + t * kXBytes, &tx, &full[st], kt * kBK, c0 + 64 * t, e);
+        unsigned char* ws = s + 2 * kXBytes;
         if constexpr (NK) {
-          const bf16* bp = Bs + (wn * 64 + np * 16 + g) * BST_NK + ks * 16 + 2 * t;
-          b[0] = ld32(bp);
-          b[1] = ld32(bp + 8);
-          b[2] = ld32(bp + 8 * BST_NK);
-          b[3] = ld32(bp + 8 * BST_NK + 8);
+          hp::tma_load_3d(ws, &tw, &full[st], kt * kBK, n0, e);
         } else {
-          const int kr = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-          const int nc = wn * 64 + np * 16 + (lane >> 4) * 8;
-          ldmatrix_x4_trans(b, Bs + kr * BST_KN + nc);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+          hp::tma_load_3d(ws, &tw, &full[st], n0, kt * kBK, e);
+          if (second) hp::tma_load_3d(ws + kWBytes / 2, &tw, &full[st], n0 + 64, kt * kBK, e);
         }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
 
+  // consumer warpgroup cw owns rows c0 + 64 cw .. c0 + 64 cw + 63; with one
+  // live tile both warpgroups multiply it (the second's products are
+  // dropped), so no wgmma sits on a divergent path
+  const int cw = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  float acc[kBN / 2];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = n0 + wn * 64 + nt * 8 + 2 * t;  // even; N % 8 == 0 keeps col + 1 < N
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % kStages;
+    hp::mbar_wait(&full[st], (kt / kStages) & 1);
+    const uint32_t xa = hp::smem_u32(smem + st * kStageBytes + min(cw, tiles - 1) * kXBytes);
+    const uint32_t wa = hp::smem_u32(smem + st * kStageBytes + 2 * kXBytes);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      if constexpr (NK)
+        hp::Wgmma<kBN>::template ss<0>(acc, hp::desc_kmajor(xa + kk * 32),
+                                       hp::desc_kmajor(wa + kk * 32), 1);
+      else
+        hp::Wgmma<kBN>::template ss<1>(acc, hp::desc_kmajor(xa + kk * 32),
+                                       hp::desc_mnmajor(wa + kk * 2048, kWBytes / 2), 1);
+    }
+    hp::wgmma_commit();
+    if (kt > 0) {
+      // k-tile kt - 1's products are done: its stage goes back to the producer
+      hp::fence_acc<kBN / 2>(acc);
+      hp::wgmma_wait<1>();
+      hp::fence_acc<kBN / 2>(acc);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[(kt - 1) % kStages]);
+    }
+  }
+  hp::fence_acc<kBN / 2>(acc);
+  hp::wgmma_wait<0>();
+  hp::fence_acc<kBN / 2>(acc);
+
+  // accumulator element i of a thread is row 16 (warp % 4) + lane / 4 +
+  // 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2 of its m64
+  // tile; rows at or past the count (all of a dead tile's) are zeros
+  const int r0 = c0 + 64 * cw + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+  for (int c = 0; c < kBN / 8; ++c) {
+    const int col = n0 + 8 * c + 2 * (lane & 3);  // even; N % 8 == 0 keeps col + 1 < N
     if (col >= N) continue;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = c0 + wm * 32 + mt * 16 + g + hf * 8;
-        if (r >= C) continue;
-        const bool keep = r < count;
-        *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * N + col) = __floats2bfloat162_rn(
-            keep ? acc[mt][nt][2 * hf] : 0.f, keep ? acc[mt][nt][2 * hf + 1] : 0.f);
-      }
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r0 + 8 * hf;
+      if (r >= C) continue;
+      const bool keep = r < count;
+      const int i = 4 * c + 2 * hf;
+      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * N + col) =
+          __floats2bfloat162_rn(keep ? acc[i] : 0.f, keep ? acc[i + 1] : 0.f);
     }
   }
+}
+
+template <bool NK>
+int launch(const void* x, const void* w, const int* counts, bf16* out, int E, int C, int K, int N,
+           cudaStream_t s) {
+  CUtensorMap tx, tw;
+  int err = hp::make_3d_map(&tx, x, E, C, K, 1, 64, kBK);
+  if (err == 0)
+    err = NK ? hp::make_3d_map(&tw, w, E, N, K, 1, kBN, kBK)
+             : hp::make_3d_map(&tw, w, E, K, N, 1, kBK, 64);
+  if (err != 0) return err;
+  const cudaError_t attr = hp::allow_smem<moe_wgmma_kernel<NK>>(kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((N + kBN - 1) / kBN, (C + kBM - 1) / kBM, E);
+  moe_wgmma_kernel<NK><<<grid, kThreads, kSmem, s>>>(tx, tw, counts, out, C, K, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -221,15 +207,11 @@ __global__ void __launch_bounds__(THREADS)
 PTT_EXPORT int ptt_moe_gemm(const void* x, const void* w, const void* counts, void* out, int E,
                             int C, int K, int N, int w_nk, void* stream) {
   if (E == 0 || C == 0 || N == 0) return 0;
-  const dim3 grid((C + BM - 1) / BM, (N + BN - 1) / BN, E);
+  if (K % 8 || N % 8 || C > 65535 * kBM || E > 65535) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const bf16*>(x);
-  const auto* wp = static_cast<const bf16*>(w);
   const auto* cp = static_cast<const int*>(counts);
   auto* op = static_cast<bf16*>(out);
-  if (w_nk)
-    moe_gemm_kernel<true><<<grid, THREADS, 0, s>>>(xp, wp, cp, op, C, K, N);
-  else
-    moe_gemm_kernel<false><<<grid, THREADS, 0, s>>>(xp, wp, cp, op, C, K, N);
-  return (int)cudaGetLastError();
+  if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)E * C * N * sizeof(bf16), s);
+  return w_nk ? launch<true>(x, w, cp, op, E, C, K, N, s)
+              : launch<false>(x, w, cp, op, E, C, K, N, s);
 }

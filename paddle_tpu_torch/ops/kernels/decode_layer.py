@@ -20,25 +20,32 @@ input and the residual stream. The weights are the port's ``nn.Linear``
 would cost 12 GB of memory and 386 MB of extra traffic a layer.
 
 What bounds it on the H100: bytes. At batch 8 one Llama-3-8B layer reads
-386 MB of bf16 weights and ~25 MB of keys and values (~0.12 ms at
-3.35 TB/s) for 3.1 GFLOP (0.046 ms in f32 on the CUDA cores). The TPU
-kernel keeps the weights resident in VMEM and runs the layer tail in one
-grid step per row; on the card that would stream all weights through one
-SM per row. The kernel is one persistent cooperative launch instead, whose
-five phases (attention; o_proj; norm, gate/up and SiLU; down; norm) each
-spread over every SM, separated by grid-wide barriers. A warp streams 2
-weight rows at a time in 16-byte loads, the next step's loads in flight
-while it computes the current one, against up to 8 activation rows staged
-in shared memory: each weight byte is read once per 8 batch rows (batch
-9-16 streams the weights twice). Sums run in a fixed order, so two calls
+386 MB of bf16 weights and ~20 MB of keys and values (~0.12 ms at
+3.35 TB/s). The TPU kernel keeps the weights resident in VMEM and runs the
+layer tail in one grid step per row; on the card that would stream all
+weights through one SM per row. The kernel is one persistent cooperative
+launch instead, one block of two consumer warpgroups and a producer
+warp an SM, whose five phases (attention; o_proj; gate/up and SiLU;
+down; the norm) each spread over every SM, separated by barriers of its
+own. Attention streams (kv head, row, 64-position) sub-chunks, every query
+head of a GQA group at once (keys and values read once), cut into one
+contiguous range a block. The three matrix-vector phases run on the tensor
+cores with the weight as the wgmma's A (64 rows) and the batch rows as its
+N (three bf16 terms of 8, or of 16 past batch 8: each weight byte is read
+once at any batch): a producer thread streams the weights through a 10-
+or 11-stage TMA ring from the kernel's start, across the barriers, and each
+phase's (tile, k) stages are cut into equal ranges, one a block. The f32
+activations enter as three bf16 terms each (hi, mid, lo: exact save for an
+underflow of lo), so no activation is rounded. A block's partial tiles are
+added in block order by the last block to finish each tile, so two calls
 on the same inputs give the same bits.
 
-``block_i`` is the MLP's column chunk — here the unit in which the gate/up
-columns are dealt to the blocks, in turn — and the one tuned knob
-(``ops/kernels/autotune.py`` measures it and installs the winner under
-:data:`BLOCK_I_KEY`). With nothing installed the kernel takes
-:data:`DEFAULT_BLOCK_I` (clamped by the JAX rule), where the TPU kernel
-takes the full width: one chunk would leave all but one SM idle here.
+``block_i`` is the MLP's column chunk of the JAX kernel and the one tuned
+knob (``ops/kernels/autotune.py`` measures it and installs the winner
+under :data:`BLOCK_I_KEY`); the wrapper and the C entry still take and
+check it, but the CUDA kernel's gate/up unit is a fixed 64-column tile, so
+every legal ``block_i`` runs the same schedule. With nothing installed the
+wrapper passes :data:`DEFAULT_BLOCK_I` (clamped by the JAX rule).
 
 Unlike the JAX dispatch gate (``use_kernel``, :294-321), which sends
 layers that do not fit half the VMEM — Llama-3-8B among them — to the
@@ -66,7 +73,7 @@ MAX_BATCH = 16
 _HEAD_DIMS = (64, 128)
 _REPS = (1, 2, 4, 8)
 
-_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [
+_ARGS = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
 #: the kernel's phases, in order, as :func:`decode_layer`'s ``stamps``
 #: delimit them
@@ -237,23 +244,25 @@ def decode_layer(q, k_layer, v_layer, tables, pos, hres, wo, w_post, wg, wu,
         raise ValueError(f"decode_layer kernel does not take {why}")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("decode_layer kernel takes contiguous tensors")
-    _build.require_aligned("decode_layer", *ops)
     if block_i is None:
         block_i = _pick_block_i(i_size)
     block_i = int(block_i)
     if block_i <= 0 or block_i % 8 or i_size % block_i:
         raise ValueError(f"decode_layer: block_i {block_i} must be a "
                          f"multiple of 8 dividing {i_size}")
+    _build.require_aligned("decode_layer", *ops)
     if stamps is not None and (stamps.device != q.device or stamps.dtype !=
                                torch.int64 or stamps.shape != (6,)):
         raise ValueError("decode_layer: stamps must be an int64 [6] tensor "
                          "on q's device")
     y = torch.empty_like(hres)
     h_out = torch.empty_like(hres)
-    scratch = torch.empty(scratch_floats(b, h * d, hd, i_size),
+    scratch = torch.empty(scratch_floats(b, h_kv, h // h_kv, d, hd, i_size),
                           dtype=torch.float32, device=q.device)
-    _launch(ops, y, h_out, scratch, eps_post, eps_next, block_i, stamps,
-            _build.stream_of(q))
+    stream = _build.stream_of(q)
+    ctrl = _ctrl(q.device, stream, ctrl_words(b, h_kv, hd, i_size))
+    _launch(ops, y, h_out, scratch, ctrl, eps_post, eps_next, block_i, stamps,
+            stream)
     decode_layer.launches += 1
     return y, h_out
 
@@ -261,13 +270,41 @@ def decode_layer(q, k_layer, v_layer, tables, pos, hres, wo, w_post, wg, wu,
 decode_layer.launches = 0
 
 
-def scratch_floats(b, hd_in, hd, i_size) -> int:
-    """f32 scratch the kernel needs (the C entry's own count)."""
-    return _build.function("decode_layer", "ptt_decode_layer_scratch",
-                           [ctypes.c_int] * 4)(b, hd_in, hd, i_size)
+def scratch_floats(b, h_kv, rep, d, hd, i_size) -> int:
+    """f32 scratch the kernel needs on the current device (the C entry's
+    own count: its grid is one block an SM)."""
+    n = _build.function("decode_layer", "ptt_decode_layer_scratch",
+                        [ctypes.c_int] * 6)(b, h_kv, rep, d, hd, i_size)
+    if n < 0:
+        raise RuntimeError("decode_layer: the scratch size could not be "
+                           "computed on this device")
+    return n
 
 
-def _launch(ops, y, h_out, scratch, eps_post, eps_next, block_i, stamps,
+#: (device index, stream) -> the kernel's counters: zeroed once, left zero
+#: by every call (the last block to finish clears them), one buffer a
+#: stream so that calls on two streams never share one
+_CTRLS: dict = {}
+
+
+def ctrl_words(b, h_kv, hd, i_size) -> int:
+    """uint32 counters the kernel keeps (the source's ``ctrl_words``): four
+    barriers, an end count, the pieces of each (row, kv head), the tiles of
+    o_proj, gate/up and down."""
+    return (_BARRIERS + 1 + b * h_kv + 2 * -(-hd // (2 * _BOX_ROWS))
+            + -(-i_size // _BOX_ROWS))
+
+
+def _ctrl(device, stream, words):
+    key = (device.index, stream)
+    buf = _CTRLS.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 4096), dtype=torch.int32, device=device)
+        _CTRLS[key] = buf
+    return buf
+
+
+def _launch(ops, y, h_out, scratch, ctrl, eps_post, eps_next, block_i, stamps,
             stream):
     """The C entry on operands the caller allocated; ``ops`` is ``(q,
     k_layer, v_layer, tables, pos, hres, wo, w_post, wg, wu, wd,
@@ -277,28 +314,76 @@ def _launch(ops, y, h_out, scratch, eps_post, eps_next, block_i, stamps,
     _, h_kv, ps, _ = k_layer.shape
     fn = _build.function("decode_layer", "ptt_decode_layer", _ARGS)
     err = fn(*(t.data_ptr() for t in ops), y.data_ptr(), h_out.data_ptr(),
-             scratch.data_ptr(), b, h_kv, h // h_kv, d, ps, tables.shape[1],
+             scratch.data_ptr(), ctrl.data_ptr(), b, h_kv, h // h_kv, d, ps,
+             tables.shape[1],
              hres.shape[1], wg.shape[0], int(block_i), float(eps_post),
              float(eps_next), None if stamps is None else stamps.data_ptr(),
              stream)
     _build.check(err, "decode_layer")
 
 
-# -- declared launches for the kernel analyzer -------------------------------
-
-_THREADS = 512
-#: dynamic shared memory: the [8, 4096] f32 activation tile, the attention
-#: merge scratch and the per-row sums
-_SMEM = (8 * 4096 + 16 * 16 + 16) * 4
 _NAMES = ("q", "k", "v", "tables", "pos", "hres", "wo", "w_post", "wg", "wu",
           "wd", "w_next")
+
+
+# -- declared launches for the kernel analyzer -------------------------------
+
+#: the source's constants: threads (two consumer warpgroups and a producer
+#: warp), consumer threads, k of a weight box, weight rows of a box, bf16
+#: terms an activation, attention positions of a sub-chunk, weight stages
+#: the producer issues together
+_THREADS, _CONS, _BK, _BOX_ROWS, _TERMS, _SUB, _ISSUE = \
+    288, 256, 64, 64, 3, 64, 4
+_MAX_REP, _BARRIERS = 8, 4
+#: the H100's SMs: the grid, one block each
+_SMS = 132
+
+
+def _nb(b):
+    """The wgmma's N a term: batch rows padded to 8, or to 16 past 8."""
+    return 8 if b <= 8 else 16
+
+
+def _stages(nb):
+    """Ring stages (the source's ``kStagesOf<NB>``): as many as shared
+    memory holds."""
+    return 11 if nb == 8 else 10
+
+
+def _smem(d, nb):
+    """Dynamic shared memory (the source's ``Layout<D, NB>::smem``): the
+    alignment pad, the ring (two [64, 64] weight boxes and the activation
+    box [3, NB, 64] a stage; the attention's buffers lie in its last
+    stages), the reduction scratch, the row rsqrts, a flag and the
+    attention's state, the attention's row counts, offsets and page
+    entries, and the ring's mbarriers. ``d`` sizes only the attention's
+    buffers, which the ring holds at both head sizes."""
+    stage = 2 * _BOX_ROWS * _BK * 2 + _TERMS * nb * _BK * 2
+    idx = (3 * MAX_BATCH + 2 + 2 * _SUB) * 4 // 8 * 8
+    return (1024 + _stages(nb) * stage + 8 * MAX_BATCH * 4 + MAX_BATCH * 4
+            + 16 + idx + 2 * _stages(nb) * 8)
+
+
+def _scratch_floats(b, h_kv, rep, d, hd, i_size, sms=_SMS):
+    """The source's ``scratch_layout`` (``ptt_decode_layer_scratch``) for
+    a grid of ``sms`` blocks: the attention pieces, the
+    activation terms of o, h1 * w_post and z (bf16), h1, the sums of
+    squares, the partial tiles, h2, each rounded up to 64 floats."""
+    t2, t3 = -(-hd // (2 * _BOX_ROWS)), -(-i_size // _BOX_ROWS)
+    regions = ((sms + b * h_kv) * rep * (d + 2),
+               _TERMS * b * h_kv * rep * d // 2, b * hd, _TERMS * b * hd // 2,
+               t2 * b, (sms + max(t2, t3)) * _nb(b) * 2 * _BOX_ROWS,
+               _TERMS * b * i_size // 2, b * hd, t2 * b)
+    return sum(-(-n // 64) * 64 for n in regions)
 
 
 def _ex(label, lengths, h, h_kv, d, hd, i_size, ps=16, max_pages=128,
         seed=7):
     """One cooperative launch of one block a multiprocessor, its phases
-    split by grid barriers: the writes of y, h and the scratch depend on
-    the phase schedule (writes=None; the guard plane checks them)."""
+    split by the kernel's own barriers: the writes of y, h and the scratch
+    depend on the phase schedule and the counters (writes=None; the guard
+    plane checks them). A cudaMemsetAsync of the scratch's counters comes
+    first on the stream."""
     from ._examples import fixed, model, normal
     from .mmha import paged_tables
     m = model()
@@ -324,10 +409,15 @@ def _ex(label, lengths, h, h_kv, d, hd, i_size, ps=16, max_pages=128,
                                                                0.02)))
         else:
             ops.append(m.Operand(n, shapes[n], bf))
-    n_scratch = b * (h * d + 2 * hd + i_size + 2 * -(-hd // 32))
+    n_scratch = _scratch_floats(b, h_kv, h // h_kv, d, hd, i_size)
     ops += [m.Operand("y", (b, hd), bf, "out"),
             m.Operand("h", (b, hd), bf, "out"),
-            m.Operand("scratch", (n_scratch,), torch.float32, "out")]
+            m.Operand("scratch", (n_scratch,), torch.float32, "out"),
+            # zero going in and coming out: an input the call leaves as it
+            # found it
+            m.Operand("ctrl", (ctrl_words(b, h_kv, hd, i_size),), torch.int32,
+                      data=fixed(torch.zeros(ctrl_words(b, h_kv, hd, i_size),
+                                             dtype=torch.int32)))]
     block_i = _pick_block_i(i_size)
 
     def plain(t):
@@ -339,10 +429,12 @@ def _ex(label, lengths, h, h_kv, d, hd, i_size, ps=16, max_pages=128,
 
     def launch(t, stream):
         _launch(tuple(t[n] for n in _NAMES), t["y"], t["h"], t["scratch"],
+                t["ctrl"],
                 1e-5, 1e-5, block_i, None, stream)
 
-    kern = m.KernelLaunch(f"decode_layer_kernel<{d}>", 132, _THREADS,
-                          smem=_SMEM, writes=None, cooperative=True)
+    kern = m.KernelLaunch(f"decode_layer_wgmma_kernel<{d},{_nb(b)}>",
+                          _SMS, _THREADS, smem=_smem(d, _nb(b)),
+                          writes=None, cooperative=True)
     seen = int((pos + 1).sum())
     nbytes = 2 * (hd * h * d + 3 * hd * i_size + 2 * hd
                   + 2 * seen * h_kv * d + b * h * d + 3 * b * hd)
@@ -355,21 +447,26 @@ def ck_examples():
     """At ``decode_layer_pallas.pk_examples``' shape (B 4, H 8 over Hkv 4,
     D 64, hidden 512, I 1024; the JAX example is f32, the kernel takes
     bf16) and phase 3's (Llama-3-8B's layer: B 8 over Hkv 8 at positions
-    0..1500 with an inactive row 0, B 1, and REP 1 over Hkv 32); tails with
-    positions that end inside a page and a batch that is not a multiple of
-    the kernel's 8-row passes."""
+    0..1500 with an inactive row 0, B 1, REP 1 over Hkv 32, and B 16, the
+    wgmma's N 16); tails with positions that end inside a page, hidden and
+    I past their last full tile, and a batch of 3 (12 for B 16's, so every
+    instantiation has an example)."""
     from ._examples import with_tail
     tail = dict(lengths=[1, 37, 100], h=8, h_kv=4, d=64, hd=520,
                 i_size=1040)
     out = [with_tail(_ex, "decode_layer",
                      dict(lengths=[64, 48, 30, 17], h=8, h_kv=4, d=64, hd=512,
                           i_size=1024, max_pages=4), tail)]
+    # batch 12: the 16-row wgmma width at D 64
+    wide_tail = dict(tail, lengths=[1 + 37 * r for r in range(12)])
     for label, lengths, h_kv in (
             ("phase3 B 8", [0, 18, 256, 257, 701, 1024, 1201, 1501], 8),
             ("phase3 B 1", [901], 8),
-            ("phase3 rep 1", [0] + [100 + 190 * r for r in range(1, 8)], 32)):
+            ("phase3 rep 1", [0] + [100 + 190 * r for r in range(1, 8)], 32),
+            ("phase3 B 16", [0, 18, 256, 257, 701, 1024, 1201, 1501] * 2, 8)):
         out.append(with_tail(_ex, label, dict(lengths=lengths, h=32,
                                               h_kv=h_kv, d=128, hd=4096,
-                                              i_size=14336), tail))
+                                              i_size=14336),
+                             wide_tail if label == "phase3 B 16" else tail))
     return out
 

@@ -12,14 +12,21 @@ the count are zero whatever ``x`` holds there.
 
 What bounds it on the H100: bytes at Qwen1.5-MoE's widths (the weight
 stack, 346 MB at ``[60, 2048, 1408]``, is read once per call). The kernel
-reads ``counts`` on the device, so nothing synchronises the host: its grid
-covers the full capacity and each block skips a tile wholly past its
-expert's count. It takes ``w`` either as ``[E, H, F]`` or as the
-transpose of an ``[E, F, H]`` tensor (a ``w.transpose(1, 2)`` view), so the
-backward's ``dx = g @ w[e]^T`` reads the forward's weight as it lies: JAX's
-``jnp.swapaxes`` is free to XLA, a contiguous copy here would be 346 MB a
-stack. Any ``C``, ``H % 8 == 0`` and ``F % 8 == 0``; the JAX kernel pads
-``C`` to a multiple of 8 and slices (:80, :96).
+is a TMA and wgmma kernel (``csrc/hopper.cuh``): a block is one (expert,
+128-column tile, group of 128 capacity rows), a producer warp streams x's
+live 64-row tiles and the weight through a 3-stage ring, and two consumer
+warpgroups multiply every live row of the group against each weight box,
+so at Qwen's counts an expert's weight crosses from device memory once.
+It reads ``counts`` on the device, so nothing synchronises the host: its
+grid covers the full capacity and a group wholly past its expert's count
+writes its zeros without loading anything. It takes ``w`` either as
+``[E, H, F]`` (MN-major, the wgmma's transpose bit) or as the transpose of
+an ``[E, F, H]`` tensor (a ``w.transpose(1, 2)`` view, K-major), so the
+backward's ``dx = g @ w[e]^T`` reads the forward's weight as it lies:
+JAX's ``jnp.swapaxes`` is free to XLA, a contiguous copy here would be
+346 MB a stack. Any ``C``, ``H % 8 == 0`` and ``F % 8 == 0`` (the tensor
+maps' 16-byte row strides); the JAX kernel pads ``C`` to a multiple of 8
+and slices (:80, :96).
 
 The card path takes bf16 and raises for f32; the plain version takes both.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
@@ -139,14 +146,26 @@ def skewed_counts(e, n_slots, capacity, seed):
 
 # -- declared launches for the kernel analyzer -------------------------------
 
-_BM, _BN, _THREADS = 64, 128, 128
+#: the source's kBM, kBN, kBK, kStages and kThreads: rows of a group,
+#: columns of a tile, k of a ring stage, ring stages, threads a block
+_BM, _BN, _BK, _STAGES, _THREADS = 128, 128, 64, 3, 288
+#: dynamic shared memory: a 1 KB alignment pad, the ring (two 64-row x
+#: boxes and the weight's 128 x 64 box a stage) and its mbarriers
+_SMEM = 1024 + _STAGES * (2 * 64 * _BK * 2 + _BN * _BK * 2) + 2 * _STAGES * 8
+
+
+def plan(c, n, e):
+    """The launch: grid ``(N / 128, C / 128, E)`` (a block a column tile of
+    a row group of an expert, the column tiles fastest), threads, shared
+    memory."""
+    return (-(-n // _BN), -(-c // _BM), e), _THREADS, _SMEM
 
 
 def _ex(label, e, c, k, n, counts, w_nk=False):
-    """A block a [64, 128] tile of one expert's output, grid (C / 64,
-    N / 128, E): a tile past the count is written with zeros and never
-    multiplied. ``w_nk``: the weight stored [E, N, K] (the backward's
-    transposed view of a forward stack)."""
+    """A block a [128, 128] tile of one expert's output: a group past the
+    count is written with zeros and loads nothing, rows past the count in
+    a live group are written as zeros. ``w_nk``: the weight stored [E, N,
+    K] (the backward's transposed view of a forward stack)."""
     from ._examples import fixed, model, normal
     m = model()
     bf = torch.bfloat16
@@ -163,10 +182,10 @@ def _ex(label, e, c, k, n, counts, w_nk=False):
     def launch(t, stream):
         _launch(t["x"], t["w"], t["counts"], t["out"], w_nk, stream)
 
+    grid, threads, smem = plan(c, n, e)
     kern = m.KernelLaunch(
-        f"moe_gemm_kernel<{str(w_nk).lower()}>",
-        (-(-c // _BM), -(-n // _BN), e), _THREADS,
-        writes=[m.TileMap("out", (1, _BM, _BN), lambda x, y, z: (z, x, y))])
+        f"moe_wgmma_kernel<{str(w_nk).lower()}>", grid, threads, smem=smem,
+        writes=[m.TileMap("out", (1, _BM, _BN), lambda x, y, z: (z, y, x))])
     rows = int(counts.clamp(0, c).sum())
     experts = int((counts > 0).sum())
     return m.Example(label, "moe_gemm", ops, [kern], launch, plain,
@@ -180,11 +199,13 @@ def ck_examples():
     1024, 4096]) and phase 3's (one Qwen1.5-MoE layer at 2048 tokens: 60
     experts of capacity 274, gate/up [60, 274, 2048] @ [60, 2048, 1408],
     down [60, 274, 1408] @ [60, 1408, 2048], and dx through the transposed
-    view of the gate/up stack), counts from ``skewed_counts`` with an empty
-    and a full expert; tails with C, K and N past their last full tile."""
+    view of the gate/up stack; and train_moe's capacity 547 at 4096 tokens
+    for gate/up and dx), counts from ``skewed_counts`` with an empty and a
+    full expert; tails with C, K and N past their last full tile."""
     from ._examples import with_tail
-    cap = 274
+    cap, cap_train = 274, 547
     counts = skewed_counts(60, 2048 * 4, cap, seed=81)
+    counts_train = skewed_counts(60, 4096 * 4, cap_train, seed=81)
     tail = dict(e=3, c=37, k=72, n=136,
                 counts=torch.tensor([0, 37, 20], dtype=torch.int32))
     return [with_tail(_ex, label, dict(e=e, c=c, k=k, n=n, counts=cn,
@@ -197,7 +218,11 @@ def ck_examples():
                 ("phase3 down [60, 274, 1408] @ [60, 1408, 2048]", 60, cap,
                  1408, 2048, counts, False),
                 ("phase3 dx [60, 274, 1408] @ [60, 2048, 1408]^T", 60, cap,
-                 1408, 2048, counts, True))]
+                 1408, 2048, counts, True),
+                ("phase3 gate/up [60, 547, 2048] @ [60, 2048, 1408]", 60,
+                 cap_train, 2048, 1408, counts_train, False),
+                ("phase3 dx [60, 547, 1408] @ [60, 2048, 1408]^T", 60,
+                 cap_train, 1408, 2048, counts_train, True))]
 
 
 class GroupedMatmulFunction(torch.autograd.Function):

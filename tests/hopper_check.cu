@@ -3,7 +3,9 @@
 // torch.matmul: a TMA copy into the 128-byte swizzle signalled by an
 // mbarrier, then one warpgroup's wgmma chain.
 //   ss: C [64, N] = A [64, K] B [N, K]^T, both K-major through descriptors
-//       (K = 128: two 64-column sub-tiles, eight 16-deep steps);
+//       (K = 128: two 64-column sub-tiles, eight 16-deep steps; N 24 and
+//       48 are three and six 8-row swizzle groups, as the decode layer's
+//       three bf16 terms of 8 or 16 batch rows);
 //   rs: C [64, N] = A [64, 64] B [64, N], A from registers (laid out as an
 //       f32 accumulator, then pack_a, as the flash kernels form P), B
 //       MN-major through its descriptor;
@@ -405,9 +407,12 @@ PTT_EXPORT int ptt_check_tma_2d(const void* src, void* out, int rows, int cols, 
   return (int)cudaGetLastError();
 }
 
-// a [64, 128] bf16, b [n, 128] bf16, c [64, n] f32; n in {32, 64, 128}
+// a [64, 128] bf16, b [n, 128] bf16, c [64, n] f32; n in {24, 32, 48, 64,
+// 128} (24 and 48: the decode layer's batch columns)
 PTT_EXPORT int ptt_check_ss(const void* a, const void* b, void* c, int n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 24) return run_ss<24>(a, b, c, s);
+  if (n == 48) return run_ss<48>(a, b, c, s);
   if (n == 32) return run_ss<32>(a, b, c, s);
   if (n == 64) return run_ss<64>(a, b, c, s);
   if (n == 128) return run_ss<128>(a, b, c, s);

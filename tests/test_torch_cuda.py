@@ -378,6 +378,69 @@ def test_decode_layer_kernel(dev, d, rep, b):
         assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
+def test_decode_layer_deterministic_at_every_block_i(dev):
+    """B 8 (the wgmma's N 8) at a width where every tile is split over
+    several blocks (hidden 2048, I 5632, H 16 over Hkv 4, D 128, rows up to
+    300 positions): every legal block_i gives the same bits as the first,
+    within the tolerance of the plain version."""
+    args = _layer(dev, 8, 4, 128, h_kv=4, hd=2048, inter=5632)
+    ref_y, ref_h = decode_layer.decode_layer_plain(*args, 1e-5, 1e-5)
+    tol_y, tol_h = _layer_tol(args, ref_y, ref_h)
+    first = None
+    for block_i in autotune._block_i_candidates(5632):
+        y, h = decode_layer.decode_layer(*args, 1e-5, 1e-5, block_i=block_i)
+        torch.cuda.synchronize()
+        assert (y.float() - ref_y.float()).abs().max().item() <= tol_y
+        assert (h.float() - ref_h.float()).abs().max().item() <= tol_h
+        if first is None:
+            first = (y, h)
+        assert torch.equal(y, first[0]) and torch.equal(h, first[1])
+
+
+@pytest.mark.parametrize("b", [9, 16])
+def test_decode_layer_wide_batch(dev, b):
+    """Batch past 8 takes the wgmma's N 16 (one pass over the weights):
+    against the plain version at hidden 2048, I 5632, two calls alike."""
+    args = _layer(dev, b, 4, 128, h_kv=4, hd=2048, inter=5632)
+    ref_y, ref_h = decode_layer.decode_layer_plain(*args, 1e-5, 1e-5)
+    tol_y, tol_h = _layer_tol(args, ref_y, ref_h)
+    y, h = decode_layer.decode_layer(*args, 1e-5, 1e-5)
+    torch.cuda.synchronize()
+    assert (y.float() - ref_y.float()).abs().max().item() <= tol_y
+    assert (h.float() - ref_h.float()).abs().max().item() <= tol_h
+    y2, h2 = decode_layer.decode_layer(*args, 1e-5, 1e-5)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.parametrize("b,h_kv,rep,d,hd,inter", [
+    (1, 8, 4, 128, 4096, 14336), (8, 8, 4, 128, 4096, 14336),
+    (16, 8, 4, 128, 4096, 14336), (3, 4, 2, 64, 520, 1040)])
+def test_decode_layer_scratch_matches_its_mirror(dev, b, h_kv, rep, d, hd,
+                                                 inter):
+    """The C entry's scratch and counter counts equal the Python mirrors
+    the analyzer's declarations use, on this card's SM count."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import _build
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert decode_layer.scratch_floats(b, h_kv, rep, d, hd, inter) == \
+        decode_layer._scratch_floats(b, h_kv, rep, d, hd, inter, sms)
+    ctrl = _build.function("decode_layer", "ptt_decode_layer_ctrl",
+                           [ctypes.c_int] * 4)
+    assert ctrl(b, h_kv, hd, inter) == decode_layer.ctrl_words(b, h_kv, hd,
+                                                              inter)
+
+
+def test_decode_layer_leaves_its_counters_zero(dev):
+    """The counters the kernel keeps for its stream are zero after a call
+    (the last block clears them), so the next call starts clean."""
+    args = _layer(dev, 8, 4, 128, h_kv=4, hd=2048, inter=5632)
+    decode_layer.decode_layer(*args, 1e-5, 1e-5)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = decode_layer._CTRLS[(dev.index, stream)]
+    assert not buf.any()
+
+
 def test_decode_layer_rejects_what_it_does_not_take(dev):
     args = _layer(dev, 2, 2, 64)
     with pytest.raises(ValueError):                       # f32 activations
@@ -899,11 +962,13 @@ def hopper_check(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("n", [24, 32, 48, 64, 128])
 def test_hopper_wgmma_ss_kmajor(dev, hopper_check, n):
     """TMA with the 128-byte swizzle, an mbarrier, and the shared-memory
     wgmma chain with both operands K-major (eight 16-deep steps over two
-    64-column sub-tiles): C = A B^T against torch.matmul in f32."""
+    64-column sub-tiles): C = A B^T against torch.matmul in f32. N 24 and
+    48 are the decode layer's Wgmma<24> / Wgmma<48> (three bf16 terms of
+    its 8 or 16 batch columns)."""
     a, b = _randn(dev, 64, 128, seed=100), _randn(dev, n, 128, seed=101)
     c = torch.empty(64, n, device=dev)
     err = hopper_check.ptt_check_ss(a.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -1565,6 +1630,33 @@ def test_grouped_matmul_kernel(dev, e, c, h, f, transposed):
     _close(got, ref)
     live = moe_gemm.live_rows(counts, c)
     assert not got.masked_select(~live).any()     # padding never leaks
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["ehf", "efh^T"])
+@pytest.mark.parametrize("e,c,h,f", [(3, 37, 72, 136), (3, 547, 2048, 1408),
+                                     (3, 547, 1408, 2048), (5, 200, 64, 64)])
+def test_grouped_matmul_capacities(dev, e, c, h, f, transposed):
+    """The capacities the paths run (37 and the tails of one box in K and
+    N; 547, train_moe's, five 128-row groups with the last one short) and
+    a one-box K and N, with an empty and a full expert: within one bf16
+    ulp of the plain version, exact zeros past the counts."""
+    x, w, counts = _grouped_operands(dev, e, c, h, f, transposed, seed=c + h)
+    got = moe_gemm.grouped_matmul(x, w, counts)
+    ref = moe_gemm.grouped_matmul_plain(x, w, counts)
+    _close(got, ref)
+    live = moe_gemm.live_rows(counts, c)
+    assert not got.masked_select(~live).any()
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["ehf", "efh^T"])
+def test_grouped_matmul_deterministic(dev, transposed):
+    """Two calls on the same inputs give the same bits (C 547)."""
+    x, w, counts = _grouped_operands(dev, 4, 547, 2048, 1408, transposed,
+                                     seed=9)
+    a = moe_gemm.grouped_matmul(x, w, counts)
+    b = moe_gemm.grouped_matmul(x, w, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_grouped_matmul_takes_bf16_only(dev):
