@@ -34,7 +34,12 @@ Phases, in order; any failure exits non-zero:
    (the block epilogue's dropped positions identical), and cold-L2 times
    of the kernel, the plain version and, where one exists, the single
    PyTorch call that computes the same function, beside the least time
-   the card could take (``bound_ms``). The decode layer is also timed
+   the card could take (``bound_ms``). RoPE runs on the q+k pairs of a
+   decode step and of a 512-token chunk (one launch each) and on single
+   tensors; mmha at Llama-3-8B's decode batch (B 8, positions 0..1500)
+   and at B 1 (position 900), B 16, rep 1 (Hkv 32), rep 8 (H 64) and D 64,
+   each with two calls bit for bit and SDPA on the gathered view as its
+   yardstick. The decode layer is also timed
    through the port's composite path (``composite_ms``) and broken down
    by its phases. The weight-only int8 / grouped int8 / int4 kernels run
    at decode and prefill shapes of Llama-3-8B's projections (yardstick:
@@ -82,7 +87,8 @@ Phases, in order; any failure exits non-zero:
    the port's kernels, matrix products, the rest, and the device's idle
    share; a decode step (batch 8) and a 1024-token monolithic prefill on
    each quantized engine (d int8, e int4, f grouped int8 with the fused
-   layer).
+   layer). Every profiled decode step launches RoPE exactly once a layer
+   (q and k together) and mmha once a layer (none on the fused layer).
    llm_int8 — ``nn.quant.llm_int8_linear`` at x [1024, 4096] bf16 with 4
    outlier channels, w [14336, 4096] int8 and a bias: one A8W8 launch per
    call, against its plain path, timed.
@@ -580,11 +586,26 @@ def phase_kernels(torch, dev):
                 timer(lambda: swiglu.swiglu_plain(g, u)), None,
                 ("swiglu", f"phase3 [{rows}, {inter}]"))
 
-    # rope: decode q [8,1,32,128] at ragged positions (per-token tables),
-    # prefill-chunk q [1,512,32,128] and k [1,512,8,128]
+    # rope: the q+k pairs of a decode step (per-token tables at ragged
+    # positions) and of a 512-token prefill chunk, one launch each; then the
+    # one-tensor rows of earlier runs
     cfg = LlamaConfig()
     cos_t, sin_t = rope_tables(cfg, 2048, dev)
     dpos = torch.tensor([0, 17, 255, 256, 700, 1023, 1200, 1500], device=dev)
+    for (b, s), c, sn in (((8, 1), cos_t[dpos], sin_t[dpos]),
+                          ((1, 512), cos_t[:512], sin_t[:512])):
+        q, k = randn(b, s, 32, 128), randn(b, s, 8, 128)
+        gq, gk = rope.rope_qk(q, k, c, sn)
+        err_q, tol_q = compare(torch, gq, rope.rope_plain(q, c, sn))
+        err_k, tol_k = compare(torch, gk, rope.rope_plain(k, c, sn))
+        if not err_k <= tol_k:
+            fail(f"rope k [{b}, {s}, 8, 128]: {err_k} > {tol_k}")
+        label = f"q [{b}, {s}, 32, 128] + k [{b}, {s}, 8, 128]"
+        _record(results, "rope", label, err_q, tol_q,
+                timer(lambda: rope.rope_qk(q, k, c, sn)),
+                timer(lambda: (rope.rope_plain(q, c, sn),
+                               rope.rope_plain(k, c, sn))), None,
+                ("rope", f"phase3 {label}"), max_abs_err_k=err_k, tol_k=tol_k)
     cases = [([8, 1, 32, 128], cos_t[dpos], sin_t[dpos]),
              ([1, 512, 32, 128], cos_t[:512], sin_t[:512]),
              ([1, 512, 8, 128], cos_t[:512], sin_t[:512])]
@@ -598,34 +619,46 @@ def phase_kernels(torch, dev):
                 ("rope", f"phase3 {shape}"))
 
     # mmha: B=8, H=32, Hkv=8, D=128, page 16, ragged positions; row 0 is
-    # inactive (pos 0, all-trash table); pages handed out shuffled
-    b, h, h_kv, d, ps, max_pages = 8, 32, 8, 128, 16, 2048 // 16
-    tables, pos, n_pages = _paged(
-        torch, dev, [0] + [int(p) + 1 for p in dpos[1:].tolist()], ps,
-        max_pages, 7)
-    k_pool = randn(n_pages, h_kv, ps, d)
-    v_pool = randn(n_pages, h_kv, ps, d)
-    q = randn(b, 1, h, d)
-    got = mmha.mmha_decode(q, k_pool, v_pool, tables, pos)
-    ref = mmha.mmha_plain(q, k_pool, v_pool, tables, pos)
-    if not torch.isfinite(got[0]).all():
-        fail("mmha: inactive row is not finite")
-    err, tol = compare(torch, got, ref)
-    # library yardstick: SDPA over the gathered view with a <= pos mask
-    kc = mmha.gather_pages(k_pool, tables)
-    vc = mmha.gather_pages(v_pool, tables)
-    mask = (torch.arange(kc.shape[2], device=dev)[None, :]
-            <= pos[:, None])[:, None, None, :]
-    qt = q.transpose(1, 2)
-    kr = kc.repeat_interleave(h // h_kv, dim=1)
-    vr = vc.repeat_interleave(h // h_kv, dim=1)
-    lib = timer(lambda: TF.scaled_dot_product_attention(qt, kr, vr,
-                                                        attn_mask=mask))
-    _record(results, "mmha", [b, 1, h, d, "Hkv", h_kv, "ps", ps,
-                              "pos", pos.tolist()], err, tol,
-            timer(lambda: mmha.mmha_decode(q, k_pool, v_pool, tables, pos)),
-            timer(lambda: mmha.mmha_plain(q, k_pool, v_pool, tables, pos)),
-            lib, ("mmha", "phase3 [8, 1, 32, 128]"))
+    # inactive (pos 0, all-trash table); pages handed out shuffled; then
+    # the rows at B 1, B 16, rep 1 (Hkv 32), rep 8 (H 64) and D 64
+    ps, max_pages = 16, 2048 // 16
+    rows = [("phase3 [8, 1, 32, 128]",
+             [0] + [int(p) + 1 for p in dpos[1:].tolist()], 32, 8, 128)]
+    rows += list(mmha.PHASE3_ROWS)
+    for label, lengths, h, h_kv, d in rows:
+        b = len(lengths)
+        tables, pos, n_pages = _paged(torch, dev, lengths, ps, max_pages, 7)
+        k_pool = randn(n_pages, h_kv, ps, d)
+        v_pool = randn(n_pages, h_kv, ps, d)
+        q = randn(b, 1, h, d)
+        got = mmha.mmha_decode(q, k_pool, v_pool, tables, pos)
+        again = mmha.mmha_decode(q, k_pool, v_pool, tables, pos)
+        ref = mmha.mmha_plain(q, k_pool, v_pool, tables, pos)
+        if not torch.isfinite(got).all():
+            fail(f"mmha {label}: output (an inactive row's included) is "
+                 f"not finite")
+        if not torch.equal(got, again):
+            fail(f"mmha {label}: two calls gave different bits")
+        err, tol = compare(torch, got, ref)
+        # library yardstick: SDPA over the gathered view with a <= pos mask
+        kc = mmha.gather_pages(k_pool, tables)
+        vc = mmha.gather_pages(v_pool, tables)
+        mask = (torch.arange(kc.shape[2], device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+        kr = kc.repeat_interleave(h // h_kv, dim=1)
+        vr = vc.repeat_interleave(h // h_kv, dim=1)
+        lib = timer(lambda: TF.scaled_dot_product_attention(qt, kr, vr,
+                                                            attn_mask=mask))
+        del kc, vc, kr, vr, mask
+        _record(results, "mmha", [b, 1, h, d, "Hkv", h_kv, "ps", ps,
+                                  "pos", pos.tolist()], err, tol,
+                timer(lambda: mmha.mmha_decode(q, k_pool, v_pool, tables,
+                                               pos)),
+                timer(lambda: mmha.mmha_plain(q, k_pool, v_pool, tables,
+                                              pos)),
+                lib, ("mmha", label), same_bits=True,
+                chunk_plan=list(mmha.plan(b, h_kv, max_pages, ps, d)))
     _kernels_flash(torch, dev, randn, timer, results)
     _kernels_epilogue(torch, randn, timer, results)
     _kernels_decode_layer(torch, dev, randn, timer, results)
@@ -1963,15 +1996,29 @@ def _batch_tables(torch, engine, prompts):
             torch.tensor(lens, dtype=torch.int32, device=dev), held)
 
 
+def _decode_step_gate(what, prof, layers, mmha_launches):
+    """A decode step's RoPE and mmha launches, exact: one q+k RoPE launch a
+    layer (the step's q and k together) and ``mmha_launches``."""
+    got = {n: prof["port_launches_per_call"][n] for n in ("rope", "mmha")}
+    want = {"rope": layers, "mmha": mmha_launches}
+    if got != want:
+        fail(f"{what}: launches a decode step {got}, want {want}")
+
+
 def phase_profile_quant(torch, engine, prompts, label):
     """A quantized engine: where a decode step (batch 8) and a 1024-token
-    monolithic prefill spend their device time."""
+    monolithic prefill spend their device time; the step's RoPE and mmha
+    launches (``_decode_step_gate``)."""
     sm, pool, dev = engine._sm, engine.pool, engine.device
     tables, toks, pos, held = _batch_tables(torch, engine, prompts)
     out = {"phase": "profile", "engine": label}
+    layers = sm.cfg.num_layers
     try:
         out[f"{label}_decode_step"] = _profile(
             torch, lambda: sm.decode_forward(toks, pos, tables), reps=10)
+        _decode_step_gate(f"engine {label}", out[f"{label}_decode_step"],
+                          layers, 0 if engine.config.fused_decode_layer
+                          else layers)
         mono_toks = torch.arange(1024, device=dev)[None] + 7
         out[f"{label}_monolithic_prefill_1024"] = _profile(
             torch, lambda: sm.prefill_forward(mono_toks, 1024, tables[0]),
@@ -2190,13 +2237,14 @@ def phase_train(torch, dev):
     a. parity (``_grad_parity``) on the fused trunk (the default), then on
        the unfused trunk (``fused_blocks = False``);
     b. one step on the unfused trunk, its launches: rms_norm and
-       rms_norm_bwd 2L+1, rope 4L, swiglu and swiglu_bwd L,
+       rms_norm_bwd 2L+1, rope 2L (one q+k launch a layer forward and
+       one backward), swiglu and swiglu_bwd L,
        flash_attention and flash_attention_bwd L (one call of the backward
        wrapper launches its delta, dq and dk/dv kernels and counts once),
        adamw one per parameter (9L+3), nothing else;
     c. TRAIN_STEPS steps on the fused trunk, each one's launches: rms_norm
        and rms_norm_bwd 1 (the first input_layernorm), block_epilogue and
-       block_epilogue_bwd 2L, rope 4L, swiglu, swiglu_bwd,
+       block_epilogue_bwd 2L, rope 2L, swiglu, swiglu_bwd,
        flash_attention and flash_attention_bwd L, adamw 9L+3, nothing
        else; every loss finite and the last below the first; then, on a
        fresh random batch, a loss no lower than ln(vocab) - 1;
@@ -2232,7 +2280,7 @@ def phase_train(torch, dev):
                 multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
     n_tensors = 9 * layers + 3
     unfused = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-               "rope": 4 * layers, "swiglu": layers, "swiglu_bwd": layers,
+               "rope": 2 * layers, "swiglu": layers, "swiglu_bwd": layers,
                "flash_attention": layers, "flash_attention_bwd": layers,
                "adamw": n_tensors}
     _, unfused_ms, _ = _train_steps(torch, "llama unfused train", model, opt,
@@ -2240,7 +2288,7 @@ def phase_train(torch, dev):
     model.fused_blocks = True
     fused = {"rms_norm": 1, "rms_norm_bwd": 1,
              "block_epilogue": 2 * layers, "block_epilogue_bwd": 2 * layers,
-             "rope": 4 * layers, "swiglu": layers, "swiglu_bwd": layers,
+             "rope": 2 * layers, "swiglu": layers, "swiglu_bwd": layers,
              "flash_attention": layers, "flash_attention_bwd": layers,
              "adamw": n_tensors}
     losses, step_ms, launches = _train_steps(
@@ -3226,11 +3274,12 @@ def _kernels_moe_gemm(torch, dev, randn, timer, results):
 def _moe_path_launches(layers, forwards=1, train=False):
     """The kernel launches of ``forwards`` Qwen2-MoE forwards (with
     ``train``, one train step) at ``layers`` MoE layers on the layer loop:
-    rms_norm 2L+1, rope 2L (4L with the backward, RoPE's backward being its
-    forward), flash attention L, swiglu 2L (the shared expert and the
+    rms_norm 2L+1, rope L (one q+k launch a layer; 2L with the backward,
+    RoPE's backward being its forward with the sign flag), flash attention
+    L, swiglu 2L (the shared expert and the
     routed experts' gate), the grouped product 3L (6L with the backward's
     dx); with ``train``, the backward kernels of each."""
-    want = {"rms_norm": 2 * layers + 1, "rope": 2 * layers,
+    want = {"rms_norm": 2 * layers + 1, "rope": layers,
             "flash_attention": layers, "swiglu": 2 * layers,
             "moe_gemm": 3 * layers}
     if train:
@@ -3611,7 +3660,9 @@ def phase_profile(torch, model, engine, prompts):
     """Where a decode step (8 rows at the served prompts' lengths) and a
     512-token prefill chunk (at position 1024) spend their device time, on
     the per-op path and engine a's pool; then a fused decode step and a
-    fused-layer decode step and a 1024-token monolithic prefill."""
+    fused-layer decode step and a 1024-token monolithic prefill. Each decode
+    step launches RoPE once a layer and mmha once a layer (none on the
+    fused layer), exactly."""
     from paddle_tpu_torch.serving import ServingModel
 
     pool = engine.pool
@@ -3635,6 +3686,10 @@ def phase_profile(torch, model, engine, prompts):
             mono_toks, 1024, tables[0]), reps=2)
     finally:
         pool.free(held)
+    layers = model.cfg.num_layers
+    _decode_step_gate("per-op decode step", decode, layers, layers)
+    _decode_step_gate("fused decode step", fused_decode, layers, layers)
+    _decode_step_gate("fused-layer decode step", layer_decode, layers, 0)
     emit({"phase": "profile", "decode_step_batch": engine.config.max_batch,
           "decode_step": decode,
           "prefill_chunk_512_at_1024": chunk,

@@ -10,6 +10,7 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> epi [--train]
     python3 kernel_ab.py <checkout root> <tag> moe [--train]
     python3 kernel_ab.py <checkout root> <tag> dl [--engine]
+    python3 kernel_ab.py <checkout root> <tag> decode [--engine]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -104,6 +105,28 @@ Family ``dl`` (the decode layer, row 11):
   weights, ``fused_decode_layer=True``, block_i tuned into a temporary
   cache): the profile of a decode step at batch 8.
 
+Family ``decode`` (decode attention and RoPE, rows 1 and 4):
+
+- ``mmha``: ``chip_smoke.py``'s phase-3 rows (Llama-3-8B's decode: B 8 over
+  Hkv 8 at positions 0..1500 with an inactive row 0, B 1 at position 900,
+  B 16, rep 1 over Hkv 32, rep 8 (H 64) and D 64; pages of 16 handed out
+  shuffled): the kernel's cold-L2 ms, SDPA's on the gathered view with a
+  ``<= pos`` mask (the GQA heads repeated), their ratio, the byte bound and
+  the kernel's share of it, the error against the plain version and
+  whether two calls give the same bits;
+- ``rope``: ``F.rope(q, k, sin, cos)`` on the decode pair q [8, 1, 32,
+  128] + k [8, 1, 8, 128] with per-token tables and the prefill pair
+  [1, 512, 32, 128] + [1, 512, 8, 128]: cold-L2 ms of the call, of its
+  plain version, the launches a call, the error against the plain
+  version, and the byte bound;
+- ``host``: the host time of one ``mmha_decode`` call at B 8 and of one
+  ``F.rope`` call on the decode pair, as for flash;
+- with ``--engine``, Llama-3-8B (random weights) on engine a's per-op
+  decode path and engine b's fused-epilogue one over one pool: the
+  profile of a decode step at batch 8 (``chip_smoke._profile``: per-kernel
+  device ms, launches, busy, wall), at the lengths of engine a's first
+  8 prompts plus 32.
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -126,7 +149,7 @@ def main() -> int:
             or not cs.__file__.startswith(root):
         cs.fail(f"{root}: its modules were not the ones imported")
     families = {"flash": _flash, "wo": _wo, "grad": _grad, "a8w8": _a8w8,
-                "epi": _epi, "moe": _moe, "dl": _dl}
+                "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode}
     if family not in families:
         cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
@@ -556,6 +579,106 @@ def _dl(torch, cs, dev, timer, randn, emit):
             emit(engine_c_decode_step=cs._profile(
                 torch, lambda: layer.decode_forward(toks, pos, tables),
                 reps=10), block_i=(engine.tuning or {}).get("block_i"))
+        finally:
+            engine.pool.free(held)
+            engine.shutdown()
+
+
+#: the decode family's mmha rows: (label, lengths, H, Hkv, D); kept here,
+#: not read from the checkout, so that a parent without them measures too
+_FULL = [0, 18, 256, 257, 701, 1024, 1201, 1501]
+DECODE_ROWS = (("B 8", _FULL, 32, 8, 128), ("B 1 pos 900", [901], 32, 8, 128),
+               ("B 16", _FULL * 2, 32, 8, 128),
+               ("rep 1", [0] + [100 + 190 * r for r in range(1, 8)], 32, 32,
+                128),
+               ("rep 8", _FULL, 64, 8, 128), ("D 64", _FULL, 32, 8, 64))
+
+
+def _decode(torch, cs, dev, timer, randn, emit):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, rope_tables
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import WRAPPERS, mmha
+
+    ps = 16
+    for label, lengths, h, h_kv, d in DECODE_ROWS:
+        b = len(lengths)
+        tables, pos, n_pages = cs._paged(torch, dev, lengths, ps, 2048 // ps, 7)
+        q = randn(b, 1, h, d)
+        kp, vp = randn(n_pages, h_kv, ps, d), randn(n_pages, h_kv, ps, d)
+        got = mmha.mmha_decode(q, kp, vp, tables, pos)
+        again = mmha.mmha_decode(q, kp, vp, tables, pos)
+        err, tol = cs.compare(torch, got, mmha.mmha_plain(q, kp, vp, tables, pos))
+        kc, vc = mmha.gather_pages(kp, tables), mmha.gather_pages(vp, tables)
+        mask = (torch.arange(kc.shape[2], device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+        kr = kc.repeat_interleave(h // h_kv, dim=1)
+        vr = vc.repeat_interleave(h // h_kv, dim=1)
+        sdpa = timer(lambda: TF.scaled_dot_product_attention(qt, kr, vr,
+                                                             attn_mask=mask))
+        del kc, vc, kr, vr, mask
+        ms = timer(lambda: mmha.mmha_decode(q, kp, vp, tables, pos))
+        seen = int((pos + 1).sum())
+        nbytes = 2 * seen * h_kv * d * 2 + 2 * b * h * d * 2 + tables.numel() * 4
+        bound = nbytes / cs.MEM_BYTES_PER_S * 1e3
+        emit(mmha=[label, "H", h, "Hkv", h_kv, "D", d, "pos", pos.tolist()],
+             ms=ms, sdpa_ms=sdpa, ratio=ms / sdpa, bound_ms=bound,
+             bound_share=bound / ms, max_abs_err=err, tol=tol,
+             same_bits=bool(torch.equal(got, again)))
+        if label == "B 8":
+            emit(host=["mmha_decode", "B 8"], us=_host_us(
+                torch, lambda: mmha.mmha_decode(q, kp, vp, tables, pos)))
+
+    cos_t, sin_t = rope_tables(LlamaConfig(), 2048, dev)
+    dpos = torch.tensor(_FULL, device=dev)
+    for label, (b, s), c, sn in (
+            ("decode", (8, 1), cos_t[dpos], sin_t[dpos]),
+            ("prefill", (1, 512), cos_t[:512], sin_t[:512])):
+        q, k = randn(b, s, 32, 128), randn(b, s, 8, 128)
+        rope = WRAPPERS["rope"]
+        before = rope.launches
+        gq, gk = F.rope(q, k, sn, c)
+        launches = rope.launches - before
+        pq, pk = F.rope(q, k, sn, c, plain=True)
+        err = max(cs.compare(torch, gq, pq)[0], cs.compare(torch, gk, pk)[0])
+        tol = min(cs.compare(torch, gq, pq)[1], cs.compare(torch, gk, pk)[1])
+        n = b * s * 40 * 128
+        bound = (2 * n * 2 + 2 * c.numel() * 4) / cs.MEM_BYTES_PER_S * 1e3
+        ms = timer(lambda: F.rope(q, k, sn, c))
+        emit(rope=[label, f"q [{b}, {s}, 32, 128] + k [{b}, {s}, 8, 128]"],
+             ms=ms, plain_ms=timer(lambda: F.rope(q, k, sn, c, plain=True)),
+             launches_a_call=launches, bound_ms=bound, bound_share=bound / ms,
+             max_abs_err=err, tol=tol)
+        if label == "decode":
+            emit(host=["F.rope", "decode pair"], us=_host_us(
+                torch, lambda: F.rope(q, k, sn, c)))
+
+    if "--engine" in sys.argv[4:]:
+        import numpy as np
+
+        from paddle_tpu_torch.models import llama3_8b
+        from paddle_tpu_torch.serving import (LLMEngine, ServingConfig,
+                                              ServingModel)
+
+        cs._free(torch)
+        model = llama3_8b(device=dev, seed=0)
+        engine = LLMEngine(model, cs._quant_config(ServingConfig))
+        rng = np.random.default_rng(0)     # engine a's prompts (chip_smoke)
+        lengths = rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1,
+                               size=cs.SERVE_REQUESTS)
+        prompts = [rng.integers(0, model.cfg.vocab_size, size=int(n)).tolist()
+                   for n in lengths]
+        tables, toks, pos, held = cs._batch_tables(torch, engine, prompts)
+        try:
+            for name, fused in (("engine_a_decode_step", False),
+                                ("engine_b_decode_step", True)):
+                sm = ServingModel(model, fused_block=fused).bind_pool(
+                    engine.pool)
+                emit(**{name: cs._profile(
+                    torch, lambda: sm.decode_forward(toks, pos, tables),
+                    reps=10)}, pos=pos.tolist())
         finally:
             engine.pool.free(held)
             engine.shutdown()

@@ -160,13 +160,15 @@ def flash_attention(q, k, v, causal=False, segment_ids=None, plain=False):
 
 
 def rope(q, k, sin, cos, plain=False):
-    """Rotate-half RoPE on ``q`` and ``k`` ``[B, S, H, D]``; ``cos``/``sin``
-    are f32 tables ``[S, D]`` or ``[B*S, D]`` (one row per token)."""
-    def one(x):
-        if _needs_grad(x):
-            return _rope.RoPEFunction.apply(x, cos, sin, plain)
-        return (_rope.rope_plain if plain else _rope.rope_apply)(x, cos, sin)
-    return one(q), one(k)
+    """Rotate-half RoPE on ``q`` and ``k`` ``[B, S, H, D]`` (the same B, S
+    and D), both in one kernel launch forward and one backward; ``cos``/
+    ``sin`` are f32 tables ``[S, D]`` or ``[B*S, D]`` (one row per
+    token)."""
+    if _needs_grad(q, k):
+        return _rope.RoPEFunction.apply(q, k, cos, sin, plain)
+    if plain:
+        return _rope.rope_plain(q, cos, sin), _rope.rope_plain(k, cos, sin)
+    return _rope.rope_qk(q, k, cos, sin)
 
 
 def swiglu(x, y=None, plain=False):

@@ -13,7 +13,7 @@ from . import (a8w8_matmul, adamw, bias_dropout_ln, block_epilogue,
 #: every kernel wrapper of the port, by name
 WRAPPERS = {"mmha": mmha.mmha_decode, "rms_norm": rms_norm.rms_norm,
             "rms_norm_bwd": rms_norm.rms_norm_bwd,
-            "rope": rope.rope_apply, "swiglu": swiglu.swiglu,
+            "rope": rope.rope_qk, "swiglu": swiglu.swiglu,
             "swiglu_bwd": swiglu.swiglu_bwd,
             "swiglu_packed": swiglu.swiglu_packed,
             "swiglu_packed_bwd": swiglu.swiglu_packed_bwd,

@@ -12,30 +12,113 @@ plain version keeps the JAX dataflow: :func:`gather_pages` followed by
 the grouped einsum of ``mmha_pallas.reference_mmha`` (:152-170).
 
 What bounds it on the H100: bytes — the visible keys and values, with
-about ``4 * rep`` flops per byte. The kernel runs one block of 8 warps per
-(kv head, batch row), GQA-native: the ``rep = H / Hkv`` query heads that
-share a kv head are loaded once and reuse every key and value row read.
-Groups of 8 lanes own one position at a time (1 KB contiguous reads per
-warp within a page) with an f32 online softmax each; positions past
-``pos[b]`` are never visited, masked scores are -1e30 and the denominator
-is clamped at 1e-30, as in the TPU kernel (:75, :85-88). The per-group
-states merge by shuffles, then across warps through shared memory.
+about ``4 * rep`` flops per byte. The kernel splits each (batch row, kv
+head) over chunks of whole pages (flash-decoding), a block a chunk:
+:func:`plan` sizes a chunk at 32 KB of K and V from host-known shapes
+alone (no host sync: ``pos`` stays on the device), and a block
+whose chunk starts past ``pos[b]`` exits at once. A block brings its
+chunk's visible K and V rows into shared memory with one bulk
+asynchronous copy a page each, all issued before its first score, and
+computes the scores, the chunk's softmax and P V there for the ``rep = H
+/ Hkv`` query heads that share the kv head. A row of one chunk writes
+its output; otherwise each chunk writes its (max, sum, accumulator) to
+its own slot of a scratch buffer and the last block of the row to arrive
+(a counter a (row, kv head), cleared again by that block) merges them in
+chunk order, so two calls give the same bits. Masked scores are never
+formed (the chunk ends at ``pos[b]``) and the denominator is clamped at
+1e-30, as in the TPU kernel (:75, :85-88).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from . import _build
 
-__all__ = ["mmha_decode", "mmha_plain", "gather_pages", "reference_mmha"]
+__all__ = ["mmha_decode", "mmha_plain", "gather_pages", "reference_mmha",
+           "plan", "chunk_spans", "smem_bytes"]
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _HEAD_DIMS = (64, 128)
 _REPS = (1, 2, 4, 8)
+_THREADS = 256
+#: bytes of K and V a chunk (a block) holds, and the source's ``kMaxPages``
+_CHUNK_BYTES = 32 * 1024
+_MAX_PAGES = 16
+#: the source's ``kMaxSmem``: dynamic shared memory a block may ask for
+_MAX_SMEM = 200 * 1024
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b, h_kv, max_pages, page_size, head_dim):
+    """``(chunk_pages, n_chunks)`` of the kernel's grid ``(Hkv, B,
+    n_chunks)``, from host-known shapes only: a chunk (a block) is the
+    whole pages that fit 32 KB of K and V (16 at most, one at least), 64
+    positions at D 128 and 128 at D 64 with pages of 16, at any batch. (A
+    sweep of 1-16 pages a chunk, and of chunks a block sized to hold the
+    grid near 2048 or 528 blocks, found this fastest at B 1, 8 and 16;
+    ``PERF.md``.)"""
+    cp = min(_MAX_PAGES, max(1, _CHUNK_BYTES // (4 * head_dim * page_size)))
+    return cp, -(-max_pages // cp)
+
+
+def chunk_spans(pos, max_pages, page_size, chunk_pages):
+    """The blocks of one (row, kv head) that do work, as the source computes
+    them: ``[(chunk, first position, positions), ...]`` for a row whose
+    last visible position is ``pos`` (clamped to the table's capacity)."""
+    chunk = chunk_pages * page_size
+    last = min(int(pos), max_pages * page_size - 1)
+    return [(c, c * chunk, min(chunk, last + 1 - c * chunk))
+            for c in range(last // chunk + 1)]
+
+
+def smem_bytes(head_dim, rep, chunk_pages, page_size):
+    """Dynamic shared memory of a block (the source's ``smem_bytes``): K
+    and V of the chunk in bf16, the scores of its rep query heads in f32."""
+    n = chunk_pages * page_size
+    return 4 * n * head_dim + 4 * rep * n
+
+
+def scratch_floats(b, h_kv, rep, head_dim, n_chunks):
+    """f32 scratch of the chunks' partials: each chunk's accumulators and
+    its (max, sum) a query head."""
+    return b * h_kv * n_chunks * rep * (head_dim + 2)
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(b, h_kv, rep, head_dim, page_size, max_pages):
+    """``(chunk_pages, scratch floats)`` of a call, or None where a chunk
+    does not fit a block's shared memory (one lookup a call on the host)."""
+    cp, n_chunks = plan(b, h_kv, max_pages, page_size, head_dim)
+    if smem_bytes(head_dim, rep, cp, page_size) > _MAX_SMEM:
+        return None
+    return cp, scratch_floats(b, h_kv, rep, head_dim, n_chunks)
+
+
+#: (device index, stream) -> [counters, scratch]: the counters (one a (row,
+#: kv head)) are zeroed once and left zero by every call (the block that
+#: merges a row clears its counter); the partials' scratch is reused, its
+#: calls being ordered on their stream. One pair a stream, so that calls on
+#: two streams never share one.
+_WORK: dict = {}
+
+
+def _workspace(device, stream, counters, floats):
+    key = (device.index, stream)
+    work = _WORK.get(key)
+    if work is None:
+        work = _WORK[key] = [None, None]
+    if work[0] is None or work[0].numel() < counters:
+        work[0] = torch.zeros(max(counters, 1024), dtype=torch.int32,
+                              device=device)
+    if work[1] is None or work[1].numel() < floats:
+        work[1] = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                              device=device)
+    return work
 
 
 def _check(q, k_pool, v_pool, tables, pos):
@@ -114,9 +197,16 @@ def mmha_decode(q, k_pool, v_pool, tables, pos):
     ops = (q, k_pool, v_pool, tables, pos)
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("mmha kernel takes contiguous tensors")
+    layout = _layout(b, h_kv, h // h_kv, d, ps, tables.shape[1])
+    if layout is None:
+        raise ValueError(f"mmha kernel: a page of {ps} positions at D {d} "
+                         f"does not fit a block's shared memory")
+    cp, floats = layout
     _build.require_aligned("mmha", q, k_pool, v_pool)
     out = torch.empty_like(q)
-    _launch(q, k_pool, v_pool, tables, pos, out, _build.stream_of(q))
+    stream = _build.stream_of(q)
+    ctrl, part = _workspace(q.device, stream, b * h_kv, floats)
+    _launch(q, k_pool, v_pool, tables, pos, out, part, ctrl, cp, stream)
     mmha_decode.launches += 1
     return out
 
@@ -124,14 +214,17 @@ def mmha_decode(q, k_pool, v_pool, tables, pos):
 mmha_decode.launches = 0
 
 
-def _launch(q, k_pool, v_pool, tables, pos, out, stream):
-    """The C entry on operands the caller allocated."""
+def _launch(q, k_pool, v_pool, tables, pos, out, part, ctrl, chunk_pages,
+            stream):
+    """The C entry on operands the caller allocated (``part``: the
+    scratch; ``ctrl``: at least ``B * Hkv`` zero counters)."""
     b, _, h, d = q.shape
     _, h_kv, ps, _ = k_pool.shape
     fn = _build.function("mmha", "ptt_mmha_paged", _ARGS)
     _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                    tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b,
-                    h_kv, h // h_kv, d, ps, tables.shape[1], stream), "mmha")
+                    tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                    part.data_ptr(), ctrl.data_ptr(), b, h_kv, h // h_kv, d,
+                    ps, tables.shape[1], chunk_pages, stream), "mmha")
 
 
 def paged_tables(lengths, page_size, max_pages, seed):
@@ -155,26 +248,34 @@ def paged_tables(lengths, page_size, max_pages, seed):
 # -- declared launches for the kernel analyzer -------------------------------
 
 def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7):
-    """One block of 8 warps a (kv head, row): grid (Hkv, B); the block
-    writes the REP query heads of its kv head. The keys and values it
-    reads go through the page table (not declared as tiles)."""
+    """Grid (Hkv, B, chunks) of 256 threads (:func:`plan`): block (g, b, c)
+    reads q's REP heads of kv head g and the pages of chunk c through the
+    table (not declared as tiles). Which block writes a row's output
+    depends on the data (the last chunk of the row to finish, or its only
+    one), so the writes of out and of the scratch are left to the guard
+    plane (writes=None). The counters go in zero and come out zero."""
     from ._examples import fixed, model
     m = model()
     bf = torch.bfloat16
     b, rep = len(lengths), h // h_kv
     tables, pos, n_pages = paged_tables(lengths, ps, max_pages, seed)
+    cp, n_chunks = plan(b, h_kv, max_pages, ps, d)
+    zeros = torch.zeros(b * h_kv, dtype=torch.int32)
     ops = [m.Operand("q", (b, 1, h, d), bf),
            m.Operand("k", (n_pages, h_kv, ps, d), bf),
            m.Operand("v", (n_pages, h_kv, ps, d), bf),
            m.Operand("tables", tuple(tables.shape), torch.int32,
                      data=fixed(tables)),
            m.Operand("pos", (b,), torch.int32, data=fixed(pos)),
-           m.Operand("out", (b, 1, h, d), bf, "out")]
-    heads = m.TileMap("out", (1, 1, rep * d), lambda g, r, z: (r, g, 0),
-                      view=(b, h_kv, rep * d))
+           m.Operand("out", (b, 1, h, d), bf, "out"),
+           m.Operand("part", (scratch_floats(b, h_kv, rep, d, n_chunks),),
+                     torch.float32, "out"),
+           m.Operand("ctrl", (b * h_kv,), torch.int32, data=fixed(zeros))]
     kern = m.KernelLaunch(
-        f"mmha_paged_kernel<{d},{rep}>", (h_kv, b), 256, writes=[heads],
-        reads=[m.TileMap("q", heads.block, heads.index, view=heads.view)])
+        f"mmha_paged_kernel<{d},{rep}>", (h_kv, b, n_chunks), _THREADS,
+        smem=smem_bytes(d, rep, cp, ps), writes=None,
+        reads=[m.TileMap("q", (1, 1, rep * d), lambda g, r, z: (r, g, 0),
+                         view=(b, h_kv, rep * d))])
 
     def plain(t):
         return {"out": mmha_plain(t["q"], t["k"], t["v"], t["tables"],
@@ -182,7 +283,7 @@ def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7):
 
     def launch(t, stream):
         _launch(t["q"], t["k"], t["v"], t["tables"], t["pos"], t["out"],
-                stream)
+                t["part"], t["ctrl"], cp, stream)
 
     seen = int((pos + 1).sum())
     return m.Example(label, "mmha", ops, [kern], launch, plain,
@@ -191,19 +292,36 @@ def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7):
                      + tables.numel() * 4)
 
 
+#: phase 3's rows beside the decode shape: (label, lengths, H, Hkv, D)
+PHASE3_ROWS = (
+    ("phase3 B 1 pos 900", [901], 32, 8, 128),
+    ("phase3 B 16", [0, 18, 256, 257, 701, 1024, 1201, 1501] * 2, 32, 8, 128),
+    ("phase3 rep 1", [0] + [100 + 190 * r for r in range(1, 8)], 32, 32, 128),
+    ("phase3 rep 8", [0, 18, 256, 257, 701, 1024, 1201, 1501], 64, 8, 128),
+    ("phase3 D 64", [0, 18, 256, 257, 701, 1024, 1201, 1501], 32, 8, 64))
+
+
 def ck_examples():
     """At ``mmha_pallas.pk_examples``' shape (q [8, 1, 32, 128] over 8 kv
     heads and 2048 positions a row; the JAX cache is contiguous, the
-    port's is paged) and phase 3's (the same q at positions 0..1500 with
-    an inactive row 0); a tail at D 64, REP 4 and lengths that end inside
-    a page and inside a round of the block's 32 position streams."""
+    port's is paged), phase 3's decode shape (the same q at positions
+    0..1500 with an inactive row 0) and its rows at B 1, B 16, rep 1 (Hkv
+    32), rep 8 (H 64) and D 64 (:data:`PHASE3_ROWS`); tails at D 64, REP 4
+    (for rep 1 and rep 8 their own REP) and lengths of one position, two
+    ending inside a page (one of them over three chunks, so merged) and
+    one on a chunk's edge."""
     from ._examples import with_tail
+    tail = dict(lengths=[1, 37, 300, 256], h=8, h_kv=2, d=64)
     out = []
     for label, lengths in (
             ("mmha_decode", [2048] * 8),
             ("phase3 [8, 1, 32, 128]", [0, 18, 256, 257, 701, 1024, 1201,
                                         1501])):
         out.append(with_tail(_ex, label, dict(lengths=lengths, h=32, h_kv=8,
-                                              d=128),
-                             dict(lengths=[1, 37, 100], h=8, h_kv=2, d=64)))
+                                              d=128), tail))
+    for label, lengths, h, h_kv, d in PHASE3_ROWS:
+        rep_tail = dict(tail, h=2 * (h // h_kv), h_kv=2) if h // h_kv in (1, 8) \
+            else tail
+        out.append(with_tail(_ex, label, dict(lengths=lengths, h=h, h_kv=h_kv,
+                                              d=d), rep_tail))
     return out

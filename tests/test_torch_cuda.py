@@ -160,6 +160,92 @@ def test_mmha_kernel(dev, d, rep):
     _close(got, mmha.mmha_plain(q, kp, vp, tables, pos))
 
 
+#: lengths a row for the position-split mmha: an inactive row, one
+#: position, one ending inside a page, two on a chunk's edge (chunks of 64
+#: positions at D 128, 128 at D 64), the longest phase-3 row and the
+#: table's whole capacity (128 pages of 16)
+SPLIT_LENGTHS = {"B 1": [901], "B 8": [0, 1, 37, 64, 128, 1024, 1501, 2048],
+                 "B 16": [0, 1, 37, 64, 128, 1024, 1501, 2048] * 2}
+
+
+@pytest.mark.parametrize("batch", sorted(SPLIT_LENGTHS))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_mmha_split_kernel(dev, batch, d, rep):
+    """The position-split kernel at the serving path's table (128 pages of
+    16) over 8 kv heads: within one bf16 ulp of the plain version, the
+    inactive row finite, and the same bits on a second call (the chunks
+    merge in chunk order, no float atomics)."""
+    lengths, h_kv, ps = SPLIT_LENGTHS[batch], 8, 16
+    tables, pos, n_pages = _tables(dev, lengths, ps, 128, seed=rep)
+    kp = _randn(dev, n_pages, h_kv, ps, d, seed=17)
+    vp = _randn(dev, n_pages, h_kv, ps, d, seed=18)
+    q = _randn(dev, len(lengths), 1, h_kv * rep, d, seed=19)
+    got = mmha.mmha_decode(q, kp, vp, tables, pos)
+    again = mmha.mmha_decode(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    _close(got, mmha.mmha_plain(q, kp, vp, tables, pos))
+    # the counters are left zero for the next call
+    ctrl, _ = mmha._WORK[(dev.index, torch.cuda.current_stream().cuda_stream)]
+    assert int(ctrl.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("cp", [1, 2, 3, 8, 16])
+def test_mmha_split_kernel_other_plans(dev, monkeypatch, cp):
+    """The kernel at chunk sizes the plan does not choose here (one page, a
+    size that does not divide the table, the largest): the same result,
+    and the same bits twice."""
+    lengths, h_kv, d, ps, max_pages = [0, 1, 37, 64, 300, 1501], 2, 128, 16, 100
+    monkeypatch.setattr(mmha, "plan", lambda *a: (cp, -(-max_pages // cp)))
+    mmha._layout.cache_clear()      # the wrapper's layouts follow the plan
+    tables, pos, n_pages = _tables(dev, lengths, ps, max_pages, seed=cp)
+    kp = _randn(dev, n_pages, h_kv, ps, d, seed=24)
+    vp = _randn(dev, n_pages, h_kv, ps, d, seed=25)
+    q = _randn(dev, len(lengths), 1, h_kv * 4, d, seed=26)
+    got = mmha.mmha_decode(q, kp, vp, tables, pos)
+    again = mmha.mmha_decode(q, kp, vp, tables, pos)
+    mmha._layout.cache_clear()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, mmha.mmha_plain(q, kp, vp, tables, pos))
+
+
+@pytest.mark.parametrize("shape,hk,per_token", [
+    ((8, 1, 32, 128), 8, True), ((1, 512, 32, 128), 8, False),
+    ((2, 5, 4, 64), 2, True), ((3, 7, 3, 68), 1, False)])
+def test_rope_qk_kernel_forward_and_backward(dev, shape, hk, per_token):
+    """q and k in one launch forward and one backward (the sign flag, no
+    -sin table), each within one bf16 ulp of the plain version; the
+    gradients against autograd of the plain forward."""
+    from paddle_tpu_torch.nn import functional as F
+    b, s, _, d = shape
+    rows = b * s if per_token else s
+    ang = torch.rand(rows, d // 2, device=dev) * 6.3
+    ang = torch.cat([ang, ang], dim=-1)
+    cos, sin = ang.cos(), ang.sin()
+    q = _randn(dev, *shape, seed=20)
+    k = _randn(dev, b, s, hk, d, seed=21)
+    gq, gk = _randn(dev, *shape, seed=22), _randn(dev, b, s, hk, d, seed=23)
+    before = rope.rope_qk.launches
+    oq, ok = F.rope(q, k, sin, cos)
+    assert rope.rope_qk.launches == before + 1
+    _close(oq, rope.rope_plain(q, cos, sin))
+    _close(ok, rope.rope_plain(k, cos, sin))
+    qa, ka = q.clone().requires_grad_(), k.clone().requires_grad_()
+    oq, ok = F.rope(qa, ka, sin, cos)
+    torch.autograd.backward((oq, ok), (gq, gk))
+    assert rope.rope_qk.launches == before + 3
+    qp, kp = q.clone().requires_grad_(), k.clone().requires_grad_()
+    pq, pk = F.rope(qp, kp, sin, cos, plain=True)
+    torch.autograd.backward((pq, pk), (gq, gk))
+    _close(qa.grad, qp.grad)
+    _close(ka.grad, kp.grad)
+    inv = rope.rope_qk(gq, gk, cos, sin, inverse=True)
+    assert torch.equal(inv[0], qa.grad) and torch.equal(inv[1], ka.grad)
+
+
 @pytest.mark.parametrize("s", [1, 77, 200, 256])
 @pytest.mark.parametrize("rep", [1, 4])
 @pytest.mark.parametrize("causal", [True, False])
@@ -1171,7 +1257,7 @@ def test_llama_training_step_through_kernels(dev):
     torch.cuda.synchronize()
     n_params = len(list(model.parameters()))
     want = {"rms_norm": 2 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-            "rope": 4 * layers, "swiglu": layers, "swiglu_bwd": layers,
+            "rope": 2 * layers, "swiglu": layers, "swiglu_bwd": layers,
             "flash_attention": layers, "flash_attention_bwd": layers,
             "adamw": n_params}
     got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
@@ -1362,7 +1448,7 @@ def test_llama_fused_trunk_training_step_through_kernels(dev):
     got = _fused_step_launches(model, ids, labels)
     assert got == {"rms_norm": 1, "rms_norm_bwd": 1,
                    "block_epilogue": 2 * layers,
-                   "block_epilogue_bwd": 2 * layers, "rope": 4 * layers,
+                   "block_epilogue_bwd": 2 * layers, "rope": 2 * layers,
                    "swiglu": layers, "swiglu_bwd": layers,
                    "flash_attention": layers,
                    "flash_attention_bwd": layers,

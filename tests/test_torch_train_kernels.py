@@ -159,7 +159,7 @@ def test_rope_vjp_matches_pallas(shape):
         a, jnp.asarray(cos), jnp.asarray(sin), True), jnp.asarray(x))
     (dx_j,) = vjp(jnp.asarray(dy))
     xt = _t(x, True)
-    out = rope.RoPEFunction.apply(xt, _t(cos), _t(sin), False)
+    out, _ = rope.RoPEFunction.apply(xt, None, _t(cos), _t(sin), False)
     (dx,) = torch.autograd.grad(out, xt, _t(dy))
     _close(dx, dx_j)
     xt = _t(x, True)
