@@ -266,11 +266,12 @@ INCUBATE_KERNELS = ("softmax_mask", "softmax_mask_tri", "softmax_mask_bwd",
 INCUBATE_LAYERS, INCUBATE_HIDDEN, INCUBATE_HEADS = 12, 768, 12
 INCUBATE_BATCH, INCUBATE_SEQ, INCUBATE_P = 4, 1024, 0.1
 INCUBATE_SEED = 2028
-# phase 3's incubate shapes: softmax (B, H, S, masked); rows of the layer
-# norm (rows, hidden, masked) and of dropout-add (rows, hidden); the
-# weight-gradient accumulations (M, K, N, accumulator dtype)
-INCUBATE_SOFTMAX = ((8, 12, 1024, True), (8, 12, 1024, False),
-                    (2, 32, 2048, False))
+# phase 3's incubate shapes: softmax (B, H, S, masked, with the backward;
+# the last the incubate micro-batch's own); rows of the layer norm (rows,
+# hidden, masked) and of dropout-add (rows, hidden); the weight-gradient
+# accumulations (M, K, N, accumulator dtype)
+INCUBATE_SOFTMAX = ((8, 12, 1024, True, True), (8, 12, 1024, False, False),
+                    (2, 32, 2048, False, False), (4, 12, 1024, False, True))
 INCUBATE_LN = ((8192, 768, True), (8192, 768, False), (4096, 4096, True))
 INCUBATE_DROPOUT = ((8192, 768), (4096, 4096))
 INCUBATE_GRAD = ((8192, 768, 3072, "float32"), (4096, 4096, 14336, "float32"),
@@ -1907,6 +1908,7 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "lamb_moments_kernel", "lamb_apply_kernel",
                 "ce_row_stats_kernel", "moe_wgmma_kernel",
                 "softmax_mask_kernel", "softmax_mask_bwd_kernel",
+                "softmax_mask_smem_kernel", "softmax_mask_bwd_smem_kernel",
                 "bias_dropout_ln_kernel", "bias_dropout_ln_bwd_kernel",
                 "bdl_partial_sum_kernel", "dropout_add_kernel",
                 "grad_acc_kernel")
@@ -2735,8 +2737,12 @@ def _kernels_incubate(torch, dev, randn, timer, results):
 
     - row 18: the masked softmax at [8, 12, 1024, 1024] with a padding mask
       [8, 1, 1024, 1024] (-1e4 past each seeded length), the causal one
-      there and at [2, 32, 2048, 2048], the backward there (yardstick
-      ``torch._softmax_backward_data``);
+      there, at [2, 32, 2048, 2048] and at the incubate micro-batch's [4,
+      12, 1024, 1024] (yardstick ``torch._masked_softmax`` with the
+      triangle as a boolean mask, timed only where it agrees within one
+      bf16 ulp), the backward at [8, 12, 1024, 1024] and [4, 12, 1024,
+      1024] (yardstick ``torch._softmax_backward_data``); the causal bound
+      counts x's lower triangle, which is all the kernel reads;
     - row 19: [8192, 768] with the p = 0.1 mask and maskless, [4096, 4096]
       with the mask, forward and backward (dgamma, dbeta, dbias within 1e-3
       of their largest values);
@@ -2760,8 +2766,9 @@ def _kernels_incubate(torch, dev, randn, timer, results):
 
     bf = torch.bfloat16
     # row 18
-    for b, h, s, masked in INCUBATE_SOFTMAX:
+    for b, h, s, masked, with_bwd in INCUBATE_SOFTMAX:
         x = randn(b, h, s, s, scale=3.0)
+        lib = None
         if masked:
             mask, _ = _pad_mask(torch, dev, b, s, seed=91)
             args, name = (x, mask), "softmax_mask"
@@ -2771,13 +2778,20 @@ def _kernels_incubate(torch, dev, randn, timer, results):
             fn, plain = sm.softmax_mask_tri, sm.softmax_mask_tri_plain
         got, ref = fn(*args), plain(*args)
         err, tol = compare(torch, got, ref)
+        if not masked:
+            above = torch.ones(s, s, dtype=torch.bool, device=dev).triu(1)
+            lib_err, _ = compare(torch, torch._masked_softmax(x, above, 3, 0),
+                                 ref)
+            if lib_err <= tol:
+                lib = timer(lambda: torch._masked_softmax(x, above, 3, 0))
+            del above
         _record(results, name, [b, h, s, s] + (["mask", list(mask.shape)]
                                                if masked else ["causal"]),
                 err, tol, timer(lambda: fn(*args)),
-                timer(lambda: plain(*args), iters=5), None,
+                timer(lambda: plain(*args), iters=5), lib,
                 ("softmax_mask", f"phase3 [{b}, {h}, {s}, {s}] "
                  + ("mask" if masked else "causal")))
-        if masked:
+        if with_bwd:
             dy = randn(b, h, s, s)
             got_b = sm.softmax_mask_bwd(got, dy)
             err, tol = compare(torch, got_b, sm.softmax_mask_bwd_plain(got,

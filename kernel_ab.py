@@ -11,6 +11,7 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> moe [--train]
     python3 kernel_ab.py <checkout root> <tag> dl [--engine]
     python3 kernel_ab.py <checkout root> <tag> decode [--engine]
+    python3 kernel_ab.py <checkout root> <tag> softmax [--incubate]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -127,6 +128,27 @@ Family ``decode`` (decode attention and RoPE, rows 1 and 4):
   device ms, launches, busy, wall), at the lengths of engine a's first
   8 prompts plus 32.
 
+Family ``softmax`` (the masked softmax and its backward, row 18):
+
+- ``softmax``: ``chip_smoke.py``'s phase-3 rows (the masked forward at [8,
+  12, 1024, 1024] with a [8, 1, 1024, 1024] padding mask, the causal one
+  there and at [2, 32, 2048, 2048], the backward there), the incubate
+  micro-batch's causal forward and backward at [4, 12, 1024, 1024], the
+  tail [1, 3, 1000, 1000], Sk 64, 128, 2048, 8192 and 16384, masks that
+  vary over heads ([1, H, Sq, Sk]) and over batches and heads, and f32
+  scores: the call's cold-L2 ms, the byte bound (each
+  input read once, the causal forward's x only in its lower triangle, the
+  mask's distinct bytes) and the kernel's share of it, the library call
+  where one computes the same function (``torch._masked_softmax`` with the
+  triangle as a boolean ``[S, S]`` mask, at Sq = Sk and where it agrees
+  within one bf16 ulp;
+  ``torch._softmax_backward_data``), the error against the plain version
+  and whether two calls give the same bits;
+- ``host``: the host time of one wrapper call of each at a small shape,
+  as for flash;
+- with ``--incubate``, ``chip_smoke.py``'s ``incubate`` phase of that
+  checkout (launches, parity, the profile of a micro-batch).
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -149,7 +171,8 @@ def main() -> int:
             or not cs.__file__.startswith(root):
         cs.fail(f"{root}: its modules were not the ones imported")
     families = {"flash": _flash, "wo": _wo, "grad": _grad, "a8w8": _a8w8,
-                "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode}
+                "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode,
+                "softmax": _softmax}
     if family not in families:
         cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
@@ -682,6 +705,104 @@ def _decode(torch, cs, dev, timer, randn, emit):
         finally:
             engine.pool.free(held)
             engine.shutdown()
+
+
+#: the softmax family's rows: (label, [B, H, Sq, Sk], kind, dtype); kind
+#: "mask" (a [B, 1, Sq, Sk] padding mask), "head" (a [1, H, Sq, Sk] mask),
+#: "full" (a [B, H, Sq, Sk] mask), "tri" (causal) or "bwd"
+SOFTMAX_ROWS = (
+    ("phase3 mask", (8, 12, 1024, 1024), "mask", "bfloat16"),
+    ("phase3 causal", (8, 12, 1024, 1024), "tri", "bfloat16"),
+    ("phase3 causal 2048", (2, 32, 2048, 2048), "tri", "bfloat16"),
+    ("phase3 bwd", (8, 12, 1024, 1024), "bwd", "bfloat16"),
+    ("incubate causal", (4, 12, 1024, 1024), "tri", "bfloat16"),
+    ("incubate bwd", (4, 12, 1024, 1024), "bwd", "bfloat16"),
+    ("tail mask", (1, 3, 1000, 1000), "mask", "bfloat16"),
+    ("tail causal", (1, 3, 1000, 1000), "tri", "bfloat16"),
+    ("tail bwd", (1, 3, 1000, 1000), "bwd", "bfloat16"),
+    ("Sk 64 mask", (64, 12, 1024, 64), "mask", "bfloat16"),
+    ("Sk 64 causal", (64, 12, 1024, 64), "tri", "bfloat16"),
+    ("Sk 64 bwd", (64, 12, 1024, 64), "bwd", "bfloat16"),
+    ("Sk 128 mask", (32, 12, 1024, 128), "mask", "bfloat16"),
+    ("Sk 128 causal", (32, 12, 1024, 128), "tri", "bfloat16"),
+    ("Sk 128 bwd", (32, 12, 1024, 128), "bwd", "bfloat16"),
+    ("Sk 2048 mask", (2, 32, 2048, 2048), "mask", "bfloat16"),
+    ("Sk 2048 bwd", (2, 32, 2048, 2048), "bwd", "bfloat16"),
+    ("Sk 8192 mask", (1, 8, 1024, 8192), "mask", "bfloat16"),
+    ("Sk 8192 causal", (1, 8, 1024, 8192), "tri", "bfloat16"),
+    ("Sk 8192 bwd", (1, 8, 1024, 8192), "bwd", "bfloat16"),
+    ("Sk 16384 mask", (1, 4, 512, 16384), "mask", "bfloat16"),
+    ("Sk 16384 causal", (1, 4, 512, 16384), "tri", "bfloat16"),
+    ("Sk 16384 bwd", (1, 4, 512, 16384), "bwd", "bfloat16"),
+    ("head mask", (8, 12, 1024, 1024), "head", "bfloat16"),
+    ("full mask", (8, 12, 1024, 1024), "full", "bfloat16"),
+    ("f32 mask", (4, 12, 1024, 1024), "mask", "float32"),
+    ("f32 causal", (4, 12, 1024, 1024), "tri", "float32"),
+    ("f32 bwd", (4, 12, 1024, 1024), "bwd", "float32"))
+
+
+def _softmax(torch, cs, dev, timer, randn, emit):
+    from paddle_tpu_torch.ops.kernels import softmax_mask as sm
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def call(kind, shape, dtype):
+        b, h, sq, sk = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+        mask = None
+        if kind == "mask":       # -1e4 past each seeded length in [Sk/2, Sk]
+            lengths = torch.randint(sk // 2, sk + 1, (b, 1, 1, 1),
+                                    generator=gen, device=dev)
+            past = torch.arange(sk, device=dev) >= lengths
+            mask = torch.where(past, -1e4, 0.0).to(dtype).expand(
+                b, 1, sq, sk).contiguous()
+        elif kind in ("head", "full"):
+            mask = (torch.randn(1 if kind == "head" else b, h, sq, sk,
+                                generator=gen, device=dev) * 2).to(dtype)
+        if kind == "bwd":
+            y = torch.softmax(x.float(), -1).to(dtype)
+            dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            return (lambda: sm.softmax_mask_bwd(y, dy),
+                    lambda: sm.softmax_mask_bwd_plain(y, dy),
+                    lambda: torch._softmax_backward_data(dy, y, -1, dtype),
+                    3 * x.numel())
+        if kind == "tri":
+            above = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
+            q = torch.arange(sq, device=dev)
+            live = int(torch.clamp(q + 1, max=sk).sum()) * b * h
+            return (lambda: sm.softmax_mask_tri(x),
+                    lambda: sm.softmax_mask_tri_plain(x),
+                    (lambda: torch._masked_softmax(x, above, 3, 0))
+                    if sq == sk else None, live + x.numel())
+        return (lambda: sm.softmax_mask(x, mask),
+                lambda: sm.softmax_mask_plain(x, mask), None,
+                2 * x.numel() + mask.numel())
+
+    for label, shape, kind, dt in SOFTMAX_ROWS:
+        dtype = getattr(torch, dt)
+        fn, plain, lib, elems = call(kind, shape, dtype)
+        got, again, ref = fn(), fn(), plain()
+        err, tol = cs.compare(torch, got, ref)
+        lib_ms = lib_err = None
+        if lib is not None:
+            lib_err = cs.compare(torch, lib(), ref)[0]
+            if lib_err <= tol:
+                lib_ms = timer(lib)
+        ms = timer(fn)
+        bound = elems * dtype.itemsize / cs.MEM_BYTES_PER_S * 1e3
+        emit(softmax=[label, list(shape), kind, dt], ms=ms, bound_ms=bound,
+             bound_share=bound / ms, library_ms=lib_ms, library_err=lib_err,
+             max_abs_err=err, tol=tol, same_bits=bool(torch.equal(got, again)))
+        del fn, plain, lib, got, again, ref
+        torch.cuda.empty_cache()
+
+    for kind in ("mask", "tri", "bwd"):
+        fn = call(kind, (1, 12, 128, 128), torch.bfloat16)[0]
+        emit(host=["softmax", kind, [1, 12, 128, 128]],
+             us=_host_us(torch, fn))
+
+    if "--incubate" in sys.argv[4:]:
+        cs.phase_incubate(torch, dev)
 
 
 def _host_us(torch, fn, calls=100, repeats=5):

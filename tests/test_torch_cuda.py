@@ -1838,6 +1838,164 @@ def test_softmax_mask_fully_masked_row_is_nan_on_both(dev):
     _close(got[:, :, 0], ref[:, :, 0])
 
 
+#: row 18's plan branches (softmax_mask.plan): a lane a row, part of a
+#: warp, a warp with 4 vectors a lane (and idle lanes at 1000), 2 and 8
+#: warps a row, the shared-memory path, and the largest accepted rows
+_SOFTMAX_SK = [8, 64, 1000, 1024, 2048, 8192, 16384]
+_SOFTMAX_MAX_SK = {"fwd": (227 * 1024 - 1024) // 32 * 8,
+                   "bwd": (227 * 1024 - 1024) // 64 * 8}
+
+
+@pytest.mark.parametrize("sk", _SOFTMAX_SK + ["max"])
+def test_softmax_every_plan_branch(dev, sk):
+    """Masked (sweep and per-head mask), causal and backward at each plan
+    branch, against the plain versions; two calls give the same bits."""
+    sks = {k: _SOFTMAX_MAX_SK[k] if sk == "max" else sk for k in _SOFTMAX_MAX_SK}
+    b, h, sq = (1, 2, 3) if sk == "max" else (2, 3, 9)
+    x = _rand(dev, b, h, sq, sks["fwd"], seed=65) * 4
+    pad = torch.where(torch.rand(b, 1, sq, sks["fwd"], device=dev) < 0.2,
+                      -1e4, 0.0).to(torch.bfloat16)
+    per_head = _rand(dev, 1, h, sq, sks["fwd"], seed=66) * 2
+    for mask in (pad, per_head):
+        got = softmax_mask.softmax_mask(x, mask)
+        _close(got, softmax_mask.softmax_mask_plain(x, mask))
+        assert torch.equal(got, softmax_mask.softmax_mask(x, mask))
+    got = softmax_mask.softmax_mask_tri(x)
+    _close(got, softmax_mask.softmax_mask_tri_plain(x))
+    assert torch.equal(got, softmax_mask.softmax_mask_tri(x))
+    y = torch.softmax(_rand(dev, b, h, sq, sks["bwd"], seed=67).float() * 3,
+                      -1).to(torch.bfloat16)
+    dy = _rand(dev, b, h, sq, sks["bwd"], seed=68)
+    got = softmax_mask.softmax_mask_bwd(y, dy)
+    _close(got, softmax_mask.softmax_mask_bwd_plain(y, dy))
+    assert torch.equal(got, softmax_mask.softmax_mask_bwd(y, dy))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sk", [2048, 8192])
+def test_softmax_bwd_groups_of_several_warps(dev, sk, dtype):
+    """The backward where a row's group is 2 or 8 warps sharing one partial
+    through shared memory, over enough rows that many blocks run on each
+    SM at once, against the plain version; two calls give the same bits."""
+    rows = 4096 * 1024 // sk
+    y = torch.softmax(_rand(dev, 2, 4, rows // 8, sk, seed=73).float() * 3,
+                      -1).to(dtype)
+    dy = _rand(dev, 2, 4, rows // 8, sk, seed=74, dtype=dtype)
+    assert softmax_mask.plan("bwd", 2, 4, rows // 8, sk).warps > 1
+    got = softmax_mask.softmax_mask_bwd(y, dy)
+    _close(got, softmax_mask.softmax_mask_bwd_plain(y, dy))
+    assert torch.equal(got, softmax_mask.softmax_mask_bwd(y, dy))
+
+
+def test_softmax_c_entries_refuse_a_short_launch(dev):
+    """The C entries launch the plan's grid and shared memory, and refuse
+    one whose shared memory is short of what the kernel addresses."""
+    from paddle_tpu_torch.ops.kernels import _build
+    x = _rand(dev, 2, 3, 5, 1024)
+    y = torch.empty_like(x)
+    p = softmax_mask.plan("bwd", 2, 3, 5, 1024)
+    fn = _build.function("softmax_mask", "ptt_softmax_mask_bwd",
+                         softmax_mask._BWD_ARGS)
+    stream = _build.stream_of(x)
+    args = [x.data_ptr(), x.data_ptr(), y.data_ptr(), 30, 1024, 0, p.lanes,
+            p.warps, p.vpl, p.threads, p.blocks]
+    assert fn(*args, p.smem - 16, stream) != 0
+    assert fn(*args, p.smem, stream) == 0
+    _close(y, softmax_mask.softmax_mask_bwd_plain(x, x))
+
+
+@pytest.mark.parametrize("sk", [40, 1024, 2048, 16384])
+def test_softmax_tri_nan_past_the_diagonal_and_sq_not_sk(dev, sk):
+    """NaN, inf and -inf past the diagonal give exactly +0; a live NaN
+    makes its whole row NaN, as the plain version; Sq > Sk and Sq < Sk keep
+    the top-left corner."""
+    for sq in (sk // 2 + 3, sk + 5):
+        x = _rand(dev, 2, 2, sq, sk, seed=69) * 3
+        above = (torch.arange(sk, device=dev)[None, :]
+                 > torch.arange(sq, device=dev)[:, None])
+        junk = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                            device=dev).to(x.dtype)
+        x[..., above] = junk[torch.randint(0, 3, x[..., above].shape,
+                                           device=dev)]
+        got = softmax_mask.softmax_mask_tri(x)
+        ref = softmax_mask.softmax_mask_tri_plain(x)
+        assert not torch.isnan(got).any()
+        assert (got[..., above] == 0).all()
+        assert not torch.signbit(got[..., above]).any()
+        _close(got, ref)
+    x[0, 1, 3, 2] = float("nan")
+    got = softmax_mask.softmax_mask_tri(x)
+    ref = softmax_mask.softmax_mask_tri_plain(x)
+    assert torch.isnan(got[0, 1, 3]).all() and torch.isnan(ref[0, 1, 3]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask_shape", ["1,1,1,S", "B,1,1,S", "B,1,Q,S",
+                                        "B,H,Q,S"])
+def test_softmax_mask_shapes_and_dtypes(dev, x_dtype, m_dtype, mask_shape):
+    b, h, sq, sk = 3, 5, 33, 1000
+    dims = {"1": 1, "B": b, "H": h, "Q": sq, "S": sk}
+    shape = tuple(dims[d] for d in mask_shape.split(","))
+    x = _rand(dev, b, h, sq, sk, seed=70, dtype=x_dtype) * 4
+    mask = _rand(dev, *shape, seed=71, dtype=m_dtype) * 3
+    got = softmax_mask.softmax_mask(x, mask)
+    _close(got, softmax_mask.softmax_mask_plain(x, mask))
+    assert torch.equal(got, softmax_mask.softmax_mask(x, mask))
+    dy = _rand(dev, b, h, sq, sk, seed=72, dtype=x_dtype)
+    got = softmax_mask.softmax_mask_bwd(got, dy)
+    _close(got, softmax_mask.softmax_mask_bwd_plain(
+        softmax_mask.softmax_mask(x, mask), dy))
+
+
+def test_softmax_tri_reads_only_the_triangle(dev):
+    """With Sq much shorter than Sk the causal forward reads 3% of x: it
+    must take well under a copy of x (which reads x and writes y in full);
+    a kernel that read every row would take about as long."""
+    x = _rand(dev, 128, 32, 64, 1024)
+    y = torch.empty_like(x)
+
+    def ms(fn, iters=20):
+        fn()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / iters
+    tri = ms(lambda: softmax_mask.softmax_mask_tri(x))
+    copy = ms(lambda: y.copy_(x))
+    assert tri < 0.75 * copy, (tri, copy)
+
+
+def test_softmax_mask_reads_a_padding_mask_once_for_all_heads(dev):
+    """A [B, 1, Sq, Sk] mask is read once a (b, q): with 16 heads over a
+    32 MB mask slice a batch (more than the L2 keeps while the heads pass)
+    the masked forward stays near a copy of x, where reading the mask once
+    a head would add 15 mask-sized reads (~1.5x the copy's bytes)."""
+    x = _rand(dev, 1, 16, 2048, 8192)
+    mask = torch.where(torch.rand(1, 1, 2048, 8192, device=dev) < 0.2,
+                       -1e4, 0.0).to(torch.bfloat16)
+    y = torch.empty_like(x)
+
+    def ms(fn, iters=10):
+        fn()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / iters
+    masked = ms(lambda: softmax_mask.softmax_mask(x, mask))
+    copy = ms(lambda: y.copy_(x))
+    assert masked < 1.35 * copy, (masked, copy)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_mask", [True, False])
 @pytest.mark.parametrize("rows,hidden", [(1, 64), (51, 768), (8192, 768),
