@@ -272,8 +272,9 @@ INCUBATE_SEED = 2028
 # accumulations (M, K, N, accumulator dtype)
 INCUBATE_SOFTMAX = ((8, 12, 1024, True, True), (8, 12, 1024, False, False),
                     (2, 32, 2048, False, False), (4, 12, 1024, False, True))
-INCUBATE_LN = ((8192, 768, True), (8192, 768, False), (4096, 4096, True))
-INCUBATE_DROPOUT = ((8192, 768), (4096, 4096))
+INCUBATE_LN = ((8192, 768, True), (8192, 768, False), (4096, 768, True),
+               (4096, 4096, True))
+INCUBATE_DROPOUT = ((8192, 768), (4096, 768), (4096, 4096))
 INCUBATE_GRAD = ((8192, 768, 3072, "float32"), (4096, 4096, 14336, "float32"),
                  (8192, 768, 3072, "bfloat16"),
                  # the incubate path's own four products at B 4 x S 1024
@@ -2743,11 +2744,12 @@ def _kernels_incubate(torch, dev, randn, timer, results):
       bf16 ulp), the backward at [8, 12, 1024, 1024] and [4, 12, 1024,
       1024] (yardstick ``torch._softmax_backward_data``); the causal bound
       counts x's lower triangle, which is all the kernel reads;
-    - row 19: [8192, 768] with the p = 0.1 mask and maskless, [4096, 4096]
-      with the mask, forward and backward (dgamma, dbeta, dbias within 1e-3
-      of their largest values);
-    - row 20: [8192, 768] and [4096, 4096] at p = 0.1, forward and
-      backward, bit for bit, the dropped positions the counter hash's;
+    - row 19: [8192, 768] with the p = 0.1 mask and maskless, the incubate
+      micro-batch's [4096, 768] and [4096, 4096] with the mask, forward and
+      backward (dgamma, dbeta, dbias within 1e-3 of their largest values;
+      two backward calls give the same bits);
+    - row 20: [8192, 768], [4096, 768] and [4096, 4096] at p = 0.1, forward
+      and backward, bit for bit, the dropped positions the counter hash's;
     - row 21: GPT-2's ``mlp.fc`` (x [8192, 768], dy [8192, 3072]) and
       Llama-3-8B's gate (x [4096, 4096], dy [4096, 14336]) into f32 within
       1e-4 of the largest plain value (f32 sums in another order), and the

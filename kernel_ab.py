@@ -12,6 +12,7 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> dl [--engine]
     python3 kernel_ab.py <checkout root> <tag> decode [--engine]
     python3 kernel_ab.py <checkout root> <tag> softmax [--incubate]
+    python3 kernel_ab.py <checkout root> <tag> rows [--incubate]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -149,6 +150,31 @@ Family ``softmax`` (the masked softmax and its backward, row 18):
 - with ``--incubate``, ``chip_smoke.py``'s ``incubate`` phase of that
   checkout (launches, parity, the profile of a micro-batch).
 
+Family ``rows`` (bias-dropout-LN and dropout-add, rows 19 and 20):
+
+- ``bdl`` / ``da``: ``chip_smoke.py``'s phase-3 rows (row 19 at [8192,
+  768] with the p = 0.1 mask and maskless and at [4096, 4096] with it;
+  row 20 at [8192, 768] and [4096, 4096]), the incubate micro-batch's
+  [4096, 768], the tails (1061 rows at H 1000 and 776), H 8192 and one
+  f32 shape each, forward and backward: the call's cold-L2 ms (row 19's
+  backward with its sum launch), the byte bound (each row operand read
+  or written once in its type, the f32 mask and vectors once) and the
+  share of it, the error against the plain version (row 20 must be bit
+  for bit) and whether two calls give the same bits (row 19's backward:
+  dx, dres and the three sums); beside each, ``copy_ms``: a ``copy_`` of
+  as many bytes (half read, half written) under the same timer, and
+  ``clean_ms`` / ``copy_clean_ms``: both again with an L2 flushed by
+  reading 1 GiB instead of writing it (the cold timer's written flush
+  leaves up to 50 MB of dirty lines that the timed call evicts); row 19's
+  ``split``: the device ms of each of its kernels over 10 warm calls;
+- ``floor``: row 20 forward at 8 elements, the timer's floor for one
+  launch;
+- ``host``: the host time of one wrapper call of each at a small shape,
+  as for flash;
+- with ``--incubate``, ``chip_smoke.py``'s ``incubate`` phase of that
+  checkout (its profile's ``port_ms_per_call`` gives rows 19 and 20 by
+  kernel).
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -172,7 +198,7 @@ def main() -> int:
         cs.fail(f"{root}: its modules were not the ones imported")
     families = {"flash": _flash, "wo": _wo, "grad": _grad, "a8w8": _a8w8,
                 "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode,
-                "softmax": _softmax}
+                "softmax": _softmax, "rows": _rows}
     if family not in families:
         cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
@@ -803,6 +829,165 @@ def _softmax(torch, cs, dev, timer, randn, emit):
 
     if "--incubate" in sys.argv[4:]:
         cs.phase_incubate(torch, dev)
+
+
+#: the rows family's shapes: (label, rows, hidden, masked, dtype) of row
+#: 19 and (label, rows, hidden, dtype) of row 20
+BDL_ROWS = (
+    ("phase3 mask", 8192, 768, True, "bfloat16"),
+    ("phase3 maskless", 8192, 768, False, "bfloat16"),
+    ("phase3 4096 mask", 4096, 4096, True, "bfloat16"),
+    ("incubate mask", 4096, 768, True, "bfloat16"),
+    ("tail H 1000", 1061, 1000, True, "bfloat16"),
+    ("tail H 776", 1061, 776, True, "bfloat16"),
+    ("H 8192 mask", 1024, 8192, True, "bfloat16"),
+    ("f32 mask", 8192, 768, True, "float32"))
+DA_ROWS = (
+    ("phase3", 8192, 768, "bfloat16"),
+    ("phase3 4096", 4096, 4096, "bfloat16"),
+    ("incubate", 4096, 768, "bfloat16"),
+    ("tail", 1061, 1000, "bfloat16"),
+    ("odd count", 1061, 777, "bfloat16"),
+    ("f32", 8192, 768, "float32"))
+
+
+def _rows(torch, cs, dev, timer, randn, emit):
+    from paddle_tpu_torch.ops.kernels import bias_dropout_ln as bdl
+    from paddle_tpu_torch.ops.kernels import dropout_add as da
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rate = cs.MEM_BYTES_PER_S
+    clean = _CleanTimer(torch, dev)
+    copies = {}
+
+    def yardsticks(fn, nbytes):
+        """clean_ms of ``fn``; copy_ms and copy_clean_ms of a copy of
+        ``nbytes`` bytes."""
+        if nbytes not in copies:
+            src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+            dst = torch.empty_like(src)
+            copies[nbytes] = (timer(lambda: dst.copy_(src)),
+                              clean(lambda: dst.copy_(src)))
+            del src, dst
+        return {"clean_ms": clean(fn), "copy_ms": copies[nbytes][0],
+                "copy_clean_ms": copies[nbytes][1]}
+
+    def rnd(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def bdl_args(rows, hid, masked, dtype):
+        x, res = rnd(rows, hid, dtype=dtype), rnd(rows, hid, dtype=dtype)
+        bias, beta = rnd(hid, dtype=dtype, scale=0.1), \
+            rnd(hid, dtype=dtype, scale=0.1)
+        gamma = (1.0 + rnd(hid, dtype=torch.float32) * 0.1).to(dtype)
+        mask = None
+        if masked:
+            keep = torch.rand(rows, hid, generator=gen, device=dev) >= 0.1
+            mask = keep.float() / 0.9
+        return (x, bias, res, mask, gamma, beta, 1e-5)
+
+    for label, rows, hid, masked, dt in BDL_ROWS:
+        dtype = getattr(torch, dt)
+        args = bdl_args(rows, hid, masked, dtype)
+        got, again = bdl.bias_dropout_ln(*args), bdl.bias_dropout_ln(*args)
+        ref = bdl.bias_dropout_ln_plain(*args)
+        err = max(cs.compare(torch, g, r)[0] for g, r in zip(got, ref))
+        tol = max(cs.compare(torch, g, r)[1] for g, r in zip(got, ref))
+        n = rows * hid
+        nbytes = n * (4 * dtype.itemsize + 4 * masked) + 12 * hid
+        ms = timer(lambda: bdl.bias_dropout_ln(*args))
+        emit(bdl=[label, rows, hid, masked, dt, "fwd"], ms=ms,
+             bound_ms=nbytes / rate * 1e3, bound_share=nbytes / rate * 1e3
+             / ms, max_abs_err=err, tol=tol,
+             same_bits=all(bool(torch.equal(a, b))
+                           for a, b in zip(got, again)),
+             split=_split(torch, cs, lambda: bdl.bias_dropout_ln(*args)),
+             **yardsticks(lambda: bdl.bias_dropout_ln(*args), nbytes))
+        dy = rnd(rows, hid, dtype=dtype)
+        bargs = (ref[1], args[3], args[4], dy, 1e-5)
+        gb, again = bdl.bias_dropout_ln_bwd(*bargs), \
+            bdl.bias_dropout_ln_bwd(*bargs)
+        rb = bdl.bias_dropout_ln_bwd_plain(*bargs)
+        err = max(cs.compare(torch, g, r)[0] for g, r in zip(gb[:2], rb[:2]))
+        sums = max(cs.compare(torch, g, r)[0]
+                   / max(r.abs().max().item(), 1e-30)
+                   for g, r in zip(gb[2:], rb[2:]))
+        nbytes = n * (4 * dtype.itemsize + 4 * masked) + 16 * hid
+        ms = timer(lambda: bdl.bias_dropout_ln_bwd(*bargs))
+        emit(bdl=[label, rows, hid, masked, dt, "bwd"], ms=ms,
+             bound_ms=nbytes / rate * 1e3, bound_share=nbytes / rate * 1e3
+             / ms, max_abs_err=err, sums_rel_err=sums,
+             same_bits=all(bool(torch.equal(a, b))
+                           for a, b in zip(gb, again)),
+             split=_split(torch, cs, lambda: bdl.bias_dropout_ln_bwd(*bargs)),
+             **yardsticks(lambda: bdl.bias_dropout_ln_bwd(*bargs), nbytes))
+        del args, got, again, ref, dy, bargs, gb, rb
+        torch.cuda.empty_cache()
+
+    for label, rows, hid, dt in DA_ROWS:
+        dtype = getattr(torch, dt)
+        x, res = rnd(rows, hid, dtype=dtype), rnd(rows, hid, dtype=dtype)
+        for way in ("fwd", "bwd"):
+            if way == "fwd":
+                fn = lambda: da.dropout_add(x, res, 1234, 0.1)  # noqa: E731
+                ref = da.dropout_add_plain(x, res, 1234, 0.1)
+            else:
+                fn = lambda: da.dropout_add_bwd(x, 1234, 0.1)  # noqa: E731
+                ref = da.dropout_add_bwd_plain(x, 1234, 0.1)
+            got, again = fn(), fn()
+            nbytes = (3 if way == "fwd" else 2) * x.numel() * dtype.itemsize
+            ms = timer(fn)
+            emit(da=[label, rows, hid, dt, way], ms=ms,
+                 bound_ms=nbytes / rate * 1e3,
+                 bound_share=nbytes / rate * 1e3 / ms,
+                 bit_exact=bool(torch.equal(got, ref)),
+                 same_bits=bool(torch.equal(got, again)),
+                 **yardsticks(fn, nbytes))
+        del x, res, got, again, ref
+
+    x8 = rnd(8, dtype=torch.bfloat16)
+    emit(floor=["dropout_add", 8],
+         ms=timer(lambda: da.dropout_add(x8, x8, 1234, 0.1)))
+    args = bdl_args(64, 768, True, torch.bfloat16)
+    dy = rnd(64, 768, dtype=torch.bfloat16)
+    emit(host=["bias_dropout_ln", 64, 768],
+         us=_host_us(torch, lambda: bdl.bias_dropout_ln(*args)))
+    emit(host=["bias_dropout_ln_bwd", 64, 768],
+         us=_host_us(torch, lambda: bdl.bias_dropout_ln_bwd(
+             args[0], args[3], args[4], dy, 1e-5)))
+    emit(host=["dropout_add", 64, 768],
+         us=_host_us(torch, lambda: da.dropout_add(args[0], args[2], 1234,
+                                                  0.1)))
+
+    if "--incubate" in sys.argv[4:]:
+        cs.phase_incubate(torch, dev)
+
+
+class _CleanTimer:
+    """``chip_smoke.ColdTimer`` with a flush that reads 1 GiB instead of
+    writing it, so the L2 holds no dirty lines when the timed call
+    starts."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.flush = torch.zeros(256 << 20, dtype=torch.int32, device=device)
+
+    def __call__(self, fn, iters=20, warmup=3):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            self.flush.sum()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def _host_us(torch, fn, calls=100, repeats=5):

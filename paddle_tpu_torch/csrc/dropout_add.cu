@@ -17,7 +17,12 @@
 // Bound on the H100: bytes (x, residual read and y written once; dy read and
 // dx written once); the hash is ~10 integer operations an element. Design:
 // a grid-stride loop over 8-element chunks, one 16-byte access per bf16
-// chunk (two for f32); the last numel % 8 elements go one at a time.
+// chunk (two for f32), over the grid the wrapper gives
+// (paddle_tpu_torch/ops/kernels/dropout_add.py `grid`: 132 SMs x 8 blocks of
+// 256 threads, fewer for a small tensor); the last numel % 8 elements go one
+// at a time. (Several chunks a thread in flight, their hashes computed while
+// they load, were no faster: this loop already moves the bytes at a copy's
+// speed, PERF.md §6.)
 #include "common.cuh"
 
 using ptt::bf16;
@@ -59,16 +64,12 @@ __global__ void dropout_add_kernel(const T* __restrict__ x, const T* __restrict_
   }
 }
 
+constexpr int kThreads = 256;
+
 template <typename T, bool RES>
 int launch(const void* x, const void* res, void* y, size_t n, unsigned int seed,
-           unsigned int threshold, float scale, cudaStream_t s) {
-  constexpr int kThreads = 256;
-  const size_t chunks = n / 8;
-  // 132 SMs x 8 blocks of 256 threads in flight; small tensors take fewer
-  size_t blocks = (chunks + kThreads - 1) / kThreads;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  if (blocks < 1) blocks = 1;
-  dropout_add_kernel<T, RES><<<(unsigned)blocks, kThreads, 0, s>>>(
+           unsigned int threshold, float scale, int blocks, cudaStream_t s) {
+  dropout_add_kernel<T, RES><<<blocks, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(res), static_cast<T*>(y), n,
       (uint32_t)seed * ptt::kGolden, threshold, scale);
   return (int)cudaGetLastError();
@@ -79,16 +80,18 @@ int launch(const void* x, const void* res, void* y, size_t n, unsigned int seed,
 // x, res, y: n contiguous elements of one type (is_f32: float, else bf16),
 // 16-byte aligned. res null runs the backward (x is dy, y is dx). `seed` is
 // the int32 seed's bits; `threshold` and `scale` are dropout_add_pallas
-// `_params(p)` (scale as f32).
+// `_params(p)` (scale as f32). `blocks` of kThreads threads, any number
+// from 1: the grid-stride loop reaches every chunk.
 PTT_EXPORT int ptt_dropout_add(const void* x, const void* res, void* y, long long n, int is_f32,
-                               unsigned int seed, unsigned int threshold, float scale,
+                               unsigned int seed, unsigned int threshold, float scale, int blocks,
                                void* stream) {
   if (n <= 0) return 0;
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t m = (size_t)n;
   if (is_f32)
-    return res ? launch<float, true>(x, res, y, m, seed, threshold, scale, s)
-               : launch<float, false>(x, res, y, m, seed, threshold, scale, s);
-  return res ? launch<bf16, true>(x, res, y, m, seed, threshold, scale, s)
-             : launch<bf16, false>(x, res, y, m, seed, threshold, scale, s);
+    return res ? launch<float, true>(x, res, y, m, seed, threshold, scale, blocks, s)
+               : launch<float, false>(x, res, y, m, seed, threshold, scale, blocks, s);
+  return res ? launch<bf16, true>(x, res, y, m, seed, threshold, scale, blocks, s)
+             : launch<bf16, false>(x, res, y, m, seed, threshold, scale, blocks, s);
 }

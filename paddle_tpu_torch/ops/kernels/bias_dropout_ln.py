@@ -27,19 +27,29 @@ over the rows ``dgamma = sum dy * x_hat``, ``dbeta = sum dy``, ``dbias =
 sum dh * mask``. A cotangent on ``h`` joins after the kernel in plain
 tensor code, in JAX's order and types (:191-200).
 
-What bounds it on the H100: bytes. The forward gives each row one block,
-one 8-element vector a thread held in registers; the backward gives each
-block a strip of rows and keeps its partial sums in registers, and a second
-small kernel sums the partial rows in a fixed order (one wrapper call, one
+What bounds it on the H100: bytes. :func:`plan` gives each launch its
+shape from the shapes alone, and the C entries launch exactly that. The
+forward takes a block a row, one vector of 8 a thread. The backward's row
+lies in the registers of a group of lanes (part of a warp, or whole warps;
+one vector of 8 a lane, two past H 6144), its sums by shuffles and,
+across warps, a named barrier of the group's own; one block an SM, group
+g of G walking rows g, g + G, ... with gamma in registers; the group's
+first lane copies its next row whole into a ring of two stages in shared
+memory (bulk copies on an mbarrier a stage) while the group works on one.
+The backward's blocks each write one partial row of each sum, and a
+second small kernel adds them in a fixed order (one wrapper call, one
 launch in the count). ``H % 8 == 0`` and ``H <= 8192``; bf16 or f32 rows
-(x, residual of one type), the vectors cast to f32 and the mask to f32 by
-the wrapper. A CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises.
+(x, residual of one type); the vectors bf16 or f32 as they come (all three
+of one type, else cast to f32), the mask cast to f32 by the wrapper. A
+CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -47,17 +57,103 @@ from . import _build
 
 __all__ = ["bias_dropout_ln", "bias_dropout_ln_plain", "bias_dropout_ln_bwd",
            "bias_dropout_ln_bwd_plain", "BiasDropoutLNFunction",
-           "MAX_HIDDEN"]
+           "MAX_HIDDEN", "Plan", "plan", "declared_bytes"]
 
 MAX_HIDDEN = 8192
+# rows, hidden, eps, is_f32, vec_f32, then the plan's launch and the stream
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_float] + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-#: the backward's blocks: the H100's 132 SMs, at least 4 blocks each and
-#: about 1024 threads an SM
-_SMS, _SM_THREADS = 132, 1024
+#: the H100's SMs. The backward: vectors of 8 a lane at most one up to this
+#: many a row, two past it; a block an SM of at most 768 threads at one
+#: vector a lane and 512 at two (the kernel's ``__launch_bounds__``: 80 and
+#: 128 registers a thread); named barriers for groups of several warps;
+#: shared memory a block may take (of 227 KB, less the static reduction
+#: scratch); threads a block aims at (8 groups of 3 warps at H 768); the
+#: stages of a group's ring (the row it works on and the next)
+_SMS, _ONE_VECTOR_MAX = 132, 768
+_MAX_THREADS = {1: 768, 2: 512}
+_MAX_BARRIER_GROUPS = 15
+_SMEM = 227 * 1024 - 1024
+_AIM_THREADS, _STAGES = 768, 2
+
+
+class Plan(NamedTuple):
+    """One launch: a row's group of ``lanes`` lanes (a power of two up to
+    32) times ``warps`` warps, ``vpl`` 8-element vectors a lane (1, or 2
+    past 768 vectors a row); ``groups`` groups a block of ``threads``,
+    ``blocks`` and dynamic shared memory ``smem``: the launch the C entry
+    makes. The forward's is a block a row (one group of whole warps, one
+    vector a lane, no shared memory); the backward's at most a block an SM
+    (its partial rows)."""
+    lanes: int
+    warps: int
+    vpl: int
+    groups: int
+    threads: int
+    blocks: int
+    smem: int
+
+
+def _smem(hidden, itemsize, masked, groups, width):
+    """Shared memory the backward kernel addresses (the C entry's
+    ``checked``): the ring (``groups`` x 2 stages of two rows of
+    ``itemsize`` bytes an element and the f32 mask), or the block's three
+    combined partial rows where they are larger and the block holds more
+    than one warp (or group of ``width`` lanes, if wider); then 8 bytes of
+    mbarrier a stage."""
+    ring = groups * _STAGES * hidden * (2 * itemsize + 4 * masked)
+    comb = 12 * hidden if groups * width > max(32, width) else 0
+    return max(ring, comb) + 8 * groups * _STAGES
+
+
+@functools.lru_cache(maxsize=None)
+def plan(kind, rows, hidden, itemsize=2, masked=True):
+    """The launch of ``kind`` ("fwd" or "bwd") at rows ``[rows, hidden]``
+    of ``itemsize`` bytes an element, with or without the f32 mask: a pure
+    function of the shapes.
+
+    Forward: a block a row, the fewest whole warps that give each vector
+    of 8 a thread (H 768: 3 warps; H 8192: 32).
+
+    Backward: a row's group is, up to 32 vectors, the fewest lanes (a
+    power of two) with one vector each; up to 768 vectors whole warps of
+    one vector a lane (H 768: 3 warps; H 4096: 16); past that warps of two
+    (H 8192: 16). A block holds the number of groups nearest 768 threads
+    (at most 768 threads, or 512 at two vectors a lane, and 15 groups of
+    several warps: a named barrier each), and no more than it takes to
+    spread the rows over the SMs, with fewer groups where their rings do
+    not fit; one block an SM, at most as many blocks as give every group a
+    row."""
+    vecs = hidden // 8
+    if kind == "fwd":
+        warps = max(1, -(-vecs // 32))
+        return Plan(32, warps, 1, 1, 32 * warps, rows, 0)
+    vpl = 1 if vecs <= _ONE_VECTOR_MAX else 2
+    if vecs <= 32:
+        lanes, warps = 1 << max(0, vecs - 1).bit_length(), 1
+    else:
+        lanes, warps = 32, -(-vecs // (32 * vpl))
+    width = lanes * warps
+    least = max(1, 32 // width)         # a block holds whole warps
+    groups = max(1, min(_MAX_THREADS[vpl] // width,
+                        (_AIM_THREADS + width // 2) // width))
+    if warps > 1:
+        groups = min(groups, _MAX_BARRIER_GROUPS)
+    # few rows: spread them over the SMs
+    groups = min(groups, -(-(-(-rows // _SMS)) // least) * least)
+
+    def need(g):
+        return _smem(hidden, itemsize, masked, g, width)
+    while groups > least and need(groups) > _SMEM:
+        groups -= least
+    blocks = max(1, min(_SMS, -(-rows // groups)))
+    return Plan(lanes, warps, vpl, groups, groups * width, blocks,
+                need(groups))
 
 
 def _check_vecs(hd, dev, *vecs):
@@ -112,13 +208,13 @@ def bias_dropout_ln(x, bias, residual, mask, gamma, beta, eps):
                                      eps)
     hd = _kernel_checks(x, residual, "bias_dropout_ln")
     x, residual = x.contiguous(), residual.contiguous()
-    vecs = [t.float().contiguous() for t in (bias, gamma, beta)]
+    bias, gamma, beta = _vectors(bias, gamma, beta)
     if mask is not None:
         mask = mask.float().contiguous()
     y, h = torch.empty_like(x), torch.empty_like(x)
-    _build.require_aligned("bias_dropout_ln", x, residual, mask, y, h, *vecs)
-    bias32, gamma32, beta32 = vecs
-    _launch_fwd(x, bias32, residual, mask, gamma32, beta32, y, h, eps,
+    _build.require_aligned("bias_dropout_ln", x, residual, mask, y, h, bias,
+                           gamma, beta)
+    _launch_fwd(x, bias, residual, mask, gamma, beta, y, h, eps,
                 _build.stream_of(x))
     bias_dropout_ln.launches += 1
     return y, h
@@ -127,16 +223,35 @@ def bias_dropout_ln(x, bias, residual, mask, gamma, beta, eps):
 bias_dropout_ln.launches = 0
 
 
+def _vectors(*vecs):
+    """The vectors as the kernels read them: all bf16 or all f32 as they
+    come (converted to f32 in the kernel, as ``.float()`` does), else all
+    cast to f32; contiguous and 16-byte aligned (a copy where not)."""
+    dt = vecs[0].dtype
+    if dt not in _KERNEL_DTYPES or any(v.dtype != dt for v in vecs):
+        vecs = [v.float() for v in vecs]
+    vecs = [v.contiguous() for v in vecs]
+    return [v.clone() if v.data_ptr() % 16 else v for v in vecs]
+
+
 def _launch_fwd(x, bias, residual, mask, gamma, beta, y, h, eps, stream):
-    """The forward's C entry on operands the caller allocated (f32
-    vectors and mask)."""
+    """The forward's C entry on operands the caller allocated (vectors of
+    one type, bf16 or f32; the mask f32)."""
     hd = x.shape[-1]
+    rows = x.numel() // hd
+    p = plan("fwd", rows, hd, x.element_size(), mask is not None)
     fn = _build.function("bias_dropout_ln", "ptt_bias_dropout_ln", _ARGS)
     err = fn(x.data_ptr(), bias.data_ptr(), residual.data_ptr(),
              None if mask is None else mask.data_ptr(), gamma.data_ptr(),
-             beta.data_ptr(), y.data_ptr(), h.data_ptr(), x.numel() // hd, hd,
-             float(eps), int(x.dtype == torch.float32), stream)
+             beta.data_ptr(), y.data_ptr(), h.data_ptr(), rows, hd,
+             float(eps), int(x.dtype == torch.float32),
+             int(gamma.dtype == torch.float32), p.threads, stream)
     _build.check(err, "bias_dropout_ln")
+
+
+def _c_plan(p):
+    """The backward's plan as its C entry takes it."""
+    return (p.lanes, p.warps, p.vpl, p.threads, p.blocks, p.smem)
 
 
 def _kernel_checks(x, other, what):
@@ -195,13 +310,13 @@ def bias_dropout_ln_bwd(h, mask, gamma, dy, eps):
         return bias_dropout_ln_bwd_plain(h, mask, gamma, dy, eps)
     hd = _kernel_checks(h, dy, "bias_dropout_ln backward")
     h, dy = h.contiguous(), dy.contiguous()
-    g = gamma.float().contiguous()
+    (g,) = _vectors(gamma)
     if mask is not None:
         mask = mask.float().contiguous()
     rows = h.numel() // hd
-    _, _, n_part = _bwd_layout(rows, hd)
+    p = plan("bwd", rows, hd, h.element_size(), mask is not None)
     dx, dres = torch.empty_like(h), torch.empty_like(h)
-    part = torch.empty(3, n_part, hd, dtype=torch.float32, device=h.device)
+    part = torch.empty(3, p.blocks, hd, dtype=torch.float32, device=h.device)
     # no rows, no block: the sums are zero
     out = (torch.zeros if rows == 0 else torch.empty)(
         3, hd, dtype=torch.float32, device=h.device)
@@ -215,26 +330,19 @@ def bias_dropout_ln_bwd(h, mask, gamma, dy, eps):
 bias_dropout_ln_bwd.launches = 0
 
 
-def _bwd_layout(rows, hd):
-    """(threads, rows a block, blocks) of the backward's rows kernel."""
-    threads = max(32, -(-hd // 256) * 32)          # the kernel's choice
-    n_blocks = _SMS * max(4, _SM_THREADS // threads)
-    per_block = max(1, -(-rows // n_blocks))
-    return threads, per_block, max(1, -(-rows // per_block))
-
-
 def _launch_bwd(h, mask, gamma, dy, dx, dres, part, out, eps, stream):
     """The backward's C entry (the rows kernel, then the fixed-order sum of
     its partials) on operands the caller allocated."""
     hd = h.shape[-1]
     rows = h.numel() // hd
+    p = plan("bwd", rows, hd, h.element_size(), mask is not None)
     fn = _build.function("bias_dropout_ln", "ptt_bias_dropout_ln_bwd",
                          _BWD_ARGS)
     err = fn(h.data_ptr(), None if mask is None else mask.data_ptr(),
              gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(), dres.data_ptr(),
-             part.data_ptr(), out.data_ptr(), rows,
-             _bwd_layout(rows, hd)[1], hd, float(eps),
-             int(h.dtype == torch.float32), stream)
+             part.data_ptr(), out.data_ptr(), rows, hd, float(eps),
+             int(h.dtype == torch.float32),
+             int(gamma.dtype == torch.float32), *_c_plan(p), stream)
     _build.check(err, "bias_dropout_ln backward")
 
 
@@ -248,21 +356,49 @@ def dropout_scale_mask(rows, hd, p, seed):
     return keep.float() / (1.0 - p)
 
 
+def _rows_of(p, rows):
+    """``bx -> [rows]`` that block ``bx`` of plan ``p`` takes: its groups'
+    rows g, g + G, g + 2G, ... (G the groups of the grid)."""
+    stride = p.blocks * p.groups
+    return lambda bx: [r for g in range(bx * p.groups, (bx + 1) * p.groups)
+                       for r in range(g, rows, stride)]
+
+
+def declared_bytes(kind, rows, hd, itemsize, masked):
+    """The bytes a call must move: each row operand read or written once
+    in its own type (x and res read, y and h written; h and dy read, dx
+    and dres written), the f32 mask read once, and the f32 vectors (bias,
+    gamma, beta read; gamma read and the three sums written)."""
+    return rows * hd * (4 * itemsize + 4 * masked) + (12 if kind == "fwd"
+                                                      else 16) * hd
+
+
 def _ex(label, rows, hd, masked, bwd, dtype=torch.bfloat16):
-    """Forward: a block a row (y and h). Backward: a block a group of rows
-    (dx, dres, three f32 partial rows), then a second kernel sums the
-    partials column by column in a fixed order into [3, hidden]."""
+    """Forward: a block a row (y and h; reads of x, res, the mask and the
+    vectors). Backward: each block's groups take their rows (dx, dres;
+    reads of h, dy, the mask, and of gamma once a lane), one f32 partial
+    row of each of the three sums a block, at most one block an SM; then a
+    second kernel sums the partials column by column in a fixed order into
+    [3, hidden]."""
     from ._examples import CTYPE, fixed, model, normal
     m = model()
     f32 = torch.float32
-    threads = max(32, -(-(hd // 8) // 32) * 32)
+    kind = "bwd" if bwd else "fwd"
+    p = plan(kind, rows, hd, dtype.itemsize, masked)
+    rows_of = _rows_of(p, rows)
+
+    def row_map(name):
+        return m.TileMap(name, (1, hd), lambda bx, by, bz: [
+            (r, 0) for r in rows_of(bx)], view=(rows, hd))
+
     ops = [m.Operand("gamma", (hd,), f32, data=normal((hd,), f32, 0.1, 1.0))]
-    mk = None
+    vec_reads = [m.whole_map("gamma", (hd,))]
     if masked:
         mk = dropout_scale_mask(rows, hd, 0.1, seed=5)
         ops.append(m.Operand("mask", (rows, hd), f32, data=fixed(mk)))
     n = rows * hd
-    targs = f"<{CTYPE[dtype]},{str(masked).lower()}>"
+    targs = f"<{CTYPE[dtype]},{str(masked).lower()}"
+    nbytes = declared_bytes(kind, rows, hd, dtype.itemsize, masked)
     if not bwd:
         ops += [m.Operand("x", (rows, hd), dtype),
                 m.Operand("res", (rows, hd), dtype),
@@ -282,17 +418,17 @@ def _ex(label, rows, hd, masked, bwd, dtype=torch.bfloat16):
                         t["gamma"], t["beta"], t["y"], t["h"], 1e-5, stream)
 
         kern = m.KernelLaunch(
-            "bias_dropout_ln_kernel" + targs, rows, threads,
-            writes=[m.rows_map("y", rows, hd), m.rows_map("h", rows, hd)],
-            reads=[m.rows_map("x", rows, hd), m.rows_map("res", rows, hd)])
+            "bias_dropout_ln_kernel" + targs + ">", p.blocks, p.threads,
+            writes=[row_map("y"), row_map("h")],
+            reads=[row_map("x"), row_map("res")]
+            + ([row_map("mask")] if masked else []) + vec_reads
+            + [m.whole_map("bias", (hd,)), m.whole_map("beta", (hd,))])
         return m.Example(label, "bias_dropout_ln", ops, [kern], launch, plain,
-                         flops=n * (10 + masked),
-                         nbytes=n * (8 + 4 * masked) + 12 * hd)
-    _, per, blocks = _bwd_layout(rows, hd)
+                         flops=n * (10 + masked), nbytes=nbytes)
     ops += [m.Operand("h", (rows, hd), dtype), m.Operand("dy", (rows, hd), dtype),
             m.Operand("dx", (rows, hd), dtype, "out"),
             m.Operand("dres", (rows, hd), dtype, "out"),
-            m.Operand("part", (3, blocks, hd), f32, "out"),
+            m.Operand("part", (3, p.blocks, hd), f32, "out"),
             m.Operand("out", (3, hd), f32, "out")]
 
     def plain(t):
@@ -305,27 +441,28 @@ def _ex(label, rows, hd, masked, bwd, dtype=torch.bfloat16):
                     t["dres"], t["part"], t["out"], 1e-5, stream)
 
     kernels = [
-        m.KernelLaunch("bias_dropout_ln_bwd_kernel" + targs, blocks, threads,
-                       writes=[m.rows_map("dx", rows, hd, per),
-                               m.rows_map("dres", rows, hd, per),
+        m.KernelLaunch("bias_dropout_ln_bwd_kernel" + targs + f",{p.vpl}>",
+                       p.blocks, p.threads, smem=p.smem,
+                       writes=[row_map("dx"), row_map("dres"),
                                m.TileMap("part", (1, 1, hd), lambda x, y, z: [
-                                   (a, x, 0) for a in range(3)])]),
+                                   (a, x, 0) for a in range(3)])],
+                       reads=[row_map("h"), row_map("dy")]
+                       + ([row_map("mask")] if masked else []) + vec_reads),
         m.KernelLaunch("bdl_partial_sum_kernel", -(-3 * hd // 32), 256,
                        writes=[m.TileMap("out", (32,), lambda x, y, z: (x,),
                                          view=(3 * hd,))])]
     return m.Example(label, "bias_dropout_ln", ops, kernels, launch, plain,
-                     flops=n * (16 + 2 * masked),
-                     nbytes=n * (8 + 4 * masked) + 16 * hd,
+                     flops=n * (16 + 2 * masked), nbytes=nbytes,
                      tol={"out": 1e-3, "*": 2.0 ** -7})
 
 
 def ck_examples():
     """At ``bias_dropout_ln_pallas.pk_examples``' shape ([512, 1024]:
     forward maskless and with a mask, the backward with it) and phase 3's
-    (GPT-2 small's [8192, 768] with the p = 0.1 mask and maskless,
-    Llama-3-8B's [4096, 4096] with it; forward and backward); tails with a
-    hidden width that leaves threads of the last warp idle and a partial
-    last group of rows."""
+    (GPT-2 small's [8192, 768] with the p = 0.1 mask and maskless, the
+    incubate micro-batch's [4096, 768] with it, Llama-3-8B's [4096, 4096]
+    with it; forward and backward); tails with a hidden width that leaves
+    lanes of the last vectors idle and more rows than groups."""
     from ._examples import with_tail
     out = []
     for label, rows, hd, masked, bwd in (
@@ -337,7 +474,7 @@ def ck_examples():
                              dict(rows=1061, hd=1000, masked=masked,
                                   bwd=bwd)))
     for rows, hd, masked in ((8192, 768, True), (8192, 768, False),
-                             (4096, 4096, True)):
+                             (4096, 768, True), (4096, 4096, True)):
         for bwd in (False, True):
             label = (f"phase3 {'bwd ' if bwd else ''}[{rows}, {hd}] "
                      f"{'mask p=0.1' if masked else 'maskless'}")

@@ -20,11 +20,11 @@ the Function saves the seed, never a mask. The block epilogue
 imported from here as JAX's ``block_fused_pallas.py:60`` imports it.
 
 What bounds it on the H100: bytes. The kernel walks the flat tensor in
-8-element chunks with 16-byte accesses. Unlike JAX, which sends arrays
-under 1024 elements to its composite (``use_kernel``, :172-175), the
-wrapper launches the kernel for every size on the card. bf16 or f32; a
-CPU tensor takes the plain version, a CUDA tensor launches the kernel or
-raises.
+8-element chunks with 16-byte accesses, over the blocks :func:`grid`
+gives. Unlike JAX, which sends arrays under 1024 elements to its
+composite (``use_kernel``, :172-175), the wrapper launches the kernel for
+every size on the card. bf16 or f32; a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,14 +38,22 @@ from . import _build
 
 __all__ = ["dropout_add", "dropout_add_plain", "dropout_add_bwd",
            "dropout_add_bwd_plain", "DropoutAddFunction", "dropout_params",
-           "keep_mask"]
+           "keep_mask", "grid"]
 
 _GOLDEN = 0x9E3779B9
 _MASK32 = 0xFFFFFFFF
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-                                 ctypes.c_void_p]
+                                 ctypes.c_int, ctypes.c_void_p]
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+#: the H100's SMs, the kernel's threads a block and blocks an SM at most
+_SMS, _THREADS, _BLOCKS_SM = 132, 256, 8
+
+
+def grid(n):
+    """The kernel's blocks for ``n`` elements: one for every 256 chunks of
+    8 elements, at most 8 an SM (the grid-stride loop takes the rest)."""
+    return max(1, min(_SMS * _BLOCKS_SM, -(-(n // 8) // _THREADS)))
 
 
 def dropout_params(p: float):
@@ -134,7 +142,8 @@ def _launch(x, residual, out, seed, p, what, stream):
     fn = _build.function("dropout_add", "ptt_dropout_add", _ARGS)
     err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
              out.data_ptr(), x.numel(), int(x.dtype == torch.float32),
-             int(seed) & _MASK32, threshold, float(scale), stream)
+             int(seed) & _MASK32, threshold, float(scale), grid(x.numel()),
+             stream)
     _build.check(err, what)
 
 
@@ -191,17 +200,14 @@ class DropoutAddFunction(torch.autograd.Function):
 
 # -- declared launches for the kernel analyzer -------------------------------
 
-_THREADS = 256
-
-
 def _ex(label, rows, hd, bwd, dtype=torch.bfloat16):
-    """A grid-stride loop of 8 elements a thread over at most 8 blocks an
-    SM: block b covers chunks b, b + grid, ... of 2048 elements (block 0
-    also the fewer than 8 past the last whole vector)."""
+    """A grid-stride loop of 8 elements a thread over :func:`grid`'s blocks:
+    block b covers chunks b, b + grid, ... of 2048 elements (block 0 also
+    the fewer than 8 past the last whole vector)."""
     from ._examples import CTYPE, model
     m = model()
     n = rows * hd
-    grid = max(1, min(132 * 8, -(-(n // 8) // _THREADS)))
+    blocks = grid(n)
     ops = [m.Operand("x", (rows, hd), dtype),
            m.Operand("y", (rows, hd), dtype, "out")]
     if not bwd:
@@ -216,8 +222,10 @@ def _ex(label, rows, hd, bwd, dtype=torch.bfloat16):
         _launch(t["x"], t.get("res"), t["y"], 1234, 0.1, label, stream)
 
     kern = m.KernelLaunch(
-        f"dropout_add_kernel<{CTYPE[dtype]},{str(not bwd).lower()}>", grid,
-        _THREADS, writes=[m.stride_map("y", n, 8 * _THREADS, grid)])
+        f"dropout_add_kernel<{CTYPE[dtype]},{str(not bwd).lower()}>", blocks,
+        _THREADS, writes=[m.stride_map("y", n, 8 * _THREADS, blocks)],
+        reads=[m.stride_map(name, n, 8 * _THREADS, blocks)
+               for name in (("x",) if bwd else ("x", "res"))])
     return m.Example(label, "dropout_add", ops, [kern], launch, plain,
                      flops=(13 if bwd else 14) * n,
                      nbytes=(2 if bwd else 3) * n * dtype.itemsize, tol=0.0)
@@ -225,9 +233,9 @@ def _ex(label, rows, hd, bwd, dtype=torch.bfloat16):
 
 def ck_examples():
     """At ``dropout_add_pallas.pk_examples``' shape ([512, 1024], forward
-    and backward) and phase 3's ([8192, 768] and [4096, 4096] at p = 0.1,
-    both ways): bit for bit the plain version; tails whose element count
-    is not a multiple of 8."""
+    and backward) and phase 3's ([8192, 768], the incubate micro-batch's
+    [4096, 768] and [4096, 4096] at p = 0.1, both ways): bit for bit the
+    plain version; tails whose element count is not a multiple of 8."""
     from ._examples import with_tail
     out = []
     for label, rows, hd, bwd in (
@@ -235,6 +243,8 @@ def ck_examples():
             ("dropout_add_bwd", 512, 1024, True),
             ("phase3 [8192, 768]", 8192, 768, False),
             ("phase3 bwd [8192, 768]", 8192, 768, True),
+            ("phase3 [4096, 768]", 4096, 768, False),
+            ("phase3 bwd [4096, 768]", 4096, 768, True),
             ("phase3 [4096, 4096]", 4096, 4096, False),
             ("phase3 bwd [4096, 4096]", 4096, 4096, True)):
         out.append(with_tail(_ex, label, dict(rows=rows, hd=hd, bwd=bwd),

@@ -43,7 +43,8 @@ statistics: the row max and the target logit exactly, the sum of
 exponentials (another order, the fast exponential) to 1e-5 relative.
 The incubate kernels: the masked softmax and its backward to one ulp; the
 bias-dropout-residual layer norm's y, h, dx and dres to one ulp and its
-f32 dgamma, dbeta and dbias to 1e-3 relative of their largest values;
+f32 dgamma, dbeta and dbias to 1e-3 relative of their largest values
+(two calls give the same bits at every branch of its plan);
 dropout-add bit for bit (the same f32 product and sum, never contracted,
 one rounding) with its dropped positions the counter hash's; the linear
 weight-gradient accumulation into f32 to 1e-4 of the largest plain value
@@ -2059,6 +2060,127 @@ def test_dropout_add_kernels(dev, dtype, shape, p):
     ones = torch.ones(shape, device=dev, dtype=dtype)
     keep = dropout_add.keep_mask(1, x.numel(), 12345, p, dev).reshape(shape)
     assert torch.equal(dropout_add.dropout_add_bwd(ones, 12345, p) != 0, keep)
+
+
+# every branch of bias_dropout_ln.plan: a forward block of one warp with
+# idle lanes (H 8, 64) up to 32 warps (8192); backward lane groups (H 8,
+# 64), groups of 3 warps (768), two warps with idle lanes (776, 1000), 16
+# warps of one and two vectors a lane (4096, 8192); one row, rows fewer
+# than a block's groups, more rows than the grid's groups with a
+# remainder, and phase 3's 8192
+_BDL_PLAN_SHAPES = [(1, 8), (1061, 8), (7, 64), (8192, 768), (1061, 776),
+                    (7, 1000), (1061, 1000), (1, 4096), (1061, 4096),
+                    (7, 8192), (1061, 8192)]
+
+
+@pytest.mark.parametrize("vec_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask_kind", ["mask", "maskless", "zeros"])
+@pytest.mark.parametrize("rows,hidden", _BDL_PLAN_SHAPES)
+def test_bias_dropout_ln_every_plan(dev, dtype, mask_kind, rows, hidden,
+                                    vec_dtype):
+    """Each plan branch against the plain version, the vectors bf16 or f32
+    with either row type (the kernels read them in their own type): y, h,
+    dx and dres to one ulp, the three f32 sums to 1e-3 of their largest
+    values; a second call of each gives the same bits (the sums in a fixed
+    order: no atomics)."""
+    x = _rand(dev, rows, hidden, seed=170, dtype=dtype)
+    res = _rand(dev, rows, hidden, seed=171, dtype=dtype)
+    bias = _rand(dev, hidden, seed=172, dtype=vec_dtype) * 0.1
+    gamma = 1.0 + _rand(dev, hidden, seed=173, dtype=vec_dtype) * 0.1
+    beta = _rand(dev, hidden, seed=174, dtype=vec_dtype) * 0.1
+    mask = None
+    if mask_kind == "mask":
+        g = torch.Generator(device=dev).manual_seed(175)
+        mask = (torch.rand(rows, hidden, generator=g, device=dev) >= 0.1
+                ).float() / 0.9
+    elif mask_kind == "zeros":
+        mask = torch.zeros(rows, hidden, device=dev)
+    args = (x, bias, res, mask, gamma, beta, 1e-5)
+    got = bias_dropout_ln.bias_dropout_ln(*args)
+    ref = bias_dropout_ln.bias_dropout_ln_plain(*args)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    again = bias_dropout_ln.bias_dropout_ln(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dy = _rand(dev, rows, hidden, seed=176, dtype=dtype)
+    bargs = (ref[1], mask, gamma, dy, 1e-5)
+    got = bias_dropout_ln.bias_dropout_ln_bwd(*bargs)
+    ref = bias_dropout_ln.bias_dropout_ln_bwd_plain(*bargs)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    for a, r in zip(got[2:], ref[2:]):
+        _sum_close(a, r)
+    if mask_kind == "zeros":
+        assert not got[0].any() and not got[4].any()
+    again = bias_dropout_ln.bias_dropout_ln_bwd(*bargs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bias_dropout_ln_c_entries_refuse_a_short_launch(dev):
+    """The C entries launch the plan's block and grid, and refuse one whose
+    threads do not cover the row (forward), or whose shared memory is short
+    of the ring and its mbarriers or whose lanes do not cover the row
+    (backward). bf16 rows with f32 vectors."""
+    from paddle_tpu_torch.ops.kernels import _build
+    rows, hd = 300, 768
+    x = _rand(dev, rows, hd, seed=177)
+    res = _rand(dev, rows, hd, seed=178)
+    g = 1.0 + _rand(dev, hd, seed=179, dtype=torch.float32) * 0.1
+    b = _rand(dev, hd, seed=180, dtype=torch.float32) * 0.1
+    y, h = torch.empty_like(x), torch.empty_like(x)
+    fn = _build.function("bias_dropout_ln", "ptt_bias_dropout_ln",
+                         bias_dropout_ln._ARGS)
+    stream = _build.stream_of(x)
+    p = bias_dropout_ln.plan("fwd", rows, hd, 2, False)
+    head = [x.data_ptr(), b.data_ptr(), res.data_ptr(), None, g.data_ptr(),
+            b.data_ptr(), y.data_ptr(), h.data_ptr(), rows, hd, 1e-5, 0, 1]
+    assert fn(*head, p.threads - 32, stream) != 0
+    assert fn(*head, p.threads, stream) == 0
+    want = bias_dropout_ln.bias_dropout_ln_plain(x, b, res, None, g, b, 1e-5)
+    _close(y, want[0])
+    _close(h, want[1])
+    dy = _rand(dev, rows, hd, seed=181)
+    dx, dres = torch.empty_like(x), torch.empty_like(x)
+    q = bias_dropout_ln.plan("bwd", rows, hd, 2, False)
+    part = torch.empty(3, q.blocks, hd, device=dev)
+    out = torch.empty(3, hd, device=dev)
+    bfn = _build.function("bias_dropout_ln", "ptt_bias_dropout_ln_bwd",
+                          bias_dropout_ln._BWD_ARGS)
+    bhead = [h.data_ptr(), None, g.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+             dres.data_ptr(), part.data_ptr(), out.data_ptr(), rows, hd, 1e-5,
+             0, 1]
+    plan = list(bias_dropout_ln._c_plan(q))
+    assert bfn(*bhead, *plan[:-1], q.smem - 16, stream) != 0
+    short = list(plan)
+    short[1] = q.warps - 1               # lanes short of the row
+    assert bfn(*bhead, *short, stream) != 0
+    assert bfn(*bhead, *plan, stream) == 0
+    ref = bias_dropout_ln.bias_dropout_ln_bwd_plain(h, None, g, dy, 1e-5)
+    _close(dx, ref[0])
+    _close(dres, ref[1])
+    for a, r in zip(out, ref[2:]):
+        _sum_close(a, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [7, 8 * 256 * 3 + 3, 3_100_003])
+def test_dropout_add_plan_counts(dev, dtype, n):
+    """Row 20 bit for bit at a count under one chunk, one of whole blocks
+    plus a tail of 3, and 3.1 M elements (more chunks than the grid's
+    threads, with a tail); the dropped positions the counter hash's; two
+    calls the same bits."""
+    x = _rand(dev, n, seed=180, dtype=dtype)
+    res = _rand(dev, n, seed=181, dtype=dtype)
+    got = dropout_add.dropout_add(x, res, 777, 0.1)
+    assert torch.equal(got, dropout_add.dropout_add_plain(x, res, 777, 0.1))
+    assert torch.equal(got, dropout_add.dropout_add(x, res, 777, 0.1))
+    dx = dropout_add.dropout_add_bwd(x, 777, 0.1)
+    assert torch.equal(dx, dropout_add.dropout_add_bwd_plain(x, 777, 0.1))
+    assert torch.equal(dx, dropout_add.dropout_add_bwd(x, 777, 0.1))
+    ones = torch.ones(n, device=dev, dtype=dtype)
+    keep = dropout_add.keep_mask(1, n, 777, 0.1, dev).reshape(n)
+    assert torch.equal(dropout_add.dropout_add_bwd(ones, 777, 0.1) != 0, keep)
 
 
 # (M, K, N): the incubate path's four products, phase 3's, tails past
