@@ -554,29 +554,36 @@ def phase_kernels(torch, dev):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    # rms_norm: decode [8, 4096] and prefill-chunk [512, 4096] rows
-    hid = 4096
-    w = (1.0 + torch.randn(hid, generator=gen, device=dev) * 0.1).to(bf)
-    for rows in (8, 512):
+    # rms_norm: the decode rows [8, 4096] and the prefill chunk's [512,
+    # 4096] with and without the residual, the Qwen2-MoE forward's [2048,
+    # 2048] with it, the unfused Llama train step's [4096, 4096] with and
+    # without; two calls give the same bits
+    for rows, hid, with_res in rms_norm.FWD_SHAPES:
+        w = (1.0 + torch.randn(hid, generator=gen, device=dev) * 0.1).to(bf)
         x, res = randn(rows, hid), randn(rows, hid)
-        for with_res in (False, True):
-            r = res if with_res else None
-            got = rms_norm.rms_norm(x, w, r, 1e-5)
-            ref = rms_norm.rms_norm_plain(x, w, r, 1e-5)
-            if with_res:
-                err_h, tol_h = compare(torch, got[1], ref[1])
-                if not err_h <= tol_h:
-                    fail(f"rms_norm residual sum: {err_h} > {tol_h}")
-                got, ref = got[0], ref[0]
-            err, tol = compare(torch, got, ref)
-            lib = None if with_res else timer(
-                lambda: TF.rms_norm(x, (hid,), w, 1e-5))
-            _record(results, "rms_norm",
-                    [rows, hid] + (["residual"] if with_res else []),
-                    err, tol, timer(lambda: rms_norm.rms_norm(x, w, r, 1e-5)),
-                    timer(lambda: rms_norm.rms_norm_plain(x, w, r, 1e-5)),
-                    lib, ("rms_norm", f"phase3 [{rows}, {hid}]"
-                          + (" residual" if with_res else "")))
+        r = res if with_res else None
+        got = rms_norm.rms_norm(x, w, r, 1e-5)
+        ref = rms_norm.rms_norm_plain(x, w, r, 1e-5)
+        again = rms_norm.rms_norm(x, w, r, 1e-5)
+        if with_res:
+            err_h, tol_h = compare(torch, got[1], ref[1])
+            if not err_h <= tol_h:
+                fail(f"rms_norm residual sum: {err_h} > {tol_h}")
+            if not torch.equal(got[1], again[1]):
+                fail(f"rms_norm [{rows}, {hid}]: two calls gave different h")
+            got, ref, again = got[0], ref[0], again[0]
+        if not torch.equal(got, again):
+            fail(f"rms_norm [{rows}, {hid}]: two calls gave different bits")
+        err, tol = compare(torch, got, ref)
+        lib = None if with_res else timer(
+            lambda: TF.rms_norm(x, (hid,), w, 1e-5))
+        _record(results, "rms_norm",
+                [rows, hid] + (["residual"] if with_res else []),
+                err, tol, timer(lambda: rms_norm.rms_norm(x, w, r, 1e-5)),
+                timer(lambda: rms_norm.rms_norm_plain(x, w, r, 1e-5)),
+                lib, ("rms_norm", rms_norm.fwd_label(rows, hid, with_res)),
+                same_bits=True, plan=list(rms_norm.plan(rows, hid)[:3]))
+        del x, res, r, got, ref, again
 
     # swiglu: [8, 14336] and [512, 14336]
     inter = 14336
@@ -1138,27 +1145,27 @@ def _kernels_flash(torch, dev, randn, timer, results):
 
 
 def _kernels_epilogue(torch, randn, timer, results):
-    """Block epilogue at hidden 4096: the decode and prefill junctions
-    ([8, 4096], [1024, 4096], rms, no activation), then one row each at
-    [512, 4096] for gelu, swiglu (x [512, 8192]), dropout p = 0.1 and
-    layer norm with a bias. With dropout, the dropped positions of kernel
-    and plain version must both be the counter hash's, exactly. No single
-    PyTorch call computes the same function."""
+    """Block epilogue at ``block_epilogue.FWD_SHAPES``: the decode and
+    prefill junctions ([8, 4096], [1024, 4096], rms, no activation), the
+    Llama train step's [4096, 4096], one row each at [512, 4096] for gelu,
+    swiglu (x [512, 8192]), dropout p = 0.1 and layer norm with a bias, and
+    GPT-2 small's [8192, 768] layer norm with a bias. With dropout, the
+    dropped positions of kernel and plain version must both be the counter
+    hash's, exactly; two calls give the same bits. No single PyTorch call
+    computes the same function."""
     from paddle_tpu_torch.ops.kernels import block_epilogue as be
 
-    hid = 4096
-    w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
-    bias = randn(hid, scale=0.1)
-    for rows, act, norm, p, bias_on in (
-            (8, None, "rms", 0.0, False), (1024, None, "rms", 0.0, False),
-            (512, "gelu", "rms", 0.0, False),
-            (512, "swiglu", "rms", 0.0, False),
-            (512, None, "rms", 0.1, False), (512, None, "layer", 0.0, True)):
+    for rows, hid, act, norm, p, bias_on in be.FWD_SHAPES:
+        w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
         xw = 2 * hid if act == "swiglu" else hid
         x, res = randn(rows, xw), randn(rows, hid)
-        b = bias if bias_on else None
+        b = randn(hid, scale=0.1) if bias_on else None
         args = (x, res, w, b, 1234, p, 1e-5, act, norm)
         got, ref = be.fused_epilogue(*args), be.fused_epilogue_plain(*args)
+        again = be.fused_epilogue(*args)
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            fail(f"block_epilogue [{rows}, {hid}] act={act} {norm}: two calls "
+                 f"gave different bits")
         err_h, tol_h = compare(torch, got[1], ref[1])
         if not err_h <= tol_h:
             fail(f"block_epilogue residual sum: {err_h} > {tol_h}")
@@ -1182,7 +1189,9 @@ def _kernels_epilogue(torch, randn, timer, results):
                 timer(lambda: be.fused_epilogue(*args)),
                 timer(lambda: be.fused_epilogue_plain(*args)), None,
                 ("block_epilogue", f"phase3 [{rows}, {hid}] act={act} {norm} "
-                 f"p={p}" + (" bias" if bias_on else "")))
+                 f"p={p}" + (" bias" if bias_on else "")), same_bits=True,
+                plan=list(be.plan(rows, hid, act, 0 < p < 1)[:3]))
+        del x, res, b, args, got, ref, again
 
 
 def _paged(torch, dev, lengths, ps, max_pages, seed):

@@ -13,6 +13,7 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> decode [--engine]
     python3 kernel_ab.py <checkout root> <tag> softmax [--incubate]
     python3 kernel_ab.py <checkout root> <tag> rows [--incubate]
+    python3 kernel_ab.py <checkout root> <tag> norm [--engine] [--train]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -175,6 +176,34 @@ Family ``rows`` (bias-dropout-LN and dropout-add, rows 19 and 20):
   checkout (its profile's ``port_ms_per_call`` gives rows 19 and 20 by
   kernel).
 
+Family ``norm`` (the RMSNorm forward and the block-epilogue forward, rows
+2 and 9):
+
+- ``rms`` / ``epi``: every shape the paths launch (row 2 at [1, 4096] and
+  [8, 4096] with and without a residual, [512, 4096] and [2048, 2048] with
+  one, [4096, 4096] with and without; row 9 rms at [1, 4096], [8, 4096],
+  [1024, 4096] and [4096, 4096], layer norm with a bias at [8192, 768],
+  and phase 3's [512, 4096] rows with gelu, swiglu, dropout 0.1 and layer
+  norm with a bias): the call's cold-L2 ms (the mean of 20 calls, as
+  phase 3 times it, and their median), its warm device ms (``split``:
+  each kernel's device ms over 10 warm calls), the byte bound (each input
+  read once, each output written once) and the share of it, ``copy_ms``:
+  a ``copy_`` of as many bytes (half read, half written) under the same
+  timer, ``library_ms``: ``F.rms_norm`` where it computes the same
+  function (row 2 without a residual), the error against the plain
+  version, whether two calls give the same bits, and for dropout whether
+  the dropped positions are the counter hash's;
+- ``floor``: a ``copy_`` of 16 bytes under the cold timer;
+- ``host``: the host time of one wrapper call at [8, 4096] (both rows,
+  row 2 with and without the residual) and at [8, 768] layer norm with a
+  bias, as for flash;
+- with ``--engine``, Llama-3-8B (random weights): the decode-step profiles
+  of engines a and b (as ``decode --engine``) and engine b's 1024-token
+  monolithic prefill (``chip_smoke._profile``);
+- with ``--train``, ``chip_smoke.py``'s ``train`` and ``train_gpt``
+  phases of that checkout (the Llama trunks and GPT-2 small, each with the
+  profile of a step).
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -198,7 +227,8 @@ def main() -> int:
         cs.fail(f"{root}: its modules were not the ones imported")
     families = {"flash": _flash, "wo": _wo, "grad": _grad, "a8w8": _a8w8,
                 "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode,
-                "softmax": _softmax, "rows": _rows}
+                "softmax": _softmax, "rows": _rows,
+                "norm": _norm}
     if family not in families:
         cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
@@ -705,32 +735,49 @@ def _decode(torch, cs, dev, timer, randn, emit):
                 torch, lambda: F.rope(q, k, sn, c)))
 
     if "--engine" in sys.argv[4:]:
-        import numpy as np
+        _engine_profiles(torch, cs, dev, emit)
 
-        from paddle_tpu_torch.models import llama3_8b
-        from paddle_tpu_torch.serving import (LLMEngine, ServingConfig,
-                                              ServingModel)
 
-        cs._free(torch)
-        model = llama3_8b(device=dev, seed=0)
-        engine = LLMEngine(model, cs._quant_config(ServingConfig))
-        rng = np.random.default_rng(0)     # engine a's prompts (chip_smoke)
-        lengths = rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1,
-                               size=cs.SERVE_REQUESTS)
-        prompts = [rng.integers(0, model.cfg.vocab_size, size=int(n)).tolist()
-                   for n in lengths]
-        tables, toks, pos, held = cs._batch_tables(torch, engine, prompts)
-        try:
-            for name, fused in (("engine_a_decode_step", False),
-                                ("engine_b_decode_step", True)):
-                sm = ServingModel(model, fused_block=fused).bind_pool(
-                    engine.pool)
-                emit(**{name: cs._profile(
-                    torch, lambda: sm.decode_forward(toks, pos, tables),
-                    reps=10)}, pos=pos.tolist())
-        finally:
-            engine.pool.free(held)
-            engine.shutdown()
+def _engine_profiles(torch, cs, dev, emit, prefill=False):
+    """Llama-3-8B (random weights) on engine a's per-op decode path and
+    engine b's fused-epilogue one over one pool: the profile of a decode
+    step at batch 8 (``chip_smoke._profile``: per-kernel device ms,
+    launches, busy, wall), at the lengths of engine a's first 8 prompts
+    plus 32; with ``prefill``, engine b's 1024-token monolithic prefill
+    too."""
+    import numpy as np
+
+    from paddle_tpu_torch.models import llama3_8b
+    from paddle_tpu_torch.serving import LLMEngine, ServingConfig, \
+        ServingModel
+
+    cs._free(torch)
+    model = llama3_8b(device=dev, seed=0)
+    engine = LLMEngine(model, cs._quant_config(ServingConfig))
+    rng = np.random.default_rng(0)     # engine a's prompts (chip_smoke)
+    lengths = rng.integers(cs.PROMPT_MIN, cs.PROMPT_MAX + 1,
+                           size=cs.SERVE_REQUESTS)
+    prompts = [rng.integers(0, model.cfg.vocab_size, size=int(n)).tolist()
+               for n in lengths]
+    tables, toks, pos, held = cs._batch_tables(torch, engine, prompts)
+    try:
+        for name, fused in (("engine_a_decode_step", False),
+                            ("engine_b_decode_step", True)):
+            sm = ServingModel(model, fused_block=fused).bind_pool(
+                engine.pool)
+            emit(**{name: cs._profile(
+                torch, lambda: sm.decode_forward(toks, pos, tables),
+                reps=10)}, pos=pos.tolist())
+        if prefill:
+            mono = torch.arange(1024, device=dev)[None] + 7
+            emit(engine_b_monolithic_prefill_1024=cs._profile(
+                torch, lambda: sm.prefill_forward(mono, 1024, tables[0]),
+                reps=4))
+    finally:
+        engine.pool.free(held)
+        engine.shutdown()
+    del model, engine
+    cs._free(torch)
 
 
 #: the softmax family's rows: (label, [B, H, Sq, Sk], kind, dtype); kind
@@ -962,6 +1009,136 @@ def _rows(torch, cs, dev, timer, randn, emit):
 
     if "--incubate" in sys.argv[4:]:
         cs.phase_incubate(torch, dev)
+
+
+#: the norm family's rows: row 2 (rows, hidden, residual) and row 9
+#: (rows, hidden, act, norm, p, bias)
+NORM_RMS_ROWS = ((1, 4096, False), (8, 4096, False), (8, 4096, True),
+                 (512, 4096, True), (2048, 2048, True), (4096, 4096, False),
+                 (4096, 4096, True))
+NORM_EPI_ROWS = ((1, 4096, None, "rms", 0.0, False),
+                 (8, 4096, None, "rms", 0.0, False),
+                 (1024, 4096, None, "rms", 0.0, False),
+                 (4096, 4096, None, "rms", 0.0, False),
+                 (8192, 768, None, "layer", 0.0, True),
+                 (512, 4096, "gelu", "rms", 0.0, False),
+                 (512, 4096, "swiglu", "rms", 0.0, False),
+                 (512, 4096, None, "rms", 0.1, False),
+                 (512, 4096, None, "layer", 0.0, True))
+
+
+def _norm(torch, cs, dev, timer, randn, emit):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import block_epilogue as be
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+
+
+    rate = cs.MEM_BYTES_PER_S
+    bf = torch.bfloat16
+    copies = {}
+
+    def copy_ms(nbytes):
+        if nbytes not in copies:
+            src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+            dst = torch.empty_like(src)
+            copies[nbytes] = timer(lambda: dst.copy_(src))
+            del src, dst
+        return copies[nbytes]
+
+    def weight(hid):
+        return (1.0 + randn(hid).float() * 0.1).to(bf)
+
+    def measure(fn, outs, refs, nbytes):
+        err = max(cs.compare(torch, g, r)[0] for g, r in zip(outs, refs))
+        tol = min(cs.compare(torch, g, r)[1] for g, r in zip(outs, refs))
+        again = fn()
+        again = again if isinstance(again, tuple) else (again,)
+        ms, median = _cold_stats(torch, timer, fn)
+        bound = nbytes / rate * 1e3
+        return dict(ms=ms, ms_median=median, bound_ms=bound,
+                    bound_share=bound / ms,
+                    copy_ms=copy_ms(nbytes), max_abs_err=err, tol=tol,
+                    same_bits=all(bool(torch.equal(a, b))
+                                  for a, b in zip(outs, again)),
+                    split=_split(torch, cs, fn))
+
+    for rows, hid, with_res in NORM_RMS_ROWS:
+        x, w = randn(rows, hid), weight(hid)
+        r = randn(rows, hid) if with_res else None
+        fn = lambda: rn.rms_norm(x, w, r, 1e-5)  # noqa: E731
+        got, ref = fn(), rn.rms_norm_plain(x, w, r, 1e-5)
+        got = got if with_res else (got,)
+        ref = ref if with_res else (ref,)
+        nbytes = 2 * rows * hid * (2 if with_res else 1) * 2 + 2 * hid
+        lib = None if with_res else timer(
+            lambda: TF.rms_norm(x, (hid,), w, 1e-5))
+        emit(rms=[rows, hid, "residual" if with_res else "no residual"],
+             library_ms=lib, **measure(fn, got, ref, nbytes))
+        del x, w, r, got, ref
+
+    for rows, hid, act, norm, p, bias_on in NORM_EPI_ROWS:
+        xw = 2 * hid if act == "swiglu" else hid
+        x, res, w = randn(rows, xw), randn(rows, hid), weight(hid)
+        b = randn(hid) * 0.1 if bias_on else None
+        args = (x, res, w, b, 1234, p, 1e-5, act, norm)
+        fn = lambda: be.fused_epilogue(*args)  # noqa: E731
+        got, ref = fn(), be.fused_epilogue_plain(*args)
+        extra = {}
+        if p:
+            x1 = (x.float().abs() + 1.0).to(bf)
+            h0 = be.fused_epilogue(x1, torch.zeros_like(res), w, b, 1234, p,
+                                   1e-5, act, norm)[1]
+            keep = be.keep_mask(rows, hid, 1234, p, dev)
+            extra["dropped_exact"] = bool(torch.equal(h0 == 0, ~keep))
+        nbytes = 2 * (rows * xw + 3 * rows * hid + hid * (1 + bias_on))
+        emit(epi=[rows, hid, f"act={act}", norm, f"p={p}",
+                  "bias" if bias_on else "no bias"], library_ms=None,
+             **measure(fn, got, ref, nbytes), **extra)
+        del x, res, w, b, args, got, ref
+
+    s8 = torch.empty(16, dtype=torch.uint8, device=dev)
+    d8 = torch.empty_like(s8)
+    emit(floor=["copy_", 16], ms=timer(lambda: d8.copy_(s8)))
+    x, r, w = randn(8, 4096), randn(8, 4096), weight(4096)
+    emit(host=["rms_norm", 8, 4096, "no residual"],
+         us=_host_us(torch, lambda: rn.rms_norm(x, w, None, 1e-5)))
+    emit(host=["rms_norm", 8, 4096, "residual"],
+         us=_host_us(torch, lambda: rn.rms_norm(x, w, r, 1e-5)))
+    emit(host=["block_epilogue", 8, 4096, "rms"],
+         us=_host_us(torch, lambda: be.decode_epilogue(x, r, w, 1e-5)))
+    x, r, w, b = randn(8, 768), randn(8, 768), weight(768), randn(768)
+    emit(host=["block_epilogue", 8, 768, "layer", "bias"],
+         us=_host_us(torch, lambda: be.fused_epilogue(
+             x, r, w, b, 0, 0.0, 1e-5, None, "layer")))
+
+    if "--engine" in sys.argv[4:]:
+        _engine_profiles(torch, cs, dev, emit, prefill=True)
+    if "--train" in sys.argv[4:]:
+        cs._free(torch)
+        cs.phase_train(torch, dev)
+        cs._free(torch)
+        cs.phase_train_gpt(torch, dev)
+
+
+def _cold_stats(torch, timer, fn, iters=20, warmup=3):
+    """The mean of ``timer`` (``chip_smoke.ColdTimer``: its flush before
+    each call) and the median of the same calls: one call in a few hundred
+    stalls for ~0.4 ms, which moves a mean of 20 by 20 us."""
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        timer.flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in pairs)
+    return sum(ms) / iters, (ms[iters // 2 - 1] + ms[iters // 2]) / 2
 
 
 class _CleanTimer:

@@ -29,10 +29,15 @@
 //
 // Bound on the H100: bytes. Each row of x and residual (forward), or of h,
 // gy, gh and x (backward), is read once and each output written once; the
-// work is a few dozen operations per element. Forward: one block per row,
-// 16-byte vectors per thread; the f32 pre-norm row stays in shared memory
-// between the statistics pass and the output pass, so nothing is read
-// twice from device memory.
+// work is a few dozen operations per element. Forward (csrc/norm_rows.cuh,
+// shared with the RMSNorm forward; the plan is paddle_tpu_torch/ops/kernels/
+// block_epilogue.py `plan`): a row in the registers of its block, one
+// 8-element vector a thread; w, b, x (both halves for swiglu) and the
+// residual are all requested before the first reduction, so a row costs one
+// memory round trip, and layer norm's two-pass variance runs over the values
+// in registers. Rows past 8192, and the variants with an activation or
+// dropout (which took 45-64 registers in that form and ran slower), keep
+// the f32 row in shared memory between the passes, w read after them.
 //
 // Backward (block_epilogue_bwd_rows_kernel): a group of ceil(hidden / 512)
 // warps owns a row through hidden 8192 (two 16-byte vectors a lane; a block
@@ -57,10 +62,11 @@
 // a fixed order.
 #include <algorithm>
 
-#include "hopper.cuh"
+#include "norm_rows.cuh"
 
 using ptt::bf16;
 namespace hp = ptt::hopper;
+namespace rw = ptt::rows;
 
 namespace {
 
@@ -71,25 +77,80 @@ using ptt::kGolden;
 
 enum Act { kNone = 0, kGelu = 1, kSwiglu = 2 };
 
-// Block-wide sum; every thread receives the total. A __syncthreads()
-// before the scratch write lets the function be called back to back.
-__device__ __forceinline__ float block_sum2(float v, float* scratch) {
-  __syncthreads();
-  return ptt::block_sum(v, scratch);
+// kRow, the variants held in registers (no activation, no dropout): block b
+// takes row b, thread t its vector t.
+template <bool LAYER, bool BIAS>
+__device__ __forceinline__ void epilogue_row(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ res,
+                                             const bf16* __restrict__ w,
+                                             const bf16* __restrict__ b, bf16* __restrict__ y,
+                                             bf16* __restrict__ h_out, int hidden, float eps) {
+  __shared__ float red[2][32];
+  const int col = threadIdx.x * 8;
+  const bool mine = col < hidden;
+  const float inv_n = 1.f / (float)hidden;
+  const size_t base = (size_t)blockIdx.x * hidden + col;
+  uint4 wv = {}, bv = {}, xv = {}, rv = {};
+  if (mine) {
+    wv = rw::ld16(w + col);
+    if (BIAS) bv = rw::ld16(b + col);
+    xv = rw::ld16(x + base);
+    rv = rw::ld16(res + base);
+  }
+  float h[8], rf[8];
+  rw::unpack8(xv, h);
+  rw::unpack8(rv, rf);
+  float s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    h[j] += rf[j];
+    s1 += LAYER ? h[j] : h[j] * h[j];
+  }
+  if (mine) ptt::store8(h_out + base, h);
+  int buf = 0;
+  s1 = rw::block_total(s1, red, buf);
+  float mu = 0.f, rstd;
+  if (LAYER) {
+    mu = s1 * inv_n;
+    float s2 = 0.f;
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s2 += (h[j] - mu) * (h[j] - mu);
+    }
+    rstd = rsqrtf(rw::block_total(s2, red, buf) * inv_n + eps);
+  } else {
+    rstd = rsqrtf(s1 * inv_n + eps);
+  }
+  if (mine) {
+    float wf[8], bf[8];
+    rw::unpack8(wv, wf);
+    if (BIAS) rw::unpack8(bv, bf);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      h[j] = (LAYER ? h[j] - mu : h[j]) * rstd * wf[j];
+      if (BIAS) h[j] += bf[j];
+    }
+    ptt::store8(y + base, h);
+  }
 }
 
+// kWide, rows past kRegHidden and the variants with an activation or
+// dropout: a block a row, each thread striding over it in 16-byte vectors,
+// the f32 pre-norm row in dynamic shared memory between the statistics pass
+// and the output pass, so nothing is read twice from device memory.
 template <int ACT, bool LAYER, bool BIAS, bool DROP>
-__global__ void block_epilogue_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
-                                      const bf16* __restrict__ w, const bf16* __restrict__ b,
-                                      bf16* __restrict__ y, bf16* __restrict__ h_out, int hidden,
-                                      float eps, uint32_t key, uint32_t threshold, float scale) {
+__device__ __forceinline__ void epilogue_wide(const bf16* __restrict__ x,
+                                              const bf16* __restrict__ res,
+                                              const bf16* __restrict__ w,
+                                              const bf16* __restrict__ b, bf16* __restrict__ y,
+                                              bf16* __restrict__ h_out, int hidden, float eps,
+                                              uint32_t key, uint32_t threshold, float scale) {
   extern __shared__ float row[];  // [hidden] f32 pre-norm values
   __shared__ float scratch[32];
   const uint32_t r = blockIdx.x;
   const size_t base = (size_t)r * hidden;
   const size_t xbase = (size_t)r * hidden * (ACT == kSwiglu ? 2 : 1);
   const int step = blockDim.x * 8;
-
   float s1 = 0.f;
   for (int i = threadIdx.x * 8; i < hidden; i += step) {
     float z[8], rv[8];
@@ -102,12 +163,17 @@ __global__ void block_epilogue_kernel(const bf16* __restrict__ x, const bf16* __
         z[j] = 0.5f * v * (1.f + tanhf(u));
       }
     } else if (ACT == kSwiglu) {
-      float up[8];
-      ptt::load8(x + xbase + hidden + i, up);
+      // the up half 4 values at a time: all 8 at once spilled under the
+      // arm's 32 registers
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float g = z[j];
-        z[j] = g * (1.f / (1.f + expf(-g))) * up[j];
+      for (int hf = 0; hf < 2; ++hf) {
+        float up[4];
+        ptt::load4(x + xbase + hidden + i + 4 * hf, up);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float g = z[4 * hf + j];
+          z[4 * hf + j] = g * (1.f / (1.f + expf(-g))) * up[j];
+        }
       }
     }
     if (DROP) {
@@ -130,8 +196,11 @@ __global__ void block_epilogue_kernel(const bf16* __restrict__ x, const bf16* __
   }
   const float inv_n = 1.f / (float)hidden;
   float mu = 0.f, rstd;
+  // each sum behind a barrier of its own, so a second sum never meets a warp
+  // still reading the first's scratch
   if (LAYER) {
-    mu = block_sum2(s1, scratch) * inv_n;
+    __syncthreads();
+    mu = ptt::block_sum(s1, scratch) * inv_n;
     float s2 = 0.f;
     // each thread reads back only the entries it wrote itself
     for (int i = threadIdx.x * 8; i < hidden; i += step) {
@@ -141,9 +210,11 @@ __global__ void block_epilogue_kernel(const bf16* __restrict__ x, const bf16* __
         s2 += d * d;
       }
     }
-    rstd = rsqrtf(block_sum2(s2, scratch) * inv_n + eps);
+    __syncthreads();
+    rstd = rsqrtf(ptt::block_sum(s2, scratch) * inv_n + eps);
   } else {
-    rstd = rsqrtf(block_sum2(s1, scratch) * inv_n + eps);
+    __syncthreads();
+    rstd = rsqrtf(ptt::block_sum(s1, scratch) * inv_n + eps);
   }
   for (int i = threadIdx.x * 8; i < hidden; i += step) {
     float wv[8], o[8];
@@ -160,48 +231,79 @@ __global__ void block_epilogue_kernel(const bf16* __restrict__ x, const bf16* __
   }
 }
 
+// The variants a block a row holds in registers: no activation, no dropout.
+// The others (gelu's tanh, swiglu's second half, the dropout hash) took
+// 45-64 registers there, half the blocks an SM of the shared-memory arm, and
+// were slower at every shape above a decode batch: they keep that arm.
+template <int ACT, bool DROP>
+constexpr bool kInRegisters = ACT == kNone && !DROP;
+
+// ARM: rw::kRow or kWide. Both keep to 32 registers (four blocks of 512
+// threads, H 4096, an SM: the shared-memory arm free to take more took
+// 42-56 and ran slower) but a block a row of layer norm, which takes up to
+// 40 (a 32 cap spilled its bias and second statistic).
+template <int ACT, bool LAYER, bool BIAS, bool DROP, int ARM>
+__global__ void __launch_bounds__(rw::kMaxThreads, ARM == rw::kRow && LAYER ? 1 : 2)
+    block_epilogue_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                          const bf16* __restrict__ w, const bf16* __restrict__ b,
+                          bf16* __restrict__ y, bf16* __restrict__ h_out, int hidden, float eps,
+                          uint32_t key, uint32_t threshold, float scale) {
+  if constexpr (ARM == rw::kWide) {
+    epilogue_wide<ACT, LAYER, BIAS, DROP>(x, res, w, b, y, h_out, hidden, eps, key, threshold,
+                                          scale);
+  } else {
+    static_assert(kInRegisters<ACT, DROP>, "a block a row holds only these variants");
+    epilogue_row<LAYER, BIAS>(x, res, w, b, y, h_out, hidden, eps);
+  }
+}
+
+struct FwdArgs {
+  const void *x, *res, *w, *b;
+  void *y, *h;
+  int hidden;
+  float eps;
+  uint32_t key, threshold;
+  float scale;
+};
+
+template <int ACT, bool LAYER, bool BIAS, bool DROP, int ARM>
+int launch_arm(const rw::Launch& l, const FwdArgs& a, cudaStream_t s) {
+  size_t smem = 0;
+  if (ARM == rw::kWide) {
+    smem = (size_t)a.hidden * sizeof(float);
+    // above 48 KB in all (the static scratch included) only after opting in
+    if (smem + rw::kWideStatic > 48 * 1024) {
+      const cudaError_t err =
+          hp::allow_smem<block_epilogue_kernel<ACT, LAYER, BIAS, DROP, rw::kWide>>(
+              rw::kWideSmem);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return rw::launch<block_epilogue_kernel<ACT, LAYER, BIAS, DROP, ARM>>(
+      l, smem, s, static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.res),
+      static_cast<const bf16*>(a.w), static_cast<const bf16*>(a.b), static_cast<bf16*>(a.y),
+      static_cast<bf16*>(a.h), a.hidden, a.eps, a.key, a.threshold, a.scale);
+}
+
+// a block a row only for the variants held in registers (kInRegisters)
 template <int ACT, bool LAYER, bool BIAS, bool DROP>
-int launch(const void* x, const void* res, const void* w, const void* b, void* y, void* h, int rows,
-           int hidden, float eps, uint32_t key, uint32_t threshold, float scale,
-           cudaStream_t s) {
-  const int vecs = hidden / 8;
-  int threads = ((vecs + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  const size_t smem = (size_t)hidden * sizeof(float);
-  auto kern = block_epilogue_kernel<ACT, LAYER, BIAS, DROP>;
-  // above 48 KB in all (the static reduction scratch included) only
-  // after opting in
-  if (smem + sizeof(float) * 32 > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  kern<<<rows, threads, smem, s>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(res),
-                                   static_cast<const bf16*>(w), static_cast<const bf16*>(b),
-                                   static_cast<bf16*>(y), static_cast<bf16*>(h), hidden, eps,
-                                   key, threshold, scale);
-  return (int)cudaGetLastError();
+int launch(const rw::Launch& l, const FwdArgs& a, cudaStream_t s) {
+  if (l.arm == rw::kWide) return launch_arm<ACT, LAYER, BIAS, DROP, rw::kWide>(l, a, s);
+  if constexpr (kInRegisters<ACT, DROP>)
+    return launch_arm<ACT, LAYER, BIAS, DROP, rw::kRow>(l, a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int ACT, bool LAYER, bool BIAS>
-int pick_drop(bool drop, const void* x, const void* res, const void* w, const void* b, void* y,
-              void* h, int rows, int hidden, float eps, uint32_t key, uint32_t threshold,
-              float scale, cudaStream_t s) {
-  return drop ? launch<ACT, LAYER, BIAS, true>(x, res, w, b, y, h, rows, hidden, eps, key,
-                                               threshold, scale, s)
-              : launch<ACT, LAYER, BIAS, false>(x, res, w, b, y, h, rows, hidden, eps, key,
-                                                threshold, scale, s);
+int pick_drop(bool drop, const rw::Launch& l, const FwdArgs& a, cudaStream_t s) {
+  return drop ? launch<ACT, LAYER, BIAS, true>(l, a, s) : launch<ACT, LAYER, BIAS, false>(l, a, s);
 }
 
 template <int ACT>
-int pick_norm(int layer, bool drop, const void* x, const void* res, const void* w, const void* b,
-              void* y, void* h, int rows, int hidden, float eps, uint32_t key,
-              uint32_t threshold, float scale, cudaStream_t s) {
-  if (!layer)
-    return pick_drop<ACT, false, false>(drop, x, res, w, b, y, h, rows, hidden, eps, key,
-                                        threshold, scale, s);
-  if (b == nullptr)
-    return pick_drop<ACT, true, false>(drop, x, res, w, b, y, h, rows, hidden, eps, key,
-                                       threshold, scale, s);
-  return pick_drop<ACT, true, true>(drop, x, res, w, b, y, h, rows, hidden, eps, key, threshold,
-                                    scale, s);
+int pick_norm(int layer, bool drop, const rw::Launch& l, const FwdArgs& a, cudaStream_t s) {
+  if (!layer) return pick_drop<ACT, false, false>(drop, l, a, s);
+  if (a.b == nullptr) return pick_drop<ACT, true, false>(drop, l, a, s);
+  return pick_drop<ACT, true, true>(drop, l, a, s);
 }
 
 __device__ __forceinline__ float gelu_tanh_grad(float v) {
@@ -650,26 +752,28 @@ int bwd_pick_norm(int layer, bool bias, bool drop, const BwdArgs& a, const BwdPl
 
 // x: [rows, hidden] bf16, or [rows, 2 * hidden] for act 2 (swiglu, gate
 // half first); res, y, h: [rows, hidden] bf16; w, b: [hidden] bf16 (b may be
-// null, and is null for rms); hidden % 8 == 0. act: 0 none, 1 gelu, 2
-// swiglu; layer: 0 rms, 1 layer norm. drop != 0 applies the counter-hash
-// mask with `seed` (the int32 seed's bits), `threshold` and `scale`.
+// null, and is null for rms); hidden % 8 == 0, at most rw::kWideHidden. act:
+// 0 none, 1 gelu, 2 swiglu; layer: 0 rms, 1 layer norm. drop != 0 applies
+// the counter-hash mask with `seed` (the int32 seed's bits), `threshold`
+// and `scale`. `plan`: the launch word of block_epilogue.plan
+// (norm_rows.cuh); a launch that does not cover every (row, vector) is
+// refused.
 PTT_EXPORT int ptt_block_epilogue(const void* x, const void* res, const void* w, const void* b,
                                   void* y, void* h, int rows, int hidden, int act, int layer,
                                   int drop, float eps, unsigned int seed, unsigned int threshold,
-                                  float scale, void* stream) {
+                                  float scale, long long plan, void* stream) {
   if (rows == 0) return 0;
+  const rw::Launch l = rw::decode(plan);
+  if (!rw::valid(l, rows, hidden)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t key = (uint32_t)seed * kGolden;
+  const FwdArgs a{x, res, w, b, y, h, hidden, eps, (uint32_t)seed * kGolden, threshold, scale};
   switch (act) {
     case kGelu:
-      return pick_norm<kGelu>(layer, drop != 0, x, res, w, b, y, h, rows, hidden, eps, key,
-                              threshold, scale, s);
+      return pick_norm<kGelu>(layer, drop != 0, l, a, s);
     case kSwiglu:
-      return pick_norm<kSwiglu>(layer, drop != 0, x, res, w, b, y, h, rows, hidden, eps, key,
-                                threshold, scale, s);
+      return pick_norm<kSwiglu>(layer, drop != 0, l, a, s);
     default:
-      return pick_norm<kNone>(layer, drop != 0, x, res, w, b, y, h, rows, hidden, eps, key,
-                              threshold, scale, s);
+      return pick_norm<kNone>(layer, drop != 0, l, a, s);
   }
 }
 

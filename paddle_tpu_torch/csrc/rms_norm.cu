@@ -8,9 +8,13 @@
 // is given.
 //
 // Bound on the H100: bytes. Each row is read once (x, res) and written once
-// (y, h); the work is a few operations per element. Design: one block per
-// row; each thread moves 16-byte vectors, keeps its f32 h in shared memory
-// for the second pass, so no input is read twice from device memory.
+// (y, h); the work is a few operations per element. Design (csrc/
+// norm_rows.cuh, shared with the block epilogue's forward; the plan is
+// paddle_tpu_torch/ops/kernels/rms_norm.py `plan`): a row in the registers
+// of its block, one 8-element vector a thread, w, x and res all requested
+// before the one reduction, so a row costs one memory round trip (w read
+// after the block-wide sum would put a second one in each row's chain).
+// Rows past 8192 keep the f32 row in shared memory between the two passes.
 //
 // Backward: replaces rms_norm_pallas.py `_fused_bwd` (kernel body
 // `_bwd_kernel`). From the saved pre-norm h (x when there was no residual)
@@ -27,19 +31,60 @@
 // registers across the group, and its h and g stay in registers between the
 // one combined reduction of (sum h^2, sum h*u) and the dx pass: each input
 // is read once.
-#include "common.cuh"
+#include "norm_rows.cuh"
 
 using ptt::bf16;
+namespace rw = ptt::rows;
 
+// kRow: block b takes row b, thread t its vector t.
 template <bool RES>
-__global__ void rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
-                                const bf16* __restrict__ w, bf16* __restrict__ y,
-                                bf16* __restrict__ h_out, int hidden, float eps) {
+__device__ __forceinline__ void rms_row(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                                        const bf16* __restrict__ w, bf16* __restrict__ y,
+                                        bf16* __restrict__ h_out, int hidden, float eps) {
+  __shared__ float red[2][32];
+  const int col = threadIdx.x * 8;
+  const bool mine = col < hidden;
+  const size_t base = (size_t)blockIdx.x * hidden + col;
+  uint4 wv = {}, xv = {}, rv = {};
+  if (mine) {
+    wv = rw::ld16(w + col);
+    xv = rw::ld16(x + base);
+    if (RES) rv = rw::ld16(res + base);
+  }
+  float h[8];
+  rw::unpack8(xv, h);
+  if (RES) {
+    float rf[8];
+    rw::unpack8(rv, rf);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) h[e] += rf[e];
+    if (mine) ptt::store8(h_out + base, h);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ss += h[e] * h[e];
+  int buf = 0;
+  const float rstd = rsqrtf(rw::block_total(ss, red, buf) / (float)hidden + eps);
+  if (mine) {
+    float wf[8];
+    rw::unpack8(wv, wf);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) h[e] = h[e] * rstd * wf[e];
+    ptt::store8(y + base, h);
+  }
+}
+
+// kWide, rows past kRegHidden: a block a row, each thread striding over it
+// in 16-byte vectors, the f32 row in dynamic shared memory for the second
+// pass, so no input is read twice from device memory.
+template <bool RES>
+__device__ __forceinline__ void rms_wide(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                                         const bf16* __restrict__ w, bf16* __restrict__ y,
+                                         bf16* __restrict__ h_out, int hidden, float eps) {
   extern __shared__ float row[];  // [hidden] f32 pre-norm values
   __shared__ float scratch[32];
   const size_t base = (size_t)blockIdx.x * hidden;
   const int step = blockDim.x * 8;
-
   float ss = 0.f;
   for (int i = threadIdx.x * 8; i < hidden; i += step) {
     float a[8];
@@ -68,35 +113,62 @@ __global__ void rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restri
   }
 }
 
-// x, res, y, h: [rows, hidden] bf16 (res and h may be null together);
-// w: [hidden] bf16; hidden % 8 == 0.
-PTT_EXPORT int ptt_rms_norm(const void* x, const void* res, const void* w, void* y, void* h,
-                            int rows, int hidden, float eps, void* stream) {
-  if (rows == 0) return 0;
-  const int vecs = hidden / 8;
-  int threads = ((vecs + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  const size_t smem = (size_t)hidden * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // above 48 KB in all (the static reduction scratch included) only after
-  // opting in
-  const bool big = smem + sizeof(float) * 32 > 48 * 1024;
-  if (res != nullptr) {
-    if (big)
-      cudaFuncSetAttribute(rms_norm_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    rms_norm_kernel<true><<<rows, threads, smem, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(res), static_cast<const bf16*>(w),
-        static_cast<bf16*>(y), static_cast<bf16*>(h), hidden, eps);
-  } else {
-    if (big)
-      cudaFuncSetAttribute(rms_norm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    rms_norm_kernel<false><<<rows, threads, smem, s>>>(
-        static_cast<const bf16*>(x), nullptr, static_cast<const bf16*>(w), static_cast<bf16*>(y),
-        nullptr, hidden, eps);
+// ARM: rw::kRow or kWide. Both keep to 32 registers, so four blocks of 512
+// threads (H 4096) share an SM.
+template <bool RES, int ARM>
+__global__ void __launch_bounds__(rw::kMaxThreads, 2)
+    rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                    const bf16* __restrict__ w, bf16* __restrict__ y, bf16* __restrict__ h_out,
+                    int hidden, float eps) {
+  if constexpr (ARM == rw::kWide)
+    rms_wide<RES>(x, res, w, y, h_out, hidden, eps);
+  else
+    rms_row<RES>(x, res, w, y, h_out, hidden, eps);
+}
+
+namespace {
+
+template <bool RES, int ARM>
+int launch_arm(const rw::Launch& l, const void* x, const void* res, const void* w, void* y,
+               void* h, int hidden, float eps, cudaStream_t s) {
+  size_t smem = 0;
+  if (ARM == rw::kWide) {
+    smem = (size_t)hidden * sizeof(float);
+    // above 48 KB in all (the static scratch included) only after opting in
+    if (smem + rw::kWideStatic > 48 * 1024) {
+      const cudaError_t err =
+          ptt::hopper::allow_smem<rms_norm_kernel<RES, rw::kWide>>(rw::kWideSmem);
+      if (err != cudaSuccess) return (int)err;
+    }
   }
-  return (int)cudaGetLastError();
+  return rw::launch<rms_norm_kernel<RES, ARM>>(
+      l, smem, s, static_cast<const bf16*>(x), static_cast<const bf16*>(res),
+      static_cast<const bf16*>(w), static_cast<bf16*>(y), static_cast<bf16*>(h), hidden, eps);
+}
+
+template <bool RES>
+int launch_fwd(const rw::Launch& l, const void* x, const void* res, const void* w, void* y,
+               void* h, int hidden, float eps, cudaStream_t s) {
+  return l.arm == rw::kWide ? launch_arm<RES, rw::kWide>(l, x, res, w, y, h, hidden, eps, s)
+                            : launch_arm<RES, rw::kRow>(l, x, res, w, y, h, hidden, eps, s);
+}
+
+}  // namespace
+
+// x, res, y, h: [rows, hidden] bf16 (res and h may be null together);
+// w: [hidden] bf16; hidden % 8 == 0, at most rw::kWideHidden (the wide
+// arm's f32 row in shared memory). `plan`: the launch word of rms_norm.plan
+// (norm_rows.cuh); a launch that does not cover every (row, vector) is
+// refused.
+PTT_EXPORT int ptt_rms_norm(const void* x, const void* res, const void* w, void* y, void* h,
+                            int rows, int hidden, float eps, long long plan, void* stream) {
+  if (rows == 0) return 0;
+  const rw::Launch l = rw::decode(plan);
+  if (!rw::valid(l, rows, hidden))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return res != nullptr ? launch_fwd<true>(l, x, res, w, y, h, hidden, eps, s)
+                        : launch_fwd<false>(l, x, nullptr, w, y, nullptr, hidden, eps, s);
 }
 
 namespace {

@@ -122,8 +122,12 @@ def build_all(names=SOURCES) -> float:
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of library ``name``, typed; builds all
-    libraries on first use."""
+    libraries on first use (under a lock; a function already loaded is
+    returned without it)."""
     key = (name, symbol)
+    fn = _functions.get(key)
+    if fn is not None:
+        return fn
     with _lock:
         fn = _functions.get(key)
         if fn is None:
@@ -141,9 +145,18 @@ def check(err: int, what: str) -> None:
 
 
 def stream_of(t) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on ``t``'s device (through the
+    raw-handle getter torch's own generated code calls, where this build
+    has it: no Stream object a call)."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", False) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(t.get_device())
+
+
+_raw_stream = None
 
 
 def require_aligned(what: str, *tensors) -> None:

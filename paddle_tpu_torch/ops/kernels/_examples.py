@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["CTYPE", "row_threads", "with_tail", "normal", "uniform",
-           "fixed", "model"]
+__all__ = ["CTYPE", "with_tail", "normal", "uniform", "fixed", "model"]
 
 #: a tensor dtype as ``c++filt`` prints the template argument
 CTYPE = {torch.bfloat16: "__nv_bfloat16", torch.float32: "float"}
@@ -23,14 +22,6 @@ def model():
     never when a kernel module is imported)."""
     from ...analysis.kernels import model as m
     return m
-
-
-def row_threads(vecs: int, cap: int = 1024) -> int:
-    """Threads of a one-row-a-block kernel with one thread per 8-element
-    vector: ``vecs`` rounded up to a warp, at least 32 and at most
-    ``cap``."""
-    t = -(-vecs // 32) * 32
-    return max(32, min(cap, t))
 
 
 def with_tail(build, label: str, shape: dict, tail: dict):

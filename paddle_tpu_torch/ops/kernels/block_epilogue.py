@@ -36,11 +36,16 @@ as JAX sums its per-block partials outside its kernel (:303-304).
 
 What bounds both on the H100: bytes — each input row read once, each
 output written once, a few dozen operations per element. The forward
-gives each row one block of 16-byte vectors and keeps the f32 pre-norm
-row in shared memory between the statistics pass and the output pass. The
-backward gives a row to a group of warps that walks a strip of rows,
-brings its next rows of ``h``, ``gy`` and ``gh`` into shared memory by
-bulk copies while it works on the current one (through hidden 8192),
+holds a row in the registers of its block, a vector of 8 a thread, and
+requests ``w``, ``b``, ``x`` and the residual before its first reduction,
+so a row costs one memory round trip (layer norm's variance is a second
+pass over the registers); :func:`plan` (``_norm_rows.plan``, shared with
+the RMSNorm forward) keeps rows past 8192, and the variants with an
+activation or dropout, on the shared-memory arm (the f32 row in shared
+memory between the passes). The backward gives a row to a group of warps
+that walks a strip of rows, brings its next rows of ``h``, ``gy`` and
+``gh`` into shared memory by bulk copies while it works on the current one
+(through hidden 8192),
 reduces the statistics by shuffles (and the group's named barrier), and
 keeps its partial ``dw``/``db`` in registers across the strip; the grid
 fills the card once (:func:`_bwd_plan` mirrors the source's plan).
@@ -60,12 +65,14 @@ import numpy as np
 import torch
 
 from . import _build
+from . import _norm_rows
+from ._norm_rows import WIDE_HIDDEN
 from .dropout_add import dropout_params, keep_mask
 
 __all__ = ["fused_epilogue", "fused_epilogue_plain", "fused_epilogue_bwd",
            "fused_epilogue_bwd_plain", "BlockEpilogueFunction",
            "attn_epilogue", "mlp_epilogue", "decode_epilogue", "keep_mask",
-           "dropout_params", "VALID_ACTS", "VALID_NORMS"]
+           "dropout_params", "VALID_ACTS", "VALID_NORMS", "plan"]
 
 VALID_ACTS = (None, "gelu", "swiglu")
 VALID_NORMS = ("rms", "layer")
@@ -76,9 +83,11 @@ _GELU_C = 0.044715
 _MASK32 = 0xFFFFFFFF
 _ACT_CODE = {None: 0, "gelu": 1, "swiglu": 2}
 
+# rows, hidden, act, layer, drop, eps, seed, threshold, scale, the plan's
+# launch word, the stream
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-    ctypes.c_void_p]
+    ctypes.c_longlong, ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
     ctypes.c_void_p]
@@ -175,7 +184,8 @@ def fused_epilogue(x, residual, weight, bias=None, seed=0, p=0.0, eps=1e-6,
     the pre-norm sum, both in the residual's dtype. ``seed`` (an int32)
     keys the dropout mask; it is read only when ``0 < p < 1``. A CPU
     tensor takes :func:`fused_epilogue_plain`; a CUDA tensor launches the
-    kernel (bf16, contiguous, hidden % 8 == 0) or raises."""
+    kernel (bf16, contiguous, hidden % 8 == 0 and at most
+    ``_norm_rows.WIDE_HIDDEN``) or raises."""
     _check(x, residual, weight, bias, act, norm)
     if x.device.type == "cpu":
         return fused_epilogue_plain(x, residual, weight, bias, seed, p, eps,
@@ -187,9 +197,9 @@ def fused_epilogue(x, residual, weight, bias=None, seed=0, p=0.0, eps=1e-6,
         raise TypeError(f"block epilogue kernel takes bf16, got "
                         f"{[str(t.dtype) for t in ops]}")
     hd = residual.shape[-1]
-    if hd % 8:
-        raise ValueError(f"block epilogue kernel needs hidden % 8 == 0, got "
-                         f"{hd}")
+    if hd % 8 or hd > WIDE_HIDDEN:
+        raise ValueError(f"block epilogue kernel needs hidden % 8 == 0 and "
+                         f"hidden <= {WIDE_HIDDEN}, got {hd}")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("block epilogue kernel takes contiguous tensors")
     _build.require_aligned("block_epilogue", *ops)
@@ -204,18 +214,27 @@ def fused_epilogue(x, residual, weight, bias=None, seed=0, p=0.0, eps=1e-6,
 fused_epilogue.launches = 0
 
 
+def plan(rows, hidden, act=None, drop=False):
+    """The forward's launch (``_norm_rows.plan``): a block a row in
+    registers without an activation or dropout, else, as past 8192, the
+    shared-memory arm."""
+    return _norm_rows.plan(rows, hidden, act is None and not drop)
+
+
 def _launch(x, residual, weight, bias, y, h, seed, p, eps, act, norm,
             stream):
-    """The forward's C entry on operands the caller allocated."""
+    """The forward's C entry on operands the caller allocated, launched as
+    :func:`plan` says."""
     hd = residual.shape[-1]
+    rows = residual.numel() // hd
     drop = 0.0 < p < 1.0
     threshold, scale = dropout_params(p) if drop else (0, 1.0)
     fn = _build.function("block_epilogue", "ptt_block_epilogue", _ARGS)
     err = fn(x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
              None if bias is None else bias.data_ptr(), y.data_ptr(),
-             h.data_ptr(), residual.numel() // hd, hd, _ACT_CODE[act],
-             int(norm == "layer"), int(drop), float(eps),
-             int(seed) & _MASK32, threshold, float(scale), stream)
+             h.data_ptr(), rows, hd, _ACT_CODE[act], int(norm == "layer"),
+             int(drop), float(eps), int(seed) & _MASK32, threshold,
+             float(scale), plan(rows, hd, act, drop).word, stream)
     _build.check(err, "block_epilogue")
 
 
@@ -463,6 +482,17 @@ def decode_epilogue(x, residual, weight, eps=1e-6, plain=False):
 # -- declared launches for the kernel analyzer -------------------------------
 
 _ACT_FLOPS = {None: 0, "gelu": 9, "swiglu": 5}
+#: phase 3's forward rows (rows, hidden, act, norm, p, bias): the decode
+#: and prefill junctions, the Llama train step's, four functional rows, and
+#: GPT-2 small's layer norm
+FWD_SHAPES = ((8, 4096, None, "rms", 0.0, False),
+              (1024, 4096, None, "rms", 0.0, False),
+              (4096, 4096, None, "rms", 0.0, False),
+              (512, 4096, "gelu", "rms", 0.0, False),
+              (512, 4096, "swiglu", "rms", 0.0, False),
+              (512, 4096, None, "rms", 0.1, False),
+              (512, 4096, None, "layer", 0.0, True),
+              (8192, 768, None, "layer", 0.0, True))
 _ACT_BWD_FLOPS = {None: 0, "gelu": 16, "swiglu": 12}
 
 
@@ -472,9 +502,10 @@ def _targs(act, norm, bias, drop):
 
 
 def _ex_fwd(label, rows, hidden, act, norm, p, bias):
-    """One block a row: y and h rows written, x, the residual, w (and b)
-    read."""
-    from ._examples import model, normal, row_threads
+    """The launch :func:`plan` gives: y and h rows written, x and the
+    residual rows read by the blocks that take them, w (and b) whole."""
+    from ._examples import model, normal
+    from ._norm_rows import declare
     m = model()
     bf = torch.bfloat16
     xw = hidden * (2 if act == "swiglu" else 1)
@@ -482,12 +513,9 @@ def _ex_fwd(label, rows, hidden, act, norm, p, bias):
            m.Operand("w", (hidden,), bf, data=normal((hidden,), bf, 0.1, 1.0)),
            m.Operand("y", (rows, hidden), bf, "out"),
            m.Operand("h", (rows, hidden), bf, "out")]
-    reads = [m.rows_map("x", rows, xw), m.rows_map("res", rows, hidden),
-             m.whole_map("w", (hidden,))]
     if bias:
         ops.append(m.Operand("b", (hidden,), bf, data=normal((hidden,), bf,
                                                              0.1)))
-        reads.append(m.whole_map("b", (hidden,)))
     args = (1234, p, 1e-5, act, norm)
 
     def plain(t):
@@ -499,17 +527,24 @@ def _ex_fwd(label, rows, hidden, act, norm, p, bias):
         _launch(t["x"], t["res"], t["w"], t.get("b"), t["y"], t["h"], *args,
                 stream)
 
-    kern = m.KernelLaunch(
-        "block_epilogue_kernel" + _targs(act, norm, bias, 0 < p < 1), rows,
-        row_threads(hidden // 8), smem=4 * hidden,
-        writes=[m.rows_map("y", rows, hidden), m.rows_map("h", rows, hidden)],
-        reads=reads)
+    kern = declare(m, "block_epilogue_kernel" + _targs(act, norm, bias,
+                                                       0 < p < 1),
+                   plan(rows, hidden, act, 0 < p < 1), rows, hidden,
+                   [("y", hidden), ("h", hidden)],
+                   [("x", xw), ("res", hidden)], ("w", "b") if bias else ("w",))
     n = rows * hidden
     flops = n * (6 + 3 * (norm == "layer") + bias + _ACT_FLOPS[act]
                  + 14 * (0 < p < 1))
     return m.Example(label, "block_epilogue", ops, [kern], launch, plain,
-                     flops=flops, nbytes=2 * (rows * xw + 3 * n
-                                              + hidden * (1 + bias)))
+                     flops=flops, nbytes=declared_bytes(rows, hidden, act,
+                                                        bias))
+
+
+def declared_bytes(rows, hidden, act, bias):
+    """The bytes a forward call must move, bf16: x ([rows, 2 hidden] for
+    swiglu) and the residual read, y and h written, w (and b) read once."""
+    xw = hidden * (2 if act == "swiglu" else 1)
+    return 2 * (rows * xw + 3 * rows * hidden + hidden * (1 + bool(bias)))
 
 
 def _ex_bwd(label, rows, hidden, act, norm, p, bias, with_gh=True):
@@ -573,9 +608,12 @@ def _ex_bwd(label, rows, hidden, act, norm, p, bias, with_gh=True):
 
 def ck_examples():
     """At ``block_fused_pallas.pk_examples``' shapes (attention and SwiGLU
-    junctions and the backward at [512, 1024]) and phase 3's (the forward
-    at hidden 4096: [8] and [1024] rows plain, [512] rows with gelu,
-    swiglu, dropout 0.1 and layer norm with a bias; the backward at
+    junctions and the backward at [512, 1024]), the forward past 8192 (the
+    wide arm), and phase 3's (the forward
+    at :data:`FWD_SHAPES`: hidden 4096 at [8], [1024] and [4096] rows plain
+    and [512] rows with gelu, swiglu, dropout 0.1 and layer norm with a
+    bias, and GPT-2 small's [8192, 768] layer norm with a bias; the
+    backward at
     Llama-3-8B's and GPT-2 small's junctions and two functional rows, and
     at hidden 12288, where a group of warps is the whole block); each with
     a tail of an odd row count and a hidden width that leaves threads of
@@ -583,14 +621,11 @@ def ck_examples():
     from ._examples import with_tail
     out = []
     fwd = [("attn_epilogue_fwd", 512, 1024, None, "rms", 0.0, False),
-           ("mlp_swiglu_fwd", 512, 1024, "swiglu", "rms", 0.0, False)]
-    for rows, act, norm, p, bias in (
-            (8, None, "rms", 0.0, False), (1024, None, "rms", 0.0, False),
-            (512, "gelu", "rms", 0.0, False),
-            (512, "swiglu", "rms", 0.0, False),
-            (512, None, "rms", 0.1, False), (512, None, "layer", 0.0, True)):
-        fwd.append((f"phase3 [{rows}, 4096] act={act} {norm} p={p}"
-                    + (" bias" if bias else ""), rows, 4096, act, norm, p,
+           ("mlp_swiglu_fwd", 512, 1024, "swiglu", "rms", 0.0, False),
+           ("epilogue_fwd_wide", 37, 12288, "gelu", "layer", 0.1, True)]
+    for rows, hid, act, norm, p, bias in FWD_SHAPES:
+        fwd.append((f"phase3 [{rows}, {hid}] act={act} {norm} p={p}"
+                    + (" bias" if bias else ""), rows, hid, act, norm, p,
                     bias))
     for label, rows, hidden, act, norm, p, bias in fwd:
         out.append(with_tail(

@@ -8,9 +8,11 @@ Source: ``paddle_tpu_torch/csrc/rms_norm.cu``.
 
 What bounds it on the H100: bytes — one read of ``x`` (and ``res``) and
 one write of ``y`` (and ``h``) per row, a few operations per element. The
-kernel gives each row one block that moves 16-byte vectors and keeps the
-f32 row in shared memory between the statistics pass and the scaling
-pass, so nothing is read twice from device memory.
+kernel holds a row in the registers of its block, a vector of 8 a thread,
+and requests ``w``, ``x`` and ``res`` before its one reduction, so a row
+costs one memory round trip; :func:`plan` (``_norm_rows.plan``, shared
+with the block epilogue's forward) keeps rows past 8192 in shared memory
+instead.
 
 Numerics follow the TPU kernel, not the JAX composite: ``h`` stays in f32,
 ``y = h * rstd * w`` is computed in f32 and cast once. The composite
@@ -36,15 +38,22 @@ import ctypes
 import torch
 
 from . import _build
+from ._norm_rows import WIDE_HIDDEN, plan
 
 __all__ = ["rms_norm", "rms_norm_plain", "rms_norm_bwd", "rms_norm_bwd_plain",
-           "RMSNormFunction"]
+           "RMSNormFunction", "plan"]
 
+# rows, hidden, eps, the plan's launch word, the stream
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_void_p]
+                                 ctypes.c_longlong, ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 _MAX_HIDDEN = 8192       # the backward kernel: 4 vectors a thread, 256 threads
+#: phase 3's forward rows (rows, hidden, residual): the decode rows, the
+#: prefill chunk's, the Qwen2-MoE forward's, the unfused Llama train step's
+FWD_SHAPES = ((8, 4096, False), (8, 4096, True), (512, 4096, False),
+              (512, 4096, True), (2048, 2048, True), (4096, 4096, False),
+              (4096, 4096, True))
 _ROW_GROUPS = 264        # backward: aim at two blocks for each of 132 SMs
 
 
@@ -78,7 +87,7 @@ def rms_norm_plain(x, weight, residual=None, eps=1e-6):
 def rms_norm(x, weight, residual=None, eps=1e-6):
     """RMSNorm over the last dim. A CPU tensor takes :func:`rms_norm_plain`;
     a CUDA tensor launches the kernel (bf16, contiguous, last dim a
-    multiple of 8) or raises."""
+    multiple of 8 and at most ``_norm_rows.WIDE_HIDDEN``) or raises."""
     _check(x, weight, residual)
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, residual, eps)
@@ -88,10 +97,11 @@ def rms_norm(x, weight, residual=None, eps=1e-6):
     if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
         raise TypeError(f"rms_norm kernel takes bf16, got {x.dtype} / "
                         f"{weight.dtype}")
-    if hidden % 8:
-        raise ValueError(f"rms_norm kernel needs hidden % 8 == 0, got {hidden}")
-    if not all(t.is_contiguous() for t in (x, weight, residual)
-               if t is not None):
+    if hidden % 8 or hidden > WIDE_HIDDEN:
+        raise ValueError(f"rms_norm kernel needs hidden % 8 == 0 and hidden "
+                         f"<= {WIDE_HIDDEN}, got {hidden}")
+    if not (x.is_contiguous() and weight.is_contiguous()
+            and (residual is None or residual.is_contiguous())):
         raise ValueError("rms_norm kernel takes contiguous tensors")
     _build.require_aligned("rms_norm", x, weight, residual)
     y = torch.empty_like(x)
@@ -105,12 +115,14 @@ rms_norm.launches = 0
 
 
 def _launch_fwd(x, weight, residual, y, h, eps, stream):
-    """The forward's C entry on operands the caller allocated."""
+    """The forward's C entry on operands the caller allocated, launched as
+    :func:`plan` says."""
     hidden = x.shape[-1]
+    rows = x.numel() // hidden
     fn = _build.function("rms_norm", "ptt_rms_norm", _ARGS)
     err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
              weight.data_ptr(), y.data_ptr(), None if h is None else h.data_ptr(),
-             x.numel() // hidden, hidden, float(eps), stream)
+             rows, hidden, float(eps), plan(rows, hidden).word, stream)
     _build.check(err, "rms_norm")
 
 
@@ -230,19 +242,21 @@ class RMSNormFunction(torch.autograd.Function):
 # -- declared launches for the kernel analyzer -------------------------------
 
 def _ex_fwd(label, rows, hidden, residual):
-    from ._examples import model, normal, row_threads
+    """The launch :func:`plan` gives: y (and h) rows written, x (and res)
+    rows read by the blocks that take them, w read whole."""
+    from ._examples import model, normal
+    from ._norm_rows import declare
     m = model()
     bf = torch.bfloat16
     ops = [m.Operand("x", (rows, hidden), bf),
            m.Operand("w", (hidden,), bf, data=normal((hidden,), bf, 0.1, 1.0)),
            m.Operand("y", (rows, hidden), bf, "out")]
-    writes = [m.rows_map("y", rows, hidden)]
-    reads = [m.rows_map("x", rows, hidden), m.whole_map("w", (hidden,))]
+    writes, reads = [("y", hidden)], [("x", hidden)]
     if residual:
         ops += [m.Operand("res", (rows, hidden), bf),
                 m.Operand("h", (rows, hidden), bf, "out")]
-        writes.append(m.rows_map("h", rows, hidden))
-        reads.append(m.rows_map("res", rows, hidden))
+        writes.append(("h", hidden))
+        reads.append(("res", hidden))
 
     def plain(t):
         out = rms_norm_plain(t["x"], t["w"], t.get("res"), 1e-5)
@@ -252,13 +266,17 @@ def _ex_fwd(label, rows, hidden, residual):
         _launch_fwd(t["x"], t["w"], t.get("res"), t["y"], t.get("h"), 1e-5,
                     stream)
 
-    kern = m.KernelLaunch(
-        f"rms_norm_kernel<{'true' if residual else 'false'}>", rows,
-        row_threads(hidden // 8), smem=4 * hidden, writes=writes, reads=reads)
+    kern = declare(m, f"rms_norm_kernel<{'true' if residual else 'false'}>",
+                   plan(rows, hidden), rows, hidden, writes, reads, ("w",))
     return m.Example(label, "rms_norm", ops, [kern], launch, plain,
                      flops=5 * rows * hidden,
-                     nbytes=2 * rows * hidden * (2 if residual else 1) * 2
-                     + 2 * hidden)
+                     nbytes=declared_bytes(rows, hidden, residual))
+
+
+def declared_bytes(rows, hidden, residual):
+    """The bytes a forward call must move: x (and res) read and y (and h)
+    written once, bf16, and w read once."""
+    return 2 * rows * hidden * (2 if residual else 1) * 2 + 2 * hidden
 
 
 def _ex_bwd(label, rows, hidden, with_gh):
@@ -304,21 +322,26 @@ def _ex_bwd(label, rows, hidden, with_gh):
                      tol=2.0 ** -6)
 
 
+def fwd_label(rows, hidden, residual):
+    """The label of phase 3's forward row (its ``ck_examples`` entry)."""
+    return f"phase3 forward [{rows}, {hidden}]" + (" residual" if residual
+                                                    else "")
+
+
 def ck_examples():
-    """The forward at ``rms_norm_pallas.pk_examples``' shapes ([512, 1024])
-    and phase 3's ([8, 4096], [512, 4096], with and without the residual),
-    the backward at [512, 1024] and phase 3's [4096, 4096] (with and
-    without the sum's cotangent); each with a tail of an odd row count and
-    a hidden width that leaves threads of the last warp idle."""
+    """The forward at ``rms_norm_pallas.pk_examples``' shapes ([512, 1024]),
+    past 8192 (the wide arm) and at phase 3's (:data:`FWD_SHAPES`), the
+    backward at [512, 1024] and phase 3's
+    [4096, 4096] (with and without the sum's cotangent); each with a tail of
+    an odd row count and a hidden width that leaves threads of the last
+    warp idle."""
     from ._examples import with_tail
     out = []
-    for label, rows, hidden, res in (
-            ("rms_fwd_plain", 512, 1024, False),
-            ("rms_fwd_res", 512, 1024, True),
-            ("phase3 [8, 4096]", 8, 4096, False),
-            ("phase3 [8, 4096] residual", 8, 4096, True),
-            ("phase3 [512, 4096]", 512, 4096, False),
-            ("phase3 [512, 4096] residual", 512, 4096, True)):
+    fwd = [("rms_fwd_plain", 512, 1024, False), ("rms_fwd_res", 512, 1024, True),
+           ("wide [37, 12288] residual", 37, 12288, True)]
+    fwd += [(fwd_label(rows, hidden, res), rows, hidden, res)
+            for rows, hidden, res in FWD_SHAPES]
+    for label, rows, hidden, res in fwd:
         out.append(with_tail(_ex_fwd, label,
                              dict(rows=rows, hidden=hidden, residual=res),
                              dict(rows=rows + 3, hidden=hidden + 8,

@@ -2407,3 +2407,125 @@ def test_analysis_demo_plants_on_the_card():
                "sentinel" in m for m in msgs)
     assert any("[oob_read] 16384 NaN in o" in m for m in msgs)
     assert not any("guard band" in m for m in msgs)
+
+
+# -- rows 2 and 9 on Hopper: both arms of the shared plan -------------------
+# (paddle_tpu_torch/ops/kernels/_norm_rows.py): a block a row in registers
+# and the shared-memory arm, at row counts of one, a decode batch, an odd
+# tail and more rows than a wave, at widths that leave lanes of the last
+# warp idle
+
+NORM_ARMS = ["row", "wide"]
+NORM_SHAPES = [(1, 768), (8, 4096), (37, 776), (1061, 2048), (300, 8192)]
+
+
+@pytest.fixture
+def norm_arm(request, monkeypatch):
+    """Both wrappers launched on arm ``request.param``."""
+    from paddle_tpu_torch.ops.kernels import _norm_rows as nr
+    arm = {"row": nr.ROW, "wide": nr.WIDE}[request.param]
+
+    def forced(rows, hidden, *variant):
+        return nr.make(arm, rows, hidden)
+    monkeypatch.setattr(rms_norm, "plan", forced)
+    monkeypatch.setattr(block_epilogue, "plan", forced)
+    return request.param
+
+
+@pytest.mark.parametrize("norm_arm", NORM_ARMS, indirect=True)
+@pytest.mark.parametrize("rows,hidden", NORM_SHAPES)
+@pytest.mark.parametrize("residual", [False, True])
+def test_rms_norm_every_arm(dev, norm_arm, rows, hidden, residual):
+    x, w = _randn(dev, rows, hidden, seed=41), _randn(dev, hidden, seed=42)
+    res = _randn(dev, rows, hidden, seed=43) if residual else None
+    before = WRAPPERS["rms_norm"].launches
+    got = rms_norm.rms_norm(x, w, res, 1e-5)
+    assert WRAPPERS["rms_norm"].launches == before + 1
+    again = rms_norm.rms_norm(x, w, res, 1e-5)
+    ref = rms_norm.rms_norm_plain(x, w, res, 1e-5)
+    got, again, ref = ((t,) if not residual else t for t in (got, again, ref))
+    for g, a, r in zip(got, again, ref):
+        _close(g, r)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("norm_arm", NORM_ARMS, indirect=True)
+@pytest.mark.parametrize("rows,hidden", NORM_SHAPES)
+@pytest.mark.parametrize("act,norm,p,bias_on", EPI_CASES)
+def test_block_epilogue_every_arm(dev, norm_arm, rows, hidden, act, norm, p,
+                                  bias_on):
+    """A variant with an activation or dropout has no block-a-row kernel in
+    registers: that launch is refused (and raises), nothing counted."""
+    xw = 2 * hidden if act == "swiglu" else hidden
+    x = _randn(dev, rows, xw, seed=44)
+    res = _randn(dev, rows, hidden, seed=45)
+    w = _randn(dev, hidden, seed=46)
+    bias = _randn(dev, hidden, seed=47) if bias_on else None
+    args = (x, res, w, bias, 1234, p, 1e-5, act, norm)
+    before = WRAPPERS["block_epilogue"].launches
+    if norm_arm == "row" and (act is not None or p):
+        with pytest.raises(RuntimeError):
+            block_epilogue.fused_epilogue(*args)
+        assert WRAPPERS["block_epilogue"].launches == before
+        return
+    got = block_epilogue.fused_epilogue(*args)
+    assert WRAPPERS["block_epilogue"].launches == before + 1
+    again = block_epilogue.fused_epilogue(*args)
+    ref = block_epilogue.fused_epilogue_plain(*args)
+    for g, a, r in zip(got, again, ref):
+        _close(g, r)
+        assert torch.equal(g, a)
+    if p:
+        # h is 0 exactly where the mask dropped (x bounded away from 0, a
+        # zero residual)
+        x1 = (x.float().abs() + 1.0).to(x.dtype)
+        _, h0 = block_epilogue.fused_epilogue(x1, torch.zeros_like(res), w,
+                                              bias, 1234, p, 1e-5, act, norm)
+        keep = block_epilogue.keep_mask(rows, hidden, 1234, p, dev)
+        assert torch.equal(h0 == 0, ~keep)
+
+
+def test_norm_rows_c_entries_refuse_a_short_launch(dev):
+    """A launch word that does not cover every (row, vector), or that names
+    what the kernels cannot launch, is refused: the entry returns an error
+    and writes nothing."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import _norm_rows as nr
+    rows, hd = 37, 4096
+
+    def word(arm, threads, blocks):
+        return threads | arm << 16 | blocks << 20
+    x, w = _randn(dev, rows, hd, seed=48), _randn(dev, hd, seed=49)
+    bad = [word(nr.ROW, 256, rows),           # 256 x 8 < 4096
+           word(nr.ROW, 512, rows - 1),       # a row short
+           word(nr.ROW, 512, rows + 1),       # a block without a row
+           word(nr.WIDE, 512, rows - 1),      # a row short
+           word(nr.ROW, 500, rows),           # not whole warps
+           word(nr.ROW, 1056, rows),          # past 1024 threads
+           word(2, 512, rows)]                # no such arm
+    rms = _build.function("rms_norm", "ptt_rms_norm", rms_norm._ARGS)
+    epi = _build.function("block_epilogue", "ptt_block_epilogue",
+                          block_epilogue._ARGS)
+    stream = _build.stream_of(x)
+    for wd in bad:
+        y = torch.full_like(x, 7.0)
+        assert rms(x.data_ptr(), None, w.data_ptr(), y.data_ptr(), None,
+                   rows, hd, 1e-5, wd, stream) != 0
+        h = torch.full_like(x, 7.0)
+        assert epi(x.data_ptr(), x.data_ptr(), w.data_ptr(), None,
+                   y.data_ptr(), h.data_ptr(), rows, hd, 0, 0, 0, 1e-5, 0, 0,
+                   1.0, wd, stream) != 0
+        torch.cuda.synchronize()
+        assert bool((y == 7.0).all()) and bool((h == 7.0).all())
+    # gelu a block a row in registers: no such kernel
+    assert epi(x.data_ptr(), x.data_ptr(), w.data_ptr(), None, y.data_ptr(),
+               h.data_ptr(), rows, hd, 1, 0, 0, 1e-5, 0, 0, 1.0,
+               word(nr.ROW, 512, rows), stream) != 0
+    # the wide arm past its shared memory
+    assert rms(x.data_ptr(), None, w.data_ptr(), y.data_ptr(), None, 1,
+               nr.WIDE_HIDDEN + 8, 1e-5, word(nr.WIDE, 1024, 1), stream) != 0
+    # the plan's own words launch
+    for r in (1, rows):
+        y = torch.empty_like(x)
+        assert rms(x.data_ptr(), None, w.data_ptr(), y.data_ptr(), None, r,
+                   hd, 1e-5, rms_norm.plan(r, hd).word, stream) == 0
