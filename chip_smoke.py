@@ -46,7 +46,11 @@ Phases, in order; any failure exits non-zero:
    cuBLAS bf16 ``torch.matmul`` on the dequantized weight), and A8W8 must
    be bit-identical to its plain version on a construction where
    ``x / s`` is exact (yardstick: ``torch._int_mm``, the int8
-   contraction alone).
+   contraction alone). SwiGLU runs at every shape the paths launch and at
+   the sigmoid's extremes (each element within one ulp); the RMSNorm
+   backward at the Llama and Qwen2-MoE train steps' rows, two calls bit
+   for bit. Each kernel's summary in the last lines carries every shape's
+   numbers (``shapes``).
 4. serve   — Llama-3-8B at full width and depth, random weights from a
    seed, served by six ``LLMEngine``s over the same model, 12 greedy
    requests each on 8 slots (engine f: 4); every kernel's launch count is
@@ -291,6 +295,10 @@ DEMO_REPLACES = {"vmem_overflow": 38, "overlapping_writes": 48,
                  "coverage_gap": 60, "oob_read": 72, "vmem_scalar_mulf": 89}
 RATES = {"f32": F32_FLOPS_PER_S, "bf16": BF16_TC_FLOPS_PER_S,
          "int8": INT8_TC_OPS_PER_S}
+#: g at the sigmoid's extremes for phase 3's SwiGLU check (exp(-g) passes
+#: 2^126 below about -88 and overflows below -88.7)
+SWIGLU_EXTREMES = [88.0, -88.0, 100.0, -100.0, 1e4, -1e4, 0.0, -87.5, -88.5,
+                   -89.0, -90.0, 20.0, -20.0, 1.0, -1.0]
 #: (library, label) -> the analysis phase's resource sheets of that
 #: example, one a kernel it launches
 SHEETS: dict = {}
@@ -537,7 +545,13 @@ def _record(results, name, shape, err, tol, ms, plain_ms, library_ms,
     emit(row)
     if not err <= tol:
         fail(f"{name} {shape}: max abs error {err} > tolerance {tol}")
-    results.setdefault(name, row)     # the first (decode) shape is summarised
+    # the first (decode) shape is the kernel's summary; every shape's numbers
+    # ride it under "shapes"
+    first = results.setdefault(name, row)
+    first.setdefault("shapes", []).append(
+        {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+         "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+         "max_abs_err": err})
 
 
 def phase_kernels(torch, dev):
@@ -585,15 +599,34 @@ def phase_kernels(torch, dev):
                 same_bits=True, plan=list(rms_norm.plan(rows, hid)[:3]))
         del x, res, r, got, ref, again
 
-    # swiglu: [8, 14336] and [512, 14336]
-    inter = 14336
-    for rows in (8, 512):
-        g, u = randn(rows, inter), randn(rows, inter)
-        err, tol = compare(torch, swiglu.swiglu(g, u), swiglu.swiglu_plain(g, u))
-        _record(results, "swiglu", [rows, inter], err, tol,
+    # swiglu: every shape the paths launch (swiglu.FWD_SHAPES: the decode
+    # batches, the prefill chunk and the 1024-token prefill, the Llama train
+    # step, Qwen1.5-MoE's expert capacity tensor and shared expert); two
+    # calls give the same bits; then g at the sigmoid's extremes, every
+    # element within one ulp of the plain version at its own magnitude
+    for rows, width in swiglu.FWD_SHAPES:
+        g, u = randn(rows, width), randn(rows, width)
+        got = swiglu.swiglu(g, u)
+        if not torch.equal(got, swiglu.swiglu(g, u)):
+            fail(f"swiglu [{rows}, {width}]: two calls gave different bits")
+        err, tol = compare(torch, got, swiglu.swiglu_plain(g, u))
+        _record(results, "swiglu", [rows, width], err, tol,
                 timer(lambda: swiglu.swiglu(g, u)),
                 timer(lambda: swiglu.swiglu_plain(g, u)), None,
-                ("swiglu", f"phase3 [{rows}, {inter}]"))
+                ("swiglu", swiglu.fwd_label(rows, width)), same_bits=True,
+                plan=list(swiglu.plan(rows * width)[:3]))
+        del g, u, got
+    g = torch.tensor(SWIGLU_EXTREMES, device=dev).repeat(4, 32).to(bf)
+    u = torch.linspace(-3.0, 3.0, g.numel(), device=dev).view(g.shape).to(bf)
+    got, ref = swiglu.swiglu(g, u).float(), swiglu.swiglu_plain(g, u).float()
+    ulp = (2.0 ** (torch.floor(torch.log2(ref.abs())) - 7)).clamp(
+        min=2.0 ** -133)
+    worst = ((got - ref).abs() / ulp).max().item()
+    emit({"kernel": "swiglu", "extremes": SWIGLU_EXTREMES,
+          "max_ulps": worst})
+    if not (worst <= 1.0 and bool(torch.isfinite(got).all())):
+        fail(f"swiglu at g {SWIGLU_EXTREMES}: {worst} ulps from the plain "
+             f"version")
 
     # rope: the q+k pairs of a decode step (per-token tables at ragged
     # positions) and of a 512-token prefill chunk, one launch each; then the
@@ -698,9 +731,10 @@ def _grad_timer(torch, timer, out, inputs, grad_out):
 def _kernels_train(torch, dev, randn, timer, results):
     """The training kernels at the train phase's shapes (Llama-3-8B's
     width, TRAIN_BATCH x TRAIN_SEQ = 2 x 2048 tokens): the RMSNorm backward
-    [4096, 4096] with and without the residual sum's cotangent (dx within
-    one bf16 ulp; dw within 1e-3 of its largest value plus the one bf16
-    rounding of the result), the SwiGLU backward [4096, 14336] (one ulp),
+    at [4096, 4096] and at the Qwen2-MoE step's [4096, 2048], each with and
+    without the residual sum's cotangent (dx within one bf16 ulp; dw within
+    1e-3 of its largest value plus the one bf16 rounding of the result; dx
+    and dw the same bits on two calls), the SwiGLU backward [4096, 14336] (one ulp),
     the flash-attention backward at q [2, 2048, 32, 128] over 8 kv heads,
     causal, then packed segments at [2, 1024], full attention at [1, 1024]
     and D 64, and GPT-2 small's causal [GPT_BATCH, GPT_SEQ, 12, 64] over
@@ -721,31 +755,45 @@ def _kernels_train(torch, dev, randn, timer, results):
     cfg = LlamaConfig()
     rows, hid, inter = TRAIN_BATCH * TRAIN_SEQ, cfg.hidden_size, \
         cfg.intermediate_size
-    w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
-    h, g = randn(rows, hid), randn(rows, hid)
-    for with_gh in (False, True):
-        gh = randn(rows, hid) if with_gh else None
-        dx, dw = rms_norm.rms_norm_bwd(h, w, g, gh, 1e-5)
-        rdx, rdw = rms_norm.rms_norm_bwd_plain(h, w, g, gh, 1e-5)
-        err, tol = compare(torch, dx, rdx)
-        err_w, _ = compare(torch, dw, rdw)
-        tol_w = (1e-3 + 2.0 ** -7) * rdw.float().abs().max().item()
-        if not err_w <= tol_w:
-            fail(f"rms_norm_bwd dw: {err_w} > {tol_w}")
-        lib = None
-        if not with_gh:
-            xl = h.clone().requires_grad_()
-            wl = w.clone().requires_grad_()
-            lib = _grad_timer(torch, timer, TF.rms_norm(xl, (hid,), wl, 1e-5),
-                              (xl, wl), g)
-        _record(results, "rms_norm_bwd",
-                [rows, hid] + (["residual cotangent"] if with_gh else []),
-                err, tol,
-                timer(lambda: rms_norm.rms_norm_bwd(h, w, g, gh, 1e-5)),
-                timer(lambda: rms_norm.rms_norm_bwd_plain(h, w, g, gh, 1e-5)),
-                lib, ("rms_norm", f"phase3 [{rows}, {hid}]"
-                      + (" residual cotangent" if with_gh else "")),
-                dw_err=err_w, dw_tol=tol_w)
+    # the Llama train step's [4096, 4096] and the Qwen2-MoE one's [4096,
+    # 2048] (rms_norm.BWD_SHAPES), each with and without the cotangent of
+    # the residual sum; dx and dw the same bits on two calls
+    for b_rows, b_hid in rms_norm.BWD_SHAPES:
+        w = (1.0 + randn(b_hid).float() * 0.1).to(torch.bfloat16)
+        h, g = randn(b_rows, b_hid), randn(b_rows, b_hid)
+        for with_gh in (False, True):
+            gh = randn(b_rows, b_hid) if with_gh else None
+            dx, dw = rms_norm.rms_norm_bwd(h, w, g, gh, 1e-5)
+            dx2, dw2 = rms_norm.rms_norm_bwd(h, w, g, gh, 1e-5)
+            if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                fail(f"rms_norm_bwd [{b_rows}, {b_hid}]: two calls gave "
+                     f"different bits")
+            rdx, rdw = rms_norm.rms_norm_bwd_plain(h, w, g, gh, 1e-5)
+            err, tol = compare(torch, dx, rdx)
+            err_w, _ = compare(torch, dw, rdw)
+            tol_w = (1e-3 + 2.0 ** -7) * rdw.float().abs().max().item()
+            if not err_w <= tol_w:
+                fail(f"rms_norm_bwd dw: {err_w} > {tol_w}")
+            lib = None
+            if not with_gh:
+                xl = h.clone().requires_grad_()
+                wl = w.clone().requires_grad_()
+                lib = _grad_timer(torch, timer,
+                                  TF.rms_norm(xl, (b_hid,), wl, 1e-5),
+                                  (xl, wl), g)
+                del xl, wl
+            _record(results, "rms_norm_bwd",
+                    [b_rows, b_hid] + (["residual cotangent"] if with_gh
+                                       else []), err, tol,
+                    timer(lambda: rms_norm.rms_norm_bwd(h, w, g, gh, 1e-5)),
+                    timer(lambda: rms_norm.rms_norm_bwd_plain(h, w, g, gh,
+                                                              1e-5)),
+                    lib, ("rms_norm", rms_norm.bwd_label(b_rows, b_hid,
+                                                         with_gh)),
+                    dw_err=err_w, dw_tol=tol_w, same_bits=True,
+                    plan=list(rms_norm.bwd_plan(b_rows, b_hid, with_gh)[:5]))
+            del gh, dx, dw, dx2, dw2, rdx, rdw
+        del w, h, g
 
     gg, uu, dy = randn(rows, inter), randn(rows, inter), randn(rows, inter)
     got, ref = swiglu.swiglu_bwd(gg, uu, dy), swiglu.swiglu_bwd_plain(gg, uu, dy)
@@ -1910,6 +1958,7 @@ _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
                 "wo_prefill_kernel", "wo_decode_kernel",
                 "a8w8_quantize_kernel", "a8w8_transpose_kernel",
                 "a8w8_wgmma_kernel", "rms_norm_bwd_kernel",
+                "rms_norm_bwd_sum_kernel",
                 "swiglu_bwd_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                 "adamw_kernel", "block_epilogue_bwd_rows_kernel",
@@ -3893,7 +3942,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"],
+            "shape": row["shape"], "shapes": row["shapes"],
             **({"composite_ms": row["composite_ms"]}
                if "composite_ms" in row else {})})
     emit({"kernels": summary + demo_rows})

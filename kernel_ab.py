@@ -14,6 +14,8 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> softmax [--incubate]
     python3 kernel_ab.py <checkout root> <tag> rows [--incubate]
     python3 kernel_ab.py <checkout root> <tag> norm [--engine] [--train]
+    python3 kernel_ab.py <checkout root> <tag> swiglu [--engine] [--train[=llama]]
+    python3 kernel_ab.py <checkout root> <tag> normbwd [--train]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -204,6 +206,54 @@ Family ``norm`` (the RMSNorm forward and the block-epilogue forward, rows
   phases of that checkout (the Llama trunks and GPT-2 small, each with the
   profile of a step).
 
+Family ``swiglu`` (the two-operand SwiGLU forward, row 5):
+
+- ``swiglu``: every shape the paths launch ([1, 14336] and [8, 14336]
+  decode, [512, 14336] and [1024, 14336] prefill, [4096, 14336] the Llama
+  train step, [16440, 1408] the Qwen1.5-MoE experts' capacity tensor in
+  serve_moe, [2048, 5632] its shared expert) and a tail [3, 77]: the call's
+  cold-L2 ms (mean and median of 20 calls), its warm device ms
+  (``split``), the byte bound (g and u read, y written once) and the share
+  of it, ``copy_ms``: a ``copy_`` of as many bytes (half read, half
+  written) under the same timer, the error against the plain version and
+  whether two calls give the same bits; ``library_ms`` is null: no one
+  PyTorch call computes ``silu(g) * u``;
+- ``extreme``: g at +-88, +-100 and +-1e4 (and 0) against the plain
+  version, element by element in bf16 ulps;
+- ``floor``: a ``copy_`` of 16 bytes under the cold timer;
+- ``host``: the host time of one wrapper call at [8, 14336] and [4096,
+  14336], as for flash;
+- with ``--engine``, the decode-step profiles of engines a and b and
+  engine b's 1024-token monolithic prefill (as ``norm --engine``);
+- with ``--train``, ``chip_smoke.py``'s ``train``, ``serve_moe`` and
+  ``train_moe`` phases of that checkout (each with its profile); with
+  ``--train=llama`` the ``train`` phase alone;
+- with ``--probe=threads,unroll,blocks_sm``, every shape launched as
+  ``swiglu.make(n, threads, unroll, blocks_sm)`` gives it (a checkout
+  whose plan has those choices).
+
+Family ``normbwd`` (the RMSNorm backward, row 3):
+
+- ``rms_bwd``: [4096, 4096] (the Llama train step) and [4096, 2048] (the
+  Qwen2-MoE train step), each with and without the sum's cotangent, and a
+  tail [37, 776]: the call's cold-L2 ms (the dw sum included; mean and
+  median), its warm device ms by kernel (``split``), the byte bound (h, g
+  and the cotangent read, dx written, w read and dw written once) and the
+  share of it, ``copy_ms`` under the same timer, ``library_ms``: autograd
+  of ``F.rms_norm`` (without the cotangent; its device ms too), dx's and
+  dw's error against the plain version and whether two calls give the same
+  bits of dx and dw;
+- ``epi_yardstick``: row 10 (``fused_epilogue_bwd``, rms, no activation)
+  at [4096, 4096] with the cotangent, the same function plus one more
+  written row (``dres``), timed the same way;
+- ``host``: the host time of one wrapper call at [4096, 4096] with and
+  without the cotangent;
+- with ``--train``, ``chip_smoke.py``'s ``train`` and ``train_moe``
+  phases (their profiles carry the backward's device ms by kernel);
+- with ``--probe=blocks_sm``, every shape launched as
+  ``rms_norm.make_bwd(rows, hidden, has_gh, blocks_sm)`` gives it (a
+  checkout whose plan has that choice).
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -228,7 +278,7 @@ def main() -> int:
     families = {"flash": _flash, "wo": _wo, "grad": _grad, "a8w8": _a8w8,
                 "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode,
                 "softmax": _softmax, "rows": _rows,
-                "norm": _norm}
+                "norm": _norm, "swiglu": _swiglu, "normbwd": _normbwd}
     if family not in families:
         cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
@@ -1119,6 +1169,163 @@ def _norm(torch, cs, dev, timer, randn, emit):
         cs.phase_train(torch, dev)
         cs._free(torch)
         cs.phase_train_gpt(torch, dev)
+
+
+#: the swiglu family's shapes: (rows, width) of g, u and y
+SWIGLU_ROWS = ((1, 14336), (8, 14336), (512, 14336), (1024, 14336),
+               (4096, 14336), (16440, 1408), (2048, 5632), (3, 77))
+#: the normbwd family's shapes: (rows, hidden, with the sum's cotangent)
+NORMBWD_ROWS = ((4096, 4096, False), (4096, 4096, True), (4096, 2048, False),
+                (4096, 2048, True), (37, 776, True))
+
+
+def _probe():
+    """The integers of a ``--probe=a,b,...`` argument, or None."""
+    for a in sys.argv[4:]:
+        if a.startswith("--probe="):
+            return [int(v) for v in a[len("--probe="):].split(",")]
+    return None
+
+
+def _copy_timer(torch, dev, timer):
+    """``copy_ms(nbytes)``: a ``copy_`` of ``nbytes`` bytes, half read and
+    half written, under ``timer`` (each size timed once)."""
+    copies = {}
+
+    def copy_ms(nbytes):
+        if nbytes not in copies:
+            src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+            dst = torch.empty_like(src)
+            copies[nbytes] = timer(lambda: dst.copy_(src))
+            del src, dst
+        return copies[nbytes]
+    return copy_ms
+
+
+def _swiglu(torch, cs, dev, timer, randn, emit):
+    from paddle_tpu_torch.ops.kernels import swiglu as sw
+
+    probe = _probe()
+    if probe:
+        sw.plan = lambda n: sw.make(n, *probe)
+    rate = cs.MEM_BYTES_PER_S
+    copy_ms = _copy_timer(torch, dev, timer)
+    for rows, width in SWIGLU_ROWS:
+        g, u = randn(rows, width), randn(rows, width)
+        fn = lambda: sw.swiglu(g, u)  # noqa: E731
+        got, again, ref = fn(), fn(), sw.swiglu_plain(g, u)
+        err, tol = cs.compare(torch, got, ref)
+        ms, median = _cold_stats(torch, timer, fn)
+        nbytes = 3 * 2 * rows * width
+        bound = nbytes / rate * 1e3
+        emit(swiglu=[rows, width], ms=ms, ms_median=median, bound_ms=bound,
+             bound_share=bound / ms, copy_ms=copy_ms(nbytes),
+             library_ms=None, max_abs_err=err, tol=tol,
+             same_bits=bool(torch.equal(got, again)),
+             split=_split(torch, cs, fn))
+        del g, u, got, again, ref
+
+    vals = torch.tensor([88.0, -88.0, 100.0, -100.0, 1e4, -1e4, 0.0, -87.5,
+                         -89.0, 20.0, -20.0], device=dev)
+    g = vals.repeat(2, 64).to(torch.bfloat16)
+    u = torch.linspace(-3.0, 3.0, g.numel(), device=dev).view(g.shape).to(
+        torch.bfloat16)
+    got, ref = sw.swiglu(g, u).float(), sw.swiglu_plain(g, u).float()
+    torch.cuda.synchronize()
+    # one bf16 ulp at each reference value (2**-133 below the normal range)
+    ulp = (2.0 ** (torch.floor(torch.log2(ref.abs())) - 7)).clamp(
+        min=2.0 ** -133)
+    emit(extreme=vals.tolist(),
+         max_ulps=((got - ref).abs() / ulp).max().item(),
+         finite=bool(torch.isfinite(got).all()))
+
+    s8 = torch.empty(16, dtype=torch.uint8, device=dev)
+    d8 = torch.empty_like(s8)
+    emit(floor=["copy_", 16], ms=timer(lambda: d8.copy_(s8)))
+    for rows in (8, 4096):
+        g, u = randn(rows, 14336), randn(rows, 14336)
+        emit(host=["swiglu", rows, 14336],
+             us=_host_us(torch, lambda: sw.swiglu(g, u)))
+        del g, u
+
+    if "--engine" in sys.argv[4:]:
+        _engine_profiles(torch, cs, dev, emit, prefill=True)
+    if "--train" in sys.argv[4:] or "--train=llama" in sys.argv[4:]:
+        cs._free(torch)
+        cs.phase_train(torch, dev)
+    if "--train" in sys.argv[4:]:
+        cs._free(torch)
+        moe_model = cs.phase_serve_moe(torch, dev)[0]
+        del moe_model
+        cs._free(torch)
+        cs.phase_train_moe(torch, dev)
+
+
+def _normbwd(torch, cs, dev, timer, randn, emit):
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import block_epilogue as be
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+
+    probe = _probe()
+    if probe:
+        rn.bwd_plan = lambda rows, hid, gh: rn.make_bwd(rows, hid, gh, *probe)
+    rate = cs.MEM_BYTES_PER_S
+    copy_ms = _copy_timer(torch, dev, timer)
+    for rows, hid, with_gh in NORMBWD_ROWS:
+        w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
+        h, g = randn(rows, hid), randn(rows, hid)
+        gh = randn(rows, hid) if with_gh else None
+        fn = lambda: rn.rms_norm_bwd(h, w, g, gh, 1e-5)  # noqa: E731
+        got, again = fn(), fn()
+        ref = rn.rms_norm_bwd_plain(h, w, g, gh, 1e-5)
+        err, tol = cs.compare(torch, got[0], ref[0])
+        err_w = cs.compare(torch, got[1], ref[1])[0]
+        dw_rel = err_w / max(ref[1].float().abs().max().item(), 1e-30)
+        lib = lib_dev = None
+        if not with_gh:
+            xl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
+            yl = TF.rms_norm(xl, (hid,), wl, 1e-5)
+
+            def grad():
+                return torch.autograd.grad(yl, (xl, wl), g,
+                                           retain_graph=True)
+            lib = timer(grad)
+            lib_dev = _split(torch, cs, grad)["device_ms"]
+            del xl, wl, yl, grad
+        ms, median = _cold_stats(torch, timer, fn)
+        nbytes = 2 * rows * hid * (3 + with_gh) + 2 * hid * 2
+        bound = nbytes / rate * 1e3
+        emit(rms_bwd=[rows, hid, "cotangent" if with_gh else "no cotangent"],
+             ms=ms, ms_median=median, bound_ms=bound, bound_share=bound / ms,
+             copy_ms=copy_ms(nbytes), library_ms=lib,
+             library_device_ms=lib_dev, max_abs_err=err, tol=tol,
+             dw_rel_err=dw_rel,
+             same_bits=all(bool(torch.equal(a, b))
+                           for a, b in zip(got, again)),
+             split=_split(torch, cs, fn))
+        del h, g, gh, got, again, ref
+
+    rows, hid = 4096, 4096
+    w = (1.0 + randn(hid).float() * 0.1).to(torch.bfloat16)
+    h, gy, gh = randn(rows, hid), randn(rows, hid), randn(rows, hid)
+    args = (h, None, w, gy, gh, 0, 0.0, 1e-5, None, "rms", False)
+    fn = lambda: be.fused_epilogue_bwd(*args)  # noqa: E731
+    ms, median = _cold_stats(torch, timer, fn)
+    emit(epi_yardstick=[rows, hid, "rms", "cotangent"], ms=ms,
+         ms_median=median, split=_split(torch, cs, fn))
+    for with_gh in (False, True):
+        g2 = gh if with_gh else None
+        emit(host=["rms_norm_bwd", rows, hid,
+                   "cotangent" if with_gh else "no cotangent"],
+             us=_host_us(torch, lambda: rn.rms_norm_bwd(h, w, gy, g2, 1e-5)))
+    del h, gy, gh, args
+
+    if "--train" in sys.argv[4:]:
+        cs._free(torch)
+        cs.phase_train(torch, dev)
+        cs._free(torch)
+        cs.phase_train_moe(torch, dev)
 
 
 def _cold_stats(torch, timer, fn, iters=20, warmup=3):

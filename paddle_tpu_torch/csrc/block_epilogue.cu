@@ -356,31 +356,8 @@ inline BwdPlan bwd_plan(int rows, int hidden, bool bias, bool has_gh) {
   return BwdPlan{v, g, ng, threads, smem, bsm, rpg, blocks};
 }
 
-// Sums of N values over the lane's group; every thread of the group receives
-// the totals in the same order. A group of one warp reduces by shuffles; a
-// larger one also adds its warps' sums through `red` (two buffers used in
-// turn, so no trailing barrier: a buffer is written again only after every
-// warp has passed the next round's barrier, i.e. read this one) behind the
-// group's named barrier.
-template <int N>
-__device__ __forceinline__ void group_sums(float* v, float (*red)[3][kMaxGroupWarps], int& buf, int grp,
-                                           int g, int wig, int lane) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = ptt::warp_sum(v[k]);
-  if (g == 1) return;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) red[buf][k][grp * g + wig] = v[k];
-  }
-  hp::bar_sync(1 + grp, g * 32);
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float t = 0.f;
-    for (int i = 0; i < g; ++i) t += red[buf][k][grp * g + i];
-    v[k] = t;
-  }
-  buf ^= 1;
-}
+// A group's sums: norm_rows.cuh (shared with the RMSNorm backward).
+using rw::group_sums;
 
 // The backward's rows, as the header says: a narrow group (V ==
 // kNarrowVecs) reads h, gy and gh from its shared-memory stages, filled by
@@ -670,30 +647,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 }
 
 // out[c] = sum over b of part[a][b][col] for c = a * hidden + col < cols, in
-// a fixed order: thread (ty, tx) adds blocks ty, ty + kSumRows, ... of one
-// column, then the kSumRows partial sums are added in order of ty. No
-// atomics: two calls give the same bits.
+// a fixed order (norm_rows.cuh `sum_partial_rows`, shared with the RMSNorm
+// backward). No atomics: two calls give the same bits.
 __global__ void __launch_bounds__(32 * kSumRows)
     block_epilogue_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
                                   int n_blocks, int hidden, int cols) {
-  __shared__ float acc[kSumRows][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + tx;
-  float s = 0.f;
-  if (c < cols) {
-    const int a = c / hidden, col = c % hidden;
-    const float* p = part + (size_t)a * n_blocks * hidden + col;
-#pragma unroll 8
-    for (int b = ty; b < n_blocks; b += kSumRows) s += p[(size_t)b * hidden];
-  }
-  acc[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && c < cols) {
-    float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < kSumRows; ++k) t += acc[k][tx];
-    out[c] = t;
-  }
+  rw::sum_partial_rows<kSumRows>(part, out, n_blocks, hidden, cols);
 }
 
 struct BwdArgs {

@@ -17,10 +17,8 @@ namespace ptt {
 
 using bf16 = __nv_bfloat16;
 
-// 8 bf16 values <-> 8 floats through one 16-byte access (callers keep the
-// pointer 16-byte aligned: the Python wrappers check it).
-__device__ __forceinline__ void load8(const bf16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+// 8 bf16 values of a 16-byte word as floats
+__device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -30,12 +28,23 @@ __device__ __forceinline__ void load8(const bf16* p, float* out) {
   }
 }
 
-__device__ __forceinline__ void store8(bf16* p, const float* in) {
+// 8 floats as the 16-byte word of their bf16 values (rounded to nearest)
+__device__ __forceinline__ uint4 pack8(const float* in) {
   uint4 raw;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
+  return raw;
+}
+
+// 8 bf16 values <-> 8 floats through one 16-byte access (callers keep the
+// pointer 16-byte aligned: the Python wrappers check it).
+__device__ __forceinline__ void load8(const bf16* p, float* out) {
+  unpack8(*reinterpret_cast<const uint4*>(p), out);
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float* in) {
+  *reinterpret_cast<uint4*>(p) = pack8(in);
 }
 
 // 8 floats through two 16-byte accesses (the f32 counterparts of the above)

@@ -1,6 +1,9 @@
 // The row machinery of the two forward kernels that add into a residual row
 // and normalise it: RMSNorm (csrc/rms_norm.cu `rms_norm_kernel`) and the
-// block epilogue (csrc/block_epilogue.cu `block_epilogue_kernel`).
+// block epilogue (csrc/block_epilogue.cu `block_epilogue_kernel`); and, at
+// the end, what the two backward kernels share (`rms_norm_bwd_kernel` and
+// `block_epilogue_bwd_rows_kernel`): a group's sums behind its named barrier
+// and the fixed-order sum of the blocks' partial rows.
 //
 // A row belongs to one block, and thread t of it holds the row's 8-element
 // vector t in registers (kRow), so a row is at most 8 * 1024 wide. Every load
@@ -69,16 +72,8 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// 8 bf16 values of a 16-byte word as floats
-__device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
+// 8 bf16 values of a 16-byte word as floats (common.cuh)
+using ptt::unpack8;
 
 // The block's sum of `v` (every thread passes its own; every thread gets
 // the total): each warp's sum into shared memory, one barrier, then every
@@ -93,6 +88,64 @@ __device__ __forceinline__ float block_total(float v, float (*red)[32], int& buf
   const float t = warp_sum(lane < (int)(blockDim.x >> 5) ? red[buf][lane] : 0.f);
   buf ^= 1;
   return t;
+}
+
+// -- the backward kernels' row groups -------------------------------------------
+
+// Sums of N values over the lane's group of g warps (group grp; the lane's
+// warp is wig of it); every thread of the group receives the totals in the
+// same order. A group of one warp reduces by shuffles; a larger one also
+// adds its warps' sums through `red` (two buffers used in turn, so no
+// trailing barrier: a buffer is written again only after every warp has
+// passed the next round's barrier, i.e. read this one) behind the group's
+// named barrier 1 + grp.
+template <int N, int K, int W>
+__device__ __forceinline__ void group_sums(float* v, float (*red)[K][W], int& buf, int grp, int g,
+                                           int wig, int lane) {
+  static_assert(N <= K, "a buffer holds K sums");
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
+  if (g == 1) return;
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) red[buf][k][grp * g + wig] = v[k];
+  }
+  hopper::bar_sync(1 + grp, g * 32);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float t = 0.f;
+    for (int i = 0; i < g; ++i) t += red[buf][k][grp * g + i];
+    v[k] = t;
+  }
+  buf ^= 1;
+}
+
+// out[c] = sum over b of part[a][b][col] for c = a * hidden + col < cols, in
+// a fixed order, stored as T (f32 or bf16, rounded once): the calling
+// kernel's blocks of 32 * R threads take 32 columns each; thread (ty, tx)
+// adds blocks ty, ty + R, ... of one column, then the R partial sums are
+// added in order of ty. No atomics: two calls give the same bits.
+template <int R, typename T>
+__device__ __forceinline__ void sum_partial_rows(const float* __restrict__ part, T* __restrict__ out,
+                                                 int n_blocks, int hidden, int cols) {
+  __shared__ float acc[R][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + tx;
+  float s = 0.f;
+  if (c < cols) {
+    const int a = c / hidden, col = c % hidden;
+    const float* p = part + (size_t)a * n_blocks * hidden + col;
+#pragma unroll 8
+    for (int b = ty; b < n_blocks; b += R) s += p[(size_t)b * hidden];
+  }
+  acc[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && c < cols) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) t += acc[k][tx];
+    from_f(out + c, t);
+  }
 }
 
 }  // namespace rows

@@ -13,45 +13,126 @@
 // same way.
 //
 // Bound on the H100: bytes. Two inputs read once, one output written once,
-// a handful of operations per element. Design: a grid-stride loop over
-// 16-byte vectors (8 elements a thread per step), enough blocks to cover
-// every SM several times; the ragged tail (n % 8) is done element by element.
-// The backward reads three tensors and writes two the same way. The packed
-// kernels need I % 8 == 0, so that every vector lies inside one half.
+// a handful of operations per element. Forward design: a grid-stride loop
+// over 16-byte vectors whose launch (threads a block, vectors a thread
+// requests at once, blocks) comes from the wrapper's plan: blocks of 128
+// threads, one vector a thread a step, and past 2^22 vectors a grid the
+// card holds at once with four vectors of g and of u in flight a thread;
+// the sigmoid from the fast exponential and the fast reciprocal (the
+// accurate expf and IEEE division cost ~0.2 us a decode-width launch);
+// the ragged tail (n % 8) by the one thread whose next vector it would be,
+// not by block 0 after its loop. The backward reads three tensors and
+// writes two in a grid-stride loop of 256-thread blocks (8 elements a
+// thread a step), the tail element by element. The packed kernels need
+// I % 8 == 0, so that every vector lies inside one half.
 #include "common.cuh"
 
 using ptt::bf16;
 
-__global__ void swiglu_kernel(const bf16* __restrict__ g, const bf16* __restrict__ u,
-                              bf16* __restrict__ y, long long n) {
-  const long long n8 = n / 8;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n8; i += stride) {
-    float a[8], b[8], o[8];
-    ptt::load8(g + i * 8, a);
-    ptt::load8(u + i * 8, b);
+namespace {
+
+constexpr int kMaxThreads = 256;   // threads of a forward block at most
+constexpr int kMaxUnroll = 4;      // vectors a forward thread requests at once at most
+
+// The forward's launch (paddle_tpu_torch/ops/kernels/swiglu.py `plan`,
+// decided from the element count alone), one 64-bit word: bits 0-10 the
+// threads of a block (at most kMaxThreads), 12-14 the vectors a thread
+// requests at once (1 or 4), 16-46 the blocks.
+struct FwdLaunch {
+  int threads, unroll;
+  long long blocks;
+};
+
+inline FwdLaunch fwd_decode(long long word) {
+  FwdLaunch l;
+  l.threads = (int)(word & 0x7ff);
+  l.unroll = (int)((word >> 12) & 0x7);
+  l.blocks = (word >> 16) & 0x7fffffffLL;
+  return l;
+}
+
+// whole warps within a block's limit, an unroll the kernel has, a grid
+inline bool fwd_valid(const FwdLaunch& l) {
+  if (l.threads < 32 || l.threads > kMaxThreads || l.threads % 32) return false;
+  if (l.unroll != 1 && l.unroll != kMaxUnroll) return false;
+  return l.blocks >= 1;
+}
+
+// 1 / x to one f32 ulp (rcp.approx without .ftz: subnormal results kept)
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// silu(a) * b in f32: the sigmoid from the fast exponential and the fast
+// reciprocal, each within two f32 ulps, far inside a bf16 ulp. For a below
+// about -88, exp(-a) passes 2^126 (or is inf) and the reciprocal keeps the
+// subnormal (or 0) that sigmoid is there, where a fast division
+// (__fdividef) would return 0 early.
+__device__ __forceinline__ float silu_mul(float a, float b) {
+  return a * rcp_approx(1.f + __expf(-a)) * b;
+}
+
+__device__ __forceinline__ uint4 swiglu8(const uint4& gv, const uint4& uv) {
+  float a[8], b[8];
+  ptt::unpack8(gv, a);
+  ptt::unpack8(uv, b);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = a[j] / (1.f + expf(-a[j])) * b[j];
-    ptt::store8(y + i * 8, o);
-  }
-  if (blockIdx.x == 0) {
-    const long long t = n8 * 8 + threadIdx.x;
-    if (t < n) {
-      const float a = __bfloat162float(g[t]);
-      y[t] = __float2bfloat16(a / (1.f + expf(-a)) * __bfloat162float(u[t]));
+  for (int j = 0; j < 8; ++j) a[j] = silu_mul(a[j], b[j]);
+  return ptt::pack8(a);
+}
+
+}  // namespace
+
+// A grid-stride loop over 16-byte vectors: thread t of the grid's T takes
+// vectors t, t + T, t + 2 T, ..., U of them at a time with all 2 U loads
+// issued before any arithmetic; the thread whose next vector would be the
+// partial one past n / 8 takes the last n % 8 elements one by one.
+template <int U>
+__global__ void __launch_bounds__(kMaxThreads)
+    swiglu_kernel(const bf16* __restrict__ g, const bf16* __restrict__ u, bf16* __restrict__ y,
+                  long long n) {
+  const long long n8 = n / 8;
+  const long long T = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const uint4* gv = reinterpret_cast<const uint4*>(g);
+  const uint4* uv = reinterpret_cast<const uint4*>(u);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  if constexpr (U > 1) {
+    for (; i + (U - 1) * T < n8; i += U * T) {
+      uint4 a[U], b[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) a[k] = gv[i + k * T];
+#pragma unroll
+      for (int k = 0; k < U; ++k) b[k] = uv[i + k * T];
+#pragma unroll
+      for (int k = 0; k < U; ++k) yv[i + k * T] = swiglu8(a[k], b[k]);
     }
+  }
+  for (; i < n8; i += T) yv[i] = swiglu8(gv[i], uv[i]);
+  if (i == n8) {
+    for (long long t = n8 * 8; t < n; ++t)
+      y[t] = __float2bfloat16(silu_mul(__bfloat162float(g[t]), __bfloat162float(u[t])));
   }
 }
 
-// g, u, y: n bf16 elements each.
-PTT_EXPORT int ptt_swiglu(const void* g, const void* u, void* y, long long n, void* stream) {
+// g, u, y: n bf16 elements each. `plan`: the launch word of swiglu.plan; a
+// launch the kernel does not have is refused.
+PTT_EXPORT int ptt_swiglu(const void* g, const void* u, void* y, long long n, long long plan,
+                          void* stream) {
+  const FwdLaunch l = fwd_decode(plan);
+  if (!fwd_valid(l)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const int threads = 256;
-  long long blocks = (n / 8 + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  swiglu_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(u), static_cast<bf16*>(y), n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* gp = static_cast<const bf16*>(g);
+  const bf16* up = static_cast<const bf16*>(u);
+  bf16* yp = static_cast<bf16*>(y);
+  const unsigned blocks = (unsigned)l.blocks;
+  if (l.unroll == 1)
+    swiglu_kernel<1><<<blocks, l.threads, 0, s>>>(gp, up, yp, n);
+  else
+    swiglu_kernel<kMaxUnroll><<<blocks, l.threads, 0, s>>>(gp, up, yp, n);
   return (int)cudaGetLastError();
 }
 

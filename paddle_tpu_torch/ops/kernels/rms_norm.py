@@ -27,13 +27,18 @@ and ``d(residual) = dx`` (:162-173). One difference from the JAX
 backward: that cotangent is added to ``dx`` in f32 inside the kernel, before
 ``dx`` is rounded, where the JAX package adds it after the rounding; in
 f32 the two agree. What bounds the backward: bytes — ``h`` and ``g`` (and
-the sum's cotangent) read once and ``dx`` written once; ``dw`` comes as one
-f32 partial row per group of rows, summed by the wrapper.
+the sum's cotangent) read once and ``dx`` written once. A group of warps
+owns a row and walks a strip of rows with its next rows landing in a
+bulk-copy ring (:func:`bwd_plan`); each block writes one f32 partial row
+of ``dw``, which a second kernel of the same C entry adds in a fixed
+order into ``dw`` in the weight's dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,20 +46,34 @@ from . import _build
 from ._norm_rows import WIDE_HIDDEN, plan
 
 __all__ = ["rms_norm", "rms_norm_plain", "rms_norm_bwd", "rms_norm_bwd_plain",
-           "RMSNormFunction", "plan"]
+           "RMSNormFunction", "plan", "bwd_plan", "make_bwd", "BwdPlan"]
 
 # rows, hidden, eps, the plan's launch word, the stream
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                  ctypes.c_longlong, ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                          ctypes.c_void_p]
-_MAX_HIDDEN = 8192       # the backward kernel: 4 vectors a thread, 256 threads
+# h, w, g, gh, dx, part, dw; rows, hidden, eps, the plan's launch word, the
+# stream
+_BWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_longlong,
+                                     ctypes.c_void_p]
 #: phase 3's forward rows (rows, hidden, residual): the decode rows, the
 #: prefill chunk's, the Qwen2-MoE forward's, the unfused Llama train step's
 FWD_SHAPES = ((8, 4096, False), (8, 4096, True), (512, 4096, False),
               (512, 4096, True), (2048, 2048, True), (4096, 4096, False),
               (4096, 4096, True))
-_ROW_GROUPS = 264        # backward: aim at two blocks for each of 132 SMs
+#: phase 3's backward rows (rows, hidden): the Llama train step's and the
+#: Qwen2-MoE train step's, each with and without the sum's cotangent
+BWD_SHAPES = ((4096, 4096), (4096, 2048))
+
+# The backward's launch constants, as in csrc/rms_norm.cu: 16-byte vectors
+# a lane, warps of a group at most, warps of a block of several groups,
+# threads of a block at most (128 registers a thread), ring stages, the
+# dynamic shared memory a block may take, rows a sum block splits; and the
+# card's SMs
+_BWD_VECS, _BWD_MAX_GROUP_WARPS, _BWD_BLOCK_WARPS = 2, 16, 8
+_BWD_MAX_THREADS, _BWD_STAGES, _BWD_SMEM_MAX, _SUM_ROWS = 512, 3, 226 * 1024, 8
+_MAX_HIDDEN = 8 * _BWD_VECS * 32 * _BWD_MAX_GROUP_WARPS    # 8192
+_SMS = 132
 
 
 def _check(x, weight, residual):
@@ -126,19 +145,56 @@ def _launch_fwd(x, weight, residual, y, h, eps, stream):
     _build.check(err, "rms_norm")
 
 
-def _bwd_rows_per_block(rows: int) -> int:
-    return max(1, min(32, -(-rows // _ROW_GROUPS)))
+class BwdPlan(NamedTuple):
+    """The backward's launch: ``blocks`` blocks of ``groups`` groups of
+    ``group_warps`` warps, each group a strip of ``strip`` consecutive
+    rows, ``smem`` bytes of dynamic shared memory (each group's ring), and
+    ``word``, all of it as ``ptt_rms_norm_bwd`` takes it."""
+    group_warps: int
+    groups: int
+    strip: int
+    blocks: int
+    threads: int
+    smem: int
+    word: int
 
 
-def _launch_bwd(h, weight, g, g_h, dx, part, eps, stream):
-    """The backward's C entry on operands the caller allocated."""
+def make_bwd(rows: int, hidden: int, has_gh: bool,
+             blocks_sm: int = 1) -> BwdPlan:
+    """The backward's launch at ``[rows, hidden]``: a group of
+    ceil(hidden / 512) warps a row (two vectors of 8 a lane), 8 / group
+    warps groups a block (or one); the strips sized so that ``blocks_sm``
+    blocks an SM fill the card once."""
+    vecs = hidden // 8
+    gw = max(1, -(-vecs // (32 * _BWD_VECS)))
+    ng = max(1, _BWD_BLOCK_WARPS // gw)
+    smem = ng * _BWD_STAGES * ((2 + bool(has_gh)) * hidden * 2 + 8)
+    per = ng * max(1, -(-rows // (_SMS * blocks_sm * ng)))
+    strip = per // ng
+    blocks = -(-rows // per)
+    word = gw | ng << 8 | strip << 12 | blocks << 32
+    return BwdPlan(gw, ng, strip, blocks, 32 * gw * ng, smem, word)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(rows: int, hidden: int, has_gh: bool) -> BwdPlan:
+    """The backward's launch at ``[rows, hidden]`` (with the sum's
+    cotangent or without), decided from the shapes alone: one block an SM,
+    which the probes found fastest (``PERF.md`` §6)."""
+    return make_bwd(rows, hidden, has_gh)
+
+
+def _launch_bwd(h, weight, g, g_h, dx, part, dw, eps, p, stream):
+    """The backward's C entry (the rows kernel, then the sum kernel) on
+    operands the caller allocated, launched as plan ``p`` says: ``part
+    [p.blocks, hidden]`` f32 scratch, ``dw [hidden]`` bf16."""
     hidden = h.shape[-1]
     rows = h.numel() // hidden
     fn = _build.function("rms_norm", "ptt_rms_norm_bwd", _BWD_ARGS)
     err = fn(h.data_ptr(), weight.data_ptr(), g.data_ptr(),
              None if g_h is None else g_h.data_ptr(), dx.data_ptr(),
-             part.data_ptr(), rows, _bwd_rows_per_block(rows), hidden,
-             float(eps), stream)
+             part.data_ptr(), dw.data_ptr(), rows, hidden, float(eps),
+             p.word, stream)
     _build.check(err, "rms_norm backward")
 
 
@@ -198,15 +254,14 @@ def rms_norm_bwd(h, weight, g, g_h=None, eps=1e-6):
         raise ValueError("rms_norm backward kernel takes contiguous tensors")
     _build.require_aligned("rms_norm backward", h, weight, g, g_h)
     rows = h.numel() // hidden
-    per_block = _bwd_rows_per_block(rows)
+    p = bwd_plan(rows, hidden, g_h is not None)
     dx = torch.empty_like(h)
-    part = torch.empty(max(1, -(-rows // per_block)), hidden,
-                       dtype=torch.float32, device=h.device)
-    if rows == 0:
-        part.zero_()
-    _launch_bwd(h, weight, g, g_h, dx, part, eps, _build.stream_of(h))
+    part = torch.empty(p.blocks, hidden, dtype=torch.float32,
+                       device=h.device)
+    dw = torch.empty(hidden, dtype=weight.dtype, device=h.device)
+    _launch_bwd(h, weight, g, g_h, dx, part, dw, eps, p, _build.stream_of(h))
     rms_norm_bwd.launches += 1
-    return dx, part.sum(0).to(weight.dtype)
+    return dx, dw
 
 
 rms_norm_bwd.launches = 0
@@ -280,46 +335,64 @@ def declared_bytes(rows, hidden, residual):
 
 
 def _ex_bwd(label, rows, hidden, with_gh):
+    """The rows kernel as :func:`bwd_plan` launches it (a block takes
+    ``groups`` strips of consecutive rows: dx rows written, one f32 partial
+    row of dw), then the sum kernel (32 columns of dw a block)."""
     from ._examples import model, normal
     m = model()
     bf = torch.bfloat16
-    per = _bwd_rows_per_block(rows)
-    blocks = -(-rows // per)
-    vecs = hidden // 8
-    threads = min(256, -(-vecs // 32) * 32)
-    v = -(-vecs // threads)
+    p = bwd_plan(rows, hidden, with_gh)
+    per = p.groups * p.strip
     ops = [m.Operand("h", (rows, hidden), bf),
            m.Operand("w", (hidden,), bf, data=normal((hidden,), bf, 0.1, 1.0)),
            m.Operand("g", (rows, hidden), bf),
            m.Operand("dx", (rows, hidden), bf, "out"),
-           m.Operand("part", (blocks, hidden), torch.float32, "out")]
-    reads = [m.rows_map("h", rows, hidden, per), m.rows_map("g", rows, hidden,
-                                                            per),
-             m.whole_map("w", (hidden,))]
+           m.Operand("part", (p.blocks, hidden), torch.float32, "out"),
+           m.Operand("dw", (hidden,), bf, "out")]
+    reads = [m.rows_map("h", rows, hidden, per),
+             m.rows_map("g", rows, hidden, per), m.whole_map("w", (hidden,))]
     if with_gh:
         ops.append(m.Operand("gh", (rows, hidden), bf))
         reads.append(m.rows_map("gh", rows, hidden, per))
 
     def plain(t):
+        dx, dw = rms_norm_bwd_plain(t["h"], t["w"], t["g"], t.get("gh"),
+                                    1e-5)
         hf, gf = t["h"].float(), t["g"].float()
         rstd = torch.rsqrt(hf.square().mean(-1, keepdim=True) + 1e-5)
-        dx = rms_norm_bwd_plain(t["h"], t["w"], t["g"], t.get("gh"), 1e-5)[0]
-        contrib = torch.zeros(blocks * per, hidden, device=hf.device)
-        contrib[:rows] = gf * hf * rstd
-        return {"dx": dx, "part": contrib.view(blocks, per, hidden).sum(1)}
+        return {"dx": dx, "part": (gf * hf * rstd).sum(0), "dw": dw}
 
     def launch(t, stream):
         _launch_bwd(t["h"], t["w"], t["g"], t.get("gh"), t["dx"], t["part"],
-                    1e-5, stream)
+                    t["dw"], 1e-5, p, stream)
 
-    kern = m.KernelLaunch(
-        f"rms_norm_bwd_kernel<{v}>", blocks, threads,
-        writes=[m.rows_map("dx", rows, hidden, per),
-                m.rows_map("part", blocks, hidden)], reads=reads)
-    return m.Example(label, "rms_norm", ops, [kern], launch, plain,
+    kernels = [
+        m.KernelLaunch(
+            f"rms_norm_bwd_kernel<{'true' if with_gh else 'false'}>",
+            p.blocks, p.threads, smem=p.smem,
+            writes=[m.rows_map("dx", rows, hidden, per),
+                    m.rows_map("part", p.blocks, hidden)], reads=reads),
+        m.KernelLaunch("rms_norm_bwd_sum_kernel", -(-hidden // 32),
+                       32 * _SUM_ROWS,
+                       writes=[m.TileMap("dw", (32,), lambda x, y, z: (x,))])]
+    return m.Example(label, "rms_norm", ops, kernels, launch, plain,
                      flops=10 * rows * hidden,
-                     nbytes=2 * rows * hidden * (3 + with_gh) + 2 * hidden * 2,
-                     tol=2.0 ** -6)
+                     nbytes=bwd_declared_bytes(rows, hidden, with_gh),
+                     tol={"part": 1e-3, "dw": 1e-3 + 2.0 ** -7,
+                          "*": 2.0 ** -6},
+                     reduce={"part": lambda v: v.sum(0)})
+
+
+def bwd_declared_bytes(rows, hidden, with_gh):
+    """The bytes a backward call must move, bf16: h, g (and the sum's
+    cotangent) read and dx written once, w read and dw written once."""
+    return 2 * rows * hidden * (3 + bool(with_gh)) + 2 * hidden * 2
+
+
+def bwd_label(rows, hidden, with_gh):
+    """The label of phase 3's backward row (its ``ck_examples`` entry)."""
+    return f"phase3 [{rows}, {hidden}]" + (" residual cotangent" if with_gh
+                                           else "")
 
 
 def fwd_label(rows, hidden, residual):
@@ -331,10 +404,9 @@ def fwd_label(rows, hidden, residual):
 def ck_examples():
     """The forward at ``rms_norm_pallas.pk_examples``' shapes ([512, 1024]),
     past 8192 (the wide arm) and at phase 3's (:data:`FWD_SHAPES`), the
-    backward at [512, 1024] and phase 3's
-    [4096, 4096] (with and without the sum's cotangent); each with a tail of
-    an odd row count and a hidden width that leaves threads of the last
-    warp idle."""
+    backward at [512, 1024] and phase 3's (:data:`BWD_SHAPES`, with and
+    without the sum's cotangent); each with a tail of an odd row count and
+    a hidden width that leaves threads of the last warp idle."""
     from ._examples import with_tail
     out = []
     fwd = [("rms_fwd_plain", 512, 1024, False), ("rms_fwd_res", 512, 1024, True),
@@ -346,10 +418,10 @@ def ck_examples():
                              dict(rows=rows, hidden=hidden, residual=res),
                              dict(rows=rows + 3, hidden=hidden + 8,
                                   residual=res)))
-    for label, rows, hidden, gh in (
-            ("rms_bwd", 512, 1024, False),
-            ("phase3 [4096, 4096]", 4096, 4096, False),
-            ("phase3 [4096, 4096] residual cotangent", 4096, 4096, True)):
+    bwd = [("rms_bwd", 512, 1024, False)]
+    bwd += [(bwd_label(rows, hidden, gh), rows, hidden, gh)
+            for rows, hidden in BWD_SHAPES for gh in (False, True)]
+    for label, rows, hidden, gh in bwd:
         out.append(with_tail(_ex_bwd, label,
                              dict(rows=rows, hidden=hidden, with_gh=gh),
                              dict(rows=rows + 5, hidden=hidden + 8,

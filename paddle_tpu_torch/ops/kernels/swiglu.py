@@ -13,7 +13,9 @@ What bounds all four on the H100: bytes — the forward reads two halves
 and writes one, the backward reads three (``g``, ``u``, ``dy``) and writes
 two (``dg``, ``du``), a few operations per element. Each kernel is a
 grid-stride loop over 16-byte vectors (8 elements a thread per step), f32
-inside; the backward recomputes the sigmoid from ``g``. The packed kernels
+inside; the backward recomputes the sigmoid from ``g``. The two-operand
+forward takes its launch from :func:`plan` (threads a block, vectors a
+thread requests at once, blocks), decided from the element count alone. The packed kernels
 read the gate and up halves of each ``[2I]`` row in place and write the
 backward's ``[dg | du]`` packed the same way, so no split or concatenated
 copy is made; they need ``I % 8 == 0`` (every vector inside one half).
@@ -25,6 +27,8 @@ launches for every ``I % 8 == 0`` on the card and raises otherwise.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,9 +37,11 @@ from . import _build
 __all__ = ["swiglu", "swiglu_plain", "swiglu_bwd", "swiglu_bwd_plain",
            "SwiGLUFunction", "swiglu_packed", "swiglu_packed_plain",
            "swiglu_packed_bwd", "swiglu_packed_bwd_plain",
-           "SwiGLUPackedFunction"]
+           "SwiGLUPackedFunction", "plan", "make", "Plan"]
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+# g, u, y; the element count, the plan's launch word, the stream
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_longlong,
+                                 ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
 _PACKED_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_void_p]
@@ -81,11 +87,52 @@ def swiglu(g, u):
 swiglu.launches = 0
 
 
+#: the card's SMs; threads of a forward block at most and the vectors a
+#: thread may request at once (csrc/swiglu.cu kMaxThreads, kMaxUnroll)
+_SMS, _MAX_THREADS, _MAX_UNROLL = 132, 256, 4
+
+
+class Plan(NamedTuple):
+    """The forward's launch: ``blocks`` blocks of ``threads``, each thread
+    requesting ``unroll`` vectors of 8 of g and of u at once, and
+    ``word``, all of it as ``ptt_swiglu`` takes it."""
+    threads: int
+    unroll: int
+    blocks: int
+    word: int
+
+
+def make(n: int, threads: int, unroll: int, blocks_sm: int) -> Plan:
+    """The launch over ``n`` elements: blocks of ``threads``, enough of
+    them for one step of ``unroll`` vectors a thread, at most
+    ``blocks_sm`` an SM (the grid the card holds at once)."""
+    n8 = n // 8
+    blocks = max(1, min(-(-n8 // (threads * unroll)), _SMS * blocks_sm))
+    return Plan(threads, unroll, blocks, threads | unroll << 12 | blocks << 16)
+
+
+#: vectors of 8 from which a forward thread requests four at a time
+_UNROLL_FROM = 1 << 22
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int) -> Plan:
+    """The forward's launch over ``n`` elements, as the probes chose it
+    (``PERF.md`` §6): 128 threads a block and one vector a thread
+    a step; from 2**22 vectors (the Llama train step's [4096, 14336]) four
+    vectors a thread a step over four blocks of 256 an SM."""
+    if n // 8 >= _UNROLL_FROM:
+        return make(n, 256, 4, 4)
+    return make(n, 128, 1, 32)
+
+
 def _launch(g, u, y, stream):
-    """The forward's C entry on operands the caller allocated."""
+    """The forward's C entry on operands the caller allocated, launched as
+    :func:`plan` says."""
+    n = g.numel()
     fn = _build.function("swiglu", "ptt_swiglu", _ARGS)
-    _build.check(fn(g.data_ptr(), u.data_ptr(), y.data_ptr(), g.numel(),
-                    stream), "swiglu")
+    _build.check(fn(g.data_ptr(), u.data_ptr(), y.data_ptr(), n,
+                    plan(n).word, stream), "swiglu")
 
 
 def swiglu_bwd_plain(g, u, dy):
@@ -314,13 +361,19 @@ def _packed_bwd_map(rows, width, grid):
 def _ex(label, rows, width, kind):
     """``kind``: "fwd" / "bwd" on [rows, width] operands, or "packed" /
     "packed_bwd" on x [rows, 2 width]. A grid-stride loop over 8-element
-    vectors: block b covers chunks b, b + grid, ... of 2048 elements."""
+    vectors: block b covers chunks b, b + grid, ... of 8 x threads
+    elements (the forward's threads and grid from :func:`plan`, the others'
+    256 and at most 132 x 16; a forward step of several vectors a thread
+    takes chunks b, b + grid, ... at once)."""
     from ._examples import model
     m = model()
     bf = torch.bfloat16
     n = rows * width
     grid = _blocks(n // 8)
     chunk = _THREADS * 8
+    if kind == "fwd":
+        p = plan(n)
+        grid, chunk = p.blocks, p.threads * 8
     flat = (rows, width)
     if kind in ("fwd", "bwd"):
         ins = ["g", "u"] + (["dy"] if kind == "bwd" else [])
@@ -365,36 +418,49 @@ def _ex(label, rows, width, kind):
             def launch(t, stream):
                 _launch_packed_bwd(t["x"], t["dy"], t["dx"], stream)
         reads = []
-    name = {"fwd": "swiglu_kernel", "bwd": "swiglu_bwd_kernel",
-            "packed": "swiglu_packed_kernel",
+    name = {"fwd": f"swiglu_kernel<{plan(n).unroll}>",
+            "bwd": "swiglu_bwd_kernel", "packed": "swiglu_packed_kernel",
             "packed_bwd": "swiglu_packed_bwd_kernel"}[kind]
     fwd = kind in ("fwd", "packed")
+    threads = plan(n).threads if kind == "fwd" else _THREADS
     return m.Example(label, "swiglu", ops,
-                     [m.KernelLaunch(name, grid, _THREADS, writes=writes,
+                     [m.KernelLaunch(name, grid, threads, writes=writes,
                                      reads=reads)], launch, plain,
                      flops=(6 if fwd else 12) * n,
                      nbytes=(3 if fwd else 5) * n * 2)
 
 
+#: phase 3's forward rows (rows, width): the decode batches, the prefill
+#: chunk and the 1024-token prefill, the Llama train step, the Qwen1.5-MoE
+#: experts' capacity tensor in serve_moe and its shared expert
+FWD_SHAPES = ((1, 14336), (8, 14336), (512, 14336), (1024, 14336),
+              (4096, 14336), (16440, 1408), (2048, 5632))
+
+
+def fwd_label(rows, width):
+    """The label of phase 3's forward row (its ``ck_examples`` entry)."""
+    return f"phase3 [{rows}, {width}]"
+
+
 def ck_examples():
     """At ``swiglu_pallas.pk_examples``' shapes ([512, 2048]; packed
-    [512, 2 x 2048]) and phase 3's ([8, 14336] and [512, 14336] forward,
+    [512, 2 x 2048]) and phase 3's (:data:`FWD_SHAPES` forward,
     [4096, 14336] backward, packed [4096, 2 x 14336] both ways); tails with
     a partial last chunk (and, unpacked, an element count that is not a
     multiple of 8)."""
     from ._examples import with_tail
     out = []
-    for label, rows, width, kind in (
+    fwd = [(fwd_label(rows, width), rows, width, "fwd")
+           for rows, width in FWD_SHAPES]
+    for label, rows, width, kind in [
             ("swiglu_fwd", 512, 2048, "fwd"),
             ("swiglu_bwd", 512, 2048, "bwd"),
             ("swiglu_fwd_packed", 512, 2048, "packed"),
-            ("swiglu_bwd_packed", 512, 2048, "packed_bwd"),
-            ("phase3 [8, 14336]", 8, 14336, "fwd"),
-            ("phase3 [512, 14336]", 512, 14336, "fwd"),
+            ("swiglu_bwd_packed", 512, 2048, "packed_bwd")] + fwd + [
             ("phase3 bwd [4096, 14336]", 4096, 14336, "bwd"),
             ("phase3 packed [4096, 2 x 14336]", 4096, 14336, "packed"),
             ("phase3 packed bwd [4096, 2 x 14336]", 4096, 14336,
-             "packed_bwd")):
+             "packed_bwd")]:
         packed = kind.startswith("packed")
         tail = dict(rows=37, width=width + (8 if packed else 5), kind=kind)
         out.append(with_tail(_ex, label, dict(rows=rows, width=width,

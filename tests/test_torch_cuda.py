@@ -2529,3 +2529,155 @@ def test_norm_rows_c_entries_refuse_a_short_launch(dev):
         y = torch.empty_like(x)
         assert rms(x.data_ptr(), None, w.data_ptr(), y.data_ptr(), None, r,
                    hd, 1e-5, rms_norm.plan(r, hd).word, stream) == 0
+
+
+# -- rows 3 and 5 on Hopper: the RMSNorm backward's plans and the SwiGLU
+# forward's launches (paddle_tpu_torch/ops/kernels/rms_norm.py `bwd_plan`,
+# swiglu.py `plan`) at every shape the paths launch, odd tails and the
+# sigmoid's extremes
+
+BWD_BLOCKS_SM = [1, 3]
+BWD_SHAPES = [(0, 4096), (1, 8), (5, 768), (37, 776), (1061, 2048),
+              (300, 8192), (4096, 4096), (4096, 2048), (33, 8184)]
+
+
+@pytest.fixture
+def bwd_blocks_sm(request, monkeypatch):
+    """The backward's strips sized for ``request.param`` blocks an SM (the
+    plan takes one: three gives shorter strips and more partial rows)."""
+    monkeypatch.setattr(rms_norm, "bwd_plan", lambda rows, hidden, gh:
+                        rms_norm.make_bwd(rows, hidden, gh, request.param))
+    return request.param
+
+
+@pytest.mark.parametrize("bwd_blocks_sm", BWD_BLOCKS_SM, indirect=True)
+@pytest.mark.parametrize("rows,hidden", BWD_SHAPES)
+@pytest.mark.parametrize("residual", [False, True])
+def test_rms_norm_bwd_every_strip(dev, bwd_blocks_sm, rows, hidden, residual):
+    """dx within one ulp, dw within 1e-3 of its largest value plus its one
+    rounding, both the same bits on two calls, one launch counted a call,
+    zeros for dw at 0 rows."""
+    h = _randn(dev, rows, hidden, seed=50)
+    g = _randn(dev, rows, hidden, seed=51)
+    w = (1.0 + 0.1 * _randn(dev, hidden, seed=52).float()).to(torch.bfloat16)
+    g_h = _randn(dev, rows, hidden, seed=53) if residual else None
+    before = WRAPPERS["rms_norm_bwd"].launches
+    dx, dw = rms_norm.rms_norm_bwd(h, w, g, g_h, 1e-5)
+    assert WRAPPERS["rms_norm_bwd"].launches == before + 1
+    dx2, dw2 = rms_norm.rms_norm_bwd(h, w, g, g_h, 1e-5)
+    rdx, rdw = rms_norm.rms_norm_bwd_plain(h, w, g, g_h, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dw.dtype == w.dtype and dw.shape == w.shape
+    if rows == 0:
+        assert bool((dw == 0).all())
+        return
+    _close(dx, rdx)
+    top = rdw.float().abs().max().item()
+    err = (dw.float() - rdw.float()).abs().max().item()
+    assert err <= (1e-3 + 2.0 ** -7) * top, err
+
+
+def test_rms_norm_bwd_c_entry_refuses_a_short_launch(dev):
+    """A launch word whose groups do not cover the row, whose strips do not
+    cover the rows, whose blocks do not match them, or whose block is past
+    512 threads or its group past 16 warps, is refused: nothing is
+    written; the plan's own word launches."""
+    from paddle_tpu_torch.ops.kernels import _build
+    rows, hd = 37, 4096
+    h, g = _randn(dev, rows, hd, seed=54), _randn(dev, rows, hd, seed=55)
+    w = _randn(dev, hd, seed=56)
+    fn = _build.function("rms_norm", "ptt_rms_norm_bwd", rms_norm._BWD_ARGS)
+    stream = _build.stream_of(h)
+
+    def word(gw, ng, strip, blocks):
+        return gw | ng << 8 | strip << 12 | blocks << 32
+    good = rms_norm.bwd_plan(rows, hd, False)
+    bad = [word(4, 1, 1, rows),        # 4 warps x 64 vectors < 512
+           word(8, 1, 1, rows - 1),    # a row short
+           word(8, 1, 1, rows + 1),    # a block without a row
+           word(8, 1, 0, rows),        # an empty strip
+           word(8, 4, 1, 10),          # 1024 threads
+           word(17, 1, 1, rows)]       # past 16 warps a group
+    for wd in bad:
+        dx = torch.full_like(h, 7.0)
+        part = torch.empty(rows + 1, hd, device=dev)
+        dw = torch.full_like(w, 7.0)
+        assert fn(h.data_ptr(), w.data_ptr(), g.data_ptr(), None,
+                  dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows, hd,
+                  1e-5, wd, stream) != 0
+        torch.cuda.synchronize()
+        assert bool((dx == 7.0).all()) and bool((dw == 7.0).all())
+    part = torch.empty(good.blocks, hd, device=dev)
+    dx, dw = torch.empty_like(h), torch.empty_like(w)
+    assert fn(h.data_ptr(), w.data_ptr(), g.data_ptr(), None, dx.data_ptr(),
+              part.data_ptr(), dw.data_ptr(), rows, hd, 1e-5, good.word,
+              stream) == 0
+
+
+SWIGLU_SHAPES = [(1, 14336), (8, 14336), (512, 14336), (1024, 14336),
+                 (4096, 14336), (16440, 1408), (2048, 5632)]
+
+
+@pytest.mark.parametrize("rows,width", SWIGLU_SHAPES)
+def test_swiglu_kernel_at_path_shapes(dev, rows, width):
+    """Every shape the paths launch: one ulp, the same bits on two calls,
+    one launch counted a call."""
+    g, u = _randn(dev, rows, width, seed=60), _randn(dev, rows, width, seed=61)
+    before = WRAPPERS["swiglu"].launches
+    got = swiglu.swiglu(g, u)
+    assert WRAPPERS["swiglu"].launches == before + 1
+    _close(got, swiglu.swiglu_plain(g, u))
+    assert torch.equal(got, swiglu.swiglu(g, u))
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 7, 8, 9, 15, 16 * 1024 + 3,
+                               132 * 128 * 8 + 6, 132 * 128 * 8 + 8 + 7])
+@pytest.mark.parametrize("config", [None, (256, 4, 2), (128, 1, 1),
+                                    (64, 4, 1)])
+def test_swiglu_kernel_tails(dev, monkeypatch, n, config):
+    """Every element written once for n % 8 in 0-7, n < 8 and n = 0, by the
+    plan's launch and by launches of each unroll, a grid smaller than the
+    vectors included."""
+    if config is not None:
+        monkeypatch.setattr(swiglu, "plan",
+                            lambda m: swiglu.make(m, *config))
+    g, u = _randn(dev, n, seed=62), _randn(dev, n, seed=63)
+    got = swiglu.swiglu(g, u)
+    ref = swiglu.swiglu_plain(g, u)
+    torch.cuda.synchronize()
+    if n:
+        _close(got, ref)
+
+
+def test_swiglu_kernel_at_the_sigmoid_extremes(dev):
+    """g at +-88, +-100, +-1e4 (and around -88, where exp(-g) passes 2^126):
+    every element within one bf16 ulp of the plain version at its own
+    magnitude (the denormal range's ulp below it), all finite."""
+    vals = [88.0, -88.0, 100.0, -100.0, 1e4, -1e4, 0.0, -87.5, -88.5, -89.0,
+            -90.0, 20.0, -20.0, 1.0, -1.0]
+    g = torch.tensor(vals, device=dev).repeat(7, 16).to(torch.bfloat16)
+    u = torch.linspace(-3.0, 3.0, g.numel(), device=dev).view(g.shape).to(
+        torch.bfloat16)
+    got, ref = swiglu.swiglu(g, u).float(), swiglu.swiglu_plain(g, u).float()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    ulp = (2.0 ** (torch.floor(torch.log2(ref.abs())) - 7)).clamp(
+        min=2.0 ** -133)
+    assert bool(((got - ref).abs() <= ulp).all()), (got - ref).abs().max()
+
+
+def test_swiglu_c_entry_refuses_what_it_has_not(dev):
+    """A launch of threads that are not whole warps or past 256, an unroll
+    the kernel has not, or no block, is refused: nothing is written."""
+    from paddle_tpu_torch.ops.kernels import _build
+    g = _randn(dev, 4096, seed=64)
+    fn = _build.function("swiglu", "ptt_swiglu", swiglu._ARGS)
+    stream = _build.stream_of(g)
+    for threads, unroll, blocks in ((100, 1, 4), (512, 1, 4), (256, 2, 4),
+                                    (256, 0, 4), (256, 1, 0)):
+        y = torch.full_like(g, 7.0)
+        assert fn(g.data_ptr(), g.data_ptr(), y.data_ptr(), g.numel(),
+                  threads | unroll << 12 | blocks << 16, stream) != 0
+        torch.cuda.synchronize()
+        assert bool((y == 7.0).all())
