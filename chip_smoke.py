@@ -79,6 +79,35 @@ Phases, in order; any failure exits non-zero:
       in decode, 32 decode-layer launches a step on the dequantized
       weights, no mmha.
    Each quantized engine's copies are freed before the next is built.
+   After phase 6, engine b's configuration and traffic with ``spec_k=4``
+   (speculative decoding), each engine's tokens held against engine b's
+   (a first divergence allowed only where b's top-2 logit gap there is
+   within the parity tolerance), mmha launched once a layer in every
+   decode and verify step, no page leaked:
+   g. the n-gram drafter, adaptive K;
+   h. a drafter that replays engine b's output (drafts land whenever the
+      outputs agree): it must accept drafts and emit more than one token
+      a step;
+   i. b's first 4 requests with a drafter that proposes b's next tokens
+      plus one (never the argmax while the outputs agree) at a pinned K:
+      the verify's pure cost and the rollback path.
+   Engine b's configuration serves b's traffic again before g and after
+   i: a control of the same phase, since the host's speed moves between
+   phases.
+   Each reports tokens/s, decode and verify steps and their ms, accepted
+   over proposed drafts, tokens per step and the drafter's host ms a step.
+   verify_attention — the verify step's attention at those engines' shape
+   (8 rows of 5 lanes): mmha over the 40 lanes as rows against its plain
+   version (the same bits twice) and the JAX verify's ``chunk_attention``
+   composite, both timed; the whole verify forward, kernels against plain
+   versions over every lane's logits, and its profile.
+   generate — cached ``model.generate`` on the served model: 64 greedy
+   tokens for 4 of engine b's prompts, one B 1 call each (mmha 32 a token,
+   flash 32 at the prefill), held against engine b's tokens by the same
+   rule, then the four prompts cut to the shortest in one B 4 call held
+   against B 1 calls; GPT-2 small (bf16) 64 tokens for 8 prompts of 128,
+   held against the exact-length host loop (``use_cache=False``). ms per
+   token.
 5. parity  — at full width, through the kernels and through the plain
    versions, logits compared: the first decode step of every request of
    engine a (after chunked prefill), of every request of engine b its
@@ -210,6 +239,10 @@ SUFFIX_MIN, SUFFIX_MAX = 64, 1024
 QUANT_KERNELS = ("wo_int8", "wo_int8_grouped", "wo_int4", "a8w8")
 QUANT_GROUP = 128         # engine f's quant_group_size
 FUSED_QUANT_REQUESTS, FUSED_QUANT_TOKENS = 4, 16
+SPEC_K = 4                # engines g-i: draft tokens a request and step
+SPEC_ADVERSARIAL_REQUESTS = 4     # engine i serves engine b's first four
+GEN_REQUESTS, GEN_TOKENS = 4, 64  # generate phase: Llama-3-8B, B 1 calls
+GPT_GEN_BATCH, GPT_GEN_PROMPT = 8, 128    # generate phase: GPT-2 small
 LLM_INT8_CALLS = 4        # llm_int8_linear calls of the A8W8 phase's run
 TRAIN_KERNELS = ("rms_norm_bwd", "swiglu_bwd", "flash_attention_bwd",
                  "adamw", "block_epilogue_bwd")
@@ -1474,15 +1507,20 @@ def _kernels_a8w8(torch, dev, randn, timer, results):
 _CHUNKED_PATH = ("mmha", "rms_norm", "rope", "swiglu")
 
 
-def _serve(torch, np, engine, prompts, new_tokens=SERVE_NEW_TOKENS):
+def _serve(torch, np, engine, prompts, new_tokens=SERVE_NEW_TOKENS,
+           after_warmup=None):
     """Serve ``prompts`` (greedy, ``new_tokens`` each) after a warm-up,
     with every kernel's launch count set to 0 just before and read just
-    after. Returns (requests, outputs, wall seconds, launches, stats)."""
+    after (``after_warmup()`` runs once the warm-up is done). Returns
+    (requests, outputs, wall seconds, launches, stats)."""
     from paddle_tpu_torch.ops.kernels import WRAPPERS
 
     engine.generate(list(range(1, 17)), max_new_tokens=2, timeout=600)
-    for times in (engine.prefill_ms, engine.chunk_ms, engine.step_ms):
+    for times in (engine.prefill_ms, engine.chunk_ms, engine.step_ms,
+                  engine.verify_ms):
         times.clear()
+    if after_warmup is not None:
+        after_warmup()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in WRAPPERS.values():
@@ -1950,6 +1988,401 @@ def _parity_first_decode(torch, what, sm, engine, prompts, served):
         r["kernel_argmax_is_served"] = int(lk.argmax()) == served[i][1]
         rows.append(r)
     _check_parity(what, rows)
+
+
+def _next_logits(torch, sm, engine, ctx):
+    """f32 logits ``[vocab]`` of the token after ``ctx``: a monolithic
+    prefill through ``sm``'s kernels into fresh pages of ``engine``'s pool
+    (the pages are freed again)."""
+    pool, dev = engine.pool, engine.device
+    pages = pool.alloc(pool.pages_for(len(ctx)))
+    try:
+        row = torch.zeros(engine.scheduler.max_pages, dtype=torch.int32)
+        row[:len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        toks = torch.tensor([ctx], device=dev)
+        out = sm.prefill_forward(toks, len(ctx), row.to(dev))[0].float()
+        torch.cuda.synchronize()
+    finally:
+        pool.free(pages)
+    return out
+
+
+def _agreement(torch, what, got, want, logits_at):
+    """Generated streams held token for token against reference streams.
+    At a row's first divergence (token ``j``) ``logits_at(row, j)`` gives
+    the reference's logits there: the rule of :func:`_check_parity`
+    allows the divergence only where their top-2 gap is within
+    ``PARITY_REL_TOL`` of the largest logit (two bf16 paths may rank a
+    near-tie either way). Returns one row a stream."""
+    rows = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        j = next((t for t, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        row = {"request": i, "first_divergence": j}
+        if j is None:
+            if len(g) != len(w):
+                fail(f"{what}: request {i}: {len(g)} tokens, want {len(w)}")
+        else:
+            lg = logits_at(i, j)
+            if not torch.isfinite(lg).all():
+                fail(f"{what}: request {i}: non-finite reference logits")
+            top2 = lg.topk(2).values
+            row.update(got=g[j], want=w[j],
+                       top2_gap=(top2[0] - top2[1]).item(),
+                       tol=PARITY_REL_TOL * lg.abs().max().item())
+            if not row["top2_gap"] <= row["tol"]:
+                fail(f"{what}: request {i} diverges at token {j} ({g[j]} "
+                     f"!= {w[j]}) where the reference's top-2 gap "
+                     f"{row['top2_gap']} exceeds {row['tol']}")
+        rows.append(row)
+    return rows
+
+
+class _ReplayDrafter:
+    """Proposes engine b's own continuation of each request. It has no
+    ``window``, so the scheduler hands it the whole context, whose prompt
+    names the request (looked up by its length and last 16 tokens).
+    ``shift=1`` proposes each of those tokens plus one, modulo the
+    vocabulary: never the argmax while the outputs agree."""
+
+    def __init__(self, prompts, outs, vocab, shift=0):
+        self.by_len: dict = {}
+        for p, o in zip(prompts, outs):
+            self.by_len.setdefault(len(p), {})[tuple(p[-16:])] = o
+        self.vocab, self.shift = vocab, shift
+
+    def propose(self, history, k):
+        for n, by_tail in self.by_len.items():
+            out = by_tail.get(tuple(history[n - 16:n])) \
+                if len(history) >= n else None
+            if out is not None:
+                done = len(history) - n
+                return [(t + self.shift) % self.vocab
+                        for t in out[done:done + k]]
+        return []
+
+
+def _spec_config(ServingConfig, **kw):
+    return ServingConfig(**{**dict(max_batch=8, page_size=16,
+                                   max_seq_len=2048, num_pages=1025,
+                                   dtype="bfloat16", spec_k=SPEC_K), **kw})
+
+
+def _serve_spec(torch, np, model, prompts, drafter=None, **kw):
+    """One engine of b's configuration with ``spec_k=4`` (``kw`` overrides,
+    ``drafter`` replaces the n-gram drafter) serving ``prompts``: the
+    scheduler's ``_propose`` timed a step, its speculative counters zeroed
+    after the warm-up. Returns (the engine's row, outputs, launches); the
+    engine is shut down and freed."""
+    from paddle_tpu_torch.serving import LLMEngine, ServingConfig
+
+    engine = LLMEngine(model, _spec_config(ServingConfig, **kw))
+    sched = engine.scheduler
+    if drafter is not None:
+        sched.drafter = drafter
+    spent: list = []
+    propose = sched._propose
+
+    def timed(active):
+        t0 = time.perf_counter()
+        out = propose(active)
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def reset():
+        spent.clear()
+        for name in ("spec_steps", "spec_proposed", "spec_accepted",
+                     "spec_rejected", "step_tokens", "step_rows"):
+            setattr(sched, name, 0)
+
+    sched._propose = timed
+    reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts,
+                                               after_warmup=reset)
+    cfg = engine.config
+    verifies = len(engine.verify_ms)
+    row = {"spec_k": cfg.spec_k, "adaptive": cfg.spec_adaptive,
+           "drafter": type(sched.drafter).__name__ if cfg.spec_k else None,
+           "verify_steps": verifies,
+           "verify_step_ms_mean": float(np.mean(engine.verify_ms))
+           if verifies else None,
+           "speculative": stats["speculative"],
+           "tokens_per_step": stats["tokens_per_step"],
+           "drafter_ms_per_step": float(np.mean(spent)) if spent else None,
+           "drafter_ms_total": float(np.sum(spent)),
+           **_serve_row(torch, np, engine, reqs, wall, launches, stats)}
+    del engine, sched
+    _free(torch)
+    return row, outs, launches
+
+
+def phase_serve_spec(torch, np, model, b_engine, prompts, served):
+    """Engines g, h and i: engine b's configuration with ``spec_k=4`` on
+    its traffic, over the same model. g drafts with the n-gram drafter
+    (adaptive K); h with a drafter that replays engine b's own output (the
+    most speculation can give at K 4); i, on b's first four requests, with
+    one that proposes b's next tokens plus one (never accepted while the
+    outputs agree) at a pinned K: the verify's pure cost and the rollback
+    path. Engine b's configuration (``spec_k=0``) serves b's traffic again
+    before g and after i: the host's speed moves between phases, so each
+    engine's tokens/s stands beside these controls of the same phase.
+    Each serves every request's tokens as engine b did, but for a
+    divergence at a near-tie of b's logits (:func:`_agreement`), launches
+    mmha once a layer in every decode and verify step (a speculating
+    engine at least one verify step), and leaks no page; h accepts drafts
+    and emits more than one token a step. The drafter's host time is the
+    scheduler's ``_propose`` a step."""
+    from paddle_tpu_torch.serving import ServingModel
+
+    sm = ServingModel(model).bind_pool(b_engine.pool)
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    n_adv = SPEC_ADVERSARIAL_REQUESTS
+    control = ("b", "spec_off_control", None, len(prompts), {"spec_k": 0})
+    runs = (control,
+            ("g", "spec_ngram", None, len(prompts), {}),
+            ("h", "spec_replay", _ReplayDrafter(prompts, served, vocab),
+             len(prompts), {}),
+            ("i", "spec_adversarial",
+             _ReplayDrafter(prompts[:n_adv], served[:n_adv], vocab, 1),
+             n_adv, {"spec_adaptive": False}),
+            control)
+    for tag, label, drafter, n_req, kw in runs:
+        row, outs, launches = _serve_spec(torch, np, model,
+                                          prompts[:n_req], drafter, **kw)
+        steps, verifies = row["decode_steps"], row["verify_steps"]
+        if launches["mmha"] != layers * (steps + verifies) or \
+                bool(verifies) != bool(row["spec_k"]):
+            fail(f"engine {tag}: mmha launched {launches['mmha']} times in "
+                 f"{steps} decode and {verifies} verify steps (spec_k "
+                 f"{row['spec_k']}), want {layers} a step")
+        rows = _agreement(
+            torch, f"engine {tag}", outs, served[:n_req],
+            lambda i, j: _next_logits(torch, sm, b_engine,
+                                      prompts[i] + served[i][:j]))
+        spec = row["speculative"]
+        if tag == "h" and not (spec["accepted_tokens"] >= 1
+                               and row["tokens_per_step"] > 1.0):
+            fail(f"engine h accepted no draft: {spec}")
+        emit({"phase": "serve", "engine": label, "model": "llama3_8b",
+              "diverged": sum(r["first_divergence"] is not None
+                              for r in rows),
+              "agreement": rows, **row})
+
+
+def phase_verify_attention(torch, model, engine, prompts):
+    """The verify step's attention at engines g-i's shape (8 rows of K + 1
+    = 5 lanes at the served prompts' lengths, tables of 128 pages): the
+    mmha kernel over the 40 lanes as rows against its plain version (and
+    the same bits twice) and against the ``chunk_attention`` composite the
+    JAX verify runs (every row's whole table gathered, an f32 grouped
+    einsum), each timed with a cold L2, beside the least time of the
+    function (each row's visible K and V read once). Then the whole
+    verify forward on the fused path, kernels against plain versions over
+    all 40 lanes' logits, and its profile (mmha once a layer)."""
+    from paddle_tpu_torch.ops.kernels import mmha
+    from paddle_tpu_torch.serving import ServingModel, kv_cache
+
+    pool, dev = engine.pool, engine.device
+    cfg = model.cfg
+    b, s = engine.config.max_batch, SPEC_K + 1
+    h, h_kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    timer = ColdTimer(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    tables, _, lens, held = _batch_tables(torch, engine, prompts)
+    try:
+        # the K + 1 lanes' writes stay inside each row's pages
+        base = lens - s
+        idx = torch.tensor(held, device=dev)
+        for t in (pool.k[0], pool.v[0]):
+            t[idx] = torch.randn(t[idx].shape, generator=gen,
+                                 device=dev).to(t.dtype)
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        q1 = q.reshape(b * s, 1, h, d)
+        lane = torch.arange(s, device=dev, dtype=torch.int32)
+        tab_lanes = tables.repeat_interleave(s, dim=0)
+        pos_lanes = (base[:, None] + lane).reshape(-1)
+        kl, vl = pool.k[0], pool.v[0]
+        got = mmha.mmha_decode(q1, kl, vl, tab_lanes, pos_lanes)
+        again = mmha.mmha_decode(q1, kl, vl, tab_lanes, pos_lanes)
+        if not torch.equal(got, again):
+            fail("verify attention: two mmha calls gave different bits")
+        err, tol = compare(torch, got, mmha.mmha_plain(q1, kl, vl, tab_lanes,
+                                                       pos_lanes))
+        if not err <= tol:
+            fail(f"verify attention: mmha over lanes {err} > {tol}")
+
+        def composite():
+            return kv_cache.chunk_attention(
+                q, kv_cache.gather_layer(pool.k, 0, tables),
+                kv_cache.gather_layer(pool.v, 0, tables), base)
+
+        err_c, tol_c = compare(torch, got.reshape(b, s, h, d), composite())
+        if not err_c <= tol_c:
+            fail(f"verify attention: mmha against chunk_attention {err_c} "
+                 f"> {tol_c}")
+        ms = timer(lambda: mmha.mmha_decode(q1, kl, vl, tab_lanes,
+                                            pos_lanes))
+        plain_ms = timer(lambda: mmha.mmha_plain(q1, kl, vl, tab_lanes,
+                                                 pos_lanes))
+        composite_ms = timer(composite)
+        visible = int((base + s).sum())
+        nbytes = 2 * visible * h_kv * d * 2 + 2 * q.numel() * 2 \
+            + tab_lanes.numel() * 4
+        bound_ms, bound_by = bound(nbytes, 4.0 * visible * h * d,
+                                   BF16_TC_FLOPS_PER_S)
+
+        fused = ServingModel(model).bind_pool(pool)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=dev)
+        dl = torch.full((b,), SPEC_K, dtype=torch.int32, device=dev)
+        lp = fused.verify_forward(toks, base, dl, tables, plain=True).float()
+        lk = fused.verify_forward(toks, base, dl, tables).float()
+        torch.cuda.synchronize()
+        rows = [_parity_row(torch, r * s + i, int(base[r]) + i, lk[r, i],
+                            lp[r, i]) for r in range(b) for i in range(s)]
+        prof = _profile(torch, lambda: fused.verify_forward(
+            toks, base, dl, tables), reps=10)
+    finally:
+        pool.free(held)
+    _check_parity("verify forward, fused, 8 rows x 5 lanes", rows)
+    if prof["port_launches_per_call"]["mmha"] != cfg.num_layers:
+        fail(f"verify step: mmha launched "
+             f"{prof['port_launches_per_call']['mmha']} times, want one a "
+             f"layer")
+    emit({"phase": "verify_attention", "rows": b, "lanes": s,
+          "positions": (base + s - 1).tolist(), "max_pages": tables.shape[1],
+          "mmha_lanes_ms": ms, "mmha_lanes_plain_ms": plain_ms,
+          "chunk_attention_ms": composite_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "max_abs_err": err, "tol": tol,
+          "max_abs_err_vs_chunk_attention": err_c,
+          "verify_step_profile": prof})
+
+
+def phase_generate(torch, np, model, b_engine, prompts, served):
+    """Cached ``generate`` on the served Llama-3-8B: 64 greedy tokens for
+    each of engine b's first four prompts, one B 1 call each, held against
+    engine b's tokens by :func:`_agreement`; each call launches mmha once
+    a layer a token and flash once a layer (the prefill). Then the four
+    prompts cut to the shortest one's length in one B 4 call, held against
+    B 1 calls on the same cut prompts. ms per token after the prefill,
+    which is timed alone."""
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.serving import ServingModel
+
+    dev = b_engine.device
+    layers = model.cfg.num_layers
+    sm = ServingModel(model).bind_pool(b_engine.pool)
+    ps = [list(p) for p in prompts[:GEN_REQUESTS]]
+    model.generate(torch.tensor([ps[0][:32]], device=dev), max_new_tokens=2)
+
+    def run(batch):
+        ids = torch.tensor(batch, device=dev)
+        caches = model.init_cache(ids.shape[0], ids.shape[1] + GEN_TOKENS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model(ids[:, :-1], caches=caches, cache_pos=0, with_head=False)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        del caches
+        for w in WRAPPERS.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=GEN_TOKENS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+        want = {"mmha": layers * GEN_TOKENS, "flash_attention": layers}
+        got = {n: launches.get(n, 0) for n in want}
+        if got != want:
+            fail(f"generate B {len(batch)}: launches {got}, want {want}")
+        toks = [out[r, ids.shape[1]:].tolist() for r in range(len(batch))]
+        return toks, {"batch": len(batch), "prompt_len": ids.shape[1],
+                      "wall_ms": wall_ms, "prefill_ms": prefill_ms,
+                      "ms_per_token": (wall_ms - prefill_ms) / GEN_TOKENS,
+                      "launches": launches}
+
+    singles, calls = [], []
+    for p in ps:
+        toks, row = run([p])
+        singles.append(toks[0])
+        calls.append(row)
+    rows = _agreement(torch, "generate B 1 against engine b", singles,
+                      [o[:GEN_TOKENS] for o in served[:GEN_REQUESTS]],
+                      lambda i, j: _next_logits(torch, sm, b_engine,
+                                                ps[i] + served[i][:j]))
+    cut = min(len(p) for p in ps)
+    cut_ps = [p[:cut] for p in ps]
+    cut_singles = []
+    for p in cut_ps:
+        toks, row = run([p])
+        cut_singles.append(toks[0])
+        calls.append(row)
+    batched, row = run(cut_ps)
+    calls.append(row)
+    rows4 = _agreement(torch, "generate B 4 against B 1", batched,
+                       cut_singles,
+                       lambda i, j: _next_logits(torch, sm, b_engine,
+                                                 cut_ps[i]
+                                                 + cut_singles[i][:j]))
+    emit({"phase": "generate", "model": "llama3_8b", "tokens": GEN_TOKENS,
+          "calls": calls, "against_engine_b": rows,
+          "b4_against_b1": rows4, "cut_prompt_len": cut})
+
+
+def phase_generate_gpt(torch, dev):
+    """Cached ``generate`` on GPT-2 small (bf16, random weights from a
+    seed): 64 greedy tokens for 8 seeded prompts of 128 in one call, held
+    by :func:`_agreement` against the exact-length host loop
+    (``use_cache=False``) on the same model, whose logits at a divergence
+    come from a whole forward. The cached call launches mmha once a layer
+    a token and flash once a layer."""
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    model = gpt2_small(device=dev, dtype=torch.bfloat16, seed=0).eval()
+    layers = model.cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = torch.randint(0, 50257, (GPT_GEN_BATCH, GPT_GEN_PROMPT),
+                        generator=gen, device=dev)
+    for cache in (True, False):
+        model.generate(ids[:, :16], max_new_tokens=2, use_cache=cache)
+    times, outs = {}, {}
+    for cache in (True, False):
+        for w in WRAPPERS.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=GEN_TOKENS, use_cache=cache)
+        torch.cuda.synchronize()
+        times[cache] = (time.perf_counter() - t0) * 1e3
+        outs[cache] = out
+        if cache:
+            launches = {n: w.launches for n, w in WRAPPERS.items()
+                        if w.launches}
+    want = {"mmha": layers * GEN_TOKENS, "flash_attention": layers}
+    got = {n: launches.get(n, 0) for n in want}
+    if got != want:
+        fail(f"GPT-2 generate: launches {got}, want {want}")
+    ref = outs[False]
+
+    def logits_at(i, j):
+        with torch.no_grad():
+            return model(ref[i:i + 1, :GPT_GEN_PROMPT + j])[0, -1].float()
+
+    rows = _agreement(torch, "GPT-2 generate against the host loop",
+                      [outs[True][r, GPT_GEN_PROMPT:].tolist()
+                       for r in range(GPT_GEN_BATCH)],
+                      [ref[r, GPT_GEN_PROMPT:].tolist()
+                       for r in range(GPT_GEN_BATCH)], logits_at)
+    emit({"phase": "generate", "model": "gpt2_small", "batch": GPT_GEN_BATCH,
+          "prompt_len": GPT_GEN_PROMPT, "tokens": GEN_TOKENS,
+          "cached_ms": times[True],
+          "cached_ms_per_token": times[True] / GEN_TOKENS,
+          "host_loop_ms": times[False],
+          "host_loop_ms_per_token": times[False] / GEN_TOKENS,
+          "launches": launches, "against_host_loop": rows})
+    del model
+    _free(torch)
 
 
 _OWN_KERNELS = ("mmha_paged_kernel", "rms_norm_kernel", "rope_kernel",
@@ -3868,6 +4301,10 @@ def main() -> int:
     phase_parity_default(torch, model, d_engine, d_prompts, d_served)
     phase_parity_fused_layer(torch, model, c_engine, d_prompts, c_served)
     phase_profile(torch, model, engine, prompts)
+    phase_serve_spec(torch, np, model, d_engine, d_prompts, d_served)
+    phase_verify_attention(torch, model, d_engine, d_prompts)
+    phase_generate(torch, np, model, d_engine, d_prompts, d_served)
+    phase_generate_gpt(torch, dev)
 
     # quantized serving: each engine's copies are freed before the next
     qd, qd_served, qd_launches = phase_serve_quant(

@@ -16,6 +16,7 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> norm [--engine] [--train]
     python3 kernel_ab.py <checkout root> <tag> swiglu [--engine] [--train[=llama]]
     python3 kernel_ab.py <checkout root> <tag> normbwd [--train]
+    python3 kernel_ab.py <checkout root> <tag> spec [--rounds=N]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -254,6 +255,19 @@ Family ``normbwd`` (the RMSNorm backward, row 3):
   ``rms_norm.make_bwd(rows, hidden, has_gh, blocks_sm)`` gives it (a
   checkout whose plan has that choice).
 
+Family ``spec`` (speculative decoding on the host-bound serving path;
+one checkout's spec-on against spec-off, so it runs on one tree):
+Llama-3-8B (random weights) serves engine b's traffic of ``chip_smoke.py``
+once with ``spec_k=0`` for the replay drafter's reference, then ``N``
+rounds (default 4) of three engines of b's configuration, the order
+rotated a round: ``off`` (``spec_k=0``), ``ngram`` (``spec_k=4``) and
+``replay`` (``spec_k=4``, the drafter replaying the reference). One line
+an engine run (``chip_smoke._serve_spec``'s row: tokens/s, decode and
+verify steps and their ms, tokens a step, drafts, the drafter's host ms),
+then ``spec_summary``: each engine's median tokens/s and each spec-on
+engine's ratio to ``off`` a round (the rounds' median, and in how many
+rounds it beat ``off``).
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
 ``git archive`` into an ignored directory measures as it was.
@@ -278,7 +292,8 @@ def main() -> int:
     families = {"flash": _flash, "wo": _wo, "grad": _grad, "a8w8": _a8w8,
                 "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode,
                 "softmax": _softmax, "rows": _rows,
-                "norm": _norm, "swiglu": _swiglu, "normbwd": _normbwd}
+                "norm": _norm, "swiglu": _swiglu, "normbwd": _normbwd,
+                "spec": _spec}
     if family not in families:
         cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
@@ -786,6 +801,41 @@ def _decode(torch, cs, dev, timer, randn, emit):
 
     if "--engine" in sys.argv[4:]:
         _engine_profiles(torch, cs, dev, emit)
+
+
+def _spec(torch, cs, dev, timer, randn, emit):
+    import numpy as np
+
+    from paddle_tpu_torch.models import llama3_8b
+
+    rounds = int(next((a.split("=", 1)[1] for a in sys.argv[4:]
+                       if a.startswith("--rounds=")), 4))
+    cs._free(torch)
+    model = llama3_8b(device=dev, seed=0)
+    prompts = cs.default_prompts(np, model.cfg.vocab_size)
+    _, ref, _ = cs._serve_spec(torch, np, model, prompts, spec_k=0)
+    replay = cs._ReplayDrafter(prompts, ref, model.cfg.vocab_size)
+    engines = (("off", None, {"spec_k": 0}), ("ngram", None, {}),
+               ("replay", replay, {}))
+    tps: dict = {name: [] for name, _, _ in engines}
+    for r in range(rounds):
+        for name, drafter, kw in engines[r % 3:] + engines[:r % 3]:
+            row, _, _ = cs._serve_spec(torch, np, model, prompts, drafter,
+                                      **kw)
+            tps[name].append(row["tokens_per_s"])
+            emit(spec_engine=name, round=r,
+                 **{k: v for k, v in row.items() if k != "pages"})
+    summary = {"rounds": rounds,
+               "median_tokens_per_s": {n: float(np.median(v))
+                                       for n, v in tps.items()}}
+    for name in ("ngram", "replay"):
+        ratios = [a / b for a, b in zip(tps[name], tps["off"])]
+        summary[name] = {"ratio_median": float(np.median(ratios)),
+                         "beat_off": sum(x > 1.0 for x in ratios),
+                         "ratios": ratios}
+    emit(spec_summary=summary)
+    del model
+    cs._free(torch)
 
 
 def _engine_profiles(torch, cs, dev, emit, prefill=False):

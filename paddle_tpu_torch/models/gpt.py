@@ -17,10 +17,15 @@ counterpart of ``FLAGS_use_fused_blocks``) runs the fused trunk
 layer norm with its bias, forward and backward through the kernels; with
 ``fused_blocks = False`` it runs the layer loop (``gpt.py:96-105``).
 
+``init_cache`` and ``forward(caches=, cache_pos=)`` decode incrementally
+(``gpt.py:57-101, 123, 179-193``) on either trunk, and :meth:`GPT.generate`
+(``models/generation.py``) runs on them; the cache is per-layer page pools
+read by the mmha kernel (H = Hkv, D 64 at GPT-2 small's width), not JAX's
+contiguous buffers.
+
 Not ported, and raising: dropout in training (``GPTConfig(dropout > 0)``:
 the JAX model draws its attention and embedding dropout bits from
-``jax.random``, which no kernel here can reproduce bit for bit), and
-``caches`` / :meth:`GPT.generate` (incremental decoding).
+``jax.random``, which no kernel here can reproduce bit for bit).
 
 Parameters are made on the target device and drawn from a seeded
 ``torch.Generator`` with the JAX init's std: ``initializer_range`` for the
@@ -39,6 +44,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
+from .generation import (GenerationMixin, cache_index, cached_attention,
+                         init_kv_pages)
 
 __all__ = ["GPTConfig", "GPT", "gpt2_small", "gpt2_tiny"]
 
@@ -80,13 +87,20 @@ class CausalSelfAttention(nn.Module):
         self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
         self.proj = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
-    def forward(self, x, plain=False):
+    def forward(self, x, plain=False, cache=None, cache_pos=None,
+                index=None):
         """Causal self-attention of ``x [B, S, hidden]``: the qkv output
         splits as ``[B, S, 3, H, D]`` (``gpt.py:59-60``), then flash
-        attention and ``proj``."""
+        attention and ``proj``. With a ``cache`` (a layer's ``(k, v)`` page
+        pools) the S positions from ``cache_pos`` attend through
+        :func:`~.generation.cached_attention` and the return is ``(out,
+        cache)``."""
         b, s, h = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.n_head, self.head_dim)
         q, k, v = (t.contiguous() for t in qkv.unbind(2))
+        if cache is not None:
+            out = cached_attention(q, k, v, cache, cache_pos, index, plain)
+            return self.proj(out.reshape(b, s, h)), cache
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              plain=plain)
         return self.proj(out.reshape(b, s, h))
@@ -110,13 +124,19 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, plain=False):
-        """One block of the layer loop (``gpt.py:96-105``)."""
+    def forward(self, x, plain=False, cache=None, cache_pos=None,
+                index=None):
+        """One block of the layer loop (``gpt.py:96-105``); ``(out,
+        cache)`` with a ``cache``."""
+        if cache is not None:
+            a, cache = self.attn(self.ln1(x), plain, cache, cache_pos, index)
+            x = x + a
+            return x + self.mlp(self.ln2(x)), cache
         x = x + self.attn(self.ln1(x), plain)
         return x + self.mlp(self.ln2(x))
 
 
-class GPT(nn.Module):
+class GPT(GenerationMixin, nn.Module):
     """GPT LM on ``device`` (default ``cuda``) in ``dtype``. ``seed`` seeds
     the init generator; ``seed=None`` leaves the parameters uninitialised,
     for a caller that loads them."""
@@ -171,16 +191,21 @@ class GPT(nn.Module):
             return x @ self.wte.weight.t()
         return self.lm_head(x)
 
-    def _fused_trunk(self, x, plain=False):
+    def _fused_trunk(self, x, plain=False, caches=None, cache_pos=None,
+                     index=None):
         """Every residual junction — attention output -> ``ln2`` and MLP
         output -> the next block's ``ln1`` (``ln_f`` after the last) — as
         one block-epilogue pass each, layer norm with its bias. Returns the
-        ``ln_f`` output (``gpt.py:153-177``)."""
+        ``ln_f`` output (``gpt.py:153-177``); with ``caches`` each block
+        attends through its cache."""
         blocks = list(self.blocks)
         y = blocks[0].ln1(x)
         h = x
         for i, blk in enumerate(blocks):
-            a = blk.attn(y, plain)
+            if caches is None:
+                a = blk.attn(y, plain)
+            else:
+                a, _ = blk.attn(y, plain, caches[i], cache_pos, index)
             y, h = F.fused_dropout_add_norm(
                 a, h, blk.ln2.weight, blk.ln2.bias, p=0.0,
                 epsilon=blk.ln2.eps, norm="layer", plain=plain)
@@ -190,25 +215,58 @@ class GPT(nn.Module):
                 epsilon=nxt.eps, norm="layer", plain=plain)
         return y
 
+    def init_cache(self, batch, max_len, dtype=None):
+        """Zeroed per-layer ``(k, v)`` page pools for incremental decoding
+        (``gpt.py:123``), ``[batch * T / 16, H, 16, D]`` with ``T`` =
+        ``max_len`` rounded up to 16, in ``dtype`` (default: the model's),
+        on the model's device."""
+        cfg = self.cfg
+        return init_kv_pages(len(self.blocks), batch, max_len,
+                             cfg.num_heads, cfg.hidden_size // cfg.num_heads,
+                             dtype or self.wte.weight.dtype, self.device)
+
+    def _cached_forward(self, input_ids, caches, cache_pos, with_head,
+                        plain):
+        """``(logits or None, caches)`` of ``input_ids [B, S]`` at positions
+        ``cache_pos ..`` against ``caches`` (``gpt.py:179-193``), on the
+        trunk ``fused_blocks`` picks."""
+        b, s = input_ids.shape
+        start = int(cache_pos or 0)
+        pos = torch.arange(start, start + s, device=input_ids.device)
+        x = self.wte(input_ids.long()) + self.wpe(pos)[None]
+        index = cache_index(caches[0], b, start, s)
+        fused = self.fused_blocks and len(self.blocks) > 0
+        if fused:
+            out = self._fused_trunk(x, plain, caches, start, index)
+        else:
+            for blk, c in zip(self.blocks, caches):
+                x, _ = blk(x, plain, c, start, index)
+            out = x
+        if not with_head:
+            return None, caches
+        return self._head(out, normed=fused), caches
+
     def forward(self, input_ids, labels=None, plain=False, caches=None,
-                cache_pos=None):
+                cache_pos=None, with_head=True):
         """Logits ``[B, S, vocab]`` of ``input_ids [B, S]``, or ``(logits,
         loss)`` with ``labels [B, S]``: the causal whole-sequence forward
         (``gpt.py:179-211``), through the fused trunk or, with
         ``fused_blocks = False``, the layer loop. The loss is the mean
         cross entropy of the logits taken to f32 (``ignore_index`` -100),
         as the JAX package computes it. ``plain=True`` runs every kernel's
-        plain version, forward and backward."""
-        if caches is not None or cache_pos is not None:
-            raise NotImplementedError(
-                "GPT.forward(caches=...): incremental decoding is not "
-                "ported yet")
+        plain version, forward and backward. With ``caches``
+        (:meth:`init_cache`) the S tokens sit at positions ``cache_pos ..``
+        and the return is ``(logits, caches)``; ``with_head=False`` skips
+        the head (``None`` in place of the logits)."""
         if self.training and self.cfg.dropout > 0.0:
             raise NotImplementedError(
                 f"GPTConfig(dropout={self.cfg.dropout}) in training: the "
                 f"JAX model draws its attention and embedding dropout from "
                 f"jax.random, which the port cannot reproduce; train at "
                 f"dropout=0.0 or call eval()")
+        if caches is not None:
+            return self._cached_forward(input_ids, caches, cache_pos,
+                                        with_head, plain)
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
         x = self.wte(input_ids.long()) + self.wpe(pos)[None]
@@ -224,10 +282,6 @@ class GPT(nn.Module):
             logits.reshape(-1, self.cfg.vocab_size).float(),
             labels.reshape(-1))
         return logits, loss
-
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError("GPT.generate (incremental decoding with "
-                                  "caches) is not ported yet")
 
     def num_params(self, non_embedding=True) -> int:
         n = sum(p.numel() for p in self.parameters())

@@ -12,8 +12,12 @@ counterpart of ``FLAGS_use_fused_blocks``) picks the fused trunk (flash
 attention, block epilogues) or the layer loop of the JAX escape hatch
 (``fused_blocks = False``); both train through the backward kernels, the
 fused trunk through the block-epilogue backward at every junction.
-``caches`` are not ported. Linear weights are stored ``[out, in]``
-as ``torch.nn.Linear`` keeps them (the JAX package stores ``[in, out]``).
+``init_cache`` and ``forward(caches=, cache_pos=)`` decode incrementally
+on either trunk, and :meth:`generate` (``models/generation.py``) runs on
+them; the cache is per-layer page pools read by the mmha kernel, not
+JAX's contiguous buffers (see ``generation.py``). Linear weights are
+stored ``[out, in]`` as ``torch.nn.Linear`` keeps them (the JAX package
+stores ``[in, out]``).
 
 Parameters are made on the target device and drawn from a seeded
 ``torch.Generator`` with the JAX init's std: ``initializer_range`` for
@@ -32,6 +36,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
+from .generation import (GenerationMixin, cache_index, cached_attention,
+                         init_kv_pages)
 
 __all__ = ["LlamaConfig", "Llama", "llama_tiny", "llama3_8b", "rope_tables"]
 
@@ -95,13 +101,21 @@ class LlamaAttention(nn.Module):
                 self.k_proj(x).reshape(b, s, self.n_kv, self.head_dim),
                 self.v_proj(x).reshape(b, s, self.n_kv, self.head_dim))
 
-    def forward(self, x, cos, sin, plain=False):
+    def forward(self, x, cos, sin, plain=False, cache=None, cache_pos=None,
+                index=None):
         """Causal self-attention of ``x [B, S, hidden]``: projections, RoPE,
         flash attention over the shared kv heads, ``o_proj``
-        (``paddle_tpu/models/llama.py:155-170``)."""
+        (``paddle_tpu/models/llama.py:155-170``). With a ``cache`` (a
+        layer's ``(k, v)`` page pools) the S positions from ``cache_pos``
+        attend through :func:`~.generation.cached_attention` and the
+        return is ``(out, cache)``."""
         b, s, _ = x.shape
         q, k, v = self.qkv(x)
         q, k = F.rope(q, k, sin, cos, plain=plain)
+        if cache is not None:
+            out = cached_attention(q, k, v, cache, cache_pos, index, plain)
+            return self.o_proj(
+                out.reshape(b, s, self.n_head * self.head_dim)), cache
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              plain=plain)
         return self.o_proj(out.reshape(b, s, self.n_head * self.head_dim))
@@ -129,17 +143,24 @@ class LlamaDecoderLayer(nn.Module):
                                                 cfg.rms_norm_eps)
         self.mlp = LlamaMLP(cfg)
 
-    def forward(self, x, cos, sin, plain=False):
+    def forward(self, x, cos, sin, plain=False, cache=None, cache_pos=None,
+                index=None):
         """One layer of the unfused trunk (``paddle_tpu/models/llama.py:
         211-224``): ``x + attn(norm(x))`` through the fused residual-add
-        norm, then ``h + mlp(y)``."""
-        a = self.self_attn(self.input_layernorm(x, plain), cos, sin, plain)
+        norm, then ``h + mlp(y)``; ``(out, cache)`` with a ``cache``."""
+        normed = self.input_layernorm(x, plain)
+        if cache is not None:
+            a, cache = self.self_attn(normed, cos, sin, plain, cache,
+                                      cache_pos, index)
+        else:
+            a = self.self_attn(normed, cos, sin, plain)
         post = self.post_attention_layernorm
         y, h = F.fused_rms_norm_add(a, x, post.weight, post.eps, plain=plain)
-        return h + self.mlp(y, plain)
+        out = h + self.mlp(y, plain)
+        return (out, cache) if cache is not None else out
 
 
-class Llama(nn.Module):
+class Llama(GenerationMixin, nn.Module):
     """Llama LM on ``device`` (default ``cuda``) in ``dtype``. ``seed``
     seeds the init generator; ``seed=None`` leaves the parameters
     uninitialised, for a caller that loads them."""
@@ -200,17 +221,23 @@ class Llama(nn.Module):
             return x @ self.embed_tokens.weight.t()
         return self.lm_head(x)
 
-    def _fused_trunk(self, x, cos, sin, plain=False):
+    def _fused_trunk(self, x, cos, sin, plain=False, caches=None,
+                     cache_pos=None, index=None):
         """Both residual junctions of every layer — attention output ->
         ``post_attention_layernorm`` and MLP output -> the next layer's
         ``input_layernorm`` (the final norm after the last layer) — as one
         block-epilogue pass each. Returns the final-norm output
-        (``paddle_tpu/models/llama.py:267-290``)."""
+        (``paddle_tpu/models/llama.py:267-290``); with ``caches`` each
+        layer attends through its cache."""
         layers = list(self.layers)
         y = layers[0].input_layernorm(x, plain)
         h = x
         for i, layer in enumerate(layers):
-            a = layer.self_attn(y, cos, sin, plain)
+            if caches is None:
+                a = layer.self_attn(y, cos, sin, plain)
+            else:
+                a, _ = layer.self_attn(y, cos, sin, plain, caches[i],
+                                       cache_pos, index)
             post = layer.post_attention_layernorm
             y, h = F.fused_dropout_add_norm(a, h, post.weight, None, p=0.0,
                                             epsilon=post.eps, plain=plain)
@@ -221,14 +248,54 @@ class Llama(nn.Module):
                                             epsilon=nxt.eps, plain=plain)
         return y
 
-    def forward(self, input_ids, labels=None, plain=False):
+    def init_cache(self, batch, max_len, dtype=None):
+        """Zeroed per-layer ``(k, v)`` page pools for incremental decoding
+        (``paddle_tpu/models/llama.py:292``), ``[batch * T / 16, Hkv, 16,
+        D]`` with ``T`` = ``max_len`` rounded up to 16, in ``dtype``
+        (default: the model's), on the model's device."""
+        cfg = self.cfg
+        return init_kv_pages(len(self.layers), batch, max_len,
+                             cfg.num_kv_heads, cfg.head_dim,
+                             dtype or self.embed_tokens.weight.dtype,
+                             self.device)
+
+    def _cached_forward(self, input_ids, caches, cache_pos, with_head,
+                        plain):
+        """``(logits or None, caches)`` of ``input_ids [B, S]`` at positions
+        ``cache_pos ..`` against ``caches`` (``paddle_tpu/models/
+        llama.py:300-317``), on the trunk ``fused_blocks`` picks."""
+        b, s = input_ids.shape
+        start = int(cache_pos or 0)
+        cos_t, sin_t = self.rope(self.cfg.max_position_embeddings)
+        cos, sin = cos_t[start:start + s], sin_t[start:start + s]
+        index = cache_index(caches[0], b, start, s)
+        x = self.embed_tokens(input_ids.long())
+        if self.fused_blocks and len(self.layers):
+            out = self._fused_trunk(x, cos, sin, plain, caches, start, index)
+        else:
+            for layer, c in zip(self.layers, caches):
+                x, _ = layer(x, cos, sin, plain, c, start, index)
+            out = x
+        if not with_head:
+            return None, caches
+        return self._head(out, plain, normed=self.fused_blocks
+                          and len(self.layers) > 0), caches
+
+    def forward(self, input_ids, labels=None, plain=False, caches=None,
+                cache_pos=None, with_head=True):
         """Logits ``[B, S, vocab]`` of ``input_ids [B, S]``, or ``(logits,
         loss)`` with ``labels [B, S]``: the causal whole-sequence forward
         (``paddle_tpu/models/llama.py:300-331``), through the fused trunk
         or, with ``fused_blocks = False``, the layer loop. The loss is the
         mean cross entropy of the logits taken to f32 (``ignore_index``
         -100), as the JAX package computes it. ``plain=True`` runs every
-        kernel's plain version, forward and backward."""
+        kernel's plain version, forward and backward. With ``caches``
+        (:meth:`init_cache`) the S tokens sit at positions ``cache_pos ..``
+        and the return is ``(logits, caches)``; ``with_head=False`` skips
+        the head (``None`` in place of the logits)."""
+        if caches is not None:
+            return self._cached_forward(input_ids, caches, cache_pos,
+                                        with_head, plain)
         cos, sin = self.rope(input_ids.shape[1])
         x = self.embed_tokens(input_ids.long())
         if self.fused_blocks:

@@ -3,8 +3,9 @@
 engine's: monolithic prefill through the flash-attention kernel, the
 block-epilogue kernels at every residual junction, and the prefix cache
 with copy-on-write page sharing; chunked prefill and the per-op path are
-options. Decode attention, RMSNorm, RoPE and SwiGLU are the port's
-kernels too."""
+options, and so is speculative decoding (``spec_k``: n-gram drafts
+verified over K + 1 lanes a row by the decode-attention kernel). Decode
+attention, RMSNorm, RoPE and SwiGLU are the port's kernels too."""
 
 from .engine import LLMEngine, ServingConfig
 from .kv_cache import (PageDoubleFree, PagePool, PagePoolError,
@@ -12,8 +13,10 @@ from .kv_cache import (PageDoubleFree, PagePool, PagePoolError,
 from .model import ServingModel
 from .prefix_cache import PrefixCache, chain_keys, model_fingerprint
 from .scheduler import Request, RequestRejected, Scheduler, ServingError
+from .speculative import NgramDrafter, SpecState, verify_tokens
 
 __all__ = ["LLMEngine", "ServingConfig", "ServingModel", "PagePool",
            "PagePoolError", "PagePoolExhausted", "PageDoubleFree",
            "PrefixCache", "chain_keys", "model_fingerprint", "Request",
-           "RequestRejected", "Scheduler", "ServingError"]
+           "RequestRejected", "Scheduler", "ServingError", "NgramDrafter",
+           "SpecState", "verify_tokens"]

@@ -15,7 +15,10 @@ forwards run eagerly (no ``torch.compile``); grad mode is thread-local in
 PyTorch, so the engine thread wraps its own work in
 ``torch.inference_mode()``. Next tokens are chosen on the device: greedy
 where a row's temperature is 0, else temperature (and optional top-k)
-Gumbel sampling from the engine's seeded ``torch.Generator``.
+Gumbel sampling from the engine's seeded ``torch.Generator``. With
+``spec_k`` K > 0 a step where any request drafted runs :meth:`verify` over
+K + 1 lanes a row (``serving/speculative.py``), its acceptance draws from
+the same generator.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from .kv_cache import PagePool
 from .model import ServingModel
 from .prefix_cache import PrefixCache, model_fingerprint
 from .scheduler import Request, Scheduler, ServingError
+from .speculative import scaled_filtered_logits, verify_tokens
 
 __all__ = ["ServingConfig", "LLMEngine"]
 
@@ -49,8 +53,11 @@ class ServingConfig:
     cache. ``quant`` ("weight_only_int8" | "weight_only_int4", with
     ``quant_group_size`` G > 0 for scales per group of G input features)
     runs every decoder-layer projection through the weight-only kernels.
-    The options not ported yet (``spec_k``, ``prefill_budget``) keep their
-    names and raise ``NotImplementedError`` when set."""
+    ``spec_k`` > 0 turns on speculative decoding with up to that many
+    n-gram drafts a request and step (``spec_adaptive`` moves each
+    request's K on its acceptance rate); ``prefill_budget`` caps the
+    prefill tokens an iteration of chunked prefill spends (default: one
+    chunk)."""
     page_size: int = 16          # token positions per KV page
     num_pages: int = 64          # pool pages incl. the reserved trash page
     max_batch: int = 8           # decode slots (the continuous batch)
@@ -70,17 +77,15 @@ class ServingConfig:
     #                              requests with a common prompt prefix
     prefill_chunk: int | None = None   # tokens per prefill chunk (None =
     #                              monolithic prefill at admission)
-    prefill_budget: int | None = None
-    spec_k: int = 0
+    prefill_budget: int | None = None   # chunked-prefill tokens per
+    #                              iteration (None = one chunk)
+    spec_k: int = 0              # max draft tokens per request and step
+    #                              (0 = no speculative decoding)
+    spec_adaptive: bool = True   # shrink / grow each request's K on its
+    #                              acceptance-rate EWMA (K 0 = plain decode)
     dtype: str = "float32"       # KV pool dtype
     seed: int = 0
     drain_timeout_s: float = 30.0
-
-
-def _unsupported(cfg: ServingConfig) -> list[str]:
-    return [f"{name}={getattr(cfg, name)!r}"
-            for name, off in (("spec_k", 0), ("prefill_budget", None))
-            if getattr(cfg, name) != off]
 
 
 def _auto_buckets(max_seq_len: int) -> tuple:
@@ -101,10 +106,6 @@ class LLMEngine:
         cfg = config or ServingConfig()
         if overrides:
             cfg = replace(cfg, **overrides)
-        bad = _unsupported(cfg)
-        if bad:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(bad)}")
         if cfg.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
                              f"{cfg.dtype!r}")
@@ -125,6 +126,19 @@ class LLMEngine:
                 f"max_seq_len {max_seq} exceeds the model's "
                 f"max_position_embeddings {self._sm.max_pos}")
         self.max_seq_len = int(max_seq)
+        if cfg.prefill_budget is not None and cfg.prefill_budget < 1:
+            raise ValueError(
+                f"prefill_budget must be >= 1 tokens, got {cfg.prefill_budget}")
+        if cfg.prefill_budget is not None and cfg.prefill_chunk is None:
+            raise ValueError(
+                "prefill_budget only caps CHUNKED prefill — set "
+                "prefill_chunk too (monolithic prefill cannot be budgeted)")
+        if cfg.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {cfg.spec_k}")
+        if cfg.spec_k >= self.max_seq_len:
+            raise ValueError(
+                f"spec_k {cfg.spec_k} >= max_seq_len {self.max_seq_len}: "
+                f"a draft span could never fit a sequence")
         self.pool = PagePool(
             num_layers=len(model.layers), num_pages=cfg.num_pages,
             num_kv_heads=self._sm.n_kv, page_size=cfg.page_size,
@@ -141,7 +155,10 @@ class LLMEngine:
                                    self.max_seq_len,
                                    eos_token_id=cfg.eos_token_id,
                                    prefix_cache=self.prefix_cache,
-                                   prefill_chunk=cfg.prefill_chunk)
+                                   prefill_chunk=cfg.prefill_chunk,
+                                   prefill_budget=cfg.prefill_budget,
+                                   spec_k=cfg.spec_k,
+                                   spec_adaptive=cfg.spec_adaptive)
         # the JAX engine compiles one prefill program per bucket; the port
         # runs each prompt at its own length and keeps the buckets only to
         # validate a prompt's length the same way
@@ -152,11 +169,12 @@ class LLMEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         # host-clock milliseconds of each monolithic prefill (a prefix hit
         # runs its suffix as one chunk and counts here), each chunk of
-        # chunked prefill and each decode step, each ending in a device
-        # synchronise
+        # chunked prefill, each decode step and each verify step, each
+        # ending in a device synchronise
         self.prefill_ms: list[float] = []
         self.chunk_ms: list[float] = []
         self.step_ms: list[float] = []
+        self.verify_ms: list[float] = []
         self._cond = threading.Condition()
         self._thread: threading.Thread | None = None
         self._stop_mode: str | None = None
@@ -196,11 +214,7 @@ class LLMEngine:
         if not (temps > 0).any():
             return greedy
         t = torch.as_tensor(temps, dtype=torch.float32, device=self.device)
-        arr = logits / t.clamp_min(1e-6)[:, None]
-        k = self.config.top_k
-        if k is not None and 1 <= k < arr.shape[-1]:
-            kth = arr.topk(k, dim=-1).values[:, -1:]
-            arr = arr.masked_fill(arr < kth, float("-inf"))
+        arr = scaled_filtered_logits(logits, t, self.config.top_k)
         u = torch.rand(arr.shape, generator=self._gen, device=self.device)
         u = u.clamp_(min=torch.finfo(torch.float32).tiny)
         sampled = (arr - torch.log(-torch.log(u))).argmax(-1)
@@ -271,6 +285,25 @@ class LLMEngine:
         out = self._sample(logits, temps).cpu().numpy()
         self.step_ms.append((time.perf_counter() - t0) * 1000.0)
         return out
+
+    def verify(self, tokens, positions, dlens, tables, temps):
+        """One speculative verify step: tokens ``[B, K + 1]`` (each row's
+        last emitted token, then its drafts), positions / dlens / temps
+        ``[B]``, tables ``[B, max_pages]``. Returns ``(out [B, K + 1],
+        accepted [B])``: row ``b`` emits ``out[b, :accepted[b] + 1]``. One
+        transfer to the host a step, as :meth:`decode`."""
+        t0 = time.perf_counter()
+        dev = self.device
+        toks = torch.from_numpy(tokens).to(dev)
+        logits = self._sm.verify_forward(
+            toks, torch.from_numpy(positions).to(dev),
+            torch.from_numpy(dlens).to(dev), torch.from_numpy(tables).to(dev))
+        out, acc = verify_tokens(
+            logits, toks[:, 1:], torch.from_numpy(dlens).to(dev),
+            torch.from_numpy(temps).to(dev), self._gen, self.config.top_k)
+        arr = torch.cat([out, acc[:, None]], dim=1).cpu().numpy()
+        self.verify_ms.append((time.perf_counter() - t0) * 1000.0)
+        return arr[:, :-1], arr[:, -1]
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -412,4 +445,6 @@ class LLMEngine:
                       "lost": self.pool.lost(),
                       "total": self.pool.allocatable},
             "prefix_cache": sched.prefix_stats(),
+            "speculative": sched.spec_stats(),
+            "tokens_per_step": sched.tokens_per_step(),
         }

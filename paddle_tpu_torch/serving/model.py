@@ -3,7 +3,9 @@
 
 ``prefill_forward`` runs a whole prompt and writes its pages;
 ``prefill_chunk_forward`` runs one chunk of a request's context against
-what is already resident; ``decode_forward`` runs one token per batch row.
+what is already resident; ``decode_forward`` runs one token per batch row;
+``verify_forward`` runs the K + 1 lanes of a speculative verify step per
+batch row.
 
 Two dataflows, picked by ``fused_block`` alone (never by the device):
 
@@ -29,7 +31,7 @@ down projections, the JAX gate at ``paddle_tpu/serving/model.py:95-107``)
 sends each decode step through the decode-layer kernel: per layer, QKV,
 RoPE and the KV writes as before, then one ``decode_layer`` launch from the
 attention to the next layer's normed input. Prefill, chunks and every
-other path are unchanged. The speculative verify is not ported yet.
+other path are unchanged; the speculative verify runs the layer loop.
 
 ``quant`` (None | "weight_only_int8" | "weight_only_int4" | "int8" |
 "int4", the JAX names, ``paddle_tpu/serving/model.py:31-40``) quantizes
@@ -327,6 +329,70 @@ class ServingModel:
                          eps_post=post.eps, eps_next=nxt.eps)
             y = y[:, None]
         return self._head_normed(y)[:, 0]
+
+    # -- speculative verify --------------------------------------------------
+
+    @torch.inference_mode()
+    def verify_forward(self, tokens, positions, draft_len, tables,
+                       plain=False):
+        """One speculative verify step: the K + 1 lanes of every batch row
+        (the last accepted token, then up to K drafts) in one forward over
+        the paged pool (``paddle_tpu/serving/model.py:402``).
+
+        tokens ``[B, S]`` (``S = K + 1``; lanes past ``1 + draft_len`` are
+        padding), positions ``[B]`` int32 (lane 0's position, the row's
+        ``cur_len - 1``), draft_len ``[B]`` int32, tables ``[B,
+        max_pages]`` int32, all on the model's device. Each valid lane
+        writes its KV through the row's table (the scheduler has grown the
+        table and copied any shared page in the span); a padding lane
+        writes to the trash page. Returns logits ``[B, S, vocab]`` (lane
+        ``i``: the distribution at position ``base + i + 1``).
+
+        The attention is the mmha kernel over the ``B * S`` lanes as rows:
+        lane ``i`` of row ``b`` reads ``b``'s table up to position
+        ``base + i``, the JAX rule ``j <= base + i``. (The JAX verify
+        gathers every row's whole table and runs the f32
+        ``chunk_attention`` composite; the function is the same.) The
+        plain version runs ``mmha_plain`` on the same lanes."""
+        pool = self.pool
+        ps = pool.page_size
+        b, s = tokens.shape
+        base = positions.to(torch.int32)
+        dlen = draft_len.to(torch.int32)
+        tab = tables.to(torch.int32)
+        max_pages = tab.shape[1]
+        lane = torch.arange(s, device=tokens.device, dtype=torch.int32)[None]
+        pos = base[:, None] + lane                                # [B, S]
+        valid = lane <= dlen[:, None]
+        pos_c = pos.clamp(0, self.max_pos - 1)
+        page_idx = (pos_c // ps).clamp(max=max_pages - 1).long()
+        w_page = torch.where(valid, tab.gather(1, page_idx),
+                             torch.full_like(pos, kv_cache.TRASH_PAGE))
+        w_page = w_page.reshape(-1).long()
+        w_slot = (pos_c % ps).reshape(-1).long()
+        flat = pos_c.reshape(-1).long()
+        cos_t, sin_t = self.model.rope(self.max_pos)
+        cos, sin = cos_t[flat], sin_t[flat]                       # [B*S, D]
+        # the lanes as rows of one decode attention: each row's table once
+        # a lane, int32 and contiguous, built once a step
+        tab_lanes = tab.repeat_interleave(s, dim=0)
+        pos_lanes = pos.clamp(0, max_pages * ps - 1).reshape(-1)
+
+        def write_kv(i, k, v):
+            kv_cache.write_token(pool.k, i, w_page, w_slot,
+                                 k.reshape(b * s, self.n_kv, self.head_dim))
+            kv_cache.write_token(pool.v, i, w_page, w_slot,
+                                 v.reshape(b * s, self.n_kv, self.head_dim))
+
+        def attend(i, q, k, v):
+            q1 = q.reshape(b * s, 1, self.n_head, self.head_dim).contiguous()
+            out = kv_cache.paged_attention(q1, pool, i, tab_lanes,
+                                           pos_lanes, plain=plain)
+            return out.reshape(b, s, self.n_head, self.head_dim)
+
+        x = self.model.embed_tokens(tokens.long())
+        h = self._layers(x, cos, sin, write_kv, attend, plain)
+        return self._logits(h, plain)
 
     # -- monolithic prefill --------------------------------------------------
 

@@ -26,14 +26,25 @@ iteration:
 4. **Decode**: one batched step over every prefill-complete slot (the
    other slots ride along at position 0 on the trash page). Finished
    requests (eos, ``max_new_tokens`` or the length limit) drop their pages.
+   With speculative decoding (``spec_k`` K > 0) the drafter first proposes
+   up to K tokens a request from its own history; when any request
+   drafted, the step runs the engine's verify over K + 1 lanes a row
+   instead (rows without drafts ride along at ``draft_len`` 0 and advance
+   one token), emits each row's accepted tokens as one burst and rolls
+   back the pages that held only rejected drafts. Every row's plain-decode
+   page comes first; a draft span that finds no free page is dropped and
+   never evicts another request. Per-request adaptive K
+   (:class:`~.speculative.SpecState`) takes an unpredictable stream back
+   to plain decode.
 
 Before any KV write lands in a page shared with another request (refcount
 >= 2), :meth:`Scheduler._make_writable` copies the page and remaps it
 (copy-on-write). A request that can never fit (length over the limit, or
 more pages than the pool holds) is rejected at :meth:`Scheduler.submit`.
 
-Not ported: speculative decoding, the prefill token budget, and the
-metrics, tracing and flight-recorder hooks.
+Chunked prefill spends at most ``prefill_budget`` tokens an iteration
+(default: one chunk). Not ported: the metrics, tracing and flight-recorder
+hooks.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import uuid
 import numpy as np
 
 from .kv_cache import PagePoolExhausted
+from .speculative import NgramDrafter, SpecState
 
 __all__ = ["Request", "Scheduler", "RequestRejected", "ServingError",
            "QUEUED", "RUNNING", "COMPLETED", "FAILED", "REJECTED"]
@@ -94,6 +106,9 @@ class Request:
         self.slot: int | None = None
         self.arrival = next(_arrival)
         self.evictions = 0
+        # adaptive draft length, made at admission when the engine
+        # speculates; kept across an eviction with its acceptance EWMA
+        self.spec: SpecState | None = None
         # context tokens whose KV is resident (prefix-cache hits count;
         # chunked prefill advances it chunk by chunk)
         self.prefilled = 0
@@ -115,6 +130,16 @@ class Request:
         (prefilled again wholesale after an eviction)."""
         return self.prompt + self.tokens
 
+    def context_tail(self, n: int) -> list[int]:
+        """The last ``n`` context tokens, without building the whole
+        context: the drafter's lookback stays O(window)."""
+        n = int(n)
+        if n <= 0:
+            return []
+        if len(self.tokens) >= n:
+            return self.tokens[-n:]
+        return self.prompt[-(n - len(self.tokens)):] + self.tokens
+
     def cur_len(self) -> int:
         return len(self.prompt) + len(self.tokens)
 
@@ -126,15 +151,22 @@ class Request:
             self.prefilled >= self._prefill_target
 
     def _emit(self, token: int) -> None:
-        if self.ttft_ms is None:
+        self._emit_burst([token])
+
+    def _emit_burst(self, toks) -> None:
+        """Emit one step's generated tokens: one for a decode step, up to
+        K + 1 for a verify step."""
+        if toks and self.ttft_ms is None:
             self.ttft_ms = (time.monotonic() - self.t_submit) * 1000.0
-        self.tokens.append(int(token))
-        self.events.put(("token", int(token)))
-        if self.on_token is not None:
-            try:
-                self.on_token(int(token))
-            except Exception:   # noqa: BLE001 — a user callback must never
-                pass            # kill the engine loop
+        for t in toks:
+            t = int(t)
+            self.tokens.append(t)
+            self.events.put(("token", t))
+            if self.on_token is not None:
+                try:
+                    self.on_token(t)
+                except Exception:   # noqa: BLE001 — a user callback must
+                    pass            # never kill the engine loop
 
     def _finish(self, state: str, error: str | None = None) -> None:
         if self.state in _TERMINAL:
@@ -174,13 +206,20 @@ class Scheduler:
     token), ``programs.prefill_chunk(request, n) -> int | None`` (``n``
     context tokens from ``request.prefilled``; the first sampled token on
     the final chunk) and ``programs.decode(tokens, positions, tables,
-    temps) -> np.ndarray`` (one batched decode step). ``prefill_chunk=None``
-    prefills monolithically at admission.
+    temps) -> np.ndarray`` (one batched decode step) and, with ``spec_k``
+    > 0, ``programs.verify(tokens, positions, dlens, tables, temps) ->
+    (out, accepted)`` (one batched verify step over K + 1 lanes a row).
+    ``prefill_chunk=None`` prefills monolithically at admission. The
+    ``drafter`` attribute (an :class:`~.speculative.NgramDrafter` when
+    speculating) may be replaced by any object with ``propose(history,
+    k)``; one without a ``window`` attribute is handed the whole context.
     """
 
     def __init__(self, pool, programs, max_batch: int, max_seq_len: int,
                  eos_token_id=None, prefix_cache=None,
-                 prefill_chunk: int | None = None):
+                 prefill_chunk: int | None = None,
+                 prefill_budget: int | None = None,
+                 spec_k: int = 0, spec_adaptive: bool = True):
         if prefill_chunk is not None and int(prefill_chunk) < 1:
             raise ValueError(f"prefill_chunk must be >= 1 tokens, got "
                              f"{prefill_chunk}")
@@ -192,6 +231,11 @@ class Scheduler:
         self.eos_token_id = eos_token_id
         self.prefix_cache = prefix_cache
         self.chunk = int(prefill_chunk) if prefill_chunk else None
+        self.prefill_budget = int(prefill_budget) \
+            if prefill_budget is not None else self.chunk
+        self.spec_k = int(spec_k)
+        self.spec_adaptive = bool(spec_adaptive)
+        self.drafter = NgramDrafter() if self.spec_k else None
         self.lock = threading.RLock()
         self.waiting: list[Request] = []      # kept sorted by arrival
         self.slots: list[Request | None] = [None] * self.max_batch
@@ -208,6 +252,15 @@ class Scheduler:
         self.prefill_tokens_computed = 0
         self.cow_copies = 0
         self.chunks = 0
+        # speculative accounting (under self.lock); step_tokens / step_rows
+        # count generated tokens and participating rows over decode and
+        # verify steps alike: their ratio is 1.0 without speculation
+        self.spec_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rejected = 0
+        self.step_tokens = 0
+        self.step_rows = 0
 
     # -- submission ----------------------------------------------------------
 
@@ -277,6 +330,39 @@ class Scheduler:
         stats["hit_rate"] = round(rate, 4) if rate is not None else None
         if self.prefix_cache is not None:
             stats["entries"] = len(self.prefix_cache)
+        return stats
+
+    def spec_acceptance_rate(self):
+        """Accepted over proposed drafts (None before any proposal)."""
+        with self.lock:
+            if not self.spec_proposed:
+                return None
+            return self.spec_accepted / self.spec_proposed
+
+    def tokens_per_step(self):
+        """Generated tokens per (decode or verify) step per participating
+        request: 1.0 without speculation (None before any step)."""
+        with self.lock:
+            if not self.step_rows:
+                return None
+            return self.step_tokens / self.step_rows
+
+    def spec_stats(self) -> dict:
+        with self.lock:
+            stats = {
+                "enabled": self.spec_k > 0,
+                "spec_k": self.spec_k,
+                "adaptive": self.spec_adaptive,
+                "verify_steps": self.spec_steps,
+                "proposed_tokens": self.spec_proposed,
+                "accepted_tokens": self.spec_accepted,
+                "rejected_tokens": self.spec_rejected,
+            }
+        rate = self.spec_acceptance_rate()
+        stats["acceptance_rate"] = round(rate, 4) if rate is not None \
+            else None
+        tps = self.tokens_per_step()
+        stats["tokens_per_step"] = round(tps, 4) if tps is not None else None
         return stats
 
     # -- the iteration -------------------------------------------------------
@@ -388,6 +474,8 @@ class Scheduler:
                 row[:len(req.pages)] = req.pages
                 self.slots[slot] = req
                 req.state = RUNNING
+                if self.spec_k and req.spec is None:
+                    req.spec = SpecState(self.spec_k, self.spec_adaptive)
             # a mid-page suffix start (full-cover cap) or any other write
             # into a shared page copies the page before device work
             if not self._make_writable(req, req.prefilled,
@@ -510,11 +598,12 @@ class Scheduler:
 
     def _prefill_chunks(self) -> int:
         """Chunked prefill: advance seated not-yet-prefilled requests by
-        chunks, oldest first, spending at most one chunk's worth of
-        tokens this iteration."""
+        chunks, oldest first, spending at most ``prefill_budget`` tokens
+        this iteration (the bound on how long prompt work can hold back
+        the decodes in flight)."""
         if not self.chunk:
             return 0
-        budget = self.chunk
+        budget = self.prefill_budget or self.chunk
         ran = 0
         with self.lock:
             pending = sorted(
@@ -575,12 +664,48 @@ class Scheduler:
                 tables[i][:] = 0
         return tables
 
+    def _account_step(self, occ: float, emitted: int, rows: int,
+                      proposed: int = 0, accepted: int = 0,
+                      verify: bool = False) -> None:
+        """Accounting shared by the decode and verify steps."""
+        with self.lock:
+            self.decode_steps += 1
+            self.occupancy_sum += occ
+            self.step_tokens += emitted
+            self.step_rows += rows
+            if verify:
+                self.spec_steps += 1
+                self.spec_proposed += proposed
+                self.spec_accepted += accepted
+                self.spec_rejected += proposed - accepted
+
     def _decode(self) -> bool:
         with self.lock:
             active = [r for r in self.slots
                       if r is not None and r.prefill_done]
-        for req in active:
-            self._ensure_pages(req)
+        if not active:
+            return False
+        drafts = self._propose(active) if self.spec_k else {}
+        if any(drafts.values()):
+            # every row's plain-decode page first, draft spans after: an
+            # optional draft page must never take the last free page a
+            # neighbour needs to decode
+            for req in active:
+                self._ensure_pages(req)
+            for req, d in drafts.items():
+                if d and not self._ensure_spec_pages(req, len(d)):
+                    drafts[req] = []
+                    # a failed span feeds the EWMA, so K backs off under
+                    # memory pressure; not on eviction (slot None): a
+                    # victim's acceptance rate says nothing of its drafts
+                    if req.spec is not None and req.slot is not None:
+                        req.spec.update(len(d), 0)
+            if any(drafts.values()):
+                return self._spec_decode(drafts)
+            # every draft was dropped: a plain decode step, not a verify
+        else:
+            for req in active:
+                self._ensure_pages(req)
         with self.lock:
             active = [r for r in self.slots
                       if r is not None and r.prefill_done]
@@ -596,12 +721,121 @@ class Scheduler:
                 temps[req.slot] = max(req.temperature, 0.0)
             tables = self._masked_tables()
         out = self.programs.decode(tokens, positions, tables, temps)
-        with self.lock:
-            self.decode_steps += 1
-            self.occupancy_sum += len(active) / float(self.max_batch)
+        self._account_step(len(active) / float(self.max_batch),
+                           emitted=len(active), rows=len(active))
         for req in active:
             req._emit(int(out[req.slot]))
             self._maybe_complete(req)
+        return True
+
+    # -- speculative decoding ------------------------------------------------
+
+    def _propose(self, active) -> dict:
+        """``{request: drafts}``: up to K tokens a request from its own
+        history, K from its adaptive state and capped so that a fully
+        accepted burst stays inside ``max_new_tokens`` and
+        ``max_seq_len``."""
+        drafts: dict = {}
+        # a window-bounded drafter sees only the context's tail; one
+        # without a window gets the whole context
+        window = getattr(self.drafter, "window", None)
+        for req in active:
+            st = req.spec
+            k = st.draft_k() if st is not None else self.spec_k
+            k = min(k, req.max_new_tokens - len(req.tokens) - 1,
+                    self.max_seq_len - req.cur_len() - 1, self.spec_k)
+            if k <= 0:
+                drafts[req] = []
+                continue
+            hist = req.context_tail(window) if window else req.context()
+            # a drafter that ignores k must not overflow the K + 1 lanes
+            drafts[req] = [int(t) for t in self.drafter.propose(hist, k)][:k]
+        return drafts
+
+    def _ensure_spec_pages(self, req: Request, dlen: int) -> bool:
+        """Grow req's table to hold the draft span (positions ``cur_len -
+        1 .. cur_len - 1 + dlen``) and copy any shared page in it. On
+        exhaustion the span is rolled back and False returned: speculation
+        never costs another request its slot."""
+        if req.slot is None:
+            return False
+        target = self.pool.pages_for(req.cur_len() + dlen)
+        while len(req.pages) < target:
+            try:
+                page = self.pool.alloc(1)[0]
+            except PagePoolExhausted:
+                self._rollback(req)
+                return False
+            with self.lock:
+                if req.slot is None:      # evicted meanwhile
+                    self.pool.free([page])
+                    return False
+                req.pages.append(page)
+                self.tables[req.slot][len(req.pages) - 1] = page
+        return self._make_writable(req, req.cur_len() - 1, dlen + 1)
+
+    def _rollback(self, req: Request) -> int:
+        """Free the pages past what req's accepted length needs
+        (``pages_for(cur_len)`` keeps the next write's page). They were
+        allocated fresh for draft positions, never shared or keyed, so they
+        go straight back to the free list. Returns how many."""
+        with self.lock:
+            if req.slot is None:
+                return 0
+            need = self.pool.pages_for(req.cur_len())
+            extra = req.pages[need:]
+            if not extra:
+                return 0
+            del req.pages[need:]
+            self.tables[req.slot][need:need + len(extra)] = 0
+            self.pool.free(extra)
+        return len(extra)
+
+    def _spec_decode(self, drafts: dict) -> bool:
+        """One verify step over every prefill-complete row: emit each row's
+        accepted drafts and its correction as one burst, stopping where
+        sequential decoding would (``max_new_tokens``, eos), roll rejected
+        pages back and feed the adaptive K. ``_decode`` has secured every
+        row's pages and grown the surviving draft spans."""
+        with self.lock:
+            active = [r for r in self.slots
+                      if r is not None and r.prefill_done]
+            if not active:
+                return False
+            b, s = self.max_batch, self.spec_k + 1
+            tokens = np.zeros((b, s), np.int32)
+            positions = np.zeros(b, np.int32)
+            dlens = np.zeros(b, np.int32)
+            temps = np.zeros(b, np.float32)
+            for req in active:
+                d = drafts.get(req) or []
+                tokens[req.slot, 0] = req.tokens[-1]
+                tokens[req.slot, 1:1 + len(d)] = d
+                positions[req.slot] = req.cur_len() - 1
+                dlens[req.slot] = len(d)
+                temps[req.slot] = max(req.temperature, 0.0)
+            tables = self._masked_tables()
+            n_prop = int(dlens.sum())
+        out, acc = self.programs.verify(tokens, positions, dlens, tables,
+                                        temps)
+        n_acc = n_emit = 0
+        for req in active:
+            a = int(acc[req.slot])
+            emitted = [int(t) for t in out[req.slot, :a + 1]]
+            emitted = emitted[:req.max_new_tokens - len(req.tokens)]
+            if req.eos_token_id is not None and req.eos_token_id in emitted:
+                emitted = emitted[:emitted.index(req.eos_token_id) + 1]
+            req._emit_burst(emitted)
+            n_acc += a
+            n_emit += len(emitted)
+            d_n = int(dlens[req.slot])
+            if req.spec is not None and d_n:
+                req.spec.update(d_n, a)
+            self._rollback(req)
+            self._maybe_complete(req)
+        self._account_step(len(active) / float(self.max_batch),
+                           emitted=n_emit, rows=len(active),
+                           proposed=n_prop, accepted=n_acc, verify=True)
         return True
 
     # -- shutdown ------------------------------------------------------------

@@ -2681,3 +2681,167 @@ def test_swiglu_c_entry_refuses_what_it_has_not(dev):
                   threads | unroll << 12 | blocks << 16, stream) != 0
         torch.cuda.synchronize()
         assert bool((y == 7.0).all())
+
+
+# -- speculative verify and cached generate (the verify's attention is mmha
+# over the B x (K + 1) lanes as rows; cached generate's is mmha a token and
+# flash at the prefill) --------------------------------------------------------
+
+def _bf16_tiny(dev, model="llama"):
+    if model == "gpt":
+        return gpt2_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                         num_heads=4).eval()
+    return llama_tiny(device=dev, dtype=torch.bfloat16, hidden_size=256,
+                      num_heads=4, num_kv_heads=2, intermediate_size=512)
+
+
+def test_mmha_over_verify_lanes(dev):
+    """mmha with each row's table repeated for its K + 1 lanes and lane i
+    at position base + i: within one ulp of the plain version and of the
+    ``chunk_attention`` composite over the gathered tables (the JAX
+    verify's attention), and the same bits on two calls."""
+    from paddle_tpu_torch.serving import kv_cache
+    lengths, h_kv, rep, d, ps, s = [40, 1, 700, 129], 8, 4, 128, 16, 5
+    tables, _, n_pages = _tables(dev, [n + s for n in lengths], ps, 128)
+    kp = _randn(dev, n_pages, h_kv, ps, d, seed=70)
+    vp = _randn(dev, n_pages, h_kv, ps, d, seed=71)
+    b = len(lengths)
+    q = _randn(dev, b, s, h_kv * rep, d, seed=72)
+    base = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    pos = (base[:, None] + torch.arange(s, dtype=torch.int32,
+                                        device=dev)).reshape(-1)
+    tab = tables.repeat_interleave(s, dim=0)
+    q1 = q.reshape(b * s, 1, h_kv * rep, d)
+    got = mmha.mmha_decode(q1, kp, vp, tab, pos)
+    again = mmha.mmha_decode(q1, kp, vp, tab, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, mmha.mmha_plain(q1, kp, vp, tab, pos))
+    comp = kv_cache.chunk_attention(q, mmha.gather_pages(kp, tables),
+                                    mmha.gather_pages(vp, tables), base)
+    _close(got.reshape(b, s, h_kv * rep, d), comp)
+
+
+@pytest.mark.parametrize("fused_block", [True, False])
+def test_verify_forward_kernels_against_plain(dev, fused_block):
+    """``ServingModel.verify_forward`` through the kernels against
+    ``plain=True`` on the same pool state (3 rows of K + 1 = 5 lanes,
+    draft lengths 4, 0 and 2): logits within 1e-2 relative L2, and mmha
+    and RoPE launched once a layer."""
+    from paddle_tpu_torch.serving import PagePool, ServingModel
+    model = _bf16_tiny(dev)
+    layers, s = model.cfg.num_layers, 5
+    pool = PagePool(layers, 64, 2, 16, 64, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(73)
+    pool.k.copy_(torch.randn(pool.k.shape, generator=g, device=dev))
+    pool.v.copy_(torch.randn(pool.v.shape, generator=g, device=dev))
+    sm = ServingModel(model, fused_block=fused_block).bind_pool(pool)
+    lengths = [40, 17, 90]
+    tables, _, _ = _tables(dev, [n + s for n in lengths], 16, 16, seed=3)
+    toks = torch.randint(0, 512, (3, s), generator=g, device=dev)
+    base = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    dl = torch.tensor([4, 0, 2], dtype=torch.int32, device=dev)
+    ref = sm.verify_forward(toks, base, dl, tables, plain=True)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    got = sm.verify_forward(toks, base, dl, tables)
+    torch.cuda.synchronize()
+    assert (mmha.mmha_decode.launches, rope.rope_qk.launches) == \
+        (layers, layers)
+    assert got.shape == (3, s, 512) and bool(torch.isfinite(got).all())
+    assert _rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_cached_forward_kernels_against_plain(dev, kind, fused):
+    """A cached prefill of 37 tokens and three one-token steps through the
+    kernels against the same calls with ``plain=True`` on caches of their
+    own: logits within 1e-2 relative L2 at every step, the prefill's
+    attention on flash and each step's on mmha, once a layer."""
+    model = _bf16_tiny(dev, kind)
+    model.fused_blocks = fused
+    layers = model.cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(74)
+    ids = torch.randint(0, 512, (2, 40), generator=g, device=dev)
+    ck, cp = model.init_cache(2, 40), model.init_cache(2, 40)
+    with torch.no_grad():
+        for start, stop in ((0, 37), (37, 38), (38, 39), (39, 40)):
+            for w in WRAPPERS.values():
+                w.launches = 0
+            lk, _ = model(ids[:, start:stop], caches=ck, cache_pos=start)
+            lp, _ = model(ids[:, start:stop], caches=cp, cache_pos=start,
+                          plain=True)
+            torch.cuda.synchronize()
+            want = (0, layers) if stop - start > 1 else (layers, 0)
+            assert (mmha.mmha_decode.launches,
+                    flash_attention.flash_attention.launches) == want
+            assert _rel_l2(lk, lp) <= 1e-2
+
+
+@pytest.mark.parametrize("kind", ["llama", "gpt"])
+def test_cached_generate_on_the_card(dev, kind):
+    """``generate`` on the card: the cached loop launches mmha once a
+    layer a token and flash once a layer (the prefill), keeps the prompt
+    and emits in-vocabulary tokens; the exact-length host loop
+    (``use_cache=False``) runs too. (Token agreement of the two is
+    ``chip_smoke.py``'s, under its top-2-gap rule.)"""
+    model = _bf16_tiny(dev, kind)
+    layers = model.cfg.num_layers
+    ids = torch.randint(0, 512, (2, 21), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(75))
+    for w in WRAPPERS.values():
+        w.launches = 0
+    out = model.generate(ids, max_new_tokens=8)
+    assert (mmha.mmha_decode.launches,
+            flash_attention.flash_attention.launches) == (8 * layers, layers)
+    ref = model.generate(ids, max_new_tokens=8, use_cache=False)
+    assert out.shape == ref.shape == (2, 29)
+    assert torch.equal(out[:, :21], ids) and torch.equal(ref[:, :21], ids)
+    assert bool(((out >= 0) & (out < model.cfg.vocab_size)).all())
+
+
+def test_spec_and_prefill_budget_engine_on_the_card(dev):
+    """``ServingConfig(spec_k=, spec_adaptive=, prefill_budget=)`` construct
+    and serve on the card: chunked prefill under a budget, verify steps
+    (a drafter replaying the spec-off output lands drafts) with mmha once
+    a layer in every decode and verify step, no page leaked."""
+    model = _bf16_tiny(dev)
+    layers = model.cfg.num_layers
+    prompts = [list(range(3 + i, 40 + 7 * i)) for i in range(3)]
+    base = dict(page_size=16, num_pages=33, max_batch=2, max_new_tokens=12,
+                dtype="bfloat16")
+    off = LLMEngine(model, ServingConfig(**base))
+    try:
+        ref = [off.generate(p, timeout=300) for p in prompts]
+    finally:
+        off.shutdown()
+
+    class Replay:
+        def propose(self, history, k):
+            for p, r in zip(prompts, ref):
+                if history[:len(p)] == p:
+                    done = len(history) - len(p)
+                    return r[done:done + k]
+            return []
+
+    for adaptive in (True, False):
+        eng = LLMEngine(model, ServingConfig(
+            prefill_chunk=16, prefill_budget=24, spec_k=3,
+            spec_adaptive=adaptive, **base))
+        eng.scheduler.drafter = Replay()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        try:
+            outs = [r.result(timeout=300)
+                    for r in [eng.submit(p) for p in prompts]]
+            stats = eng.stats()
+        finally:
+            summary = eng.shutdown()
+        assert [len(o) for o in outs] == [12, 12, 12]
+        assert all(0 <= t < 512 for o in outs for t in o)
+        assert summary["pages_leaked"] == 0 and eng.pool.lost() == 0
+        assert stats["prefill_chunks"] > 0 and eng.verify_ms
+        assert stats["speculative"]["accepted_tokens"] >= 1
+        assert mmha.mmha_decode.launches == \
+            layers * (len(eng.step_ms) + len(eng.verify_ms))

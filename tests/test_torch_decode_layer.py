@@ -264,20 +264,27 @@ def test_escape_hatch(models, monkeypatch, tmp_path):
 @pytest.mark.parametrize("kw", [dict(spec_k=2), dict(quant="weight_only_int8"),
                                 dict(prefill_budget=8)])
 def test_engine_still_refuses_unported_options(models, no_tune, kw):
-    """``spec_k`` and ``prefill_budget`` still raise; ``quant`` is ported:
-    a fused-layer int8 engine constructs and serves."""
+    """Every option is ported now: a fused-layer engine with ``spec_k``
+    (the verify runs the layer loop), int8 ``quant`` or ``prefill_budget``
+    (with ``prefill_chunk``, which it needs) constructs and serves the
+    same greedy tokens as the plain fused-layer engine."""
     _, tm = models
-    if "quant" not in kw:
-        with pytest.raises(NotImplementedError):
-            LLMEngine(tm, ServingConfig(fused_decode_layer=True, **kw),
-                      device="cpu")
-        return
+    if "prefill_budget" in kw:
+        kw = dict(kw, prefill_chunk=4)
+    ref = LLMEngine(tm, ServingConfig(fused_decode_layer=True, **_SERVE_CFG),
+                    device="cpu")
     eng = LLMEngine(tm, ServingConfig(fused_decode_layer=True, **_SERVE_CFG,
                                       **kw), device="cpu")
     try:
-        assert eng._sm._fused_layer_active() and eng._sm.quantized
-        assert len(eng.generate(_PROMPTS[0], timeout=300)) == 6
+        assert eng._sm._fused_layer_active()
+        got = eng.generate(_PROMPTS[0], timeout=300)
+        assert len(got) == 6
+        if "quant" in kw:
+            assert eng._sm.quantized
+        else:
+            assert got == ref.generate(_PROMPTS[0], timeout=300)
     finally:
+        ref.shutdown()
         assert eng.shutdown()["pages_leaked"] == 0
 
 

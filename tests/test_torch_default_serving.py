@@ -55,7 +55,7 @@ def test_default_config_equals_jax_default():
     for name in ("prefill_chunk", "fused_block", "prefix_cache", "page_size",
                  "num_pages", "max_batch", "max_new_tokens", "temperature",
                  "dtype", "spec_k", "quant", "fused_decode_layer",
-                 "prefill_budget"):
+                 "prefill_budget", "spec_adaptive"):
         assert getattr(port, name) == getattr(ref, name), name
     assert port.prefill_chunk is None and port.fused_block \
         and port.prefix_cache

@@ -206,11 +206,14 @@ def test_dropout_in_training_and_caches_raise():
     with pytest.raises(NotImplementedError, match="dropout"):
         model(ids)
     model.eval()
-    assert model(ids).shape == (1, 4, 64)
-    with pytest.raises(NotImplementedError, match="caches"):
-        model(ids, caches=[None])
-    with pytest.raises(NotImplementedError):
-        model.generate(ids)
+    full = model(ids)
+    assert full.shape == (1, 4, 64)
+    # caches and generate are ported: the cached forward gives the
+    # whole-sequence logits, and generate runs
+    logits, caches = model(ids, caches=model.init_cache(1, 4), cache_pos=0)
+    torch.testing.assert_close(logits, full, rtol=1e-5, atol=1e-5)
+    assert len(caches) == 1
+    assert tuple(model.generate(ids, max_new_tokens=3).shape) == (1, 7)
 
 
 def test_sizes_and_flops_match_jax():

@@ -184,9 +184,25 @@ def test_stream_sampling_and_rejection(models):
 
 
 def test_unported_options_raise(models):
-    _, tm = models
+    """``spec_k`` and ``prefill_budget`` are ported: each engine serves the
+    JAX engine's greedy tokens, and the JAX engine's checks raise the same
+    ``ValueError``s."""
+    jm, tm = models
+    jeng = JaxEngine(jm, JaxConfig(**ENGINE))
+    try:
+        want = jeng.generate(PROMPTS[1], timeout=300)
+    finally:
+        jeng.shutdown()
     for kw in (dict(spec_k=2), dict(prefill_budget=8)):
-        with pytest.raises(NotImplementedError):
+        eng = _port_engine(tm, **kw)
+        try:
+            assert eng.generate(PROMPTS[1]) == want
+        finally:
+            assert eng.shutdown()["pages_leaked"] == 0
+    for kw in (dict(prefill_budget=0), dict(prefill_chunk=None,
+                                           prefill_budget=8),
+               dict(spec_k=-1), dict(spec_k=128)):
+        with pytest.raises(ValueError):
             _port_engine(tm, **kw)
 
 
