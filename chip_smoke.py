@@ -39,7 +39,10 @@ Phases, in order; any failure exits non-zero:
    tensors; mmha at Llama-3-8B's decode batch (B 8, positions 0..1500)
    and at B 1 (position 900), B 16, rep 1 (Hkv 32), rep 8 (H 64) and D 64,
    each with two calls bit for bit and SDPA on the gathered view as its
-   yardstick. The decode layer is also timed
+   yardstick; then through the contiguous entry at the fmt phase's last
+   step (q [8, 1, 12, 64] over [8, 12, 1024, 64] caches at position 575:
+   two calls and the pool path over the same pages bit for bit, plain
+   version ``reference_mmha``, SDPA on the [8, 12, 576, 64] view). The decode layer is also timed
    through the port's composite path (``composite_ms``) and broken down
    by its phases. The weight-only int8 / grouped int8 / int4 kernels run
    at decode and prefill shapes of Llama-3-8B's projections (yardstick:
@@ -171,6 +174,24 @@ Phases, in order; any failure exits non-zero:
    attention against the flash kernel, the main_grads against autograd's
    weight gradients, ms a micro-batch on each path, peak memory and a
    profile of a micro-batch.
+   fmt — ``incubate.nn.FusedMultiTransformer`` at GPT-2 small's widths
+   (12 layers, hidden 768, 12 heads of 64, FFN 3072, gelu, pre-LN, bf16):
+   8 prompts of 512 seeded hidden states prefilled into per-layer caches
+   [2, 8, 12, 1024, 64] (302 MB), then 64 decode steps at ``time_step``
+   512-575, each through the mmha kernel over the caller's caches in place
+   (the contiguous entry): each step's output against the one-shot
+   576-position prefill at its position, 12 mmha launches a step, no host
+   sync in a step, the strided kernel within one bf16 ulp of
+   ``reference_mmha`` on the same buffers; prefill ms, decode-step wall
+   and device ms, a profile of a step.
+   encoder — 12 ``FusedTransformerEncoderLayer`` s at BERT-base's widths
+   (768, 12 heads, 3072, post-LN, gelu), B 8 x S 512, bf16, forward and
+   backward: (a) no mask, no dropout (flash forward and backward, 12 + 12
+   launches), (b) a padding mask and attention dropout 0.1 (the SDPA
+   composite); each held to its plain path and an f32 copy by the
+   train-parity gate; step ms and a profile of each.
+   incubate_functions — each composite of ``incubate.nn.functional`` and
+   the masked SDPA at a small shape, card against CPU in f32.
    serve_moe — Qwen1.5-MoE-A2.7B (``Qwen2MoeConfig()``: 24 layers, 60
    experts of 1408, top-4, a shared expert, 14.3 B parameters in bf16)
    answers 4 prompts of 512 seeded random tokens with 32 greedy tokens
@@ -303,6 +324,28 @@ INCUBATE_KERNELS = ("softmax_mask", "softmax_mask_tri", "softmax_mask_bwd",
 INCUBATE_LAYERS, INCUBATE_HIDDEN, INCUBATE_HEADS = 12, 768, 12
 INCUBATE_BATCH, INCUBATE_SEQ, INCUBATE_P = 4, 1024, 0.1
 INCUBATE_SEED = 2028
+# fmt phase: FusedMultiTransformer at GPT-2 small's widths (GPTConfig()),
+# B 8 prompts of 512 seeded hidden states into 1024-position caches, then
+# 64 decode steps; each step's output within FMT_TOL relative L2 of the
+# one-shot 576-position prefill's at its position (bf16 through 12 layers:
+# the two paths round their products in other orders, and a decode step's
+# projections run at other GEMM shapes)
+FMT_BATCH, FMT_PROMPT, FMT_STEPS, FMT_CACHE = 8, 512, 64, 1024
+FMT_SEED = 2040
+FMT_TOL = 1e-2
+# encoder phase: 12 FusedTransformerEncoderLayers at BERT-base's widths,
+# post-LN, gelu, B 8 x S 512, bf16
+ENC_LAYERS, ENC_HIDDEN, ENC_HEADS, ENC_FFN = 12, 768, 12, 3072
+ENC_BATCH, ENC_SEQ, ENC_ATTN_DROPOUT, ENC_SEED = 8, 512, 0.1, 2041
+# its parity runs over 4 batches, as GPT-2 small's (GPT_PARITY_BATCHES): the
+# same 768-entry layer-norm vectors, whose one-batch f32 ratios scatter by
+# a few percent around 1 (on one batch the largest of 192 gradients reached
+# 1.103 with a mean of 1.006 and a spread of 0.029)
+ENC_PARITY_BATCHES = 4
+# incubate_functions: card against CPU in f32, max abs error within this
+# share of the largest reference magnitude (f32 products summed in another
+# order; TF32 off)
+INCUBATE_FN_TOL = 1e-4
 # phase 3's incubate shapes: softmax (B, H, S, masked, with the backward;
 # the last the incubate micro-batch's own); rows of the layer norm (rows,
 # hidden, masked) and of dropout-add (rows, hidden); the weight-gradient
@@ -734,6 +777,7 @@ def phase_kernels(torch, dev):
                                               pos)),
                 lib, ("mmha", label), same_bits=True,
                 chunk_plan=list(mmha.plan(b, h_kv, max_pages, ps, d)))
+    _kernels_mmha_contiguous(torch, dev, randn, timer, results)
     _kernels_flash(torch, dev, randn, timer, results)
     _kernels_epilogue(torch, randn, timer, results)
     _kernels_decode_layer(torch, dev, randn, timer, results)
@@ -747,6 +791,52 @@ def phase_kernels(torch, dev):
     _kernels_moe_gemm(torch, dev, randn, timer, results)
     _kernels_incubate(torch, dev, randn, timer, results)
     return results
+
+
+def _kernels_mmha_contiguous(torch, dev, randn, timer, results):
+    """Row 1 through the contiguous entry at the fmt phase's last decode
+    step: q [8, 1, 12, 64] over caches [8, 12, 1024, 64] read in place,
+    every row at position 575. Two calls give the same bits, and the same
+    bits as the pool path over the same pages (the cache recast as a pool
+    with its own table); the plain version is ``reference_mmha``; the
+    library yardstick SDPA on the cache's [8, 12, 576, 64] view."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.ops.kernels import mmha
+
+    label, lengths, h, h_kv, d, t = mmha.CONTIGUOUS_ROW
+    b, ps = len(lengths), mmha.CONTIGUOUS_PAGE
+    kb, vb = randn(b, h_kv, t, d), randn(b, h_kv, t, d)
+    q = randn(b, 1, h, d)
+    pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                       device=dev)
+    got = mmha.mmha_decode_contiguous(q, kb, vb, pos)
+    again = mmha.mmha_decode_contiguous(q, kb, vb, pos)
+    if not torch.equal(got, again):
+        fail(f"mmha {label}: two calls gave different bits")
+
+    def as_pool(buf):       # [B, Hkv, T, D] -> pages [B * T / ps, Hkv, ps, D]
+        return buf.reshape(b, h_kv, t // ps, ps, d).permute(
+            0, 2, 1, 3, 4).reshape(b * t // ps, h_kv, ps, d).contiguous()
+    tables = (torch.arange(b, device=dev)[:, None] * (t // ps)
+              + torch.arange(t // ps, device=dev)[None, :]).to(torch.int32)
+    pooled = mmha.mmha_decode(q, as_pool(kb), as_pool(vb), tables, pos)
+    if not torch.equal(got, pooled):
+        fail(f"mmha {label}: the contiguous entry and the pool path over "
+             f"the same pages gave different bits")
+    del pooled
+    ref = mmha.reference_mmha(q, kb, vb, pos)
+    err, tol = compare(torch, got, ref)
+    n = int(pos.max()) + 1
+    qt = q.transpose(1, 2)
+    kv, vv = kb[:, :, :n], vb[:, :, :n]
+    lib = timer(lambda: TF.scaled_dot_product_attention(qt, kv, vv))
+    _record(results, "mmha", [b, 1, h, d, "Hkv", h_kv, "contiguous T", t,
+                              "pos", pos.tolist()], err, tol,
+            timer(lambda: mmha.mmha_decode_contiguous(q, kb, vb, pos)),
+            timer(lambda: mmha.reference_mmha(q, kb, vb, pos)), lib,
+            ("mmha", label), same_bits=True, same_bits_as_pool=True,
+            chunk_plan=list(mmha.plan(b, h_kv, t // ps, ps, d)))
 
 
 def _rel_l2(torch, got, ref):
@@ -2608,7 +2698,10 @@ def _grad_parity(torch, what, model, ref, batches, loss_fn=None,
     gate (the worst, the mean and the spread over the gradients).
     ``loss_fn(net, plain, ids, labels)``, where given, computes the loss
     in place of the model's own ``labels`` path. ``grad_tol=None`` reports
-    the gradients' distance from the plain path's without holding it."""
+    the gradients' distance from the plain path's without holding it.
+    A parameter the f32 reference's loss does not reach (a post-LN
+    layer's pre-LN scale) is left out; a gradient that the kernel or the
+    plain path lacks, or has where the reference has none, fails."""
     def grads_of(net, plain, ids, labels):
         if loss_fn is None:
             _, loss = net(ids, labels=labels, plain=plain)
@@ -2630,11 +2723,18 @@ def _grad_parity(torch, what, model, ref, batches, loss_fn=None,
         loss_k, g_k = grads_of(model, False, ids, labels)
         loss_p, g_p = grads_of(model, True, ids, labels)
         loss_r, g_r = grads_of(ref, True, ids, labels)
+        g_r = {n: g for n, g in g_r.items() if g is not None}
+        for path, g in (("kernel", g_k), ("plain", g_p)):
+            have = {n for n, v in g.items() if v is not None}
+            if have != set(g_r):
+                fail(f"{what} parity: the {path} path has gradients for "
+                     f"{sorted(have - set(g_r))} that the f32 reference "
+                     f"lacks and none for {sorted(set(g_r) - have)}")
         for key, val in (("kernels", loss_k), ("plain", loss_p),
                          ("f32", loss_r)):
             losses[key] += val / len(batches)
         ratios = {}
-        for n in g_k:
+        for n in g_r:
             d = {"kp": sq(g_k[n], g_p[n]), "p": sq(g_p[n]),
                  "k32": sq(g_k[n], g_r[n]), "p32": sq(g_p[n], g_r[n]),
                  "r": sq(g_r[n])}
@@ -3712,6 +3812,363 @@ def phase_incubate(torch, dev):
     return launches
 
 
+# -- the rest of the incubate surface: fused_multi_transformer decoding
+# through mmha, the encoder layers, the composite functions ------------------
+
+def phase_fmt(torch, dev):
+    """``incubate.nn.FusedMultiTransformer`` at GPT-2 small's widths
+    (``GPTConfig()``: 12 layers, hidden 768, 12 heads of 64, FFN 3072,
+    gelu, pre-LN), bf16, random weights from FMT_SEED: FMT_BATCH prompts
+    of FMT_PROMPT seeded hidden states prefilled into per-layer caches
+    ``[2, 8, 12, 1024, 64]``, then FMT_STEPS decode steps at ``time_step``
+    512..575 (a device tensor). Gates: each step's output within FMT_TOL
+    relative L2 of the one-shot 576-position prefill's at its position;
+    each layer's cache rows that the decode steps wrote within FMT_TOL of
+    the rows the one-shot prefill wrote into caches of its own, and the
+    rows past them still zero; exactly one mmha launch a layer a step and
+    nothing else; no host sync in a step (``set_sync_debug_mode("error")``
+    around the second step); the caches the caller's tensors, updated in
+    place; layer 0's caches through the contiguous entry within one bf16
+    ulp of ``reference_mmha`` on the same buffers; the last step through
+    the kernels within one bf16 ulp of the same step with ``plain=True``.
+    A control, the last step written one position early (``time_step``
+    574 on a copy of the caches), reports how far such a fault moves the
+    output and the cache rows, and fails the phase if the cache gate would
+    not see it. Reports the prefill ms, the decode step's wall and device
+    ms (a profile of the last step) and its launches. Returns the
+    launches of the decode steps together."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops.kernels import WRAPPERS, mmha
+
+    cfg = GPTConfig()
+    e, h, layers = cfg.hidden_size, cfg.num_heads, cfg.num_layers
+    hd, b, s0, steps = e // h, FMT_BATCH, FMT_PROMPT, FMT_STEPS
+    bf = torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    model = FusedMultiTransformer(e, h, cfg.ffn_size, activation="gelu",
+                                  normalize_before=True, num_layers=layers,
+                                  device=dev, dtype=bf, seed=FMT_SEED).eval()
+    gen = torch.Generator(device=dev).manual_seed(FMT_SEED)
+    xs = torch.randn(b, s0 + steps, e, generator=gen, device=dev).to(bf)
+    caches = [torch.zeros(2, b, h, FMT_CACHE, hd, dtype=bf, device=dev)
+              for _ in range(layers)]
+    given = list(caches)
+    ts = torch.arange(s0, s0 + steps, dtype=torch.int32, device=dev)
+    rows = slice(s0, s0 + steps)
+
+    def cache_rel(got):
+        """The worst layer's relative L2 over the decode steps' rows."""
+        return max(_rel_l2(torch, g[:, :, :, rows], r[:, :, :, rows])
+                   for g, r in zip(got, ref_caches))
+
+    with torch.no_grad():
+        ref_caches = [torch.zeros_like(c) for c in caches]
+        # one-shot, 576 positions, into caches of its own
+        ref, ref_caches = model(xs, caches=ref_caches)
+        torch.cuda.synchronize()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out, caches = model(xs[:, :s0], caches=caches)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = {n: w.launches for n, w in WRAPPERS.items()
+                            if w.launches}
+        pre_rel = _rel_l2(torch, out, ref[:, :s0])
+        rels, walls, total = [], [], {}
+        for i in range(steps):
+            torch.cuda.synchronize()
+            for w in WRAPPERS.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            if i == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, caches = model(xs[:, s0 + i:s0 + i + 1], caches=caches,
+                                    time_step=ts[i:i + 1])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+            if got != {"mmha": layers}:
+                fail(f"fmt decode step {i}: launches {got}, want mmha "
+                     f"{layers}")
+            for n, k in got.items():
+                total[n] = total.get(n, 0) + k
+            rels.append(_rel_l2(torch, out, ref[:, s0 + i:s0 + i + 1]))
+            if not torch.isfinite(out).all():
+                fail(f"fmt decode step {i}: a non-finite output")
+        if any(c is not g for c, g in zip(caches, given)):
+            fail("fmt: the returned caches are not the caller's tensors")
+        cache_worst = cache_rel(caches)
+        untouched = all(not c[:, :, :, s0 + steps:].any() for c in caches)
+        # the strided kernel against the reference on layer 0's buffers
+        q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(bf)
+        pos = torch.full((b,), s0 + steps - 1, dtype=torch.int32, device=dev)
+        kb, vb = caches[0][0], caches[0][1]
+        err, tol = compare(torch, mmha.mmha_decode_contiguous(q, kb, vb, pos),
+                           mmha.reference_mmha(q, kb, vb, pos))
+        x_last, t_last = xs[:, -1:], ts[-1:]
+        plain_out = model(x_last, caches=caches, time_step=t_last,
+                          plain=True)[0]
+        kern_out = model(x_last, caches=caches, time_step=t_last)[0]
+        kern_plain = _rel_l2(torch, kern_out, plain_out)
+        kp_err, kp_tol = compare(torch, kern_out, plain_out)
+        kp_same = torch.equal(kern_out, plain_out)
+        ctrl = [c.clone() for c in caches]
+        ctrl_out = model(x_last, caches=ctrl, time_step=t_last - 1)[0]
+        ctrl_rel = _rel_l2(torch, ctrl_out, ref[:, -1:])
+        ctrl_cache = cache_rel(ctrl)
+        del ctrl
+        prof = _profile(torch, lambda: model(x_last, caches=caches,
+                                             time_step=t_last), reps=10)
+    worst = max(range(steps), key=lambda i: rels[i])
+    emit({"phase": "fmt", "layers": layers, "hidden": e, "heads": h,
+          "batch": b, "prompt": s0, "steps": steps, "cache": FMT_CACHE,
+          "cache_mb": sum(c.numel() for c in caches) * 2 / 1e6,
+          "prefill_ms": prefill_ms, "prefill_launches": prefill_launches,
+          "prefill_rel_l2": pre_rel,
+          "decode_step_wall_ms_mean": sum(walls) / steps,
+          "decode_step_wall_ms_median": sorted(walls)[steps // 2],
+          "decode_step_device_ms": prof.get("busy_ms_per_call"),
+          "launches_a_step": {"mmha": total.get("mmha", 0) / steps},
+          "decode_rel_l2_worst": rels[worst], "worst_step": worst,
+          "decode_rel_l2_mean": sum(rels) / steps, "tol": FMT_TOL,
+          "mmha_vs_reference": {"max_abs_err": err, "tol": tol},
+          "cache_rel_l2_worst_layer": cache_worst,
+          "cache_rows_past_decode_zero": untouched,
+          "kernel_vs_plain_decode": {"rel_l2": kern_plain,
+                                     "max_abs_err": kp_err, "tol": kp_tol,
+                                     "same_bits": kp_same},
+          "control_shifted_write": {"decode_rel_l2": ctrl_rel,
+                                    "cache_rel_l2_worst_layer": ctrl_cache},
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    emit({"phase": "profile", "fmt_decode_step": prof})
+    if not pre_rel <= FMT_TOL:
+        fail(f"fmt: the prefill lies {pre_rel} (relative L2) from the "
+             f"one-shot prefill's first {s0} positions")
+    if not rels[worst] <= FMT_TOL:
+        fail(f"fmt: decode step {worst} lies {rels[worst]} (relative L2) "
+             f"from the one-shot prefill (tol {FMT_TOL})")
+    if not err <= tol:
+        fail(f"fmt: the contiguous mmha lies {err} from reference_mmha "
+             f"(tol {tol})")
+    if not kp_err <= kp_tol:
+        fail(f"fmt: the kernel decode lies {kp_err} from the plain decode "
+             f"on the same caches (tol {kp_tol})")
+    if not cache_worst <= FMT_TOL:
+        fail(f"fmt: the decode steps' cache rows lie {cache_worst} "
+             f"(relative L2) from the one-shot prefill's (tol {FMT_TOL})")
+    if not untouched:
+        fail("fmt: a decode step wrote cache rows past its time_step")
+    if not ctrl_cache > FMT_TOL:
+        fail(f"fmt: a write one position early moves the cache rows only "
+             f"{ctrl_cache}: the cache gate (tol {FMT_TOL}) cannot see it")
+    return total
+
+
+def phase_encoder(torch, dev):
+    """ENC_LAYERS ``incubate.nn.FusedTransformerEncoderLayer`` s at
+    BERT-base's published widths (hidden 768, 12 heads, FFN 3072, post-LN,
+    gelu), bf16, B 8 x S 512, forward and backward of
+    ``(out.float() * c).square().mean()`` with fixed seeded channel weights
+    ``c`` (a post-LN output's mean square is 1 whatever the weights, so
+    its gradients would be rounding noise), twice: (a) no mask, dropout 0: flash
+    attention forward and backward, exactly 12 + 12 launches and nothing
+    else; (b) a padding mask from seeded lengths and
+    ``attn_dropout_rate=ENC_ATTN_DROPOUT``: the SDPA composite, no launch.
+    Each held to its plain path and an f32 copy by ``_grad_parity`` (the
+    dropout draws reseeded before every forward, so all three see the same
+    masks), over ENC_PARITY_BATCHES seeded batches. Reports the step ms
+    of each and a profile of a step. Returns the launches of (a)."""
+    import copy
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    class Encoder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = torch.nn.ModuleList(
+                FusedTransformerEncoderLayer(
+                    ENC_HIDDEN, ENC_HEADS, ENC_FFN, dropout_rate=0.0,
+                    activation="gelu", attn_dropout_rate=0.0,
+                    normalize_before=False, device=dev, dtype=torch.bfloat16,
+                    seed=ENC_SEED + i) for i in range(ENC_LAYERS))
+
+        def forward(self, x, mask=None, plain=False):
+            for layer in self.layers:
+                x = layer(x, src_mask=mask, plain=plain)
+            return x
+
+        def attn_dropout(self, p):
+            for layer in self.layers:
+                layer.fused_attn.attn_dropout_rate = p
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Encoder().train()
+    ref = copy.deepcopy(model).float()
+    gen = torch.Generator(device=dev).manual_seed(ENC_SEED)
+    xs = [torch.randn(ENC_BATCH, ENC_SEQ, ENC_HIDDEN, generator=gen,
+                      device=dev) for _ in range(ENC_PARITY_BATCHES)]
+    x = xs[0]
+    chan = torch.randn(ENC_HIDDEN, generator=gen, device=dev)
+    pad, lengths = _pad_mask(torch, dev, ENC_BATCH, ENC_SEQ, ENC_SEED)
+
+    def loss_of(mask):
+        def loss_fn(net, plain, xin, _):
+            paddle_tpu_torch.seed(ENC_SEED)
+            dt = next(net.parameters()).dtype
+            m = None if mask is None else mask.to(dt)
+            out = net(xin.to(dt), m, plain)
+            return (out.float() * chan).square().mean()
+        return loss_fn
+
+    def step(mask):
+        loss_of(mask)(model, False, x, None).backward()
+        model.zero_grad(set_to_none=True)
+
+    rows = {}
+    for label, mask, p in (("a", None, 0.0), ("b", pad, ENC_ATTN_DROPOUT)):
+        model.attn_dropout(p)
+        ref.attn_dropout(p)
+        torch.cuda.synchronize()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        step(mask)
+        torch.cuda.synchronize()
+        got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+        want = {"flash_attention": ENC_LAYERS,
+                "flash_attention_bwd": ENC_LAYERS} if mask is None else {}
+        if got != want:
+            fail(f"encoder ({label}) launches {got}, want {want}")
+        rows[label] = {"launches": got}
+        _grad_parity(torch, f"encoder ({label})", model, ref,
+                     [(xb, None) for xb in xs], loss_fn=loss_of(mask))
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(mask)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        rows[label]["step_ms"] = walls
+        rows[label]["profile"] = _profile(torch, lambda: step(mask), reps=2)
+    model.attn_dropout(0.0)
+    emit({"phase": "encoder", "layers": ENC_LAYERS, "hidden": ENC_HIDDEN,
+          "heads": ENC_HEADS, "ffn": ENC_FFN, "batch": ENC_BATCH,
+          "seq": ENC_SEQ, "attn_dropout_b": ENC_ATTN_DROPOUT,
+          "lengths_b": lengths.tolist(),
+          **{f"step_ms_{k}": v["step_ms"] for k, v in rows.items()},
+          **{f"launches_{k}": v["launches"] for k, v in rows.items()},
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    emit({"phase": "profile", "encoder_step_a": rows["a"]["profile"],
+          "encoder_step_b": rows["b"]["profile"]})
+    return rows["a"]["launches"]
+
+
+def _incubate_cases(torch, rng):
+    """Each composite function of ``incubate.nn.functional`` (and the
+    masked SDPA) at a small shape: ``(name, fn, args, kwargs)`` with numpy
+    f32 operands, made from ``rng``."""
+    def r(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype("float32")
+
+    ilens = rng.integers(1, 40, (3,)).astype("int32")
+    kvlens = ilens.copy()
+    kvlens[1] = 0                              # a row with no valid key
+    mask_mha = (rng.uniform(size=(2, 1, 1, 24)) < 0.2) * -1e4
+    return [
+        ("scaled_dot_product_attention (mask, GQA)",
+         "nn.functional.scaled_dot_product_attention",
+         (r(2, 24, 4, 32), r(2, 24, 2, 32), r(2, 24, 2, 32)),
+         dict(attn_mask=r(2, 4, 24, 24), is_causal=True)),
+        ("memory_efficient_attention (bias, 2 chunks)",
+         "memory_efficient_attention",
+         (r(2, 600, 4, 32), r(2, 600, 4, 32), r(2, 600, 4, 32)),
+         dict(attn_bias=r(2, 4, 600, 600))),
+        ("variable_length_memory_efficient_attention (GQA, causal)",
+         "variable_length_memory_efficient_attention",
+         (r(3, 4, 40, 32), r(3, 2, 40, 32), r(3, 2, 40, 32), ilens, kvlens),
+         dict(causal=True)),
+        ("masked_multihead_attention",
+         "masked_multihead_attention", (r(4, 3 * 4 * 32),),
+         dict(cache_kv=r(2, 4, 4, 64, 32), bias=r(3, 4, 32),
+              src_mask=r(4, 1, 1, 64),
+              sequence_lengths=rng.integers(0, 64, (4, 1)).astype("int32"))),
+        ("fused_multi_head_attention (pre-LN, mask)",
+         "fused_multi_head_attention",
+         (r(2, 24, 64), r(3, 4, 16, 64, scale=0.1), r(64, 64, scale=0.1)),
+         dict(pre_layer_norm=True, qkv_bias=r(3, 4, 16),
+              linear_bias=r(64), attn_mask=mask_mha.astype("float32"),
+              training=False)),
+        ("fused_feedforward (post-LN, gelu)", "fused_feedforward",
+         (r(2, 24, 64), r(64, 256, scale=0.1), r(256, 64, scale=0.1)),
+         dict(linear1_bias=r(256), linear2_bias=r(64), activation="gelu",
+              training=False)),
+        ("fused_gate_attention (merged qkv)", "fused_gate_attention",
+         (r(2, 3, 24, 64),),
+         dict(qkv_weight=r(3, 4, 16, 64, scale=0.1),
+              gate_linear_weight=r(64, 4, 16, scale=0.1),
+              gate_linear_bias=r(4, 16), out_linear_weight=r(4, 16, 64,
+                                                             scale=0.1),
+              out_linear_bias=r(64), nonbatched_bias=r(2, 1, 4, 24, 24))),
+        ("fused_ec_moe (gelu)", "fused_ec_moe",
+         (r(2, 32, 64), r(2, 32, 8), r(8, 64, 128, scale=0.1), r(8, 1, 128),
+          r(8, 128, 64, scale=0.1), r(8, 1, 64), "gelu"), {}),
+    ]
+
+
+def phase_incubate_functions(torch, dev):
+    """Each composite function of ``incubate.nn.functional`` and the
+    masked SDPA (:func:`_incubate_cases`) on the card against the same call
+    on the CPU, the same f32 inputs: the largest absolute difference within
+    INCUBATE_FN_TOL of the largest CPU magnitude, every output finite, and
+    no kernel launched (these are composites; the SDPA case has a
+    mask)."""
+    import numpy as np
+
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    def resolve(name):
+        return F.scaled_dot_product_attention if name.startswith("nn.") \
+            else getattr(IF, name)
+
+    def on(where, v):
+        return torch.from_numpy(v).to(where) if isinstance(v, np.ndarray) \
+            else v
+
+    rows = []
+    for label, name, args, kw in _incubate_cases(torch,
+                                                 np.random.default_rng(42)):
+        outs = {}
+        for where in ("cpu", dev):
+            for w in WRAPPERS.values():
+                w.launches = 0
+            out = resolve(name)(*(on(where, a) for a in args),
+                                **{k: on(where, v) for k, v in kw.items()})
+            outs[str(where)] = [t.float().cpu() for t in
+                                (out if isinstance(out, tuple) else (out,))]
+            if any(w.launches for w in WRAPPERS.values()):
+                fail(f"incubate_functions {label}: a kernel launched")
+        errs = []
+        for got, want in zip(outs[str(dev)], outs["cpu"]):
+            if not torch.isfinite(got).all():
+                fail(f"incubate_functions {label}: a non-finite output")
+            errs.append(((got - want).abs().max().item(),
+                         INCUBATE_FN_TOL * want.abs().max().item()))
+        rows.append({"function": label, "max_abs_err": [e for e, _ in errs],
+                     "tol": [t for _, t in errs]})
+        if not all(e <= t for e, t in errs):
+            fail(f"incubate_functions {label}: card against CPU {errs}")
+    emit({"phase": "incubate_functions", "rows": rows})
+
+
 # -- Qwen2-MoE: the grouped expert product, serving, parity and training -------
 
 def _kernels_moe_gemm(torch, dev, randn, timer, results):
@@ -4357,6 +4814,12 @@ def main() -> int:
     incubate_launches = phase_incubate(torch, dev)
     for name in INCUBATE_KERNELS:
         launches[name] = incubate_launches[name]
+    _free(torch)
+    phase_fmt(torch, dev)
+    _free(torch)
+    phase_encoder(torch, dev)
+    _free(torch)
+    phase_incubate_functions(torch, dev)
 
     # Qwen2-MoE: served at full width and depth, then trained at 4 layers
     _free(torch)

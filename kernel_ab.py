@@ -10,7 +10,7 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> epi [--train]
     python3 kernel_ab.py <checkout root> <tag> moe [--train]
     python3 kernel_ab.py <checkout root> <tag> dl [--engine]
-    python3 kernel_ab.py <checkout root> <tag> decode [--engine]
+    python3 kernel_ab.py <checkout root> <tag> decode [--engine] [--contiguous]
     python3 kernel_ab.py <checkout root> <tag> softmax [--incubate]
     python3 kernel_ab.py <checkout root> <tag> rows [--incubate]
     python3 kernel_ab.py <checkout root> <tag> norm [--engine] [--train]
@@ -131,7 +131,16 @@ Family ``decode`` (decode attention and RoPE, rows 1 and 4):
   decode path and engine b's fused-epilogue one over one pool: the
   profile of a decode step at batch 8 (``chip_smoke._profile``: per-kernel
   device ms, launches, busy, wall), at the lengths of engine a's first
-  8 prompts plus 32.
+  8 prompts plus 32;
+- with ``--contiguous``, each ``mmha`` row also carries ``bits``, a digest
+  of the pool path's output (the inputs are the same on both trees, so
+  equal digests are the same bits), and where the tree has
+  ``mmha_decode_contiguous``, a ``contiguous`` row: the same pages
+  gathered into a ``[B, Hkv, 2048, D]`` cache and read in place (its
+  cold-L2 ms, whether it gives the pool path's bits), then the fmt
+  phase's shape (``mmha.CONTIGUOUS_ROW``: q [8, 1, 12, 64] over a
+  1024-position cache at position 575) against ``reference_mmha`` and
+  SDPA on the visible view.
 
 Family ``softmax`` (the masked softmax and its backward, row 18):
 
@@ -746,6 +755,7 @@ def _decode(torch, cs, dev, timer, randn, emit):
     from paddle_tpu_torch.ops.kernels import WRAPPERS, mmha
 
     ps = 16
+    contiguous = "--contiguous" in sys.argv[4:]
     for label, lengths, h, h_kv, d in DECODE_ROWS:
         b = len(lengths)
         tables, pos, n_pages = cs._paged(torch, dev, lengths, ps, 2048 // ps, 7)
@@ -774,6 +784,39 @@ def _decode(torch, cs, dev, timer, randn, emit):
         if label == "B 8":
             emit(host=["mmha_decode", "B 8"], us=_host_us(
                 torch, lambda: mmha.mmha_decode(q, kp, vp, tables, pos)))
+        if contiguous:
+            emit(bits=["mmha", label], digest=_digest(torch, got))
+            if hasattr(mmha, "mmha_decode_contiguous"):
+                kc, vc = mmha.gather_pages(kp, tables), \
+                    mmha.gather_pages(vp, tables)
+                cont = mmha.mmha_decode_contiguous(q, kc, vc, pos)
+                emit(contiguous=[label, "T", kc.shape[2]],
+                     ms=timer(lambda: mmha.mmha_decode_contiguous(q, kc, vc,
+                                                                  pos)),
+                     pool_ms=ms, same_bits_as_pool=bool(torch.equal(cont,
+                                                                    got)))
+                del kc, vc
+    if contiguous and hasattr(mmha, "mmha_decode_contiguous"):
+        label, lengths, h, h_kv, d, t = mmha.CONTIGUOUS_ROW
+        b = len(lengths)
+        q = randn(b, 1, h, d)
+        kc, vc = randn(b, h_kv, t, d), randn(b, h_kv, t, d)
+        pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                           device=dev)
+        got = mmha.mmha_decode_contiguous(q, kc, vc, pos)
+        err, tol = cs.compare(torch, got, mmha.reference_mmha(q, kc, vc, pos))
+        n = max(lengths)
+        qt, kv, vv = q.transpose(1, 2), kc[:, :, :n], vc[:, :, :n]
+        seen = sum(lengths)
+        nbytes = 2 * seen * h_kv * d * 2 + 2 * b * h * d * 2 + b * t // 16 * 4
+        bound = nbytes / cs.MEM_BYTES_PER_S * 1e3
+        ms = timer(lambda: mmha.mmha_decode_contiguous(q, kc, vc, pos))
+        emit(contiguous=[label], ms=ms,
+             plain_ms=timer(lambda: mmha.reference_mmha(q, kc, vc, pos)),
+             sdpa_ms=timer(lambda: TF.scaled_dot_product_attention(qt, kv,
+                                                                   vv)),
+             bound_ms=bound, bound_share=bound / ms, max_abs_err=err,
+             tol=tol)
 
     cos_t, sin_t = rope_tables(LlamaConfig(), 2048, dev)
     dpos = torch.tensor(_FULL, device=dev)
@@ -801,6 +844,13 @@ def _decode(torch, cs, dev, timer, randn, emit):
 
     if "--engine" in sys.argv[4:]:
         _engine_profiles(torch, cs, dev, emit)
+
+
+def _digest(torch, t):
+    """A short digest of a tensor's bits."""
+    import hashlib
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
 
 
 def _spec(torch, cs, dev, timer, randn, emit):

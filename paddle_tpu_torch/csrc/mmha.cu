@@ -10,7 +10,11 @@
 // The TPU path first gathers each layer's pages into a contiguous
 // [B, Hkv, T, D] copy. This kernel reads the pages through the page table
 // itself (tables[b, t / page_size]), so the only bytes it moves are the
-// keys and values the row can see.
+// keys and values the row can see. Page `page_id` of kv head g starts at
+// element page_id * page_stride + g * head_stride: the paged pool
+// [P, Hkv, ps, D] passes (Hkv * ps * D, ps * D); a contiguous [B, Hkv, T,
+// D] cache passes (ps * D, T * D) with table entry b * Hkv * (T / ps) + j
+// for page j of row b, so the kernel reads a caller's cache in place.
 //
 // Bound on the H100: bytes (the keys and values; about 4 * REP flops per
 // byte, far below the card's ridge). Design: a row's positions fall into
@@ -98,7 +102,8 @@ __global__ void __launch_bounds__(kThreads)
                       const bf16* __restrict__ v_pool, const int* __restrict__ tables,
                       const int* __restrict__ pos, bf16* __restrict__ out,
                       float* __restrict__ part, unsigned* __restrict__ ctrl, int page_size,
-                      int max_pages, int chunk_pages, float scale) {
+                      int max_pages, int chunk_pages, long long page_stride,
+                      long long head_stride, float scale) {
   constexpr int LP = D / 8;          // lanes a position in the scores (8 elements each)
   constexpr int PPW = 32 / LP;       // positions a warp scores at once
   constexpr int QUAD = D / 4;        // column quads of a head
@@ -147,7 +152,7 @@ __global__ void __launch_bounds__(kThreads)
     hp::mbar_fence_init();
     const int rows = min(page_size, n - lane * page_size);
     const uint32_t nb = (uint32_t)rows * D * 2;
-    const size_t src = ((size_t)page_id * h_kv + g) * page_size * D;
+    const size_t src = (size_t)page_id * page_stride + (size_t)g * head_stride;
     hp::mbar_arrive_expect_tx(&bars[0][lane], nb);
     hp::bulk_load(s_k + (size_t)lane * page_size * D, k_pool + src, nb, &bars[0][lane]);
     hp::mbar_arrive_expect_tx(&bars[1][lane], nb);
@@ -342,7 +347,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int D, int REP>
 int launch(const void* q, const void* k, const void* v, const void* tables, const void* pos,
            void* out, void* part, void* ctrl, int batch, int h_kv, int page_size, int max_pages,
-           int chunk_pages, cudaStream_t s) {
+           int chunk_pages, long long page_stride, long long head_stride, cudaStream_t s) {
   const int chunk = chunk_pages * page_size;
   const int smem = smem_bytes(D, REP, chunk);
   const int n_chunks = (max_pages + chunk_pages - 1) / chunk_pages;
@@ -355,19 +360,20 @@ int launch(const void* q, const void* k, const void* v, const void* tables, cons
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(tables), static_cast<const int*>(pos), static_cast<bf16*>(out),
       static_cast<float*>(part), static_cast<unsigned*>(ctrl), page_size, max_pages, chunk_pages,
-      1.f / sqrtf((float)D));
+      page_stride, head_stride, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_rep(int rep, const void* q, const void* k, const void* v, const void* tables,
                const void* pos, void* out, void* part, void* ctrl, int batch, int h_kv,
-               int page_size, int max_pages, int chunk_pages, cudaStream_t s) {
+               int page_size, int max_pages, int chunk_pages, long long page_stride,
+               long long head_stride, cudaStream_t s) {
   switch (rep) {
 #define PTT_MMHA_REP(R)                                                                      \
   case R:                                                                                    \
     return launch<D, R>(q, k, v, tables, pos, out, part, ctrl, batch, h_kv, page_size,       \
-                        max_pages, chunk_pages, s);
+                        max_pages, chunk_pages, page_stride, head_stride, s);
     PTT_MMHA_REP(1)
     PTT_MMHA_REP(2)
     PTT_MMHA_REP(4)
@@ -381,7 +387,11 @@ int launch_rep(int rep, const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // q, out: [batch, h_kv * rep, head_dim] bf16; k, v: one layer's pool
-// [pages, h_kv, page_size, head_dim] bf16; tables: [batch, max_pages] int32;
+// [pages, h_kv, page_size, head_dim] bf16 (page_stride h_kv * page_size *
+// head_dim, head_stride page_size * head_dim) or a contiguous cache
+// [batch, h_kv, T, head_dim] (page_stride page_size * head_dim, head_stride
+// T * head_dim), both strides in elements and multiples of 8 (16 bytes, the
+// bulk copy's alignment); tables: [batch, max_pages] int32;
 // pos: [batch] int32, the last visible position of each row. A chunk is
 // chunk_pages pages (a block); part: f32 scratch of batch * h_kv * chunks *
 // rep * (head_dim + 2) floats, chunks = ceil(max_pages / chunk_pages);
@@ -390,18 +400,20 @@ int launch_rep(int rep, const void* q, const void* k, const void* v, const void*
 PTT_EXPORT int ptt_mmha_paged(const void* q, const void* k, const void* v, const void* tables,
                               const void* pos, void* out, void* part, void* ctrl, int batch,
                               int h_kv, int rep, int head_dim, int page_size, int max_pages,
-                              int chunk_pages, void* stream) {
+                              int chunk_pages, long long page_stride, long long head_stride,
+                              void* stream) {
   if (batch == 0) return 0;
-  if (chunk_pages < 1 || page_size < 1 || max_pages < 1 || h_kv < 1)
+  if (chunk_pages < 1 || page_size < 1 || max_pages < 1 || h_kv < 1 || page_stride < 1 ||
+      head_stride < 1 || page_stride % 8 || head_stride % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
       return launch_rep<64>(rep, q, k, v, tables, pos, out, part, ctrl, batch, h_kv, page_size,
-                            max_pages, chunk_pages, s);
+                            max_pages, chunk_pages, page_stride, head_stride, s);
     case 128:
       return launch_rep<128>(rep, q, k, v, tables, pos, out, part, ctrl, batch, h_kv, page_size,
-                             max_pages, chunk_pages, s);
+                             max_pages, chunk_pages, page_stride, head_stride, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

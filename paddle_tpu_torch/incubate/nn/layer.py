@@ -1,17 +1,24 @@
 """Fused layers of ``incubate.nn`` (counterpart of
-``paddle_tpu/incubate/nn/layer.py`` ``FusedLinear``, ``FusedDropoutAdd``
-and ``FusedBiasDropoutResidualLayerNorm``, :25-83), as ``nn.Module`` s on
-an explicit device (default ``cuda``) and dtype.
+``paddle_tpu/incubate/nn/layer.py``: ``FusedLinear``, ``FusedDropoutAdd``,
+``FusedBiasDropoutResidualLayerNorm`` :25-83, ``FusedMultiHeadAttention``
+:86, ``FusedFeedForward`` :166, ``FusedTransformerEncoderLayer`` :221,
+``FusedMultiTransformer`` :245 and ``FusedEcMoe`` :345), as
+``nn.Module`` s on an explicit device (default ``cuda``) and dtype.
 
-Parameter names are JAX's (``weight``, ``bias``, ``linear_bias``,
-``ln_scale``, ``ln_bias``) and ``FusedLinear`` keeps Paddle's ``[in,
-out]`` weight (``[out, in]`` with ``transpose_weight``), so a JAX layer's
-``state_dict()`` loads unchanged (``models.convert.incubate_from_jax_state``).
-Weights are drawn from a seeded ``torch.Generator`` with JAX's default
-initializers: Xavier-normal weights, zero biases, unit ``ln_scale``.
-The two layers with kernels take ``plain=True`` in ``forward`` to run the
-plain versions. ``weight_attr``, a ``bias_attr`` other than False and
-``name`` are taken for Paddle's signatures and not read.
+Parameter names and shapes are JAX's (``weight``, ``bias``,
+``linear_bias``, ``ln_scale``, ``ln_bias``; ``qkv_weight [3, H, hd, E]``;
+``FusedMultiTransformer``'s per-layer ``ln_scales_0``, ``qkv_weights_0``
+and so on) and every weight keeps Paddle's ``[in, out]`` layout (``[out,
+in]`` with ``transpose_weight``), so a JAX layer's ``state_dict()`` loads
+unchanged (``models.convert.incubate_from_jax_state``). Weights are drawn
+from a seeded ``torch.Generator`` with JAX's default initializers:
+Xavier-normal weights (JAX's fans, :func:`_fans`), zero biases, unit
+layer-norm scales. The layers with
+kernels take ``plain=True`` in ``forward`` to run the plain versions.
+``*_attr`` arguments other than a False ``bias_attr``, ``nranks``,
+``ring_id`` and ``name`` are taken for Paddle's signatures and not read;
+the attention layers are self-attention only and take no ``cache``, and
+raise otherwise, as JAX's.
 """
 
 from __future__ import annotations
@@ -22,19 +29,36 @@ import torch
 from torch import nn
 
 from ...device import resolve_device
+from ...nn import functional as F
 from . import functional as IF
 
 __all__ = ["FusedLinear", "FusedDropoutAdd",
-           "FusedBiasDropoutResidualLayerNorm"]
+           "FusedBiasDropoutResidualLayerNorm", "FusedMultiHeadAttention",
+           "FusedFeedForward", "FusedTransformerEncoderLayer",
+           "FusedMultiTransformer", "FusedEcMoe"]
+
+
+def _fans(shape):
+    """JAX's ``nn/initializer.py`` ``_fans`` (:39-48): ``[in, out]`` for a
+    2-D weight; past two dims, ``shape[1]`` and ``shape[0]`` times the
+    product of the rest."""
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
 
 
 def _param(shape, device, dtype, fill=None, gen=None):
     if fill is not None:
         t = torch.full(shape, float(fill), device=device, dtype=dtype)
     else:
-        std = math.sqrt(2.0 / (shape[0] + shape[1]))
+        std = math.sqrt(2.0 / sum(_fans(shape)))
         t = (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
     return nn.Parameter(t)
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(int(seed))
 
 
 class FusedLinear(nn.Module):
@@ -97,3 +121,261 @@ class FusedBiasDropoutResidualLayerNorm(nn.Module):
             x, residual, bias=self.linear_bias, ln_scale=self.ln_scale,
             ln_bias=self.ln_bias, dropout_rate=self.dropout_rate,
             ln_epsilon=self.epsilon, training=self.training, plain=plain)
+
+
+class FusedMultiHeadAttention(nn.Module):
+    """[pre-LN ->] the qkv projection (``qkv_weight [3, H, hd, E]``,
+    ``qkv_bias [3, H, hd]``) -> ``scaled_dot_product_attention`` (the flash
+    kernel with no mask and no attention dropout, else the composite) ->
+    ``linear_weight [E, E]`` -> dropout -> + residual [-> post-LN]
+    (reference ``fused_transformer.py`` ``FusedMultiHeadAttention``)."""
+
+    def __init__(self, embed_dim, num_heads, dropout_rate=0.5,
+                 attn_dropout_rate=0.5, kdim=None, vdim=None,
+                 normalize_before=False, need_weights=False,
+                 qkv_weight_attr=None, qkv_bias_attr=None,
+                 linear_weight_attr=None, linear_bias_attr=None,
+                 pre_ln_scale_attr=None, pre_ln_bias_attr=None,
+                 ln_scale_attr=None, ln_bias_attr=None, epsilon=1e-5,
+                 nranks=1, ring_id=-1, name=None, device=None,
+                 dtype=torch.float32, seed=0):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(
+                f"embed_dim ({embed_dim}) must be divisible by num_heads "
+                f"({num_heads})")
+        dev = resolve_device(device)
+        gen = _gen(dev, seed)
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.normalize_before = normalize_before
+        self.dropout_rate = dropout_rate
+        self.attn_dropout_rate = attn_dropout_rate
+        self.epsilon = epsilon
+        e, h, hd = embed_dim, num_heads, self.head_dim
+        self.qkv_weight = _param((3, h, hd, e), dev, dtype, gen=gen)
+        self.qkv_bias = _param((3, h, hd), dev, dtype, fill=0.0)
+        self.linear_weight = _param((e, e), dev, dtype, gen=gen)
+        self.linear_bias = _param((e,), dev, dtype, fill=0.0)
+        self.pre_ln_scale = _param((e,), dev, dtype, fill=1.0)
+        self.pre_ln_bias = _param((e,), dev, dtype, fill=0.0)
+        self.ln_scale = _param((e,), dev, dtype, fill=1.0)
+        self.ln_bias = _param((e,), dev, dtype, fill=0.0)
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None, plain=False):
+        if (key is not None and key is not query) or \
+                (value is not None and value is not query):
+            raise NotImplementedError(
+                "FusedMultiHeadAttention is self-attention only (the "
+                "reference fused kernel likewise packs qkv from one input); "
+                "use nn.MultiHeadAttention for cross-attention")
+        if cache is not None:
+            raise NotImplementedError("kv-cache decode not supported here")
+        x = residual = query
+        if self.normalize_before:
+            x = F.layer_norm(x, self.embed_dim, self.pre_ln_scale,
+                             self.pre_ln_bias, self.epsilon)
+        b, s, _ = x.shape
+        # [3, B, S, H, hd]: q, k and v each contiguous, as flash takes them
+        qkv = torch.einsum("bse,khde->kbshd", x, self.qkv_weight) \
+            + self.qkv_bias[:, None, None]
+        out = F.scaled_dot_product_attention(
+            qkv[0], qkv[1], qkv[2], attn_mask=attn_mask,
+            dropout_p=self.attn_dropout_rate if self.training else 0.0,
+            training=self.training, plain=plain)
+        out = F.linear(out.reshape(b, s, self.embed_dim), self.linear_weight,
+                       self.linear_bias)
+        out = residual + F.dropout(out, self.dropout_rate,
+                                   training=self.training)
+        if not self.normalize_before:
+            out = F.layer_norm(out, self.embed_dim, self.ln_scale,
+                               self.ln_bias, self.epsilon)
+        return out
+
+
+class FusedFeedForward(nn.Module):
+    """[pre-LN ->] ``linear1_weight [E, F]`` -> activation -> dropout ->
+    ``linear2_weight [F, E]`` -> dropout -> + residual [-> post-LN]
+    (reference ``fused_transformer.py`` ``FusedFeedForward``)."""
+
+    def __init__(self, d_model, dim_feedforward, dropout_rate=0.1,
+                 epsilon=1e-5, activation="relu", act_dropout_rate=None,
+                 normalize_before=False, linear1_weight_attr=None,
+                 linear1_bias_attr=None, linear2_weight_attr=None,
+                 linear2_bias_attr=None, ln1_scale_attr=None,
+                 ln1_bias_attr=None, ln2_scale_attr=None, ln2_bias_attr=None,
+                 nranks=1, ring_id=-1, name=None, device=None,
+                 dtype=torch.float32, seed=0):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = _gen(dev, seed)
+        self.d_model = d_model
+        self.normalize_before = normalize_before
+        self.dropout_rate = dropout_rate
+        self.act_dropout_rate = (act_dropout_rate if act_dropout_rate
+                                 is not None else dropout_rate)
+        self.activation = activation
+        self.epsilon = epsilon
+        self.linear1_weight = _param((d_model, dim_feedforward), dev, dtype,
+                                     gen=gen)
+        self.linear1_bias = _param((dim_feedforward,), dev, dtype, fill=0.0)
+        self.linear2_weight = _param((dim_feedforward, d_model), dev, dtype,
+                                     gen=gen)
+        self.linear2_bias = _param((d_model,), dev, dtype, fill=0.0)
+        self.ln1_scale = _param((d_model,), dev, dtype, fill=1.0)
+        self.ln1_bias = _param((d_model,), dev, dtype, fill=0.0)
+        self.ln2_scale = _param((d_model,), dev, dtype, fill=1.0)
+        self.ln2_bias = _param((d_model,), dev, dtype, fill=0.0)
+
+    def forward(self, src, cache=None):
+        residual = src
+        if self.normalize_before:
+            src = F.layer_norm(src, self.d_model, self.ln1_scale,
+                               self.ln1_bias, self.epsilon)
+        act = getattr(F, self.activation)
+        h = act(F.linear(src, self.linear1_weight, self.linear1_bias))
+        h = F.dropout(h, self.act_dropout_rate, training=self.training)
+        h = F.linear(h, self.linear2_weight, self.linear2_bias)
+        out = residual + F.dropout(h, self.dropout_rate,
+                                   training=self.training)
+        if not self.normalize_before:
+            out = F.layer_norm(out, self.d_model, self.ln2_scale,
+                               self.ln2_bias, self.epsilon)
+        return out
+
+
+class FusedTransformerEncoderLayer(nn.Module):
+    """``FusedMultiHeadAttention`` then ``FusedFeedForward`` (reference
+    ``fused_transformer.py`` ``FusedTransformerEncoderLayer``); the
+    attention's dropout is ``attn_dropout_rate`` where given, else
+    ``dropout_rate``."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout_rate=0.1,
+                 activation="relu", attn_dropout_rate=None,
+                 act_dropout_rate=None, normalize_before=False, epsilon=1e-5,
+                 name=None, device=None, dtype=torch.float32, seed=0):
+        super().__init__()
+        attn_drop = (attn_dropout_rate if attn_dropout_rate is not None
+                     else dropout_rate)
+        self.fused_attn = FusedMultiHeadAttention(
+            d_model, nhead, dropout_rate=dropout_rate,
+            attn_dropout_rate=attn_drop, normalize_before=normalize_before,
+            epsilon=epsilon, device=device, dtype=dtype, seed=seed)
+        self.ffn = FusedFeedForward(
+            d_model, dim_feedforward, dropout_rate=dropout_rate,
+            activation=activation, act_dropout_rate=act_dropout_rate,
+            normalize_before=normalize_before, epsilon=epsilon,
+            device=device, dtype=dtype, seed=int(seed) + 1)
+
+    def forward(self, src, src_mask=None, cache=None, plain=False):
+        if cache is not None:
+            raise NotImplementedError("kv-cache decode not supported here")
+        return self.ffn(self.fused_attn(src, attn_mask=src_mask,
+                                        plain=plain))
+
+
+#: FusedMultiTransformer's per-layer parameter lists, in JAX's order
+_FMT_LISTS = ("ln_scales", "ln_biases", "qkv_weights", "qkv_biases",
+              "linear_weights", "linear_biases", "ffn_ln_scales",
+              "ffn_ln_biases", "ffn1_weights", "ffn1_biases", "ffn2_weights",
+              "ffn2_biases")
+
+
+class FusedMultiTransformer(nn.Module):
+    """``num_layers`` transformer layers driving one
+    ``fused_multi_transformer`` call (reference ``fused_transformer.py``
+    ``FusedMultiTransformer``), with the ``[2, B, H, T, D]`` caches and
+    ``time_step`` decode through the mmha kernel. Each list (``ln_scales``,
+    ``qkv_weights``, ...) holds one parameter a layer, registered as
+    ``<list>_<layer>`` (``ln_scales_0``, ``qkv_weights_0``, ...)."""
+
+    def __init__(self, embed_dim, num_heads, dim_feedforward,
+                 dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 ln_scale_attrs=None, ln_bias_attrs=None,
+                 qkv_weight_attrs=None, qkv_bias_attrs=None,
+                 linear_weight_attrs=None, linear_bias_attrs=None,
+                 ffn_ln_scale_attrs=None, ffn_ln_bias_attrs=None,
+                 ffn1_weight_attrs=None, ffn1_bias_attrs=None,
+                 ffn2_weight_attrs=None, ffn2_bias_attrs=None,
+                 epsilon=1e-5, num_layers=-1, nranks=1, trans_qkvw=True,
+                 ring_id=-1, name=None, device=None, dtype=torch.float32,
+                 seed=0):
+        super().__init__()
+        if num_layers < 0:
+            num_layers = len(qkv_weight_attrs) \
+                if isinstance(qkv_weight_attrs, (list, tuple)) else 1
+        dev = resolve_device(device)
+        gen = _gen(dev, seed)
+        e, h = embed_dim, num_heads
+        hd = embed_dim // num_heads
+        self.embed_dim, self.num_heads, self.head_dim = e, h, hd
+        self.normalize_before = normalize_before
+        self._epsilon = epsilon
+        self._trans_qkvw = trans_qkvw
+        self._dropout_rate = dropout_rate
+        self.activation = activation
+        qkv_shape = (3, h, hd, e) if trans_qkvw else (e, 3, h, hd)
+        shapes = {"ln_scales": ((e,), 1.0), "ln_biases": ((e,), 0.0),
+                  "qkv_weights": (qkv_shape, None),
+                  "qkv_biases": ((3, h, hd), 0.0),
+                  "linear_weights": ((h * hd, e), None),
+                  "linear_biases": ((e,), 0.0),
+                  "ffn_ln_scales": ((e,), 1.0), "ffn_ln_biases": ((e,), 0.0),
+                  "ffn1_weights": ((e, dim_feedforward), None),
+                  "ffn1_biases": ((dim_feedforward,), 0.0),
+                  "ffn2_weights": ((dim_feedforward, e), None),
+                  "ffn2_biases": ((e,), 0.0)}
+        for lname in _FMT_LISTS:
+            setattr(self, lname, [])
+        for i in range(num_layers):
+            for lname in _FMT_LISTS:
+                shape, fill = shapes[lname]
+                p = _param(shape, dev, dtype, fill=fill, gen=gen)
+                self.register_parameter(f"{lname}_{i}", p)
+                getattr(self, lname).append(p)
+
+    def forward(self, src, attn_mask=None, caches=None, pre_caches=None,
+                rotary_embs=None, rotary_emb_dims=0, seq_lens=None,
+                time_step=None, plain=False):
+        return IF.fused_multi_transformer(
+            src, self.ln_scales, self.ln_biases, self.qkv_weights,
+            self.qkv_biases, self.linear_weights, self.linear_biases,
+            self.ffn_ln_scales, self.ffn_ln_biases, self.ffn1_weights,
+            self.ffn1_biases, self.ffn2_weights, self.ffn2_biases,
+            pre_layer_norm=self.normalize_before, epsilon=self._epsilon,
+            cache_kvs=caches, pre_caches=pre_caches, seq_lens=seq_lens,
+            rotary_embs=rotary_embs, time_step=time_step,
+            attn_mask=attn_mask, dropout_rate=self._dropout_rate,
+            rotary_emb_dims=rotary_emb_dims, activation=self.activation,
+            training=self.training, trans_qkvw=self._trans_qkvw, plain=plain)
+
+
+class FusedEcMoe(nn.Module):
+    """Expert-choice MoE FFN (reference ``fused_ec_moe.py`` ``FusedEcMoe``):
+    the routing logits ``x @ gate`` (``gate [hidden, E]``), then
+    ``fused_ec_moe`` over ``w1 [E, hidden, inter]``, ``b1 [E, 1, inter]``,
+    ``w2 [E, inter, hidden]``, ``b2 [E, 1, hidden]``."""
+
+    def __init__(self, hidden_size, inter_size, num_experts, act_type="gelu",
+                 weight_attr=None, bias_attr=None, device=None,
+                 dtype=torch.float32, seed=0):
+        super().__init__()
+        if act_type not in ("gelu", "relu"):
+            raise ValueError(f"unsupported act_type {act_type!r}")
+        dev = resolve_device(device)
+        gen = _gen(dev, seed)
+        self.hidden_size = hidden_size
+        self.num_experts = num_experts
+        self.act_type = act_type
+        e = num_experts
+        self.gate = _param((hidden_size, e), dev, dtype, gen=gen)
+        self.w1 = _param((e, hidden_size, inter_size), dev, dtype, gen=gen)
+        self.b1 = _param((e, 1, inter_size), dev, dtype, fill=0.0)
+        self.w2 = _param((e, inter_size, hidden_size), dev, dtype, gen=gen)
+        self.b2 = _param((e, 1, hidden_size), dev, dtype, fill=0.0)
+
+    def forward(self, x):
+        return IF.fused_ec_moe(x, torch.matmul(x, self.gate), self.w1,
+                               self.b1, self.w2, self.b2, self.act_type)

@@ -12,9 +12,11 @@ the JAX output order, so its output still splits as ``[B, S, 3, H, D]``.
 Qwen2-MoE's router weight (``mlp.gate.gate.weight``) is transposed too;
 its stacked experts (``mlp.expert_{0,1,2}``, ``[E, in, out]``) are copied
 as they are, the port keeping the JAX layout there. The incubate layers
-(``FusedLinear``, ``FusedDropoutAdd``, ``FusedBiasDropoutResidualLayerNorm``)
-keep JAX's layout throughout, so their state is copied with no
-transposition.
+(``FusedLinear``, ``FusedDropoutAdd``, ``FusedBiasDropoutResidualLayerNorm``,
+``FusedMultiHeadAttention``, ``FusedFeedForward``,
+``FusedTransformerEncoderLayer``, ``FusedMultiTransformer``, ``FusedEcMoe``)
+keep JAX's names and Paddle's layouts throughout, so their state is copied
+with no transposition.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 (counterparts of ``paddle_tpu/nn/functional/__init__.py`` ``layer_norm``
 (:65), ``rms_norm`` (:90), ``fused_rms_norm_add`` (:115),
 ``fused_dropout_add_norm`` (:139), ``scaled_dot_product_attention``
-(:391), ``rope`` (:505), ``dropout`` (:295),
-``paddle_tpu/ops/activation.py`` ``gelu`` (:44) and ``swiglu`` (:159),
+(:391), ``rope`` (:505), ``dropout`` (:295), ``linear`` (:45),
+``paddle_tpu/ops/activation.py`` ``gelu`` (:44), ``softmax`` (:86) and
+``swiglu`` (:159), ``relu``,
 and ``paddle_tpu/nn/functional/loss.py`` ``cross_entropy`` (:32-79) and
 ``softmax_with_cross_entropy`` (:81-90)).
 
@@ -11,8 +12,9 @@ Dispatch is the kernel wrapper's: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``plain=True`` runs the plain
 PyTorch version on any device; it exists so a check on the card can hold
 the kernel path against the plain one on the same inputs. ``layer_norm``,
-``gelu`` and the cross entropies are plain tensor code, as the JAX package
-computes them outside any Pallas kernel.
+``linear``, ``gelu``, ``relu``, ``softmax``, the cross entropies and the
+masked or dropout path of ``scaled_dot_product_attention`` are plain
+tensor code, as the JAX package computes them outside any Pallas kernel.
 
 Where grad is enabled and an operand requires it, each kernel op goes
 through its ``torch.autograd.Function``, whose backward is the backward
@@ -21,6 +23,8 @@ the forward wrapper directly, as the serving path always has.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,7 +35,8 @@ from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import rope as _rope
 from ..ops.kernels import swiglu as _swiglu
 
-__all__ = ["layer_norm", "gelu", "dropout", "rms_norm", "fused_rms_norm_add",
+__all__ = ["layer_norm", "linear", "gelu", "relu", "softmax", "dropout",
+           "rms_norm", "fused_rms_norm_add",
            "fused_dropout_add_norm", "scaled_dot_product_attention", "rope",
            "swiglu", "cross_entropy", "softmax_with_cross_entropy"]
 
@@ -59,6 +64,21 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
     if bias is not None:
         out = out + bias
     return out
+
+
+def linear(x, weight, bias=None):
+    """``x @ weight (+ bias)`` with Paddle's ``[in, out]`` weight."""
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def softmax(x, axis=-1, dtype=None):
+    """Softmax over ``axis``, in ``dtype`` where given (x cast first)."""
+    return torch.softmax(x if dtype is None else x.to(dtype), dim=axis)
 
 
 def gelu(x, approximate=False):
@@ -133,15 +153,52 @@ def fused_dropout_add_norm(x, residual, weight, bias=None, p=0.0,
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, plain=False):
-    """SDPA in the ``[B, S, H, D]`` layout through the flash-attention
-    kernel; ``key``/``value`` may carry fewer heads (GQA). An attention
-    mask or dropout is not ported yet and raises."""
-    if attn_mask is not None or (dropout_p > 0.0 and training):
-        raise NotImplementedError(
-            "scaled_dot_product_attention: attn_mask and dropout are not "
-            "ported yet; only the flash-attention case (no mask, no "
-            "dropout) is")
-    return flash_attention(query, key, value, causal=is_causal, plain=plain)
+    """SDPA in the ``[B, S, H, D]`` layout; ``key``/``value`` may carry
+    fewer heads (GQA). With no mask and no dropout (``dropout_p == 0`` or
+    not training) it is the flash-attention kernel, as JAX's dispatch
+    (:401-404), on contiguous copies of strided operands; otherwise
+    :func:`sdpa_composite`, JAX's composite."""
+    if attn_mask is None and not (dropout_p > 0.0 and training):
+        return flash_attention(query.contiguous(), key.contiguous(),
+                               value.contiguous(), causal=is_causal,
+                               plain=plain)
+    return sdpa_composite(query, key, value, attn_mask, dropout_p,
+                          is_causal, training)
+
+
+def sdpa_composite(query, key, value, attn_mask=None, dropout_p=0.0,
+                   is_causal=False, training=True):
+    """JAX's SDPA composite (:406-432) in plain tensor code: kv heads
+    repeated to q's (GQA); logits ``q k^T * scale`` in q's dtype, then f32;
+    ``is_causal`` keeps ``tril(ones(S, T), T - S)``; a boolean mask keeps
+    its True positions, any other mask is added in f32; softmax in f32,
+    cast to q's dtype; in training at ``dropout_p > 0``, :func:`dropout` of
+    the probabilities (drawn on q's device from the default generator);
+    then ``P V``."""
+    h, h_kv = query.shape[2], key.shape[2]
+    if h != h_kv:
+        if h % h_kv:
+            raise ValueError(f"q heads {h} not a multiple of kv heads "
+                             f"{h_kv}")
+        key = key.repeat_interleave(h // h_kv, dim=2)
+        value = value.repeat_interleave(h // h_kv, dim=2)
+    qh, kh, vh = (t.transpose(1, 2) for t in (query, key, value))
+    scale = 1.0 / math.sqrt(query.shape[-1])
+    logits = (torch.matmul(qh, kh.transpose(-1, -2)) * scale).float()
+    if is_causal:
+        s, t = logits.shape[-2], logits.shape[-1]
+        causal = torch.ones(s, t, dtype=torch.bool,
+                            device=logits.device).tril(t - s)
+        logits = logits.masked_fill(~causal, float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, float("-inf"))
+        else:
+            logits = logits + attn_mask.float()
+    probs = torch.softmax(logits, dim=-1).to(query.dtype)
+    if dropout_p > 0.0 and training:
+        probs = dropout(probs, dropout_p, training=True)
+    return torch.matmul(probs, vh).transpose(1, 2)
 
 
 def flash_attention(q, k, v, causal=False, segment_ids=None, plain=False):

@@ -1,8 +1,16 @@
-"""One-token decode attention over the paged KV pool: CUDA kernel and
-plain version.
+"""One-token decode attention over the paged KV pool or a contiguous
+cache: CUDA kernel and plain version.
 
 Replaces ``paddle_tpu/ops/kernels/mmha_pallas.py`` ``mmha_decode`` (:109;
 kernel body :53-89). Source: ``paddle_tpu_torch/csrc/mmha.cu``.
+
+The kernel loads page ``page_id`` of kv head ``g`` from ``pool + page_id *
+page_stride + g * head_stride``. :func:`mmha_decode` passes the pool's
+strides; :func:`mmha_decode_contiguous` passes a contiguous ``[B, Hkv, T,
+D]`` buffer's (``ps * D``, ``T * D``) with a table whose row ``b`` names
+pages ``b * Hkv * (T / ps) + j`` (:func:`contiguous_table`), so the same
+kernel reads a caller's cache (``fused_multi_transformer``'s ``[2, B, H,
+T, D]``) in place, with no gather and no copy.
 
 The JAX decode path gathers each layer's pages into a contiguous
 ``[B, Hkv, T, D]`` copy (``serving/kv_cache.py:gather_layer``) and runs the
@@ -39,10 +47,12 @@ import torch
 
 from . import _build
 
-__all__ = ["mmha_decode", "mmha_plain", "gather_pages", "reference_mmha",
-           "plan", "chunk_spans", "smem_bytes"]
+__all__ = ["mmha_decode", "mmha_decode_contiguous", "mmha_plain",
+           "gather_pages", "reference_mmha", "contiguous_table", "plan",
+           "chunk_spans", "smem_bytes"]
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+    [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 _HEAD_DIMS = (64, 128)
 _REPS = (1, 2, 4, 8)
 _THREADS = 256
@@ -51,6 +61,8 @@ _CHUNK_BYTES = 32 * 1024
 _MAX_PAGES = 16
 #: the source's ``kMaxSmem``: dynamic shared memory a block may ask for
 _MAX_SMEM = 200 * 1024
+#: positions a page of a contiguous cache (its T must be a multiple)
+CONTIGUOUS_PAGE = 16
 
 
 @functools.lru_cache(maxsize=256)
@@ -174,57 +186,131 @@ def mmha_plain(q, k_pool, v_pool, tables, pos):
                           gather_pages(v_pool, tables), pos)
 
 
+def _require_kernel(q, k, h_kv, ops):
+    """The kernel's own limits on a CUDA call, raised before launching."""
+    if q.device.type != "cuda":
+        raise ValueError(f"mmha: no kernel for device {q.device}")
+    _, _, h, d = q.shape
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
+        raise TypeError(f"mmha kernel takes bf16, got {q.dtype} / "
+                        f"{k.dtype}")
+    if d not in _HEAD_DIMS or h // h_kv not in _REPS:
+        raise ValueError(f"mmha kernel takes D in {_HEAD_DIMS} and H/Hkv in "
+                         f"{_REPS}, got D={d}, H/Hkv={h // h_kv}")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("mmha kernel takes contiguous tensors")
+
+
+def _run(q, k, v, tables, pos, h_kv, ps, strides):
+    """Launch the kernel over ``tables [B, max_pages]`` with the page
+    strides ``(page_stride, head_stride)``; one launch counted."""
+    b, _, h, d = q.shape
+    layout = _layout(b, h_kv, h // h_kv, d, ps, tables.shape[1])
+    if layout is None:
+        raise ValueError(f"mmha kernel: a page of {ps} positions at D {d} "
+                         f"does not fit a block's shared memory")
+    cp, floats = layout
+    _build.require_aligned("mmha", q, k, v)
+    out = torch.empty_like(q)
+    stream = _build.stream_of(q)
+    ctrl, part = _workspace(q.device, stream, b * h_kv, floats)
+    _launch(q, k, v, tables, pos, out, part, ctrl, cp, stream, h_kv, ps,
+            strides)
+    mmha_decode.launches += 1
+    return out
+
+
 def mmha_decode(q, k_pool, v_pool, tables, pos):
     """Decode attention of ``q [B, 1, H, D]`` over one layer's paged pool
     ``k_pool``/``v_pool [P, Hkv, ps, D]`` through ``tables [B, max_pages]``
     int32, row ``b`` seeing positions ``0..pos[b]`` (int32 ``[B]``).
     Returns ``[B, 1, H, D]``. A CPU tensor takes :func:`mmha_plain`; a CUDA
     tensor launches the kernel (bf16, D in {64, 128}, H / Hkv in
-    {1, 2, 4, 8}) or raises."""
+    {1, 2, 4, 8}) or raises. ``mmha_decode.launches`` counts the kernel's
+    launches from both entries."""
     _check(q, k_pool, v_pool, tables, pos)
     if q.device.type == "cpu":
         return mmha_plain(q, k_pool, v_pool, tables, pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"mmha: no kernel for device {q.device}")
-    b, _, h, d = q.shape
-    _, h_kv, ps, _ = k_pool.shape
-    if q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16:
-        raise TypeError(f"mmha kernel takes bf16, got {q.dtype} / "
-                        f"{k_pool.dtype}")
-    if d not in _HEAD_DIMS or h // h_kv not in _REPS:
-        raise ValueError(f"mmha kernel takes D in {_HEAD_DIMS} and H/Hkv in "
-                         f"{_REPS}, got D={d}, H/Hkv={h // h_kv}")
-    ops = (q, k_pool, v_pool, tables, pos)
-    if not all(t.is_contiguous() for t in ops):
-        raise ValueError("mmha kernel takes contiguous tensors")
-    layout = _layout(b, h_kv, h // h_kv, d, ps, tables.shape[1])
-    if layout is None:
-        raise ValueError(f"mmha kernel: a page of {ps} positions at D {d} "
-                         f"does not fit a block's shared memory")
-    cp, floats = layout
-    _build.require_aligned("mmha", q, k_pool, v_pool)
-    out = torch.empty_like(q)
-    stream = _build.stream_of(q)
-    ctrl, part = _workspace(q.device, stream, b * h_kv, floats)
-    _launch(q, k_pool, v_pool, tables, pos, out, part, ctrl, cp, stream)
-    mmha_decode.launches += 1
-    return out
+    _, h_kv, ps, d = k_pool.shape
+    _require_kernel(q, k_pool, h_kv, (q, k_pool, v_pool, tables, pos))
+    return _run(q, k_pool, v_pool, tables, pos, h_kv, ps,
+                (h_kv * ps * d, ps * d))
 
 
 mmha_decode.launches = 0
 
 
-def _launch(q, k_pool, v_pool, tables, pos, out, part, ctrl, chunk_pages,
-            stream):
-    """The C entry on operands the caller allocated (``part``: the
-    scratch; ``ctrl``: at least ``B * Hkv`` zero counters)."""
+def contiguous_table(b, h_kv, t, device, ps=CONTIGUOUS_PAGE):
+    """The page table that maps a contiguous ``[B, Hkv, T, D]`` cache onto
+    the kernel's pages of ``ps`` positions: row ``b``, page ``j`` is page
+    ``b * Hkv * (T / ps) + j``, made on ``device`` once a shape (no host
+    copy)."""
+    return _contiguous_table(torch.device(device), b, h_kv, t, ps)
+
+
+@functools.lru_cache(maxsize=64)
+def _contiguous_table(device, b, h_kv, t, ps):
+    n = t // ps
+    return (torch.arange(b, dtype=torch.int32, device=device)[:, None]
+            * (h_kv * n)
+            + torch.arange(n, dtype=torch.int32, device=device)[None, :])
+
+
+def _check_contiguous(q, k_buf, v_buf, pos):
+    if not q.is_floating_point() or k_buf.dtype != v_buf.dtype:
+        raise TypeError(f"mmha: q {q.dtype}, k {k_buf.dtype}, v "
+                        f"{v_buf.dtype}")
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"mmha takes one query token, q [B, 1, H, D]; got "
+                         f"{tuple(q.shape)}")
     b, _, h, d = q.shape
-    _, h_kv, ps, _ = k_pool.shape
+    if k_buf.dim() != 4 or k_buf.shape != v_buf.shape \
+            or k_buf.shape[0] != b or k_buf.shape[3] != d \
+            or h % k_buf.shape[1]:
+        raise ValueError(f"mmha: cache {tuple(k_buf.shape)} / "
+                         f"{tuple(v_buf.shape)} does not fit q "
+                         f"{tuple(q.shape)} (want [B, Hkv, T, D], H % Hkv "
+                         f"== 0)")
+    if pos.shape != (b,) or pos.dtype != torch.int32:
+        raise ValueError(f"mmha: pos must be int32 [B], got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    if any(t.device != q.device for t in (k_buf, v_buf, pos)):
+        raise ValueError("mmha: operands on different devices")
+
+
+def mmha_decode_contiguous(q, k_buf, v_buf, pos):
+    """Decode attention of ``q [B, 1, H, D]`` over a contiguous cache
+    ``k_buf``/``v_buf [B, Hkv, T, D]`` (positions ``0..pos[b]`` of row
+    ``b``, int32 ``[B]`` on q's device), read in place. A CPU tensor takes
+    :func:`reference_mmha`; a CUDA tensor launches the kernel (bf16, D in
+    {64, 128}, H / Hkv in {1, 2, 4, 8}, ``T % 16 == 0``) or raises. The
+    JAX gate (``mmha_pallas.use_kernel``) sends shapes it refuses to the
+    composite; this entry raises instead."""
+    _check_contiguous(q, k_buf, v_buf, pos)
+    if q.device.type == "cpu":
+        return reference_mmha(q, k_buf, v_buf, pos)
+    b, h_kv, t, d = k_buf.shape
+    ps = CONTIGUOUS_PAGE
+    if t % ps:
+        raise ValueError(f"mmha kernel takes a contiguous cache of T % {ps} "
+                         f"== 0 positions, got T={t}")
+    _require_kernel(q, k_buf, h_kv, (q, k_buf, v_buf, pos))
+    return _run(q, k_buf, v_buf, contiguous_table(b, h_kv, t, q.device), pos,
+                h_kv, ps, (ps * d, t * d))
+
+
+def _launch(q, k, v, tables, pos, out, part, ctrl, chunk_pages, stream,
+            h_kv, ps, strides):
+    """The C entry on operands the caller allocated (``part``: the
+    scratch; ``ctrl``: at least ``B * Hkv`` zero counters); ``strides`` is
+    ``(page_stride, head_stride)`` in elements."""
+    b, _, h, d = q.shape
     fn = _build.function("mmha", "ptt_mmha_paged", _ARGS)
-    _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
                     part.data_ptr(), ctrl.data_ptr(), b, h_kv, h // h_kv, d,
-                    ps, tables.shape[1], chunk_pages, stream), "mmha")
+                    ps, tables.shape[1], chunk_pages, *strides, stream),
+                 "mmha")
 
 
 def paged_tables(lengths, page_size, max_pages, seed):
@@ -247,23 +333,39 @@ def paged_tables(lengths, page_size, max_pages, seed):
 
 # -- declared launches for the kernel analyzer -------------------------------
 
-def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7):
+def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7, t=None):
     """Grid (Hkv, B, chunks) of 256 threads (:func:`plan`): block (g, b, c)
     reads q's REP heads of kv head g and the pages of chunk c through the
     table (not declared as tiles). Which block writes a row's output
     depends on the data (the last chunk of the row to finish, or its only
     one), so the writes of out and of the scratch are left to the guard
-    plane (writes=None). The counters go in zero and come out zero."""
+    plane (writes=None). The counters go in zero and come out zero. With
+    ``t``, the contiguous entry's launch: k and v ``[B, Hkv, t, D]`` read in
+    place through :func:`contiguous_table` (pages of 16), every row seeing
+    at least one position; otherwise a pool with shuffled pages."""
     from ._examples import fixed, model
     m = model()
     bf = torch.bfloat16
     b, rep = len(lengths), h // h_kv
-    tables, pos, n_pages = paged_tables(lengths, ps, max_pages, seed)
+    if t is None:
+        tables, pos, n_pages = paged_tables(lengths, ps, max_pages, seed)
+        kv_shape, strides = (n_pages, h_kv, ps, d), (h_kv * ps * d, ps * d)
+
+        def plain(x):
+            return {"out": mmha_plain(x["q"], x["k"], x["v"], x["tables"],
+                                      x["pos"])}
+    else:
+        ps, max_pages = CONTIGUOUS_PAGE, t // CONTIGUOUS_PAGE
+        tables = contiguous_table(b, h_kv, t, "cpu")
+        pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32)
+        kv_shape, strides = (b, h_kv, t, d), (ps * d, t * d)
+
+        def plain(x):
+            return {"out": reference_mmha(x["q"], x["k"], x["v"], x["pos"])}
     cp, n_chunks = plan(b, h_kv, max_pages, ps, d)
     zeros = torch.zeros(b * h_kv, dtype=torch.int32)
     ops = [m.Operand("q", (b, 1, h, d), bf),
-           m.Operand("k", (n_pages, h_kv, ps, d), bf),
-           m.Operand("v", (n_pages, h_kv, ps, d), bf),
+           m.Operand("k", kv_shape, bf), m.Operand("v", kv_shape, bf),
            m.Operand("tables", tuple(tables.shape), torch.int32,
                      data=fixed(tables)),
            m.Operand("pos", (b,), torch.int32, data=fixed(pos)),
@@ -277,13 +379,9 @@ def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7):
         reads=[m.TileMap("q", (1, 1, rep * d), lambda g, r, z: (r, g, 0),
                          view=(b, h_kv, rep * d))])
 
-    def plain(t):
-        return {"out": mmha_plain(t["q"], t["k"], t["v"], t["tables"],
-                                  t["pos"])}
-
-    def launch(t, stream):
-        _launch(t["q"], t["k"], t["v"], t["tables"], t["pos"], t["out"],
-                t["part"], t["ctrl"], cp, stream)
+    def launch(x, stream):
+        _launch(x["q"], x["k"], x["v"], x["tables"], x["pos"], x["out"],
+                x["part"], x["ctrl"], cp, stream, h_kv, ps, strides)
 
     seen = int((pos + 1).sum())
     return m.Example(label, "mmha", ops, [kern], launch, plain,
@@ -291,6 +389,12 @@ def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7):
                      nbytes=2 * seen * h_kv * d * 2 + 2 * b * h * d * 2
                      + tables.numel() * 4)
 
+
+#: the contiguous row of phase 3 at ``fused_multi_transformer``'s decode
+#: shape in chip_smoke's fmt phase (GPT-2 small's heads, B 8, a 1024-position
+#: cache, the last step's position 575): (label, lengths, H, Hkv, D, T)
+CONTIGUOUS_ROW = ("phase3 contiguous [8, 1, 12, 64] T 1024 pos 575",
+                  [576] * 8, 12, 12, 64, 1024)
 
 #: phase 3's rows beside the decode shape: (label, lengths, H, Hkv, D)
 PHASE3_ROWS = (
@@ -309,7 +413,9 @@ def ck_examples():
     32), rep 8 (H 64) and D 64 (:data:`PHASE3_ROWS`); tails at D 64, REP 4
     (for rep 1 and rep 8 their own REP) and lengths of one position, two
     ending inside a page (one of them over three chunks, so merged) and
-    one on a chunk's edge."""
+    one on a chunk's edge. Then the contiguous entry at
+    :data:`CONTIGUOUS_ROW`, its tail the same lengths over a 320-position
+    cache."""
     from ._examples import with_tail
     tail = dict(lengths=[1, 37, 300, 256], h=8, h_kv=2, d=64)
     out = []
@@ -324,4 +430,8 @@ def ck_examples():
             else tail
         out.append(with_tail(_ex, label, dict(lengths=lengths, h=h, h_kv=h_kv,
                                               d=d), rep_tail))
+    label, lengths, h, h_kv, d, t = CONTIGUOUS_ROW
+    out.append(with_tail(_ex, label,
+                         dict(lengths=lengths, h=h, h_kv=h_kv, d=d, t=t),
+                         dict(tail, t=320)))
     return out

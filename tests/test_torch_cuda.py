@@ -193,6 +193,93 @@ def test_mmha_split_kernel(dev, batch, d, rep):
     assert int(ctrl.abs().sum()) == 0
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("t", [16, 320, 1024])
+def test_mmha_contiguous_kernel(dev, d, rep, t):
+    """The contiguous entry reads a [B, Hkv, T, D] cache in place (a row at
+    position 0, one inside a page, one over several chunks, one at the
+    cache's end): within one bf16 ulp of ``reference_mmha``, the same bits
+    twice, one launch a call, and the pool path's bits over the same
+    pages."""
+    h_kv, ps = 2, mmha.CONTIGUOUS_PAGE
+    pos = torch.tensor([0, min(36, t - 1), min(299, t - 1), t - 1],
+                       dtype=torch.int32, device=dev)
+    b = pos.numel()
+    kb = _randn(dev, b, h_kv, t, d, seed=40)
+    vb = _randn(dev, b, h_kv, t, d, seed=41)
+    q = _randn(dev, b, 1, h_kv * rep, d, seed=42)
+    before = mmha.mmha_decode.launches
+    got = mmha.mmha_decode_contiguous(q, kb, vb, pos)
+    assert mmha.mmha_decode.launches == before + 1
+    again = mmha.mmha_decode_contiguous(q, kb, vb, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, mmha.reference_mmha(q, kb, vb, pos))
+
+    def as_pool(buf):
+        return buf.reshape(b, h_kv, t // ps, ps, d).permute(
+            0, 2, 1, 3, 4).reshape(b * t // ps, h_kv, ps, d).contiguous()
+    tables = (torch.arange(b, device=dev)[:, None] * (t // ps)
+              + torch.arange(t // ps, device=dev)[None, :]).to(torch.int32)
+    assert torch.equal(got, mmha.mmha_decode(q, as_pool(kb), as_pool(vb),
+                                             tables, pos))
+
+
+def test_mmha_contiguous_views_of_a_cache_kv(dev):
+    """``cache_kv[0]`` and ``cache_kv[1]`` of a [2, B, H, T, D] cache are
+    read where they lie (the second at an offset of B * H * T * D)."""
+    cache = _randn(dev, 2, 3, 4, 64, 64, seed=43)
+    q = _randn(dev, 3, 1, 4, 64, seed=44)
+    pos = torch.tensor([5, 63, 17], dtype=torch.int32, device=dev)
+    _close(mmha.mmha_decode_contiguous(q, cache[0], cache[1], pos),
+           mmha.reference_mmha(q, cache[0], cache[1], pos))
+
+
+def test_mmha_contiguous_kernel_raises_on_what_it_does_not_take(dev):
+    q = _randn(dev, 2, 1, 4, 64)
+    kb = _randn(dev, 2, 2, 40, 64)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="T % 16"):
+        mmha.mmha_decode_contiguous(q, kb, kb, pos)
+    kb = _randn(dev, 2, 2, 64, 64)
+    with pytest.raises(TypeError):
+        mmha.mmha_decode_contiguous(q.float(), kb.float(), kb.float(), pos)
+
+
+def test_fused_multi_transformer_decodes_through_mmha(dev):
+    """A two-layer ``FusedMultiTransformer`` (bf16, H 4, D 64): a prefill
+    of 20 positions into [2, 2, 4, 64, 64] caches, then three decode steps,
+    each one mmha launch a layer and nothing else, each within 1e-2
+    relative L2 of the one-shot prefill at its position, the caches the
+    caller's tensors, and a step under ``set_sync_debug_mode("error")``."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    model = FusedMultiTransformer(256, 4, 512, num_layers=2, device=dev,
+                                  dtype=torch.bfloat16, seed=3).eval()
+    x = _randn(dev, 2, 23, 256, seed=45)
+    caches = [torch.zeros(2, 2, 4, 64, 64, dtype=torch.bfloat16, device=dev)
+              for _ in range(2)]
+    with torch.no_grad():
+        ref = model(x)
+        out, got = model(x[:, :20], caches=caches)
+        for t in range(20, 23):
+            before = {n: w.launches for n, w in WRAPPERS.items()}
+            ts = torch.tensor([t], dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, got = model(x[:, t:t + 1], caches=caches, time_step=ts)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            launched = {n: w.launches - before[n] for n, w in WRAPPERS.items()
+                        if w.launches != before[n]}
+            assert launched == {"mmha": 2}
+            rel = ((out.float() - ref[:, t:t + 1].float()).norm()
+                   / ref[:, t:t + 1].float().norm()).item()
+            assert rel <= 1e-2, rel
+    assert all(g is c for g, c in zip(got, caches))
+
+
 @pytest.mark.parametrize("cp", [1, 2, 3, 8, 16])
 def test_mmha_split_kernel_other_plans(dev, monkeypatch, cp):
     """The kernel at chunk sizes the plan does not choose here (one page, a

@@ -219,6 +219,9 @@ def test_mmha_examples_follow_the_plan():
             b, h, d = q.shape[0], q.shape[2], q.shape[3]
             _, h_kv, ps, _ = e.operand("k").shape
             max_pages = e.operand("tables").shape[1]
+            if "contiguous" in e.label:     # k [B, Hkv, T, D], pages of 16
+                ps = ps // max_pages
+                assert ps == mmha.CONTIGUOUS_PAGE
             cp, n_chunks = mmha.plan(b, h_kv, max_pages, ps, d)
             assert k.grid == (h_kv, b, n_chunks) and k.threads == 256
             assert k.smem == mmha.smem_bytes(d, h // h_kv, cp, ps)

@@ -119,10 +119,14 @@ def test_flash_and_sdpa_reject_what_they_do_not_take():
     with pytest.raises(ValueError):                       # no quiet fallback
         flash_attention.flash_attention(q.to("meta"), q.to("meta"),
                                         q.to("meta"))
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8))
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    # a mask or dropout takes the composite, which rejects H % Hkv != 0 too
+    with pytest.raises(ValueError):
+        F.scaled_dot_product_attention(q, kv, kv, attn_mask=torch.ones(8, 8))
+    with pytest.raises(ValueError):
+        F.scaled_dot_product_attention(q, kv, kv, dropout_p=0.1)
+    with pytest.raises(ValueError):                       # flash: no fallback
+        F.scaled_dot_product_attention(q.to("meta"), q.to("meta"),
+                                       q.to("meta"))
 
 
 # -- block epilogue -------------------------------------------------------------
