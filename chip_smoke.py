@@ -208,6 +208,37 @@ Phases, in order; any failure exits non-zero:
    routing pinned (and free running, reported), 8 steps with their
    launches, a falling loss, step time, tokens/s, MFU, peak memory and a
    profile of a step.
+   serve_ernie — dense ERNIE-4.5 at full width and depth (``ErnieConfig()``:
+   28 layers, hidden 2560, 20 query heads over 4 kv heads, so mmha and
+   flash at rep 5, a tied head, 3.35 B parameters, random bf16 weights
+   from a seed) on ``LLMEngine(ServingConfig())``, engine b's traffic (12
+   requests of 64 greedy tokens after a shared 512-token system prompt):
+   no leaked page, the prefix-cache claims, the 131072-position rope
+   tables built once, the prefill and first-decode logits of every request
+   against the plain path, 28 mmha launches a profiled decode step; then
+   cached ``generate`` at B 1 x 64 against the engine's tokens (and B 4
+   against B 1), as the generate phase does for Llama.
+   ernie_moe — ERNIE-4.5 with its MoE tail (``ErnieConfig(num_experts=64)``:
+   3 dense layers, then 25 MoE layers of 64 experts of 1536, top-6, a
+   shared expert; 20.2 B parameters in bf16) generates 16 greedy tokens for
+   4 prompts of 512 through the exact-length host loop (the layer loop's
+   kernels, 75 grouped-product launches a forward); then parity_moe's
+   checks on it (every layer and MoE block on the same input, the
+   last-position logits with the routing pinned, the first served tokens).
+   train_ernie — dense ERNIE at 4 of its 28 layers, B 2 x S 2048,
+   ``AdamW(multi_precision=True, ClipGradByGlobalNorm(1.0), fuse=True)``:
+   the train-parity gate over 4 batches (flash forward and backward at rep
+   5), 8 steps (an eager warm-up, one capture, 6 replays: the fused-trunk
+   kernels every step, AdamW's launches on the first two), a falling loss,
+   the fused step's stats; then ``ErnieConfig(num_experts=64,
+   num_layers=5)`` (3 dense, 2 MoE layers) for 2 steps.
+   fused_step — GPT-2 small (148 parameters), AdamW then Lamb with a
+   global-norm clip and master weights: 8 steps eager and 8 fused from one
+   seed on the same 8 batches, the grads zeroed in place but re-allocated
+   once: every parameter, moment and master weight the same bits, 7
+   replays, 1 warm-up, 0 fallbacks, the re-allocated grads copied in; the
+   step wall, the optimizer's host ms, the launches the profiler sees and
+   peak memory, fused against eager.
    Phase 3 holds the training kernels (RMSNorm, SwiGLU, flash-attention
    and block-epilogue backward, packed SwiGLU and its backward, AdamW,
    LAMB and the cross-entropy row statistics) against their plain versions
@@ -308,6 +339,14 @@ OPT_REL_TOL = 1e-5
 MOE_KERNELS = ("moe_gemm",)
 MOE_TOKENS = 2048
 MOE_REQUESTS, MOE_PROMPT, MOE_NEW_TOKENS = 4, 512, 32
+# ERNIE-4.5 (ErnieConfig(): the published text backbone's widths)
+ERNIE_MOE_EXPERTS = 64     # ernie_moe and the MoE train: the MoE tail
+ERNIE_MOE_NEW_TOKENS = 16
+ERNIE_TRAIN_LAYERS = 4     # 28 cut to 4, as Llama-3-8B's train phase
+ERNIE_PARITY_BATCHES = 4
+ERNIE_MOE_TRAIN_LAYERS, ERNIE_MOE_TRAIN_STEPS = 5, 2
+FUSED_STEPS = 8            # fused_step: eager and fused runs of GPT-2 small
+FUSED_REALLOC_STEP = 4     # the step after which clear_grad() re-allocates
 MOE_TRAIN_LAYERS = 4
 MOE_PARITY_BATCHES = 1
 # parity_moe (a): max abs error <= 2**-5 (four bf16 ulps) of the largest
@@ -764,10 +803,16 @@ def phase_kernels(torch, dev):
         mask = (torch.arange(kc.shape[2], device=dev)[None, :]
                 <= pos[:, None])[:, None, None, :]
         qt = q.transpose(1, 2)
-        kr = kc.repeat_interleave(h // h_kv, dim=1)
-        vr = vc.repeat_interleave(h // h_kv, dim=1)
-        lib = timer(lambda: TF.scaled_dot_product_attention(qt, kr, vr,
-                                                            attn_mask=mask))
+        if h // h_kv == 5:
+            # ERNIE-4.5's rep: SDPA's own GQA over the gathered copy
+            kr, vr = kc, vc
+            lib = timer(lambda: TF.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=mask, enable_gqa=True))
+        else:
+            kr = kc.repeat_interleave(h // h_kv, dim=1)
+            vr = vc.repeat_interleave(h // h_kv, dim=1)
+            lib = timer(lambda: TF.scaled_dot_product_attention(
+                qt, kr, vr, attn_mask=mask))
         del kc, vc, kr, vr, mask
         _record(results, "mmha", [b, 1, h, d, "Hkv", h_kv, "ps", ps,
                                   "pos", pos.tolist()], err, tol,
@@ -2347,7 +2392,8 @@ def phase_verify_attention(torch, model, engine, prompts):
           "verify_step_profile": prof})
 
 
-def phase_generate(torch, np, model, b_engine, prompts, served):
+def phase_generate(torch, np, model, b_engine, prompts, served,
+                   name="llama3_8b"):
     """Cached ``generate`` on the served Llama-3-8B: 64 greedy tokens for
     each of engine b's first four prompts, one B 1 call each, held against
     engine b's tokens by :func:`_agreement`; each call launches mmha once
@@ -2414,7 +2460,7 @@ def phase_generate(torch, np, model, b_engine, prompts, served):
                        lambda i, j: _next_logits(torch, sm, b_engine,
                                                  cut_ps[i]
                                                  + cut_singles[i][:j]))
-    emit({"phase": "generate", "model": "llama3_8b", "tokens": GEN_TOKENS,
+    emit({"phase": "generate", "model": name, "tokens": GEN_TOKENS,
           "calls": calls, "against_engine_b": rows,
           "b4_against_b1": rows4, "cut_prompt_len": cut})
 
@@ -4271,7 +4317,8 @@ def _kept_log(model):
             log.setdefault(i, []).append((mod.counts.sum(), n * mod.top_k))
         return hook
     handles = [layer.mlp.register_forward_hook(hook_of(i))
-               for i, layer in enumerate(model.layers) if not layer.is_dense]
+               for i, layer in enumerate(model.layers)
+               if not getattr(layer, "is_dense", True)]
     return log, handles
 
 
@@ -4295,7 +4342,7 @@ class _GateTap:
         self.top_k = {}
         self.handles = []
         for i, layer in enumerate(model.layers):
-            if not layer.is_dense:
+            if not getattr(layer, "is_dense", True):   # ERNIE's Llama layers
                 self.top_k[i] = layer.mlp.top_k
                 self.handles.append(
                     layer.mlp.gate.register_forward_hook(self._hook(i)))
@@ -4413,7 +4460,7 @@ def phase_serve_moe(torch, dev):
     return model, prompts, out, launches
 
 
-def phase_parity_moe(torch, model, prompts, served):
+def phase_parity_moe(torch, model, prompts, served, name="qwen2_moe"):
     """Qwen1.5-MoE at full width, the kernel path against ``plain=True``,
     over the prompts:
     a. every layer on the same input: forward hooks capture, on the plain
@@ -4482,7 +4529,7 @@ def phase_parity_moe(torch, model, prompts, served):
     free = [_parity_row(torch, r, MOE_PROMPT, lk[r], lp[r])
             for r in range(lk.shape[0])]
     served_first = served[:, MOE_PROMPT].tolist()
-    emit({"phase": "parity_moe", "block_tol": MOE_BLOCK_TOL,
+    emit({"phase": "parity_moe", "model": name, "block_tol": MOE_BLOCK_TOL,
           "per_layer": rows, "e2e_pinned": pinned,
           "e2e_free_running": free,
           "free_running_tokens_flipped_by_layer": flips,
@@ -4618,6 +4665,337 @@ def phase_train_moe(torch, dev):
                                                labels), reps=2)
     emit({"phase": "profile", "qwen2_moe_train_step": prof})
     return launches
+
+
+def phase_serve_ernie(torch, np, dev):
+    """Dense ERNIE-4.5 at full width and depth on the default engine, engine
+    b's traffic; see the module docstring. Returns the launches of the
+    served run."""
+    from paddle_tpu_torch.models import Ernie, ErnieConfig
+    from paddle_tpu_torch.serving import LLMEngine, ServingConfig, \
+        ServingModel
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Ernie(ErnieConfig(), device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    layers = cfg.num_layers
+    engine = LLMEngine(model, ServingConfig(
+        max_batch=8, page_size=16, max_seq_len=2048, num_pages=1025,
+        dtype="bfloat16"))
+    tables_before = model.rope(cfg.max_position_embeddings)
+    prompts = default_prompts(np, cfg.vocab_size)
+    reqs, outs, wall, launches, stats = _serve(torch, np, engine, prompts)
+    path = ("mmha", "rms_norm", "rope", "swiglu", "flash_attention",
+            "block_epilogue")
+    idle = [n for n in path if launches[n] == 0]
+    if idle:
+        fail(f"serve_ernie: kernels never launched: {idle}")
+    if list(model._rope_cache) != [cfg.max_position_embeddings] or \
+            model.rope(cfg.max_position_embeddings)[0] is not \
+            tables_before[0]:
+        fail(f"serve_ernie: rope tables built for {list(model._rope_cache)}"
+             f", want the one {cfg.max_position_embeddings}-position pair")
+    pages, px = _check_prefix_claims(engine, reqs, stats)
+    emit({"phase": "serve_ernie", "model": "ernie (ErnieConfig())",
+          "layers": layers, "hidden": cfg.hidden_size,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "vocab": cfg.vocab_size, "tied_head": model.lm_head is None,
+          "params": model.num_params(), "init_s": init_s,
+          "rope_table_bytes": 2 * tables_before[0].numel() * 4,
+          "claimed_pages": pages, "prefix_cache": px,
+          **_serve_row(torch, np, engine, reqs, wall, launches, stats)})
+    phase_parity_default(torch, model, engine, prompts, outs)
+    sm = ServingModel(model).bind_pool(engine.pool)
+    tables, toks, pos, held = _batch_tables(torch, engine, prompts)
+    try:
+        decode = _profile(torch, lambda: sm.decode_forward(toks, pos, tables),
+                          reps=10)
+        mono_toks = torch.arange(1024, device=dev)[None] + 7
+        mono = _profile(torch, lambda: sm.prefill_forward(
+            mono_toks, 1024, tables[0]), reps=2)
+    finally:
+        engine.pool.free(held)
+    _decode_step_gate("ernie decode step", decode, layers, layers)
+    emit({"phase": "profile", "ernie_decode_step": decode,
+          "ernie_monolithic_prefill_1024": mono})
+    phase_generate(torch, np, model, engine, prompts, outs, name="ernie")
+    return launches
+
+
+def _ernie_moe_launches(n_dense, n_moe, forwards=1, train=False):
+    """The kernel launches of ``forwards`` forwards (with ``train``, one
+    train step) of a MoE ERNIE on the layer loop: Qwen2-MoE's
+    (``_moe_path_launches``) at ``n_dense + n_moe`` layers, less a dense
+    layer's second SwiGLU and its grouped products."""
+    want = _moe_path_launches(n_dense + n_moe, forwards, train)
+    want["swiglu"] -= n_dense * forwards
+    want["moe_gemm"] -= (6 if train else 3) * n_dense * forwards
+    if train:
+        want["swiglu_bwd"] -= n_dense * forwards
+    return want
+
+
+def phase_ernie_moe(torch, dev):
+    """ERNIE-4.5 with its MoE tail at full width and depth: 16 greedy tokens
+    for 4 prompts of 512 through the host loop, then ``phase_parity_moe``'s
+    checks; see the module docstring."""
+    from paddle_tpu_torch.models import Ernie, ErnieConfig
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Ernie(ErnieConfig(num_experts=ERNIE_MOE_EXPERTS), device=dev,
+                  dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = model.cfg
+    if model.init_cache is not None:
+        fail("ernie_moe: a MoE ERNIE must have no init_cache")
+    prompts = _moe_prompts(torch, dev, cfg.vocab_size)
+    kept, kept_hooks = _kept_log(model)
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=ERNIE_MOE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    for h in kept_hooks:
+        h.remove()
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    want = _ernie_moe_launches(cfg.first_k_dense, n_moe,
+                               ERNIE_MOE_NEW_TOKENS)
+    new = out[:, MOE_PROMPT:]
+    with torch.no_grad():
+        prof = _profile(torch, lambda: model(prompts), reps=2)
+    emit({"phase": "ernie_moe", "model": "ernie (ErnieConfig(num_experts=64))",
+          "layers": cfg.num_layers, "dense_layers": cfg.first_k_dense,
+          "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+          "params": model.num_params(), "build_s": build_s,
+          "requests": MOE_REQUESTS, "prompt": MOE_PROMPT,
+          "new_tokens": ERNIE_MOE_NEW_TOKENS, "wall_s": wall,
+          "tokens_per_s": MOE_REQUESTS * ERNIE_MOE_NEW_TOKENS / wall,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "drop_share_by_layer": _drop_share(kept), "launches": got,
+          "prompt_forward": prof})
+    if tuple(out.shape) != (MOE_REQUESTS, MOE_PROMPT + ERNIE_MOE_NEW_TOKENS) \
+            or not torch.equal(out[:, :MOE_PROMPT], prompts) \
+            or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+        fail(f"ernie_moe: generated buffer {tuple(out.shape)} is not the "
+             f"prompts followed by {ERNIE_MOE_NEW_TOKENS} in-vocab tokens")
+    if got != want:
+        fail(f"ernie_moe: launches {got}, want {want}")
+    phase_parity_moe(torch, model, prompts, out, name="ernie_moe")
+
+
+def phase_train_ernie(torch, dev):
+    """Dense ERNIE at ERNIE_TRAIN_LAYERS layers with the fused optimizer
+    step, then a MoE ERNIE for two steps; see the module docstring."""
+    from paddle_tpu_torch.models import Ernie, ErnieConfig
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    layers = ERNIE_TRAIN_LAYERS
+    cfg = ErnieConfig(num_layers=layers)
+    model = Ernie(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(2041)
+    batches = []
+    for _ in range(ERNIE_PARITY_BATCHES):
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                             generator=gen, device=dev)
+        batches.append((toks[:, :-1].contiguous(), toks[:, 1:].contiguous()))
+    ids, labels = batches[0]
+    ref = Ernie(cfg, device=dev, dtype=torch.float32, seed=None)
+    ref.load_state_dict(model.state_dict())
+    _grad_parity(torch, "ernie (rep 5, tied head)", model, ref, batches)
+    del ref, batches
+    _free(torch)
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0),
+                fuse=True)
+    n_tensors = len(list(model.parameters()))
+    if n_tensors != 9 * layers + 2:
+        fail(f"ernie has {n_tensors} parameter tensors, want "
+             f"{9 * layers + 2} (tied head)")
+    path = {"rms_norm": 1, "rms_norm_bwd": 1,
+            "block_epilogue": 2 * layers, "block_epilogue_bwd": 2 * layers,
+            "rope": 2 * layers, "swiglu": layers, "swiglu_bwd": layers,
+            "flash_attention": layers, "flash_attention_bwd": layers}
+    # the eager warm-up and the capture launch (count) AdamW once a tensor;
+    # a replay counts nothing on the host
+    losses, step_ms = [], []
+    for what, steps, want in (
+            ("warm-up", 1, dict(path, adamw=n_tensors)),
+            ("capture", 1, dict(path, adamw=n_tensors)),
+            ("replays", TRAIN_STEPS - 2, path)):
+        got_losses, ms, launches = _train_steps(
+            torch, f"ernie train ({what})", model, opt, ids, labels, steps,
+            want)
+        losses += got_losses
+        step_ms += ms
+    stats = dict(opt._fused_impl.stats)
+    if stats != {"fused": TRAIN_STEPS - 1, "warmup": 1, "captures": 1,
+                 "fallbacks": 0}:
+        fail(f"ernie train: fused step stats {stats}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    heldout, uniform = _heldout(torch, model, gen, cfg.vocab_size,
+                                TRAIN_BATCH, TRAIN_SEQ)
+    steady = step_ms[2:]
+    mean_ms = sum(steady) / len(steady)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3
+    fpt = model.flops_per_token(TRAIN_SEQ)
+    emit({"phase": "train_ernie", "model": "ernie (ErnieConfig(num_layers=4))",
+          "layers": layers, "hidden": cfg.hidden_size,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "vocab": cfg.vocab_size, "params": model.num_params(),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+          "step_ms": step_ms, "step_ms_mean_replayed": mean_ms,
+          "tokens_per_s": tokens_per_s, "flops_per_token": fpt,
+          "mfu": tokens_per_s * fpt / BF16_TC_FLOPS_PER_S,
+          "peak_memory_gb": peak_gb, "fused_step": stats,
+          "launches_per_replayed_step": launches, "heldout_loss": heldout,
+          "uniform_loss": uniform})
+    _check_curve("ernie train", losses, heldout, uniform)
+    prof = _profile(torch, lambda: _train_step(torch, model, opt, ids,
+                                               labels), reps=2)
+    emit({"phase": "profile", "ernie_train_step_fused": prof})
+    del model, opt
+    _free(torch)
+
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = ErnieConfig(num_experts=ERNIE_MOE_EXPERTS,
+                       num_layers=ERNIE_MOE_TRAIN_LAYERS)
+    model = Ernie(mcfg, device=dev, dtype=torch.bfloat16, seed=0)
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0),
+                fuse=True)
+    n_moe = mcfg.num_layers - mcfg.first_k_dense
+    want = dict(_ernie_moe_launches(mcfg.first_k_dense, n_moe, train=True),
+                adamw=len(list(model.parameters())))
+    losses, step_ms, _ = _train_steps(
+        torch, "ernie moe train", model, opt, ids, labels,
+        ERNIE_MOE_TRAIN_STEPS, want)
+    stats = dict(opt._fused_impl.stats)
+    emit({"phase": "train_ernie_moe",
+          "model": "ernie (ErnieConfig(num_experts=64, num_layers=5))",
+          "dense_layers": mcfg.first_k_dense, "moe_layers": n_moe,
+          "params": model.num_params(), "losses": losses,
+          "step_ms": step_ms, "fused_step": stats,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not all(math.isfinite(x) for x in losses) or \
+            stats != {"fused": 1, "warmup": 1, "captures": 1,
+                      "fallbacks": 0}:
+        fail(f"ernie moe train: losses {losses}, fused step stats {stats}")
+
+
+def _fused_gpt_run(torch, dev, cls, kw, batches, fuse):
+    """GPT-2 small (bf16, master weights, a global-norm clip) over
+    ``batches``, one step each; the grads zeroed in place after each step
+    but FUSED_REALLOC_STEP's, after which ``clear_grad()`` drops them (the
+    next backward puts them elsewhere). Returns (model, optimizer, the
+    state's tensors, step wall ms, optimizer host ms, peak GB, the fused
+    step's stats and its replays that copied moved grads in)."""
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt2_small(device=dev, dtype=torch.bfloat16, seed=0)
+    opt = cls(parameters=model.parameters(), multi_precision=True,
+              grad_clip=ClipGradByGlobalNorm(1.0), fuse=fuse, **kw)
+    wall, host = [], []
+    for i, (ids, labels) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = model(ids, labels=labels)
+        loss.backward()
+        t1 = time.perf_counter()
+        opt.step()
+        host.append((time.perf_counter() - t1) * 1e3)
+        opt.clear_grad(set_to_zero=i != FUSED_REALLOC_STEP)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    state = [p.detach().clone() for p in model.parameters()]
+    for name in sorted(opt._accumulators):
+        state += [opt._accumulators[name][id(p)].clone()
+                  for p in model.parameters()]
+    state += [opt._master_weights[id(p)].clone() for p in model.parameters()]
+    impl = opt._fused_impl
+    stats = None if impl is None else dict(
+        impl.stats, copy_replays=sum(getattr(e, "copies", 0)
+                                     for e in impl._cache.values()))
+    return (model, opt, state + [opt._step_tensor.clone()], wall, host,
+            torch.cuda.max_memory_allocated() / 1e9, stats)
+
+
+def phase_fused_step(torch, dev):
+    """The fused optimizer step (one CUDA graph a step) against the eager
+    loop on GPT-2 small; see the module docstring."""
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.optimizer import AdamW, Lamb
+
+    vocab = GPTConfig().vocab_size
+    gen = torch.Generator(device=dev).manual_seed(2042)
+    batches = []
+    for _ in range(FUSED_STEPS):
+        toks = torch.randint(0, vocab, (GPT_BATCH, GPT_SEQ + 1),
+                             generator=gen, device=dev)
+        batches.append((toks[:, :-1].contiguous(), toks[:, 1:].contiguous()))
+    ids, labels = batches[0]
+    out = {"phase": "fused_step", "model": "gpt2_small", "steps": FUSED_STEPS,
+           "realloc_after_step": FUSED_REALLOC_STEP}
+    for name, cls, kw in (("adamw", AdamW, dict(learning_rate=3e-4,
+                                                 weight_decay=0.01)),
+                          ("lamb", Lamb, dict(learning_rate=2e-3,
+                                              lamb_weight_decay=0.01))):
+        rows = {}
+        for mode in ("eager", "fused"):
+            model, opt, state, wall, host, peak, stats = _fused_gpt_run(
+                torch, dev, cls, kw, batches, mode == "fused")
+            step_prof = _profile(torch, lambda: _train_step(
+                torch, model, opt, ids, labels), reps=3)
+            _, loss = model(ids, labels=labels)
+            loss.backward()
+            opt_prof = _profile(torch, opt.step, reps=3)
+            rows[mode] = {"state": state, "wall_ms": wall, "host_ms": host,
+                          "peak_memory_gb": peak, "stats": stats,
+                          "step_profile": step_prof,
+                          "optimizer_profile": opt_prof}
+            del model, opt
+        fused, eager = rows["fused"], rows["eager"]
+        differ = sum(not torch.equal(a, b)
+                     for a, b in zip(fused["state"], eager["state"]))
+        stats = fused["stats"]
+        mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+        out[name] = {
+            "tensors": len(fused["state"]), "tensors_differing": differ,
+            "stats_after_compared_steps": stats,
+            **{f"{m}_{k}": rows[m][k] for m in ("eager", "fused")
+               for k in ("wall_ms", "host_ms", "peak_memory_gb")},
+            "wall_ms_mean_after_second": {m: mean(rows[m]["wall_ms"][2:])
+                                          for m in rows},
+            "optimizer_host_ms_mean_after_second": {
+                m: mean(rows[m]["host_ms"][2:]) for m in rows},
+            "step_profile": {m: rows[m]["step_profile"] for m in rows},
+            "optimizer_profile": {m: rows[m]["optimizer_profile"]
+                                  for m in rows}}
+        del rows, fused, eager
+        _free(torch)
+        # the grads re-allocated after FUSED_REALLOC_STEP are copied into
+        # the captured ones on every later replay
+        want = {"fused": FUSED_STEPS - 1, "warmup": 1, "captures": 1,
+                "fallbacks": 0,
+                "copy_replays": FUSED_STEPS - 1 - FUSED_REALLOC_STEP}
+        if differ or stats != want:
+            emit(out)
+            fail(f"fused_step ({name}): {differ} of {out[name]['tensors']} "
+                 f"state tensors differ from the eager run's; stats {stats}"
+                 f", want {want}")
+    emit(out)
 
 
 def phase_profile(torch, model, engine, prompts):
@@ -4831,6 +5209,17 @@ def main() -> int:
     del moe_model
     _free(torch)
     phase_train_moe(torch, dev)
+
+    # ERNIE-4.5 (rep 5): served dense, generated with the MoE tail, trained
+    # through the fused optimizer step; then the fused step on GPT-2 small
+    _free(torch)
+    phase_serve_ernie(torch, np, dev)
+    _free(torch)
+    phase_ernie_moe(torch, dev)
+    _free(torch)
+    phase_train_ernie(torch, dev)
+    _free(torch)
+    phase_fused_step(torch, dev)
 
     summary = []
     for name in sorted(kern):

@@ -10,13 +10,14 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> epi [--train]
     python3 kernel_ab.py <checkout root> <tag> moe [--train]
     python3 kernel_ab.py <checkout root> <tag> dl [--engine]
-    python3 kernel_ab.py <checkout root> <tag> decode [--engine] [--contiguous]
+    python3 kernel_ab.py <checkout root> <tag> decode [--engine] [--contiguous] [--rep=N ...]
     python3 kernel_ab.py <checkout root> <tag> softmax [--incubate]
     python3 kernel_ab.py <checkout root> <tag> rows [--incubate]
     python3 kernel_ab.py <checkout root> <tag> norm [--engine] [--train]
     python3 kernel_ab.py <checkout root> <tag> swiglu [--engine] [--train[=llama]]
     python3 kernel_ab.py <checkout root> <tag> normbwd [--train]
     python3 kernel_ab.py <checkout root> <tag> spec [--rounds=N]
+    python3 kernel_ab.py <checkout root> <tag> fused
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -140,7 +141,17 @@ Family ``decode`` (decode attention and RoPE, rows 1 and 4):
   cold-L2 ms, whether it gives the pool path's bits), then the fmt
   phase's shape (``mmha.CONTIGUOUS_ROW``: q [8, 1, 12, 64] over a
   1024-position cache at position 575) against ``reference_mmha`` and
-  SDPA on the visible view.
+  SDPA on the visible view;
+- each ``--rep=N`` adds an ``mmha`` row at B 8 over 4 kv heads of D 128
+  with N query heads each (``--rep=5``: ERNIE-4.5's 20 over 4) at the B 8
+  row's positions, SDPA with ``enable_gqa`` as its yardstick; a tree whose
+  kernel refuses N reports the error in the row.
+
+Family ``fused`` (the fused optimizer step): ``chip_smoke.py``'s
+``fused_step`` phase of that checkout (GPT-2 small, AdamW then Lamb, 8
+steps eager and 8 fused: the bits, the stats, the step wall, the
+optimizer's host ms and the profiler's launches); a tree without the
+phase reports so.
 
 Family ``softmax`` (the masked softmax and its backward, row 18):
 
@@ -302,7 +313,7 @@ def main() -> int:
                 "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode,
                 "softmax": _softmax, "rows": _rows,
                 "norm": _norm, "swiglu": _swiglu, "normbwd": _normbwd,
-                "spec": _spec}
+                "spec": _spec, "fused": _fused}
     if family not in families:
         cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
@@ -756,22 +767,35 @@ def _decode(torch, cs, dev, timer, randn, emit):
 
     ps = 16
     contiguous = "--contiguous" in sys.argv[4:]
-    for label, lengths, h, h_kv, d in DECODE_ROWS:
+    reps = [int(a.split("=", 1)[1]) for a in sys.argv[4:]
+            if a.startswith("--rep=")]
+    added = [(f"rep {n} over Hkv 4", _FULL, 4 * n, 4, 128) for n in reps]
+    rows = list(DECODE_ROWS) + added
+    for label, lengths, h, h_kv, d in rows:
         b = len(lengths)
         tables, pos, n_pages = cs._paged(torch, dev, lengths, ps, 2048 // ps, 7)
         q = randn(b, 1, h, d)
         kp, vp = randn(n_pages, h_kv, ps, d), randn(n_pages, h_kv, ps, d)
-        got = mmha.mmha_decode(q, kp, vp, tables, pos)
+        try:
+            got = mmha.mmha_decode(q, kp, vp, tables, pos)
+        except (ValueError, RuntimeError) as e:
+            emit(mmha=[label, "H", h, "Hkv", h_kv, "D", d], error=str(e))
+            continue
         again = mmha.mmha_decode(q, kp, vp, tables, pos)
         err, tol = cs.compare(torch, got, mmha.mmha_plain(q, kp, vp, tables, pos))
         kc, vc = mmha.gather_pages(kp, tables), mmha.gather_pages(vp, tables)
         mask = (torch.arange(kc.shape[2], device=dev)[None, :]
                 <= pos[:, None])[:, None, None, :]
         qt = q.transpose(1, 2)
-        kr = kc.repeat_interleave(h // h_kv, dim=1)
-        vr = vc.repeat_interleave(h // h_kv, dim=1)
-        sdpa = timer(lambda: TF.scaled_dot_product_attention(qt, kr, vr,
-                                                             attn_mask=mask))
+        if any(label == row[0] for row in added):
+            kr, vr = kc, vc
+            sdpa = timer(lambda: TF.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=mask, enable_gqa=True))
+        else:
+            kr = kc.repeat_interleave(h // h_kv, dim=1)
+            vr = vc.repeat_interleave(h // h_kv, dim=1)
+            sdpa = timer(lambda: TF.scaled_dot_product_attention(
+                qt, kr, vr, attn_mask=mask))
         del kc, vc, kr, vr, mask
         ms = timer(lambda: mmha.mmha_decode(q, kp, vp, tables, pos))
         seen = int((pos + 1).sum())
@@ -1472,6 +1496,14 @@ class _CleanTimer:
             pairs.append((e0, e1))
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def _fused(torch, cs, dev, timer, randn, emit):
+    """chip_smoke's fused_step phase of this checkout."""
+    if not hasattr(cs, "phase_fused_step"):
+        emit(fused="this tree has no fused optimizer step")
+        return
+    cs.phase_fused_step(torch, dev)
 
 
 def _host_us(torch, fn, calls=100, repeats=5):

@@ -2,10 +2,20 @@
 // positions (flash-decoding).
 //
 // Replaces paddle_tpu/ops/kernels/mmha_pallas.py `mmha_decode` (kernel body
-// `_mmha_kernel`). For each (batch row b, kv head g) the REP = H / Hkv query
+// `_mmha_kernel`). For each (batch row b, kv head g) the rep = H / Hkv query
 // heads that share the kv head attend over positions 0..pos[b] with an f32
 // online softmax; positions past pos[b] are never read, and the denominator
 // is clamped at 1e-30 as there.
+//
+// Every rep that divides H is taken, as the TPU kernel pads its query group
+// to a multiple of 8. A block holds REP (1, 2, 4 or 8) query rows of one kv
+// head. At rep 1, 2, 4 and 8 the launch is mmha_paged_kernel<D, rep, true>,
+// whose every row is live: the code of a kernel for that rep alone. Any other
+// rep runs <D, REP, false>, which takes the true rep at run time: rep < 8
+// takes the next power of two and one block a (kv head, row, chunk), rows r
+// >= rep loading no q and writing no output (their scores of zero are formed
+// and dropped); rep > 8 takes REP 8 and ceil(rep / 8) blocks a kv head, each
+// its own rows over the same pages.
 //
 // The TPU path first gathers each layer's pages into a contiguous
 // [B, Hkv, T, D] copy. This kernel reads the pages through the page table
@@ -96,14 +106,14 @@ __device__ __forceinline__ unsigned count_in(unsigned* p) {
   return old;
 }
 
-template <int D, int REP>
+template <int D, int REP, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
     mmha_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
                       const bf16* __restrict__ v_pool, const int* __restrict__ tables,
                       const int* __restrict__ pos, bf16* __restrict__ out,
                       float* __restrict__ part, unsigned* __restrict__ ctrl, int page_size,
                       int max_pages, int chunk_pages, long long page_stride,
-                      long long head_stride, float scale) {
+                      long long head_stride, float scale, int rep, int n_sub) {
   constexpr int LP = D / 8;          // lanes a position in the scores (8 elements each)
   constexpr int PPW = 32 / LP;       // positions a warp scores at once
   constexpr int QUAD = D / 4;        // column quads of a head
@@ -111,19 +121,27 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int GROUPS = ITEMS >= kThreads ? 1 : kThreads / ITEMS;  // position groups in P V
   constexpr int PER = ITEMS >= kThreads ? ITEMS / kThreads : 1;     // outputs a thread
   static_assert(REP <= LP && kWarps >= REP, "a lane group holds every query row");
-  const int g = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
-  const int h_kv = gridDim.x, batch = gridDim.y, n_chunks = gridDim.z;
+  // block x: kv head g, and of its rep query rows the REP from r0 on (with
+  // EXACT, rep == REP: block x is kv head x, every row live)
+  const int gs = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+  const int g = EXACT ? gs : gs / n_sub;
+  const int r0 = EXACT ? 0 : (gs % n_sub) * REP;
+  const int live = EXACT ? REP : min(REP, rep - r0);  // query rows of this block
+  const int n_rep = EXACT ? REP : rep;
+  const int groups = gridDim.x, batch = gridDim.y, n_chunks = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int chunk = chunk_pages * page_size;  // positions a chunk
   const int sub = lane % LP, pw = lane / LP;
-  const int heads = h_kv * REP;
+  const int heads = EXACT ? groups * REP : (groups / n_sub) * rep;
 
   // every load that needs no position goes out first: this lane's 8
   // columns of each query row, the chunk's table entries, then pos
   uint4 q_raw[REP];
 #pragma unroll
   for (int r = 0; r < REP; ++r)
-    q_raw[r] = *reinterpret_cast<const uint4*>(q + ((size_t)b * heads + g * REP + r) * D + sub * 8);
+    q_raw[r] = r < live ? *reinterpret_cast<const uint4*>(
+                              q + ((size_t)b * heads + g * n_rep + r0 + r) * D + sub * 8)
+                        : make_uint4(0u, 0u, 0u, 0u);
   int page_id = 0;
   if (warp == 0 && lane < chunk_pages && c * chunk_pages + lane < max_pages)
     page_id = tables[(size_t)b * max_pages + c * chunk_pages + lane];
@@ -133,7 +151,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n = min(chunk, last + 1 - first);  // positions of this chunk
   const int n_live = last / chunk + 1;         // chunks of the row
   const int n_pages = (n + page_size - 1) / page_size;
-  const int bg = b * h_kv + g;
+  const int bg = b * groups + gs;
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_k = reinterpret_cast<bf16*>(smem);
@@ -275,12 +293,13 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const size_t row_out = ((size_t)b * heads + g * REP) * D;
+  const size_t row_out = ((size_t)b * heads + g * n_rep + r0) * D;
   if (n_live == 1) {
     if (grp == 0) {
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
         const int item = GROUPS > 1 ? tid : tid + k * kThreads;
+        if (!EXACT && item / QUAD >= live) continue;
         const float inv = 1.f / fmaxf(sum[k], 1e-30f);
         const float o[4] = {acc[k].x * inv, acc[k].y * inv, acc[k].z * inv, acc[k].w * inv};
         ptt::store4(out + row_out + 4 * item, o);
@@ -291,7 +310,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // partials: accumulators [B, Hkv, chunks, REP, D] then (max, sum) [B, Hkv, chunks, REP]
   float4* part_acc = reinterpret_cast<float4*>(part);
-  float2* part_ml = reinterpret_cast<float2*>(part_acc + (size_t)batch * h_kv * n_chunks * ITEMS);
+  float2* part_ml = reinterpret_cast<float2*>(part_acc + (size_t)batch * groups * n_chunks * ITEMS);
   const size_t slot = (size_t)bg * n_chunks;
   if (grp == 0) {
 #pragma unroll
@@ -319,6 +338,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int item = GROUPS > 1 ? tid : tid + k * kThreads;
+      if (!EXACT && item / QUAD >= live) continue;
       const float2* ml = part_ml + slot * REP + item / QUAD;
       const float4* pa = part_acc + slot * ITEMS + item;
       float mx = kNegInf, l = 0.f;
@@ -344,36 +364,48 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) ctrl[bg] = 0u;  // ready for the next call on this stream
 }
 
-template <int D, int REP>
+template <int D, int REP, bool EXACT>
 int launch(const void* q, const void* k, const void* v, const void* tables, const void* pos,
-           void* out, void* part, void* ctrl, int batch, int h_kv, int page_size, int max_pages,
-           int chunk_pages, long long page_stride, long long head_stride, cudaStream_t s) {
+           void* out, void* part, void* ctrl, int batch, int h_kv, int rep, int page_size,
+           int max_pages, int chunk_pages, long long page_stride, long long head_stride,
+           cudaStream_t s) {
   const int chunk = chunk_pages * page_size;
   const int smem = smem_bytes(D, REP, chunk);
   const int n_chunks = (max_pages + chunk_pages - 1) / chunk_pages;
+  const int n_sub = (rep + REP - 1) / REP;  // blocks a kv head
   if (smem > kMaxSmem || chunk_pages > kMaxPages || n_chunks > 65535 || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = hp::allow_smem<mmha_paged_kernel<D, REP>>(kMaxSmem);
+  cudaError_t err = hp::allow_smem<mmha_paged_kernel<D, REP, EXACT>>(kMaxSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(h_kv, batch, n_chunks);
-  mmha_paged_kernel<D, REP><<<grid, kThreads, smem, s>>>(
+  const dim3 grid(h_kv * n_sub, batch, n_chunks);
+  mmha_paged_kernel<D, REP, EXACT><<<grid, kThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(tables), static_cast<const int*>(pos), static_cast<bf16*>(out),
       static_cast<float*>(part), static_cast<unsigned*>(ctrl), page_size, max_pages, chunk_pages,
-      page_stride, head_stride, 1.f / sqrtf((float)D));
+      page_stride, head_stride, 1.f / sqrtf((float)D), rep, n_sub);
   return (int)cudaGetLastError();
 }
+
+// the instantiated query-group size a rep takes: the next power of two up
+// to 8, then 8 (ops/kernels/mmha.py `rep_block`)
+inline int rep_block(int rep) { return rep <= 1 ? 1 : rep <= 2 ? 2 : rep <= 4 ? 4 : 8; }
 
 template <int D>
 int launch_rep(int rep, const void* q, const void* k, const void* v, const void* tables,
                const void* pos, void* out, void* part, void* ctrl, int batch, int h_kv,
                int page_size, int max_pages, int chunk_pages, long long page_stride,
                long long head_stride, cudaStream_t s) {
-  switch (rep) {
-#define PTT_MMHA_REP(R)                                                                      \
-  case R:                                                                                    \
-    return launch<D, R>(q, k, v, tables, pos, out, part, ctrl, batch, h_kv, page_size,       \
-                        max_pages, chunk_pages, page_stride, head_stride, s);
+  if (rep < 1) return (int)cudaErrorInvalidValue;
+  const bool exact = rep == rep_block(rep);
+  switch (rep_block(rep)) {
+#define PTT_MMHA_REP(R)                                                                     \
+  case R:                                                                                   \
+    return exact ? launch<D, R, true>(q, k, v, tables, pos, out, part, ctrl, batch, h_kv,   \
+                                      rep, page_size, max_pages, chunk_pages, page_stride,  \
+                                      head_stride, s)                                       \
+                 : launch<D, R, false>(q, k, v, tables, pos, out, part, ctrl, batch, h_kv,  \
+                                       rep, page_size, max_pages, chunk_pages, page_stride, \
+                                       head_stride, s);
     PTT_MMHA_REP(1)
     PTT_MMHA_REP(2)
     PTT_MMHA_REP(4)
@@ -393,10 +425,11 @@ int launch_rep(int rep, const void* q, const void* k, const void* v, const void*
 // T * head_dim), both strides in elements and multiples of 8 (16 bytes, the
 // bulk copy's alignment); tables: [batch, max_pages] int32;
 // pos: [batch] int32, the last visible position of each row. A chunk is
-// chunk_pages pages (a block); part: f32 scratch of batch * h_kv * chunks *
-// rep * (head_dim + 2) floats, chunks = ceil(max_pages / chunk_pages);
-// ctrl: batch * h_kv uint32 counters, zero on entry and left zero.
-// head_dim in {64, 128}, rep in {1, 2, 4, 8}.
+// chunk_pages pages (a block); part: f32 scratch of batch * h_kv * n_sub *
+// chunks * REP * (head_dim + 2) floats, chunks = ceil(max_pages /
+// chunk_pages), REP = rep_block(rep), n_sub = ceil(rep / REP); ctrl: batch *
+// h_kv * n_sub uint32 counters, zero on entry and left zero. head_dim in
+// {64, 128}, any rep >= 1.
 PTT_EXPORT int ptt_mmha_paged(const void* q, const void* k, const void* v, const void* tables,
                               const void* pos, void* out, void* part, void* ctrl, int batch,
                               int h_kv, int rep, int head_dim, int page_size, int max_pages,

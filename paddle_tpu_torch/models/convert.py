@@ -1,5 +1,6 @@
-"""Carry a JAX ``paddle_tpu`` Llama's, GPT's or Qwen2-MoE's weights into the
-port's :class:`Llama`, :class:`GPT` or :class:`Qwen2Moe`.
+"""Carry a JAX ``paddle_tpu`` Llama's, GPT's, Qwen2-MoE's or ERNIE's weights
+into the port's :class:`Llama`, :class:`GPT`, :class:`Qwen2Moe` or
+:class:`Ernie`.
 
 The JAX model's ``state_dict()`` arrives as numpy arrays under the same
 keys. ``paddle_tpu``'s ``Linear`` stores its weight ``[in, out]``
@@ -11,7 +12,10 @@ and biases are copied as they are. A transposed ``attn.qkv`` weight keeps
 the JAX output order, so its output still splits as ``[B, S, 3, H, D]``.
 Qwen2-MoE's router weight (``mlp.gate.gate.weight``) is transposed too;
 its stacked experts (``mlp.expert_{0,1,2}``, ``[E, in, out]``) are copied
-as they are, the port keeping the JAX layout there. The incubate layers
+as they are, the port keeping the JAX layout there. ERNIE's dense layers
+carry Llama's keys and its MoE layers Qwen2-MoE's, so both rules apply to
+it (its head is tied unless ``tie_word_embeddings=False``). The incubate
+layers
 (``FusedLinear``, ``FusedDropoutAdd``, ``FusedBiasDropoutResidualLayerNorm``,
 ``FusedMultiHeadAttention``, ``FusedFeedForward``,
 ``FusedTransformerEncoderLayer``, ``FusedMultiTransformer``, ``FusedEcMoe``)
@@ -24,12 +28,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ernie import Ernie, ErnieConfig
 from .gpt import GPT, GPTConfig
 from .llama import Llama, LlamaConfig
 from .qwen2_moe import Qwen2Moe, Qwen2MoeConfig
 
 __all__ = ["llama_from_jax_state", "gpt_from_jax_state",
-           "qwen2_moe_from_jax_state", "incubate_from_jax_state"]
+           "qwen2_moe_from_jax_state", "ernie_from_jax_state",
+           "incubate_from_jax_state"]
 
 _LLAMA_LINEAR = ("_proj.weight", "lm_head.weight")
 _GPT_LINEAR = ("attn.qkv.weight", "attn.proj.weight", "mlp.fc.weight",
@@ -58,6 +64,17 @@ def qwen2_moe_from_jax_state(state, cfg: Qwen2MoeConfig, device=None,
     """A port :class:`Qwen2Moe` on ``device`` (default ``cuda``) holding the
     weights in ``state`` (name -> numpy array, the JAX model's keys)."""
     return _load(Qwen2Moe(cfg, device=device, dtype=dtype, seed=None), state,
+                 _QWEN2_MOE_LINEAR)
+
+
+def ernie_from_jax_state(state, cfg: ErnieConfig, device=None,
+                         dtype=torch.float32) -> Ernie:
+    """A port :class:`Ernie` on ``device`` (default ``cuda``) holding the
+    weights in ``state`` (name -> numpy array, the JAX model's keys): the
+    dense layers' projections and an untied ``lm_head`` transposed, the MoE
+    layers' routers transposed and their stacked experts copied as they
+    are."""
+    return _load(Ernie(cfg, device=device, dtype=dtype, seed=None), state,
                  _QWEN2_MOE_LINEAR)
 
 

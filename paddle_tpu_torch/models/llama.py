@@ -173,7 +173,7 @@ class Llama(GenerationMixin, nn.Module):
         with torch.device("meta"):
             self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
             self.layers = nn.ModuleList(
-                [LlamaDecoderLayer(cfg) for _ in range(cfg.num_layers)])
+                [self._make_layer(i) for i in range(cfg.num_layers)])
             self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
             self.lm_head = None if cfg.tie_word_embeddings else \
                 nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
@@ -185,6 +185,11 @@ class Llama(GenerationMixin, nn.Module):
         self.fused_blocks = True
         if seed is not None:
             self.init_weights(seed)
+
+    def _make_layer(self, i: int) -> nn.Module:
+        """Decoder layer ``i`` (made on ``meta``; ERNIE's MoE tail
+        overrides this)."""
+        return LlamaDecoderLayer(self.cfg)
 
     @property
     def device(self) -> torch.device:

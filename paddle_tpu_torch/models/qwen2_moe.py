@@ -144,6 +144,31 @@ class Qwen2MoeDecoderLayer(LlamaDecoderLayer):
         return None if self.is_dense else self.mlp.l_aux
 
 
+@torch.no_grad()
+def init_moe_weights(model, seed: int) -> None:
+    """Draw ``model``'s parameters from a generator seeded with ``seed``,
+    with the JAX init's std (the module docstring); ``model.cfg`` gives
+    ``initializer_range``, ``num_layers``, ``hidden_size`` and
+    ``num_experts``."""
+    gen = torch.Generator(device=model.device).manual_seed(int(seed))
+    cfg = model.cfg
+    std = cfg.initializer_range
+    std_out = std / math.sqrt(2 * cfg.num_layers)
+    std_gate = math.sqrt(2.0 / (cfg.hidden_size + cfg.num_experts))
+    for name, p in model.named_parameters():
+        if name.endswith("layernorm.weight") or name == "norm.weight":
+            p.fill_(1.0)
+        elif name.endswith("mlp.gate.gate.bias"):
+            p.zero_()
+        elif name.endswith("mlp.gate.gate.weight"):
+            p.normal_(0.0, std_gate, generator=gen)
+        elif name.endswith(("o_proj.weight", "down_proj.weight",
+                            "mlp.expert_2")):
+            p.normal_(0.0, std_out, generator=gen)
+        else:
+            p.normal_(0.0, std, generator=gen)
+
+
 class Qwen2Moe(GenerationMixin, nn.Module):
     """Qwen2-MoE LM on ``device`` (default ``cuda``) in ``dtype``. ``seed``
     seeds the init generator; ``seed=None`` leaves the parameters
@@ -175,23 +200,7 @@ class Qwen2Moe(GenerationMixin, nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        cfg = self.cfg
-        std = cfg.initializer_range
-        std_out = std / math.sqrt(2 * cfg.num_layers)
-        std_gate = math.sqrt(2.0 / (cfg.hidden_size + cfg.num_experts))
-        for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "norm.weight":
-                p.fill_(1.0)
-            elif name.endswith("mlp.gate.gate.bias"):
-                p.zero_()
-            elif name.endswith("mlp.gate.gate.weight"):
-                p.normal_(0.0, std_gate, generator=gen)
-            elif name.endswith(("o_proj.weight", "down_proj.weight",
-                                "mlp.expert_2")):
-                p.normal_(0.0, std_out, generator=gen)
-            else:
-                p.normal_(0.0, std, generator=gen)
+        init_moe_weights(self, seed)
 
     def rope(self, seq_len: int):
         """f32 ``(cos, sin)`` ``[seq_len, head_dim]`` on the model's device:

@@ -4,7 +4,9 @@
 
 A clip object is given to an optimizer as ``grad_clip=`` and applied to
 its ``(param, grad)`` list before the update. Everything stays on the
-device: every norm is a 0-d tensor and nothing synchronises.
+device: every norm is a 0-d tensor, nothing synchronises and no branch
+reads a tensor's value, so each clip can be captured into the fused
+step's CUDA graph (``optimizer/fused.py``).
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@
 ``paddle_tpu/ops/activation.py`` ``gelu`` (:44), ``softmax`` (:86) and
 ``swiglu`` (:159), ``relu``,
 and ``paddle_tpu/nn/functional/loss.py`` ``cross_entropy`` (:32-79) and
-``softmax_with_cross_entropy`` (:81-90)).
+``softmax_with_cross_entropy`` (:81-90); the other loss functions of that
+file are ``nn/loss.py``'s, re-exported here).
 
 Dispatch is the kernel wrapper's: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises. ``plain=True`` runs the plain
@@ -35,10 +36,14 @@ from ..ops.kernels import rms_norm as _rms
 from ..ops.kernels import rope as _rope
 from ..ops.kernels import swiglu as _swiglu
 
+from . import loss as _loss
+from .loss import *  # noqa: F401,F403 -- the loss functions, re-exported
+
 __all__ = ["layer_norm", "linear", "gelu", "relu", "softmax", "dropout",
            "rms_norm", "fused_rms_norm_add",
            "fused_dropout_add_norm", "scaled_dot_product_attention", "rope",
-           "swiglu", "cross_entropy", "softmax_with_cross_entropy"]
+           "swiglu", "cross_entropy", "softmax_with_cross_entropy"] \
+    + _loss.__all__
 
 
 def _needs_grad(*tensors) -> bool:

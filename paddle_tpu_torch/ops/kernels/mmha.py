@@ -49,11 +49,12 @@ from . import _build
 
 __all__ = ["mmha_decode", "mmha_decode_contiguous", "mmha_plain",
            "gather_pages", "reference_mmha", "contiguous_table", "plan",
-           "chunk_spans", "smem_bytes"]
+           "chunk_spans", "smem_bytes", "rep_block"]
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
     [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 _HEAD_DIMS = (64, 128)
+#: the query-group sizes the source instantiates (``REP``)
 _REPS = (1, 2, 4, 8)
 _THREADS = 256
 #: bytes of K and V a chunk (a block) holds, and the source's ``kMaxPages``
@@ -88,17 +89,31 @@ def chunk_spans(pos, max_pages, page_size, chunk_pages):
             for c in range(last // chunk + 1)]
 
 
+def rep_block(rep):
+    """``(REP, n_sub)``: the instantiated query-group size that takes
+    ``rep = H / Hkv`` query heads a kv head (the next power of two up to 8,
+    then 8; the source's ``rep_block``) and the blocks a kv head (``ceil(rep
+    / REP)``). Rows past ``rep`` load no q and write nothing, so every rep
+    that divides H runs, as the TPU kernel takes every such ratio (it pads
+    its query group to a multiple of 8, ``mmha_pallas.py:118-119``). At rep
+    == REP the source launches its exact instantiation (every row live)."""
+    blk = next(r for r in _REPS if r >= min(rep, _REPS[-1]))
+    return blk, -(-rep // blk)
+
+
 def smem_bytes(head_dim, rep, chunk_pages, page_size):
     """Dynamic shared memory of a block (the source's ``smem_bytes``): K
-    and V of the chunk in bf16, the scores of its rep query heads in f32."""
+    and V of the chunk in bf16, the scores of its ``REP`` query rows in
+    f32."""
     n = chunk_pages * page_size
-    return 4 * n * head_dim + 4 * rep * n
+    return 4 * n * head_dim + 4 * rep_block(rep)[0] * n
 
 
 def scratch_floats(b, h_kv, rep, head_dim, n_chunks):
     """f32 scratch of the chunks' partials: each chunk's accumulators and
-    its (max, sum) a query head."""
-    return b * h_kv * n_chunks * rep * (head_dim + 2)
+    its (max, sum) a query row of each block."""
+    blk, n_sub = rep_block(rep)
+    return b * h_kv * n_sub * n_chunks * blk * (head_dim + 2)
 
 
 @functools.lru_cache(maxsize=256)
@@ -194,9 +209,8 @@ def _require_kernel(q, k, h_kv, ops):
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
         raise TypeError(f"mmha kernel takes bf16, got {q.dtype} / "
                         f"{k.dtype}")
-    if d not in _HEAD_DIMS or h // h_kv not in _REPS:
-        raise ValueError(f"mmha kernel takes D in {_HEAD_DIMS} and H/Hkv in "
-                         f"{_REPS}, got D={d}, H/Hkv={h // h_kv}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"mmha kernel takes D in {_HEAD_DIMS}, got D={d}")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("mmha kernel takes contiguous tensors")
 
@@ -213,7 +227,8 @@ def _run(q, k, v, tables, pos, h_kv, ps, strides):
     _build.require_aligned("mmha", q, k, v)
     out = torch.empty_like(q)
     stream = _build.stream_of(q)
-    ctrl, part = _workspace(q.device, stream, b * h_kv, floats)
+    ctrl, part = _workspace(q.device, stream,
+                            b * h_kv * rep_block(h // h_kv)[1], floats)
     _launch(q, k, v, tables, pos, out, part, ctrl, cp, stream, h_kv, ps,
             strides)
     mmha_decode.launches += 1
@@ -225,8 +240,8 @@ def mmha_decode(q, k_pool, v_pool, tables, pos):
     ``k_pool``/``v_pool [P, Hkv, ps, D]`` through ``tables [B, max_pages]``
     int32, row ``b`` seeing positions ``0..pos[b]`` (int32 ``[B]``).
     Returns ``[B, 1, H, D]``. A CPU tensor takes :func:`mmha_plain`; a CUDA
-    tensor launches the kernel (bf16, D in {64, 128}, H / Hkv in
-    {1, 2, 4, 8}) or raises. ``mmha_decode.launches`` counts the kernel's
+    tensor launches the kernel (bf16, D in {64, 128}, any H / Hkv) or
+    raises. ``mmha_decode.launches`` counts the kernel's
     launches from both entries."""
     _check(q, k_pool, v_pool, tables, pos)
     if q.device.type == "cpu":
@@ -283,7 +298,7 @@ def mmha_decode_contiguous(q, k_buf, v_buf, pos):
     ``k_buf``/``v_buf [B, Hkv, T, D]`` (positions ``0..pos[b]`` of row
     ``b``, int32 ``[B]`` on q's device), read in place. A CPU tensor takes
     :func:`reference_mmha`; a CUDA tensor launches the kernel (bf16, D in
-    {64, 128}, H / Hkv in {1, 2, 4, 8}, ``T % 16 == 0``) or raises. The
+    {64, 128}, any H / Hkv, ``T % 16 == 0``) or raises. The
     JAX gate (``mmha_pallas.use_kernel``) sends shapes it refuses to the
     composite; this entry raises instead."""
     _check_contiguous(q, k_buf, v_buf, pos)
@@ -302,7 +317,8 @@ def mmha_decode_contiguous(q, k_buf, v_buf, pos):
 def _launch(q, k, v, tables, pos, out, part, ctrl, chunk_pages, stream,
             h_kv, ps, strides):
     """The C entry on operands the caller allocated (``part``: the
-    scratch; ``ctrl``: at least ``B * Hkv`` zero counters); ``strides`` is
+    scratch; ``ctrl``: at least ``B * Hkv * n_sub`` zero counters, n_sub of
+    :func:`rep_block`); ``strides`` is
     ``(page_stride, head_stride)`` in elements."""
     b, _, h, d = q.shape
     fn = _build.function("mmha", "ptt_mmha_paged", _ARGS)
@@ -363,7 +379,12 @@ def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7, t=None):
         def plain(x):
             return {"out": reference_mmha(x["q"], x["k"], x["v"], x["pos"])}
     cp, n_chunks = plan(b, h_kv, max_pages, ps, d)
-    zeros = torch.zeros(b * h_kv, dtype=torch.int32)
+    blk, n_sub = rep_block(rep)
+    if n_sub > 1 and rep % blk:
+        raise ValueError(f"mmha example: rep {rep} over blocks of {blk} has a "
+                         f"partial block; declare it at a rep of 8 or less, "
+                         f"or a multiple of 8")
+    zeros = torch.zeros(b * h_kv * n_sub, dtype=torch.int32)
     ops = [m.Operand("q", (b, 1, h, d), bf),
            m.Operand("k", kv_shape, bf), m.Operand("v", kv_shape, bf),
            m.Operand("tables", tuple(tables.shape), torch.int32,
@@ -372,12 +393,18 @@ def _ex(label, lengths, h, h_kv, d, ps=16, max_pages=128, seed=7, t=None):
            m.Operand("out", (b, 1, h, d), bf, "out"),
            m.Operand("part", (scratch_floats(b, h_kv, rep, d, n_chunks),),
                      torch.float32, "out"),
-           m.Operand("ctrl", (b * h_kv,), torch.int32, data=fixed(zeros))]
+           m.Operand("ctrl", (b * h_kv * n_sub,), torch.int32,
+                     data=fixed(zeros))]
+    # block x reads rows x % n_sub * REP .. of kv head x // n_sub: with one
+    # block a kv head, the rep rows of head g (REP - rep rows load nothing)
+    rows = rep if n_sub == 1 else blk
+    exact = "true" if rep == blk else "false"
     kern = m.KernelLaunch(
-        f"mmha_paged_kernel<{d},{rep}>", (h_kv, b, n_chunks), _THREADS,
+        f"mmha_paged_kernel<{d},{blk},{exact}>", (h_kv * n_sub, b, n_chunks),
+        _THREADS,
         smem=smem_bytes(d, rep, cp, ps), writes=None,
-        reads=[m.TileMap("q", (1, 1, rep * d), lambda g, r, z: (r, g, 0),
-                         view=(b, h_kv, rep * d))])
+        reads=[m.TileMap("q", (1, 1, rows * d), lambda g, r, z: (r, g, 0),
+                         view=(b, h_kv * n_sub, rows * d))])
 
     def launch(x, stream):
         _launch(x["q"], x["k"], x["v"], x["tables"], x["pos"], x["out"],
@@ -402,7 +429,9 @@ PHASE3_ROWS = (
     ("phase3 B 16", [0, 18, 256, 257, 701, 1024, 1201, 1501] * 2, 32, 8, 128),
     ("phase3 rep 1", [0] + [100 + 190 * r for r in range(1, 8)], 32, 32, 128),
     ("phase3 rep 8", [0, 18, 256, 257, 701, 1024, 1201, 1501], 64, 8, 128),
-    ("phase3 D 64", [0, 18, 256, 257, 701, 1024, 1201, 1501], 32, 8, 64))
+    ("phase3 D 64", [0, 18, 256, 257, 701, 1024, 1201, 1501], 32, 8, 64),
+    ("phase3 rep 5 (ERNIE)", [0, 18, 256, 257, 701, 1024, 1201, 1501], 20, 4,
+     128))
 
 
 def ck_examples():
@@ -410,8 +439,9 @@ def ck_examples():
     heads and 2048 positions a row; the JAX cache is contiguous, the
     port's is paged), phase 3's decode shape (the same q at positions
     0..1500 with an inactive row 0) and its rows at B 1, B 16, rep 1 (Hkv
-    32), rep 8 (H 64) and D 64 (:data:`PHASE3_ROWS`); tails at D 64, REP 4
-    (for rep 1 and rep 8 their own REP) and lengths of one position, two
+    32), rep 8 (H 64), D 64 and ERNIE-4.5's rep 5 (H 20 / Hkv 4, REP 8 with
+    three rows that load nothing; :data:`PHASE3_ROWS`); tails at D 64, REP
+    4 (for rep 1, 5 and 8 their own rep) and lengths of one position, two
     ending inside a page (one of them over three chunks, so merged) and
     one on a chunk's edge. Then the contiguous entry at
     :data:`CONTIGUOUS_ROW`, its tail the same lengths over a 320-position
@@ -426,8 +456,8 @@ def ck_examples():
         out.append(with_tail(_ex, label, dict(lengths=lengths, h=32, h_kv=8,
                                               d=128), tail))
     for label, lengths, h, h_kv, d in PHASE3_ROWS:
-        rep_tail = dict(tail, h=2 * (h // h_kv), h_kv=2) if h // h_kv in (1, 8) \
-            else tail
+        rep_tail = dict(tail, h=2 * (h // h_kv), h_kv=2) \
+            if h // h_kv in (1, 5, 8) else tail
         out.append(with_tail(_ex, label, dict(lengths=lengths, h=h, h_kv=h_kv,
                                               d=d), rep_tail))
     label, lengths, h, h_kv, d, t = CONTIGUOUS_ROW

@@ -25,8 +25,12 @@ that state: the name given with it (``parameters`` may hold ``(name,
 param)`` pairs, as ``named_parameters()`` yields them; give the JAX
 parameters' names to carry a JAX optimizer's state across), else its
 ``name`` attribute where it has one, else ``param_<i>`` by its place in
-the list. Not ported, and raising: ``fuse=True`` (the multi-tensor step of
-``optimizer/fused.py``) and ``minimize`` (the static-graph path).
+the list. ``fuse=True`` runs every step through
+:class:`~.fused.FusedOptimizerStep` (on the card, one CUDA graph a step;
+``fuse=None``, the default, and ``fuse=False`` step eagerly: the JAX
+package's ``PADDLE_TPU_FUSED_OPT`` default is not taken). ``minimize(loss)``
+is the dygraph branch (backward, step); the static-graph branch raises, as
+``paddle.static`` is not ported.
 """
 
 from __future__ import annotations
@@ -62,10 +66,6 @@ class Optimizer:
             lr0 = float(learning_rate())
         else:
             lr0 = float(learning_rate)       # TypeError, as in JAX
-        if fuse:
-            raise NotImplementedError(
-                "fuse=True (the multi-tensor step of paddle_tpu/optimizer/"
-                "fused.py) is not ported yet")
         self._parameter_list = params
         self._names = {id(p): name or f"param_{i}"
                        for i, (name, p) in enumerate(named)}
@@ -92,6 +92,12 @@ class Optimizer:
         # accumulator name -> {id(param): tensor}
         self._accumulators: dict[str, dict[int, torch.Tensor]] = {}
         self._master_weights: dict[int, torch.Tensor] = {}
+        self._fuse = bool(fuse)
+        self._fused_impl = None
+
+    #: whether ``_append_optimize_op`` keeps f32 master weights under
+    #: ``multi_precision`` (the fused step's readiness check reads it)
+    _keeps_master = False
 
     # -- lr -----------------------------------------------------------------
     def get_lr(self) -> float:
@@ -149,11 +155,36 @@ class Optimizer:
     # -- core update --------------------------------------------------------
     @torch.no_grad()
     def step(self) -> None:
-        params_grads = [(p, p.grad) for p in self._parameter_list
-                        if p.requires_grad and p.grad is not None]
+        """One update of every parameter with a grad: through the fused
+        step with ``fuse=True``, else the eager loop."""
+        if self._fuse:
+            self._fused().step()
+        else:
+            self._step_unfused()
+
+    def _fused(self):
+        if self._fused_impl is None:
+            from .fused import FusedOptimizerStep
+            self._fused_impl = FusedOptimizerStep(self)
+        return self._fused_impl
+
+    def _params_grads(self):
+        return [(p, p.grad) for p in self._parameter_list
+                if p.requires_grad and p.grad is not None]
+
+    @torch.no_grad()
+    def _step_unfused(self) -> None:
+        """The eager per-parameter loop (the fused step's warm-up and
+        fallback)."""
+        self._step_count += 1
+        self._update(self._params_grads())
+
+    def _update(self, params_grads) -> None:
+        """The device side of a step, and all of what the fused step
+        captures: the clip, the device step counter (bias correction sees
+        the new value) and every parameter's update. No host read."""
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        self._step_count += 1
         self._step_tensor.add_(1.0)
         self._begin_step()
         for p, g in params_grads:
@@ -167,6 +198,13 @@ class Optimizer:
     def _append_optimize_op(self, param, grad) -> None:
         raise NotImplementedError
 
+    def _fused_state_names(self, param):
+        """Accumulator names ``_append_optimize_op`` makes for ``param``,
+        or None when unknown (a subclass that declares none warms up on
+        the first fused step), as ``paddle_tpu/optimizer/optimizer.py:
+        163-170``."""
+        return None
+
     def clear_grad(self, set_to_zero: bool = False) -> None:
         for p in self._parameter_list:
             if set_to_zero and p.grad is not None:
@@ -178,9 +216,18 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        raise NotImplementedError(
-            "minimize (the static-graph path) is not ported yet: call "
-            "loss.backward() and step()")
+        """``loss.backward()``, :meth:`step`, and ``(None, [(param,
+        grad), ...])`` over the parameter list, as the JAX dygraph branch
+        returns (``paddle_tpu/optimizer/optimizer.py:212-214``). A
+        ``startup_program`` asks for the static-graph branch, which raises:
+        ``paddle.static`` is not ported."""
+        if startup_program is not None:
+            raise NotImplementedError(
+                "minimize(startup_program=...) is the static-graph path; "
+                "paddle.static is not ported")
+        loss.backward()
+        self.step()
+        return None, [(p, p.grad) for p in self._parameter_list]
 
     # -- state dict ---------------------------------------------------------
     def state_dict(self) -> dict:
@@ -200,6 +247,9 @@ class Optimizer:
         return state
 
     def set_state_dict(self, state_dict) -> None:
+        if self._fused_impl is not None:
+            # state may be new tensors: a captured graph would update the old
+            self._fused_impl.invalidate()
         state = dict(state_dict)
         self._step_count = int(state.pop("@step", 0))
         self._step_tensor.fill_(float(self._step_count))

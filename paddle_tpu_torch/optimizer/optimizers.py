@@ -27,6 +27,10 @@ with the parameter's name) accepts, and Lamb by ``lamb_weight_decay``
 except where ``exclude_from_weight_decay_fn(param)`` is true. A
 parameter's ``optimize_attr["learning_rate"]`` scales the learning rate
 for it, and AdamW's ``lr_ratio(param)`` scales it once more (:174-176).
+Each optimizer but LBFGS declares the accumulators it makes
+(``_fused_state_names``, JAX's names) and takes ``fuse=True`` (one CUDA
+graph a step, ``optimizer/fused.py``); LBFGS steps through its closure
+and takes no ``fuse``, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,6 +63,11 @@ class SGD(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision, fuse=fuse)
 
+    _keeps_master = True
+
+    def _fused_state_names(self, p):
+        return []
+
     def _append_optimize_op(self, p, grad) -> None:
         g = self._apply_coupled_weight_decay(p, grad.float())
         master = self._get_master(p)
@@ -74,6 +83,11 @@ class Momentum(Optimizer):
                          name, multi_precision, fuse=fuse)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
+
+    _keeps_master = True
+
+    def _fused_state_names(self, p):
+        return ["velocity"]
 
     def _append_optimize_op(self, p, grad) -> None:
         g = self._apply_coupled_weight_decay(p, grad.float())
@@ -98,6 +112,12 @@ class Adam(Optimizer):
         self._amsgrad = amsgrad
         self._decoupled = False
         self._scalars = None
+
+    _keeps_master = True
+
+    def _fused_state_names(self, p):
+        return ["moment1", "moment2", "moment2_max"] if self._amsgrad \
+            else ["moment1", "moment2"]
 
     def _decoupled_decay_for(self, p) -> float:
         return 0.0          # plain Adam couples decay into the gradient
@@ -175,6 +195,9 @@ class Adagrad(Optimizer):
         self._epsilon = epsilon
         self._initial = initial_accumulator_value
 
+    def _fused_state_names(self, p):
+        return ["moment"]
+
     def _append_optimize_op(self, p, grad) -> None:
         g = self._apply_coupled_weight_decay(p, grad.float())
         acc = self._add_accumulator("moment", p, fill_value=self._initial)
@@ -190,6 +213,9 @@ class Adadelta(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision, fuse=fuse)
         self._epsilon, self._rho = epsilon, rho
+
+    def _fused_state_names(self, p):
+        return ["avg_squared_grad", "avg_squared_update"]
 
     def _append_optimize_op(self, p, grad) -> None:
         g = self._apply_coupled_weight_decay(p, grad.float())
@@ -211,6 +237,9 @@ class Adamax(Optimizer):
                          name, multi_precision, fuse=fuse)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
+    def _fused_state_names(self, p):
+        return ["moment", "inf_norm"]
+
     def _append_optimize_op(self, p, grad) -> None:
         g = self._apply_coupled_weight_decay(p, grad.float())
         m = self._add_accumulator("moment", p)
@@ -230,6 +259,10 @@ class RMSProp(Optimizer):
                          name, multi_precision, fuse=fuse)
         self._rho, self._epsilon = rho, epsilon
         self._momentum, self._centered = momentum, centered
+
+    def _fused_state_names(self, p):
+        names = ["mean_square", "momentum"]
+        return names + ["mean_grad"] if self._centered else names
 
     def _append_optimize_op(self, p, grad) -> None:
         g = self._apply_coupled_weight_decay(p, grad.float())
@@ -261,6 +294,11 @@ class Lamb(Optimizer):
         self._lamb_wd = lamb_weight_decay
         self._exclude_fn = exclude_from_weight_decay_fn
         self._scalars = None
+
+    _keeps_master = True
+
+    def _fused_state_names(self, p):
+        return ["moment1", "moment2"]
 
     def _begin_step(self) -> None:
         self._scalars = _adamw.adamw_scalars(

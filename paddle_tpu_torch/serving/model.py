@@ -73,7 +73,9 @@ _LAYER_LINEARS = (
 
 class ServingModel:
     """Prefill, prefill-chunk and decode forwards of a port :class:`Llama`
-    over a bound :class:`~.kv_cache.PagePool`."""
+    (or dense :class:`~..models.ernie.Ernie`, a Llama with ERNIE's widths
+    and a tied head) over a bound :class:`~.kv_cache.PagePool`. A model
+    with a routed MoE layer raises ``TypeError``."""
 
     def __init__(self, model, quant: str | None = None,
                  quant_group_size: int = -1, fused_block: bool = True,
@@ -84,6 +86,18 @@ class ServingModel:
             raise TypeError(f"ServingModel needs a Llama-family module "
                             f"layout; {type(model).__name__} is missing: "
                             f"{', '.join(missing)}")
+        from ..incubate.distributed.models.moe import MoELayer
+        moe = next((i for i, layer in enumerate(model.layers)
+                    if isinstance(getattr(layer, "mlp", None), MoELayer)),
+                   None)
+        if moe is not None:
+            # the JAX adapter reaches mlp.gate_proj (paddle_tpu/serving/
+            # model.py:186-192), which a routed MoE block does not have
+            raise TypeError(f"ServingModel serves dense decoder layers; "
+                            f"{type(model).__name__}'s layers.{moe}.mlp is a "
+                            f"routed MoELayer (serve a dense model, or call "
+                            f"generate(), which takes the exact-length host "
+                            f"loop)")
         self.model = model
         self.cfg = cfg = model.cfg
         self.n_head = cfg.num_heads

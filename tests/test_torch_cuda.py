@@ -148,8 +148,13 @@ def _tables(dev, lengths, ps, max_pages, seed=0):
     return tables.to(dev), pos.to(dev), n_pages
 
 
+#: every query-group size the kernel takes: 1-8 (REP the next power of two,
+#: rows past rep idle), 12 (two blocks of 8 and 4 rows) and 16 (two full)
+MMHA_REPS = [1, 2, 3, 4, 5, 6, 7, 8, 12, 16]
+
+
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", MMHA_REPS)
 def test_mmha_kernel(dev, d, rep):
     lengths, h_kv, ps = [1, 40, 0, 333, 16], 2, 16
     tables, pos, n_pages = _tables(dev, lengths, ps, 24)
@@ -157,7 +162,9 @@ def test_mmha_kernel(dev, d, rep):
     vp = _randn(dev, n_pages, h_kv, ps, d, seed=8)
     q = _randn(dev, len(lengths), 1, h_kv * rep, d, seed=9)
     got = mmha.mmha_decode(q, kp, vp, tables, pos)
+    again = mmha.mmha_decode(q, kp, vp, tables, pos)
     assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
     _close(got, mmha.mmha_plain(q, kp, vp, tables, pos))
 
 
@@ -171,7 +178,7 @@ SPLIT_LENGTHS = {"B 1": [901], "B 8": [0, 1, 37, 64, 128, 1024, 1501, 2048],
 
 @pytest.mark.parametrize("batch", sorted(SPLIT_LENGTHS))
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", MMHA_REPS)
 def test_mmha_split_kernel(dev, batch, d, rep):
     """The position-split kernel at the serving path's table (128 pages of
     16) over 8 kv heads: within one bf16 ulp of the plain version, the
@@ -194,7 +201,7 @@ def test_mmha_split_kernel(dev, batch, d, rep):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", MMHA_REPS)
 @pytest.mark.parametrize("t", [16, 320, 1024])
 def test_mmha_contiguous_kernel(dev, d, rep, t):
     """The contiguous entry reads a [B, Hkv, T, D] cache in place (a row at
@@ -335,7 +342,7 @@ def test_rope_qk_kernel_forward_and_backward(dev, shape, hk, per_token):
 
 
 @pytest.mark.parametrize("s", [1, 77, 200, 256])
-@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("rep", [1, 4, 5])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_attention_kernel(dev, s, rep, causal, d):
@@ -1033,7 +1040,7 @@ def _flash_bwd_case(dev, b, s, h, h_kv, d, causal, seg, seed):
 
 
 @pytest.mark.parametrize("s", EDGE_S)
-@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("rep", [1, 4, 5, 8])
 @pytest.mark.parametrize("mode", ["causal", "full", "segments"])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_attention_bwd_kernel_tile_edges(dev, s, rep, mode, d):
@@ -2932,3 +2939,74 @@ def test_spec_and_prefill_budget_engine_on_the_card(dev):
         assert stats["speculative"]["accepted_tokens"] >= 1
         assert mmha.mmha_decode.launches == \
             layers * (len(eng.step_ms) + len(eng.verify_ms))
+
+
+# -- the fused optimizer step: one CUDA graph a step -------------------------
+
+def _fused_run(dev, cls, fuse, steps, zero, **kw):
+    """gpt2_tiny in bf16 with master weights and a global-norm clip, ``steps``
+    steps of fixed batches; ``zero``: ``clear_grad(set_to_zero=True)``
+    (the grads keep their addresses), else new grads every step."""
+    model = gpt2_tiny(device=dev, dtype=torch.bfloat16, seed=3,
+                      num_heads=2)               # D 64: flash's head dim
+    opt = cls(parameters=model.parameters(), multi_precision=True,
+              grad_clip=ClipGradByGlobalNorm(1.0), fuse=fuse, **kw)
+    ids = torch.randint(0, 1024, (steps, 2, 33), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    for i in range(steps):
+        _, loss = model(ids[i, :, :-1], labels=ids[i, :, 1:])
+        loss.backward()
+        opt.step()
+        opt.clear_grad(set_to_zero=zero)
+    torch.cuda.synchronize()
+    state = [p.detach().clone() for p in model.parameters()]
+    for name in sorted(opt._accumulators):
+        state += [t.clone() for t in opt._accumulators[name].values()]
+    state += [t.clone() for t in opt._master_weights.values()]
+    return opt, state + [opt._step_tensor.clone()]
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["new-grads", "zeroed"])
+@pytest.mark.parametrize("name", ["AdamW", "Lamb"])
+def test_fused_step_gives_the_eager_bits(dev, name, zero):
+    """Five steps fused (one eager warm-up, one capture, four replays)
+    against five eager steps: every parameter, moment, master weight and
+    the step counter the same bits, whether the grads move every step
+    (copied into the captured ones) or stay put; no fallback."""
+    cls = getattr(optimizer, name)
+    fo, fused_state = _fused_run(dev, cls, True, 5, zero)
+    _, eager_state = _fused_run(dev, cls, False, 5, zero)
+    assert len(fused_state) == len(eager_state)
+    for a, b in zip(fused_state, eager_state):
+        assert torch.equal(a, b)
+    assert fo._fused_impl.stats == {"fused": 4, "warmup": 1, "captures": 1,
+                                    "fallbacks": 0}
+
+
+def test_fused_step_capture_failure_falls_back_loudly(dev):
+    """An update that reads the host cannot be captured: the step warns,
+    counts a fallback and runs eagerly, and the run keeps the eager bits."""
+    class HostReadSGD(optimizer.SGD):
+        def _append_optimize_op(self, p, grad):
+            if float(grad.abs().max()) >= 0.0:       # a host read
+                super()._append_optimize_op(p, grad)
+
+    params = [torch.nn.Parameter(torch.randn(64, 64, device=dev))
+              for _ in range(3)]
+    twins = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    fo = HostReadSGD(0.1, parameters=params, fuse=True)
+    eo = HostReadSGD(0.1, parameters=twins, fuse=False)
+    with pytest.warns(RuntimeWarning, match="capturing the update failed"):
+        for i in range(3):
+            g = torch.Generator(device=dev).manual_seed(i)
+            grads = [torch.randn(64, 64, device=dev, generator=g)
+                     for _ in params]
+            for p, t, gr in zip(params, twins, grads):
+                p.grad, t.grad = gr.clone(), gr.clone()
+            fo.step()
+            eo.step()
+    for p, t in zip(params, twins):
+        assert torch.equal(p, t)
+    assert fo._fused_impl.stats["fallbacks"] == 1
+    # the stream is usable after the failed capture
+    assert float(torch.ones(4, device=dev).sum()) == 4.0

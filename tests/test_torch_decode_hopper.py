@@ -223,26 +223,31 @@ def test_mmha_examples_follow_the_plan():
                 ps = ps // max_pages
                 assert ps == mmha.CONTIGUOUS_PAGE
             cp, n_chunks = mmha.plan(b, h_kv, max_pages, ps, d)
-            assert k.grid == (h_kv, b, n_chunks) and k.threads == 256
-            assert k.smem == mmha.smem_bytes(d, h // h_kv, cp, ps)
-            assert k.kernel == f"mmha_paged_kernel<{d},{h // h_kv}>"
-            assert e.operand("part").numel == b * h_kv * n_chunks * (
-                h // h_kv) * (d + 2)
+            blk, n_sub = mmha.rep_block(h // h_kv)
+            assert k.grid == (h_kv * n_sub, b, n_chunks) and k.threads == 256
+            assert k.smem == mmha.smem_bytes(d, h // h_kv, cp, ps) == \
+                4 * cp * ps * (d + blk)
+            exact = "true" if h // h_kv == blk else "false"
+            assert k.kernel == f"mmha_paged_kernel<{d},{blk},{exact}>"
+            assert e.operand("part").numel == b * h_kv * n_sub * n_chunks \
+                * blk * (d + 2)
             assert k.smem + 4800 <= device_preset()["smem_per_block_optin"]
     labels = {ex.label for ex in mmha.ck_examples()}
     assert {"phase3 B 1 pos 900", "phase3 B 16", "phase3 rep 1",
-            "phase3 rep 8", "phase3 D 64"} <= labels
+            "phase3 rep 8", "phase3 D 64", "phase3 rep 5 (ERNIE)"} <= labels
 
 
-@pytest.mark.parametrize("what", ["f32", "D 96", "rep 16", "page 1024",
+@pytest.mark.parametrize("what", ["f32", "D 96", "H % Hkv", "page 1024",
                                   "strided"])
 def test_mmha_kernel_checks_raise(what):
     with FakeTensorMode():
         bf = torch.bfloat16
-        d, rep, ps = {"D 96": 96}.get(what, 64), 16 if what == "rep 16" \
-            else 2, 1024 if what == "page 1024" else 16
+        d, rep, ps = {"D 96": 96}.get(what, 64), 2, \
+            1024 if what == "page 1024" else 16
         e = lambda *s, dt=bf: torch.empty(*s, dtype=dt, device="cuda")  # noqa: E731
-        q, kp = e(2, 1, 2 * rep, d), e(5, 2, ps, d)
+        # every H / Hkv runs; 5 query heads over 2 kv heads do not divide
+        q, kp = e(2, 1, 5 if what == "H % Hkv" else 2 * rep, d), \
+            e(5, 2, ps, d)
         tables, pos = e(2, 4, dt=torch.int32), e(2, dt=torch.int32)
         err = ValueError
         if what == "f32":

@@ -350,16 +350,16 @@ def test_contiguous_table_and_strides_address_the_callers_cache(b, h_kv, t,
                                rtol=0)
 
 
-@pytest.mark.parametrize("what", ["f32", "D 96", "rep 16", "T 40", "strided",
+@pytest.mark.parametrize("what", ["f32", "D 96", "H % Hkv", "T 40", "strided",
                                   "pos int64"])
 def test_contiguous_kernel_checks_raise(what):
     with FakeTensorMode():
         bf = torch.bfloat16
         d = 96 if what == "D 96" else 64
-        rep = 16 if what == "rep 16" else 2
         t = 40 if what == "T 40" else 64
         e = lambda *s, dt=bf: torch.empty(*s, dtype=dt, device="cuda")  # noqa: E731
-        q, kb = e(2, 1, 2 * rep, d), e(2, 2, t, d)
+        # every H / Hkv runs; 5 query heads over 2 kv heads do not divide
+        q, kb = e(2, 1, 5 if what == "H % Hkv" else 4, d), e(2, 2, t, d)
         pos = e(2, dt=torch.int64 if what == "pos int64" else torch.int32)
         err = ValueError
         if what == "f32":

@@ -226,8 +226,9 @@ def test_optimizer_state_dict_resumes_bit_exact():
 def test_set_lr_and_unported_options():
     """``set_lr`` moves the rate, and raises while a scheduler is bound; a
     learning rate that is neither a number nor a scheduler raises
-    ``TypeError``, as JAX's ``float(...)`` does; ``fuse=True`` and
-    ``minimize`` are not ported and raise."""
+    ``TypeError``, as JAX's ``float(...)`` does; ``fuse=True`` builds the
+    fused step and ``minimize`` steps (both ported since), and only
+    ``minimize``'s static-graph branch raises."""
     lin = torch.nn.Linear(4, 4)
     opt = AdamW(1e-3, parameters=lin.parameters())
     opt.set_lr(5e-4)
@@ -236,12 +237,11 @@ def test_set_lr_and_unported_options():
                       parameters=lin.parameters())
     with pytest.raises(RuntimeError):
         scheduled.set_lr(5e-4)
-    with pytest.raises(NotImplementedError):
-        AdamW(1e-3, parameters=lin.parameters(), fuse=True)
+    assert AdamW(1e-3, parameters=lin.parameters(), fuse=True)._fuse
     with pytest.raises(TypeError):
         AdamW(lambda: 1e-3, parameters=lin.parameters())
     with pytest.raises(NotImplementedError):
-        opt.minimize(torch.zeros(()))
+        opt.minimize(torch.zeros(()), startup_program=object())
 
 
 @pytest.mark.parametrize("ignore", [0, 5])
