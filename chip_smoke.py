@@ -128,6 +128,25 @@ Phases, in order; any failure exits non-zero:
    llm_int8 — ``nn.quant.llm_int8_linear`` at x [1024, 4096] bf16 with 4
    outlier channels, w [14336, 4096] int8 and a bias: one A8W8 launch per
    call, against its plain path, timed.
+   ptq — ``quantization.PTQ`` with an absmax activation observer on a
+   copy of the served Llama-3-8B, calibrated on 4 prompts of 512 tokens
+   and converted: 225 ``Int8WeightOnlyLinear`` s holding about half of
+   bf16's bytes; a 1024-token forward (one int8 launch a projection, the
+   prefill kernel) whose last logits match the plain int8 products within
+   the parity tolerance and whose argmax is that of the same model with
+   ``weight_dequantize``'d bf16 weights but at a near-tie, and cached
+   ``generate`` B 1 and B 8 x 32 against that twin (the decode kernel a
+   token), tokens agreeing but at near-ties.
+   http — engine b behind ``serving.server.serve`` on a local port: its
+   12 prompts posted from 8 client threads, half streaming NDJSON, tokens
+   against engine b's; ``/metrics`` parsed as an exposition and its
+   serving counters (generated tokens, decode steps, the TTFT and e2e
+   histograms' counts) against what was served; ``/healthz`` in serving
+   mode; ``/requests`` and ``/flight`` holding the 12 requests; a bad body
+   400, an over-long prompt 429; then engine b's tokens/s, scheduler
+   iteration wall and its host work outside the forward with metrics,
+   tracing and the flight recorder all on against all off (on, off, off,
+   on), a finding and not a gate.
    train — once the serving model and engines are freed: Llama-3-8B's
    width cut to 4 layers (bf16 with f32 master weights) on one fixed B 2 x
    S 2048 batch through the backward kernels and the AdamW kernel: parity
@@ -136,6 +155,12 @@ Phases, in order; any failure exits non-zero:
    at every junction) and on the unfused trunk, one unfused step and 8
    fused steps with a falling loss, the exact launches of every step, step
    time, tokens/s, peak memory and a profile of a step on each trunk.
+   int8_grad — ``llama3_8b(num_layers=4)`` with its 28 decoder projections
+   PTQ-converted and frozen, the embedding, norms and head training with
+   AdamW at B 2 x S 2048: the forward's int8 launches at M 4096, ``dx``
+   through the weight-only VJP; the train-parity gate, 4 steps with their
+   launches and a falling loss, the backward's dequantised-weight bytes
+   and times, a profile of a step.
    packed_mlp — ``nn.functional.swiglu(x)`` on one packed operand in an
    MLP with a fused gate/up projection at Llama-3-8B's widths, forward and
    backward: one launch of each packed SwiGLU kernel, gradients against
@@ -145,6 +170,12 @@ Phases, in order; any failure exits non-zero:
    with its bias) and its backward, flash attention forward and backward
    and AdamW: parity, 8 steps with their launches, a falling loss, step
    time, tokens/s, MFU, peak memory and a profile of a step.
+   qat — ``quantization.QAT`` with absmax fake quanters on GPT-2 small's
+   48 projections: the train-parity gate from one quanter state on both
+   paths (weight scales equal, activation scales within two bf16 ulps),
+   8 AdamW steps with the fused trunk's launches and a falling loss; then
+   ``QAT.convert``, ``PTQ`` to int8 and cached ``generate`` B 8 x 64
+   against the dequantized twin.
    optimizers — SGD, Momentum (Nesterov; bf16 with master weights),
    Adagrad, Adadelta, Adamax, centered RMSProp with momentum, Adam with
    ``L1Decay``, SGD with ``L2Decay`` and ``ClipGradByValue``, Momentum with
@@ -311,6 +342,18 @@ TRAIN_LOSS_TOL = 5e-3     # kernels vs plain: loss, relative
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_F32_RATIO = 1.1
 GPT_BATCH, GPT_SEQ = 8, 1024   # GPT-2 small's train phase: B 8 x S 1024
+# ptq: calibration prompts and length, the forward held against the
+# dequantized twin, cached generate at B 1 and B PTQ_BATCH
+PTQ_CALIB, PTQ_CALIB_LEN, PTQ_FORWARD_LEN = 4, 512, 1024
+PTQ_BATCH, PTQ_PROMPT_LEN, PTQ_NEW_TOKENS = 8, 128, 32
+PTQ_BYTES_RATIO = (0.49, 0.51)   # int8 + f32 scales over bf16: 1/2 + 2/K
+QAT_PARITY_BATCHES, QAT_STEPS, QAT_NEW_TOKENS = 2, 8, 64
+GPT_GEN_BATCH, QAT_PROMPT_LEN = 8, 128   # qat's int8 generate: B 8 x 128
+QAT_ACT_SCALE_TOL = 2.0 ** -6    # two bf16 ulps: absmax of bf16 activations
+INT8_GRAD_STEPS = 4
+HTTP_CLIENTS = 8           # the http phase's client threads
+HTTP_AB_TOKENS = 32        # tokens a request in its on/off host-wall turns
+HTTP_AB_ROUNDS = 6         # rounds of turns on, off, off, on
 GPT_STEPS = 8
 # GPT-2 small's parity runs over 4 batches. Its layer-norm weights and
 # biases have 768 entries, and on one batch the ratio of a gradient's
@@ -424,7 +467,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since
+    the script started, so the run's wall splits by phase."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -4998,6 +5048,677 @@ def phase_fused_step(torch, dev):
     emit(out)
 
 
+# -- quantization flows, quantized gradients and the HTTP front --------------
+
+def _int8_linears(model):
+    from paddle_tpu_torch.quantization import Int8WeightOnlyLinear
+    return [m for m in model.modules() if isinstance(m, Int8WeightOnlyLinear)]
+
+
+def _dequantized_twin(torch, model, dtype):
+    """A copy of ``model`` in which every ``Int8WeightOnlyLinear`` is a
+    ``torch.nn.Linear`` holding ``weight_dequantize``'s weights in
+    ``dtype``: the reference a weight-only model is held against."""
+    import copy
+
+    from paddle_tpu_torch.nn.quant import weight_dequantize
+    from paddle_tpu_torch.quantization import Int8WeightOnlyLinear
+
+    twin = copy.deepcopy(model)
+    for parent in list(twin.modules()):
+        for name, sub in list(parent.named_children()):
+            if not isinstance(sub, Int8WeightOnlyLinear):
+                continue
+            k, n = sub.weight_int8.shape
+            lin = torch.nn.Linear(k, n, bias=sub.bias is not None,
+                                  device="meta", dtype=dtype)
+            lin = lin.to_empty(device=sub.weight_int8.device)
+            with torch.no_grad():
+                lin.weight.copy_(weight_dequantize(
+                    sub.weight_int8, sub.scales, out_dtype=dtype).t())
+                if sub.bias is not None:
+                    lin.bias.copy_(sub.bias)
+            setattr(parent, name, lin)
+    return twin
+
+
+def _int8_generate(torch, what, model, twin, prompts, new, n_head, n_body):
+    """Cached greedy ``generate`` of ``new`` tokens for ``prompts`` [B, S]
+    through ``model``'s weight-only kernels, held against its dequantized
+    twin by :func:`_agreement`. The int8 kernel launches once a
+    projection a forward: the prefill's ``n_body`` (no head, M = B (S - 1)
+    > 16: the prefill kernel), then ``n_body + n_head`` a token (M = B <=
+    16: the decode kernel)."""
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+
+    dev = next(model.parameters()).device
+    ids = torch.tensor(prompts, device=dev)
+    b, s = ids.shape
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    want = n_body + new * (n_body + n_head)
+    if launches.get("wo_int8") != want:
+        fail(f"{what}: wo_int8 launched {launches.get('wo_int8')} times, "
+             f"want {want}")
+    ref = twin.generate(ids, max_new_tokens=new)
+    got = [out[r, s:].tolist() for r in range(b)]
+    exp = [ref[r, s:].tolist() for r in range(b)]
+
+    def logits_at(i, j):
+        ctx = torch.tensor([list(prompts[i]) + exp[i][:j]], device=dev)
+        with torch.no_grad():
+            return twin(ctx)[0, -1].float()
+
+    rows = _agreement(torch, what, got, exp, logits_at)
+    return {"batch": b, "prompt_len": s, "tokens": new, "wall_ms": wall_ms,
+            "ms_per_token": wall_ms / new, "launches": launches,
+            "prefill_rows": b * (s - 1), "decode_rows": b,
+            "against_dequantized": rows}
+
+
+def phase_ptq(torch, np, model):
+    """PTQ on the served Llama-3-8B: ``PTQ(QuantConfig(activation=
+    AbsmaxObserver(), weight=None))`` on a copy of the model, calibrated
+    on PTQ_CALIB prompts of PTQ_CALIB_LEN seeded tokens, then ``convert``:
+    every projection an ``Int8WeightOnlyLinear``. Gates: the int8 weights'
+    bytes (``memory_bytes()``) about half of bf16's; a PTQ_FORWARD_LEN
+    forward launching the int8 kernel once a projection (M > 16: the
+    prefill kernel), its last-position logits within PARITY_REL_TOL of its
+    plain weight-only products (engine d's check) and their argmax that of
+    the same model with ``weight_dequantize``'d bf16 weights unless its top
+    two are within that tolerance (the gap from the plain products to that
+    twin is reported, not gated); cached ``generate`` at B 1 and B
+    PTQ_BATCH x PTQ_NEW_TOKENS against that twin's by :func:`_agreement`,
+    with the decode kernel's launches a token (M <= 16)."""
+    from paddle_tpu_torch.ops.kernels import WRAPPERS
+    from paddle_tpu_torch.quantization import AbsmaxObserver, PTQ, QuantConfig
+
+    dev = model.device
+    cfg = model.cfg
+    rng = np.random.default_rng(2050)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ptq = PTQ(QuantConfig(activation=AbsmaxObserver(), weight=None))
+    calib = ptq.quantize(model)           # a copy: the served model stays
+    with torch.no_grad():
+        for _ in range(PTQ_CALIB):
+            calib(torch.tensor(rng.integers(0, cfg.vocab_size,
+                                            (1, PTQ_CALIB_LEN)), device=dev))
+    scales = [m.observer.scale() for m in calib.modules()
+              if hasattr(m, "observer")]
+    q = ptq.convert(calib, inplace=True)
+    del calib
+    _free(torch)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    lin8 = _int8_linears(q)
+    n_head = 0 if model.lm_head is None else 1
+    n_body = 7 * cfg.num_layers
+    if len(lin8) != n_body + n_head or len(scales) != len(lin8) or \
+            not all(s > 0 for s in scales):
+        fail(f"ptq: {len(lin8)} int8 projections, {len(scales)} observed "
+             f"scales, want {n_body + n_head}")
+    int8_bytes = sum(m.memory_bytes() for m in lin8)
+    bf16_bytes = sum(2 * m.weight_int8.numel() for m in lin8)
+    ratio = int8_bytes / bf16_bytes
+    if not PTQ_BYTES_RATIO[0] <= ratio <= PTQ_BYTES_RATIO[1]:
+        fail(f"ptq: int8 weights take {ratio} of bf16's bytes")
+    twin = _dequantized_twin(torch, q, torch.bfloat16)
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (1, PTQ_FORWARD_LEN)),
+                       device=dev)
+    with torch.no_grad():
+        q(ids[:, :16])
+        for w in WRAPPERS.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lq = q(ids)[0, -1].float()
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+        lt = twin(ids)[0, -1].float()
+        for m in lin8:
+            m.plain = True
+        lp = q(ids)[0, -1].float()
+        for m in lin8:
+            m.plain = False
+    if launches.get("wo_int8") != n_body + n_head:
+        fail(f"ptq forward: launches {launches}, want wo_int8 "
+             f"{n_body + n_head}")
+    # the twin rounds every dequantized weight to bf16, which the int8
+    # products never do: through 32 random layers that alone moves the
+    # logits about as far as engine d's tolerance. So the logits gate holds
+    # the kernel against the plain int8 products (engine d's check), and
+    # against the twin only the argmax, unless its top two are within the
+    # tolerance; plain_vs_twin is reported, not gated
+    row = _parity_row(torch, 0, PTQ_FORWARD_LEN, lq, lt)
+    row["plain_vs_twin"] = (lp - lt).abs().max().item()
+    row["kernel_vs_plain"] = (lq - lp).abs().max().item()
+    if not row["kernel_vs_plain"] <= row["tol"] or (
+            row["plain_top2_gap"] > row["tol"]
+            and row["argmax_kernel"] != row["argmax_plain"]):
+        fail(f"ptq forward: last-position logits against the dequantized "
+             f"twin: {row}")
+    calls = []
+    for b in (1, PTQ_BATCH):
+        prompts = rng.integers(0, cfg.vocab_size, (b, PTQ_PROMPT_LEN))
+        calls.append(_int8_generate(
+            torch, f"ptq generate B {b}", q, twin, prompts.tolist(),
+            PTQ_NEW_TOKENS, n_head, n_body))
+    emit({"phase": "ptq", "model": "llama3_8b", "layers": cfg.num_layers,
+          "calibration": [PTQ_CALIB, PTQ_CALIB_LEN],
+          "int8_projections": len(lin8), "quantize_s": quantize_s,
+          "observed_scale_range": [min(scales), max(scales)],
+          "int8_weight_bytes": int8_bytes, "bf16_weight_bytes": bf16_bytes,
+          "bytes_ratio": ratio, "forward_len": PTQ_FORWARD_LEN,
+          "forward_ms": forward_ms, "forward_launches": launches,
+          "forward_parity": row, "generate": calls,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del q, twin
+    _free(torch)
+
+
+def _parse_exposition(text):
+    """The Prometheus text exposition (0.0.4) walked line by line: HELP and
+    TYPE before a family's samples, every sample ``name{labels} value``
+    of a declared family (a histogram's ``_bucket`` / ``_sum`` /
+    ``_count``), labels well-formed. Returns {sample name: [(labels,
+    value)]}; fails on anything else."""
+    import re
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    kinds, out = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            kinds[name] = kind
+            continue
+        m = sample.match(line)
+        if m is None:
+            fail(f"http /metrics: not an exposition line: {line!r}")
+        name, labels, value = m.group(1), m.group(2) or "", float(m.group(3))
+        fam = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and \
+                    kinds.get(name[:-len(suffix)]) == "histogram":
+                fam = name[:-len(suffix)]
+        pairs = label.findall(labels)
+        if fam not in kinds or ",".join(
+                f'{k}="{v}"' for k, v in pairs) != labels:
+            fail(f"http /metrics: undeclared family or bad labels: {line!r}")
+        out.setdefault(name, []).append((dict(pairs), value))
+    return out
+
+
+def _http_get(base, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _http_post(base, body):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(base + "/generate",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _serve_turn(engine, prompts, tokens, hooks=None):
+    """One turn of ``prompts`` at ``tokens`` new tokens each through
+    ``engine``, timed on the host: the window from the first submit to the
+    last result (tokens/s), the wall of every scheduler iteration
+    (``scheduler.step``, wrapped for the turn), and what of those walls
+    lies outside the engine's forward spans (``prefill_ms`` / ``chunk_ms``
+    / ``step_ms`` / ``verify_ms``: the forward, the sampling and the read
+    back), which is the scheduler's own host work, where the serving hooks
+    run. ``hooks`` True / False turns metrics, tracing and the flight
+    recorder all on / all off for the turn (None: leave them, for a tree
+    that has none)."""
+    sched = engine.scheduler
+    spans = [getattr(engine, n) for n in ("prefill_ms", "chunk_ms",
+                                          "step_ms", "verify_ms")]
+    if hooks is not None:
+        import paddle_tpu_torch.observability as obs
+        from paddle_tpu_torch.observability import flight, tracing
+        for mod in (obs, flight, tracing):
+            mod.enable(hooks)
+    iters, step = [], sched.step
+
+    def timed():
+        t0 = time.perf_counter()
+        try:
+            return step()
+        finally:
+            iters.append((time.perf_counter() - t0) * 1e3)
+
+    for times in spans:
+        times.clear()
+    sched.step = timed
+    try:
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, max_new_tokens=tokens) for p in prompts]
+        done = sum(len(r.result(timeout=900)) for r in reqs)
+        window = time.perf_counter() - t0
+        time.sleep(0.1)     # the iteration that completed the last request
+    finally:
+        del sched.step
+        if hooks is not None:
+            for mod in (obs, flight, tracing):
+                mod.enable(True)
+    inside = sum(sum(times) for times in spans)
+    return {"hooks": {None: "none", True: "on", False: "off"}[hooks],
+            "tokens": done, "window_s": window, "tokens_per_s": done / window,
+            "iterations": len(iters), "iter_ms_mean": sum(iters) / len(iters),
+            "host_ms_per_iter": (sum(iters) - inside) / len(iters),
+            "decode_steps": len(spans[2]),
+            "decode_step_ms_mean": sum(spans[2]) / max(1, len(spans[2]))}
+
+
+def _turn_medians(turns):
+    """Per hooks mode, the median and the range of each turn metric."""
+    out = {}
+    for mode in sorted({t["hooks"] for t in turns}):
+        rows = [t for t in turns if t["hooks"] == mode]
+        for key in ("tokens_per_s", "iter_ms_mean", "host_ms_per_iter",
+                    "decode_step_ms_mean"):
+            xs = sorted(t[key] for t in rows)
+            mid = len(xs) // 2
+            med = xs[mid] if len(xs) % 2 else (xs[mid - 1] + xs[mid]) / 2
+            out.setdefault(mode, {})[key] = {"median": med, "min": xs[0],
+                                             "max": xs[-1]}
+    return out
+
+
+def phase_http(torch, np, model, engine, prompts, served):
+    """Engine b behind the HTTP front: ``serving.server.serve(engine,
+    port=0, host="127.0.0.1")``, engine b's 12 prompts posted to ``POST
+    /generate`` from HTTP_CLIENTS client threads, every second request
+    streaming (NDJSON). Gates: the tokens against engine b's in-process
+    ones by :func:`_agreement`; ``/metrics`` a well-formed exposition whose
+    generated-token counter equals the tokens returned, whose decode-step
+    counter equals ``stats()``'s steps over the run, and whose TTFT and
+    e2e histograms count 12; ``/healthz`` 200 in serving mode;
+    ``/requests`` 12 records; ``/flight`` 12 submit, prefill and complete
+    events; a bad body 400 and an over-long prompt 429. Then, as a
+    finding, engine b's serving with metrics, tracing and the flight
+    recorder all on against all off (:func:`_serve_turn`: tokens/s over
+    the window, the scheduler iteration's wall and its host work outside
+    the forward), in HTTP_AB_ROUNDS rounds of turns on, off, off, on (each
+    mode's medians and range, and the medians' ratios)."""
+    import threading
+
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.observability import flight, tracing
+    from paddle_tpu_torch.serving import ServingModel, server
+
+    obs.reset()
+    flight.clear()
+    tracing.reset()
+    steps0 = engine.stats()["decode_steps"]
+    srv = server.serve(engine, port=0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{srv.port}"
+    results, errors = [None] * len(prompts), []
+
+    def client(k):
+        for i in range(k, len(prompts), HTTP_CLIENTS):
+            stream = i % 2 == 1
+            code, raw = _http_post(base, {
+                "prompt_ids": prompts[i], "stream": stream,
+                "max_new_tokens": SERVE_NEW_TOKENS})
+            if code != 200:
+                errors.append((i, code, raw[:200]))
+                continue
+            if stream:
+                lines = [json.loads(x) for x in raw.splitlines()]
+                toks = [x["token"] for x in lines[:-1]]
+                if not lines[-1].get("done") or lines[-1]["tokens"] != toks:
+                    errors.append((i, "stream", lines[-1]))
+                results[i] = toks
+            else:
+                results[i] = json.loads(raw)["tokens"]
+
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors or any(r is None for r in results):
+            fail(f"http: failed requests {errors}")
+        sm = ServingModel(model).bind_pool(engine.pool)
+        rows = _agreement(torch, "http against engine b", results,
+                          [o[:SERVE_NEW_TOKENS] for o in served],
+                          lambda i, j: _next_logits(torch, sm, engine,
+                                                    prompts[i]
+                                                    + served[i][:j]))
+        code, raw = _http_get(base, "/metrics")
+        metrics = _parse_exposition(raw.decode())
+        value = lambda name, **lab: next(  # noqa: E731
+            (v for labels, v in metrics.get(name, []) if labels == lab), None)
+        generated = sum(len(r) for r in results)
+        steps = engine.stats()["decode_steps"] - steps0
+        got = {
+            "tokens_generated": value("paddle_tpu_serving_tokens_total",
+                                      kind="generated"),
+            "decode_steps": value("paddle_tpu_serving_decode_steps_total"),
+            "ttft_count": value("paddle_tpu_serving_ttft_ms_count"),
+            "e2e_count": value("paddle_tpu_serving_e2e_ms_count"),
+            "completed": value("paddle_tpu_serving_requests_total",
+                               status="completed")}
+        want = {"tokens_generated": generated, "decode_steps": steps,
+                "ttft_count": len(prompts), "e2e_count": len(prompts),
+                "completed": len(prompts)}
+        if code != 200 or got != want:
+            fail(f"http /metrics: {got}, want {want} (status {code})")
+        hcode, hraw = _http_get(base, "/healthz")
+        health = json.loads(hraw)
+        rcode, rraw = _http_get(base, "/requests?last=100")
+        records = json.loads(rraw)["requests"]
+        fcode, fraw = _http_get(base, "/flight")
+        kinds = [e["kind"] for e in json.loads(fraw)["events"]]
+        counts = {k: kinds.count(k) for k in
+                  ("serving_submit", "serving_prefill", "serving_complete")}
+        if hcode != 200 or health.get("mode") != "serving" or \
+                rcode != 200 or len(records) != len(prompts) or \
+                fcode != 200 or set(counts.values()) != {len(prompts)}:
+            fail(f"http: /healthz {hcode} {health}, /requests {rcode} "
+                 f"{len(records)} records, /flight {fcode} {counts}")
+        trace = json.loads(_http_get(
+            base, f"/trace/{records[0]['trace_id']}")[1])
+        bad, _ = _http_post(base, {"prompt_ids": "nope"})
+        long, _ = _http_post(base, {"prompt_ids": [1] * engine.max_seq_len,
+                                    "max_new_tokens": SERVE_NEW_TOKENS})
+        if (bad, long) != (400, 429):
+            fail(f"http: bad body {bad} (want 400), over-long prompt "
+                 f"{long} (want 429)")
+    finally:
+        srv.close()
+        server.detach()
+    turns = [_serve_turn(engine, prompts, HTTP_AB_TOKENS, hooks=on)
+             for on in (True, False, False, True) * HTTP_AB_ROUNDS]
+    medians = _turn_medians(turns)
+    summary = engine.shutdown()
+    if summary["pages_leaked"] or engine.pool.lost():
+        fail(f"http: pages leaked or lost: {summary}")
+    emit({"phase": "http", "engine": "default", "clients": HTTP_CLIENTS,
+          "requests": len(prompts), "streamed": len(prompts) // 2,
+          "generated_tokens": generated, "wall_s": wall,
+          "tokens_per_s": generated / wall, "agreement": rows,
+          "metrics": got, "healthz": health,
+          "ttft_ms_mean": sum(r["ttft_ms"] for r in records) / len(records),
+          "e2e_ms_mean": sum(r["e2e_ms"] for r in records) / len(records),
+          "span_kinds": records[0]["span_kinds"],
+          "trace_spans": len(trace.get("spans", [])),
+          "flight_event_kinds": sorted(set(kinds)),
+          "hooks_turns": turns, "hooks_medians": medians,
+          "hooks_on_over_off": {
+              k: medians["on"][k]["median"] / medians["off"][k]["median"]
+              for k in medians["on"]}})
+
+
+def _quanter_state(torch, net, cls):
+    return [(m._scale.clone(), m._inited.clone()) for m in net.modules()
+            if isinstance(m, cls)]
+
+
+def phase_qat(torch, dev):
+    """QAT on GPT-2 small (BASELINE config #1, bf16 from a seed):
+    ``QAT(QuantConfig(activation=FakeQuanterWithAbsMaxObserver(),
+    weight=FakeQuanterWithAbsMaxObserver()))`` wraps its 4L projections.
+    The train-parity gate (``_grad_parity``, kernel path against plain and
+    an f32 copy, QAT_PARITY_BATCHES batches of B 8 x S 1024), every path
+    starting from the same quanter state: the weight quanters' scales
+    equal on both paths, the activation quanters' within QAT_ACT_SCALE_TOL
+    relative (their absmax is taken of bf16 activations that the two
+    paths round apart). Then QAT_STEPS AdamW steps with the fused trunk's
+    launches and a falling loss; ``QAT.convert``, ``PTQ`` with an absmax
+    observer and ``convert`` to ``Int8WeightOnlyLinear``; cached
+    ``generate`` B 8 x QAT_NEW_TOKENS held against the dequantized twin."""
+    import copy
+
+    from paddle_tpu_torch.models import gpt2_small
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.quantization import (
+        PTQ, QAT, AbsmaxObserver, FakeQuanterWithAbsMaxObserver, QuantConfig,
+        QuantedLinear)
+
+    torch.cuda.reset_peak_memory_stats()
+    quanter = FakeQuanterWithAbsMaxObserver
+    qat = QAT(QuantConfig(activation=quanter(), weight=quanter()))
+    model = qat.quantize(gpt2_small(device=dev, dtype=torch.bfloat16, seed=0),
+                         inplace=True)
+    cfg = model.cfg
+    layers = cfg.num_layers
+    wrapped = [m for m in model.modules() if isinstance(m, QuantedLinear)]
+    if len(wrapped) != 4 * layers:
+        fail(f"qat: {len(wrapped)} QuantedLinears, want {4 * layers}")
+    weight_q = {id(m.weight_quanter) for m in wrapped}
+    gen = torch.Generator(device=dev).manual_seed(2052)
+    batches = []
+    for _ in range(QAT_PARITY_BATCHES):
+        toks = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ + 1),
+                             generator=gen, device=dev)
+        batches.append((toks[:, :-1].contiguous(), toks[:, 1:].contiguous()))
+    ids, labels = batches[0]
+    with torch.no_grad():
+        model(ids, labels=labels)        # the quanters' first scales
+    ref = copy.deepcopy(model).float()
+    snaps, scales = {}, {}
+
+    def loss_fn(net, plain, ids, labels):
+        qs = [m for m in net.modules() if isinstance(m, quanter)]
+        snap = snaps.setdefault(id(net), _quanter_state(torch, net, quanter))
+        with torch.no_grad():
+            for m, (s, i) in zip(qs, snap):
+                m._scale.copy_(s)
+                m._inited.copy_(i)
+        _, loss = net(ids, labels=labels, plain=plain)
+        if net is model:
+            scales.setdefault(plain, []).append(
+                [(id(m) in weight_q, m._scale.item()) for m in qs])
+        return loss
+
+    _grad_parity(torch, "qat gpt2_small", model, ref, batches,
+                 loss_fn=loss_fn)
+    del ref
+    worst_w = worst_a = 0.0
+    for k_run, p_run in zip(scales[False], scales[True]):
+        for (is_w, sk), (_, sp) in zip(k_run, p_run):
+            rel = abs(sk - sp) / max(abs(sp), 1e-30)
+            if is_w:
+                worst_w = max(worst_w, rel)
+            else:
+                worst_a = max(worst_a, rel)
+    if worst_w != 0.0 or worst_a > QAT_ACT_SCALE_TOL:
+        fail(f"qat: quanter scales differ between the kernel and plain "
+             f"paths: weights {worst_w} (want 0), activations {worst_a} "
+             f"(tol {QAT_ACT_SCALE_TOL})")
+    with torch.no_grad():
+        qs = [m for m in model.modules() if isinstance(m, quanter)]
+        for m, (s, i) in zip(qs, snaps[id(model)]):
+            m._scale.copy_(s)
+            m._inited.copy_(i)
+    opt = AdamW(3e-4, parameters=model.parameters(), weight_decay=0.01,
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    n_tensors = len(list(model.parameters()))
+    want = {"block_epilogue": 2 * layers, "block_epilogue_bwd": 2 * layers,
+            "flash_attention": layers, "flash_attention_bwd": layers,
+            "adamw": n_tensors}
+    scale0 = [m._scale.item() for m in qs]
+    losses, step_ms, launches = _train_steps(
+        torch, "qat train", model, opt, ids, labels, QAT_STEPS, want)
+    moved = sum(m._scale.item() != s for m, s in zip(qs, scale0))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] or not moved:
+        fail(f"qat train: losses {losses}, {moved} quanter scales moved")
+    prof = _profile(torch, lambda: _train_step(torch, model, opt, ids,
+                                               labels), reps=2)
+    emit({"phase": "profile", "qat_train_step": prof})
+    deploy = qat.convert(model)
+    del opt, model
+    _free(torch)
+    ptq = PTQ(QuantConfig(activation=AbsmaxObserver(), weight=None))
+    int8 = ptq.quantize(deploy, inplace=True)
+    with torch.no_grad():
+        int8(ids[:1])
+    ptq.convert(int8, inplace=True)
+    lin8 = _int8_linears(int8)
+    if len(lin8) != 4 * layers:
+        fail(f"qat: {len(lin8)} int8 projections after PTQ, want "
+             f"{4 * layers}")
+    twin = _dequantized_twin(torch, int8, torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (GPT_GEN_BATCH, QAT_PROMPT_LEN),
+                            generator=gen, device=dev).tolist()
+    call = _int8_generate(torch, "qat int8 generate", int8, twin, prompts,
+                          QAT_NEW_TOKENS, 0, 4 * layers)
+    steady = step_ms[1:]
+    emit({"phase": "qat", "model": "gpt2_small", "layers": layers,
+          "quanted_linears": len(wrapped), "quanters": len(qs),
+          "batch": GPT_BATCH, "seq": GPT_SEQ, "losses": losses,
+          "step_ms": step_ms,
+          "step_ms_mean_after_first": sum(steady) / len(steady),
+          "launches_per_step": launches,
+          "scale_rel_diff_weights": worst_w,
+          "scale_rel_diff_activations": worst_a,
+          "scale_tol_activations": QAT_ACT_SCALE_TOL,
+          "quanter_scales_moved": moved, "int8_generate": call,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del int8, twin, deploy
+    _free(torch)
+
+
+def phase_int8_grad(torch, dev):
+    """Training around frozen int8 projections: ``llama3_8b(num_layers=
+    TRAIN_LAYERS)`` in bf16 with every decoder projection PTQ-converted
+    (``Int8WeightOnlyLinear``, frozen); the embedding, the norms and the
+    head train with AdamW (master weights, a global-norm clip) on B 2 x S
+    2048. The forward runs the int8 kernel at M 4096 (the prefill kernel);
+    ``dx`` of every projection the weight-only VJP (``torch.matmul`` on
+    the dequantised bf16 weight). Gates: ``_grad_parity`` against the
+    plain path and an f32 copy; INT8_GRAD_STEPS steps with their launches
+    and a falling loss. Reported: the backward's dequantised weights
+    (bytes a step, and the cast's and dx products' cold times at each
+    projection shape) and a profile of a step."""
+    import copy
+
+    from paddle_tpu_torch.models import llama3_8b
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.quantization import AbsmaxObserver, PTQ, QuantConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    layers = TRAIN_LAYERS
+    model = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0,
+                      num_layers=layers)
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(2053)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=gen, device=dev)
+    ids, labels = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+    ptq = PTQ(QuantConfig(activation=AbsmaxObserver(), weight=None))
+    ptq.quantize(model.layers, inplace=True)
+    with torch.no_grad():
+        model(ids[:1, :512])
+    ptq.convert(model.layers, inplace=True)
+    _free(torch)
+    lin8 = _int8_linears(model)
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    if len(lin8) != 7 * layers or len(trainable) != 2 * layers + 3:
+        fail(f"int8_grad: {len(lin8)} int8 projections (want {7 * layers}),"
+             f" {len(trainable)} trainable tensors (want {2 * layers + 3})")
+    ref = copy.deepcopy(model).float()
+
+    def loss_fn(net, plain, ids, labels):
+        for m in _int8_linears(net):
+            m.plain = plain
+        _, loss = net(ids, labels=labels, plain=plain)
+        return loss
+
+    _grad_parity(torch, "int8_grad llama", model, ref, [(ids, labels)],
+                 loss_fn=loss_fn)
+    del ref
+    for m in lin8:
+        m.plain = False
+    opt = AdamW(1e-4, parameters=trainable, weight_decay=0.01,
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    want = {"rms_norm": 1, "rms_norm_bwd": 1,
+            "block_epilogue": 2 * layers, "block_epilogue_bwd": 2 * layers,
+            "rope": 2 * layers, "swiglu": layers, "swiglu_bwd": layers,
+            "flash_attention": layers, "flash_attention_bwd": layers,
+            "adamw": len(trainable), "wo_int8": len(lin8)}
+    losses, step_ms, launches = _train_steps(
+        torch, "int8_grad train", model, opt, ids, labels, INT8_GRAD_STEPS,
+        want)
+    heldout, uniform = _heldout(torch, model, gen, cfg.vocab_size,
+                                TRAIN_BATCH, TRAIN_SEQ)
+    _check_curve("int8_grad train", losses, heldout, uniform)
+    timer = ColdTimer(torch, dev)
+    m_rows = TRAIN_BATCH * TRAIN_SEQ
+    shapes = {}
+    for m in lin8:
+        shapes.setdefault(tuple(m.weight_int8.shape), []).append(m)
+    dequant = []
+    for (k, n), mods in sorted(shapes.items()):
+        m = mods[0]
+        g = torch.randn(m_rows, n, device=dev, dtype=torch.bfloat16)
+        wd = m.weight_int8.to(torch.bfloat16)
+        cast_ms = timer(lambda: m.weight_int8.to(torch.bfloat16))
+        gs_ms = timer(lambda: g * m.scales.to(torch.bfloat16))
+        gs = g * m.scales.to(torch.bfloat16)
+        dx_ms = timer(lambda: torch.matmul(gs, wd.t()))
+        dequant.append({
+            "weight": [k, n], "per_step": len(mods),
+            "dense_bytes": 2 * k * n, "cast_ms": cast_ms,
+            "cast_bound_ms": 3 * k * n / MEM_BYTES_PER_S * 1e3,
+            "g_scale_ms": gs_ms, "dx_matmul_ms": dx_ms,
+            "dx_bound_ms": 2 * m_rows * k * n / BF16_TC_FLOPS_PER_S * 1e3})
+        del g, wd, gs
+    prof = _profile(torch, lambda: _train_step(torch, model, opt, ids,
+                                               labels), reps=2)
+    steady = step_ms[1:]
+    emit({"phase": "int8_grad", "model": "llama3_8b", "layers": layers,
+          "int8_projections": len(lin8), "trainable_tensors": len(trainable),
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+          "step_ms": step_ms,
+          "step_ms_mean_after_first": sum(steady) / len(steady),
+          "launches_per_step": launches, "heldout_loss": heldout,
+          "uniform_loss": uniform,
+          "backward_dequantized_bytes_per_step": sum(
+              r["dense_bytes"] * r["per_step"] for r in dequant),
+          "backward_dequant_ms_per_step": sum(
+              (r["cast_ms"] + r["g_scale_ms"]) * r["per_step"]
+              for r in dequant),
+          "backward_dx_ms_per_step": sum(
+              r["dx_matmul_ms"] * r["per_step"] for r in dequant),
+          "dequant_rows": dequant,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    emit({"phase": "profile", "int8_grad_train_step": prof})
+    del model, opt
+    _free(torch)
+
+
 def phase_profile(torch, model, engine, prompts):
     """Where a decode step (8 rows at the served prompts' lengths) and a
     512-token prefill chunk (at position 1024) spend their device time, on
@@ -5169,6 +5890,9 @@ def main() -> int:
     launches["wo_int4"] = qe_launches["wo_int4"]
     launches["wo_int8_grouped"] = qf_launches["wo_int8_grouped"]
     launches["a8w8"] = llm_launches["a8w8"]
+    # PTQ of the served model, then engine b behind the HTTP front
+    phase_ptq(torch, np, model)
+    phase_http(torch, np, model, d_engine, d_prompts, d_served)
 
     # training, once every serving model and engine is freed
     del model, engine, d_engine, c_engine
@@ -5177,11 +5901,15 @@ def main() -> int:
     for name in TRAIN_KERNELS:
         launches[name] = train_launches[name]
     _free(torch)
+    phase_int8_grad(torch, dev)
+    _free(torch)
     packed_launches = phase_packed_mlp(torch, dev)
     for name in PACKED_KERNELS:
         launches[name] = packed_launches[name]
     _free(torch)
     phase_train_gpt(torch, dev)
+    _free(torch)
+    phase_qat(torch, dev)
     _free(torch)
     phase_optimizers(torch, dev)
     _free(torch)

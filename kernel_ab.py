@@ -18,6 +18,7 @@ between runs): run it on each tree in turns (A, B, B, A).
     python3 kernel_ab.py <checkout root> <tag> normbwd [--train]
     python3 kernel_ab.py <checkout root> <tag> spec [--rounds=N]
     python3 kernel_ab.py <checkout root> <tag> fused
+    python3 kernel_ab.py <checkout root> <tag> serve [--rounds=N] [--tokens=N]
 
 Prints one JSON line per measurement, each with ``tag``. Family
 ``flash``:
@@ -288,9 +289,23 @@ then ``spec_summary``: each engine's median tokens/s and each spec-on
 engine's ratio to ``off`` a round (the rounds' median, and in how many
 rounds it beat ``off``).
 
+Family ``serve`` (engine b's host-bound serving path and its hooks):
+Llama-3-8B (random weights) on engine b's configuration serves engine b's
+traffic of ``chip_smoke.py`` once as its ``serve`` phase does
+(``chip_smoke._serve``: one line ``serve`` with that phase's row), then
+``N`` rounds (default 6) of four turns of the same prompts at ``M`` new
+tokens each (default 32), timed by this script's own
+``chip_smoke._serve_turn`` (tokens/s over the window, the scheduler
+iteration's wall and its host work outside the forward): on a checkout
+with ``paddle_tpu_torch.observability``, metrics, tracing and the flight
+recorder all on, off, off, on; on one without, four turns as they are.
+One line a turn, then ``serve_summary``: each mode's medians and range.
+
 The checkout's own ``paddle_tpu_torch`` and ``chip_smoke.py`` are imported
 (the tree is put first on ``sys.path``), so a parent commit unpacked with
-``git archive`` into an ignored directory measures as it was.
+``git archive`` into an ignored directory measures as it was; the
+``serve`` family's turns are timed by the ``chip_smoke.py`` beside this
+script, the same code on either tree.
 """
 
 import json
@@ -313,7 +328,7 @@ def main() -> int:
                 "epi": _epi, "moe": _moe, "dl": _dl, "decode": _decode,
                 "softmax": _softmax, "rows": _rows,
                 "norm": _norm, "swiglu": _swiglu, "normbwd": _normbwd,
-                "spec": _spec, "fused": _fused}
+                "spec": _spec, "fused": _fused, "serve": _serve}
     if family not in families:
         cs.fail(f"family {family!r}: one of {', '.join(families)}")
     if not torch.cuda.is_available():
@@ -909,6 +924,55 @@ def _spec(torch, cs, dev, timer, randn, emit):
                          "ratios": ratios}
     emit(spec_summary=summary)
     del model
+    cs._free(torch)
+
+
+def _own_smoke():
+    """The ``chip_smoke.py`` beside this script, whichever checkout's
+    modules are measured."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_own", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _serve(torch, cs, dev, timer, randn, emit):
+    import importlib.util
+
+    import numpy as np
+
+    from paddle_tpu_torch.models import llama3_8b
+    from paddle_tpu_torch.serving import LLMEngine, ServingConfig
+
+    arg = lambda name, d: int(next(  # noqa: E731
+        (a.split("=", 1)[1] for a in sys.argv[4:]
+         if a.startswith(f"--{name}=")), d))
+    rounds, tokens = arg("rounds", 6), arg("tokens", 32)
+    own = _own_smoke()
+    hooks = importlib.util.find_spec("paddle_tpu_torch.observability")
+    modes = (True, False, False, True) if hooks else (None,) * 4
+    cs._free(torch)
+    model = llama3_8b(device=dev, seed=0)
+    engine = LLMEngine(model, cs._quant_config(ServingConfig))
+    prompts = cs.default_prompts(np, model.cfg.vocab_size)
+    reqs, _, wall, launches, stats = cs._serve(torch, np, engine, prompts)
+    row = cs._serve_row(torch, np, engine, reqs, wall, launches, stats)
+    emit(serve={k: v for k, v in row.items()
+                if k not in ("pages", "launches", "prompt_lens")})
+    turns = []
+    for r in range(rounds):
+        for on in modes:
+            turns.append(own._serve_turn(engine, prompts, tokens, hooks=on))
+            emit(turn=turns[-1], round=r)
+    emit(serve_summary={"rounds": rounds, "tokens": tokens,
+                        "medians": own._turn_medians(turns)})
+    engine.shutdown()
+    del model, engine
     cs._free(torch)
 
 

@@ -10,8 +10,7 @@ without a relayout. Byte for byte what the JAX package packs.
 
 ``plain=True`` runs the kernels' plain PyTorch versions on any device (a
 check on the card holds the two paths against each other). The layer
-classes (``QuantedLinear``, ``Int8WeightOnlyLinear``) come with the
-quantization APIs.
+classes are in ``quantization.wrapper`` and ``nn.quant.quant_layers``.
 """
 
 from __future__ import annotations

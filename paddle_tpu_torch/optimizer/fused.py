@@ -49,7 +49,7 @@ Design, point by point as in JAX:
   ``fallbacks``, and that structure then runs eagerly, as JAX's
   ``test_fused_compile_failure_falls_back_loudly`` expects. A failed
   capture updates nothing, so the eager step that follows applies the
-  update once.
+  update once, and it leaves the card's default generator as it found it.
 * **On the CPU** there is no graph: the same bookkeeping (warm-up, key,
   stats) runs over the eager loop.
 
@@ -229,6 +229,8 @@ class FusedOptimizerStep:
         graph = torch.cuda.CUDAGraph()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
+        rng = torch.cuda.default_generators[torch.cuda.current_device()]
+        rng_state = rng.clone_state()
         try:
             with torch.cuda.stream(side):
                 graph.capture_begin()
@@ -236,6 +238,11 @@ class FusedOptimizerStep:
                     self._opt._update(list(params_grads))
                 finally:
                     graph.capture_end()
+        except Exception:
+            # a capture that fails leaves the default generator marked as
+            # capturing, and every later draw on the card would raise
+            rng.graphsafe_set_state(rng_state)
+            raise
         finally:
             torch.cuda.current_stream().wait_stream(side)
         return _Graph(graph, grads)

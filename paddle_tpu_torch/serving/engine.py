@@ -19,11 +19,19 @@ Gumbel sampling from the engine's seeded ``torch.Generator``. With
 ``spec_k`` K > 0 a step where any request drafted runs :meth:`verify` over
 K + 1 lanes a row (``serving/speculative.py``), its acceptance draws from
 the same generator.
+
+``serving.server.serve(engine, port)`` mounts the engine on the telemetry
+server (``POST /generate``, the serving ``/healthz``). ``health()`` is
+that liveness payload. ``install_preemption()`` arms SIGTERM to drain the
+requests in flight, dump the flight recorder (reason
+``serving_preempted``, with the spans open at the signal), shut the
+telemetry server down and exit 143, as the JAX engine does.
 """
 
 from __future__ import annotations
 
 import queue
+import signal
 import threading
 import time
 import warnings
@@ -33,6 +41,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability import flight as _flight
+from ..observability import metrics as _metrics
 from .kv_cache import PagePool
 from .model import ServingModel
 from .prefix_cache import PrefixCache, model_fingerprint
@@ -43,6 +53,11 @@ __all__ = ["ServingConfig", "LLMEngine"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+_CHUNKS = _metrics.counter("paddle_tpu_serving_prefill_chunks_total",
+                           "chunked-prefill program runs (incl. cache-hit "
+                           "suffix chunks)")
+_REC = _flight.get_recorder()
 
 
 @dataclass
@@ -85,6 +100,7 @@ class ServingConfig:
     #                              acceptance-rate EWMA (K 0 = plain decode)
     dtype: str = "float32"       # KV pool dtype
     seed: int = 0
+    flight_every: int = 50       # decode-step flight event cadence
     drain_timeout_s: float = 30.0
 
 
@@ -179,6 +195,17 @@ class LLMEngine:
         self._thread: threading.Thread | None = None
         self._stop_mode: str | None = None
         self._drain_deadline = 0.0
+        self._t_started: float | None = None
+        self._last_step_wall: float | None = None
+        self._old_handlers: dict = {}
+        # preemption: the SIGNAL handler only writes _preempt_code and
+        # waits on _drained; the engine thread sees the flag within one
+        # loop tick, drains, dumps, and sets the event
+        self._preempt_code: int | None = None
+        self._drained = threading.Event()
+        # the open spans at the signal, taken on the engine thread when
+        # the drain arms (the dump must carry them, not the drained state)
+        self._preempt_spans: list | None = None
 
     def _setup_fused_layer(self):
         """On the card, refuse a model or batch the decode-layer kernel does
@@ -252,6 +279,7 @@ class LLMEngine:
             req.prefilled = len(ctx)
             tok = self._first_token(req, logits)
         self.prefill_ms.append((time.perf_counter() - t0) * 1000.0)
+        self._last_step_wall = time.time()
         return tok
 
     def _chunk(self, req: Request, n: int):
@@ -264,6 +292,7 @@ class LLMEngine:
         logits = self._sm.prefill_chunk_forward(toks, start, n,
                                                 self._row(req))
         req.prefilled = start + n
+        _CHUNKS.inc()
         if req.prefilled >= len(ctx):
             return self._first_token(req, logits)
         self._sync()
@@ -274,6 +303,7 @@ class LLMEngine:
         t0 = time.perf_counter()
         tok = self._chunk(req, n)
         self.chunk_ms.append((time.perf_counter() - t0) * 1000.0)
+        self._last_step_wall = time.time()
         return tok
 
     def decode(self, tokens, positions, tables, temps):
@@ -284,6 +314,12 @@ class LLMEngine:
             torch.from_numpy(tables).to(dev))
         out = self._sample(logits, temps).cpu().numpy()
         self.step_ms.append((time.perf_counter() - t0) * 1000.0)
+        self._last_step_wall = time.time()
+        if _REC.enabled and self.scheduler.decode_steps % \
+                max(1, self.config.flight_every) == 0:
+            _REC.record("serving_decode", step=self.scheduler.decode_steps,
+                        active=len(self.scheduler.active_requests()),
+                        free_pages=self.pool.free_pages)
         return out
 
     def verify(self, tokens, positions, dlens, tables, temps):
@@ -303,6 +339,7 @@ class LLMEngine:
             torch.from_numpy(temps).to(dev), self._gen, self.config.top_k)
         arr = torch.cat([out, acc[:, None]], dim=1).cpu().numpy()
         self.verify_ms.append((time.perf_counter() - t0) * 1000.0)
+        self._last_step_wall = time.time()
         return arr[:, :-1], arr[:, -1]
 
     # -- lifecycle -----------------------------------------------------------
@@ -312,24 +349,53 @@ class LLMEngine:
             if self._thread is not None and self._thread.is_alive():
                 return self
             self._stop_mode = None
+            self._t_started = time.time()
             self._thread = threading.Thread(
                 target=self._loop, name="paddle-tpu-torch-serving",
                 daemon=True)
             self._thread.start()
         return self
 
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
     def _loop(self):
         # grad mode is per thread: the caller's no_grad does not reach here
         with torch.inference_mode():
             self._run()
+        if self._preempt_code is not None:
+            self._finish_preemption()
+
+    def _arm_preempt_drain(self):
+        """A signal asked for a drain: the handler only set a flag (it may
+        take no lock), the engine thread arms the drain here and keeps
+        the spans open at this moment for the dump."""
+        with self._cond:
+            if self._stop_mode is not None:
+                return
+            self._drain_deadline = time.monotonic() + \
+                self.config.drain_timeout_s
+            self._stop_mode = "drain"
+        try:
+            from ..observability import tracing as _tracing
+            self._preempt_spans = _tracing.open_spans()
+        except Exception:   # noqa: BLE001 — the dump must still happen
+            self._preempt_spans = None
 
     def _run(self):
         sched = self.scheduler
         while True:
+            if self._preempt_code is not None and self._stop_mode is None:
+                self._arm_preempt_drain()
             with self._cond:
                 while self._stop_mode is None and not sched.has_work():
                     self._cond.wait(0.05)
+                    if self._preempt_code is not None:
+                        break
                 mode = self._stop_mode
+            if mode is None and self._preempt_code is not None:
+                continue        # arm the drain at the top of the loop
             if mode == "abort":
                 break
             try:
@@ -345,10 +411,31 @@ class LLMEngine:
                 self._engine_error(e)
                 break
 
+    def _finish_preemption(self):
+        """After a signal-requested drain, on the engine thread: fail what
+        is left, dump the flight recorder, close the telemetry server,
+        then release the waiting signal handler."""
+        try:
+            self._finalize(drain=True)
+            extra = {"serving": self.stats()}
+            if self._preempt_spans is not None:
+                extra["tracing_at_preempt"] = {
+                    "open_spans": self._preempt_spans}
+            _flight.dump("serving_preempted",
+                         step=self.scheduler.decode_steps, extra=extra)
+            try:
+                from ..observability.continuous import shutdown_server
+                shutdown_server()
+            except Exception:   # noqa: BLE001 — the drain must finish
+                pass
+        finally:
+            self._drained.set()
+
     def _engine_error(self, e: Exception):
         """A device failure is engine-fatal: every request fails loudly
         rather than hanging."""
         msg = f"serving engine error: {type(e).__name__}: {e}"
+        _flight.record("serving_engine_error", error=repr(e)[:300])
         self.scheduler.abort_active(msg)
         self.scheduler.abort_queued(msg)
         with self._cond:
@@ -374,29 +461,49 @@ class LLMEngine:
                     f"serving engine thread did not exit within "
                     f"{timeout + 5.0:.1f}s of shutdown; failing requests "
                     f"anyway", RuntimeWarning, stacklevel=2)
+        return self._finalize(drain)
+
+    def _finalize(self, drain: bool) -> dict:
+        """Fail what remains and record the drain event; shared by
+        :meth:`shutdown` and the preemption path."""
         n_queued = self.scheduler.abort_queued("engine shut down")
         n_active = self.scheduler.abort_active(
             "drain timeout exceeded" if drain
             else "engine shut down before completion")
-        return {"drained": drain, "failed_queued": n_queued,
-                "failed_active": n_active,
-                "completed": self.scheduler.completed,
-                "pages_leaked": self.pool.leaked()}
+        summary = {"drained": drain, "failed_queued": n_queued,
+                   "failed_active": n_active,
+                   "completed": self.scheduler.completed,
+                   "pages_leaked": self.pool.leaked()}
+        _flight.record("serving_drain", **summary)
+        return summary
+
+    def close(self):
+        self.shutdown(drain=False)
+
+    def __enter__(self) -> "LLMEngine":
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.shutdown(drain=exc == (None, None, None))
+        return False
 
     # -- request surface -----------------------------------------------------
 
     def submit(self, prompt_ids, max_new_tokens: int | None = None,
                temperature: float | None = None, eos_token_id=None,
-               request_id: str | None = None, on_token=None) -> Request:
+               request_id: str | None = None, on_token=None,
+               traceparent: str | None = None) -> Request:
         """Enqueue one request (starts the engine thread). Raises
-        :class:`RequestRejected` when the request can never fit."""
+        :class:`RequestRejected` when the request can never fit.
+        ``traceparent`` joins an inbound W3C trace context (a malformed
+        value gives the request a fresh trace)."""
         cfg = self.config
         req = Request(
             prompt_ids,
             cfg.max_new_tokens if max_new_tokens is None else max_new_tokens,
             cfg.temperature if temperature is None else temperature,
             eos_token_id=eos_token_id, request_id=request_id,
-            on_token=on_token)
+            on_token=on_token, traceparent=traceparent)
         self.scheduler.submit(req)
         self.start()
         with self._cond:
@@ -427,6 +534,8 @@ class LLMEngine:
         return self.submit(prompt_ids, **kw).result(timeout)
 
     def stats(self) -> dict:
+        """The JAX engine's keys but ``programs``: the port traces no
+        programs, so it has no retrace counts to report."""
         sched = self.scheduler
         steps = sched.decode_steps
         return {
@@ -448,3 +557,100 @@ class LLMEngine:
             "speculative": sched.spec_stats(),
             "tokens_per_step": sched.tokens_per_step(),
         }
+
+    def health(self, stall_after_s: float = 120.0) -> tuple[int, dict]:
+        """Serving liveness: ``(http_code, payload)``. Healthy while idle;
+        stalled (503) when work exists but no prefill or decode step has
+        run within ``stall_after_s``."""
+        sched = self.scheduler
+        active = len(sched.active_requests())
+        depth = sched.queue_depth()
+        ref = self._last_step_wall or self._t_started
+        age = (time.time() - ref) if ref is not None else None
+        if not (active or depth):
+            status = "idle"
+        elif age is None:
+            status = "stalled" if not self.running else "starting"
+        else:
+            status = "ok" if age <= stall_after_s else "stalled"
+        tok = _metrics.get_registry().get("paddle_tpu_serving_tokens_total")
+        payload = {
+            "mode": "serving",
+            "status": status,
+            "decode_steps": sched.decode_steps,
+            "last_step_age_s": round(age, 3) if age is not None else None,
+            "stall_after_s": stall_after_s,
+            "active_requests": active,
+            "queue_depth": depth,
+            "tokens_per_s": round(
+                tok.rate(60.0, kind="generated"), 4) if tok else 0.0,
+            "kv_pages_free": self.pool.free_pages,
+            "kv_pages_used": self.pool.used_pages,
+            "kv_pages_cached": self.pool.cached_pages,
+            "prefix_hit_rate": sched.prefix_hit_rate(),
+            "spec_acceptance_rate": sched.spec_acceptance_rate(),
+            "timing_split": sched.timing_split(),
+        }
+        return (503 if status == "stalled" else 200), payload
+
+    # -- preemption ----------------------------------------------------------
+
+    def install_preemption(self, exit_code: int = 143,
+                           signals=(signal.SIGTERM,)) -> "LLMEngine":
+        """Arm signal-driven drain: on SIGTERM the engine drains the
+        requests in flight, dumps the flight recorder (reason
+        ``serving_preempted``), shuts the telemetry server down and exits
+        ``exit_code``.
+
+        The handler records a flight event (lock-free), writes one
+        attribute and waits, bounded, for the ENGINE thread to drain,
+        dump and shut the server down: taking the engine condition or the
+        scheduler lock here would deadlock whenever the signal lands while
+        the interrupted frame holds it."""
+
+        def _handler(signum, frame):
+            _flight.record("serving_preempt", signum=int(signum))
+            self._preempt_code = int(exit_code)
+            # waited in slices, so an engine thread that exits without
+            # running the preemption tail is noticed within one slice
+            deadline = time.monotonic() + \
+                self.config.drain_timeout_s + 30.0
+            drained = False
+            last_steps = self.scheduler.decode_steps
+            stalled = 0
+            while time.monotonic() < deadline:
+                if self._drained.wait(0.2):
+                    drained = True
+                    break
+                if not self.running:
+                    break
+                steps = self.scheduler.decode_steps
+                if steps == last_steps:
+                    stalled += 1
+                    if stalled >= 50:
+                        # ~10 s without a decode step: the signal likely
+                        # interrupted a frame holding a lock the drain
+                        # needs; exit with the dump
+                        break
+                else:
+                    stalled, last_steps = 0, steps
+            drained = drained or self._drained.is_set()
+            if not drained:
+                if self.running:
+                    _flight.record("serving_drain_timeout",
+                                   timeout_s=self.config.drain_timeout_s)
+                _flight.dump("serving_preempted",
+                             step=self.scheduler.decode_steps)
+            raise SystemExit(exit_code)
+
+        for sig in signals:
+            self._old_handlers[sig] = signal.signal(sig, _handler)
+        return self
+
+    def uninstall_preemption(self) -> None:
+        for sig, old in self._old_handlers.items():
+            try:
+                signal.signal(sig, old)
+            except (ValueError, OSError):
+                pass
+        self._old_handlers.clear()

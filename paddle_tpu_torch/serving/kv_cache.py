@@ -20,7 +20,10 @@ before a write would land there) or **cached** (refcount 0, kept because a
 prefix-cache key still names its contents; ``alloc`` reclaims cached pages
 LRU-first once the free list is empty). ``free`` is a decref. ``leaked()``
 counts referenced pages and ``lost()`` checks that the three states
-partition the pool.
+partition the pool. Every change of state sets the JAX package's gauges
+``paddle_tpu_serving_kv_pages{state}`` and
+``paddle_tpu_serving_shared_pages``; a failed allocation counts in
+``paddle_tpu_serving_page_alloc_failures_total``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from collections import OrderedDict
 
 import torch
 
+from ..observability import metrics as _metrics
 from ..ops.kernels import mmha
 
 __all__ = [
@@ -41,6 +45,15 @@ __all__ = [
 
 #: physical page id reserved as the write sink for padding / inactive rows
 TRASH_PAGE = 0
+
+_PAGES = _metrics.gauge("paddle_tpu_serving_kv_pages",
+                        "KV-cache pages by state (free/used/cached/total)")
+_SHARED = _metrics.gauge("paddle_tpu_serving_shared_pages",
+                         "KV pages mapped by more than one request "
+                         "(refcount >= 2)")
+_ALLOC_FAIL = _metrics.counter(
+    "paddle_tpu_serving_page_alloc_failures_total",
+    "page allocations that failed because the pool was exhausted")
 
 
 class PagePoolError(RuntimeError):
@@ -95,6 +108,7 @@ class PagePool:
         # prefix-cache hook, called (page, key) with the POOL lock held
         # whenever a cached page is reclaimed (its contents die)
         self._reclaim_cb = None
+        self._export()
 
     def set_reclaim_hook(self, cb) -> None:
         """``cb(page, key)`` fires (pool lock held) when a cached page is
@@ -103,6 +117,17 @@ class PagePool:
             self._reclaim_cb = cb
 
     # -- accounting ----------------------------------------------------------
+
+    def _export(self):
+        """The page gauges; one branch when metrics are off. Caller holds
+        the lock (or owns the pool, at construction)."""
+        if not _metrics._state.enabled:
+            return
+        _PAGES.set(len(self._free), state="free")
+        _PAGES.set(len(self._ref), state="used")
+        _PAGES.set(len(self._cached), state="cached")
+        _PAGES.set(self.allocatable, state="total")
+        _SHARED.set(self._shared)
 
     @property
     def allocatable(self) -> int:
@@ -155,6 +180,7 @@ class PagePool:
         >= 1 is never taken."""
         with self._lock:
             if n > len(self._free) + len(self._cached):
+                _ALLOC_FAIL.inc()
                 raise PagePoolExhausted(
                     f"need {n} page(s), {len(self._free)} free + "
                     f"{len(self._cached)} cached (pool {self.allocatable})")
@@ -164,6 +190,7 @@ class PagePool:
                     self._reclaim_lru_locked()
                 self._ref[p] = 1
                 pages.append(p)
+            self._export()
             return pages
 
     def _reclaim_lru_locked(self) -> int:
@@ -197,6 +224,7 @@ class PagePool:
                     f"cached")
             for p in pages:
                 self._take_ref_locked(p)
+            self._export()
 
     def claim_prefix(self, pairs) -> list:
         """Claim the longest verified prefix of ``pairs`` (``(page, key)``
@@ -213,6 +241,8 @@ class PagePool:
                     break
                 self._take_ref_locked(page)
                 claimed.append(page)
+            if claimed:
+                self._export()
         return claimed
 
     def retain_keys(self, pairs) -> None:
@@ -262,6 +292,7 @@ class PagePool:
                     self._cached[p] = key       # MRU end of the LRU
                 else:
                     self._free.append(p)
+            self._export()
 
     def copy_page(self, src: int, dst: int) -> None:
         """Copy one physical page's K and V across every layer, in place

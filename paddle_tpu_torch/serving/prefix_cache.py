@@ -25,8 +25,9 @@ reclaim (pool lock held) drops the map entry through :meth:`_evicted`;
 the cache never holds its own lock while calling into the pool, so the
 lock order is pool, then cache.
 
-Hits and misses are plain counters on the cache (the JAX package keeps
-them in its metric registry, which is not ported).
+Hits and misses count on the cache and in the JAX package's series
+``paddle_tpu_serving_prefix_hits_total`` / ``_misses_total``; the gauge
+``paddle_tpu_serving_prefix_entries`` follows the map's size.
 """
 
 from __future__ import annotations
@@ -34,7 +35,17 @@ from __future__ import annotations
 import hashlib
 import threading
 
+from ..observability import metrics as _metrics
+
 __all__ = ["PrefixCache", "chain_keys", "model_fingerprint"]
+
+
+_HITS = _metrics.counter("paddle_tpu_serving_prefix_hits_total",
+                         "full prompt pages served from the prefix cache")
+_MISSES = _metrics.counter("paddle_tpu_serving_prefix_misses_total",
+                           "full prompt pages that had to be prefilled")
+_ENTRIES = _metrics.gauge("paddle_tpu_serving_prefix_entries",
+                          "hash-chain entries resident in the prefix cache")
 
 
 def chain_keys(fingerprint: bytes, tokens, page_size: int) -> list:
@@ -135,6 +146,7 @@ class PrefixCache:
                 if k not in self._map:
                     self._map[k] = p
                     n += 1
+            _ENTRIES.set(len(self._map))
         return n
 
     def _evicted(self, page, key) -> None:
@@ -143,12 +155,17 @@ class PrefixCache:
         with self._lock:
             if self._map.get(key) == int(page):
                 del self._map[key]
+            _ENTRIES.set(len(self._map))
 
     def note_result(self, hit_pages: int, missed_pages: int) -> None:
         """Admission outcome, in pages."""
         with self._lock:
             self.hits_total += int(hit_pages)
             self.misses_total += int(missed_pages)
+        if hit_pages:
+            _HITS.inc(hit_pages)
+        if missed_pages:
+            _MISSES.inc(missed_pages)
 
     def stats(self) -> dict:
         with self._lock:

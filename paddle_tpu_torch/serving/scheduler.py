@@ -43,8 +43,16 @@ Before any KV write lands in a page shared with another request (refcount
 more pages than the pool holds) is rejected at :meth:`Scheduler.submit`.
 
 Chunked prefill spends at most ``prefill_budget`` tokens an iteration
-(default: one chunk). Not ported: the metrics, tracing and flight-recorder
-hooks.
+(default: one chunk).
+
+Observability, as the JAX scheduler's: the ``paddle_tpu_serving_*``
+series (requests, tokens, decode steps, prefills, evictions, copy-on-write
+copies, queue depth, occupancy, the TTFT / TPOT / e2e / queue-wait
+histograms, the speculative counters), a request trace a request (spans
+``queue_wait``, ``admit``, ``prefill`` or ``prefill_chunk``, ``decode`` and
+``speculate`` bursts, ``evict``, ``cow``, ``stream``) and the
+``serving_*`` flight events. With metrics, tracing and the flight recorder
+off, each hook costs one branch.
 """
 
 from __future__ import annotations
@@ -57,19 +65,84 @@ import uuid
 
 import numpy as np
 
+from ..observability import flight as _flight
+from ..observability import metrics as _metrics
+from ..observability import tracing as _tracing
 from .kv_cache import PagePoolExhausted
 from .speculative import NgramDrafter, SpecState
 
 __all__ = ["Request", "Scheduler", "RequestRejected", "ServingError",
-           "QUEUED", "RUNNING", "COMPLETED", "FAILED", "REJECTED"]
+           "QUEUED", "RUNNING", "COMPLETED", "FAILED", "REJECTED",
+           "CANCELLED"]
 
 QUEUED = "queued"
 RUNNING = "running"
 COMPLETED = "completed"
 FAILED = "failed"
 REJECTED = "rejected"
+CANCELLED = "cancelled"
 
-_TERMINAL = (COMPLETED, FAILED, REJECTED)
+_TERMINAL = (COMPLETED, FAILED, REJECTED, CANCELLED)
+
+_NOOP = _tracing.NOOP_TRACE
+_REC = _flight.get_recorder()      # hooks test ``_REC.enabled``: one branch
+_MON = _metrics._state             # ``_MON.enabled``: the metrics switch
+
+_MS_BUCKETS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+               1000.0, 2500.0, 5000.0, 10000.0, 30000.0)
+
+_REQS = _metrics.counter("paddle_tpu_serving_requests_total",
+                         "serving requests by terminal status")
+_SUBMITS = _metrics.counter("paddle_tpu_serving_submissions_total",
+                            "requests submitted to the engine")
+_TOKENS = _metrics.counter("paddle_tpu_serving_tokens_total",
+                           "tokens processed (kind=prompt|generated)",
+                           windowed=True)
+_STEPS = _metrics.counter("paddle_tpu_serving_decode_steps_total",
+                          "batched decode steps executed", windowed=True)
+_PREFILLS = _metrics.counter("paddle_tpu_serving_prefills_total",
+                             "prefill program runs by compile bucket")
+_EVICTIONS = _metrics.counter("paddle_tpu_serving_evictions_total",
+                              "requests evicted (pages reclaimed, requeued)")
+_COW = _metrics.counter("paddle_tpu_serving_cow_copies_total",
+                        "copy-on-write page copies (a write was about to "
+                        "land in a shared page)")
+_QUEUE = _metrics.gauge("paddle_tpu_serving_queue_depth",
+                        "requests waiting for admission")
+_ACTIVE = _metrics.gauge("paddle_tpu_serving_active_requests",
+                         "requests holding a decode slot")
+_OCC = _metrics.gauge("paddle_tpu_serving_batch_occupancy",
+                      "active decode slots / max_batch")
+_TTFT = _metrics.histogram("paddle_tpu_serving_ttft_ms",
+                           "submit -> first token (ms)", buckets=_MS_BUCKETS)
+_TPOT = _metrics.histogram("paddle_tpu_serving_tpot_ms",
+                           "inter-token latency after the first (ms; a "
+                           "multi-token speculative burst amortizes the "
+                           "step gap over its tokens)",
+                           buckets=_MS_BUCKETS)
+_E2E = _metrics.histogram("paddle_tpu_serving_e2e_ms",
+                          "submit -> completion (ms)", buckets=_MS_BUCKETS)
+_QUEUE_WAIT = _metrics.histogram(
+    "paddle_tpu_serving_queue_wait_ms",
+    "enqueue -> admission wait (ms; a re-admission after eviction "
+    "counts each wait segment) — the scheduler-delay share of TTFT",
+    buckets=_MS_BUCKETS)
+_SPEC_PROPOSED = _metrics.counter(
+    "paddle_tpu_serving_spec_proposed_tokens_total",
+    "draft tokens proposed to the verify program", windowed=True)
+_SPEC_ACCEPTED = _metrics.counter(
+    "paddle_tpu_serving_spec_accepted_tokens_total",
+    "draft tokens accepted by verification", windowed=True)
+_SPEC_REJECTED = _metrics.counter(
+    "paddle_tpu_serving_spec_rejected_tokens_total",
+    "draft tokens rejected by verification (KV rolled back)")
+_SPEC_RATE = _metrics.gauge(
+    "paddle_tpu_serving_spec_acceptance_rate",
+    "windowed draft acceptance rate (accepted/proposed over the last "
+    "60s of verify steps)")
+_SPEC_K = _metrics.gauge(
+    "paddle_tpu_serving_spec_k",
+    "current adaptive draft length K by decode slot")
 
 _arrival = itertools.count()
 
@@ -88,7 +161,8 @@ class Request:
     code holds it as a handle: ``result()``, ``events``, timing fields)."""
 
     def __init__(self, prompt, max_new_tokens, temperature=0.0,
-                 eos_token_id=None, request_id=None, on_token=None):
+                 eos_token_id=None, request_id=None, on_token=None,
+                 traceparent=None):
         self.prompt = [int(t) for t in prompt]
         if not self.prompt:
             raise ValueError("empty prompt")
@@ -119,9 +193,30 @@ class Request:
         self._pending_keys_len = -1
         self.events: queue.Queue = queue.Queue()
         self._done = threading.Event()
+        # timing (monotonic seconds; ms aggregates computed at finish)
         self.t_submit = time.monotonic()
+        self.t_first_token: float | None = None
+        self.t_done: float | None = None
+        self._t_last = None
         self.ttft_ms: float | None = None      # submit -> first token
         self.e2e_ms: float | None = None       # submit -> finished
+        self.tpot_ms: list[float] = []
+        # lifecycle split (queue wait, prefill compute, decode wall),
+        # tracked with tracing on or off: the request log and the HTTP
+        # summary carry it
+        self.queue_ms = 0.0
+        self.prefill_ms = 0.0
+        self.decode_ms: float | None = None
+        self._t_enqueued = self.t_submit
+        self._t_enqueued_wall = time.time()
+        # the request trace: NOOP_TRACE when tracing is off (hot paths
+        # check identity before building span attributes)
+        self.trace = _tracing.start_request(
+            request_id=self.request_id, traceparent=traceparent,
+            prompt_tokens=len(self.prompt),
+            max_new_tokens=self.max_new_tokens)
+        self._tr_burst: dict | None = None   # engine-thread-owned
+        self._stream_span = None
 
     # -- engine side ---------------------------------------------------------
 
@@ -155,25 +250,113 @@ class Request:
 
     def _emit_burst(self, toks) -> None:
         """Emit one step's generated tokens: one for a decode step, up to
-        K + 1 for a verify step."""
-        if toks and self.ttft_ms is None:
-            self.ttft_ms = (time.monotonic() - self.t_submit) * 1000.0
-        for t in toks:
-            t = int(t)
-            self.tokens.append(t)
-            self.events.put(("token", t))
-            if self.on_token is not None:
-                try:
-                    self.on_token(t)
-                except Exception:   # noqa: BLE001 — a user callback must
-                    pass            # never kill the engine loop
+        K + 1 for a verify step. Latency counts tokens, not steps: the gap
+        since the previous emission is spread over the burst's tokens
+        (TPOT, time per output token)."""
+        toks = [int(t) for t in toks]
+        if not toks:
+            return
+        now = time.monotonic()
+        if self.t_first_token is None:
+            self.t_first_token = now
+            self.ttft_ms = (now - self.t_submit) * 1000.0
+            _TTFT.observe(self.ttft_ms)
+            if self.trace is not _NOOP:
+                # stream-emission span: first delivered token -> finish
+                self._stream_span = self.trace.span("stream")
+            self.tokens.append(toks[0])
+            self._deliver(toks[0])
+            self._t_last = now
+            rest = toks[1:]
+        else:
+            rest = toks
+        if rest:
+            gap = (now - self._t_last) * 1000.0 / len(rest)
+            for t in rest:
+                self.tokens.append(t)
+                self.tpot_ms.append(gap)
+                _TPOT.observe(gap)
+                self._deliver(t)
+        self._t_last = now
+
+    def _deliver(self, token: int) -> None:
+        self.events.put(("token", token))
+        if self.on_token is not None:
+            try:
+                self.on_token(token)
+            except Exception:   # noqa: BLE001 — a user callback must
+                pass            # never kill the engine loop
+
+    def _trace_step(self, kind: str, t_start: float, tokens: int = 1,
+                    **extra) -> None:
+        """Fold one decode or verify iteration into the current span
+        burst: consecutive steps of one kind make ONE span until the kind
+        changes or the burst cap (``PADDLE_TPU_TRACE_BURST``) is reached;
+        numeric extras sum over the burst. Engine-thread-owned."""
+        if self.trace is _NOOP:
+            return
+        b = self._tr_burst
+        if b is not None and b["kind"] != kind:
+            self._trace_flush()
+            b = None
+        if b is None:
+            b = self._tr_burst = {"kind": kind, "t0": t_start,
+                                  "steps": 0, "tokens": 0, "extra": {}}
+        b["steps"] += 1
+        b["tokens"] += tokens
+        for k, v in extra.items():
+            b["extra"][k] = b["extra"].get(k, 0) + v
+        if b["steps"] >= _tracing.decode_burst():
+            self._trace_flush()
+
+    def _trace_flush(self) -> None:
+        b = self._tr_burst
+        if b is None:
+            return
+        self._tr_burst = None
+        self.trace.add_span(b["kind"], t_start=b["t0"], t_end=time.time(),
+                            steps=b["steps"], tokens=b["tokens"],
+                            **b["extra"])
 
     def _finish(self, state: str, error: str | None = None) -> None:
         if self.state in _TERMINAL:
             return
         self.state = state
         self.error = error
-        self.e2e_ms = (time.monotonic() - self.t_submit) * 1000.0
+        self.t_done = time.monotonic()
+        self.e2e_ms = (self.t_done - self.t_submit) * 1000.0
+        if self.t_first_token is not None:
+            self.decode_ms = (self.t_done - self.t_first_token) * 1000.0
+        _REQS.inc(status=state)
+        if state == COMPLETED:
+            _E2E.observe(self.e2e_ms)
+        if self.trace is not _NOOP:
+            self._trace_flush()
+            if self._stream_span is not None:
+                self._stream_span.end(tokens=len(self.tokens))
+                self._stream_span = None
+            if state == COMPLETED:
+                # exemplars: the TTFT / TPOT buckets name a trace id
+                if self.ttft_ms is not None:
+                    _tracing.note_exemplar(
+                        "paddle_tpu_serving_ttft_ms", self.ttft_ms,
+                        self.trace.trace_id, buckets=_MS_BUCKETS)
+                if self.tpot_ms:
+                    _tracing.note_exemplar(
+                        "paddle_tpu_serving_tpot_ms", max(self.tpot_ms),
+                        self.trace.trace_id, buckets=_MS_BUCKETS)
+            self.trace.finish(
+                state=state, error=error,
+                prompt_tokens=len(self.prompt),
+                generated=len(self.tokens),
+                cached_tokens=self._cached_tokens or None,
+                evictions=self.evictions or None,
+                ttft_ms=round(self.ttft_ms, 3)
+                if self.ttft_ms is not None else None,
+                queue_ms=round(self.queue_ms, 3),
+                prefill_ms=round(self.prefill_ms, 3),
+                decode_ms=round(self.decode_ms, 3)
+                if self.decode_ms is not None else None)
         self.events.put(("error", error) if error else ("done", None))
         self._done.set()
 
@@ -261,6 +444,13 @@ class Scheduler:
         self.spec_rejected = 0
         self.step_tokens = 0
         self.step_rows = 0
+        # lifecycle split (under self.lock): queue waits sum at each
+        # admission, prefill and decode times at completion
+        self.queue_wait_ms_sum = 0.0
+        self.admissions = 0
+        self.prefill_ms_sum = 0.0
+        self.decode_ms_sum = 0.0
+        self.finished_timed = 0
 
     # -- submission ----------------------------------------------------------
 
@@ -279,6 +469,11 @@ class Scheduler:
                 f"full length; pool holds {self.pool.allocatable}")
         if req.eos_token_id is None:
             req.eos_token_id = self.eos_token_id
+        _SUBMITS.inc()
+        _TOKENS.inc(len(req.prompt), kind="prompt")
+        if _REC.enabled:
+            _REC.record("serving_submit", request=req.request_id,
+                        prompt=len(req.prompt), max_new=req.max_new_tokens)
         with self.lock:
             self._enqueue(req)
         return req
@@ -291,6 +486,9 @@ class Scheduler:
             i -= 1
         self.waiting.insert(i, req)
         req.state = QUEUED
+        req._t_enqueued = time.monotonic()
+        req._t_enqueued_wall = time.time()
+        _QUEUE.set(len(self.waiting))
 
     # -- introspection -------------------------------------------------------
 
@@ -331,6 +529,27 @@ class Scheduler:
         if self.prefix_cache is not None:
             stats["entries"] = len(self.prefix_cache)
         return stats
+
+    def timing_split(self) -> dict:
+        """Per-request lifecycle split: queue wait, prefill compute and
+        decode wall means from the scheduler's sums, and p50s from the
+        latency histograms (the ``/healthz`` serving payload)."""
+        with self.lock:
+            adm, fin = self.admissions, self.finished_timed
+            out = {
+                "queue_wait_ms_mean": round(
+                    self.queue_wait_ms_sum / adm, 3) if adm else None,
+                "prefill_ms_mean": round(
+                    self.prefill_ms_sum / fin, 3) if fin else None,
+                "decode_ms_mean": round(
+                    self.decode_ms_sum / fin, 3) if fin else None,
+            }
+        for key, hist in (("queue_wait_p50_ms", _QUEUE_WAIT),
+                          ("ttft_p50_ms", _TTFT),
+                          ("tpot_p50_ms", _TPOT)):
+            q = hist.quantile(0.5)
+            out[key] = round(q, 3) if q is not None else None
+        return out
 
     def spec_acceptance_rate(self):
         """Accepted over proposed drafts (None before any proposal)."""
@@ -423,6 +642,7 @@ class Scheduler:
         admitted = 0
         ps = self.pool.page_size
         while True:
+            t_adm0 = time.time()
             with self.lock:
                 if not self.waiting:
                     break
@@ -454,6 +674,7 @@ class Scheduler:
                         self.pool.free(claimed)
                     break
                 self.waiting.pop(0)
+                _QUEUE.set(len(self.waiting))
                 if self.prefix_cache is not None:
                     # admission succeeded: now the claim outcome counts
                     self.prefix_cache.note_result(len(claimed),
@@ -476,6 +697,25 @@ class Scheduler:
                 req.state = RUNNING
                 if self.spec_k and req.spec is None:
                     req.spec = SpecState(self.spec_k, self.spec_adaptive)
+                wait_ms = (time.monotonic() - req._t_enqueued) * 1000.0
+                req.queue_ms += wait_ms
+                self.queue_wait_ms_sum += wait_ms
+                self.admissions += 1
+                self._set_active()
+            _QUEUE_WAIT.observe(wait_ms)
+            if req.trace is not _NOOP:
+                t_now = time.time()
+                req.trace.add_span("queue_wait",
+                                   t_start=req._t_enqueued_wall, t_end=t_now)
+                req.trace.add_span("admit", t_start=t_adm0, t_end=t_now,
+                                   cached_tokens=matched,
+                                   claimed_pages=len(claimed),
+                                   pages=len(req.pages), context=ctx_len,
+                                   evictions=req.evictions)
+            if matched and _REC.enabled:
+                _REC.record("serving_prefix_hit", request=req.request_id,
+                            pages=len(claimed), tokens=matched,
+                            context=ctx_len)
             # a mid-page suffix start (full-cover cap) or any other write
             # into a shared page copies the page before device work
             if not self._make_writable(req, req.prefilled,
@@ -484,33 +724,55 @@ class Scheduler:
             if self.chunk:
                 admitted += 1
                 continue          # chunked mode: device work interleaves
+            t_pf0 = time.time()
             try:
                 first = self.programs.prefill(req)
             except Exception as e:   # noqa: BLE001 — request-scoped failure
                 self._release(req)
                 req._finish(FAILED, f"prefill failed: {e!r}")
                 continue
+            t_pf1 = time.time()
+            req.prefill_ms += (t_pf1 - t_pf0) * 1000.0
+            if req.trace is not _NOOP:
+                req.trace.add_span("prefill", t_start=t_pf0, t_end=t_pf1,
+                                   tokens=ctx_len - matched,
+                                   cached_tokens=matched)
             with self.lock:
                 # the scheduler owns prefill progress; decode picks the
                 # slot up only once this is set
                 req.prefilled = req._prefill_target
                 if matched:           # the suffix ran as one chunk
                     self.chunks += 1
-            self._finish_prefill(req, first)
+            self._finish_prefill(req, first, matched)
             admitted += 1
         return admitted
 
-    def _finish_prefill(self, req: Request, first: int) -> None:
+    def _finish_prefill(self, req: Request, first: int,
+                        cached_tokens: int) -> None:
         """Shared tail of a completed prefill (monolithic or final chunk):
         register the cacheable pages, emit the first token."""
         self._insert_prefix(req)
+        if _MON.enabled:
+            _PREFILLS.inc(bucket=str(self.programs.bucket_for(
+                req._prefill_target)))
+        if _REC.enabled:
+            _REC.record("serving_prefill", request=req.request_id,
+                        prompt=req.cur_len(), pages=len(req.pages),
+                        cached_tokens=cached_tokens)
         req._emit(first)
+        _TOKENS.inc(kind="generated")
         self._maybe_complete(req)
+
+    def _set_active(self) -> None:
+        """The active-requests gauge; caller holds the lock."""
+        if _MON.enabled:
+            _ACTIVE.set(sum(r is not None for r in self.slots))
 
     def _release(self, req: Request) -> None:
         """Take req out of its slot and drop its page references (shared
         pages stay live for their other owners; exclusive keyed pages fall
         to the cached state)."""
+        req._trace_flush()        # a slot change ends the current burst
         with self.lock:
             if req.pages:
                 self.pool.free(req.pages)
@@ -518,9 +780,13 @@ class Scheduler:
             if req.slot is not None:
                 self.tables[req.slot][:] = 0
                 self.slots[req.slot] = None
+                if self.spec_k:
+                    # the vacated slot no longer drafts
+                    _SPEC_K.set(0, slot=str(req.slot))
                 req.slot = None
             req.prefilled = 0
             req._prefill_target = 0
+            self._set_active()
 
     def _maybe_complete(self, req: Request) -> bool:
         done_eos = (req.eos_token_id is not None and req.tokens
@@ -532,12 +798,29 @@ class Scheduler:
         self._release(req)
         req._finish(COMPLETED)
         with self.lock:
+            # stats() and health() read these from server threads
             self.completed += 1
+            self.prefill_ms_sum += req.prefill_ms
+            self.decode_ms_sum += req.decode_ms or 0.0
+            self.finished_timed += 1
+        if _REC.enabled:
+            _REC.record("serving_complete", request=req.request_id,
+                        generated=len(req.tokens),
+                        reason="eos" if done_eos else "length")
         return True
 
     def _evict(self, victim: Request) -> None:
         self._release(victim)
         victim.evictions += 1
+        _EVICTIONS.inc()
+        if _REC.enabled:
+            _REC.record("serving_evict", request=victim.request_id,
+                        generated=len(victim.tokens))
+        if victim.trace is not _NOOP:
+            now = time.time()
+            victim.trace.add_span("evict", t_start=now, t_end=now,
+                                  generated=len(victim.tokens),
+                                  evictions=victim.evictions)
         with self.lock:
             self.evictions += 1
             self._enqueue(victim)
@@ -584,6 +867,7 @@ class Scheduler:
                     if not self._evict_for(req):
                         return False
                     continue
+                t_cp0 = time.time()
                 self.pool.copy_page(page, fresh)
                 with self.lock:
                     if req.slot is None:      # evicted meanwhile
@@ -593,6 +877,14 @@ class Scheduler:
                     req.pages[idx] = fresh
                     self.tables[req.slot][idx] = fresh
                     self.cow_copies += 1
+                _COW.inc()
+                if _REC.enabled:
+                    _REC.record("serving_cow", request=req.request_id,
+                                src=int(page), page=int(fresh))
+                if req.trace is not _NOOP:
+                    req.trace.add_span("cow", t_start=t_cp0,
+                                       t_end=time.time(), src=int(page),
+                                       page=int(fresh))
                 break
         return True
 
@@ -622,19 +914,25 @@ class Scheduler:
                 continue
             if not self._make_writable(req, start, n):
                 continue             # evicted while making room
+            t_ch0 = time.time()
             try:
                 tok = self.programs.prefill_chunk(req, n)
             except Exception as e:   # noqa: BLE001 — request-scoped failure
                 self._release(req)
                 req._finish(FAILED, f"prefill failed: {e!r}")
                 continue
+            t_ch1 = time.time()
+            req.prefill_ms += (t_ch1 - t_ch0) * 1000.0
+            if req.trace is not _NOOP:
+                req.trace.add_span("prefill_chunk", t_start=t_ch0,
+                                   t_end=t_ch1, start=start, n=n)
             budget -= n
             ran += 1
             with self.lock:
                 req.prefilled = max(req.prefilled, start + n)
                 self.chunks += 1
             if tok is not None:      # final chunk sampled the first token
-                self._finish_prefill(req, tok)
+                self._finish_prefill(req, tok, req._cached_tokens)
         return ran
 
     def _ensure_pages(self, req: Request) -> bool:
@@ -678,6 +976,8 @@ class Scheduler:
                 self.spec_proposed += proposed
                 self.spec_accepted += accepted
                 self.spec_rejected += proposed - accepted
+        _STEPS.inc()
+        _OCC.set(occ)
 
     def _decode(self) -> bool:
         with self.lock:
@@ -700,6 +1000,7 @@ class Scheduler:
                     # victim's acceptance rate says nothing of its drafts
                     if req.spec is not None and req.slot is not None:
                         req.spec.update(len(d), 0)
+                        _SPEC_K.set(req.spec.k, slot=str(req.slot))
             if any(drafts.values()):
                 return self._spec_decode(drafts)
             # every draft was dropped: a plain decode step, not a verify
@@ -720,11 +1021,16 @@ class Scheduler:
                 positions[req.slot] = req.cur_len() - 1
                 temps[req.slot] = max(req.temperature, 0.0)
             tables = self._masked_tables()
+        t_dec0 = time.time()
         out = self.programs.decode(tokens, positions, tables, temps)
         self._account_step(len(active) / float(self.max_batch),
                            emitted=len(active), rows=len(active))
+        # counted before any completion: a client that has its result
+        # reads a counter that already holds its tokens
+        _TOKENS.inc(len(active), kind="generated")
         for req in active:
             req._emit(int(out[req.slot]))
+            req._trace_step("decode", t_dec0)
             self._maybe_complete(req)
         return True
 
@@ -789,6 +1095,9 @@ class Scheduler:
             del req.pages[need:]
             self.tables[req.slot][need:need + len(extra)] = 0
             self.pool.free(extra)
+        if _REC.enabled:
+            _REC.record("serving_spec_rollback", request=req.request_id,
+                        pages=len(extra))
         return len(extra)
 
     def _spec_decode(self, drafts: dict) -> bool:
@@ -816,6 +1125,10 @@ class Scheduler:
                 temps[req.slot] = max(req.temperature, 0.0)
             tables = self._masked_tables()
             n_prop = int(dlens.sum())
+        if _REC.enabled:
+            _REC.record("serving_spec_propose", rows=len(active),
+                        proposed=n_prop)
+        t_ver0 = time.time()
         out, acc = self.programs.verify(tokens, positions, dlens, tables,
                                         temps)
         n_acc = n_emit = 0
@@ -826,16 +1139,38 @@ class Scheduler:
             if req.eos_token_id is not None and req.eos_token_id in emitted:
                 emitted = emitted[:emitted.index(req.eos_token_id) + 1]
             req._emit_burst(emitted)
+            _TOKENS.inc(len(emitted), kind="generated")
             n_acc += a
             n_emit += len(emitted)
             d_n = int(dlens[req.slot])
             if req.spec is not None and d_n:
                 req.spec.update(d_n, a)
-            self._rollback(req)
+            if req.spec is not None and req.slot is not None:
+                # every step: the gauge follows adaptive K down to 0
+                _SPEC_K.set(req.spec.k, slot=str(req.slot))
+            rb = self._rollback(req)
+            req._trace_step("speculate", t_ver0, tokens=len(emitted),
+                            proposed=d_n, accepted=a, rollback_pages=rb)
             self._maybe_complete(req)
         self._account_step(len(active) / float(self.max_batch),
                            emitted=n_emit, rows=len(active),
                            proposed=n_prop, accepted=n_acc, verify=True)
+        if _MON.enabled:
+            if n_prop:
+                _SPEC_PROPOSED.inc(n_prop)
+            if n_acc:
+                _SPEC_ACCEPTED.inc(n_acc)
+            if n_prop - n_acc:
+                _SPEC_REJECTED.inc(n_prop - n_acc)
+            # windowed deltas, not a ratio of rates: the two counters'
+            # window bases tick apart, so a ratio of rates can read > 1
+            prop_delta = _SPEC_PROPOSED.delta(60.0)
+            if prop_delta > 0:
+                _SPEC_RATE.set(round(
+                    min(1.0, _SPEC_ACCEPTED.delta(60.0) / prop_delta), 4))
+        if _REC.enabled:
+            _REC.record("serving_spec_verify", accepted=n_acc,
+                        rejected=n_prop - n_acc, emitted=n_emit)
         return True
 
     # -- shutdown ------------------------------------------------------------
@@ -843,6 +1178,7 @@ class Scheduler:
     def abort_queued(self, error: str) -> int:
         with self.lock:
             doomed, self.waiting = self.waiting, []
+            _QUEUE.set(0)
         for req in doomed:
             req._finish(FAILED, error)
         return len(doomed)

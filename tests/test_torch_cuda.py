@@ -3008,5 +3008,71 @@ def test_fused_step_capture_failure_falls_back_loudly(dev):
     for p, t in zip(params, twins):
         assert torch.equal(p, t)
     assert fo._fused_impl.stats["fallbacks"] == 1
-    # the stream is usable after the failed capture
+    # the stream and the default generator are usable after the failed
+    # capture
     assert float(torch.ones(4, device=dev).sum()) == 4.0
+    assert bool(torch.randn(4, device=dev).isfinite().all())
+
+
+# -- the weight-only VJP and Int8WeightOnlyLinear on the card -------------------------
+
+@pytest.mark.parametrize("kind", ["int8", "int8_grouped", "int4"])
+def test_weight_only_vjp_on_the_card(dev, kind):
+    """The forward launches the weight-only kernel (one ulp of its plain
+    version); dx and ds are the same torch ops on both routes, bit for
+    bit."""
+    from paddle_tpu_torch.quantization import functional as QF
+    g = torch.Generator(device=dev).manual_seed(7)
+    k, n = 256, 512
+    if kind == "int4":
+        w = torch.randint(-128, 128, (k, n // 2), generator=g, device=dev,
+                          dtype=torch.int8)
+    else:
+        w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+    s = torch.rand((k // 64, n) if kind == "int8_grouped" else (n,),
+                   generator=g, device=dev) * 0.05 + 0.01
+    x = _randn(dev, 2, 48, k, seed=8)
+    up = _randn(dev, 2, 48, n, seed=9)
+    fn = QF.dequant_matmul_int4 if kind == "int4" else QF.dequant_matmul_int8
+    name = {"int8": "wo_int8", "int8_grouped": "wo_int8_grouped",
+            "int4": "wo_int4"}[kind]
+    outs = []
+    for plain in (False, True):
+        xx = x.clone().requires_grad_(True)
+        ss = s.clone().requires_grad_(True)
+        before = WRAPPERS[name].launches
+        y = fn(xx, w, ss, plain=plain)
+        assert WRAPPERS[name].launches == before + (0 if plain else 1)
+        dx, ds = torch.autograd.grad(y, (xx, ss), up)
+        outs.append((y, dx, ds))
+    (yk, dxk, dsk), (yp, dxp, dsp) = outs
+    _close(yk, yp)
+    assert torch.equal(dxk, dxp) and torch.equal(dsk, dsp)
+    assert dxk.dtype == torch.bfloat16 and dsk.dtype == torch.float32
+
+
+@pytest.mark.parametrize("rows", [1, 8, 1024])
+def test_int8_weight_only_linear_on_the_card(dev, rows):
+    """At decode (M <= 16) and prefill (M > 16) rows: one kernel launch
+    a call, one ulp of the plain route; a shape the kernel refuses
+    raises."""
+    from paddle_tpu_torch.quantization import Int8WeightOnlyLinear
+    torch.manual_seed(3)
+    lin = torch.nn.Linear(512, 768, device=dev, dtype=torch.bfloat16)
+    q = Int8WeightOnlyLinear(lin)
+    assert q.weight_int8.shape == (512, 768) and q.memory_bytes() == \
+        512 * 768 + 4 * 768
+    x = _randn(dev, rows, 512, seed=rows)
+    before = WRAPPERS["wo_int8"].launches
+    got = q(x)
+    assert WRAPPERS["wo_int8"].launches == before + 1
+    q.plain = True
+    _close(got, q(x))
+    q.plain = False
+    with pytest.raises(ValueError, match="bfloat16"):
+        q(x.float())
+    odd = Int8WeightOnlyLinear(torch.nn.Linear(100, 64, device=dev,
+                                               dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="K=100"):
+        odd(_randn(dev, rows, 100, seed=1))

@@ -232,6 +232,9 @@ class _FakePrograms:
     def prefill(self, req):
         return 7
 
+    def bucket_for(self, n):
+        return 8
+
     def prefill_chunk(self, req, n):
         return 7
 
